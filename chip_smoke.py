@@ -7,18 +7,27 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit; no CUDA
              device means exit 1 at once;
-2. build   — nvcc builds csrc/short_attention.cu (sm_90a) from the checkout;
-3. kernels — K1 (fused RoPE attention) and K2 (fused attention) against
-             their plain PyTorch versions at the serving shapes, ragged
-             lengths and float32, plus kernel vs plain median times;
+2. build   — nvcc builds csrc/short_attention.cu and csrc/adamw.cu (sm_90a)
+             from the checkout, one process per source, started together;
+3. kernels — K1/K2 (fused attention forward), K1b/K2b (backward) and K3
+             (fused AdamW) against their plain PyTorch versions at the
+             shapes of the serving and training paths, ragged lengths and
+             float32, plus kernel vs plain times;
 4. small   — a tiny engine on the card (kernels) against the same weights on
-             the CPU (plain versions): embed and float reconstruct agree;
+             the CPU (plain versions), then one tiny float32 training step
+             of each optimizer, card against CPU: loss, gradients, params;
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
              at full width (flux-dev DiT, MetaCLIP-L/14 tower, FLUX VAE;
              random weights from the config's seed), warmup, real HTTP
              requests to /v1/reconstruct and /v1/embed through ServeApp,
              launch counters checked against the batches served, then
-             per-bucket images/s.
+             per-bucket images/s;
+6. train   — the port's ``Trainer`` on the same config at full width
+             (B=16 x accumulation 2, bf16) on synthetic shards, 8 optimizer
+             steps with the default AdamW chain and 8 with
+             ``fused_optimizer: pallas`` (K3); launch counts per step,
+             checkpoints, a resume from step 8, and an engine serving from
+             the written components.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -26,22 +35,39 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "MetaCLIP_large_stage1.yaml")
-KERNEL_SOURCE = "genhancer_tpu_torch/csrc/short_attention.cu"
-REPLACES = {"fused_rope_attention": "genhancer_tpu/core/pallas/short_attention.py:76",
-            "fused_attention": "genhancer_tpu/core/pallas/short_attention.py:84"}
+SOURCES = {"short_attention": "genhancer_tpu_torch/csrc/short_attention.cu",
+           "adamw": "genhancer_tpu_torch/csrc/adamw.cu"}
+# kernel (LAUNCHES key) -> (ID, source library, the Pallas body it replaces)
+KERNELS = {
+    "fused_rope_attention": ("K1", "short_attention",
+                             "genhancer_tpu/core/pallas/short_attention.py:76"),
+    "fused_attention": ("K2", "short_attention",
+                        "genhancer_tpu/core/pallas/short_attention.py:84"),
+    "fused_rope_attention_bwd": ("K1b", "short_attention",
+                                 "genhancer_tpu/core/pallas/short_attention.py:112"),
+    "fused_attention_bwd": ("K2b", "short_attention",
+                            "genhancer_tpu/core/pallas/short_attention.py:125"),
+    "fused_adamw": ("K3", "adamw", "genhancer_tpu/core/pallas/adamw.py:147"),
+}
 BOUND = {"bfloat16": 2e-2, "float32": 1e-4}
+HBM_PEAK = 3.35e12   # bytes/s, H100 SXM data sheet
 NUM_STEPS = 20
 BUCKETS = (1, 4, 8)
 
@@ -53,6 +79,21 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+FAILURES = []
+
+
+def attempt(phase, *args):
+    """Run a phase; a failed check is recorded and the run goes on to the
+    phases that do not depend on it (every failure shows in one run; the
+    script still exits non-zero).  Crashes propagate."""
+    try:
+        return phase(*args)
+    except SmokeFailure as e:
+        print(f"FAIL [{phase.__name__}]: {e}", flush=True)
+        FAILURES.append(f"{phase.__name__}: {e}")
+        return None
 
 
 # ---------------------------------------------------------------- phases
@@ -75,18 +116,21 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
     sys.path.insert(0, ROOT)
     from genhancer_tpu_torch.core.kernels import _build
     t0 = time.perf_counter()
-    _build.load("short_attention")
+    _build.load_all(list(SOURCES))
     secs = time.perf_counter() - t0
-    log = _build.BUILD_LOG.get("short_attention")
-    print(f"[build] short_attention.cu -> {_build.library_path('short_attention').name} "
-          f"in {secs:.2f} s" + ("" if log else " (already built in this checkout)"))
-    if log:
-        for line in log[1].splitlines():
+    for name in SOURCES:
+        log = _build.BUILD_LOG.get(name)
+        print(f"[build] {name}.cu -> {_build.library_path(name).name}"
+              + (f" in {log[0]:.2f} s" if log else " (already built in this checkout)"))
+        for line in (log[1].splitlines() if log else ()):
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build] {line.strip()}")
+                print(f"[build]   {line.strip()}")
+    print(f"[build] all sources in {secs:.2f} s (wall)")
+    return secs
 
 
 def _rand(gen, shape, dtype):
@@ -145,10 +189,9 @@ def phase_kernels():
            ("fused_attention", 2, 256, 16, 72, bf16, False),
            ("fused_attention", 2, 13, 16, 64, bf16, False),
            ("fused_attention", 1, 600, 16, 64, bf16, False)])
-    rec = {n: {"name": n, "route": "cuda", "source": KERNEL_SOURCE,
-               "replaces": REPLACES[n], "launches": 0, "max_abs_err": 0.0,
-               "ms": None, "plain_ms": None, "ms_by_batch": {}}
-           for n in REPLACES}
+    rec = {n: _record(n) for n in ("fused_rope_attention", "fused_attention")}
+    for r in rec.values():
+        r["ms_by_batch"] = {}
     for name, b, l, h, d, dtype, main in cases:
         q, k, v = (_rand(gen, (b, l, h, d), dtype) for _ in range(3))
         if name == "fused_rope_attention":
@@ -192,7 +235,176 @@ def phase_kernels():
         rec["fused_rope_attention"]["max_abs_err"], err)
 
     for r in rec.values():
-        r["ms"], r["plain_ms"] = r["ms_by_batch"][max(BUCKETS)]
+        r["ms"], r["plain_ms"] = r.pop("ms_by_batch")[max(BUCKETS)]
+    return rec
+
+
+def _record(name):
+    kid, lib, replaces = KERNELS[name]
+    return {"name": name, "id": kid, "route": "cuda", "source": SOURCES[lib],
+            "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
+            "ms": None, "plain_ms": None}
+
+
+def _grad_errors(got, want):
+    """(max abs error, max abs error / max(1, max|plain|)) over dq, dk, dv."""
+    abs_err = rel_err = 0.0
+    for g, w in zip(got, want):
+        e = (g.float() - w.float()).abs().max().item()
+        abs_err = max(abs_err, e)
+        rel_err = max(rel_err, e / max(1.0, w.float().abs().max().item()))
+    return abs_err, rel_err
+
+
+def phase_kernels_bwd():
+    """K1b/K2b against their plain backward versions on dq, dk, dv; the
+    bound is relative to max(1, max|plain|).  Returns per-kernel records."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rope, norope = "fused_rope_attention_bwd", "fused_attention_bwd"
+    cases = (  # name, B, L, H, D, dtype, timed (the training shape)
+        (rope, 16, 197, 24, 128, bf16, True), (rope, 2, 197, 24, 128, f32, False),
+        (rope, 2, 13, 24, 128, bf16, False), (rope, 1, 600, 24, 128, bf16, False),
+        (rope, 1, 13, 24, 128, f32, False),
+        (norope, 16, 257, 16, 64, bf16, True), (norope, 2, 256, 16, 72, bf16, False),
+        (norope, 2, 257, 16, 64, f32, False), (norope, 2, 13, 16, 64, bf16, False),
+        (norope, 1, 600, 16, 64, bf16, False))
+    rec = {n: _record(n) for n in (rope, norope)}
+
+    def run(name, q, k, v, do, tables):
+        o, lse = K._fwd_kernel(q, k, v, tables, want_lse=True)
+        kfn = lambda: K._bwd_kernel(q, k, v, o, lse, do, tables)  # noqa: E731
+        if tables is None:
+            pfn = lambda: K.fused_attention_bwd_ref(q, k, v, o, do)  # noqa: E731
+        else:
+            pfn = lambda: K.fused_rope_attention_bwd_ref(q, k, v, o, do, *tables)  # noqa: E731
+        return kfn, pfn
+
+    for name, b, l, h, d, dtype, timed in cases:
+        q, k, v, do = (_rand(gen, (b, l, h, d), dtype) for _ in range(4))
+        tables = _tables(gen, b, l, d) if name == rope else None
+        kfn, pfn = run(name, q, k, v, do, tables)
+        got = kfn()
+        torch.cuda.synchronize()
+        want = pfn()
+        check(all(bool(torch.isfinite(g).all()) and g.dtype == dtype and g.shape == q.shape
+                  for g in got), f"{name}: non-finite or misshapen gradient")
+        abs_err, rel_err = _grad_errors(got, want)
+        bound = BOUND[str(dtype).split(".")[-1]]
+        timing = ""
+        if timed:
+            ms, pms = kernel_vs_plain_ms(kfn, pfn, n=20)
+            rec[name]["ms"], rec[name]["plain_ms"] = ms, pms
+            timing = f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+        print(f"[kernels] {name} B={b} L={l} H={h} D={d} {str(dtype)[6:]}: dq/dk/dv "
+              f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} "
+              f"(bound {bound:.0e}){timing}")
+        check(rel_err <= bound, f"{name} B={b} L={l} D={d} {dtype}: error {rel_err} > {bound}")
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], abs_err)
+
+    # K1b on the strided q/k/v views of one fused projection
+    b, l, h, d = 2, 197, 24, 128
+    fused = _rand(gen, (b, l, 3 * h * d + 64), bf16)
+    q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, dim=-1))
+    do = _rand(gen, (b, l, h, d), bf16)
+    tables = _tables(gen, b, l, d)
+    kfn, _ = run(rope, q, k, v, do, tables)
+    _, pfn = run(rope, q.contiguous(), k.contiguous(), v.contiguous(), do, tables)
+    got, want = kfn(), pfn()
+    torch.cuda.synchronize()
+    abs_err, rel_err = _grad_errors(got, want)
+    print(f"[kernels] {rope} strided q/k/v views (row stride {q.stride(1)}): "
+          f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} (bound 2e-02)")
+    check(rel_err <= BOUND["bfloat16"], f"strided K1b: error {rel_err}")
+    rec[rope]["max_abs_err"] = max(rec[rope]["max_abs_err"], abs_err)
+    return rec
+
+
+def _stage1_trainable_shapes():
+    """(path, shape, dtype) of every trainable leaf of the flux-dev stage-1
+    state of CONFIG (DiT in bf16, projectors in float32), from meta tensors."""
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks.image import build_modules, trainable_predicate
+    from genhancer_tpu_torch.train.config import load_config
+    spec, _, _ = factory.build_spec(load_config(CONFIG))
+    trains = trainable_predicate(spec)
+    return [(n, tuple(p.shape), p.dtype)
+            for n, p in build_modules(spec, device="meta").named_parameters() if trains(n)]
+
+
+def phase_adamw():
+    """K3 against fused_adamw_leaf_ref, within one ulp of the storage dtype,
+    on the DiT's largest leaves and odd shapes; then one whole-state update
+    over every trainable leaf of the flux-dev stage-1 state, kernel against
+    plain.  Returns the K3 record."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import adamw as KA
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    bf16, f32 = torch.bfloat16, torch.float32
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+    count = 3
+    sc = torch.tensor([0.37, 1e-4, 1 / (1 - 0.9 ** count), 1 / (1 - 0.999 ** count)],
+                      dtype=f32, device="cuda")
+    rec = _record("fused_adamw")
+    rec["max_ulps"] = 0.0
+    cases = (("single_blocks.linear1.weight", (21504, 3072), bf16),
+             ("single_blocks.linear2.weight", (3072, 15360), bf16),
+             ("double_blocks.img_attn.qkv.weight", (9216, 3072), bf16),
+             ("f32 projector-like [4096, 1024]", (4096, 1024), f32),
+             ("project_t5.3.weight", (4096, 4096), f32),
+             ("1-D bias", (3072,), bf16), ("rows not a multiple of 8", (1003, 64), bf16))
+    for what, shape, dtype in cases:
+        p, m = (_rand(gen, shape, dtype) for _ in range(2))
+        v = _rand(gen, shape, dtype).abs() * 1e-2
+        g = torch.randn(shape, generator=gen, device="cuda", dtype=f32)
+        want = KA.fused_adamw_leaf_ref(p, m, v, g, sc, **hyper)
+        KA.fused_adamw_leaf(p, m, v, g, sc, **hyper)
+        torch.cuda.synchronize()
+        diff, ulps, err = 0, 0.0, 0.0
+        for got, w in zip((p, m, v), want):
+            diff += int((got != w).sum().item())
+            ulps = max(ulps, KA.ulp_distance(got, w).max().item())
+            err = max(err, (got.float() - w.float()).abs().max().item())
+        print(f"[kernels] fused_adamw {what} {shape} {str(dtype)[6:]}, f32 grads: "
+              f"{diff} of {3 * p.numel()} p/m/v elements differ, max {ulps:.2f} ulp "
+              f"(bound 1 ulp), max abs {err:.3e}")
+        check(ulps <= 1.0, f"fused_adamw {what}: {ulps} ulp")
+        rec["max_ulps"] = max(rec["max_ulps"], ulps)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del p, m, v, g, want
+
+    leaves = _stage1_trainable_shapes()
+    state = [(_rand(gen, s, dt), _rand(gen, s, dt), _rand(gen, s, dt).abs() * 1e-2,
+              torch.randn(s, generator=gen, device="cuda", dtype=f32))
+             for _, s, dt in leaves]
+    n_param = sum(t[0].numel() for t in state)
+    n_bytes = sum(t[0].numel() * (6 * t[0].element_size() + 4) for t in state)
+
+    def kernel_update():
+        for p, m, v, g in state:
+            KA.fused_adamw_leaf(p, m, v, g, sc, **hyper)
+
+    def plain_update():
+        for p, m, v, g in state:
+            for dst, src in zip((p, m, v), KA.fused_adamw_leaf_ref(p, m, v, g, sc, **hyper)):
+                dst.copy_(src)
+
+    ms, pms = kernel_vs_plain_ms(kernel_update, plain_update, n=3, rounds=4)
+    rec["ms"], rec["plain_ms"] = ms, pms
+    rate = n_bytes / (ms * 1e-3)
+    print(f"[kernels] fused_adamw whole stage-1 state: {len(leaves)} leaves, "
+          f"{n_param / 1e9:.4f} B params, {n_bytes / 1e9:.2f} GB moved per update "
+          f"(read p, m, v, g; write p, m, v); kernel {ms:.3f} ms = {rate / 1e12:.3f} TB/s "
+          f"= {rate / HBM_PEAK:.1%} of the 3.35 TB/s HBM peak; plain {pms:.3f} ms")
+    rec["leaves"] = len(leaves)
+    del state
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -264,7 +476,6 @@ def phase_server():
     import numpy as np
     import torch
     from PIL import Image
-    from genhancer_tpu_torch.core.kernels import short_attention as K
     from genhancer_tpu_torch.serve.engine import InferenceEngine
     from genhancer_tpu_torch.serve.http import ServeApp
 
@@ -296,8 +507,7 @@ def phase_server():
     print(f"[server] float32-wire reconstruct: finite, mean {probe.mean():.4f}, "
           f"std {probe.std():.4f}")
 
-    for key in K.LAUNCHES:
-        K.LAUNCHES[key] = 0
+    _zero_counts()
     app = ServeApp(engine, max_wait_ms=100.0)
     server = app.make_server("127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -327,7 +537,7 @@ def phase_server():
     finally:
         app.close()
         thread.join(timeout=30)
-    counts = dict(K.LAUNCHES)
+    counts = _read_counts()
     check(not errors, f"requests failed: {errors}")
     check(len(replies) == 2 * n_req, f"{len(replies)} of {2 * n_req} replies")
     for (path, i), (status, ctype, data) in sorted(replies.items()):
@@ -352,7 +562,8 @@ def phase_server():
           f"stats: {stats}")
     want = {"fused_rope_attention": batches["reconstruct"] * NUM_STEPS * (cfg.depth + cfg.depth_single_blocks),
             "fused_attention": (batches["reconstruct"] + batches["embed"])
-            * engine.spec.tower_cfg.vision.num_layers}
+            * engine.spec.tower_cfg.vision.num_layers,
+            "fused_rope_attention_bwd": 0, "fused_attention_bwd": 0, "fused_adamw": 0}
     print(f"[server] kernel launches {counts}, expected {want}")
     check(counts == want, f"launch counts {counts} != expected {want}")
 
@@ -372,18 +583,240 @@ def phase_server():
         print(f"[server] bucket {b}: reconstruct {rs * 1e3:.1f} ms/batch = "
               f"{b / rs:.2f} img/s ({NUM_STEPS} steps, uint8 wire); embed "
               f"{es * 1e3:.2f} ms/batch = {b / es:.1f} img/s")
+    del engine, f32_engine, app, server
+    _free()
     return counts
+
+
+def _counters():
+    from genhancer_tpu_torch.core.kernels import adamw as KA
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+    return (K.LAUNCHES, KA.LAUNCHES)
+
+
+def _zero_counts():
+    for table in _counters():
+        for key in table:
+            table[key] = 0
+
+
+def _read_counts():
+    return {k: v for table in _counters() for k, v in table.items()}
+
+
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_small_train():
+    """One tiny float32 stage-1 step (accumulation 2) of each optimizer on the
+    card (kernels) against the same weights, batch and injected draws on the
+    CPU (plain versions): the loss and every gradient within 1e-4 relative,
+    the params after the step within 2*lr*(1 + 1e-3) absolute — AdamW's
+    first update is about lr*sign(g) per element, so where a gradient is
+    near zero its sign can differ between the two devices' summation orders
+    and move a parameter by up to 2*lr."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.tasks.image import (create_state, init_modules, make_loss_fn,
+                                                 trainable_predicate)
+    from genhancer_tpu_torch.train import optim
+    from genhancer_tpu_torch.train.step_utils import make_accum_train_step
+
+    spec = dataclasses.replace(_tiny_spec(), dit_param_dtype=torch.float32,
+                               vae_dtype=torch.float32)
+    lr = 1e-3
+    rng = np.random.default_rng(11)
+    lat = spec.latent_hw
+    n_tok = (lat[0] // 2) * (lat[1] // 2)
+    imgs = rng.random((2, 2, 32, 32, 3), dtype=np.float32)
+    draws = [{"t": rng.random(2, dtype=np.float32),
+              "x0": rng.standard_normal((2, n_tok, 4 * spec.vae_cfg.z_channels),
+                                        dtype=np.float32),
+              "vae_noise": rng.standard_normal((2, *lat, spec.vae_cfg.z_channels),
+                                               dtype=np.float32)} for _ in range(2)]
+    loss_fn = make_loss_fn(spec)
+    for name, cls in (("chain", optim.AdamWChain), ("pallas", optim.FusedAdamW)):
+        states = {}
+        for dev in ("cpu", "cuda"):
+            mods = init_modules(spec, torch.Generator().manual_seed(5)).to(dev)
+            opt = cls(optim.make_lr_schedule("constant", lr))
+            states[dev] = (create_state(mods, trainable_predicate(spec), opt), opt)
+        grads, losses, before = {}, {}, {}
+        for dev, (state, opt) in states.items():
+            batch = {"image": torch.from_numpy(imgs[0]).to(dev)}
+            dr = {k: torch.from_numpy(v).to(dev) for k, v in draws[0].items()}
+            loss = loss_fn(state.modules, batch, None, dr)
+            loss.backward()
+            losses[dev] = loss.item()
+            grads[dev] = {k: p.grad.detach().cpu().clone() for k, p in state.trainable.items()}
+            before[dev] = {k: p.detach().cpu().clone() for k, p in state.trainable.items()}
+            for p in state.trainable.values():
+                p.grad = None
+        l_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        # per leaf, ||g_cuda - g_cpu|| / ||g_cpu||; the elementwise worst case
+        # (relative to the leaf's largest entry) is printed beside it
+        g_rel = {k: ((grads["cuda"][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+                 for k, g in grads["cpu"].items()}
+        g_max = {k: (grads["cuda"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                 for k, g in grads["cpu"].items()}
+        worst, worst_max = max(g_rel, key=g_rel.get), max(g_max, key=g_max.get)
+        g_err = g_rel[worst]
+        after = {}
+        for dev, (state, opt) in states.items():
+            step = make_accum_train_step(loss_fn, opt, 2)
+            stacked = {"image": torch.from_numpy(imgs).to(dev)}
+            dr = [{k: torch.from_numpy(v).to(dev) for k, v in d.items()} for d in draws]
+            step(state, stacked, None, dr)
+            after[dev] = {k: p.detach().cpu() for k, p in state.trainable.items()}
+        p_err = max((after["cuda"][k] - p).abs().max().item() for k, p in after["cpu"].items())
+        moved = max((after["cpu"][k] - p).abs().max().item() for k, p in before["cpu"].items())
+        bound = 2 * lr * (1 + 1e-3)
+        print(f"[small] tiny f32 train step, {name}: loss cuda vs cpu rel {l_err:.3e}; "
+              f"grads ||cuda-cpu||/||cpu|| worst leaf {worst} {g_err:.3e} (bound 1e-4), "
+              f"elementwise max/leaf max worst {worst_max} {g_max[worst_max]:.3e}; "
+              f"params after one "
+              f"accumulation-2 step max|cuda-cpu| {p_err:.3e} (bound {bound:.4g}; "
+              f"the step moved them up to {moved:.3e})")
+        check(l_err <= 1e-4 and g_err <= 1e-4, f"tiny train step {name}: loss/grads disagree")
+        check(p_err <= bound, f"tiny train step {name}: params disagree by {p_err}")
+    del states
+    _free()
+
+
+def _write_shards(root, n_shards=4, per_shard=96):
+    from genhancer_tpu_torch.data.testing import make_image_shard
+    os.makedirs(root, exist_ok=True)
+    for i in range(n_shards):
+        make_image_shard(os.path.join(root, f"shard-{i:03d}.tar"), per_shard, 256, seed=i)
+    return root
+
+
+def phase_train(work):
+    """The port's Trainer at full width, once per optimizer; returns
+    ({optimizer: launch counts of its 8-step run}, trainable leaf count)."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.serve.engine import InferenceEngine
+    from genhancer_tpu_torch.train import checkpoint as ckpt
+    from genhancer_tpu_torch.train.config import load_config
+    from genhancer_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    shards = _write_shards(os.path.join(work, "shards"))
+    print(f"[train] wrote 4 synthetic shards of 96 256-px JPEGs in "
+          f"{time.perf_counter() - t0:.1f} s; free disk "
+          f"{shutil.disk_usage(work).free / 2**30:.0f} GiB")
+    base = load_config(CONFIG)
+    base["data_config"]["img_dir"] = shards
+    base.update(max_train_steps=8, checkpointing_steps=4, log_interval=1, report_to="none")
+    runs, n_leaves = {}, None
+    for opt in ("chain", "pallas"):
+        cfg = copy.deepcopy(base)
+        cfg["output_dir"] = out = os.path.join(work, f"out-{opt}")
+        if opt == "pallas":
+            cfg["fused_optimizer"] = "pallas"
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        n_leaves = len(trainer.state.trainable)
+        n_par = sum(p.numel() for p in trainer.state.trainable.values())
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = trainer.history
+        check(len(hist) == 8 and [h["step"] for h in hist] == list(range(1, 9)),
+              f"{opt}: synced steps {[h['step'] for h in hist]}")
+        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+              f"{opt}: non-finite loss or grad norm: {hist}")
+        step_s = statistics.median(h["step_time"] for h in hist[2:])
+        mu_dtype = next(iter(trainer.state.opt_state["mu"].values())).dtype
+        print(f"[train] {opt}: Trainer built in {built:.1f} s ({n_leaves} trainable leaves, "
+              f"{n_par / 1e9:.4f} B params; moments now {str(mu_dtype)[6:]}); 8 steps in "
+              f"{wall:.1f} s incl. 2 checkpoints; losses "
+              f"{[round(h['loss'], 4) for h in hist]}; grad norms "
+              f"{[round(h['grad_norm'], 3) for h in hist]}")
+        print(f"[train] {opt}: median step time of steps 3-8 {step_s * 1e3:.1f} ms = "
+              f"{32 / step_s:.2f} img/s (B=16 x accumulation 2); peak device memory "
+              f"{peak:.2f} GiB")
+        steps, blocks = 8, 2 * 6   # micro-batches per step x DiT blocks
+        want = {"fused_rope_attention": steps * blocks, "fused_rope_attention_bwd": steps * blocks,
+                "fused_attention": steps * 2 * 24, "fused_attention_bwd": 0,
+                "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
+        print(f"[train] {opt}: kernel launches {counts}, expected {want}")
+        check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
+        for s in (4, 8):
+            for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
+                        "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
+                check(os.path.exists(os.path.join(out, pat.format(s))),
+                      f"{opt}: {pat.format(s)} missing")
+        del trainer
+        _free()
+        ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
+
+        cfg2 = copy.deepcopy(cfg)
+        cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
+        trainer = Trainer(cfg2, device="cuda")
+        check(trainer.state.step == 8, f"{opt}: resumed at step {trainer.state.step}, not 8")
+        trainer.train()
+        hist2 = trainer.history
+        check([h["step"] for h in hist2] == [9, 10]
+              and all(np.isfinite(h["loss"]) for h in hist2), f"{opt}: resume ran {hist2}")
+        print(f"[train] {opt}: a second Trainer resumed at step 8 and ran steps 9-10, "
+              f"losses {[round(h['loss'], 4) for h in hist2]}")
+        del trainer
+        _free()
+
+        engine = InferenceEngine.from_config(copy.deepcopy(cfg), device="cuda",
+                                             load_dir=out, load_step=8, buckets=(1,),
+                                             num_steps=4)
+        size = engine.spec.img_size
+        img = np.random.default_rng(3).random((1, size, size, 3), dtype=np.float32)
+        rec = engine.reconstruct(img, seed=0)
+        check(rec.shape == img.shape and np.isfinite(rec).all(),
+              f"{opt}: reconstruct from the trained checkpoint failed")
+        print(f"[train] {opt}: InferenceEngine loaded checkpoint-*-8.bin strictly and "
+              f"served a reconstruct (mean {rec.mean():.4f})")
+        del engine
+        _free()
+        shutil.rmtree(out)
+        runs[opt] = counts
+    return runs, n_leaves
 
 
 def main():
     name = phase_device()
     phase_build()
-    records = phase_kernels()
-    phase_small_reference()
-    counts = phase_server()
+    records = {**(attempt(phase_kernels) or {}), **(attempt(phase_kernels_bwd) or {})}
+    records["fused_adamw"] = attempt(phase_adamw)
+    attempt(phase_small_reference)
+    attempt(phase_small_train)
+    serve_counts = attempt(phase_server)
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_counts, _ = attempt(phase_train, work) or (None, None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if FAILURES:
+        print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
+        sys.exit(1)
+    paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()}}
     for r in records.values():
-        r["launches"] = counts[r["name"]]
-        del r["ms_by_batch"]
+        r["launches"] = train_counts["pallas"][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+    # every kernel of a path ran on it; K2b is on no path of this slice
+    for n in ("fused_rope_attention", "fused_attention"):
+        check(all(c[n] > 0 for c in paths.values()), f"{n} not launched on every path")
+    for n in ("fused_rope_attention_bwd", "fused_adamw"):
+        check(train_counts["pallas"][n] > 0, f"{n} not launched in training")
     import torch
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

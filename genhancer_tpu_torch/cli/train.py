@@ -1,0 +1,66 @@
+"""Training CLI: ``python -m genhancer_tpu_torch.cli.train --config cfg.yaml``.
+
+Port of ``genhancer_tpu/cli/train.py`` with the same flags plus
+``--device`` (default ``cuda``; ``cuda`` with no CUDA device raises at
+once):
+
+    genhancer-train-torch --config configs/MetaCLIP_large_stage1.yaml --device cuda
+
+  * ``--task`` / ``--tower`` overrides (else read from the YAML);
+  * ``--trainer <reference script name>`` maps a reference trainer name onto
+    a task (``tasks.factory.TRAINER_COMPAT``);
+  * ``--profile`` writes a ``torch.profiler`` trace of steps 2-4 to
+    ``<output_dir>/profile.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description="genhancer trainer (PyTorch)")
+    parser.add_argument("--config", required=True, help="path to YAML config")
+    parser.add_argument("--task", default=None,
+                        help="task name (e.g. image_stage1)")
+    parser.add_argument("--tower", default=None,
+                        help="tower family: openai_clip | siglip | metaclip")
+    parser.add_argument("--trainer", default=None,
+                        help="reference trainer script name to emulate")
+    parser.add_argument("--profile", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (cuda, cuda:N, cpu)")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(
+        format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
+        datefmt="%m/%d/%Y %H:%M:%S", level=logging.INFO)
+
+    from ..tasks.factory import TRAINER_COMPAT
+    from ..train.config import load_config
+
+    cfg = load_config(args.config)
+    if args.trainer:
+        task, tower = TRAINER_COMPAT[args.trainer.removesuffix(".py")]
+        cfg["task"], cfg["tower"] = task, tower
+    if args.task:
+        cfg["task"] = args.task
+    if args.tower:
+        cfg["tower"] = args.tower
+    if "task" not in cfg:
+        parser.error("config must contain 'task' (or pass --task/--trainer)")
+
+    from ..train.trainer import train_from_config
+    metrics = train_from_config(cfg, profile=args.profile, device=args.device)
+    logging.getLogger(__name__).info("final metrics: %s", metrics)
+    return metrics
+
+
+def cli() -> None:
+    """Console-script entry (the result dict would become the exit status)."""
+    main()
+
+
+if __name__ == "__main__":
+    cli()

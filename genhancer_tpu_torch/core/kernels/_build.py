@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface.  ``load(name)`` compiles it
 with ``nvcc`` for sm_90a into a shared library, loads it with ``ctypes`` and
 caches the handle.  The library lands in ``csrc/_build/`` (git-ignored)
 under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused within a checkout.  Nothing
+source rebuilds and an unchanged one is reused within a checkout.
+``load_all`` starts one ``nvcc`` per missing source, all at once.  Nothing
 outside the package's sources and the CUDA toolkit is used.
 """
 
@@ -49,32 +50,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """The loaded libraries for ``csrc/<name>.cu`` of every name, building
+    those that are missing with one ``nvcc`` each, all started together."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        out = library_path(name)
-        if not out.exists():
+        todo = [n for n in dict.fromkeys(names)
+                if n not in _loaded and not library_path(n).exists()]
+        if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            # build to a private name, then rename: a concurrent builder
-            # never loads a half-written library
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
+        jobs = {}
+        try:
+            for name in todo:
+                # build to a private name, then rename: a concurrent build
+                # never loads a half-written library
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                proc = subprocess.Popen(
                     [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                    capture_output=True, text=True)
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                jobs[name] = (proc, tmp, time.perf_counter())
+            for name, (proc, tmp, t0) in jobs.items():
+                report, _ = proc.communicate()
                 if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed for {name}.cu:\n"
-                                       f"{proc.stdout}\n{proc.stderr}")
-                os.replace(tmp, out)
-            finally:
+                    raise RuntimeError(f"nvcc failed for {name}.cu:\n{report}")
+                os.replace(tmp, library_path(name))
+                BUILD_LOG[name] = (time.perf_counter() - t0, report.strip())
+        finally:
+            for proc, tmp, _ in jobs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-            BUILD_LOG[name] = (time.perf_counter() - t0,
-                               (proc.stdout + proc.stderr).strip())
-        lib = ctypes.CDLL(str(out))
-        _loaded[name] = lib
-        return lib
+        for name in names:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return {n: _loaded[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    return load_all([name])[name]

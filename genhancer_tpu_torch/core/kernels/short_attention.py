@@ -1,19 +1,26 @@
-"""Fused short-sequence attention: K1 (RoPE + attention) and K2 (attention).
+"""Fused short-sequence attention: K1/K1b (RoPE + attention) and K2/K2b
+(attention), forward and backward.
 
-Port of ``genhancer_tpu/core/pallas/short_attention.py`` (forward only).
-The kernels are hand-written CUDA for Hopper in ``csrc/short_attention.cu``;
-this module holds their wrappers, their plain PyTorch versions and their
-launch counters.
+Port of ``genhancer_tpu/core/pallas/short_attention.py``.  The kernels are
+hand-written CUDA for Hopper in ``csrc/short_attention.cu``; this module
+holds their wrappers, their plain PyTorch versions, the
+``torch.autograd.Function``s that join the two halves, and the launch
+counters.
 
-* ``fused_rope_attention(q, k, v, cos, sin)`` — K1, every DiT block;
-* ``fused_attention(q, k, v)`` — K2, every tower encoder layer.
+* ``fused_rope_attention(q, k, v, cos, sin)`` — K1 forward, K1b backward;
+  every DiT block;
+* ``fused_attention(q, k, v)`` — K2 forward, K2b backward; every tower
+  encoder layer.
 
 q, k, v are ``[B, L, H, D]`` (any B/L/H strides, D contiguous), cos/sin
-``[B, L, D/2]``; the result is a new contiguous ``[B, L, H, D]``.
+``[B, L, D/2]``; the result is a new contiguous ``[B, L, H, D]``.  Under
+autograd the forward also keeps each row's log-sum-exp ``[B, H, L]`` for
+the backward, which returns new contiguous dq, dk, dv and no gradient for
+cos/sin (as ``_vjp_bwd:271``).
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``*_ref``), which the tests and ``chip_smoke.py`` also compare the
-kernel against.  ``LAUNCHES`` counts kernel launches only.
+kernel against.  ``LAUNCHES`` counts kernel-wrapper launches only.
 """
 
 from __future__ import annotations
@@ -27,13 +34,16 @@ from ..attention import sdpa_ref
 from ..rope import apply_rope
 from . import _build
 
-LAUNCHES: Dict[str, int] = {"fused_rope_attention": 0, "fused_attention": 0}
+LAUNCHES: Dict[str, int] = {"fused_rope_attention": 0, "fused_attention": 0,
+                            "fused_rope_attention_bwd": 0, "fused_attention_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 
+
+# ---------------------------------------------------------------- plain versions
 
 def fused_rope_attention_ref(q, k, v, cos, sin):
     """Plain version of K1: apply_rope in f32, cast back, then sdpa_ref."""
@@ -45,15 +55,54 @@ def fused_attention_ref(q, k, v):
     return sdpa_ref(q, k, v)
 
 
+def _bwd_body_ref(rq, rk, v, o, do):
+    """``_bwd_body:90`` line for line, on [B, L, H, D]: returns float32
+    (d_rq, d_rk, dv), d_rq and d_rk already scaled."""
+    f32 = torch.float32
+    scale = 1.0 / (rq.shape[-1] ** 0.5)
+    of, dof = o.to(f32), do.to(f32)
+    s = torch.einsum("blhd,bmhd->bhlm", rq.to(f32), rk.to(f32)) * scale
+    p = torch.softmax(s, dim=-1)
+    dob = do.to(v.dtype)
+    dp = torch.einsum("blhd,bmhd->bhlm", dob.to(f32), v.to(f32))
+    d_i = (dof * of).sum(dim=-1).permute(0, 2, 1)[..., None]      # [B, H, L, 1]
+    ds = (p * (dp - d_i)).to(rq.dtype).to(f32)
+    d_rq = torch.einsum("bhlm,bmhd->blhd", ds, rk.to(f32)) * scale
+    d_rk = torch.einsum("bhlm,blhd->bmhd", ds, rq.to(f32)) * scale
+    dv = torch.einsum("bhlm,blhd->bmhd", p.to(dob.dtype).to(f32), dob.to(f32))
+    return d_rq, d_rk, dv
+
+
+def fused_rope_attention_bwd_ref(q, k, v, o, do, cos, sin):
+    """Plain version of K1b (``_bwd_kernel:112``): rotate q, k in f32 and
+    round; the shared body; round d_rq/d_rk, un-rotate them with (cos, -sin)
+    in f32 and round again.  Returns (dq, dk, dv) in the input dtype."""
+    rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    d_rq, d_rk, dv = _bwd_body_ref(rq, rk, v, o, do)
+    return (apply_rope(d_rq.to(q.dtype), cos, -sin),
+            apply_rope(d_rk.to(k.dtype), cos, -sin), dv.to(v.dtype))
+
+
+def fused_attention_bwd_ref(q, k, v, o, do):
+    """Plain version of K2b (``_bwd_kernel_norope:125``)."""
+    d_rq, d_rk, dv = _bwd_body_ref(q, k, v, o, do)
+    return d_rq.to(q.dtype), d_rk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------- kernel wrappers
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("short_attention")
     if not getattr(lib, "_genhancer_typed", False):
         strides = [_I64] * 9
         tail = [_I] * 4 + [ctypes.c_float, _P]
-        lib.genhancer_fused_rope_attention_fwd.argtypes = [_I] + [_P] * 6 + strides + tail
-        lib.genhancer_fused_rope_attention_fwd.restype = _I
-        lib.genhancer_fused_attention_fwd.argtypes = [_I] + [_P] * 4 + strides + tail
-        lib.genhancer_fused_attention_fwd.restype = _I
+        lib.genhancer_fused_rope_attention_fwd.argtypes = [_I] + [_P] * 7 + strides + tail
+        lib.genhancer_fused_attention_fwd.argtypes = [_I] + [_P] * 5 + strides + tail
+        lib.genhancer_fused_rope_attention_bwd.argtypes = [_I] + [_P] * 12 + strides + tail
+        lib.genhancer_fused_attention_bwd.argtypes = [_I] + [_P] * 10 + strides + tail
+        for fn in ("genhancer_fused_rope_attention_fwd", "genhancer_fused_attention_fwd",
+                   "genhancer_fused_rope_attention_bwd", "genhancer_fused_attention_bwd"):
+            getattr(lib, fn).restype = _I
         lib._genhancer_typed = True
     return lib
 
@@ -74,10 +123,16 @@ def _check(name: str, q, k, v) -> None:
                          f"non-empty B, L, H; got {tuple(q.shape)}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{name}: D must be contiguous (stride 1)")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "K1/K2 backward: not ported yet (ROADMAP: stage-1 training); "
-            "call under torch.inference_mode() or torch.no_grad()")
+
+
+def _tables(q, cos, sin):
+    b, l, h, d = q.shape
+    if cos.shape != (b, l, d // 2) or sin.shape != (b, l, d // 2):
+        raise ValueError(f"fused_rope_attention: cos/sin must be [{b}, {l}, {d // 2}], "
+                         f"got {tuple(cos.shape)}, {tuple(sin.shape)}")
+    if cos.device != q.device or sin.device != q.device:
+        raise ValueError("fused_rope_attention: cos/sin must be on q's device")
+    return cos.to(torch.float32).contiguous(), sin.to(torch.float32).contiguous()
 
 
 def _strides(*ts):
@@ -89,43 +144,124 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
-def fused_rope_attention(q, k, v, cos, sin):
-    """K1: RoPE on q, k then exact softmax attention. [B, L, H, D]."""
-    if q.device.type == "cpu":
-        return fused_rope_attention_ref(q, k, v, cos, sin)
-    _check("fused_rope_attention", q, k, v)
+def _fwd_kernel(q, k, v, tables, want_lse: bool):
+    """Launch K1 (``tables`` = (cos, sin)) or K2 (``tables`` = None).
+    Returns (o, lse or None)."""
+    name = "fused_attention" if tables is None else "fused_rope_attention"
+    _check(name, q, k, v)
     b, l, h, d = q.shape
-    if cos.shape != (b, l, d // 2) or sin.shape != (b, l, d // 2):
-        raise ValueError(f"fused_rope_attention: cos/sin must be [{b}, {l}, {d // 2}], "
-                         f"got {tuple(cos.shape)}, {tuple(sin.shape)}")
-    if cos.device != q.device or sin.device != q.device:
-        raise ValueError("fused_rope_attention: cos/sin must be on q's device")
-    cos = cos.to(torch.float32).contiguous()
-    sin = sin.to(torch.float32).contiguous()
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    lse_ptr = lse.data_ptr() if want_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().genhancer_fused_rope_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), o.data_ptr(), *_strides(q, k, v),
-            b, l, h, d, 1.0 / (d ** 0.5), stream)
-    _raise_on(rc, "fused_rope_attention")
-    LAUNCHES["fused_rope_attention"] += 1
-    return o
+        head = [_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr()]
+        if tables is None:
+            rc = _lib().genhancer_fused_attention_fwd(
+                *head, o.data_ptr(), lse_ptr, *_strides(q, k, v), b, l, h, d,
+                1.0 / (d ** 0.5), stream)
+        else:
+            cos, sin = _tables(q, *tables)
+            rc = _lib().genhancer_fused_rope_attention_fwd(
+                *head, cos.data_ptr(), sin.data_ptr(), o.data_ptr(), lse_ptr,
+                *_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5), stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return o, lse
+
+
+def _bwd_kernel(q, k, v, o, lse, do, tables):
+    """Launch K1b (``tables`` = (cos, sin)) or K2b; returns (dq, dk, dv)."""
+    name = "fused_attention_bwd" if tables is None else "fused_rope_attention_bwd"
+    _check(name, q, k, v)
+    b, l, h, d = q.shape
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"{name}: the output gradient must be [B, L, H, D] on q's device")
+    do = do.to(q.dtype).contiguous()
+    di = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        head = [_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                o.data_ptr(), do.data_ptr()]
+        tail = [lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), *_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5), stream]
+        if tables is None:
+            rc = _lib().genhancer_fused_attention_bwd(*head, *tail)
+        else:
+            cos, sin = _tables(q, *tables)
+            rc = _lib().genhancer_fused_rope_attention_bwd(
+                *head, cos.data_ptr(), sin.data_ptr(), *tail)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------- autograd
+
+class _FusedRopeAttention(torch.autograd.Function):
+    """K1 forward + K1b backward; on CPU tensors the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin):
+        if q.device.type == "cpu":
+            o, lse = fused_rope_attention_ref(q, k, v, cos, sin), None
+        else:
+            o, lse = _fwd_kernel(q, k, v, (cos, sin), want_lse=True)
+        ctx.save_for_backward(q, k, v, cos, sin, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, cos, sin, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = fused_rope_attention_bwd_ref(q, k, v, o, do, cos, sin)
+        else:
+            grads = _bwd_kernel(q, k, v, o, lse, do, (cos, sin))
+        return (*grads, None, None)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K2 forward + K2b backward; on CPU tensors the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            o, lse = fused_attention_ref(q, k, v), None
+        else:
+            o, lse = _fwd_kernel(q, k, v, None, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return fused_attention_bwd_ref(q, k, v, o, do)
+        return _bwd_kernel(q, k, v, o, lse, do, None)
+
+
+def _under_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def fused_rope_attention(q, k, v, cos, sin):
+    """K1: RoPE on q, k then exact softmax attention. [B, L, H, D].
+    Differentiable in q, k, v (K1b)."""
+    if _under_grad(q, k, v):
+        return _FusedRopeAttention.apply(q, k, v, cos, sin)
+    if q.device.type == "cpu":
+        return fused_rope_attention_ref(q, k, v, cos, sin)
+    return _fwd_kernel(q, k, v, (cos, sin), want_lse=False)[0]
 
 
 def fused_attention(q, k, v):
-    """K2: exact softmax attention without RoPE. [B, L, H, D]."""
+    """K2: exact softmax attention without RoPE. [B, L, H, D].
+    Differentiable in q, k, v (K2b)."""
+    if _under_grad(q, k, v):
+        return _FusedAttention.apply(q, k, v)
     if q.device.type == "cpu":
         return fused_attention_ref(q, k, v)
-    _check("fused_attention", q, k, v)
-    b, l, h, d = q.shape
-    o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _lib().genhancer_fused_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), *_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5), stream)
-    _raise_on(rc, "fused_attention")
-    LAUNCHES["fused_attention"] += 1
-    return o
+    return _fwd_kernel(q, k, v, None, want_lse=False)[0]

@@ -1,0 +1,92 @@
+"""CC3M (image-text) webdataset pipeline — image-mode training input.
+
+Port of ``genhancer_tpu/data/cc3m.py`` (the PIL thread-pool path):
+streaming tar shards of {jpg, txt}, shuffle buffer,
+RandomResizedCrop(scale 0.9-1.0, bicubic), batch collation.  Emits
+``{"image": float32 [B, H, W, 3] in [0,1], "text": [str]}`` — no
+normalisation here (done once on the device).
+
+``loader(train_batch_size, num_workers, img_size, img_dir, seed, ...)``
+preserves the reference loader signature (``dataset_cc3m.py:220-222``).
+Decoding runs in a thread pool (PIL releases the GIL for JPEG work).  The
+native JPEG decoder (``data/native_decode.py`` + ``native/ghdata.cc``) and
+the precomputed caches are not ported yet (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+from .transforms import train_image_transform
+from .wds import ShardStream
+
+
+class CC3MLoader:
+    def __init__(self, img_dir, train_batch_size: int = 16, num_workers: int = 4,
+                 img_size: int = 224, seed: int = 0, patch_size: int = 1,
+                 shuffle_buffer: int = 2000,
+                 node_index: int = 0, node_count: int = 1, repeat: bool = True,
+                 precomputed: bool = False, **_unused):
+        if precomputed:
+            raise NotImplementedError("data_config.precomputed is not ported yet "
+                                      "(ROADMAP: slice 5, stage 2 and the caches)")
+        self.batch_size = train_batch_size
+        self.img_size = img_size
+        self.num_workers = max(1, num_workers)
+        self.rng = np.random.default_rng(seed)
+        self.stream = ShardStream(img_dir, node_index=node_index,
+                                  node_count=node_count,
+                                  shuffle_buffer=shuffle_buffer,
+                                  seed=seed, repeat=repeat)
+        self.pool = ThreadPoolExecutor(max_workers=self.num_workers)
+
+    def _decode(self, sample) -> Optional[tuple]:
+        jpg = sample.get("jpg") or sample.get("jpeg") or sample.get("png")
+        if jpg is None:
+            return None
+        try:
+            img = train_image_transform(jpg, self.img_size, self.rng)
+        except Exception:   # an undecodable sample is skipped, as the reference does
+            return None
+        txt = sample.get("txt", b"")
+        return img, txt.decode("utf-8", "replace") if isinstance(txt, bytes) else str(txt)
+
+    def __iter__(self) -> Iterator[Dict]:
+        images, texts = [], []
+        sample_iter = iter(self.stream)
+        while True:
+            futures = []
+            for _ in range(self.batch_size * 2):
+                try:
+                    futures.append(self.pool.submit(self._decode, next(sample_iter)))
+                except StopIteration:
+                    break
+            if not futures:
+                if images:
+                    yield self._batch(images, texts)
+                return
+            for fut in futures:
+                res = fut.result()
+                if res is None:
+                    continue
+                images.append(res[0])
+                texts.append(res[1])
+                if len(images) == self.batch_size:
+                    yield self._batch(images, texts)
+                    images, texts = [], []
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    @staticmethod
+    def _batch(images, texts) -> Dict:
+        return {"image": np.stack(images), "text": list(texts)}
+
+
+def loader(train_batch_size: int = 16, num_workers: int = 4, **kwargs) -> CC3MLoader:
+    """Reference-compatible entry point (dataset_cc3m.py:220)."""
+    return CC3MLoader(train_batch_size=train_batch_size,
+                      num_workers=num_workers, **kwargs)

@@ -221,25 +221,31 @@ def decoder_forward(p: Decoder, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor
 
 
 def diagonal_gaussian(moments: torch.Tensor, sample: bool = True,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """moments [..., 2z] channel-chunked into mean/logvar."""
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """moments [..., 2z] channel-chunked into mean/logvar.  The posterior
+    noise is drawn from ``generator``, or injected as ``noise`` (the tests
+    hand both packages the same draws)."""
     mean, logvar = moments.chunk(2, dim=-1)
     if not sample:
         return mean
     std = torch.exp(0.5 * logvar)
-    noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                        device=mean.device)
-    return mean + std * noise
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                            device=mean.device)
+    return mean + std * noise.to(mean.dtype)
 
 
 def vae_encode(p: AutoEncoder, cfg: VAEConfig, x: torch.Tensor,
                generator: Optional[torch.Generator] = None, sample: bool = True,
-               dtype=torch.float32) -> torch.Tensor:
-    """Moments -> (sampled) z -> scale * (z - shift); float32 out."""
-    if sample and generator is None:
-        raise ValueError("generator required when sample=True")
+               dtype=torch.float32, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Moments -> (sampled) z -> scale * (z - shift); float32 out.  ``dtype``
+    is the conv compute dtype (float32, or bfloat16 as the trainer's
+    default); the moments are float32."""
+    if sample and generator is None and noise is None:
+        raise ValueError("generator or noise required when sample=True")
     moments = encoder_forward(p.encoder, cfg, x.to(dtype)).to(torch.float32)
-    z = diagonal_gaussian(moments, sample=sample, generator=generator)
+    z = diagonal_gaussian(moments, sample=sample, generator=generator, noise=noise)
     return cfg.scale_factor * (z - cfg.shift_factor)
 
 

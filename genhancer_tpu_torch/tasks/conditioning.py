@@ -19,6 +19,8 @@ from ..models.towers.projectors import projector
 
 OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+VAE_MEAN = (0.5, 0.5, 0.5)
+VAE_STD = (0.5, 0.5, 0.5)
 
 
 def normalize(px: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:

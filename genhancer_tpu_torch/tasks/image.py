@@ -1,16 +1,25 @@
-"""Image-mode task description and module construction (serving subset).
+"""Image-mode tasks: stage-1 (projectors + DiT).
 
-Port of the parts of ``genhancer_tpu/tasks/image.py`` that serving needs:
-``TaskSpec`` (the static description the engine reads) and
-``init_modules`` (random-init module tree in the reference layout
-``{dit, vae, clip{model, project_clip, project_t5}}``).  Training (the
-loss, the step, the trainable split) is not ported yet.
+Port of ``genhancer_tpu/tasks/image.py`` for stage 1: ``TaskSpec`` (the
+static description the engine and the trainer read), ``init_modules``
+(random-init module tree in the reference layout ``{dit, vae,
+clip{model, project_clip, project_t5}}``), ``trainable_predicate``,
+``make_loss_fn`` (the inline ``{image}`` branch: frozen VAE encode and
+tower under ``torch.no_grad()``, logit-normal t, interpolation, DiT
+forward, float32 MSE against the velocity), ``make_train_step`` and
+``create_task_state``.
+
+Random draws come from one ``torch.Generator``; a test hands the loss the
+JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
+``vae_noise`` [B, h, w, z]).  Stage 2, the precomputed-cache batches
+(``moments``/``cls``), remat, int8 and the multi-device options raise
+``NotImplementedError``, naming ROADMAP.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -20,6 +29,11 @@ from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
 from ..models.towers.projectors import Projector
+from ..train import flow
+from ..train.state import TrainState, apply_gradients, create_state
+from ..train.step_utils import take_grad
+from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning_from_cls, normalize,
+                           tower_features, tower_stats)
 
 
 @dataclass(frozen=True)
@@ -36,10 +50,18 @@ class TaskSpec:
     t5_dim: int = 4096
     scale_factor: float = 1.0
     guidance: float = 4.0
+    lora_r: int = 16
+    lora_alpha: float = 16.0
+    lora_targets: object = "all-linear"
+    lora_bias: str = "lora_only"
+    lora_dropout: float = 0.0
+    remat: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
     # the reference stores DiT params in bf16; tower, projectors and VAE
     # stay float32 and are cast at use
     dit_param_dtype: torch.dtype = torch.bfloat16
+    vae_dtype: torch.dtype = torch.float32   # conv dtype of the frozen encode
+    dit_quant: str = "none"
 
     @property
     def latent_hw(self) -> Tuple[int, int]:
@@ -69,3 +91,101 @@ def init_modules(spec: TaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
     """Random-init modules drawn from ``generator`` (on ``device``)."""
     return init_weights(build_modules(spec, device), generator)
+
+
+def _require_stage1(spec: TaskSpec) -> None:
+    if spec.stage != "stage1":
+        raise NotImplementedError(
+            f"stage {spec.stage!r} is not ported yet (ROADMAP: slice 5, stage 2 "
+            "and the caches)")
+
+
+def trainable_predicate(spec: TaskSpec, modules=None) -> Callable[[str], bool]:
+    """Which flat paths train — parity with the reference requires_grad
+    setup: stage 1 trains the DiT and both projectors
+    (train_SigLIP_stage1.py:131,137-141)."""
+    _require_stage1(spec)
+
+    def pred(path: str) -> bool:
+        return (path.startswith("dit.")
+                or ".project_clip." in path or ".project_t5." in path)
+
+    return pred
+
+
+def make_loss_fn(spec: TaskSpec, mesh=None):
+    """loss_fn(modules, batch, generator, draws=None) -> float32 scalar.
+
+    ``batch``: ``image`` [B, H, W, 3] float32 in [0, 1] (+ optional
+    ``valid`` [B]) on the modules' device."""
+    _require_stage1(spec)
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
+                                  "(ROADMAP: slice 7, parallelism)")
+    if spec.remat:
+        raise NotImplementedError("remat (activation checkpointing) is not ported yet "
+                                  "(ROADMAP: later items)")
+    if spec.dit_quant != "none":
+        raise NotImplementedError(f"dit_quant: {spec.dit_quant} is not ported yet "
+                                  "(ROADMAP: slice 3, the int8 fast stack)")
+    f32, cd = torch.float32, spec.compute_dtype
+
+    def loss_fn(modules, batch, generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        if "moments" in batch or "cls" in batch:
+            raise NotImplementedError(
+                "precomputed-cache batches (moments/cls) are not ported yet "
+                "(ROADMAP: slice 5, stage 2 and the caches)")
+        draws = draws or {}
+        imgs = batch["image"]                   # [B, H, W, 3] in [0, 1]
+        b, dev = imgs.shape[0], imgs.device
+        with torch.no_grad():
+            # frozen VAE encode: normalised in float32, convs at vae_dtype
+            vae_in = normalize(imgs, VAE_MEAN, VAE_STD).to(f32)
+            x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
+                                      dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
+            # frozen tower: its class token feeds the (trained) projectors
+            mean, std = tower_stats(spec.tower_kind)
+            px = normalize(imgs, mean, std).to(cd)
+            cls_tok, _ = tower_features(spec.tower_kind, modules["clip"], px, spec.tower_cfg)
+        x1 = dit_m.pack_latent(x1_lat).to(f32)
+        cond = image_conditioning_from_cls(modules["clip"], cls_tok, spec.latent_hw,
+                                           compute_dtype=cd)
+        t = draws.get("t")
+        if t is None:
+            t = flow.sample_timesteps(b, spec.scale_factor, generator, dev)
+        x0 = draws.get("x0")
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=generator, dtype=f32, device=dev)
+        xt = flow.interpolate(x1, x0, t)
+        guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
+        pred = dit_m.dit_forward(
+            modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=cond["img_ids"],
+            txt=cond["txt"].to(cd), txt_ids=cond["txt_ids"], timesteps=t.to(cd),
+            y=cond["vec"].to(cd), guidance=guidance)
+        # "valid" gates batch rows padded up to a full batch
+        return flow.mse_loss(pred, flow.velocity_target(x1, x0), mask=batch.get("valid"))
+
+    return loss_fn
+
+
+def make_train_step(spec: TaskSpec, optimizer, mesh=None):
+    """(state, batch, generator, draws=None) -> (state, metrics), one
+    optimizer step without accumulation."""
+    loss_fn = make_loss_fn(spec, mesh)
+
+    def step(state: TrainState, batch, generator=None, draws=None):
+        loss = loss_fn(state.modules, batch, generator, draws)
+        loss.backward()
+        with torch.no_grad():
+            grads = {k: take_grad(p) for k, p in state.trainable.items()}
+        g_norm = apply_gradients(state, grads, optimizer)
+        return state, {"loss": loss.detach(), "grad_norm": g_norm}
+
+    return step
+
+
+def create_task_state(generator: torch.Generator, spec: TaskSpec, optimizer,
+                      device=None) -> TrainState:
+    modules = init_modules(spec, generator, device=device)
+    return create_state(modules, trainable_predicate(spec, modules), optimizer)

@@ -1,32 +1,134 @@
-"""Stage-1 checkpoint loading (reference layout).
+"""Stage-1 checkpoints in the reference layout, and resume.
 
-Port of ``genhancer_tpu/train/checkpoint.py:load_stage1_components`` for
-image mode.  A stage-1 run writes torch state-dict ``.bin`` files under the
-reference key names (``checkpoint-dit-N.bin``,
-``checkpoint-project-clip-N.bin``, ``checkpoint-project-t5-N.bin``); the
-port's modules carry those names, so each loads with ``strict=True``.
+Port of ``genhancer_tpu/train/checkpoint.py`` (image mode).  A stage-1 run
+writes torch state-dict ``.bin`` files under the reference key names
+(``checkpoint-dit-N.bin``, ``checkpoint-project-clip-N.bin``,
+``checkpoint-project-t5-N.bin``; ``train_SigLIP_stage1.py:284-300``) — the
+port's modules carry those names, so each loads with ``strict=True`` in
+either package — plus ``optimizer-state-N.bin``, which is framework
+internal: the port writes its own positional layout (the step count, then
+each moment leaf in sorted path order) and resumes from it.
+
+Step discovery uses a strict regex over ``checkpoint-dit-(\\d+).bin``.
 """
 
 from __future__ import annotations
 
 import os
+import re
+from typing import List, Optional
 
 import torch
 
 STAGE1_FILES = (("dit", "checkpoint-dit-{step}.bin"),
                 ("project_clip", "checkpoint-project-clip-{step}.bin"),
                 ("project_t5", "checkpoint-project-t5-{step}.bin"))
+_PRUNE_PREFIXES = ("checkpoint-dit-", "checkpoint-project-clip-", "checkpoint-project-t5-",
+                   "checkpoint-visual-adapter-", "optimizer-state-")
+_STEP_RE = re.compile(r"checkpoint-dit-(\d+)\.bin$")
+
+
+def _components(modules):
+    return {"dit": modules["dit"], "project_clip": modules["clip"]["project_clip"],
+            "project_t5": modules["clip"]["project_t5"]}
 
 
 def load_stage1_components(modules, load_dir: str, load_step: int) -> None:
     """Load the stage-1 DiT and projector ``.bin`` files of ``load_step`` into
     ``init_modules``-layout modules, in place."""
-    targets = {"dit": modules["dit"],
-               "project_clip": modules["clip"]["project_clip"],
-               "project_t5": modules["clip"]["project_t5"]}
+    targets = _components(modules)
     for name, pattern in STAGE1_FILES:
         path = os.path.join(load_dir, pattern.format(step=int(load_step)))
         if not os.path.exists(path):
             raise FileNotFoundError(f"stage-1 checkpoint file missing: {path}")
         sd = torch.load(path, map_location="cpu", weights_only=True)
         targets[name].load_state_dict(sd, strict=True)
+
+
+def save_stage1(state, output_dir: str, step: int) -> List[str]:
+    """Write the reference stage-1 component ``.bin`` files and the
+    optimizer state of ``state`` at ``step``; returns the paths."""
+    os.makedirs(output_dir, exist_ok=True)
+    written = []
+    for name, module in _components(state.modules).items():
+        pattern = dict(STAGE1_FILES)[name]
+        path = os.path.join(output_dir, pattern.format(step=step))
+        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
+        written.append(path)
+    path = os.path.join(output_dir, f"optimizer-state-{step}.bin")
+    save_optimizer_state(state, path)
+    written.append(path)
+    return written
+
+
+def save_optimizer_state(state, path: str) -> None:
+    """The optimizer state positionally: ``count``, ``mu.i``/``nu.i`` for the
+    i-th trainable path in sorted order, and the train ``step``."""
+    opt = state.opt_state
+    sd = {"count": torch.tensor(int(opt["count"])), "step": torch.tensor(int(state.step))}
+    for i, key in enumerate(sorted(state.trainable)):
+        sd[f"mu.{i}"] = opt["mu"][key].detach().cpu()
+        sd[f"nu.{i}"] = opt["nu"][key].detach().cpu()
+    torch.save(sd, path)
+
+
+def load_optimizer_state(state, path: str) -> None:
+    """Restore what ``save_optimizer_state`` wrote into ``state``, in place:
+    each moment lands on its parameter's device in the saved dtype."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    keys = sorted(state.trainable)
+    n_saved = sum(1 for k in sd if k.startswith("mu."))
+    if n_saved != len(keys):
+        raise ValueError(f"{path}: {n_saved} moment leaves for {len(keys)} trainable leaves")
+    for i, key in enumerate(keys):
+        p = state.trainable[key]
+        for name in ("mu", "nu"):
+            v = sd[f"{name}.{i}"]
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(f"optimizer leaf {name}.{i} ({key}) shape mismatch: "
+                                 f"{tuple(v.shape)} vs {tuple(p.shape)}")
+            state.opt_state[name][key] = v.to(p.device)
+    state.opt_state["count"] = int(sd["count"])
+    state.step = int(sd["step"])
+
+
+def all_steps(output_dir: str) -> List[int]:
+    if not os.path.isdir(output_dir):
+        return []
+    return sorted(int(m.group(1)) for name in os.listdir(output_dir)
+                  if (m := _STEP_RE.match(name)))
+
+
+def prune_checkpoints(output_dir: str, total_limit: int) -> List[int]:
+    """Keep only the newest ``total_limit`` checkpoint steps
+    (``checkpoints_total_limit``); returns the pruned steps."""
+    steps = all_steps(output_dir)
+    if total_limit <= 0 or len(steps) <= total_limit:
+        return []
+    doomed = steps[: len(steps) - total_limit]
+    for s in doomed:
+        for p in _PRUNE_PREFIXES:
+            path = os.path.join(output_dir, f"{p}{s}.bin")
+            if os.path.exists(path):
+                os.remove(path)
+    return doomed
+
+
+def latest_step(output_dir: str) -> Optional[int]:
+    steps = all_steps(output_dir)
+    return max(steps) if steps else None
+
+
+def resume_latest(state, output_dir: str) -> None:
+    """``resume_from_checkpoint: latest``: load the newest step's components
+    and optimizer state into ``state``, in place (no checkpoint: unchanged)."""
+    step = latest_step(output_dir)
+    if step is None:
+        return
+    with torch.no_grad():
+        load_stage1_components(state.modules, output_dir, step)
+    opt_path = os.path.join(output_dir, f"optimizer-state-{step}.bin")
+    if os.path.exists(opt_path):
+        load_optimizer_state(state, opt_path)
+    else:
+        state.step = step

@@ -37,6 +37,14 @@ class Config(dict):
             return [Config._wrap(v) for v in obj]
         return obj
 
+    def get_path(self, path: str, default=None):
+        node: Any = self
+        for part in path.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node
+
     def merged_with(self, other: Mapping) -> "Config":
         out = copy.deepcopy(self)
 

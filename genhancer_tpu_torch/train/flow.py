@@ -1,17 +1,54 @@
-"""Rectified-flow inference schedule and Euler sampling.
+"""Rectified-flow objective, inference schedule and Euler sampling.
 
-Port of the inference half of ``genhancer_tpu/train/flow.py``: the
-resolution-shifted sigmoid schedule and the plain (no-CFG) Euler denoiser
-the reconstruction path runs.
+Port of ``genhancer_tpu/train/flow.py``: the training objective (identical
+in every reference trainer)::
+
+    t   ~ sigmoid(scale_factor * N(0,1))        # logit-normal timesteps
+    x_0 ~ N(0,1)
+    x_t = (1-t) x_1 + t x_0
+    loss = MSE(DiT(x_t, cond, t), x_0 - x_1)    # velocity target
+
+and the resolution-shifted sigmoid schedule with the plain (no-CFG) Euler
+denoiser the reconstruction path runs.  Random draws come from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from ..core.nn import as_dtype_scalar
+
+
+def sample_timesteps(batch: int, scale_factor: float = 1.0,
+                     generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """Logit-normal t in (0, 1): sigmoid(scale * N(0, 1)), float32 [batch]."""
+    n = torch.randn((batch,), generator=generator, dtype=torch.float32, device=device)
+    return torch.sigmoid(n * scale_factor)
+
+
+def interpolate(x_1: torch.Tensor, x_0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """x_t = (1-t) x_1 + t x_0 over [B, L, C] tokens with t [B]."""
+    t = t[:, None, None].to(x_1.dtype)
+    return (1.0 - t) * x_1 + t * x_0
+
+
+def velocity_target(x_1: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
+    return x_0 - x_1
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean-squared error in float32.  ``mask`` [B] gates padded rows."""
+    err = (pred.to(torch.float32) - target.to(torch.float32)).square()
+    if mask is None:
+        return err.mean()
+    m = mask.to(torch.float32)[:, None, None]
+    denom = torch.clamp(m.sum() * err.shape[1] * err.shape[2], min=1.0)
+    return (err * m).sum() / denom
 
 
 def time_shift(mu: float, sigma: float, t):

@@ -1,0 +1,234 @@
+"""Optimizer: global-norm clipping + AdamW + learning-rate schedules.
+
+Port of ``genhancer_tpu/train/optim.py``.  Two implementations, selected by
+the config's ``fused_optimizer`` as in JAX:
+
+* the default chain, ``optax.chain(clip_by_global_norm(c), adamw(...))``
+  (optax 0.2.6), as plain torch, one function per optax stage:
+  ``clip_by_global_norm`` -> ``scale_by_adam`` -> ``add_decayed_weights`` ->
+  ``scale_by_learning_rate`` -> ``apply_updates``.  JAX's dtype rules are
+  kept: moments start in the parameter dtype and are promoted by the
+  gradients (float32 accumulated grads make them float32 from the first
+  step on), and Python constants are rounded to the array's dtype first
+  (``core.nn.as_dtype_scalar``), as JAX rounds weakly-typed scalars;
+* ``fused_optimizer: pallas`` — the fused clip + AdamW kernel K3
+  (``core/kernels/adamw.py``), moments kept in the parameter dtype.
+
+Parameters, gradients and moments are flat ``{path: tensor}`` dicts; the
+optimizer owns its state as plain tensors (no ``torch.optim``).  ``apply``
+updates the parameters in place and returns the new state and the global
+gradient norm.  The schedule is a host function of the step count, so no
+step needs a host sync.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.kernels.adamw import fused_adamw_apply, global_norm
+from ..core.nn import as_dtype_scalar
+
+Tensors = Dict[str, torch.Tensor]
+Schedule = Callable[[int], float]
+_F32 = np.float32
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """optax.linear_schedule in float32."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count):
+        c = _F32(min(max(count, 0), steps))
+        frac = _F32(1) - c / _F32(steps)
+        return float(_F32(init - end) * frac + _F32(end))
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """optax.cosine_decay_schedule (exponent 1) in float32."""
+    def schedule(count):
+        c = _F32(min(count, decay_steps))
+        decay = _F32(0.5) * (_F32(1) + np.cos(_F32(np.pi) * c / _F32(decay_steps)))
+        return float(_F32(init) * (_F32(1 - alpha) * decay + _F32(alpha)))
+    return schedule
+
+
+def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
+    """optax.join_schedules of two pieces."""
+    return lambda count: first(count) if count < boundary else second(count - boundary)
+
+
+def make_lr_schedule(name: str, learning_rate: float, warmup_steps: int = 0,
+                     total_steps: Optional[int] = None) -> Schedule:
+    """count -> learning rate, the optax schedules of the JAX package:
+    ``constant`` ignores the warmup (diffusers' 'constant'),
+    ``constant_with_warmup`` ramps linearly, ``linear`` warms up then decays
+    to 0 at ``total_steps``, ``cosine`` is warmup_cosine_decay_schedule."""
+    warmup_steps = int(warmup_steps or 0)
+    if name in ("constant", "constant_with_warmup"):
+        if warmup_steps > 0 and name == "constant_with_warmup":
+            return _join(_linear(0.0, learning_rate, warmup_steps),
+                         lambda count: learning_rate, warmup_steps)
+        return lambda count: learning_rate
+    if name == "linear":
+        if total_steps is None:
+            raise ValueError("lr_scheduler linear needs total_steps")
+        return _join(_linear(0.0, learning_rate, warmup_steps),
+                     _linear(learning_rate, 0.0, max(total_steps - warmup_steps, 1)),
+                     warmup_steps)
+    if name == "cosine":
+        if total_steps is None:
+            raise ValueError("lr_scheduler cosine needs total_steps")
+        return _join(_linear(0.0, learning_rate, warmup_steps),
+                     _cosine(learning_rate, total_steps - warmup_steps), warmup_steps)
+    raise ValueError(f"unknown lr_scheduler: {name}")
+
+
+# ---------------------------------------------------------------------------
+# the default chain, one function per optax stage (one leaf at a time)
+# ---------------------------------------------------------------------------
+
+def clip_by_global_norm(g: torch.Tensor, g_norm: torch.Tensor, max_norm: float):
+    """optax.clip_by_global_norm: g unchanged while ||g|| < c, else
+    ``(g / ||g||) * c`` in g's dtype (no +1e-6)."""
+    keep = g_norm < as_dtype_scalar(max_norm, g_norm.dtype)
+    clipped = (g / g_norm.to(g.dtype)) * as_dtype_scalar(max_norm, g.dtype)
+    return torch.where(keep, g, clipped)
+
+
+def scale_by_adam(g, mu, nu, count_inc: int, b1: float, b2: float, eps: float):
+    """optax.scale_by_adam (eps_root 0): returns (update, mu, nu).  The new
+    moments take the promoted dtype of the grad and the old moment."""
+    def bias_correction(moment, decay):
+        bc = _F32(1) - _F32(decay) ** _F32(count_inc)
+        return moment / as_dtype_scalar(float(bc), moment.dtype)
+
+    mu = as_dtype_scalar(1 - b1, g.dtype) * g + as_dtype_scalar(b1, mu.dtype) * mu
+    nu = as_dtype_scalar(1 - b2, g.dtype) * (g * g) + as_dtype_scalar(b2, nu.dtype) * nu
+    mu_hat, nu_hat = bias_correction(mu, b1), bias_correction(nu, b2)
+    update = mu_hat / (torch.sqrt(nu_hat) + as_dtype_scalar(eps, nu_hat.dtype))
+    return update, mu, nu
+
+
+def add_decayed_weights(update, p, weight_decay: float):
+    """optax.add_decayed_weights: ``u + wd * p`` (wd * p in p's dtype)."""
+    return update + as_dtype_scalar(weight_decay, p.dtype) * p
+
+
+def scale_by_learning_rate(update, lr: float):
+    """optax.scale_by_learning_rate: ``-lr`` rounded to the update's dtype."""
+    return as_dtype_scalar(-lr, update.dtype) * update
+
+
+def apply_updates(p, update):
+    """optax.apply_updates: ``(p + u).astype(p.dtype)``."""
+    return (p + update).to(p.dtype)
+
+
+def zero_moments(params: Tensors) -> dict:
+    """The state both optimizers start from: step count 0, moments of zeros
+    in each parameter's dtype (``optax``'s and ``pallas_adamw_clip``'s init)."""
+    return {"count": 0, "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+            "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+
+class AdamWChain:
+    """``clip_by_global_norm`` then ``adamw``, stage by stage, leaf by leaf
+    (temporaries for one leaf at a time)."""
+
+    def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+
+    def init(self, params: Tensors) -> dict:
+        return zero_moments(params)
+
+    @torch.no_grad()
+    def apply(self, params: Tensors, grads: Tensors, state: dict) -> Tuple[dict, torch.Tensor]:
+        g_norm = global_norm(grads)
+        count = state["count"]
+        lr = _F32(self.schedule(count))      # read at the pre-increment count
+        mu, nu = state["mu"], state["nu"]     # replaced leaf by leaf
+        for k, p in params.items():
+            g = clip_by_global_norm(grads[k], g_norm, self.max_grad_norm)
+            u, mu[k], nu[k] = scale_by_adam(g, mu[k], nu[k], count + 1,
+                                            self.b1, self.b2, self.eps)
+            u = add_decayed_weights(u, p, self.weight_decay)
+            u = scale_by_learning_rate(u, float(lr))
+            p.copy_(apply_updates(p, u))
+        return {"count": count + 1, "mu": mu, "nu": nu}, g_norm
+
+
+class FusedAdamW:
+    """``fused_optimizer: pallas``: clip + AdamW in one K3 pass per leaf,
+    in place; moments in the parameter dtype (``pallas_adamw_clip``)."""
+
+    def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+        self.schedule = schedule
+        self.kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                       max_grad_norm=max_grad_norm)
+
+    def init(self, params: Tensors) -> dict:
+        return zero_moments(params)
+
+    @torch.no_grad()
+    def apply(self, params: Tensors, grads: Tensors, state: dict) -> Tuple[dict, torch.Tensor]:
+        count = state["count"] + 1
+        g_norm = fused_adamw_apply(params, state["mu"], state["nu"], grads, count,
+                                   self.schedule, **self.kw)
+        return {"count": count, "mu": state["mu"], "nu": state["nu"]}, g_norm
+
+
+def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
+                   emit_quant: bool = False, moment_bits: Optional[int] = None):
+    """The optimizer of a train config, with the JAX package's knob handling:
+    ``fused_optimizer`` "pallas" -> K3, True/"xla" -> not ported, anything
+    else -> the chain (the default); ``optimizer_moment_bits`` 16 (8 only
+    with pallas, and not ported)."""
+    schedule = make_lr_schedule(cfg.get("lr_scheduler", "constant"),
+                                float(cfg.get("learning_rate", 1e-4)),
+                                int(cfg.get("lr_warmup_steps", 0)),
+                                total_steps or cfg.get("max_train_steps"))
+    kw = dict(b1=float(cfg.get("adam_beta1", 0.9)),
+              b2=float(cfg.get("adam_beta2", 0.999)),
+              eps=float(cfg.get("adam_epsilon", 1e-8)),
+              weight_decay=float(cfg.get("adam_weight_decay", 0.01)),
+              max_grad_norm=float(cfg.get("max_grad_norm", 1.0)))
+    if fused is None:
+        fused = cfg.get("fused_optimizer", False)
+    if moment_bits is None:
+        moment_bits = int(cfg.get("optimizer_moment_bits", 16))
+    if moment_bits not in (8, 16):
+        raise ValueError(f"optimizer_moment_bits must be 8 or 16, got {moment_bits}")
+    if moment_bits == 8 and fused != "pallas":
+        raise ValueError("optimizer_moment_bits: 8 requires fused_optimizer: pallas "
+                         "(the 8-bit decode/encode lives in the fused kernel)")
+    if moment_bits == 8:
+        raise NotImplementedError(
+            "optimizer_moment_bits: 8 (log-coded int8 moments, kernel K6) is not "
+            "ported yet (ROADMAP: slice 3, the int8 fast stack)")
+    if emit_quant:
+        raise NotImplementedError(
+            "the int8 weight cache emitted by the AdamW kernel (K4) is not ported "
+            "yet (ROADMAP: slice 3, the int8 fast stack)")
+    if fused == "pallas":
+        return FusedAdamW(schedule, **kw)
+    if fused in (True, "xla"):
+        raise NotImplementedError(
+            "fused_optimizer: xla (the single-pass XLA tree_map) is not ported "
+            "(ROADMAP: later items); use the default chain or fused_optimizer: pallas")
+    return AdamWChain(schedule, **kw)
+
+
+def effective_steps_per_epoch(train_batch_size: int, grad_accum: int,
+                              dataset_size: int = int(3e6)) -> float:
+    """Reference hardcodes a 3e6-sample epoch (train_SigLIP_stage1.py:158)."""
+    return math.ceil(dataset_size / train_batch_size) / grad_accum

@@ -1,0 +1,293 @@
+"""The training loop: config-driven, one device, observable, resumable.
+
+Port of ``genhancer_tpu/train/trainer.py`` for one device:
+
+  * config -> task -> optimizer -> state -> resume -> loop;
+  * gradient accumulation (``train.step_utils``) or a plain step;
+  * a depth-2 host thread that pins each batch and copies it to the device
+    (``data.prefetch``);
+  * step/data timers and tracker scalars under the reference names
+    (``train_loss``, ``step_time``, ``data_load_time``); the host syncs on
+    the loss only every ``log_interval`` steps, so the steps between run
+    back to back on the device;
+  * watchdog warnings for slow data loading and slow steps;
+  * a SIGTERM flag that stops the loop at a step boundary, followed by a
+    checkpoint;
+  * the reference checkpoint cadence, ``checkpoints_total_limit`` and
+    resume from the latest checkpoint.
+
+Random draws come from one ``torch.Generator`` on the device, seeded from
+``seed + 777`` and the step (as JAX folds the step into its key), so a
+resumed run draws what an uninterrupted one would.  Float32 matmuls and
+convolutions run in full float32 (TF32 off).  The mesh, tensor and
+sequence parallelism, FSDP, ZeRO-1, orbax and the asynchronous checkpoint
+writer are not ported (ROADMAP slice 7); their options raise.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..data.prefetch import DevicePrefetcher
+from ..serve.engine import resolve_device
+from ..tasks import factory
+from ..tasks.image import make_loss_fn
+from . import checkpoint as ckpt
+from . import optim
+from .step_utils import make_accum_train_step, stack_microbatches
+
+log = logging.getLogger("genhancer_tpu_torch.trainer")
+
+DATA_LOAD_TIMEOUT = 60.0
+STEP_TIMEOUT = 300.0
+ARRAY_KEYS = {"image", "valid"}
+
+
+class SummaryWriterProxy:
+    """Scalar tracker: tensorboardX or wandb (reference ``report_to``
+    options), or a no-op if unavailable/disabled.  wandb runs offline unless
+    WANDB_MODE overrides it; a missing tracker degrades to a warning."""
+
+    def __init__(self, logdir: Optional[str], enabled: bool = True,
+                 backend: str = "tensorboard", project: Optional[str] = None,
+                 run_config: Optional[dict] = None):
+        self.writer = None
+        self.wandb = None
+        if not (enabled and logdir):
+            return
+        if backend == "wandb":
+            try:
+                import wandb
+                os.makedirs(logdir, exist_ok=True)
+                wandb.init(project=project or "genhancer", dir=logdir, config=run_config,
+                           mode=os.environ.get("WANDB_MODE", "offline"))
+                self.wandb = wandb
+            except Exception as e:  # no tracker: train on, without scalars
+                log.warning("wandb tracker unavailable: %s", e)
+        elif backend == "tensorboard":
+            try:
+                from tensorboardX import SummaryWriter
+                os.makedirs(logdir, exist_ok=True)
+                self.writer = SummaryWriter(logdir)
+            except Exception as e:  # no tracker: train on, without scalars
+                log.warning("tensorboard disabled: %s", e)
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+        if self.wandb is not None:
+            self.wandb.log({tag: value}, step=step)
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+        if self.wandb is not None:
+            self.wandb.finish()
+
+
+class Trainer:
+    def __init__(self, cfg, profile: bool = False, device="cuda"):
+        self.cfg = cfg
+        self.profile = profile
+        factory.validate_single_device(cfg)
+        if str(cfg.get("checkpoint_backend", "torch")) != "torch":
+            raise NotImplementedError("checkpoint_backend: orbax is not ported yet "
+                                      "(ROADMAP: slice 7, parallelism)")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.output_dir = cfg.get("output_dir", "output")
+        os.makedirs(self.output_dir, exist_ok=True)
+
+        (self.spec, self.loader, make_step, create_state,
+         self.ckpt_kind) = factory.build_task(cfg)
+
+        self.accum = int(cfg.get("gradient_accumulation_steps", 1))
+        max_steps = cfg.get("max_train_steps")
+        if not max_steps:
+            per_epoch = optim.effective_steps_per_epoch(
+                int(cfg.get_path("data_config.train_batch_size", 16)), self.accum)
+            max_steps = int(int(cfg.get("num_train_epochs", 1)) * per_epoch)
+        self.max_steps = int(max_steps)
+        emit_quant = (cfg.get("dit_quant", "none") in ("int8", "int8_dw", "int8_full")
+                      and cfg.get("fused_optimizer") == "pallas")
+        self.optimizer = optim.make_optimizer(cfg, total_steps=self.max_steps,
+                                              emit_quant=emit_quant)
+
+        self.seed = int(cfg.get("seed", 0))
+        init_gen = torch.Generator(device=self.device)
+        init_gen.manual_seed(self.seed)
+        self.state = create_state(init_gen, self.spec, self.optimizer, device=self.device)
+
+        if cfg.get("load_dir") and cfg.get("load_step") is not None:
+            with torch.no_grad():
+                ckpt.load_stage1_components(self.state.modules, cfg["load_dir"],
+                                            int(cfg["load_step"]))
+            log.info("loaded stage-1 components from %s step %s",
+                     cfg["load_dir"], cfg["load_step"])
+        if cfg.get("resume_from_checkpoint") == "latest":
+            before = self.state.step
+            ckpt.resume_latest(self.state, self.output_dir)
+            if self.state.step != before:
+                log.info("resumed from step %d", self.state.step)
+
+        if self.accum > 1:
+            acc_dt = cfg.get("grad_accum_dtype", "float32")
+            self.step_fn = make_accum_train_step(
+                make_loss_fn(self.spec), self.optimizer, self.accum,
+                accum_dtype=None if acc_dt == "param" else getattr(torch, acc_dt))
+        else:
+            self.step_fn = make_step(self.spec, self.optimizer)
+
+        self.log_interval = max(1, int(cfg.get("log_interval", 10)))
+        report_to = cfg.get("report_to")
+        self.writer = SummaryWriterProxy(
+            os.path.join(self.output_dir, cfg.get("logging_dir", "logs")),
+            enabled=report_to in ("tensorboard", "wandb"),
+            backend=report_to or "tensorboard",
+            project=cfg.get("tracker_project_name"),
+            run_config={k: v for k, v in cfg.items()
+                        if isinstance(v, (int, float, str, bool))})
+        self.generator = torch.Generator(device=self.device)
+        self.history = []           # metrics of every synced step
+        self._last_saved = None
+        self._preempted = False
+
+    # -- input ------------------------------------------------------------
+
+    def _batches(self) -> DevicePrefetcher:
+        """Device-ready batches (the array leaves; accumulation stacking
+        applied), one host thread ahead."""
+
+        def host_iter():
+            pending = []
+            for b in self.loader:
+                arrays = {k: v for k, v in b.items()
+                          if k in ARRAY_KEYS and isinstance(v, np.ndarray)}
+                if self.accum > 1:
+                    pending.append(arrays)
+                    if len(pending) == self.accum:
+                        yield stack_microbatches(pending)
+                        pending = []
+                else:
+                    yield arrays
+
+        return DevicePrefetcher(host_iter(), self.device, depth=2)
+
+    # -- checkpointing -----------------------------------------------------
+
+    def _should_checkpoint(self, step: int) -> bool:
+        every = int(self.cfg.get("checkpointing_steps", 0) or 0)
+        return bool(every) and step % every == 0
+
+    def _checkpoint(self, step: int) -> None:
+        ckpt.save_stage1(self.state, self.output_dir, step)
+        limit = int(self.cfg.get("checkpoints_total_limit") or 0)
+        if limit:
+            pruned = ckpt.prune_checkpoints(self.output_dir, limit)
+            if pruned:
+                log.info("pruned old checkpoints: %s", pruned)
+        log.info("saved checkpoint at step %d", step)
+        self._last_saved = step
+
+    # -- loop --------------------------------------------------------------
+
+    def train(self) -> dict:
+        """Run to ``max_train_steps``; returns the last synced metrics."""
+        self._preempted = False
+
+        def _on_term(signum, frame):
+            self._preempted = True
+            log.warning("SIGTERM — will checkpoint at the next step boundary")
+
+        try:
+            prev_term = signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:          # not the main thread: no handler, no harm
+            prev_term = None
+        batches = self._batches()
+        try:
+            return self._train_loop(batches)
+        finally:
+            batches.close()
+            self.loader.close()
+            self.writer.close()
+            if prev_term is not None:
+                signal.signal(signal.SIGTERM, prev_term)
+
+    def _train_loop(self, batches) -> dict:
+        step = self.state.step
+        metrics_out = {}
+        last_data_t = time.time()
+        prof = None
+        for batch in batches:
+            if step >= self.max_steps:
+                break
+            if self._preempted:
+                log.warning("preempted — stopping at step %d (checkpoint follows; "
+                            "relaunch with resume_from_checkpoint: latest)", step)
+                break
+            data_load_time = time.time() - last_data_t
+            if data_load_time > DATA_LOAD_TIMEOUT:
+                log.warning("data loading slow: %.1fs > %.0fs", data_load_time,
+                            DATA_LOAD_TIMEOUT)
+            if self.profile and step == 2:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    *([torch.profiler.ProfilerActivity.CUDA]
+                      if self.device.type == "cuda" else [])])
+                prof.start()
+
+            t0 = time.time()
+            self.generator.manual_seed((self.seed + 777) * 1_000_003 + step)
+            sync = (step + 1) % self.log_interval == 0 or (step + 1) >= self.max_steps
+            try:
+                self.state, metrics = self.step_fn(self.state, batch, self.generator)
+                # sync only at log intervals: between them steps run back to
+                # back on the device
+                loss = float(metrics["loss"]) if sync else None
+            except torch.cuda.OutOfMemoryError as e:
+                log.error("out of device memory at step %d — stopping for a relaunch "
+                          "with a smaller batch: %s", step, str(e)[:500])
+                break
+            step_time = time.time() - t0
+            if step_time > STEP_TIMEOUT:
+                log.error("step timeout: %.1fs > %.0fs", step_time, STEP_TIMEOUT)
+            if prof is not None and step == 4:
+                prof.stop()
+                prof.export_chrome_trace(os.path.join(self.output_dir, "profile.json"))
+                prof = None
+
+            step += 1
+            if loss is not None:
+                metrics_out = {"loss": loss, "step": step,
+                               "grad_norm": float(metrics["grad_norm"]),
+                               "step_time": step_time, "data_load_time": data_load_time}
+                self.history.append(metrics_out)
+                self.writer.scalar("train_loss", loss, step)
+                self.writer.scalar("step_time", step_time, step)
+                self.writer.scalar("data_load_time", data_load_time, step)
+                log.info("step %d: loss=%.4f step_time=%.3fs data=%.3fs",
+                         step, loss, step_time, data_load_time)
+            else:
+                metrics_out = {"step": step}
+            if self._should_checkpoint(step):
+                self._checkpoint(step)
+            last_data_t = time.time()
+
+        if prof is not None:
+            prof.stop()
+        if step > 0 and self._last_saved != step:
+            self._checkpoint(step)
+        return metrics_out
+
+
+def train_from_config(cfg, profile: bool = False, device="cuda") -> dict:
+    return Trainer(cfg, profile=profile, device=device).train()

@@ -6,13 +6,16 @@ no JAX, so it also runs on a GPU machine without the JAX package:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Bounds as in chip_smoke.py: float32 1e-4, bfloat16 2e-2 (the kernel rounds
-the unnormalised probabilities to bf16, the plain version the normalised).
+the unnormalised probabilities to bf16, the plain version the normalised);
+for gradients the bound is relative to max(1, max|plain|); K3 within one
+ulp of the storage dtype.
 """
 
 import pytest
 import torch
 
 from genhancer_tpu_torch.core import attention as A
+from genhancer_tpu_torch.core.kernels import adamw as KA
 from genhancer_tpu_torch.core.kernels import short_attention as K
 from genhancer_tpu_torch.core.rope import multi_axis_rope
 
@@ -63,6 +66,51 @@ def test_unsupported_inputs_raise(cuda):
     q = torch.zeros((1, 4, 1, 8), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         K.fused_attention(q, q, q)
-    q = torch.zeros((1, 4, 1, 8), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K1/K2 backward"):
-        K.fused_attention(q, q, q)
+    q = torch.zeros((1, 4, 1, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        KA.fused_adamw_leaf(q[..., ::2], q[..., ::2], q[..., ::2], q[..., ::2],
+                            torch.zeros(4, device=cuda))
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("l, d", [(13, 64), (70, 72), (197, 128)])
+def test_backward_matches_plain_and_counts(cuda, dtype, tol, l, d):
+    """K1b/K2b through the autograd Functions against the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(100 + l)
+    q, k, v, do = (torch.randn((2, l, 3, d), generator=g, device=cuda).to(dtype)
+                   for _ in range(4))
+    ids = torch.randint(0, 16, (2, l, 3), generator=g, device=cuda).to(torch.float32)
+    cos, sin = multi_axis_rope(ids, (d // 2, d // 4, d // 4), 10_000)
+    for rope in (False, True):
+        before = dict(K.LAUNCHES)
+        qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = (K.fused_rope_attention(qq, kk, vv, cos, sin) if rope
+               else K.fused_attention(qq, kk, vv))
+        grads = torch.autograd.grad(out, (qq, kk, vv), do)
+        torch.cuda.synchronize()
+        ref = (K.fused_rope_attention_bwd_ref(q, k, v, out.detach(), do, cos, sin) if rope
+               else K.fused_attention_bwd_ref(q, k, v, out.detach(), do))
+        for gk, gr in zip(grads, ref):
+            err = (gk.float() - gr.float()).abs().max().item()
+            assert err <= tol * max(1.0, gr.float().abs().max().item()), (rope, err)
+        name = "fused_rope_attention_bwd" if rope else "fused_attention_bwd"
+        assert K.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("pdt, gdt", [(torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(1000, 24), (3, 7), (4096,)])
+def test_adamw_matches_plain_within_one_ulp(cuda, pdt, gdt, shape):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    p, m, v = (torch.randn(shape, generator=g, device=cuda).to(pdt) for _ in range(3))
+    v = v.abs()
+    grad = torch.randn(shape, generator=g, device=cuda).to(gdt)
+    sc = torch.tensor([0.5, 1e-3, 1 / (1 - 0.9), 1 / (1 - 0.999)], device=cuda)
+    ref = KA.fused_adamw_leaf_ref(p, m, v, grad, sc, 0.9, 0.999, 1e-8, 0.01)
+    before = KA.LAUNCHES["fused_adamw"]
+    KA.fused_adamw_leaf(p, m, v, grad, sc, 0.9, 0.999, 1e-8, 0.01)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES["fused_adamw"] == before + 1
+    for got, want in zip((p, m, v), ref):
+        assert KA.ulp_distance(got, want).max().item() <= 1.0

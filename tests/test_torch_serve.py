@@ -103,7 +103,8 @@ class TestParity:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
         ours = eng._recon(eng._place(batch), t(noise)).numpy()
-        assert LAUNCHES == {"fused_rope_attention": 0, "fused_attention": 0}
+        assert LAUNCHES == {"fused_rope_attention": 0, "fused_attention": 0,
+                            "fused_rope_attention_bwd": 0, "fused_attention_bwd": 0}
         ref = jax_reconstruct(spec, params, jnp.asarray(batch).astype(jnp.float32) / 255.0
                               if wire == "uint8" else jnp.asarray(batch),
                               jnp.asarray(noise), 3, eng.guidance, wire)

@@ -47,7 +47,8 @@ def zero_counters():
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     yield
-    assert K.LAUNCHES == {"fused_rope_attention": 0, "fused_attention": 0}
+    assert K.LAUNCHES == {"fused_rope_attention": 0, "fused_attention": 0,
+                          "fused_rope_attention_bwd": 0, "fused_attention_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
