@@ -7,15 +7,19 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit; no CUDA
              device means exit 1 at once;
-2. build   — nvcc builds csrc/short_attention.cu and csrc/adamw.cu (sm_90a)
-             from the checkout, one process per source, started together;
-3. kernels — K1/K2 (fused attention forward), K1b/K2b (backward) and K3
-             (fused AdamW) against their plain PyTorch versions at the
-             shapes of the serving and training paths, ragged lengths and
-             float32, plus kernel vs plain times;
+2. build   — nvcc builds csrc/short_attention.cu, csrc/flash_attention.cu and
+             csrc/adamw.cu (sm_90a) from the checkout, one process per
+             source, started together;
+3. kernels — K1/K2 (fused attention forward), K1b/K2b (backward), K5/K5b
+             (flash attention forward and backward, at the video paths'
+             shapes, the SigLIP tower shape, ragged lengths and float32) and
+             K3 (fused AdamW) against their plain PyTorch versions, plus
+             kernel vs plain times;
 4. small   — a tiny engine on the card (kernels) against the same weights on
              the CPU (plain versions), then one tiny float32 training step
              of each optimizer, card against CPU: loss, gradients, params;
+             then the same for one tiny float32 sliding-window video step
+             whose joint length (637) runs K5/K5b;
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
              at full width (flux-dev DiT, MetaCLIP-L/14 tower, FLUX VAE;
              random weights from the config's seed), warmup, real HTTP
@@ -27,7 +31,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              steps with the default AdamW chain and 8 with
              ``fused_optimizer: pallas`` (K3); launch counts per step,
              checkpoints, a resume from step 8, and an engine serving from
-             the written components.
+             the written components;
+7. video   — the ``Trainer`` on configs/OpenAICLIP_224_sliding_stage1.yaml at
+             full width and published batch (2 videos x 8 windows x
+             accumulation 2) on synthetic video shards of 256-px JPEGs, some
+             videos short enough to leave padded rows: 8 optimizer steps
+             with the default chain, a checkpoint at step 4, a resume from
+             step 8 that loads the four video ``.bin`` files strictly and
+             runs steps 9-10; then next@224, next2@224 and middle@336 (remat
+             from the gate) 2 optimizer steps each at their published batch
+             (32 x accumulation 2); step time, rows/s (sliding: valid rows,
+             padding left out), peak memory and the launch counts of every
+             kernel, per mode.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -53,7 +68,12 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "MetaCLIP_large_stage1.yaml")
 SOURCES = {"short_attention": "genhancer_tpu_torch/csrc/short_attention.cu",
+           "flash_attention": "genhancer_tpu_torch/csrc/flash_attention.cu",
            "adamw": "genhancer_tpu_torch/csrc/adamw.cu"}
+VIDEO_CONFIGS = {"sliding": "OpenAICLIP_224_sliding_stage1.yaml",
+                 "next": "OpenAICLIP_nextpredic_stage1.yaml",
+                 "next2": "OpenAICLIP_use2frames_stage1.yaml",
+                 "middle": "OpenAICLIP_336_video_stage1.yaml"}
 # kernel (LAUNCHES key) -> (ID, source library, the Pallas body it replaces)
 KERNELS = {
     "fused_rope_attention": ("K1", "short_attention",
@@ -65,8 +85,16 @@ KERNELS = {
     "fused_attention_bwd": ("K2b", "short_attention",
                             "genhancer_tpu/core/pallas/short_attention.py:125"),
     "fused_adamw": ("K3", "adamw", "genhancer_tpu/core/pallas/adamw.py:147"),
+    "flash_attention": ("K5", "flash_attention",
+                        "genhancer_tpu/core/pallas/flash_attention.py:55"),
+    "flash_attention_bwd": ("K5b", "flash_attention",
+                            "genhancer_tpu/core/pallas/flash_attention.py:156"),
 }
 BOUND = {"bfloat16": 2e-2, "float32": 1e-4}
+# K5/K5b's bf16 rounding points, as mean|kernel - plain| / mean|plain| of o
+# and of dv: rounding p at another point moves about half the outputs by one
+# bf16 ulp (about 2e-3 of the mean), which the max-based bound above cannot see
+ROUNDING_BOUND = 2e-4
 HBM_PEAK = 3.35e12   # bytes/s, H100 SXM data sheet
 NUM_STEPS = 20
 BUCKETS = (1, 4, 8)
@@ -256,6 +284,12 @@ def _grad_errors(got, want):
     return abs_err, rel_err
 
 
+def _mean_rel(got, want):
+    """mean|got - want| / mean|want|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().mean() / want.abs().mean()).item()
+
+
 def phase_kernels_bwd():
     """K1b/K2b against their plain backward versions on dq, dk, dv; the
     bound is relative to max(1, max|plain|).  Returns per-kernel records."""
@@ -321,6 +355,107 @@ def phase_kernels_bwd():
           f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} (bound 2e-02)")
     check(rel_err <= BOUND["bfloat16"], f"strided K1b: error {rel_err}")
     rec[rope]["max_abs_err"] = max(rec[rope]["max_abs_err"], abs_err)
+    return rec
+
+
+def phase_kernels_flash():
+    """K5 (o and lse) and K5b (dq, dk, dv) against their plain versions at
+    the shapes the video paths give them, the SigLIP-384 tower shape (D=72),
+    ragged lengths and float32; the bound is relative to max(1, max|plain|).
+    In bf16 the rounding points are held on their own (ROUNDING_BOUND): K5's
+    o and K5b's dv against the plain versions, and two controls that round
+    p elsewhere and must miss the bound — K2's single-pass kernel (p rounded
+    before it is normalised) and K2b's plain backward (p rounded before
+    p^T dO).  The middle@336 shape runs at B=4: the plain backward's
+    [B, H, L, L] float32 tensors are 7.8 GB each at its published B=32.
+    Returns the K5/K5b records, timed at the sliding@224 shape."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(777)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (  # what, B, L, H, D, dtype, timed
+        ("sliding@224", 16, 964, 24, 128, bf16, True),
+        ("next2@224", 32, 708, 24, 128, bf16, True),
+        ("middle@336 (B cut from 32)", 4, 1593, 24, 128, bf16, True),
+        ("sliding@336", 2, 2169, 24, 128, bf16, True),
+        ("SigLIP-384 tower", 2, 729, 16, 72, bf16, False),
+        ("ragged", 2, 601, 24, 128, bf16, False),
+        ("ragged", 2, 1031, 24, 128, bf16, False),
+        ("strided q/k/v views", 2, 964, 24, 128, bf16, False),
+        ("float32", 2, 700, 4, 128, f32, False),
+        ("float32 ragged", 1, 1031, 4, 72, f32, False))
+    rec = {n: _record(n) for n in ("flash_attention", "flash_attention_bwd")}
+    for r in rec.values():
+        r["ms_by_shape"], r["rounding_mean_rel"] = {}, 0.0
+    for what, b, l, h, d, dtype, timed in cases:
+        q, k, v, do = (_rand(gen, (b, l, h, d), dtype) for _ in range(4))
+        if what.startswith("strided"):     # views of one fused projection, as in the DiT
+            fused = _rand(gen, (b, l, 3 * h * d + 64), dtype)
+            q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, -1))
+        o, lse = F._fwd_kernel(q, k, v, want_lse=True)
+        torch.cuda.synchronize()
+        ro, rlse = F.flash_attention_fwd_ref(q, k, v)
+        o_abs, o_rel = _grad_errors((o,), (ro,))
+        lse_rel = ((lse - rlse).abs().max() / rlse.abs().max().clamp_min(1.0)).item()
+        got = F._bwd_kernel(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        want = F.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        check(bool(torch.isfinite(o).all()) and o.dtype == dtype and o.shape == q.shape,
+              f"K5 {what}: non-finite or misshapen output")
+        check(all(bool(torch.isfinite(g).all()) and g.dtype == dtype and g.shape == q.shape
+                  for g in got), f"K5b {what}: non-finite or misshapen gradient")
+        g_abs, g_rel = _grad_errors(got, want)
+        bound = BOUND[str(dtype).split(".")[-1]]
+        timing = ""
+        if timed:
+            fms, fpms = kernel_vs_plain_ms(lambda: F._fwd_kernel(q, k, v, True),
+                                           lambda: F.flash_attention_fwd_ref(q, k, v),
+                                           n=5, rounds=4)
+            bms, bpms = kernel_vs_plain_ms(lambda: F._bwd_kernel(q, k, v, o, lse, do),
+                                           lambda: F.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                                           n=3, rounds=4)
+            rec["flash_attention"]["ms_by_shape"][what] = [fms, fpms]
+            rec["flash_attention_bwd"]["ms_by_shape"][what] = [bms, bpms]
+            # products: forward 3 (QK^T twice, PV), backward 8 (QK^T and dP in
+            # both halves, dV twice for the hi/lo split, dK, dQ), 2 L^2 D each
+            unit = 2.0 * b * h * l * l * d
+            timing = (f"; K5 {fms:.3f} ms ({3 * unit / fms / 1e9:.1f} TFLOP/s), plain "
+                      f"{fpms:.3f}; K5b {bms:.3f} ms ({8 * unit / bms / 1e9:.1f} TFLOP/s), "
+                      f"plain {bpms:.3f}")
+        dv_rel = ((got[2].float() - want[2].float()).abs().max()
+                  / want[2].float().abs().max()).item()
+        print(f"[kernels] flash_attention {what} B={b} L={l} H={h} D={d} {str(dtype)[6:]}: "
+              f"o max|kernel-plain| {o_abs:.3e} relative {o_rel:.3e}, lse relative "
+              f"{lse_rel:.3e}; dq/dk/dv max {g_abs:.3e} relative {g_rel:.3e} "
+              f"(bound {bound:.0e}); dv alone max {dv_rel:.3e} of max|plain|{timing}",
+              flush=True)
+        check(o_rel <= bound and lse_rel <= 1e-4 and g_rel <= bound,
+              f"K5/K5b {what} {dtype}: o {o_rel}, lse {lse_rel}, grads {g_rel} > {bound}")
+        if dtype == bf16:
+            o_mean, dv_mean = _mean_rel(o, ro), _mean_rel(got[2], want[2])
+            o_ctl = _mean_rel(K._fwd_kernel(q, k, v, None, want_lse=False)[0], ro)
+            dv_ctl = _mean_rel(K.fused_attention_bwd_ref(q, k, v, o, do)[2], want[2])
+            print(f"[kernels] flash_attention {what}: rounding points, mean|a-plain|/mean|plain|"
+                  f" (bound {ROUNDING_BOUND:.0e}): K5 o {o_mean:.3e} (K2's single pass "
+                  f"{o_ctl:.3e}), K5b dv {dv_mean:.3e} (p rounded first {dv_ctl:.3e})",
+                  flush=True)
+            for n, x in (("flash_attention", o_mean), ("flash_attention_bwd", dv_mean)):
+                rec[n]["rounding_mean_rel"] = max(rec[n]["rounding_mean_rel"], x)
+            check(o_mean <= ROUNDING_BOUND and dv_mean <= ROUNDING_BOUND,
+                  f"K5/K5b {what}: rounding points moved: o {o_mean}, dv {dv_mean}")
+            check(o_ctl > ROUNDING_BOUND and dv_ctl > ROUNDING_BOUND,
+                  f"K5/K5b {what}: the controls pass the rounding bound (o {o_ctl}, dv "
+                  f"{dv_ctl}), so it cannot tell the rounding points apart")
+        rec["flash_attention"]["max_abs_err"] = max(rec["flash_attention"]["max_abs_err"], o_abs)
+        rec["flash_attention_bwd"]["max_abs_err"] = max(
+            rec["flash_attention_bwd"]["max_abs_err"], g_abs)
+        del q, k, v, do, o, lse, ro, rlse, got, want
+        _free()
+    for r in rec.values():
+        r["ms"], r["plain_ms"] = r["ms_by_shape"]["sliding@224"]
     return rec
 
 
@@ -563,7 +698,8 @@ def phase_server():
     want = {"fused_rope_attention": batches["reconstruct"] * NUM_STEPS * (cfg.depth + cfg.depth_single_blocks),
             "fused_attention": (batches["reconstruct"] + batches["embed"])
             * engine.spec.tower_cfg.vision.num_layers,
-            "fused_rope_attention_bwd": 0, "fused_attention_bwd": 0, "fused_adamw": 0}
+            "fused_rope_attention_bwd": 0, "fused_attention_bwd": 0, "fused_adamw": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0}
     print(f"[server] kernel launches {counts}, expected {want}")
     check(counts == want, f"launch counts {counts} != expected {want}")
 
@@ -590,8 +726,9 @@ def phase_server():
 
 def _counters():
     from genhancer_tpu_torch.core.kernels import adamw as KA
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
     from genhancer_tpu_torch.core.kernels import short_attention as K
-    return (K.LAUNCHES, KA.LAUNCHES)
+    return (K.LAUNCHES, F.LAUNCHES, KA.LAUNCHES)
 
 
 def _zero_counts():
@@ -610,20 +747,72 @@ def _free():
     torch.cuda.empty_cache()
 
 
+def _tiny_step_card_vs_cpu(label, make_state, loss_fn, micro, stacked, draws, lr):
+    """One tiny float32 step (accumulation 2) on the card (kernels) against
+    the same weights, batch and injected draws on the CPU (plain versions):
+    the first micro-batch's loss and every gradient within 1e-4 relative
+    (norm-wise per leaf), the params after the step within 2*lr*(1 + 1e-3)
+    absolute — AdamW's first update is about lr*sign(g) per element, so
+    where a gradient is near zero its sign can differ between the two
+    devices' summation orders and move a parameter by up to 2*lr.  Returns
+    the launch counts of the card's first forward + backward."""
+    import torch
+    from genhancer_tpu_torch.train.step_utils import make_accum_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    losses, grads, before, after, launches = {}, {}, {}, {}, None
+    for dev in ("cpu", "cuda"):
+        state, opt = make_state(dev)
+
+        def to(arrays):
+            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+        if dev == "cuda":
+            _zero_counts()
+        loss = loss_fn(state.modules, to(micro), None, to(draws[0]))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = _read_counts()
+        losses[dev] = loss.item()
+        grads[dev] = {k: p.grad.detach().cpu().clone() for k, p in state.trainable.items()}
+        before[dev] = {k: p.detach().cpu().clone() for k, p in state.trainable.items()}
+        for p in state.trainable.values():
+            p.grad = None
+        make_accum_train_step(loss_fn, opt, 2)(state, to(stacked), None, [to(d) for d in draws])
+        after[dev] = {k: p.detach().cpu() for k, p in state.trainable.items()}
+        del state
+    l_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    # per leaf, ||g_cuda - g_cpu|| / ||g_cpu||; the elementwise worst case
+    # (relative to the leaf's largest entry) is printed beside it
+    g_rel = {k: ((grads["cuda"][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+             for k, g in grads["cpu"].items()}
+    g_max = {k: (grads["cuda"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+             for k, g in grads["cpu"].items()}
+    worst, worst_max = max(g_rel, key=g_rel.get), max(g_max, key=g_max.get)
+    p_err = max((after["cuda"][k] - p).abs().max().item() for k, p in after["cpu"].items())
+    moved = max((after["cpu"][k] - p).abs().max().item() for k, p in before["cpu"].items())
+    bound = 2 * lr * (1 + 1e-3)
+    print(f"[small] {label}: loss cuda vs cpu rel {l_err:.3e}; grads ||cuda-cpu||/||cpu|| "
+          f"worst leaf {worst} {g_rel[worst]:.3e} (bound 1e-4), elementwise max/leaf max "
+          f"worst {worst_max} {g_max[worst_max]:.3e}; params after one accumulation-2 step "
+          f"max|cuda-cpu| {p_err:.3e} (bound {bound:.4g}; the step moved them up to "
+          f"{moved:.3e})", flush=True)
+    check(l_err <= 1e-4 and g_rel[worst] <= 1e-4, f"{label}: loss/grads disagree")
+    check(p_err <= bound, f"{label}: params disagree by {p_err}")
+    _free()
+    return launches
+
+
 def phase_small_train():
-    """One tiny float32 stage-1 step (accumulation 2) of each optimizer on the
-    card (kernels) against the same weights, batch and injected draws on the
-    CPU (plain versions): the loss and every gradient within 1e-4 relative,
-    the params after the step within 2*lr*(1 + 1e-3) absolute — AdamW's
-    first update is about lr*sign(g) per element, so where a gradient is
-    near zero its sign can differ between the two devices' summation orders
-    and move a parameter by up to 2*lr."""
+    """One tiny float32 image stage-1 step of each optimizer, card against
+    CPU (``_tiny_step_card_vs_cpu``)."""
     import numpy as np
     import torch
     from genhancer_tpu_torch.tasks.image import (create_state, init_modules, make_loss_fn,
                                                  trainable_predicate)
     from genhancer_tpu_torch.train import optim
-    from genhancer_tpu_torch.train.step_utils import make_accum_train_step
 
     spec = dataclasses.replace(_tiny_spec(), dit_param_dtype=torch.float32,
                                vae_dtype=torch.float32)
@@ -637,53 +826,57 @@ def phase_small_train():
                                         dtype=np.float32),
               "vae_noise": rng.standard_normal((2, *lat, spec.vae_cfg.z_channels),
                                                dtype=np.float32)} for _ in range(2)]
-    loss_fn = make_loss_fn(spec)
     for name, cls in (("chain", optim.AdamWChain), ("pallas", optim.FusedAdamW)):
-        states = {}
-        for dev in ("cpu", "cuda"):
+        def make_state(dev, cls=cls):
             mods = init_modules(spec, torch.Generator().manual_seed(5)).to(dev)
             opt = cls(optim.make_lr_schedule("constant", lr))
-            states[dev] = (create_state(mods, trainable_predicate(spec), opt), opt)
-        grads, losses, before = {}, {}, {}
-        for dev, (state, opt) in states.items():
-            batch = {"image": torch.from_numpy(imgs[0]).to(dev)}
-            dr = {k: torch.from_numpy(v).to(dev) for k, v in draws[0].items()}
-            loss = loss_fn(state.modules, batch, None, dr)
-            loss.backward()
-            losses[dev] = loss.item()
-            grads[dev] = {k: p.grad.detach().cpu().clone() for k, p in state.trainable.items()}
-            before[dev] = {k: p.detach().cpu().clone() for k, p in state.trainable.items()}
-            for p in state.trainable.values():
-                p.grad = None
-        l_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-        # per leaf, ||g_cuda - g_cpu|| / ||g_cpu||; the elementwise worst case
-        # (relative to the leaf's largest entry) is printed beside it
-        g_rel = {k: ((grads["cuda"][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
-                 for k, g in grads["cpu"].items()}
-        g_max = {k: (grads["cuda"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-                 for k, g in grads["cpu"].items()}
-        worst, worst_max = max(g_rel, key=g_rel.get), max(g_max, key=g_max.get)
-        g_err = g_rel[worst]
-        after = {}
-        for dev, (state, opt) in states.items():
-            step = make_accum_train_step(loss_fn, opt, 2)
-            stacked = {"image": torch.from_numpy(imgs).to(dev)}
-            dr = [{k: torch.from_numpy(v).to(dev) for k, v in d.items()} for d in draws]
-            step(state, stacked, None, dr)
-            after[dev] = {k: p.detach().cpu() for k, p in state.trainable.items()}
-        p_err = max((after["cuda"][k] - p).abs().max().item() for k, p in after["cpu"].items())
-        moved = max((after["cpu"][k] - p).abs().max().item() for k, p in before["cpu"].items())
-        bound = 2 * lr * (1 + 1e-3)
-        print(f"[small] tiny f32 train step, {name}: loss cuda vs cpu rel {l_err:.3e}; "
-              f"grads ||cuda-cpu||/||cpu|| worst leaf {worst} {g_err:.3e} (bound 1e-4), "
-              f"elementwise max/leaf max worst {worst_max} {g_max[worst_max]:.3e}; "
-              f"params after one "
-              f"accumulation-2 step max|cuda-cpu| {p_err:.3e} (bound {bound:.4g}; "
-              f"the step moved them up to {moved:.3e})")
-        check(l_err <= 1e-4 and g_err <= 1e-4, f"tiny train step {name}: loss/grads disagree")
-        check(p_err <= bound, f"tiny train step {name}: params disagree by {p_err}")
-    del states
-    _free()
+            return create_state(mods, trainable_predicate(spec), opt), opt
+
+        _tiny_step_card_vs_cpu(f"tiny f32 train step, {name}", make_state, make_loss_fn(spec),
+                               {"image": imgs[0]}, {"image": imgs}, draws, lr)
+
+
+def phase_small_video():
+    """One tiny float32 sliding-window stage-1 step (the default chain), card
+    against CPU (``_tiny_step_card_vs_cpu``); the joint length is 3 x 4
+    tower patches + 25 x 25 latent tokens = 637, so the card runs K5/K5b and
+    the CPU their plain versions."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.tasks import video as tv
+    from genhancer_tpu_torch.train import optim
+
+    tiny = _tiny_spec()
+    spec = tv.VideoTaskSpec(mode="sliding", stage="stage1", tower_kind="clip", img_size=100,
+                            clip_image_size=32, dit_cfg=tiny.dit_cfg, vae_cfg=tiny.vae_cfg,
+                            tower_cfg=tiny.tower_cfg, clip_dim=24, t5_dim=32,
+                            adapter_in_dim=16, compute_dtype=torch.float32,
+                            dit_param_dtype=torch.float32, vae_dtype=torch.float32)
+    lr = 1e-3
+    rng = np.random.default_rng(12)
+    lat = spec.latent_hw
+    n_tok = (lat[0] // 2) * (lat[1] // 2)
+    batch = {"cond": rng.random((2, 2, 3, 32, 32, 3), dtype=np.float32),
+             "target": rng.random((2, 2, 100, 100, 3), dtype=np.float32),
+             "valid": np.array([[True, True], [True, False]])}
+    draws = [{"t": rng.random(2, dtype=np.float32),
+              "x0": rng.standard_normal((2, n_tok, 4 * spec.vae_cfg.z_channels),
+                                        dtype=np.float32),
+              "vae_noise": rng.standard_normal((2, *lat, spec.vae_cfg.z_channels),
+                                               dtype=np.float32)} for _ in range(2)]
+
+    def make_state(dev):
+        mods = tv.init_modules(spec, torch.Generator().manual_seed(5)).to(dev)
+        opt = optim.AdamWChain(optim.make_lr_schedule("constant", lr))
+        return tv.create_state(mods, tv.trainable_predicate(spec), opt), opt
+
+    launches = _tiny_step_card_vs_cpu(
+        f"tiny f32 sliding video step (joint L={n_tok + 12})", make_state,
+        tv.make_loss_fn(spec), {k: v[0] for k, v in batch.items()}, batch, draws, lr)
+    k5 = {k: launches[k] for k in ("flash_attention", "flash_attention_bwd")}
+    print(f"[small] launches of the card's video forward + backward {k5}")
+    check(k5 == {"flash_attention": 2, "flash_attention_bwd": 2},
+          f"tiny video step: K5/K5b launches {k5}, expected 2 and 2")
 
 
 def _write_shards(root, n_shards=4, per_shard=96):
@@ -750,7 +943,8 @@ def phase_train(work):
         steps, blocks = 8, 2 * 6   # micro-batches per step x DiT blocks
         want = {"fused_rope_attention": steps * blocks, "fused_rope_attention_bwd": steps * blocks,
                 "fused_attention": steps * 2 * 24, "fused_attention_bwd": 0,
-                "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
+                "fused_adamw": steps * n_leaves if opt == "pallas" else 0,
+                "flash_attention": 0, "flash_attention_bwd": 0}
         print(f"[train] {opt}: kernel launches {counts}, expected {want}")
         check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
         for s in (4, 8):
@@ -792,32 +986,171 @@ def phase_train(work):
     return runs, n_leaves
 
 
+def _video_want(spec, steps):
+    """Launch counts of ``steps`` optimizer steps (accumulation 2) of a
+    video mode: the tower's 24 layers run K2 once per micro-batch; each of
+    the 6 DiT blocks runs K1/K1b below 600 joint tokens and K5/K5b above,
+    K5 twice with remat (the forward again in the backward)."""
+    micro, blocks = 2 * steps, spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
+    long_ = seq >= 600
+    return {"fused_rope_attention": 0 if long_ else micro * blocks,
+            "fused_rope_attention_bwd": 0 if long_ else micro * blocks,
+            "fused_attention": micro * spec.tower_cfg.vision.num_layers,
+            "fused_attention_bwd": 0, "fused_adamw": 0,
+            "flash_attention": micro * blocks * (2 if spec.remat else 1) if long_ else 0,
+            "flash_attention_bwd": micro * blocks if long_ else 0}
+
+
+def _write_video_shards(root, frames, n_shards=2):
+    from genhancer_tpu_torch.data.testing import make_video_shard
+    os.makedirs(root, exist_ok=True)
+    for i in range(n_shards):
+        make_video_shard(os.path.join(root, f"video-{i:03d}.tar"), len(frames), frames,
+                         256, seed=100 + i)
+    return root
+
+
+def _video_run(cfg, steps_done=0):
+    """Build a Trainer for ``cfg``, zero the counts, train; returns (trainer,
+    launch counts, wall seconds, peak GiB)."""
+    import torch
+    from genhancer_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, device="cuda")
+    check(trainer.state.step == steps_done,
+          f"{cfg['task']}: Trainer starts at step {trainer.state.step}, not {steps_done}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    return (trainer, _read_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_video_train(work):
+    """The port's Trainer on the four published stage-1 video configs at full
+    width and published batch; returns {path: launch counts}."""
+    import numpy as np
+    from genhancer_tpu_torch.train import checkpoint as ckpt
+    from genhancer_tpu_torch.train.config import load_config
+
+    t0 = time.perf_counter()
+    # sliding: every third video has 6 frames (3 windows of 8), leaving
+    # padded rows; the others 12 (8 windows)
+    sliding_dir = _write_video_shards(os.path.join(work, "sliding"),
+                                      [6 if i % 3 == 0 else 12 for i in range(12)])
+    pair_dir = _write_video_shards(os.path.join(work, "clips"), [4] * 40)
+    print(f"[video] wrote synthetic video shards (256-px JPEG frames) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {}
+    for mode, name in VIDEO_CONFIGS.items():
+        cfg = load_config(os.path.join(ROOT, "configs", name))
+        cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
+        steps = 8 if mode == "sliding" else 2
+        cfg.update(output_dir=os.path.join(work, f"out-{mode}"), max_train_steps=steps,
+                   checkpointing_steps=4, log_interval=1, report_to="none")
+        t0 = time.perf_counter()
+        trainer, counts, wall, peak = _video_run(cfg)
+        spec, hist = trainer.spec, trainer.history
+        rows = int(cfg.get_path("data_config.train_batch_size")) * (
+            int(cfg.get("max_windows_per_video", 1)) if mode == "sliding" else 1) * 2
+        check([h["step"] for h in hist] == list(range(1, steps + 1)),
+              f"{mode}: synced steps {[h['step'] for h in hist]}")
+        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+              f"{mode}: non-finite loss or grad norm: {hist}")
+        step_s = statistics.median(h["step_time"] for h in hist[2:] or hist[1:])
+        seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
+        print(f"[video] {mode} ({name}): joint L={seq}, remat {spec.remat}; {steps} steps "
+              f"in {wall:.1f} s (Trainer built in {time.perf_counter() - t0 - wall:.1f} s); "
+              f"losses {[round(h['loss'], 4) for h in hist]}", flush=True)
+        rate = f"{rows / step_s:.2f} rows/s ({rows} rows per optimizer step)"
+        if mode == "sliding":
+            # rows past a short video's windows are padding (valid=False):
+            # count the valid ones over the timed steps
+            eff = [h["bs_eff"] for h in hist]
+            check(min(eff) < 16, f"sliding: no padded rows occurred ({eff})")
+            timed = hist[2:]
+            valid_s = sum(2 * h["bs_eff"] for h in timed) / sum(h["step_time"] for h in timed)
+            rate = (f"{valid_s:.2f} valid rows/s over steps 3-{steps} ({rows / step_s:.2f} "
+                    f"padded rows/s at {rows} rows per optimizer step; valid rows per "
+                    f"micro-batch, mean of 2: {eff})")
+        print(f"[video] {mode}: median step time {step_s * 1e3:.1f} ms = {rate}; peak device "
+              f"memory {peak:.2f} GiB", flush=True)
+        want = _video_want(spec, steps)
+        print(f"[video] {mode}: kernel launches {counts}, expected {want}", flush=True)
+        check(counts == want, f"{mode}: launch counts {counts} != expected {want}")
+        runs[f"video_{mode}"] = counts
+        out = cfg["output_dir"]
+        del trainer
+        _free()
+        if mode == "sliding":
+            for s_ in (4, 8):
+                for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
+                            "checkpoint-visual-adapter-{}.bin", "optimizer-state-{}.bin"):
+                    check(os.path.exists(os.path.join(out, pat.format(s_))),
+                          f"sliding: {pat.format(s_)} missing")
+            ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
+            cfg2 = copy.deepcopy(cfg)
+            cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
+            trainer, _, wall, _ = _video_run(cfg2, steps_done=8)
+            hist2 = trainer.history
+            check([h["step"] for h in hist2] == [9, 10]
+                  and all(np.isfinite(h["loss"]) for h in hist2), f"sliding resume: {hist2}")
+            print(f"[video] sliding: a second Trainer loaded checkpoint-dit-8, "
+                  f"-project-clip-8, -visual-adapter-8 (strict) and optimizer-state-8, "
+                  f"resumed at step 8 and ran steps 9-10 in {wall:.1f} s, losses "
+                  f"{[round(h['loss'], 4) for h in hist2]}", flush=True)
+            del trainer
+            _free()
+        shutil.rmtree(out, ignore_errors=True)
+    return runs
+
+
 def main():
+    t_start = time.perf_counter()
     name = phase_device()
     phase_build()
-    records = {**(attempt(phase_kernels) or {}), **(attempt(phase_kernels_bwd) or {})}
+    records = {**(attempt(phase_kernels) or {}), **(attempt(phase_kernels_bwd) or {}),
+               **(attempt(phase_kernels_flash) or {})}
     records["fused_adamw"] = attempt(phase_adamw)
     attempt(phase_small_reference)
     attempt(phase_small_train)
+    attempt(phase_small_video)
     serve_counts = attempt(phase_server)
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         train_counts, _ = attempt(phase_train, work) or (None, None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        video_counts = attempt(phase_video_train, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if FAILURES:
         print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
         sys.exit(1)
-    paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()}}
+    paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()},
+             **video_counts}
     for r in records.values():
-        r["launches"] = train_counts["pallas"][r["name"]]
+        # the path this slice added for K5/K5b, the image training path for the rest
+        r["main_path"] = "video_sliding" if r["name"].startswith("flash") else "train_pallas"
+        r["launches"] = paths[r["main_path"]][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
     # every kernel of a path ran on it; K2b is on no path of this slice
-    for n in ("fused_rope_attention", "fused_attention"):
+    for n in ("fused_attention",):
         check(all(c[n] > 0 for c in paths.values()), f"{n} not launched on every path")
-    for n in ("fused_rope_attention_bwd", "fused_adamw"):
-        check(train_counts["pallas"][n] > 0, f"{n} not launched in training")
+    for n in ("fused_rope_attention", "fused_rope_attention_bwd"):
+        check(all(paths[p][n] > 0 for p in ("train_chain", "train_pallas", "video_next")),
+              f"{n} not launched on a path below 600 tokens")
+    for n in ("flash_attention", "flash_attention_bwd"):
+        check(all(paths[p][n] > 0 for p in ("video_sliding", "video_next2", "video_middle")),
+              f"{n} not launched on a path above 600 tokens")
+    check(train_counts["pallas"]["fused_adamw"] > 0, "fused_adamw not launched in training")
     import torch
+    print(f"[done] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -5,6 +5,10 @@ Port of ``genhancer_tpu/cli/train.py`` with the same flags plus
 once):
 
     genhancer-train-torch --config configs/MetaCLIP_large_stage1.yaml --device cuda
+    genhancer-train-torch --config configs/OpenAICLIP_224_sliding_stage1.yaml --device cuda
+
+The stage-1 tasks run: ``image_stage1`` and the four video modes
+``video_{middle,next,next2,sliding}_stage1``.
 
   * ``--task`` / ``--tower`` overrides (else read from the YAML);
   * ``--trainer <reference script name>`` maps a reference trainer name onto
@@ -23,7 +27,7 @@ def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description="genhancer trainer (PyTorch)")
     parser.add_argument("--config", required=True, help="path to YAML config")
     parser.add_argument("--task", default=None,
-                        help="task name (e.g. image_stage1)")
+                        help="task name (e.g. image_stage1, video_sliding_stage1)")
     parser.add_argument("--tower", default=None,
                         help="tower family: openai_clip | siglip | metaclip")
     parser.add_argument("--trainer", default=None,

@@ -1,15 +1,23 @@
 """Scaled-dot-product attention and its dispatch to the fused kernels.
 
-Port of ``genhancer_tpu/core/attention.py``:
+Port of ``genhancer_tpu/core/attention.py:175-232``:
 
   * ``sdpa_ref``: einsum attention with float32 logits and softmax,
     probabilities cast to the input dtype before the float32-accumulated PV
     product — the JAX ``sdpa_xla``, and the plain version of the kernels.
-  * ``attention`` (DiT, RoPE) and ``sdpa_auto`` (towers) send sequences of
-    at most ``FUSED_MAX_SEQ`` tokens with even D to the fused short-attention
-    kernels K1 and K2 (``kernels/short_attention.py``).  Longer sequences
-    belong to the flash kernel K5, which is not ported yet: on CUDA they
-    raise, on the CPU they take ``sdpa_ref`` as the JAX package does there.
+  * ``attention`` (DiT, RoPE) sends sequences of at most ``FUSED_MAX_SEQ``
+    tokens with even D to the fused RoPE + attention kernel K1
+    (``kernels/short_attention.py``); longer ones take ``apply_rope`` on q
+    and k and then ``sdpa``.
+  * ``sdpa`` sends sequences of at least ``PALLAS_MIN_SEQ`` tokens to the
+    flash kernel K5 (``kernels/flash_attention.py``), which streams K/V and
+    has no length ceiling.
+  * ``sdpa_auto`` (towers) sends at most ``FUSED_MAX_SEQ`` tokens with even
+    D to K2 and longer sequences to ``sdpa``.
+
+Shorter sequences that reach ``sdpa`` (odd D, which no model of the port
+has) take ``sdpa_ref`` on the CPU, as the JAX package takes XLA there, and
+raise on CUDA.
 
 Layout: activations are [B, L, H, D].
 """
@@ -20,9 +28,10 @@ import torch
 
 from .rope import apply_rope
 
-# The JAX package sends L <= 600 to its short kernel and longer sequences to
-# the flash kernel (genhancer_tpu/core/attention.py FUSED_MAX_SEQ).
+# The JAX package sends L <= 600 to its short kernel and L >= 600 to the
+# flash kernel (genhancer_tpu/core/attention.py FUSED_MAX_SEQ, PALLAS_MIN_SEQ).
 FUSED_MAX_SEQ = 600
+PALLAS_MIN_SEQ = 600
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -43,14 +52,19 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _short_ok(q: torch.Tensor) -> bool:
-    if q.shape[1] <= FUSED_MAX_SEQ and q.shape[-1] % 2 == 0:
-        return True
+    return q.shape[1] <= FUSED_MAX_SEQ and q.shape[-1] % 2 == 0
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """[B, L, H, D] -> [B, L, H, D]: K5 at L >= PALLAS_MIN_SEQ."""
+    if q.shape[1] >= PALLAS_MIN_SEQ:
+        from .kernels.flash_attention import flash_attention
+        return flash_attention(q, k, v)
     if q.is_cuda:
         raise NotImplementedError(
-            f"attention at L={q.shape[1]}, D={q.shape[-1]} needs the flash kernel "
-            "K5 (genhancer_tpu/core/pallas/flash_attention.py), which is not "
-            "ported yet (ROADMAP: long sequences and video)")
-    return False
+            f"attention at L={q.shape[1]}, D={q.shape[-1]} has no CUDA kernel: K1/K2 "
+            f"take L <= {FUSED_MAX_SEQ} with even D, K5 takes L >= {PALLAS_MIN_SEQ}")
+    return sdpa_ref(q, k, v)
 
 
 def sdpa_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -58,7 +72,7 @@ def sdpa_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     if _short_ok(q):
         from .kernels.short_attention import fused_attention
         return fused_attention(q, k, v)
-    return sdpa_ref(q, k, v)
+    return sdpa(q, k, v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,4 +86,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _merge_heads(fused_rope_attention(q, k, v, cos, sin))
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    return _merge_heads(sdpa_ref(q, k, v))
+    return _merge_heads(sdpa(q, k, v))

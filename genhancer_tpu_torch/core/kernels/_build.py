@@ -1,10 +1,11 @@
 """Build the CUDA kernels of this package at first use and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  ``load(name)`` compiles it
-with ``nvcc`` for sm_90a into a shared library, loads it with ``ctypes`` and
-caches the handle.  The library lands in ``csrc/_build/`` (git-ignored)
-under a name keyed by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused within a checkout.
+Each ``csrc/<name>.cu`` has a plain C interface (device code shared between
+sources lives in ``csrc/*.cuh``).  ``load(name)`` compiles it with ``nvcc``
+for sm_90a into a shared library, loads it with ``ctypes`` and caches the
+handle.  The library lands in ``csrc/_build/`` (git-ignored) under a name
+keyed by a hash of the source, the headers and the flags, so an edited
+source or header rebuilds and an unchanged one is reused within a checkout.
 ``load_all`` starts one ``nvcc`` per missing source, all at once.  Nothing
 outside the package's sources and the CUDA toolkit is used.
 """
@@ -45,7 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """Where ``csrc/<name>.cu`` builds to: keyed by its source, every header
+    in ``csrc/`` (the sources include them) and the flags."""
+    src = b"".join([(CSRC / f"{name}.cu").read_bytes()]
+                   + [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

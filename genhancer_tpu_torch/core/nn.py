@@ -17,6 +17,7 @@ package's distributions (``init_weights``); there is no global RNG use.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Tuple
 
@@ -227,11 +228,20 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0,
     in t's dtype (bf16 on the serving path) before the float32 cast, as the
     JAX version does."""
     t = (t * as_dtype_scalar(time_factor, t.dtype)).to(torch.float32)
-    half = dim // 2
-    freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
-    args = t[:, None] * freqs[None]
+    args = t[:, None] * _timestep_freqs(dim // 2, max_period, t.device)[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _timestep_freqs(half: int, max_period: float, device: torch.device) -> torch.Tensor:
+    """The embedding's float32 frequencies, computed on the host and copied to
+    ``device`` once: a device's ``exp`` may round an entry one ulp away from
+    the host's, and at arguments up to 1000 * t that moves the embedding, and
+    every gradient downstream of it, by about 1e-4 relative.  Built outside
+    inference mode, so that training may reuse what serving cached."""
+    with torch.inference_mode(False):
+        freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=torch.float32) / half)
+        return freqs.to(device)
 
 
 def as_dtype_scalar(x: float, dtype: torch.dtype) -> float:

@@ -35,927 +35,8 @@
 //
 // Plain C interface (ctypes): the entry points return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention_tiles.cuh"
 
-namespace {
-
-using bf16 = __nv_bfloat16;
-constexpr int DMAX = 128;  // head dim ceiling (multiple of 8 up to this)
-constexpr int BK = 64;     // k/v rows per streamed tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* cos;  // [B, L, D/2] contiguous, only with ROPE
-  const float* sin;
-  void* o;           // [B, L, H, D] contiguous
-  float* lse;        // [B, H, L] row log-sum-exp of the scaled logits, or null
-  int64_t q_sb, q_sl, q_sh;
-  int64_t k_sb, k_sl, k_sh;
-  int64_t v_sb, v_sl, v_sh;
-  int B, L, H, D;
-  float scale;
-};
-
-// Rows [row0, row0 + nrows) of one (batch, head) slice into shared memory,
-// row stride ld, columns [0, Dp) with Dp >= D; rows at or past L and columns
-// at or past D are zero.  With ROPE each (2i, 2i+1) pair is rotated in
-// float32 and rounded to T, as the reference's apply_rope does.
-template <bool ROPE, typename T>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int64_t s_l, int row0,
-                                          int nrows, int L, int D, int Dp,
-                                          const float* cos_b, const float* sin_b) {
-  const int half = Dp / 2;
-  for (int idx = threadIdx.x; idx < nrows * half; idx += blockDim.x) {
-    const int r = idx / half;
-    const int i = idx - r * half;
-    const int l = row0 + r;
-    float e = 0.f, o = 0.f;
-    if (l < L && 2 * i < D) {
-      const T* p = src + (int64_t)l * s_l + 2 * i;
-      e = to_f32(p[0]);
-      o = to_f32(p[1]);
-      if (ROPE) {
-        const float c = cos_b[(int64_t)l * (D / 2) + i];
-        const float s = sin_b[(int64_t)l * (D / 2) + i];
-        const float re = c * e - s * o;
-        const float ro = s * e + c * o;
-        e = re;
-        o = ro;
-      }
-    }
-    dst[r * ld + 2 * i] = from_f32<T>(e);
-    dst[r * ld + 2 * i + 1] = from_f32<T>(o);
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores through WMMA
-// ---------------------------------------------------------------------------
-
-namespace tc {
-namespace wmma = nvcuda::wmma;
-constexpr int BQ = 64;          // q rows per block: 4 warps x 16 rows
-constexpr int THREADS = 128;
-constexpr int LDS = BK + 4;     // float logits row stride
-constexpr int LDP = BK + 8;     // bf16 probability row stride
-
-__host__ __device__ constexpr int dpad(int D) { return (D + 15) / 16 * 16; }
-__host__ __device__ constexpr int ldx(int D) { return dpad(D) + 8; }
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return (size_t)3 * 64 * ldx(D) * sizeof(bf16) + (size_t)BQ * LDS * sizeof(float) +
-         (size_t)BQ * LDP * sizeof(bf16) + 16 * 16 * sizeof(float) + 3 * BQ * sizeof(float);
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + 64 * ld;
-  bf16* sV = sK + 64 * ld;
-  float* sS = reinterpret_cast<float*>(sV + 64 * ld);  // this tile's logits
-  bf16* sP = reinterpret_cast<bf16*>(sS + BQ * LDS);    // this tile's probabilities
-  float* sRow = reinterpret_cast<float*>(sP + BQ * LDP); // 16x16 row numbers
-  float* sM = sRow + 256;  // running row max
-  float* sL = sM + BQ;     // running row sum
-  float* sA = sL + BQ;     // rescale of this tile
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr0 = warp * 16;  // this warp's first q row in the block
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-
-  for (int i = tid; i < 256; i += THREADS) sRow[i] = (float)(i / 16);
-  if (tid < BQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  load_rows<ROPE, bf16>(sQ, ld, qb, p.q_sl, q0, BQ, L, D, Dp, cos_b, sin_b);
-  __syncthreads();
-
-  // The accumulator layout is unspecified but the same for every FragC, so a
-  // fragment loaded from a matrix of row numbers tells each element its row.
-  FragC rowid;
-  wmma::load_matrix_sync(rowid, sRow, 16, wmma::mem_row_major);
-  FragC o[DMAX / 16];
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    const int nk = min(BK, L - k0);
-    load_rows<ROPE, bf16>(sK, ld, kb, p.k_sl, k0, BK, L, D, Dp, cos_b, sin_b);
-    load_rows<false, bf16>(sV, ld, vb, p.v_sl, k0, BK, L, D, Dp, nullptr, nullptr);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-      for (int kk = 0; kk < nf; ++kk) {
-        FragA a;
-        FragKt kt;
-        wmma::load_matrix_sync(a, sQ + wr0 * ld + kk * 16, ld);
-        wmma::load_matrix_sync(kt, sK + (j * 16) * ld + kk * 16, ld);
-        wmma::mma_sync(s, a, kt, s);
-      }
-      wmma::store_matrix_sync(sS + wr0 * LDS + j * 16, s, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: two lanes per row, 32 columns each
-    {
-      const int r = wr0 + (lane >> 1);
-      const int c0 = (lane & 1) * 32;
-      float* srow = sS + r * LDS;
-      float mx = -INFINITY;
-      for (int c = c0; c < c0 + 32; ++c) {
-        const float x = c < nk ? srow[c] * p.scale : -INFINITY;
-        srow[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: every tile has a valid column
-      float sum = 0.f;
-      bf16* prow = sP + r * LDP;
-      for (int c = c0; c < c0 + 32; ++c) {
-        const float e = expf(srow[c] - m_new);
-        sum += e;
-        prow[c] = __float2bfloat16(e);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();  // both lanes of the row have read sM[r]
-      if ((lane & 1) == 0) {
-        const float alpha = expf(m_old - m_new);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // O = O * alpha + P V
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      if (j < nf) {
-        for (int i = 0; i < o[j].num_elements; ++i) o[j].x[i] *= sA[wr0 + (int)rowid.x[i]];
-      }
-    }
-    for (int kk = 0; kk * 16 < nk; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, sP + wr0 * LDP + kk * 16, LDP);
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) {
-        if (j < nf) {
-          FragV vf;
-          wmma::load_matrix_sync(vf, sV + (kk * 16) * ld + j * 16, ld);
-          wmma::mma_sync(o[j], a, vf, o[j]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites sK and sV
-  }
-
-  // O / l -> global, staged through the now free sK/sV region
-  float* sO = reinterpret_cast<float*>(sK) + warp * 16 * Dp;
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) {
-    if (j < nf) wmma::store_matrix_sync(sO + j * 16, o[j], Dp, wmma::mem_row_major);
-  }
-  __syncwarp();
-  if (p.lse != nullptr && lane < 16 && q0 + wr0 + lane < L)
-    p.lse[((int64_t)b * p.H + h) * L + q0 + wr0 + lane] =
-        sM[wr0 + lane] + logf(sL[wr0 + lane]);
-  bf16* ob = static_cast<bf16*>(p.o);
-  for (int idx = lane; idx < 16 * D; idx += 32) {
-    const int r = idx / D, d = idx - r * D;
-    const int l = q0 + wr0 + r;
-    if (l < L) ob[(((int64_t)b * L + l) * p.H + h) * D + d] =
-        __float2bfloat16(sO[r * Dp + d] / sL[wr0 + r]);
-  }
-}
-}  // namespace tc
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMA
-// ---------------------------------------------------------------------------
-
-namespace fp {
-constexpr int BQ = 32;         // q rows per block
-constexpr int THREADS = 128;   // 4 warps
-
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  // sQ, sK (rows padded by one float against bank conflicts), sV, sS, m/l/alpha
-  return ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-          (size_t)BQ * (BK + 1) + 3 * BQ) * sizeof(float);
-}
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, L = p.L;
-  const int ldq = D + 1, ldk = D + 1, ldv = D, lds = BK + 1;
-  float* sQ = smem;
-  float* sK = sQ + BQ * ldq;
-  float* sV = sK + BK * ldk;
-  float* sS = sV + BK * ldv;
-  float* sM = sS + BQ * lds;  // running row max
-  float* sL = sM + BQ;        // running row sum
-  float* sA = sL + BQ;        // rescale of this tile
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = tid >> 4;  // row group: rows rg*4 .. rg*4+3
-  const int cg = tid & 15;  // column group: cols cg + 16*j
-
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-
-  if (tid < BQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  load_rows<ROPE, float>(sQ, ldq, qb, p.q_sl, q0, BQ, L, D, D, cos_b, sin_b);
-
-  float acc[4][DMAX / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    const int nk = min(BK, L - k0);
-    load_rows<ROPE, float>(sK, ldk, kb, p.k_sl, k0, BK, L, D, D, cos_b, sin_b);
-    load_rows<false, float>(sV, ldv, vb, p.v_sl, k0, BK, L, D, D, nullptr, nullptr);
-    __syncthreads();
-
-    // S = Q K^T * scale on a 4x4 register tile per thread
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(rg * 4 + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(cg + 16 * j) * ldk + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cg + 16 * j;
-        sS[(rg * 4 + i) * lds + c] = c < nk ? s[i][j] * p.scale : -INFINITY;
-      }
-    __syncthreads();
-
-    // online softmax: each warp owns BQ/4 rows; every row has >= 1 valid
-    // column in every tile, so the running max is finite after the first
-#pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr) {
-      const int r = warp * (BQ / 4) + rr;
-      const float x0 = sS[r * lds + lane];
-      const float x1 = sS[r * lds + lane + 32];
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new);
-      const float p1 = expf(x1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      sS[r * lds + lane] = p0;
-      sS[r * lds + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V on a 4x8 register tile per thread
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sA[rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) acc[i][j] *= a;
-    }
-    for (int c = 0; c < nk; ++c) {
-      float pv[4], vv[DMAX / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sS[(rg * 4 + i) * lds + c];
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) {
-        const int d = cg + 16 * j;
-        vv[j] = d < D ? sV[c * ldv + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DMAX / 16; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();  // the next tile overwrites sK, sV and sS
-  }
-
-  float* ob = static_cast<float*>(p.o);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    const int l = q0 + r;
-    if (l >= L) continue;
-    const float inv = 1.f / sL[r];
-    if (p.lse != nullptr && cg == 0) p.lse[((int64_t)b * p.H + h) * L + l] = sM[r] + logf(sL[r]);
-    float* orow = ob + (((int64_t)b * L + l) * p.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      const int d = cg + 16 * j;
-      if (d < D) orow[d] = acc[i][j] * inv;
-    }
-  }
-}
-}  // namespace fp
-
-// ---------------------------------------------------------------------------
-// Backward (K1b, K2b): FlashAttention-2's split of the work
-// ---------------------------------------------------------------------------
-//
-// Replaces _bwd_kernel:112 (K1b) and _bwd_kernel_norope:125 (K2b) of
-// genhancer_tpu/core/pallas/short_attention.py, which share _bwd_body:90.
-// The TPU runs one program per batch element with the whole [H, L, L]
-// logits in VMEM; here the work is split so that no block needs more than
-// one 64-row tile of each operand and nothing is summed across blocks:
-//   1. dot_rows: D_i = sum_d dO * O in float32, [B, H, L];
-//   2. dkdv: one block per (batch, head, k tile) walks the q tiles,
-//      recomputes p = exp(s * scale - lse) from the forward's row
-//      log-sum-exp and accumulates dK and dV in float32 registers;
-//   3. dq: one block per (batch, head, q tile) walks the k tiles and
-//      accumulates dQ.
-// No atomics, and no ceiling on L.  Rounding points, as the TPU kernel:
-//   * rq and rk are rotated in float32 and rounded to T (load_rows);
-//   * dO enters dp = dO V^T and dv = p^T dO as stored (type T);
-//   * p is rounded to T before p^T dO;
-//   * ds = p (dp - D_i) is rounded to T before ds rk and ds^T rq;
-//   * d_rq, d_rk are scaled in float32 and rounded to T, then (K1b)
-//     un-rotated with (cos, -sin) in float32 and rounded to T again;
-//   * dv is rounded to T once.
-// What bounds it: like the forward, a few MFLOP per (batch, head) at the
-// training shape (B=16, L=197, H=24, D=128) — the backward does 2.5x the
-// forward's products, so bf16 again runs them on the tensor cores (WMMA,
-// 16x16x16, float32 accumulators); float32 runs scalar FMA (no TF32).
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;  // [B, L, H, D] contiguous
-  const float* cos;  // [B, L, D/2] contiguous, only with ROPE
-  const float* sin;
-  const float* lse;  // [B, H, L] from the forward
-  const float* di;   // [B, H, L] from dot_rows
-  void* dq;          // [B, L, H, D] contiguous
-  void* dk;
-  void* dv;
-  int64_t q_sb, q_sl, q_sh;
-  int64_t k_sb, k_sl, k_sh;
-  int64_t v_sb, v_sl, v_sh;
-  int B, L, H, D;
-  float scale;
-};
-
-// One warp per (b, l, h) row: D_i = sum_d dO * O in float32 -> di[b, h, l].
-template <typename T>
-__global__ void dot_rows(const T* o, const T* dout, float* di, int B, int L, int H, int D) {
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= (int64_t)B * L * H) return;
-  const T* orow = o + row * D;
-  const T* drow = dout + row * D;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(to_f32(orow[d]), to_f32(drow[d]), s);
-  s = warp_sum(s);
-  if (lane == 0) {
-    const int64_t b = row / ((int64_t)L * H);
-    const int64_t rem = row - b * L * H;
-    const int64_t l = rem / H, h = rem - l * H;
-    di[(b * H + h) * L + l] = s;
-  }
-}
-
-// One finished gradient row: x = acc * mult (float32), rounded to T; with
-// ROPE each pair is then un-rotated with (cos, -sin) in float32 and rounded
-// to T again, as _bwd_kernel's _apply_rope_full(d.astype(T), cos, -sin).
-template <bool ROPE, typename T>
-__device__ __forceinline__ void store_pair(T* out, float e, float o, float mult, const float* cos_b,
-                                           const float* sin_b, int l, int i, int D) {
-  e = to_f32(from_f32<T>(e * mult));
-  o = to_f32(from_f32<T>(o * mult));
-  if (ROPE) {
-    const float c = cos_b[(int64_t)l * (D / 2) + i];
-    const float s = sin_b[(int64_t)l * (D / 2) + i];
-    const float re = c * e + s * o;
-    const float ro = c * o - s * e;
-    e = re;
-    o = ro;
-  }
-  out[2 * i] = from_f32<T>(e);
-  out[2 * i + 1] = from_f32<T>(o);
-}
-
-namespace tc {
-constexpr int BT = 64;  // rows per tile: 4 warps x 16
-
-__host__ __device__ constexpr size_t bwd_smem_bytes(int D) {
-  // four bf16 operand tiles, float32 S and dP, bf16 P and dS, lse and D_i
-  return (size_t)4 * BT * ldx(D) * sizeof(bf16) + (size_t)2 * BT * LDS * sizeof(float) +
-         (size_t)2 * BT * LDP * sizeof(bf16) + 2 * BT * sizeof(float);
-}
-
-struct BwdSmem {
-  bf16 *t0, *t1, *t2, *t3;
-  float *s, *dp;
-  bf16 *p, *ds;
-  float *lse, *di;
-};
-
-__device__ __forceinline__ BwdSmem bwd_smem(unsigned char* raw, int ld) {
-  BwdSmem m;
-  m.t0 = reinterpret_cast<bf16*>(raw);
-  m.t1 = m.t0 + BT * ld;
-  m.t2 = m.t1 + BT * ld;
-  m.t3 = m.t2 + BT * ld;
-  m.s = reinterpret_cast<float*>(m.t3 + BT * ld);
-  m.dp = m.s + BT * LDS;
-  m.p = reinterpret_cast<bf16*>(m.dp + BT * LDS);
-  m.ds = m.p + BT * LDP;
-  m.lse = reinterpret_cast<float*>(m.ds + BT * LDP);
-  m.di = m.lse + BT;
-  return m;
-}
-
-// X Y^T for this warp's 16 rows of X against the 64 rows of Y, into a
-// float32 [16, 64] slice of dst (row stride LDS).
-__device__ __forceinline__ void rows_times_tile_t(float* dst, const bf16* x, const bf16* y, int ld,
-                                                  int nf) {
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < nf; ++kk) {
-      FragA a;
-      FragKt bt;
-      wmma::load_matrix_sync(a, x + kk * 16, ld);
-      wmma::load_matrix_sync(bt, y + (j * 16) * ld + kk * 16, ld);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync(dst + j * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[j] += A (this warp's [16, 64] bf16 slice, row stride LDP) times the
-// [64, D] tile y (row stride ld).
-__device__ __forceinline__ void accumulate(FragC* acc, const bf16* a_rows, const bf16* y, int ld,
-                                           int nf) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, a_rows + kk * 16, LDP);
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      if (j < nf) {
-        FragV bv;
-        wmma::load_matrix_sync(bv, y + (kk * 16) * ld + j * 16, ld);
-        wmma::mma_sync(acc[j], a, bv, acc[j]);
-      }
-    }
-  }
-}
-
-// This warp's 16 finished rows (float32 accumulators) -> rows l0.. of out.
-template <bool ROPE>
-__device__ __forceinline__ void store_rows(const FragC* acc, float* stage, int Dp, int nf, bf16* out,
-                                           int64_t row_stride, int l0, int L, int D, float mult,
-                                           const float* cos_b, const float* sin_b, int lane) {
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) {
-    if (j < nf) wmma::store_matrix_sync(stage + j * 16, acc[j], Dp, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int half = D / 2;
-  for (int idx = lane; idx < 16 * half; idx += 32) {
-    const int r = idx / half, i = idx - r * half;
-    const int l = l0 + r;
-    if (l < L)
-      store_pair<ROPE, bf16>(out + (int64_t)l * row_stride, stage[r * Dp + 2 * i],
-                             stage[r * Dp + 2 * i + 1], mult, cos_b, sin_b, l, i, D);
-  }
-  __syncwarp();
-}
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
-  const BwdSmem sm = bwd_smem(smem_raw, ld);
-  bf16 *sK = sm.t0, *sV = sm.t1, *sQ = sm.t2, *sO = sm.t3;
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wr0 = warp * 16;
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int64_t rs = (int64_t)H * D;  // row stride of the contiguous [B, L, H, D]
-  const bf16* ob = static_cast<const bf16*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-  const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
-  const float* di_b = p.di + ((int64_t)b * H + h) * L;
-
-  load_rows<ROPE, bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp, cos_b, sin_b);
-  load_rows<false, bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp, nullptr, nullptr);
-  FragC dk[DMAX / 16], dv[DMAX / 16];
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    load_rows<ROPE, bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp, cos_b, sin_b);
-    load_rows<false, bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp, nullptr, nullptr);
-    if (tid < BT) {
-      const int l = q0 + tid;
-      sm.lse[tid] = l < L ? lse_b[l] : 0.f;
-      sm.di[tid] = l < L ? di_b[l] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 k rows, 64 q columns
-    rows_times_tile_t(sm.s + wr0 * LDS, sK + wr0 * ld, sQ, ld, nf);
-    rows_times_tile_t(sm.dp + wr0 * LDS, sV + wr0 * ld, sO, ld, nf);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr0 + r;
-      const bool kvalid = k0 + row < L;
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int c = lane + 32 * cc;
-        const float pr = (kvalid && q0 + c < L)
-                             ? expf(sm.s[row * LDS + c] * p.scale - sm.lse[c])
-                             : 0.f;
-        sm.p[row * LDP + c] = __float2bfloat16(pr);
-        sm.ds[row * LDP + c] = __float2bfloat16(pr * (sm.dp[row * LDS + c] - sm.di[c]));
-      }
-    }
-    __syncwarp();
-    // dV += P^T dO and dK += dS^T Q over this tile's q rows
-    accumulate(dv, sm.p + wr0 * LDP, sO, ld, nf);
-    accumulate(dk, sm.ds + wr0 * LDP, sQ, ld, nf);
-    __syncthreads();  // the next q tile overwrites sQ, sO, lse and D_i
-  }
-
-  // epilogue staged through the free sK/sV region
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 16 * Dp;
-  bf16* dkb = static_cast<bf16*>(p.dk) + ((int64_t)b * L * H + h) * D;
-  bf16* dvb = static_cast<bf16*>(p.dv) + ((int64_t)b * L * H + h) * D;
-  store_rows<ROPE>(dk, stage, Dp, nf, dkb, rs, k0 + wr0, L, D, p.scale, cos_b, sin_b, lane);
-  store_rows<false>(dv, stage, Dp, nf, dvb, rs, k0 + wr0, L, D, 1.f, nullptr, nullptr, lane);
-}
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
-  const BwdSmem sm = bwd_smem(smem_raw, ld);
-  bf16 *sQ = sm.t0, *sO = sm.t1, *sK = sm.t2, *sV = sm.t3;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wr0 = warp * 16;
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int64_t rs = (int64_t)H * D;
-  const bf16* ob = static_cast<const bf16*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-  const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
-  const float* di_b = p.di + ((int64_t)b * H + h) * L;
-
-  load_rows<ROPE, bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp, cos_b, sin_b);
-  load_rows<false, bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp, nullptr, nullptr);
-  if (tid < BT) {
-    const int l = q0 + tid;
-    sm.lse[tid] = l < L ? lse_b[l] : 0.f;
-    sm.di[tid] = l < L ? di_b[l] : 0.f;
-  }
-  FragC dq[DMAX / 16];
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
-
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    load_rows<ROPE, bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp, cos_b, sin_b);
-    load_rows<false, bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp, nullptr, nullptr);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 q rows, 64 k columns
-    rows_times_tile_t(sm.s + wr0 * LDS, sQ + wr0 * ld, sK, ld, nf);
-    rows_times_tile_t(sm.dp + wr0 * LDS, sO + wr0 * ld, sV, ld, nf);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr0 + r;
-      const bool qvalid = q0 + row < L;
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int c = lane + 32 * cc;
-        const float pr = (qvalid && k0 + c < L)
-                             ? expf(sm.s[row * LDS + c] * p.scale - sm.lse[row])
-                             : 0.f;
-        sm.ds[row * LDP + c] = __float2bfloat16(pr * (sm.dp[row * LDS + c] - sm.di[row]));
-      }
-    }
-    __syncwarp();
-    accumulate(dq, sm.ds + wr0 * LDP, sK, ld, nf);  // dQ += dS K
-    __syncthreads();  // the next k tile overwrites sK and sV
-  }
-
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 16 * Dp;
-  bf16* dqb = static_cast<bf16*>(p.dq) + ((int64_t)b * L * H + h) * D;
-  store_rows<ROPE>(dq, stage, Dp, nf, dqb, rs, q0 + wr0, L, D, p.scale, cos_b, sin_b, lane);
-}
-}  // namespace tc
-
-namespace fp {
-constexpr int BT = 32;  // rows per tile; thread t owns row t/4 and pairs t%4 + 4j
-
-__host__ __device__ constexpr size_t bwd_smem_bytes(int D) {
-  return ((size_t)4 * BT * (D + 1) + (size_t)2 * BT * (BT + 1) + 2 * BT) * sizeof(float);
-}
-
-// dst[r, c] for c = cq + 4i of this thread's row r: p and ds of one tile.
-// x_rows: the owned operand row r (rotated k or q), y: streamed tile.
-template <bool OWN_K>
-__device__ __forceinline__ void p_ds_row(float* sP, float* sDS, const float* sX, const float* sY,
-                                         const float* sU, const float* sW, const float* lse,
-                                         const float* di, int r, int cq, int D, float scale,
-                                         bool own_valid, int other0, int L) {
-  const int ld = D + 1, lp = BT + 1;
-#pragma unroll
-  for (int i = 0; i < BT / 4; ++i) {
-    const int c = cq + 4 * i;
-    float s = 0.f, dp = 0.f;
-    for (int d = 0; d < D; ++d) {
-      s = fmaf(sX[r * ld + d], sY[c * ld + d], s);
-      dp = fmaf(sU[r * ld + d], sW[c * ld + d], dp);
-    }
-    // own rows are k rows (p^T): lse and D_i are per q column; else per own row
-    const float m = OWN_K ? lse[c] : lse[r];
-    const float dd = OWN_K ? di[c] : di[r];
-    const float pr = (own_valid && other0 + c < L) ? expf(s * scale - m) : 0.f;
-    sP[r * lp + c] = pr;
-    sDS[r * lp + c] = pr * (dp - dd);
-  }
-}
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
-  extern __shared__ float smem[];
-  const int D = p.D, L = p.L, H = p.H, ld = D + 1, lp = BT + 1;
-  float* sK = smem;
-  float* sV = sK + BT * ld;
-  float* sQ = sV + BT * ld;
-  float* sO = sQ + BT * ld;
-  float* sP = sO + BT * ld;
-  float* sDS = sP + BT * lp;
-  float* sLse = sDS + BT * lp;
-  float* sDi = sLse + BT;
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 2, cq = tid & 3;
-
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int64_t rs = (int64_t)H * D;
-  const float* ob = static_cast<const float*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-  const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
-  const float* di_b = p.di + ((int64_t)b * H + h) * L;
-
-  load_rows<ROPE, float>(sK, ld, kb, p.k_sl, k0, BT, L, D, D, cos_b, sin_b);
-  load_rows<false, float>(sV, ld, vb, p.v_sl, k0, BT, L, D, D, nullptr, nullptr);
-  float ak[DMAX / 8][2], av[DMAX / 8][2];
-#pragma unroll
-  for (int j = 0; j < DMAX / 8; ++j) ak[j][0] = ak[j][1] = av[j][0] = av[j][1] = 0.f;
-
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    load_rows<ROPE, float>(sQ, ld, qb, p.q_sl, q0, BT, L, D, D, cos_b, sin_b);
-    load_rows<false, float>(sO, ld, ob, rs, q0, BT, L, D, D, nullptr, nullptr);
-    if (tid < BT) {
-      const int l = q0 + tid;
-      sLse[tid] = l < L ? lse_b[l] : 0.f;
-      sDi[tid] = l < L ? di_b[l] : 0.f;
-    }
-    __syncthreads();
-    p_ds_row<true>(sP, sDS, sK, sQ, sV, sO, sLse, sDi, r, cq, D, p.scale, k0 + r < L, q0, L);
-    __syncthreads();
-    for (int c = 0; c < BT; ++c) {
-      const float pv = sP[r * lp + c], dsv = sDS[r * lp + c];
-#pragma unroll
-      for (int j = 0; j < DMAX / 8; ++j) {
-        const int d = 2 * (cq + 4 * j);
-        if (d < D) {
-          av[j][0] = fmaf(pv, sO[c * ld + d], av[j][0]);
-          av[j][1] = fmaf(pv, sO[c * ld + d + 1], av[j][1]);
-          ak[j][0] = fmaf(dsv, sQ[c * ld + d], ak[j][0]);
-          ak[j][1] = fmaf(dsv, sQ[c * ld + d + 1], ak[j][1]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const int l = k0 + r;
-  if (l >= L) return;
-  float* dkr = static_cast<float*>(p.dk) + ((int64_t)b * L + l) * rs + (int64_t)h * D;
-  float* dvr = static_cast<float*>(p.dv) + ((int64_t)b * L + l) * rs + (int64_t)h * D;
-#pragma unroll
-  for (int j = 0; j < DMAX / 8; ++j) {
-    const int i = cq + 4 * j;
-    if (2 * i < D) {
-      store_pair<ROPE, float>(dkr, ak[j][0], ak[j][1], p.scale, cos_b, sin_b, l, i, D);
-      store_pair<false, float>(dvr, av[j][0], av[j][1], 1.f, nullptr, nullptr, l, i, D);
-    }
-  }
-}
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
-  extern __shared__ float smem[];
-  const int D = p.D, L = p.L, H = p.H, ld = D + 1, lp = BT + 1;
-  float* sQ = smem;
-  float* sO = sQ + BT * ld;
-  float* sK = sO + BT * ld;
-  float* sV = sK + BT * ld;
-  float* sP = sV + BT * ld;
-  float* sDS = sP + BT * lp;
-  float* sLse = sDS + BT * lp;
-  float* sDi = sLse + BT;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid >> 2, cq = tid & 3;
-
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int64_t rs = (int64_t)H * D;
-  const float* ob = static_cast<const float*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-  const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
-  const float* di_b = p.di + ((int64_t)b * H + h) * L;
-
-  load_rows<ROPE, float>(sQ, ld, qb, p.q_sl, q0, BT, L, D, D, cos_b, sin_b);
-  load_rows<false, float>(sO, ld, ob, rs, q0, BT, L, D, D, nullptr, nullptr);
-  if (tid < BT) {
-    const int l = q0 + tid;
-    sLse[tid] = l < L ? lse_b[l] : 0.f;
-    sDi[tid] = l < L ? di_b[l] : 0.f;
-  }
-  float aq[DMAX / 8][2];
-#pragma unroll
-  for (int j = 0; j < DMAX / 8; ++j) aq[j][0] = aq[j][1] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    load_rows<ROPE, float>(sK, ld, kb, p.k_sl, k0, BT, L, D, D, cos_b, sin_b);
-    load_rows<false, float>(sV, ld, vb, p.v_sl, k0, BT, L, D, D, nullptr, nullptr);
-    __syncthreads();
-    p_ds_row<false>(sP, sDS, sQ, sK, sO, sV, sLse, sDi, r, cq, D, p.scale, q0 + r < L, k0, L);
-    __syncthreads();
-    for (int c = 0; c < BT; ++c) {
-      const float dsv = sDS[r * lp + c];
-#pragma unroll
-      for (int j = 0; j < DMAX / 8; ++j) {
-        const int d = 2 * (cq + 4 * j);
-        if (d < D) {
-          aq[j][0] = fmaf(dsv, sK[c * ld + d], aq[j][0]);
-          aq[j][1] = fmaf(dsv, sK[c * ld + d + 1], aq[j][1]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  const int l = q0 + r;
-  if (l >= L) return;
-  float* dqr = static_cast<float*>(p.dq) + ((int64_t)b * L + l) * rs + (int64_t)h * D;
-#pragma unroll
-  for (int j = 0; j < DMAX / 8; ++j) {
-    const int i = cq + 4 * j;
-    if (2 * i < D) store_pair<ROPE, float>(dqr, aq[j][0], aq[j][1], p.scale, cos_b, sin_b, l, i, D);
-  }
-}
-}  // namespace fp
-
-template <typename Kernel, typename P>
-int launch(Kernel kernel, int bq, int threads, size_t smem, size_t smem_max, const P& p,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_max);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.L + bq - 1) / bq, p.H, p.B);
-  kernel<<<grid, threads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <bool ROPE>
-int dispatch(int dtype, const Params& p, cudaStream_t stream) {
-  if (p.D % 8 != 0 || p.D > DMAX || p.L < 1 || p.B < 1 || p.H < 1 || p.B > 65535 ||
-      p.H > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch(fp::kernel<ROPE>, fp::BQ, fp::THREADS, fp::smem_bytes(p.D),
-                  fp::smem_bytes(DMAX), p, stream);
-  if (dtype == 1)
-    return launch(tc::kernel<ROPE>, tc::BQ, tc::THREADS, tc::smem_bytes(p.D),
-                  tc::smem_bytes(DMAX), p, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <bool ROPE>
-int dispatch_bwd(int dtype, const void* o, const BwdParams& p, cudaStream_t stream) {
-  if (p.D % 8 != 0 || p.D > DMAX || p.L < 1 || p.B < 1 || p.H < 1 || p.B > 65535 ||
-      p.H > 65535)
-    return (int)cudaErrorInvalidValue;
-  const int64_t rows = (int64_t)p.B * p.L * p.H;
-  const int blocks = (int)((rows + 7) / 8);  // 8 warps of 32, one row each
-  float* di = const_cast<float*>(p.di);
-  if (dtype == 0) {
-    dot_rows<float><<<blocks, 256, 0, stream>>>(static_cast<const float*>(o),
-                                                static_cast<const float*>(p.dout), di, p.B,
-                                                p.L, p.H, p.D);
-  } else if (dtype == 1) {
-    dot_rows<bf16><<<blocks, 256, 0, stream>>>(static_cast<const bf16*>(o),
-                                               static_cast<const bf16*>(p.dout), di, p.B, p.L,
-                                               p.H, p.D);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  if (dtype == 0) {
-    rc = launch(fp::bwd_dkdv<ROPE>, fp::BT, fp::THREADS, fp::bwd_smem_bytes(p.D),
-                fp::bwd_smem_bytes(DMAX), p, stream);
-    if (rc != 0) return rc;
-    return launch(fp::bwd_dq<ROPE>, fp::BT, fp::THREADS, fp::bwd_smem_bytes(p.D),
-                  fp::bwd_smem_bytes(DMAX), p, stream);
-  }
-  rc = launch(tc::bwd_dkdv<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D),
-              tc::bwd_smem_bytes(DMAX), p, stream);
-  if (rc != 0) return rc;
-  return launch(tc::bwd_dq<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D),
-                tc::bwd_smem_bytes(DMAX), p, stream);
-}
-
-}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; D is contiguous.
 // lse: null, or [B, H, L] float32 that receives each row's log-sum-exp (the
@@ -993,7 +74,7 @@ extern "C" int genhancer_fused_rope_attention_bwd(
                     static_cast<const float*>(sin), static_cast<const float*>(lse),
                     static_cast<const float*>(di), dq, dk, dv, q_sb, q_sl, q_sh, k_sb, k_sl,
                     k_sh, v_sb, v_sl, v_sh, B, L, H, D, scale};
-  return dispatch_bwd<true>(dtype, o, p, static_cast<cudaStream_t>(stream));
+  return dispatch_bwd<true, false>(dtype, o, p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int genhancer_fused_attention_bwd(
@@ -1004,5 +85,5 @@ extern "C" int genhancer_fused_attention_bwd(
   const BwdParams p{q, k, v, dout, nullptr, nullptr, static_cast<const float*>(lse),
                     static_cast<const float*>(di), dq, dk, dv, q_sb, q_sl, q_sh, k_sb, k_sl,
                     k_sh, v_sb, v_sl, v_sh, B, L, H, D, scale};
-  return dispatch_bwd<false>(dtype, o, p, static_cast<cudaStream_t>(stream));
+  return dispatch_bwd<false, false>(dtype, o, p, static_cast<cudaStream_t>(stream));
 }

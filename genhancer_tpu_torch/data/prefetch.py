@@ -1,8 +1,9 @@
 """Host -> device prefetch: overlap the input pipeline with device compute.
 
 Port of ``genhancer_tpu/data/prefetch.py`` for one device (no mesh): a
-background thread pulls host batches of numpy arrays, pins each (on a CUDA target)
-and copies it with ``non_blocking=True`` to the trainer's device, keeping a
+background thread pulls host batches, pins each numpy array (on a CUDA
+target) and copies it with ``non_blocking=True`` to the trainer's device
+(other values, such as a batch's extras, pass through as they are), keeping a
 queue of ``depth`` batches full so the train loop never blocks on JPEG
 decode.  The copies go on the thread's current stream — CUDA's default
 stream, where the train loop's kernels run too — so a batch is complete
@@ -34,6 +35,9 @@ class DevicePrefetcher:
     def _place(self, batch):
         out = {}
         for k, v in batch.items():
+            if not isinstance(v, np.ndarray):
+                out[k] = v
+                continue
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)

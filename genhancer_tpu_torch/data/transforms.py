@@ -1,11 +1,13 @@
 """Host-side image transforms (PIL/numpy) feeding raw [0, 1] pixel batches.
 
-Carried over from ``genhancer_tpu/data/transforms.py`` (image mode):
+Carried over from ``genhancer_tpu/data/transforms.py``:
 
-  * train: RandomResizedCrop(img_size, scale=(0.9, 1.0), bicubic)
+  * image train: RandomResizedCrop(img_size, scale=(0.9, 1.0), bicubic)
     (``dataset_cc3m.py:91-121``);
   * eval / serving: resize the shorter side (bicubic, long side truncated as
-    torchvision does), center crop.
+    torchvision does), center crop;
+  * video frames: the same resize + center crop (``dataset_video.py:53-67``,
+    without the in-dataset Normalize).
 
 Normalisation happens once, on the device (``tasks.conditioning``).
 """
@@ -78,3 +80,7 @@ def train_image_transform(data: bytes, size: int, rng: np.random.Generator) -> n
 
 def eval_image_transform(data: bytes, size: int) -> np.ndarray:
     return to_float01(resize_center_crop(decode_image(data), size))
+
+
+# video frames take the eval transform (dataset_video.py:53-67)
+video_frame_transform = eval_image_transform

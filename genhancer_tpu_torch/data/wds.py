@@ -2,8 +2,7 @@
 ``webdataset`` package is not a dependency).
 
 Carried over from ``genhancer_tpu/data/wds.py`` (pure Python and numpy;
-the JAX package's ``data/__init__`` would import jax), without the video
-grouping, which waits for the video slice.
+the JAX package's ``data/__init__`` would import jax).
 
 Replaces the reference's webdataset pipelines (``image_datasets/
 dataset_cc3m.py:169-188``, ``dataset_video.py:288-328``,
@@ -14,6 +13,9 @@ implementation:
   * per-host / per-worker shard splitting (``split_by_node`` /
     ``split_by_worker`` equivalents) by round-robin over the shard list;
   * sample grouping by webdataset key (path minus extension);
+  * per-video-directory grouping for frame-per-sample video shards
+    (``group_by_directory``, dataset_video.py:73-178) — deterministic, no
+    watchdog timers needed because grouping is sequential over one shard;
   * bounded shuffle buffer with an explicit numpy RNG (seeded);
   * ``repeat`` for infinite epochs.
 
@@ -27,7 +29,7 @@ import glob as globlib
 import os
 import re
 import tarfile
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
@@ -91,6 +93,43 @@ def iter_tar_samples(path_or_file) -> Iterator[Dict[str, bytes]]:
             yield sample
 
 
+def group_by_directory(samples: Iterable[Dict[str, bytes]]
+                       ) -> Iterator[Dict[str, object]]:
+    """Aggregate frame-per-sample entries into one sample per video dir.
+
+    Input keys look like ``vid123/frame_0``; output:
+    ``{'__key__': 'vid123', 'frames': [(frame_key, jpg_bytes), ...],
+       'txt': bytes|None}`` with frames sorted by numeric frame index.
+    """
+    current_dir: Optional[str] = None
+    frames: List = []
+    txt: Optional[bytes] = None
+
+    def emit():
+        frames.sort(key=lambda kv: _frame_index(kv[0]))
+        return {"__key__": current_dir, "frames": list(frames), "txt": txt}
+
+    for s in samples:
+        key = s.get("__key__", "")
+        d = key.rsplit("/", 1)[0] if "/" in key else key
+        if current_dir is not None and d != current_dir and frames:
+            yield emit()
+            frames, txt = [], None
+        current_dir = d
+        jpg = s.get("jpg") or s.get("jpeg") or s.get("png")
+        if jpg is not None:
+            frames.append((key, jpg))
+        if "txt" in s:
+            txt = s["txt"]
+    if frames:
+        yield emit()
+
+
+def _frame_index(key: str) -> int:
+    m = re.search(r"(\d+)$", key)
+    return int(m.group(1)) if m else 0
+
+
 def shuffled(it: Iterator, buffer_size: int, rng: np.random.Generator) -> Iterator:
     """Bounded reservoir shuffle (webdataset .shuffle equivalent)."""
     if buffer_size <= 1:
@@ -115,7 +154,8 @@ class ShardStream:
     def __init__(self, shards, *, node_index: int = 0, node_count: int = 1,
                  worker_index: int = 0, worker_count: int = 1,
                  shuffle_buffer: int = 0, seed: int = 0, repeat: bool = False,
-                 sample_iter: Callable = iter_tar_samples):
+                 sample_iter: Callable = iter_tar_samples,
+                 group_videos: bool = False):
         self.shards = split_shards(
             split_shards(expand_shards(shards), node_index, node_count),
             worker_index, worker_count)
@@ -125,6 +165,7 @@ class ShardStream:
         self.seed = seed
         self.repeat = repeat
         self.sample_iter = sample_iter
+        self.group_videos = group_videos
 
     def __iter__(self) -> Iterator[Dict]:
         epoch = 0
@@ -144,6 +185,8 @@ class ShardStream:
                             "skipping unreadable shard %s: %s", sh, e)
 
             it: Iterator = raw()
+            if self.group_videos:
+                it = group_by_directory(it)
             if self.shuffle_buffer:
                 it = shuffled(it, self.shuffle_buffer, rng)
             yield from it

@@ -1,14 +1,20 @@
 """FLUX-style rectified-flow DiT (the lightweight GenHancer denoiser).
 
-Port of ``genhancer_tpu/models/dit.py`` (inference subset: no remat, no
-IP-adapter, no ControlNet residuals).  The module tree carries the reference
+Port of ``genhancer_tpu/models/dit.py`` (no IP-adapter, no ControlNet
+residuals; remat with the "full" policy only).  The module tree carries the reference
 torch names (``double_blocks.{i}.img_attn.qkv.weight``, ``img_mlp.0`` ...,
 ``final_layer.adaLN_modulation.1``), so a ``checkpoint-dit-N.bin`` loads with
 ``load_state_dict(strict=True)``.  flux-dev: hidden 3072, 24 heads (D=128),
 2 double + 4 single blocks, axes_dim [16, 56, 56], theta 10k.
 
 Joint attention runs over [txt; img] — tokens and RoPE ids in that order —
-through ``core.attention.attention`` (the fused K1 kernel on CUDA).
+through ``core.attention.attention`` (on CUDA the fused K1 kernel up to 600
+tokens, RoPE and the flash kernel K5 beyond).
+
+``remat=True`` wraps each double and single block in
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the JAX package
+wraps them in ``jax.checkpoint`` (``dit.py:276-280``): only the blocks'
+inputs are kept for the backward, which runs each block's forward again.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional
 
 import torch
 from torch import nn as tnn
+from torch.utils.checkpoint import checkpoint
 
 from ..core import nn
 from ..core.attention import attention
@@ -206,12 +213,24 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
                 img: torch.Tensor, img_ids: torch.Tensor,
                 txt: torch.Tensor, txt_ids: torch.Tensor,
                 timesteps: torch.Tensor, y: torch.Tensor,
-                guidance: Optional[torch.Tensor] = None) -> torch.Tensor:
+                guidance: Optional[torch.Tensor] = None,
+                remat: bool = False, remat_policy: Optional[str] = None) -> torch.Tensor:
     """img: [B, L_img, 64] packed latent tokens; txt: [B, L_txt, 4096];
     ids: [B, L, 3]; timesteps/guidance: [B]; y: [B, vec_in_dim].
     Returns velocity tokens [B, L_img, 64] in img's dtype."""
     if img.ndim != 3 or txt.ndim != 3:
         raise ValueError("img and txt must be 3-D [B, L, C]")
+    if remat and (remat_policy or "full") != "full":
+        raise NotImplementedError(
+            f"remat_policy {remat_policy!r} is not ported yet (ROADMAP: later items); "
+            "the port recomputes whole blocks (remat_policy: full)")
+    dblock, sblock = _double_block, _single_block
+    if remat:
+        def dblock(*a):
+            return checkpoint(_double_block, *a, use_reentrant=False)
+
+        def sblock(*a):
+            return checkpoint(_single_block, *a, use_reentrant=False)
 
     compute_dtype = img.dtype
     img = nn.linear(p.img_in, img)
@@ -229,11 +248,11 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
     cos, sin = multi_axis_rope(ids, cfg.axes_dim, cfg.theta)
 
     for blk in p.double_blocks:
-        img, txt = _double_block(blk, img, txt, vec, cos, sin, cfg.num_heads)
+        img, txt = dblock(blk, img, txt, vec, cos, sin, cfg.num_heads)
 
     x = torch.cat([txt, img], dim=1)
     for blk in p.single_blocks:
-        x = _single_block(blk, x, vec, cos, sin, cfg.num_heads, cfg.hidden_size)
+        x = sblock(blk, x, vec, cos, sin, cfg.num_heads, cfg.hidden_size)
     img = x[:, txt.shape[1]:]
 
     fl = p.final_layer

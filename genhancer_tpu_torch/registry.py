@@ -42,8 +42,8 @@ def tower_family_and_config(tower: str, clip_image_size: int,
     ported yet."""
     if tower == "siglip":
         raise NotImplementedError(
-            "tower: siglip is not ported yet (ROADMAP: SigLIP tower with the "
-            "long-sequence slice)")
+            "tower: siglip is not ported yet (ROADMAP: the SigLIP tower, the next "
+            "item of slice 4)")
     if tower == "metaclip":
         name = f"metaclip-{'l14' if (clip_type or 'large') == 'large' else 'h14'}-fullcc2.5b"
         return "clip", clip_m.CLIP_VARIANTS[name]

@@ -232,7 +232,11 @@ class InferenceEngine:
         if isinstance(cfg, str):
             cfg = load_config(cfg)
         cfg.setdefault("task", "image_stage1")
-        spec, _, _ = factory.build_spec(cfg)
+        spec, _, ckpt_kind = factory.build_spec(cfg)
+        if ckpt_kind != "image":
+            raise NotImplementedError(
+                f"the engine serves image stage-1 configs; {cfg['task']!r} is a video "
+                "task (its stage-1 artifacts condition on frames, not one image)")
         gen = torch.Generator(device=device)
         gen.manual_seed(int(cfg.get("seed", 0)))
         modules = init_modules(spec, gen, device=device)

@@ -1,10 +1,14 @@
-"""Tower -> DiT conditioning (image mode).
+"""Tower -> DiT conditioning (image and video modes).
 
-Port of ``genhancer_tpu/tasks/conditioning.py``: the tower's projected class
-token becomes a 1-token txt sequence via ``project_t5`` and the ``y`` vector
-via ``project_clip``; img_ids are the (0, row, col) grid over the packed
-latent tokens; txt_ids are zeros.  Raw [0, 1] pixels are normalised exactly
-once, here, with the CLIP statistics.
+Port of ``genhancer_tpu/tasks/conditioning.py``.  Image mode: the tower's
+projected class token becomes a 1-token txt sequence via ``project_t5`` and
+the ``y`` vector via ``project_clip``; img_ids are the (0, row, col) grid
+over the packed latent tokens; txt_ids are zeros.  Video modes: the patch
+tokens of the 1-3 conditioning frames pass through the VisualPromptAdapter
+into the txt space with (t, row, col) ids, t the frame's time; the target's
+img_ids carry the target time; ``y`` is the mean of the frames' projected
+class tokens.  Raw [0, 1] pixels are normalised exactly once, here, with the
+CLIP statistics.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch
 
 from ..core.rope import spatial_ids
 from ..models.towers import clip as clip_m
-from ..models.towers.projectors import projector
+from ..models.towers.projectors import projector, visual_adapter
 
 OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -33,8 +37,8 @@ def normalize(px: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> 
 def _require_clip(kind: str) -> None:
     if kind != "clip":
         raise NotImplementedError(
-            f"tower kind {kind!r} is not ported yet (ROADMAP: SigLIP tower with "
-            "the long-sequence slice); the port serves CLIP/MetaCLIP towers")
+            f"tower kind {kind!r} is not ported yet (ROADMAP: the SigLIP tower, the "
+            "next item of slice 4); the port runs CLIP/MetaCLIP towers")
 
 
 def tower_stats(kind: str):
@@ -80,3 +84,25 @@ def image_conditioning_from_cls(clip, cls_tok: torch.Tensor, latent_hw,
     img_ids = grid[None].expand(b, (h // 2) * (w // 2), 3)
     txt_ids = torch.zeros((b, 1, 3), dtype=torch.float32, device=cls_tok.device)
     return {"txt": txt, "txt_ids": txt_ids, "vec": vec, "img_ids": img_ids}
+
+
+def video_conditioning(modules, cond_frames_patches: Sequence[torch.Tensor],
+                       vecs: Sequence[torch.Tensor], latent_hw, patch_grid: int,
+                       target_time: float, frame_times: Sequence[float],
+                       compute_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Video-mode conditioning dict for the DiT (``conditioning.py:97-118``).
+
+    ``modules`` holds ``visual_adapter``; cond_frames_patches: one [B, L_p,
+    D_t] patch-token tensor per frame; vecs: one [B, proj_dim] projected
+    class token per frame (averaged into ``vec``)."""
+    ctx = torch.cat(list(cond_frames_patches), dim=1).to(compute_dtype)
+    txt = visual_adapter(modules["visual_adapter"], ctx)
+    b, dev = ctx.shape[0], ctx.device
+    ids = torch.cat([spatial_ids(patch_grid, patch_grid, t=t, device=dev)
+                     for t in frame_times], dim=0)
+    h, w = latent_hw
+    grid = spatial_ids(h // 2, w // 2, t=target_time, device=dev)
+    vec = sum(vecs) / len(vecs)
+    return {"txt": txt, "txt_ids": ids[None].expand(b, *ids.shape),
+            "vec": vec.to(compute_dtype),
+            "img_ids": grid[None].expand(b, (h // 2) * (w // 2), 3)}

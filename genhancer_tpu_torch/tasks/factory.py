@@ -1,9 +1,10 @@
 """Task factory: config -> (spec, loader, train-step factory, checkpoint kind).
 
-Port of ``genhancer_tpu/tasks/factory.py`` for ``task: image_stage1`` with
-``tower: openai_clip | metaclip``.  Video tasks, stage-2 tasks and the
-SigLIP tower are not ported yet and raise, as do the options that need
-several devices (ROADMAP slice 7).
+Port of ``genhancer_tpu/tasks/factory.py`` for the stage-1 tasks
+``image_stage1`` and ``video_{middle,next,next2,sliding}_stage1`` with
+``tower: openai_clip | metaclip``.  Stage-2 tasks and the SigLIP tower are
+not ported yet and raise, as do the options that need several devices
+(ROADMAP slice 7).
 """
 
 from __future__ import annotations
@@ -12,9 +13,10 @@ import torch
 
 from .. import registry
 from . import image as image_task
+from . import video as video_task
 from .image import TaskSpec
 
-# reference trainer script name -> (task, tower); the image rows
+# reference trainer script name -> (task, tower)
 TRAINER_COMPAT = {
     "train_SigLIP_stage1": ("image_stage1", "siglip"),
     "train_SigLIP_stage2_only": ("image_stage2_only", "siglip"),
@@ -22,7 +24,24 @@ TRAINER_COMPAT = {
     "train_MetaCLIP_stage1": ("image_stage1", "metaclip"),
     "train_MetaCLIP_stage2_only": ("image_stage2_only", "metaclip"),
     "train_MetaCLIP_stage2_all": ("image_stage2_all", "metaclip"),
+    "train_OpenAICLIP_video_stage1": ("video_middle_stage1", "openai_clip"),
+    "train_OpenAICLIP_video_stage2_all": ("video_middle_stage2_all", "openai_clip"),
+    "train_OpenAICLIP_nextpredic_stage1": ("video_next_stage1", "openai_clip"),
+    "train_OpenAICLIP_nextpredic_stage2_all": ("video_next_stage2_all", "openai_clip"),
+    "train_OpenAICLIP_use2frames_nextpredic_stage1": ("video_next2_stage1", "openai_clip"),
+    "train_OpenAICLIP_use2frames_nextpredic_stage2_all": ("video_next2_stage2_all", "openai_clip"),
+    "train_OpenAICLIP_sliding_windows_nextpredic_stage1": ("video_sliding_stage1", "openai_clip"),
+    "train_OpenAICLIP_sliding_windows_nextpredic_stage2_all": ("video_sliding_stage2_all",
+                                                               "openai_clip"),
 }
+
+_VIDEO_MODE = {"video_middle": "middle", "video_next": "next",
+               "video_next2": "next2", "video_sliding": "sliding"}
+_LOADER_MODE = {"middle": "triplet", "next": "next", "next2": "next2",
+                "sliding": "sliding"}
+# the remat gate's per-device token threshold for stage 1
+# (genhancer_tpu/tasks/factory.py:236-246), set for a 16 GB chip and kept as is
+REMAT_TOKENS = 8192
 
 # config knob -> its single-device value; any other value needs a mesh
 _MULTI_DEVICE = {"model_parallel": 1, "sequence_parallel": 1, "pipeline_parallel": 1,
@@ -50,14 +69,25 @@ def _lora_kwargs(cfg) -> dict:
                 lora_dropout=float(lc.get("lora_dropout", 0.0)))
 
 
+def remat_gate(n_cond: int, clip_image_size: int, patch: int, img_size: int,
+               batch: int) -> bool:
+    """The JAX factory's automatic remat decision for a stage-1 video task
+    on one device and one process (``factory.py:236-246``): on when the
+    joint sequence is at least 1024 tokens and the batch's tokens exceed
+    ``REMAT_TOKENS``."""
+    seq = n_cond * (clip_image_size // patch) ** 2 + (img_size // 16) ** 2
+    return seq >= 1024 and batch * seq > REMAT_TOKENS
+
+
 def build_spec(cfg):
     """(spec, tower_kind, ckpt_kind) from a config mapping."""
     task: str = cfg["task"]
-    if not task.startswith("image_"):
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP: slice 4, long sequences and "
-            "video); the port runs image tasks")
-    stage = task[len("image_"):]
+    if task.startswith("image_"):
+        stage = task[len("image_"):]
+    elif task.rsplit("_stage", 1)[0] in _VIDEO_MODE:
+        stage = "stage" + task.rsplit("_stage", 1)[1]
+    else:
+        raise ValueError(f"unknown task {task!r}")
     if stage != "stage1":
         raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP: slice 5, "
                                   "stage 2 and the caches)")
@@ -76,26 +106,41 @@ def build_spec(cfg):
     model_name = cfg.get("model_name", "flux-dev")
     compute_dtype = (torch.bfloat16 if cfg.get("mixed_precision", "bf16") == "bf16"
                      else torch.float32)
-    spec = TaskSpec(stage=stage, tower_kind=kind, img_size=img_size,
-                    clip_image_size=clip_image_size,
-                    dit_cfg=registry.build_dit_config(model_name),
-                    vae_cfg=registry.build_vae_config(model_name, cfg.get("ae_path")),
-                    tower_cfg=tower_cfg,
-                    clip_dim=int(cc.get("clip_dim", 768)),
-                    t5_dim=int(cc.get("t5_dim", 4096)),
-                    scale_factor=float(cfg.get("scale_factor", 1.0)),
-                    guidance=float(cfg.get("guidance", 4.0)),
-                    remat=bool(cfg.get("remat") or False),
-                    compute_dtype=compute_dtype,
-                    dit_param_dtype=compute_dtype,
-                    # bf16 by default for the frozen VAE encode, as the JAX
-                    # trainer (documented deviation from the reference's
-                    # fp32); `vae_dtype: fp32` restores parity
-                    vae_dtype=(torch.float32 if cfg.get("vae_dtype") == "fp32"
-                               else torch.bfloat16),
-                    dit_quant=cfg.get("dit_quant", "none"),
-                    **_lora_kwargs(cfg))
-    return spec, kind, "image"
+    common = dict(stage=stage, tower_kind=kind, img_size=img_size,
+                  clip_image_size=clip_image_size,
+                  dit_cfg=registry.build_dit_config(model_name),
+                  vae_cfg=registry.build_vae_config(model_name, cfg.get("ae_path")),
+                  tower_cfg=tower_cfg,
+                  clip_dim=int(cc.get("clip_dim", 768)),
+                  t5_dim=int(cc.get("t5_dim", 4096)),
+                  scale_factor=float(cfg.get("scale_factor", 1.0)),
+                  guidance=float(cfg.get("guidance", 4.0)),
+                  remat=bool(cfg.get("remat") or False),
+                  compute_dtype=compute_dtype,
+                  dit_param_dtype=compute_dtype,
+                  # bf16 by default for the frozen VAE encode, as the JAX
+                  # trainer (documented deviation from the reference's
+                  # fp32); `vae_dtype: fp32` restores parity
+                  vae_dtype=(torch.float32 if cfg.get("vae_dtype") == "fp32"
+                             else torch.bfloat16),
+                  dit_quant=cfg.get("dit_quant", "none"))
+    if task.startswith("image_"):
+        return TaskSpec(**common, **_lora_kwargs(cfg)), kind, "image"
+
+    mode = _VIDEO_MODE[task.rsplit("_stage", 1)[0]]
+    if cfg.get("remat") is None:
+        bs = int(cfg.get_path("data_config.train_batch_size",
+                              cfg.get("train_batch_size", 8)))
+        common["remat"] = remat_gate(video_task.VIDEO_MODES[mode]["n_cond"],
+                                     clip_image_size, tower_cfg.vision.patch_size,
+                                     img_size, bs)
+    spec = video_task.VideoTaskSpec(
+        mode=mode, adapter_in_dim=tower_cfg.vision.hidden_size,
+        remat_policy=cfg.get("remat_policy", "full"),
+        tower_quant=cfg.get("tower_quant", "none"), vae_quant=cfg.get("vae_quant", "none"),
+        **common)
+    video_task.require_ported(spec)
+    return spec, kind, "video"
 
 
 def build_task(cfg):
@@ -103,10 +148,20 @@ def build_task(cfg):
     build_spec plus the data loader.  Unlike the JAX build_task it returns
     no pretrained tower/VAE trees: the weights are random init from the
     config's seed until weight files are in the repository (registry)."""
-    from ..data import cc3m as cc3m_data
     spec, _, ckpt_kind = build_spec(cfg)
     dc = dict(cfg.get("data_config", {}) or {})
     img_size = int(dc.pop("img_size", 224))
-    loader = cc3m_data.loader(img_size=img_size, **dc)
-    return (spec, loader, image_task.make_train_step, image_task.create_task_state,
+    if ckpt_kind == "image":
+        from ..data import cc3m as cc3m_data
+        loader = cc3m_data.loader(img_size=img_size, **dc)
+        return (spec, loader, image_task.make_train_step, image_task.create_task_state,
+                ckpt_kind)
+    from ..data import video as video_data
+    for k in ("window_cond", "window_stride", "max_windows_per_video"):
+        if k in cfg:
+            dc[k] = cfg[k]
+    if spec.mode != "sliding":
+        dc.pop("max_frames_per_video", None)
+    loader = video_data.loader(mode=_LOADER_MODE[spec.mode], img_size=img_size, **dc)
+    return (spec, loader, video_task.make_train_step, video_task.create_task_state,
             ckpt_kind)

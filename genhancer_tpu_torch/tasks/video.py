@@ -1,0 +1,220 @@
+"""Video-mode tasks, stage 1: middle-frame, next-frame, 2-frame and
+sliding-window prediction.
+
+Port of ``genhancer_tpu/tasks/video.py`` for stage 1.  One parameterized
+implementation covers the four reference trainer families:
+
+  * middle  — cond (start t=0, end t=2) -> target middle t=1;
+  * next    — cond (current t=0) -> target next t=1;
+  * next2   — cond (t=0, t=1) -> target t=2;
+  * sliding — cond (t=0, 1, 2) -> target t=3 over per-video windows, which
+    arrive pre-windowed from the host loader with a ``valid`` mask.
+
+The conditioning is the frozen tower's *patch tokens* through the trained
+VisualPromptAdapter (``tasks.conditioning.video_conditioning``).  Modules:
+``{dit, vae, clip{model, project_clip}, visual_adapter}``; ``project_clip``
+is kept for the checkpoint layout, but the video forward never reaches it,
+so it takes no gradient and no weight decay (``video.py:160-171``).
+
+Random draws come from one ``torch.Generator``; a test hands the loss the
+JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
+``vae_noise`` [B, h, w, z]).  Stage 2 (``stage2_all``), precomputed batches
+(``moments``/``cond_patches``), the int8 knobs and the SigLIP tower raise
+``NotImplementedError``, naming their ROADMAP slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn as tnn
+
+from ..core.nn import init_weights
+from ..models import dit as dit_m
+from ..models import vae as vae_m
+from ..models.towers import clip as clip_m
+from ..models.towers.projectors import Projector, VisualPromptAdapter
+from ..train import flow
+from ..train.state import TrainState, apply_gradients, create_state
+from ..train.step_utils import take_grad
+from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
+                           video_conditioning)
+
+VIDEO_MODES: Dict[str, Dict] = {
+    "middle": {"n_cond": 2, "frame_times": (0.0, 2.0), "target_time": 1.0},
+    "next": {"n_cond": 1, "frame_times": (0.0,), "target_time": 1.0},
+    "next2": {"n_cond": 2, "frame_times": (0.0, 1.0), "target_time": 2.0},
+    "sliding": {"n_cond": 3, "frame_times": (0.0, 1.0, 2.0), "target_time": 3.0},
+}
+
+
+@dataclass(frozen=True)
+class VideoTaskSpec:
+    """Static description of one video task."""
+    mode: str                        # key into VIDEO_MODES
+    stage: str                       # "stage1" (the only stage ported)
+    tower_kind: str                  # "clip"
+    img_size: int                    # VAE input resolution
+    clip_image_size: int
+    dit_cfg: dit_m.DiTConfig
+    vae_cfg: vae_m.VAEConfig
+    tower_cfg: clip_m.CLIPConfig
+    clip_dim: int = 768
+    t5_dim: int = 4096
+    adapter_in_dim: int = 1024       # the tower's patch-token width
+    scale_factor: float = 1.0
+    guidance: float = 4.0
+    remat: bool = False
+    remat_policy: str = "full"
+    compute_dtype: torch.dtype = torch.bfloat16
+    dit_param_dtype: torch.dtype = torch.bfloat16
+    vae_dtype: torch.dtype = torch.float32   # conv dtype of the frozen encode
+    tower_quant: str = "none"
+    vae_quant: str = "none"
+    dit_quant: str = "none"
+
+    @property
+    def n_cond(self) -> int:
+        return VIDEO_MODES[self.mode]["n_cond"]
+
+    @property
+    def frame_times(self) -> Tuple[float, ...]:
+        return VIDEO_MODES[self.mode]["frame_times"]
+
+    @property
+    def target_time(self) -> float:
+        return VIDEO_MODES[self.mode]["target_time"]
+
+    @property
+    def latent_hw(self) -> Tuple[int, int]:
+        f = 2 ** (len(self.vae_cfg.ch_mult) - 1)   # f8 for the FLUX VAE
+        return (self.img_size // f, self.img_size // f)
+
+    @property
+    def patch_grid(self) -> int:
+        return self.clip_image_size // self.tower_cfg.vision.patch_size
+
+
+def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
+    """Uninitialised modules in the reference layout, on ``device``."""
+    return tnn.ModuleDict({
+        "dit": dit_m.DiT(spec.dit_cfg, device=device, dtype=spec.dit_param_dtype),
+        "vae": vae_m.AutoEncoder(spec.vae_cfg, device=device),
+        "clip": tnn.ModuleDict({
+            "model": clip_m.CLIPVisionTower(spec.tower_cfg, device=device),
+            "project_clip": Projector(spec.clip_dim, spec.clip_dim, device=device),
+        }),
+        "visual_adapter": VisualPromptAdapter(spec.adapter_in_dim, spec.t5_dim,
+                                              device=device),
+    })
+
+
+def init_modules(spec: VideoTaskSpec, generator: torch.Generator,
+                 device=None) -> tnn.ModuleDict:
+    """Random-init modules drawn from ``generator`` (on ``device``)."""
+    return init_weights(build_modules(spec, device), generator)
+
+
+def require_ported(spec: VideoTaskSpec) -> None:
+    """Raise for the options of a video spec that the port does not run."""
+    if spec.stage != "stage1":
+        raise NotImplementedError(
+            f"video stage {spec.stage!r} is not ported yet (ROADMAP: slice 5, stage 2 "
+            "and the caches)")
+    for knob in ("tower_quant", "vae_quant", "dit_quant"):
+        if getattr(spec, knob) != "none":
+            raise NotImplementedError(
+                f"{knob}: {getattr(spec, knob)} is not ported yet (ROADMAP: slice 3, "
+                "the int8 fast stack)")
+    tower_stats(spec.tower_kind)        # SigLIP raises there
+
+
+def trainable_predicate(spec: VideoTaskSpec, modules=None) -> Callable[[str], bool]:
+    """Stage 1 trains the DiT and the visual adapter only."""
+    require_ported(spec)
+
+    def pred(path: str) -> bool:
+        return path.startswith("dit.") or path.startswith("visual_adapter.")
+
+    return pred
+
+
+def make_loss_fn(spec: VideoTaskSpec, mesh=None):
+    """loss_fn(modules, batch, generator, draws=None) -> float32 scalar.
+
+    ``batch``: ``cond`` [B, n_cond, H, W, 3] and ``target`` [B, H, W, 3],
+    float32 in [0, 1], plus ``valid`` [B] (the sliding loader's padded
+    rows), on the modules' device."""
+    require_ported(spec)
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
+                                  "(ROADMAP: slice 7, parallelism)")
+    f32, cd = torch.float32, spec.compute_dtype
+
+    def loss_fn(modules, batch, generator: Optional[torch.Generator] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        if "moments" in batch or "cond_patches" in batch:
+            raise NotImplementedError(
+                "precomputed video batches (moments/cond_patches) are not ported yet "
+                "(ROADMAP: slice 5, stage 2 and the caches)")
+        draws = draws or {}
+        cond, target = batch["cond"], batch["target"]
+        b, n_cond, dev = cond.shape[0], cond.shape[1], cond.device
+        with torch.no_grad():
+            # frozen VAE encode of the target frame
+            vae_in = normalize(target, VAE_MEAN, VAE_STD).to(f32)
+            x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
+                                      dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
+            # one frozen tower pass over all b * n_cond conditioning frames
+            mean, std = tower_stats(spec.tower_kind)
+            px = normalize(cond.reshape((b * n_cond,) + tuple(cond.shape[2:])), mean, std)
+            vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
+                                                     px.to(cd), spec.tower_cfg)
+        x1 = dit_m.pack_latent(x1_lat).to(f32)
+        patches = patches_flat.reshape(b, n_cond, *patches_flat.shape[1:])
+        vecs = vecs_flat.reshape(b, n_cond, -1)
+        dit_in = video_conditioning(
+            modules, [patches[:, i] for i in range(n_cond)],
+            [vecs[:, i] for i in range(n_cond)], spec.latent_hw, spec.patch_grid,
+            spec.target_time, spec.frame_times, compute_dtype=cd)
+        t = draws.get("t")
+        if t is None:
+            t = flow.sample_timesteps(b, spec.scale_factor, generator, dev)
+        x0 = draws.get("x0")
+        if x0 is None:
+            x0 = torch.randn(x1.shape, generator=generator, dtype=f32, device=dev)
+        xt = flow.interpolate(x1, x0, t)
+        guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
+        pred = dit_m.dit_forward(
+            modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=dit_in["img_ids"],
+            txt=dit_in["txt"].to(cd), txt_ids=dit_in["txt_ids"], timesteps=t.to(cd),
+            y=dit_in["vec"], guidance=guidance, remat=spec.remat,
+            remat_policy=spec.remat_policy)
+        # "valid" masks the sliding loader's padded rows
+        return flow.mse_loss(pred, flow.velocity_target(x1, x0), mask=batch.get("valid"))
+
+    return loss_fn
+
+
+def make_train_step(spec: VideoTaskSpec, optimizer, mesh=None):
+    """(state, batch, generator, draws=None) -> (state, metrics), one
+    optimizer step without accumulation."""
+    loss_fn = make_loss_fn(spec, mesh)
+
+    def step(state: TrainState, batch, generator=None, draws=None):
+        loss = loss_fn(state.modules, batch, generator, draws)
+        loss.backward()
+        with torch.no_grad():
+            grads = {k: take_grad(p) for k, p in state.trainable.items()}
+        g_norm = apply_gradients(state, grads, optimizer)
+        return state, {"loss": loss.detach(), "grad_norm": g_norm}
+
+    return step
+
+
+def create_task_state(generator: torch.Generator, spec: VideoTaskSpec, optimizer,
+                      device=None) -> TrainState:
+    modules = init_modules(spec, generator, device=device)
+    return create_state(modules, trainable_predicate(spec, modules), optimizer)

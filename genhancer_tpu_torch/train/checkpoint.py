@@ -1,11 +1,13 @@
 """Stage-1 checkpoints in the reference layout, and resume.
 
-Port of ``genhancer_tpu/train/checkpoint.py`` (image mode).  A stage-1 run
-writes torch state-dict ``.bin`` files under the reference key names
-(``checkpoint-dit-N.bin``, ``checkpoint-project-clip-N.bin``,
-``checkpoint-project-t5-N.bin``; ``train_SigLIP_stage1.py:284-300``) — the
-port's modules carry those names, so each loads with ``strict=True`` in
-either package — plus ``optimizer-state-N.bin``, which is framework
+Port of ``genhancer_tpu/train/checkpoint.py`` (stage 1).  A stage-1 run
+writes torch state-dict ``.bin`` files under the reference key names — image
+mode ``checkpoint-dit-N.bin``, ``checkpoint-project-clip-N.bin`` and
+``checkpoint-project-t5-N.bin`` (``train_SigLIP_stage1.py:284-300``), video
+mode ``checkpoint-dit-N.bin``, ``checkpoint-project-clip-N.bin`` and
+``checkpoint-visual-adapter-N.bin`` (``train_OpenAICLIP_video_stage1.py:
+501-514``) — the port's modules carry those names, so each loads with
+``strict=True`` in either package — plus ``optimizer-state-N.bin``, which is framework
 internal: the port writes its own positional layout (the step count, then
 each moment leaf in sorted path order) and resumes from it.
 
@@ -20,24 +22,35 @@ from typing import List, Optional
 
 import torch
 
-STAGE1_FILES = (("dit", "checkpoint-dit-{step}.bin"),
-                ("project_clip", "checkpoint-project-clip-{step}.bin"),
-                ("project_t5", "checkpoint-project-t5-{step}.bin"))
+STAGE1_FILES = {
+    "image": (("dit", "checkpoint-dit-{step}.bin"),
+              ("project_clip", "checkpoint-project-clip-{step}.bin"),
+              ("project_t5", "checkpoint-project-t5-{step}.bin")),
+    "video": (("dit", "checkpoint-dit-{step}.bin"),
+              ("project_clip", "checkpoint-project-clip-{step}.bin"),
+              ("visual_adapter", "checkpoint-visual-adapter-{step}.bin")),
+}
 _PRUNE_PREFIXES = ("checkpoint-dit-", "checkpoint-project-clip-", "checkpoint-project-t5-",
                    "checkpoint-visual-adapter-", "optimizer-state-")
 _STEP_RE = re.compile(r"checkpoint-dit-(\d+)\.bin$")
 
 
-def _components(modules):
-    return {"dit": modules["dit"], "project_clip": modules["clip"]["project_clip"],
-            "project_t5": modules["clip"]["project_t5"]}
+def _components(modules, kind: str):
+    """{file component: module} of an ``init_modules``-layout tree."""
+    out = {"dit": modules["dit"], "project_clip": modules["clip"]["project_clip"]}
+    if kind == "image":
+        out["project_t5"] = modules["clip"]["project_t5"]
+    else:
+        out["visual_adapter"] = modules["visual_adapter"]
+    return out
 
 
-def load_stage1_components(modules, load_dir: str, load_step: int) -> None:
-    """Load the stage-1 DiT and projector ``.bin`` files of ``load_step`` into
-    ``init_modules``-layout modules, in place."""
-    targets = _components(modules)
-    for name, pattern in STAGE1_FILES:
+def load_stage1_components(modules, load_dir: str, load_step: int,
+                           kind: str = "image") -> None:
+    """Load the stage-1 ``.bin`` files of ``load_step`` (``kind``: image or
+    video) into ``init_modules``-layout modules, in place."""
+    targets = _components(modules, kind)
+    for name, pattern in STAGE1_FILES[kind]:
         path = os.path.join(load_dir, pattern.format(step=int(load_step)))
         if not os.path.exists(path):
             raise FileNotFoundError(f"stage-1 checkpoint file missing: {path}")
@@ -45,13 +58,14 @@ def load_stage1_components(modules, load_dir: str, load_step: int) -> None:
         targets[name].load_state_dict(sd, strict=True)
 
 
-def save_stage1(state, output_dir: str, step: int) -> List[str]:
-    """Write the reference stage-1 component ``.bin`` files and the
-    optimizer state of ``state`` at ``step``; returns the paths."""
+def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[str]:
+    """Write the reference stage-1 component ``.bin`` files (``kind``: image
+    or video) and the optimizer state of ``state`` at ``step``; returns the
+    paths."""
     os.makedirs(output_dir, exist_ok=True)
     written = []
-    for name, module in _components(state.modules).items():
-        pattern = dict(STAGE1_FILES)[name]
+    for name, module in _components(state.modules, kind).items():
+        pattern = dict(STAGE1_FILES[kind])[name]
         path = os.path.join(output_dir, pattern.format(step=step))
         torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
         written.append(path)
@@ -119,14 +133,14 @@ def latest_step(output_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def resume_latest(state, output_dir: str) -> None:
+def resume_latest(state, output_dir: str, kind: str = "image") -> None:
     """``resume_from_checkpoint: latest``: load the newest step's components
     and optimizer state into ``state``, in place (no checkpoint: unchanged)."""
     step = latest_step(output_dir)
     if step is None:
         return
     with torch.no_grad():
-        load_stage1_components(state.modules, output_dir, step)
+        load_stage1_components(state.modules, output_dir, step, kind)
     opt_path = os.path.join(output_dir, f"optimizer-state-{step}.bin")
     if os.path.exists(opt_path):
         load_optimizer_state(state, opt_path)

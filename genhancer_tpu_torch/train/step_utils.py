@@ -1,4 +1,5 @@
-"""Generic train-step assembly: gradient accumulation.
+"""Generic train-step assembly: gradient accumulation, and the host-side
+stacking of micro-batches and their extras.
 
 Port of ``genhancer_tpu/train/step_utils.py``.  Micro-batches arrive stacked
 on a leading axis (``stack_microbatches``); each runs forward and backward on
@@ -93,3 +94,21 @@ def stack_microbatches(batches):
                 bb[k] = np.concatenate([v, pad], axis=0)
         norm.append(bb)
     return {k: np.stack([b[k] for b in norm]) for k in (keys | ({"valid"} if need_valid else set()))}
+
+
+def merge_extras(extras_list):
+    """A batch's non-array extras (the sliding loader's
+    ``avg_windows_per_video``/``bs_eff``) for one accumulation group: numbers
+    are averaged over the micro-batches, anything else keeps the last one's
+    (``genhancer_tpu/train/trainer.py:287-299``)."""
+    import numpy as np
+    if len(extras_list) == 1:
+        return extras_list[0]
+    out = {}
+    for k in extras_list[0]:
+        vals = [e[k] for e in extras_list if k in e]
+        try:
+            out[k] = float(np.mean([float(v) for v in vals]))
+        except (TypeError, ValueError):
+            out[k] = vals[-1]
+    return out

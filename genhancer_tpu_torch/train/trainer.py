@@ -6,8 +6,12 @@ Port of ``genhancer_tpu/train/trainer.py`` for one device:
   * gradient accumulation (``train.step_utils``) or a plain step;
   * a depth-2 host thread that pins each batch and copies it to the device
     (``data.prefetch``);
+  * image and video stage-1 tasks; the checkpoint layout and the loss
+    follow the task's ``ckpt_kind``;
   * step/data timers and tracker scalars under the reference names
-    (``train_loss``, ``step_time``, ``data_load_time``); the host syncs on
+    (``train_loss``, ``step_time``, ``data_load_time``, and in sliding mode
+    ``avg_windows_per_video``/``bs_eff``, averaged over an accumulation
+    group); the host syncs on
     the loss only every ``log_interval`` steps, so the steps between run
     back to back on the device;
   * watchdog warnings for slow data loading and slow steps;
@@ -38,16 +42,18 @@ import torch
 from ..data.prefetch import DevicePrefetcher
 from ..serve.engine import resolve_device
 from ..tasks import factory
-from ..tasks.image import make_loss_fn
+from ..tasks import image as image_task
+from ..tasks import video as video_task
 from . import checkpoint as ckpt
 from . import optim
-from .step_utils import make_accum_train_step, stack_microbatches
+from .step_utils import make_accum_train_step, merge_extras, stack_microbatches
 
 log = logging.getLogger("genhancer_tpu_torch.trainer")
 
 DATA_LOAD_TIMEOUT = 60.0
 STEP_TIMEOUT = 300.0
-ARRAY_KEYS = {"image", "valid"}
+ARRAY_KEYS = {"image", "cond", "target", "valid"}
+EXTRA_SCALARS = ("avg_windows_per_video", "bs_eff")
 
 
 class SummaryWriterProxy:
@@ -130,19 +136,20 @@ class Trainer:
         if cfg.get("load_dir") and cfg.get("load_step") is not None:
             with torch.no_grad():
                 ckpt.load_stage1_components(self.state.modules, cfg["load_dir"],
-                                            int(cfg["load_step"]))
+                                            int(cfg["load_step"]), self.ckpt_kind)
             log.info("loaded stage-1 components from %s step %s",
                      cfg["load_dir"], cfg["load_step"])
         if cfg.get("resume_from_checkpoint") == "latest":
             before = self.state.step
-            ckpt.resume_latest(self.state, self.output_dir)
+            ckpt.resume_latest(self.state, self.output_dir, self.ckpt_kind)
             if self.state.step != before:
                 log.info("resumed from step %d", self.state.step)
 
         if self.accum > 1:
             acc_dt = cfg.get("grad_accum_dtype", "float32")
+            task = image_task if self.ckpt_kind == "image" else video_task
             self.step_fn = make_accum_train_step(
-                make_loss_fn(self.spec), self.optimizer, self.accum,
+                task.make_loss_fn(self.spec), self.optimizer, self.accum,
                 accum_dtype=None if acc_dt == "param" else getattr(torch, acc_dt))
         else:
             self.step_fn = make_step(self.spec, self.optimizer)
@@ -165,20 +172,24 @@ class Trainer:
 
     def _batches(self) -> DevicePrefetcher:
         """Device-ready batches (the array leaves; accumulation stacking
-        applied), one host thread ahead."""
+        applied; the loader's other values under ``__extras__``), one host
+        thread ahead."""
 
         def host_iter():
-            pending = []
+            pending, pending_extras = [], []
             for b in self.loader:
                 arrays = {k: v for k, v in b.items()
                           if k in ARRAY_KEYS and isinstance(v, np.ndarray)}
+                extras = {k: v for k, v in b.items() if k not in arrays}
                 if self.accum > 1:
                     pending.append(arrays)
+                    pending_extras.append(extras)
                     if len(pending) == self.accum:
-                        yield stack_microbatches(pending)
-                        pending = []
+                        yield {**stack_microbatches(pending),
+                               "__extras__": merge_extras(pending_extras)}
+                        pending, pending_extras = [], []
                 else:
-                    yield arrays
+                    yield {**arrays, "__extras__": extras}
 
         return DevicePrefetcher(host_iter(), self.device, depth=2)
 
@@ -189,7 +200,7 @@ class Trainer:
         return bool(every) and step % every == 0
 
     def _checkpoint(self, step: int) -> None:
-        ckpt.save_stage1(self.state, self.output_dir, step)
+        ckpt.save_stage1(self.state, self.output_dir, step, self.ckpt_kind)
         limit = int(self.cfg.get("checkpoints_total_limit") or 0)
         if limit:
             pruned = ckpt.prune_checkpoints(self.output_dir, limit)
@@ -238,6 +249,7 @@ class Trainer:
             if data_load_time > DATA_LOAD_TIMEOUT:
                 log.warning("data loading slow: %.1fs > %.0fs", data_load_time,
                             DATA_LOAD_TIMEOUT)
+            extras = batch.pop("__extras__", {})
             if self.profile and step == 2:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -269,11 +281,15 @@ class Trainer:
             if loss is not None:
                 metrics_out = {"loss": loss, "step": step,
                                "grad_norm": float(metrics["grad_norm"]),
-                               "step_time": step_time, "data_load_time": data_load_time}
+                               "step_time": step_time, "data_load_time": data_load_time,
+                               **{k: float(extras[k]) for k in EXTRA_SCALARS if k in extras}}
                 self.history.append(metrics_out)
                 self.writer.scalar("train_loss", loss, step)
                 self.writer.scalar("step_time", step_time, step)
                 self.writer.scalar("data_load_time", data_load_time, step)
+                for k in EXTRA_SCALARS:
+                    if k in extras:
+                        self.writer.scalar(k, float(extras[k]), step)
                 log.info("step %d: loss=%.4f step_time=%.3fs data=%.3fs",
                          step, loss, step_time, data_load_time)
             else:

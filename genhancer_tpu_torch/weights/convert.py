@@ -1,7 +1,8 @@
 """JAX parameter trees -> this package's state dicts.
 
 The JAX package keeps its parameters as nested dicts with numpy leaves
-(``{dit, vae, clip{model, project_clip, project_t5}}``).
+(image tasks ``{dit, vae, clip{model, project_clip, project_t5}}``, video
+tasks ``{dit, vae, clip{model, project_clip}, visual_adapter}``).
 ``state_dicts_from_jax`` flattens such a tree into torch state dicts under
 the reference torch names — exactly what ``genhancer_tpu.weights.hf_convert``
 ``dit_to_torch`` / ``vae_to_torch`` / ``tower_to_torch`` / ``module_to_torch``
@@ -81,29 +82,38 @@ def tower_state_dict(tree) -> StateDict:
 
 
 def module_state_dict(tree) -> StateDict:
-    """Projectors: the JAX keys are already the torch Sequential names."""
+    """Projectors and the visual adapter: the JAX keys are already the torch
+    Sequential names."""
     return {k: _leaf(v) for k, v in flatten_tree(tree).items()}
 
 
 def state_dicts_from_jax(params) -> Dict[str, StateDict]:
-    """``{dit, vae, clip{model, project_clip, project_t5}}`` (numpy leaves)
-    -> ``{"dit", "vae", "tower", "project_clip", "project_t5"}`` state dicts."""
+    """An image or video tree (numpy leaves) -> ``{"dit", "vae", "tower",
+    "project_clip"}`` state dicts plus ``"project_t5"`` (image) or
+    ``"visual_adapter"`` (video)."""
     clip = params["clip"]
-    return {
+    out = {
         "dit": dit_state_dict(params["dit"]),
         "vae": vae_state_dict(params["vae"]),
         "tower": tower_state_dict(clip["model"]),
         "project_clip": module_state_dict(clip["project_clip"]),
-        "project_t5": module_state_dict(clip["project_t5"]),
     }
+    if "project_t5" in clip:
+        out["project_t5"] = module_state_dict(clip["project_t5"])
+    if "visual_adapter" in params:
+        out["visual_adapter"] = module_state_dict(params["visual_adapter"])
+    return out
 
 
 def load_jax_params(modules, params) -> None:
-    """Load a JAX parameter tree into ``init_modules``-layout modules
-    (strict: every key on both sides must match)."""
+    """Load a JAX parameter tree into ``init_modules``-layout modules of the
+    same task kind (strict: every key on both sides must match)."""
     sds = state_dicts_from_jax(params)
     modules["dit"].load_state_dict(sds["dit"], strict=True)
     modules["vae"].load_state_dict(sds["vae"], strict=True)
     modules["clip"]["model"].load_state_dict(sds["tower"], strict=True)
     modules["clip"]["project_clip"].load_state_dict(sds["project_clip"], strict=True)
-    modules["clip"]["project_t5"].load_state_dict(sds["project_t5"], strict=True)
+    if "project_t5" in modules["clip"] or "project_t5" in sds:
+        modules["clip"]["project_t5"].load_state_dict(sds["project_t5"], strict=True)
+    if "visual_adapter" in modules or "visual_adapter" in sds:
+        modules["visual_adapter"].load_state_dict(sds["visual_adapter"], strict=True)

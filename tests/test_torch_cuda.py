@@ -8,7 +8,9 @@ no JAX, so it also runs on a GPU machine without the JAX package:
 Bounds as in chip_smoke.py: float32 1e-4, bfloat16 2e-2 (the kernel rounds
 the unnormalised probabilities to bf16, the plain version the normalised);
 for gradients the bound is relative to max(1, max|plain|); K3 within one
-ulp of the storage dtype.
+ulp of the storage dtype.  K5/K5b's bf16 rounding points are held to
+mean|kernel - plain| / mean|plain| <= 2e-4 on o and dv, a bound that
+kernels rounding p elsewhere miss.
 """
 
 import pytest
@@ -16,11 +18,18 @@ import torch
 
 from genhancer_tpu_torch.core import attention as A
 from genhancer_tpu_torch.core.kernels import adamw as KA
+from genhancer_tpu_torch.core.kernels import flash_attention as F
 from genhancer_tpu_torch.core.kernels import short_attention as K
 from genhancer_tpu_torch.core.rope import multi_axis_rope
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
+ROUNDING_BOUND = 2e-4
+
+
+def _mean_rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().mean() / want.abs().mean()).item()
 
 
 @pytest.fixture
@@ -51,12 +60,18 @@ def test_kernels_match_plain_and_count(cuda, dtype, tol, l, d):
 
 
 def test_long_sequences_raise_on_cuda(cuda):
-    q = torch.zeros((1, A.FUSED_MAX_SEQ + 1, 1, 8), device=cuda)
+    """Long sequences launch K5 (no plain fallback); a length no kernel takes
+    (odd D below PALLAS_MIN_SEQ) raises."""
+    q = torch.randn((1, A.FUSED_MAX_SEQ + 1, 1, 8), device=cuda)
+    before = F.LAUNCHES["flash_attention"]
+    A.sdpa_auto(q, q, q)
+    cos = torch.ones((1, A.FUSED_MAX_SEQ + 1, 4), device=cuda)
+    A.attention(q, q, q, cos, torch.zeros_like(cos))
+    torch.cuda.synchronize()
+    assert F.LAUNCHES["flash_attention"] == before + 2
+    q = torch.zeros((1, 8, 1, 7), device=cuda)
     with pytest.raises(NotImplementedError, match="K5"):
         A.sdpa_auto(q, q, q)
-    cos = torch.zeros((1, A.FUSED_MAX_SEQ + 1, 4), device=cuda)
-    with pytest.raises(NotImplementedError, match="K5"):
-        A.attention(q, q, q, cos, cos)
 
 
 def test_unsupported_inputs_raise(cuda):
@@ -114,3 +129,37 @@ def test_adamw_matches_plain_within_one_ulp(cuda, pdt, gdt, shape):
     assert KA.LAUNCHES["fused_adamw"] == before + 1
     for got, want in zip((p, m, v), ref):
         assert KA.ulp_distance(got, want).max().item() <= 1.0
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("l, d", [(600, 64), (729, 72), (1031, 128)])
+def test_flash_matches_plain_and_counts(cuda, dtype, tol, l, d):
+    """K5 forward (o and lse) and K5b through the autograd Function against
+    the plain versions, on strided q/k/v views of one fused projection."""
+    g = torch.Generator(device=cuda).manual_seed(200 + l)
+    b, h = 2, 3
+    fused = torch.randn((b, l, 3 * h * d + 8), generator=g, device=cuda).to(dtype)
+    q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, dim=-1))
+    do = torch.randn((b, l, h, d), generator=g, device=cuda).to(dtype)
+    before = dict(F.LAUNCHES)
+    o, lse = F._fwd_kernel(q, k, v, want_lse=True)
+    torch.cuda.synchronize()
+    ro, rlse = F.flash_attention_fwd_ref(q, k, v)
+    assert (o.float() - ro.float()).abs().max().item() <= tol
+    assert (lse - rlse).abs().max().item() <= 1e-4 * max(1.0, rlse.abs().max().item())
+    qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.flash_attention(qq, kk, vv)
+    grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    want = F.flash_attention_bwd_ref(q, k, v, out.detach(), rlse, do)
+    for gk, gr in zip(grads, want):
+        err = (gk.float() - gr.float()).abs().max().item()
+        assert err <= tol * max(1.0, gr.float().abs().max().item()), err
+    assert F.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert F.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    if dtype == torch.bfloat16:
+        # the rounding points (o: normalised p; dv: p in float32), against
+        # controls that round p elsewhere: K2's single pass, K2b's plain dv
+        assert _mean_rel(o, ro) <= ROUNDING_BOUND < _mean_rel(K.fused_attention(q, k, v), ro)
+        ctl = K.fused_attention_bwd_ref(q, k, v, out.detach(), do)[2]
+        assert _mean_rel(grads[2], want[2]) <= ROUNDING_BOUND < _mean_rel(ctl, want[2])

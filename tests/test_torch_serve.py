@@ -177,7 +177,7 @@ class TestEngine:
         assert ours.compute_dtype == ours.dit_param_dtype == torch.bfloat16
 
     @pytest.mark.parametrize("override, match", [
-        ({"task": "video_middle_stage1"}, "not ported"),
+        ({"task": "video_middle_stage2_all"}, "not ported"),
         ({"tower": "siglip"}, "siglip"),
         ({"clip_config": {"model_dir": "/nonexistent"}}, "model_dir"),
         ({"ae_path": "ae.safetensors"}, "AE"),
