@@ -6,8 +6,11 @@ once):
 
     genhancer-train-torch --config configs/MetaCLIP_large_stage1.yaml --device cuda
     genhancer-train-torch --config configs/OpenAICLIP_224_sliding_stage1.yaml --device cuda
+    genhancer-train-torch --config configs/tpu_fast_stage1.yaml --device cuda
 
-The stage-1 tasks run: ``image_stage1`` and the four video modes
+The stage-1 tasks run (the image task also with the int8 stack, which the
+config alone selects: ``tower_quant``, ``vae_quant``, ``dit_quant``,
+``fused_optimizer: pallas``, ``optimizer_moment_bits``): ``image_stage1`` and the four video modes
 ``video_{middle,next,next2,sliding}_stage1``.
 
   * ``--task`` / ``--tower`` overrides (else read from the YAML);

@@ -1,11 +1,19 @@
 """Neural-net primitives: parameter-holding modules and the functions that
 apply them.
 
-Port of ``genhancer_tpu/core/nn.py`` (inference subset: no LoRA, no int8).
-Each JAX ``(init, apply)`` pair becomes an ``nn.Module`` that holds the
-parameters under the reference torch names (``weight``/``bias``/``scale``,
-linear weights ``[out, in]``, conv weights OIHW) plus an apply function with
-the JAX name and signature ``f(p, x)``, so the two packages read side by side.
+Port of ``genhancer_tpu/core/nn.py`` (no LoRA yet).  Each JAX ``(init,
+apply)`` pair becomes an ``nn.Module`` that holds the parameters under the
+reference torch names (``weight``/``bias``/``scale``, linear weights
+``[out, in]``, conv weights OIHW) plus an apply function with the JAX name
+and signature ``f(p, x)``, so the two packages read side by side.
+
+Int8 (``core.quant``): ``Int8Layer`` is a frozen linear or conv that tree
+surgery quantized; ``linear``/``conv2d`` dispatch on it.  Inside
+``int8_training_ctx`` every ``linear`` whose smaller dimension reaches
+``quant.SWITCHBACK_MIN_DIM`` runs SwitchBack, reading the
+optimizer-maintained int8 copy of its weight from the non-persistent buffers
+``weight_sb_q``/``weight_sb_scale`` when ``train.state.with_quant_cache`` has
+set them.
 
 Compute policy (as in JAX): matmuls run in the activation dtype with the
 weight cast at use; normalisation statistics are float32, and layernorm /
@@ -17,8 +25,10 @@ package's distributions (``init_weights``); there is no global RNG use.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -64,10 +74,55 @@ class Linear(nn.Module):
             self.bias.uniform_(-bound_b, bound_b, generator=g)
 
 
-def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+class Int8Layer(nn.Module):
+    """A frozen linear or conv as int8 factors, the JAX tree's leaves:
+    ``weight_q`` int8 and ``w_scale`` float32 buffers (state-dict keys) and
+    the kept ``bias``; no float weight.  A linear holds ``weight_q`` [out, in]
+    with ``w_scale`` [out, 1], a conv ``weight_q`` OIHW with ``w_scale``
+    [1, 1, 1, O]."""
+
+    def __init__(self, weight_q: torch.Tensor, w_scale: torch.Tensor,
+                 bias: Optional[nn.Parameter] = None):
+        super().__init__()
+        self.register_buffer("weight_q", weight_q)
+        self.register_buffer("w_scale", w_scale)
+        self.bias = bias
+
+
+# the SwitchBack context's dW kind ("bf16", "int8_dw" or "cols") while open
+_INT8_TRAIN = threading.local()
+
+
+@contextlib.contextmanager
+def int8_training_ctx(full: bool = False, dw_int8: bool = False):
+    """Route every ``linear`` with min(out, in) >= ``quant.SWITCHBACK_MIN_DIM``
+    (the constant the cache's layer set reads) through SwitchBack: dW in
+    float32 products by default, per-column int8 with ``full``, K8's
+    per-block int8 with ``dw_int8``."""
+    prev = getattr(_INT8_TRAIN, "dw", None)
+    _INT8_TRAIN.dw = "cols" if full else ("int8_dw" if dw_int8 else "bf16")
+    try:
+        yield
+    finally:
+        _INT8_TRAIN.dw = prev
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x: [..., in] -> [..., out] in x.dtype.  The bias is added after the
-    matmul has been rounded to x.dtype, as the JAX version does."""
-    y = torch.matmul(x, p.weight.to(x.dtype).t())
+    matmul has been rounded to x.dtype, as the JAX version does.  An
+    ``Int8Layer`` runs the int8 product; inside ``int8_training_ctx`` a
+    large enough ``Linear`` runs SwitchBack (``nn.py:124-173``)."""
+    from . import quant
+    if isinstance(p, Int8Layer):
+        y = quant.linear_int8_base(p, x)
+    else:
+        w = p.weight.to(x.dtype)
+        dw = getattr(_INT8_TRAIN, "dw", None)
+        if dw is not None and min(w.shape) >= quant.SWITCHBACK_MIN_DIM:
+            y = quant.switchback(x, w, getattr(p, "weight_sb_q", None),
+                                 getattr(p, "weight_sb_scale", None), dw=dw)
+        else:
+            y = torch.matmul(x, w.t())
     if p.bias is not None:
         y = y + p.bias.to(x.dtype)
     return y
@@ -166,10 +221,14 @@ class Conv2d(nn.Module):
             self.bias.uniform_(-bound_b, bound_b, generator=g)
 
 
-def conv2d(p: Conv2d, x: torch.Tensor, stride: int = 1,
+def conv2d(p, x: torch.Tensor, stride: int = 1,
            padding: Optional[int] = None) -> torch.Tensor:
     """NCHW conv in x.dtype.  ``padding=None`` is XLA's "SAME" for the odd
-    kernels at stride 1 this package uses (k // 2 on each side)."""
+    kernels at stride 1 this package uses (k // 2 on each side).  An
+    ``Int8Layer`` runs the int8 product (``core.quant.conv2d_int8``)."""
+    if isinstance(p, Int8Layer):
+        from .quant import conv2d_int8
+        return conv2d_int8(p, x, stride=stride, padding=padding)
     k = p.weight.shape[-1]
     pad = k // 2 if padding is None else padding
     bias = p.bias.to(x.dtype) if p.bias is not None else None

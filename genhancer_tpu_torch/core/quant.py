@@ -1,0 +1,281 @@
+"""Int8 quantization: the frozen tower and VAE encoder, and SwitchBack int8
+training of the DiT.
+
+Port of ``genhancer_tpu/core/quant.py`` (stage 1; the QLoRA helpers
+``quantize_lora_base`` and ``refresh_static_quant_flat`` come with stage 2).
+
+Scheme (weight-static, activation-dynamic): weights are symmetric int8 per
+output channel, ``w_q = clip(round(w / s_w))`` with ``s_w = max|w[o]| / 127``;
+activations are quantized dynamically, per row (the last dim) for linears —
+K7, ``core.kernels.rowquant`` — and per tensor for convs; the int8 products
+accumulate exactly in int32 (``torch._int_mm``, through
+``core.kernels.int8_mm.int_mm``; a convolution is im2col + ``_int_mm``) and
+are dequantized with the scales in the JAX package's association order:
+linear forward ``(acc * sx) * ws``, conv ``acc * (sx * ws)``, dx
+``acc * sg``, dW over columns ``(acc * sg^T) * sx``; the result is cast to
+the input's dtype and the bias added in that dtype.
+
+The JAX ``custom_vjp`` functions become ``torch.autograd.Function``s:
+``_Int8Matmul`` (the straight-through estimator of a frozen int8 linear)
+and ``_SwitchBack`` (``switchback``: ``switchback_linear`` and its five
+variants — the weight quantized in the forward or read from the
+optimizer-maintained cache, times a bf16 dW, the per-block int8 dW of K8,
+or the per-column int8 dW).  Module surgery replaces ``Linear``/``Conv2d``
+modules by ``core.nn.Int8Layer``, which holds ``weight_q`` and ``w_scale``
+buffers and no float weight, on the layers the JAX tree surgery selects.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn as tnn
+
+from . import nn
+from .kernels import int8_dw as K8
+from .kernels import rowquant as K7
+from .kernels.int8_mm import int_mm
+from .kernels.rowquant import div127
+
+f32 = torch.float32
+
+
+def quantize_weight(w: torch.Tensor, axis: int = 0):
+    """Per-output-channel symmetric int8; ``axis`` keeps its own scale (0 for
+    [out, in] linears and OIHW convs), the other axes are reduced.  Returns
+    (int8 weights, float32 scales with the reduced axes kept at 1)."""
+    axis %= w.dim()
+    wf = w.to(f32)
+    amax = wf.abs().amax(dim=tuple(i for i in range(w.dim()) if i != axis), keepdim=True)
+    scale = div127(torch.clamp_min(amax, 1e-12))
+    return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
+
+
+def quantize_activation_rows(x: torch.Tensor, col_scale: Optional[torch.Tensor] = None):
+    """Per-row (last dim) symmetric dynamic quant through K7: (int8, float32
+    [..., 1]).  ``col_scale``: optional [C] float32 multiplier folded in first
+    (the backward's ``g * ws``)."""
+    c = x.shape[-1]
+    q, s = K7.rowquant(x.reshape(-1, c), None if col_scale is None else col_scale.reshape(c))
+    return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
+
+
+def quantize_activation_tensor(x: torch.Tensor):
+    """Per-tensor symmetric dynamic quant (convs): one amax over the whole
+    call's batch, never per sample."""
+    xf = x.to(f32)
+    scale = div127(torch.clamp_min(xf.abs().amax(), 1e-12))
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def _quantize_cols(x2: torch.Tensor):
+    """Per-column symmetric quant of a [T, C] matrix -> (int8, float32 [1, C])."""
+    xf = x2.to(f32)
+    scale = div127(torch.clamp_min(xf.abs().amax(dim=0, keepdim=True), 1e-12))
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+# ---------------------------------------------------------------------------
+# the shared forward and backward blocks (``quant.py:81-132``)
+# ---------------------------------------------------------------------------
+
+def _int8_fwd_base(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+    """y = x @ dequant(wq, ws)^T: per-row x times per-output-channel W, int32
+    accumulation, ``(acc * sx) * ws``.  ``ws``: [out] or [out, 1]."""
+    xq, sx = quantize_activation_rows(x)
+    acc = int_mm(xq.reshape(-1, x.shape[-1]), wq.t())
+    y = acc.to(f32) * sx.reshape(-1, 1) * ws.reshape(-1)
+    return y.reshape(x.shape[:-1] + (wq.shape[0],)).to(x.dtype)
+
+
+def _int8_dx(g: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype) -> torch.Tensor:
+    """dx = g @ W with the per-output scales folded into g before its per-row
+    quantization (ws is constant along the contraction): ``acc * sg``."""
+    gq, sg = quantize_activation_rows(g, col_scale=ws.reshape(-1))
+    acc = int_mm(gq.reshape(-1, g.shape[-1]), wq)
+    return (acc.to(f32) * sg.reshape(-1, 1)).reshape(g.shape[:-1] + (wq.shape[1],)).to(out_dtype)
+
+
+def _bf16_dw(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
+    """dW[o, i] = sum_t g[t, o] x[t, i] over the flattened tokens, products
+    and sums in float32 (SwitchBack's unquantized weight gradient)."""
+    g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+    return torch.matmul(g2.t().to(f32), x2.to(f32)).to(out_dtype)
+
+
+def _int8_dw_cols(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Full-int8 dW: g and x quantized per column over all tokens,
+    ``(acc * sg^T) * sx``."""
+    gq2, sgc = _quantize_cols(g.reshape(-1, g.shape[-1]))
+    xq2, sxc = _quantize_cols(x.reshape(-1, x.shape[-1]))
+    return ((int_mm(gq2.t(), xq2).to(f32) * sgc.t()) * sxc).to(out_dtype)
+
+
+def _dw(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
+    """dW through K8 where ``dw_supported`` (the JAX kernel's rule), else
+    the float32-accumulated dense product (``quant.py:282-290``)."""
+    g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+    if K8.dw_supported(g2.shape[0], g2.shape[1], x2.shape[1]):
+        return K8.int8_dw(g2, x2, out_dtype)
+    return _bf16_dw(g2, x2, out_dtype)
+
+
+_DW = {"bf16": _bf16_dw, "int8_dw": _dw, "cols": _int8_dw_cols}
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """Frozen int8 linear: int8 forward, and the straight-through estimator
+    dx = g @ dequant(w) in int8 by scale folding (``_int8_matmul:135``);
+    the int8 weights take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, wq, ws):
+        ctx.save_for_backward(wq, ws)
+        return _int8_fwd_base(x, wq, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, ws = ctx.saved_tensors
+        return _int8_dx(g, wq, ws, g.dtype), None, None
+
+
+class _SwitchBack(torch.autograd.Function):
+    """SwitchBack linear (arXiv:2304.13013, ``quant.py:199-345``): int8
+    forward and int8 dx; W quantized in the forward from the master ``w``
+    (``wq`` None) or read from the optimizer-maintained cache (``wq``,
+    ``ws`` [out]); dW by ``dw`` — "bf16" (float32 products), "int8_dw" (K8)
+    or "cols" (per-column int8) — in ``w``'s dtype.  The cache takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, wq, ws, dw: str):
+        if wq is None:
+            wq, ws = quantize_weight(w, axis=0)
+        ctx.save_for_backward(x, wq, ws)
+        ctx.w_dtype, ctx.dw = w.dtype, dw
+        return _int8_fwd_base(x, wq, ws)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wq, ws = ctx.saved_tensors
+        dx = _int8_dx(g, wq, ws, x.dtype) if ctx.needs_input_grad[0] else None
+        dw = _DW[ctx.dw](g, x, ctx.w_dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None, None
+
+
+def linear_int8_base(p, x: torch.Tensor) -> torch.Tensor:
+    """Base matmul of an int8 linear (no bias — ``core.nn.linear`` adds it)."""
+    return _Int8Matmul.apply(x, p.weight_q, p.w_scale)
+
+
+def switchback(x: torch.Tensor, w: torch.Tensor, wq: Optional[torch.Tensor] = None,
+               ws: Optional[torch.Tensor] = None, dw: str = "bf16") -> torch.Tensor:
+    """y = x @ w^T through SwitchBack: the JAX package's six functions are
+    ``switchback_linear`` (wq None, dw "bf16"), ``_cached`` (wq, ws given),
+    ``_dw``/``_cached_dw`` (dw "int8_dw") and ``_full``/``_full_cached``
+    (dw "cols")."""
+    return _SwitchBack.apply(x, w, wq, ws, dw)
+
+
+def conv2d_int8(p, x: torch.Tensor, stride: int = 1, padding: Optional[int] = None
+                ) -> torch.Tensor:
+    """NCHW conv of an int8 conv (weight_q OIHW, w_scale [1, 1, 1, O]):
+    x quantized per tensor, im2col on the int8 codes (zero padding is exact:
+    q(0) = 0), int32 products, ``acc * (sx * ws)``, then x's dtype and the
+    bias.  ``padding=None`` is "SAME" for the odd kernels at stride 1."""
+    o, c, k, _ = p.weight_q.shape
+    pad = k // 2 if padding is None else padding
+    xq, sx = quantize_activation_tensor(x)
+    xq = xq.permute(0, 2, 3, 1)                                   # NHWC codes
+    if pad:
+        xq = F.pad(xq, (0, 0, pad, pad, pad, pad))
+    b, h, w, _ = xq.shape
+    ho, wo = (h - k) // stride + 1, (w - k) // stride + 1
+    taps = [xq[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
+            for i in range(k) for j in range(k)]
+    cols = torch.stack(taps, dim=-1).reshape(b * ho * wo, c * k * k)   # (c, i, j) order
+    acc = int_mm(cols, p.weight_q.reshape(o, c * k * k).t())
+    y = (acc.to(f32) * (sx * p.w_scale.reshape(-1))).reshape(b, ho, wo, o)
+    y = y.permute(0, 3, 1, 2).to(x.dtype)
+    if p.bias is not None:
+        y = y + p.bias.to(x.dtype)[:, None, None]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# which layers run int8 (``quant.py:348-547``)
+# ---------------------------------------------------------------------------
+
+# the one threshold of SwitchBack layers: the forward dispatch
+# (core.nn.linear) and the optimizer-maintained cache's layer set
+# (switchback_cache_paths) both read it and nothing else, so they cannot
+# cover different layers
+SWITCHBACK_MIN_DIM = 512
+
+# both in- and out-channels of an int8 VAE encoder conv reach it (a v5e
+# measurement, carried over as the config default)
+INT8_CONV_MIN_CH = 256
+
+_NOT_LINEAR = ("embedding", "embeddings", "logit_scale", "position_embedding")
+
+
+def switchback_cache_paths(flat_params: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+    """Flat ``.weight`` paths that the int8 DiT forward routes through
+    SwitchBack: the leaves whose int8 copies the optimizer maintains."""
+    return tuple(sorted(path for path, leaf in flat_params.items()
+                        if path.startswith("dit.") and path.endswith(".weight")
+                        and leaf.dim() == 2 and min(leaf.shape) >= SWITCHBACK_MIN_DIM))
+
+
+def quantize_cache(flat_params: Dict[str, torch.Tensor], paths) -> Dict[str, tuple]:
+    """{path: (wq int8 [o, i], ws float32 [o])} for the given .weight paths."""
+    cache = {}
+    with torch.no_grad():
+        for path in paths:
+            wq, ws = quantize_weight(flat_params[path], axis=0)
+            cache[path] = (wq, ws[:, 0])
+    return cache
+
+
+def swap_module(root: tnn.Module, path: str, new: tnn.Module) -> None:
+    """Put ``new`` in place of the submodule of ``root`` at ``path``."""
+    parent, _, name = path.rpartition(".")
+    setattr(root.get_submodule(parent) if parent else root, name, new)
+
+
+def quantize_linear_tree(root: tnn.Module, min_features: int = 64) -> Tuple[str, ...]:
+    """Replace, in place, every eligible linear of ``root`` — a module with a
+    2-D ``weight`` (``Linear`` or a bare weight such as the CLIP
+    ``visual_projection``) whose path names no embedding and whose smaller
+    dimension reaches ``min_features`` (``_eligible_linear:423``) — by an
+    ``Int8Layer``.  Returns the replaced module paths."""
+    done = []
+    for path, mod in list(root.named_modules()):
+        w = mod._parameters.get("weight")
+        if (w is None or w.dim() != 2 or min(w.shape) < min_features
+                or any(s in path for s in _NOT_LINEAR)):
+            continue
+        wq, ws = quantize_weight(w.detach(), axis=0)
+        swap_module(root, path, nn.Int8Layer(wq, ws, getattr(mod, "bias", None)))
+        done.append(path)
+    return tuple(done)
+
+
+def quantize_conv_tree(root: tnn.Module, min_channels: int = INT8_CONV_MIN_CH
+                       ) -> Tuple[str, ...]:
+    """Replace, in place, every ``Conv2d`` of ``root`` whose in- and
+    out-channels both reach ``min_channels`` by an ``Int8Layer``.  Returns
+    the replaced module paths."""
+    done = []
+    for path, mod in list(root.named_modules()):
+        if not isinstance(mod, nn.Conv2d):
+            continue
+        o, i = mod.weight.shape[:2]
+        if min(o, i) < min_channels:
+            continue
+        wq, ws = quantize_weight(mod.weight.detach(), axis=0)
+        swap_module(root, path, nn.Int8Layer(wq, ws.reshape(1, 1, 1, o), mod.bias))
+        done.append(path)
+    return tuple(done)

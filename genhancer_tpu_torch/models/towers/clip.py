@@ -160,5 +160,8 @@ def vision_forward(p: VisionTransformer, pixel_values: torch.Tensor,
 
 
 def visual_projection(p: CLIPVisionTower, pooled: torch.Tensor) -> torch.Tensor:
-    """pooled [B, hidden] -> [B, projection_dim] (no bias)."""
+    """pooled [B, hidden] -> [B, projection_dim] (no bias); int8 once
+    ``tower_quant: int8`` has quantized it, as every eligible linear."""
+    if isinstance(p.visual_projection, nn.Int8Layer):
+        return nn.linear(p.visual_projection, pooled)
     return torch.matmul(pooled, p.visual_projection.weight.to(pooled.dtype).t())

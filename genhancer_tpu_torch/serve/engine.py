@@ -80,7 +80,7 @@ class InferenceEngine:
         self.wire_dtype = wire_dtype
         if quant == "int8":
             raise NotImplementedError(
-                "quant='int8' is not ported yet (ROADMAP: the int8 stack)")
+                "quant='int8' is not ported yet (ROADMAP: serve quant=int8)")
         if quant != "none":
             raise ValueError(f"quant must be none|int8, got {quant!r}")
         if int(num_devices) > 1 or int(model_parallel) > 1:

@@ -125,7 +125,13 @@ def build_spec(cfg):
                              else torch.bfloat16),
                   dit_quant=cfg.get("dit_quant", "none"))
     if task.startswith("image_"):
-        return TaskSpec(**common, **_lora_kwargs(cfg)), kind, "image"
+        # the int8 stack (core.quant); the weight cache pays only when the
+        # fused optimizer emits it (JAX factory.py:177-188)
+        return TaskSpec(**common, tower_quant=cfg.get("tower_quant", "none"),
+                        vae_quant=cfg.get("vae_quant", "none"),
+                        vae_quant_min_ch=int(cfg.get("vae_quant_min_ch", 256)),
+                        dit_quant_cache=cfg.get("fused_optimizer") == "pallas",
+                        **_lora_kwargs(cfg)), kind, "image"
 
     mode = _VIDEO_MODE[task.rsplit("_stage", 1)[0]]
     if cfg.get("remat") is None:

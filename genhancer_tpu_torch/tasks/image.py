@@ -11,26 +11,37 @@ forward, float32 MSE against the velocity), ``make_train_step`` and
 
 Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
-``vae_noise`` [B, h, w, z]).  Stage 2, the precomputed-cache batches
-(``moments``/``cls``), remat, int8 and the multi-device options raise
-``NotImplementedError``, naming ROADMAP.
+``vae_noise`` [B, h, w, z]).
+
+The int8 stack (``configs/tpu_fast_stage1.yaml``): ``tower_quant: int8``
+and ``vae_quant: int8`` quantize the frozen tower's linears and the VAE
+encoder's wide convs at init (``init_modules``, module surgery of
+``core.quant``); ``dit_quant`` (int8 | int8_full | int8_dw) runs the DiT's
+large linears through SwitchBack inside ``core.nn.int8_training_ctx``, and
+``dit_quant_cache`` (set with ``fused_optimizer: pallas``) keeps their int8
+copies in the state, emitted by the optimizer (K4/K6) after the first step.
+
+Stage 2, the precomputed-cache batches (``moments``/``cls``), remat and the
+multi-device options raise ``NotImplementedError``, naming ROADMAP.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn as tnn
 
-from ..core.nn import init_weights
+from ..core import quant
+from ..core.nn import init_weights, int8_training_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
 from ..models.towers.projectors import Projector
 from ..train import flow
-from ..train.state import TrainState, apply_gradients, create_state
+from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning_from_cls, normalize,
                            tower_features, tower_stats)
@@ -61,7 +72,16 @@ class TaskSpec:
     # stay float32 and are cast at use
     dit_param_dtype: torch.dtype = torch.bfloat16
     vae_dtype: torch.dtype = torch.float32   # conv dtype of the frozen encode
+    # int8 (core.quant): the frozen tower's linears and the VAE encoder's
+    # convs with in and out channels >= vae_quant_min_ch
+    tower_quant: str = "none"         # "none" | "int8"
+    vae_quant: str = "none"           # "none" | "int8"
+    vae_quant_min_ch: int = quant.INT8_CONV_MIN_CH
+    # SwitchBack int8 training of the DiT: "int8" (float32-product dW),
+    # "int8_full" (per-column int8 dW), "int8_dw" (K8's per-block int8 dW)
     dit_quant: str = "none"
+    # the optimizer-maintained int8 weight cache (with fused_optimizer: pallas)
+    dit_quant_cache: bool = False
 
     @property
     def latent_hw(self) -> Tuple[int, int]:
@@ -87,10 +107,29 @@ def build_modules(spec: TaskSpec, device=None) -> tnn.ModuleDict:
     })
 
 
+DIT_QUANT = ("none", "int8", "int8_full", "int8_dw")
+
+
 def init_modules(spec: TaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
-    """Random-init modules drawn from ``generator`` (on ``device``)."""
-    return init_weights(build_modules(spec, device), generator)
+    """Random-init modules drawn from ``generator`` (on ``device``), with the
+    spec's frozen int8 surgery applied (``quantize_modules``)."""
+    return quantize_modules(spec, init_weights(build_modules(spec, device), generator))
+
+
+def quantize_modules(spec: TaskSpec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
+    """``init_modules:150-165`` for stage 1: ``tower_quant: int8`` swaps the
+    tower's eligible linears (min(out, in) >= 64) for int8 ones, and
+    ``vae_quant: int8`` the encoder convs whose in and out channels reach
+    ``vae_quant_min_ch``; in place."""
+    for knob in ("tower_quant", "vae_quant"):
+        if getattr(spec, knob) not in ("none", "int8"):
+            raise ValueError(f"{knob} must be none|int8, got {getattr(spec, knob)!r}")
+    if spec.tower_quant == "int8":
+        quant.quantize_linear_tree(modules["clip"]["model"])
+    if spec.vae_quant == "int8":
+        quant.quantize_conv_tree(modules["vae"].encoder, spec.vae_quant_min_ch)
+    return modules
 
 
 def _require_stage1(spec: TaskSpec) -> None:
@@ -125,10 +164,8 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
     if spec.remat:
         raise NotImplementedError("remat (activation checkpointing) is not ported yet "
                                   "(ROADMAP: later items)")
-    if spec.dit_quant != "none":
-        raise NotImplementedError(f"dit_quant: {spec.dit_quant} is not ported yet "
-                                  "(ROADMAP: slice 3, the int8 fast stack)")
     f32, cd = torch.float32, spec.compute_dtype
+    dit_ctx = dit_quant_ctx(spec.dit_quant)
 
     def loss_fn(modules, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
@@ -159,14 +196,26 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
             x0 = torch.randn(x1.shape, generator=generator, dtype=f32, device=dev)
         xt = flow.interpolate(x1, x0, t)
         guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
-        pred = dit_m.dit_forward(
-            modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=cond["img_ids"],
-            txt=cond["txt"].to(cd), txt_ids=cond["txt_ids"], timesteps=t.to(cd),
-            y=cond["vec"].to(cd), guidance=guidance)
+        with dit_ctx():
+            pred = dit_m.dit_forward(
+                modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=cond["img_ids"],
+                txt=cond["txt"].to(cd), txt_ids=cond["txt_ids"], timesteps=t.to(cd),
+                y=cond["vec"].to(cd), guidance=guidance)
         # "valid" gates batch rows padded up to a full batch
         return flow.mse_loss(pred, flow.velocity_target(x1, x0), mask=batch.get("valid"))
 
     return loss_fn
+
+
+def dit_quant_ctx(dit_quant: str):
+    """A () -> context opening ``int8_training_ctx`` for the DiT forward
+    (``image.py:255-262``), or a null one for ``dit_quant: none``."""
+    if dit_quant not in DIT_QUANT:
+        raise ValueError(f"dit_quant must be one of {DIT_QUANT}, got {dit_quant!r}")
+    if dit_quant == "none":
+        return contextlib.nullcontext
+    return lambda: int8_training_ctx(full=dit_quant == "int8_full",
+                                     dw_int8=dit_quant == "int8_dw")
 
 
 def make_train_step(spec: TaskSpec, optimizer, mesh=None):
@@ -188,4 +237,8 @@ def make_train_step(spec: TaskSpec, optimizer, mesh=None):
 def create_task_state(generator: torch.Generator, spec: TaskSpec, optimizer,
                       device=None) -> TrainState:
     modules = init_modules(spec, generator, device=device)
-    return create_state(modules, trainable_predicate(spec, modules), optimizer)
+    state = create_state(modules, trainable_predicate(spec, modules), optimizer)
+    if spec.dit_quant_cache and spec.dit_quant != "none":
+        # the forward reads the int8 copies instead of quantizing W each step
+        state = with_quant_cache(state)
+    return state

@@ -126,8 +126,8 @@ def require_ported(spec: VideoTaskSpec) -> None:
     for knob in ("tower_quant", "vae_quant", "dit_quant"):
         if getattr(spec, knob) != "none":
             raise NotImplementedError(
-                f"{knob}: {getattr(spec, knob)} is not ported yet (ROADMAP: slice 3, "
-                "the int8 fast stack)")
+                f"{knob}: {getattr(spec, knob)} is not ported for video tasks yet "
+                "(ROADMAP: video int8; slice 3 ported the int8 stack for image stage 1)")
     tower_stats(spec.tower_kind)        # SigLIP raises there
 
 

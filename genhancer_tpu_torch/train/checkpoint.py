@@ -9,7 +9,9 @@ mode ``checkpoint-dit-N.bin``, ``checkpoint-project-clip-N.bin`` and
 501-514``) — the port's modules carry those names, so each loads with
 ``strict=True`` in either package — plus ``optimizer-state-N.bin``, which is framework
 internal: the port writes its own positional layout (the step count, then
-each moment leaf in sorted path order) and resumes from it.
+each moment leaf in sorted path order; an 8-bit moment as its codes and
+scales, ``mu.i.q`` and ``mu.i.s``) and resumes from it.  The ``.bin`` files
+hold the float masters only: the int8 weight cache is rebuilt from them.
 
 Step discovery uses a strict regex over ``checkpoint-dit-(\\d+).bin``.
 """
@@ -21,6 +23,8 @@ import re
 from typing import List, Optional
 
 import torch
+
+from ..core.kernels.adamw import Moment8
 
 STAGE1_FILES = {
     "image": (("dit", "checkpoint-dit-{step}.bin"),
@@ -77,12 +81,17 @@ def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[
 
 def save_optimizer_state(state, path: str) -> None:
     """The optimizer state positionally: ``count``, ``mu.i``/``nu.i`` for the
-    i-th trainable path in sorted order, and the train ``step``."""
+    i-th trainable path in sorted order (``mu.i.q``/``mu.i.s`` for an 8-bit
+    moment), and the train ``step``."""
     opt = state.opt_state
     sd = {"count": torch.tensor(int(opt["count"])), "step": torch.tensor(int(state.step))}
     for i, key in enumerate(sorted(state.trainable)):
-        sd[f"mu.{i}"] = opt["mu"][key].detach().cpu()
-        sd[f"nu.{i}"] = opt["nu"][key].detach().cpu()
+        for name in ("mu", "nu"):
+            leaf = opt[name][key]
+            if isinstance(leaf, Moment8):
+                sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"] = (t.detach().cpu() for t in leaf)
+            else:
+                sd[f"{name}.{i}"] = leaf.detach().cpu()
     torch.save(sd, path)
 
 
@@ -91,17 +100,23 @@ def load_optimizer_state(state, path: str) -> None:
     each moment lands on its parameter's device in the saved dtype."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     keys = sorted(state.trainable)
-    n_saved = sum(1 for k in sd if k.startswith("mu."))
+    n_saved = sum(1 for k in sd if k.startswith("mu.") and not k.endswith(".s"))
     if n_saved != len(keys):
         raise ValueError(f"{path}: {n_saved} moment leaves for {len(keys)} trainable leaves")
     for i, key in enumerate(keys):
         p = state.trainable[key]
         for name in ("mu", "nu"):
-            v = sd[f"{name}.{i}"]
-            if tuple(v.shape) != tuple(p.shape):
+            if f"{name}.{i}.q" in sd:
+                q, s = sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"]
+                leaf = Moment8(q.to(p.device), s.to(p.device))
+                shape, want = (tuple(q.shape), tuple(s.shape)), (tuple(p.shape), (p.shape[0], 1))
+            else:
+                leaf = sd[f"{name}.{i}"].to(p.device)
+                shape, want = tuple(leaf.shape), tuple(p.shape)
+            if shape != want:
                 raise ValueError(f"optimizer leaf {name}.{i} ({key}) shape mismatch: "
-                                 f"{tuple(v.shape)} vs {tuple(p.shape)}")
-            state.opt_state[name][key] = v.to(p.device)
+                                 f"{shape} vs {want}")
+            state.opt_state[name][key] = leaf
     state.opt_state["count"] = int(sd["count"])
     state.step = int(sd["step"])
 

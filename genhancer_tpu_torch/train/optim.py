@@ -12,7 +12,10 @@ the config's ``fused_optimizer`` as in JAX:
   step on), and Python constants are rounded to the array's dtype first
   (``core.nn.as_dtype_scalar``), as JAX rounds weakly-typed scalars;
 * ``fused_optimizer: pallas`` — the fused clip + AdamW kernel K3
-  (``core/kernels/adamw.py``), moments kept in the parameter dtype.
+  (``core/kernels/adamw.py``), moments kept in the parameter dtype; with
+  ``emit_quant`` it writes the int8 copy of the DiT's SwitchBack weights in
+  the same pass (K4), and with ``optimizer_moment_bits: 8`` it keeps
+  log-coded int8 moments on the leaves ``moment8_ok`` admits (K6).
 
 Parameters, gradients and moments are flat ``{path: tensor}`` dicts; the
 optimizer owns its state as plain tensors (no ``torch.optim``).  ``apply``
@@ -29,7 +32,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.kernels.adamw import fused_adamw_apply, global_norm
+from ..core.kernels.adamw import (fused_adamw_apply, global_norm, moment8_ok, moment8_zeros_m,
+                                  moment8_zeros_v)
 from ..core.nn import as_dtype_scalar
 
 Tensors = Dict[str, torch.Tensor]
@@ -167,32 +171,45 @@ class AdamWChain:
 
 
 class FusedAdamW:
-    """``fused_optimizer: pallas``: clip + AdamW in one K3 pass per leaf,
-    in place; moments in the parameter dtype (``pallas_adamw_clip``)."""
+    """``fused_optimizer: pallas`` (``pallas_adamw_clip:115``): clip + AdamW
+    in one kernel pass per leaf, in place; moments in the parameter dtype,
+    or, with ``moment_bits=8``, ``Moment8`` codes on the ``moment8_ok``
+    leaves.  ``emit_quant``: ``apply`` takes the state's int8 weight cache
+    and the update writes it (K4, or K6's quant body)."""
 
     def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 emit_quant: bool = False, moment_bits: int = 16):
         self.schedule = schedule
+        self.emit_quant, self.moment_bits = emit_quant, moment_bits
         self.kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                        max_grad_norm=max_grad_norm)
 
     def init(self, params: Tensors) -> dict:
-        return zero_moments(params)
+        if self.moment_bits != 8:
+            return zero_moments(params)
+        return {"count": 0,
+                "mu": {k: moment8_zeros_m(p) if moment8_ok(p) else torch.zeros_like(p)
+                       for k, p in params.items()},
+                "nu": {k: moment8_zeros_v(p) if moment8_ok(p) else torch.zeros_like(p)
+                       for k, p in params.items()}}
 
     @torch.no_grad()
-    def apply(self, params: Tensors, grads: Tensors, state: dict) -> Tuple[dict, torch.Tensor]:
+    def apply(self, params: Tensors, grads: Tensors, state: dict,
+              quant: Optional[dict] = None) -> Tuple[dict, torch.Tensor]:
         count = state["count"] + 1
         g_norm = fused_adamw_apply(params, state["mu"], state["nu"], grads, count,
-                                   self.schedule, **self.kw)
+                                   self.schedule, quant=quant, **self.kw)
         return {"count": count, "mu": state["mu"], "nu": state["nu"]}, g_norm
 
 
 def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
                    emit_quant: bool = False, moment_bits: Optional[int] = None):
     """The optimizer of a train config, with the JAX package's knob handling:
-    ``fused_optimizer`` "pallas" -> K3, True/"xla" -> not ported, anything
-    else -> the chain (the default); ``optimizer_moment_bits`` 16 (8 only
-    with pallas, and not ported)."""
+    ``fused_optimizer`` "pallas" -> K3 (K4 with ``emit_quant``), True/"xla"
+    -> not ported, anything else -> the chain (the default, which ignores
+    ``emit_quant``: the state then rebuilds its cache);
+    ``optimizer_moment_bits`` 16, or 8 with pallas only (K6)."""
     schedule = make_lr_schedule(cfg.get("lr_scheduler", "constant"),
                                 float(cfg.get("learning_rate", 1e-4)),
                                 int(cfg.get("lr_warmup_steps", 0)),
@@ -211,16 +228,8 @@ def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
     if moment_bits == 8 and fused != "pallas":
         raise ValueError("optimizer_moment_bits: 8 requires fused_optimizer: pallas "
                          "(the 8-bit decode/encode lives in the fused kernel)")
-    if moment_bits == 8:
-        raise NotImplementedError(
-            "optimizer_moment_bits: 8 (log-coded int8 moments, kernel K6) is not "
-            "ported yet (ROADMAP: slice 3, the int8 fast stack)")
-    if emit_quant:
-        raise NotImplementedError(
-            "the int8 weight cache emitted by the AdamW kernel (K4) is not ported "
-            "yet (ROADMAP: slice 3, the int8 fast stack)")
     if fused == "pallas":
-        return FusedAdamW(schedule, **kw)
+        return FusedAdamW(schedule, emit_quant=emit_quant, moment_bits=moment_bits, **kw)
     if fused in (True, "xla"):
         raise NotImplementedError(
             "fused_optimizer: xla (the single-pass XLA tree_map) is not ported "

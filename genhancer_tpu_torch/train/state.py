@@ -8,12 +8,20 @@ True: autograd computes their gradients) and ``frozen`` (``requires_grad``
 False: no backward through the VAE and the tower).  The optimizer state is
 plain tensors that the optimizer owns, covering exactly the trainable
 leaves.
+
+``quant`` is the optimizer-maintained int8 copy of the DiT's SwitchBack
+weights, ``{path: (wq int8 [o, i], ws float32 [o])}`` (``state.py:53-57``),
+or None.  The tensors are the non-persistent buffers ``weight_sb_q`` and
+``weight_sb_scale`` of the ``Linear`` that owns the weight, so the forward
+reads them (``core.nn.linear``) without their becoming parameters or
+state-dict keys; K4/K6 overwrite them in place, and anything else rebuilds
+them from the masters.  Derived state: never checkpointed.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn as tnn
@@ -31,6 +39,7 @@ class TrainState:
     frozen: Dict[str, tnn.Parameter]
     opt_state: dict
     step: int = 0
+    quant: Optional[dict] = None
 
 
 def partition(modules: tnn.Module, trainable_pred: Callable[[str], bool]):
@@ -56,8 +65,32 @@ def create_state(modules: tnn.Module, trainable_pred, optimizer) -> TrainState:
 
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer):
     """One optimizer step, parameters updated in place; returns the global
-    gradient norm (a device scalar)."""
+    gradient norm (a device scalar).  An optimizer that emits the int8 cache
+    (``emit_quant``) writes it in the update; otherwise the cache, if any,
+    is rebuilt from the new masters (``state.py:95-112``)."""
     params = {k: v.detach() for k, v in state.trainable.items()}
-    state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state)
+    emits = state.quant is not None and getattr(optimizer, "emit_quant", False)
+    state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state,
+                                              **({"quant": state.quant} if emits else {}))
     state.step += 1
+    if state.quant is not None and not emits:
+        with_quant_cache(state)
     return g_norm
+
+
+def with_quant_cache(state: TrainState) -> TrainState:
+    """Fill the int8 SwitchBack weight cache from the current masters, on
+    create and on resume (``with_quant_cache:115``): ``quantize_weight`` of
+    every path of ``switchback_cache_paths``, set as the owning ``Linear``'s
+    non-persistent buffers."""
+    from ..core.quant import quantize_cache, switchback_cache_paths
+    paths = switchback_cache_paths(state.trainable)
+    if not paths:
+        return state
+    state.quant = {}
+    for path, (wq, ws) in quantize_cache(state.trainable, paths).items():
+        mod = state.modules.get_submodule(path[: -len(".weight")])
+        mod.register_buffer("weight_sb_q", wq, persistent=False)
+        mod.register_buffer("weight_sb_scale", ws, persistent=False)
+        state.quant[path] = (mod.weight_sb_q, mod.weight_sb_scale)
+    return state

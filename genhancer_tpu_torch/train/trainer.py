@@ -46,6 +46,7 @@ from ..tasks import image as image_task
 from ..tasks import video as video_task
 from . import checkpoint as ckpt
 from . import optim
+from .state import with_quant_cache
 from .step_utils import make_accum_train_step, merge_extras, stack_microbatches
 
 log = logging.getLogger("genhancer_tpu_torch.trainer")
@@ -144,6 +145,10 @@ class Trainer:
             ckpt.resume_latest(self.state, self.output_dir, self.ckpt_kind)
             if self.state.step != before:
                 log.info("resumed from step %d", self.state.step)
+        if self.state.quant is not None:
+            # the int8 weight cache is derived state: rebuilt from the
+            # (possibly loaded) masters, never read from a checkpoint
+            with_quant_cache(self.state)
 
         if self.accum > 1:
             acc_dt = cfg.get("grad_accum_dtype", "float32")

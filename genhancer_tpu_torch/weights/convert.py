@@ -12,7 +12,12 @@ write — which this package's modules load with ``strict=True``:
     ``double_blocks.{i}.img_attn``);
   * conv weights are transposed HWIO -> OIHW (every 4-D leaf is a conv);
   * the tower's text side is dropped by an explicit list — the port's tower
-    is vision-only.
+    is vision-only;
+  * int8 trees (``core.quant`` surgery): a linear's ``weight_q`` [o, i] and
+    ``w_scale`` [o, 1] are kept as they are, a conv's ``weight_q`` goes
+    HWIO -> OIHW while its ``w_scale`` keeps the [1, 1, 1, O] layout;
+    ``load_jax_params`` swaps the matching port modules for
+    ``core.nn.Int8Layer`` first, so both packages compute the same.
 """
 
 from __future__ import annotations
@@ -54,9 +59,11 @@ def to_tensor(v) -> torch.Tensor:
     return torch.from_numpy(v.copy())
 
 
-def _leaf(v) -> torch.Tensor:
+def _leaf(v, key: str = "") -> torch.Tensor:
     t = to_tensor(v)
-    return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t  # HWIO -> OIHW
+    if t.ndim == 4 and not key.endswith("w_scale"):
+        return t.permute(3, 2, 0, 1).contiguous()                     # HWIO -> OIHW
+    return t
 
 
 def _dit_name(key: str) -> str:
@@ -68,23 +75,39 @@ def _dit_name(key: str) -> str:
 
 
 def dit_state_dict(tree) -> StateDict:
-    return {_dit_name(k): _leaf(v) for k, v in flatten_tree(tree).items()}
+    return {_dit_name(k): _leaf(v, k) for k, v in flatten_tree(tree).items()}
 
 
 def vae_state_dict(tree) -> StateDict:
-    return {k: _leaf(v) for k, v in flatten_tree(tree).items()}
+    return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()}
 
 
 def tower_state_dict(tree) -> StateDict:
     """CLIP tower -> vision_model.* and visual_projection.weight."""
-    return {k: _leaf(v) for k, v in flatten_tree(tree).items()
+    return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()
             if not k.startswith(TEXT_SIDE_PREFIXES)}
 
 
 def module_state_dict(tree) -> StateDict:
     """Projectors and the visual adapter: the JAX keys are already the torch
     Sequential names."""
-    return {k: _leaf(v) for k, v in flatten_tree(tree).items()}
+    return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()}
+
+
+def adopt_int8(root, sd: StateDict) -> None:
+    """Swap, in place, each module of ``root`` whose state-dict entries in
+    ``sd`` are int8 factors (``<path>.weight_q``) for a ``core.nn.Int8Layer``
+    of those shapes, keeping its bias parameter."""
+    from ..core import nn, quant
+    for key, wq in sd.items():
+        if not key.endswith(".weight_q"):
+            continue
+        path = key[: -len(".weight_q")]
+        mod = root.get_submodule(path)
+        if not isinstance(mod, nn.Int8Layer):
+            quant.swap_module(root, path, nn.Int8Layer(
+                torch.empty_like(wq), torch.empty_like(sd[path + ".w_scale"]),
+                getattr(mod, "bias", None)))
 
 
 def state_dicts_from_jax(params) -> Dict[str, StateDict]:
@@ -109,6 +132,8 @@ def load_jax_params(modules, params) -> None:
     """Load a JAX parameter tree into ``init_modules``-layout modules of the
     same task kind (strict: every key on both sides must match)."""
     sds = state_dicts_from_jax(params)
+    adopt_int8(modules["vae"], sds["vae"])
+    adopt_int8(modules["clip"]["model"], sds["tower"])
     modules["dit"].load_state_dict(sds["dit"], strict=True)
     modules["vae"].load_state_dict(sds["vae"], strict=True)
     modules["clip"]["model"].load_state_dict(sds["tower"], strict=True)

@@ -10,7 +10,11 @@ the unnormalised probabilities to bf16, the plain version the normalised);
 for gradients the bound is relative to max(1, max|plain|); K3 within one
 ulp of the storage dtype.  K5/K5b's bf16 rounding points are held to
 mean|kernel - plain| / mean|plain| <= 2e-4 on o and dv, a bound that
-kernels rounding p elsewhere miss.
+kernels rounding p elsewhere miss.  The int8 kernels: K7 and K4 bit-identical
+(IEEE division and rint on both sides); K6 codes identical or one apart at a
+rate below 1e-3, scales within 1e-6 relative, p within 1e-6 absolute (the
+card's log2f/exp2f against the host's); K8 within 1e-5 of max|plain| (the
+same codes and int32 sums, float32 partials in the same order).
 """
 
 import pytest
@@ -19,6 +23,8 @@ import torch
 from genhancer_tpu_torch.core import attention as A
 from genhancer_tpu_torch.core.kernels import adamw as KA
 from genhancer_tpu_torch.core.kernels import flash_attention as F
+from genhancer_tpu_torch.core.kernels import int8_dw as K8
+from genhancer_tpu_torch.core.kernels import rowquant as K7
 from genhancer_tpu_torch.core.kernels import short_attention as K
 from genhancer_tpu_torch.core.rope import multi_axis_rope
 
@@ -163,3 +169,82 @@ def test_flash_matches_plain_and_counts(cuda, dtype, tol, l, d):
         assert _mean_rel(o, ro) <= ROUNDING_BOUND < _mean_rel(K.fused_attention(q, k, v), ro)
         ctl = K.fused_attention_bwd_ref(q, k, v, out.detach(), do)[2]
         assert _mean_rel(grads[2], want[2]) <= ROUNDING_BOUND < _mean_rel(ctl, want[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t, c", [(6304, 3072), (300, 777), (32, 18432), (5, 60000)])
+def test_rowquant_bit_identical(cuda, dtype, t, c):
+    """K7 with and without the column scale; 60000 columns take the
+    kernel's path that does not stage the row in shared memory."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    x = torch.randn((t, c), generator=g, device=cuda).to(dtype)
+    cs = torch.rand(c, generator=g, device=cuda) + 0.5
+    for col in (None, cs):
+        before = K7.LAUNCHES["rowquant"]
+        q, s = K7.rowquant(x, col)
+        torch.cuda.synchronize()
+        rq, rs = K7.rowquant_ref(x, col)
+        assert torch.equal(q, rq) and torch.equal(s, rs)
+        assert K7.LAUNCHES["rowquant"] == before + 1
+
+
+@pytest.mark.parametrize("t, o, i", [(6304, 3072, 768), (777, 128, 384), (300, 384, 128)])
+def test_int8_dw_matches_plain(cuda, t, o, i):
+    g = torch.Generator(device=cuda).manual_seed(t)
+    gg = torch.randn((t, o), generator=g, device=cuda).to(torch.bfloat16)
+    xx = torch.randn((t, i), generator=g, device=cuda).to(torch.bfloat16)
+    for out in (torch.float32, torch.bfloat16):
+        before = K8.LAUNCHES["int8_dw"]
+        dw = K8.int8_dw(gg, xx, out)
+        torch.cuda.synchronize()
+        ref = K8.int8_dw_ref(gg, xx, out)
+        assert dw.dtype == out and K8.LAUNCHES["int8_dw"] == before + 1
+        err = (dw.float() - ref.float()).abs().max() / ref.float().abs().max()
+        assert err.item() <= (1e-5 if out == torch.float32 else 8e-3)
+
+
+@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
+def test_adamw_quant_bit_identical(cuda, pdt):
+    """K4: K3's update plus the int8 copy of the stored p."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    shape = (96, 640)
+    p, m = (torch.randn(shape, generator=g, device=cuda).to(pdt) for _ in range(2))
+    v = torch.rand(shape, generator=g, device=cuda).to(pdt)
+    grad = torch.randn(shape, generator=g, device=cuda)
+    sc = torch.tensor([0.5, 1e-3, 1 / (1 - 0.9), 1 / (1 - 0.999)], device=cuda)
+    want = KA.fused_adamw_quant_leaf_ref(p, m, v, grad, sc, 0.9, 0.999, 1e-8, 0.01)
+    wq = torch.empty(shape, dtype=torch.int8, device=cuda)
+    ws = torch.empty(shape[0], device=cuda)
+    before = KA.LAUNCHES["fused_adamw_quant"]
+    KA.fused_adamw_quant_leaf(p, m, v, grad, sc, wq, ws, 0.9, 0.999, 1e-8, 0.01)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES["fused_adamw_quant"] == before + 1
+    for got, ref in zip((p, m, v, wq, ws), want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_adamw8_matches_plain(cuda, quant):
+    """K6, both bodies, on a moment8_ok leaf."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    shape = (256, 1024)
+    p = (torch.randn(shape, generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    grad = torch.randn(shape, generator=g, device=cuda) * 1e-3
+    m8 = KA.m8_encode_m(torch.randn(shape, generator=g, device=cuda) * 1e-3)
+    v8 = KA.m8_encode_v(10.0 ** (torch.rand(shape, generator=g, device=cuda) * 6 - 10))
+    sc = torch.tensor([1.0, 1e-3, 1.1, 1.05], device=cuda)
+    want = KA.fused_adamw8_leaf_ref(p, m8, v8, grad, sc, 0.9, 0.999, 1e-8, 0.01, quant)
+    wq = torch.empty(shape, dtype=torch.int8, device=cuda) if quant else None
+    ws = torch.empty(shape[0], device=cuda) if quant else None
+    name = "fused_adamw8_quant" if quant else "fused_adamw8"
+    before = KA.LAUNCHES[name]
+    KA.fused_adamw8_leaf(p, m8, v8, grad, sc, 0.9, 0.999, 1e-8, 0.01, wq=wq, ws=ws)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES[name] == before + 1
+    assert (p.float() - want[0].float()).abs().max().item() <= 1e-6
+    for got, ref in ((m8, want[1]), (v8, want[2])):
+        d = (got.q.int() - ref.q.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+        assert ((got.s - ref.s).abs() <= 1e-6 * ref.s.abs()).all()
+    if quant:
+        assert torch.equal(wq, want[3]) and torch.equal(ws, want[4])

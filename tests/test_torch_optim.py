@@ -12,7 +12,9 @@ genhancer_tpu/core/pallas/adamw.py in interpret mode), on the CPU.
   float32 summation order, and b1*m + (1-b1)*g cancels near zero), bf16
   moments within one ulp, params within one ulp of their dtype;
 * the four schedules against optax (float32 arithmetic, rtol 1e-6);
-* the options that are not ported raise ``NotImplementedError``.
+* the options that are not ported raise ``NotImplementedError``; the
+  int8 ones (``emit_quant``, ``optimizer_moment_bits: 8``) build K4/K6's
+  optimizer (their parity: tests/test_torch_adamw_int8.py).
 """
 
 import jax.numpy as jnp
@@ -138,8 +140,9 @@ def test_knob_handling():
     for fused in ("xla", True):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             optim.make_optimizer(dict(HYPER, fused_optimizer=fused))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        optim.make_optimizer(dict(HYPER, fused_optimizer="pallas", optimizer_moment_bits=8))
+    opt8 = optim.make_optimizer(dict(HYPER, fused_optimizer="pallas", optimizer_moment_bits=8),
+                                emit_quant=True)
+    assert isinstance(opt8, optim.FusedAdamW) and opt8.moment_bits == 8 and opt8.emit_quant
     with pytest.raises(ValueError, match="requires fused_optimizer: pallas"):
         optim.make_optimizer(dict(HYPER, optimizer_moment_bits=8))
     with pytest.raises(ValueError, match="8 or 16"):

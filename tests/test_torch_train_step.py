@@ -184,8 +184,10 @@ def test_unported_options_raise():
     js, ps = _specs("float32")
     with pytest.raises(NotImplementedError, match="remat"):
         timage.make_loss_fn(dataclasses.replace(ps, remat=True))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        timage.make_loss_fn(dataclasses.replace(ps, dit_quant="int8"))
+    # the int8 stack is ported (tests/test_torch_int8_step.py); only an
+    # unknown dit_quant is refused
+    with pytest.raises(ValueError, match="dit_quant"):
+        timage.make_loss_fn(dataclasses.replace(ps, dit_quant="int4"))
     with pytest.raises(NotImplementedError, match="slice 5"):
         timage.make_loss_fn(dataclasses.replace(ps, stage="stage2_all"))
     loss_fn = timage.make_loss_fn(ps)
