@@ -11,8 +11,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              csrc/adamw.cu, csrc/rowquant.cu and csrc/int8_dw.cu (sm_90a)
              from the checkout, one process per source, started together;
 3. kernels — K1/K2 (fused attention forward), K1b/K2b (backward), K5/K5b
-             (flash attention forward and backward, at the video paths'
-             shapes, the SigLIP tower shape, ragged lengths and float32), K3
+             (flash attention forward and backward: in bf16 the wgmma/TMA
+             kernels, at the video paths' shapes with their TFLOP/s and
+             share of the bf16 peak, the SigLIP tower shape, ragged lengths,
+             strided views, a misaligned view that must raise, and float32), K3
              (fused AdamW), and the int8 stack's K7 (row quantization), K8
              (per-block int8 dW), K4 (AdamW with the int8 weight emission)
              and K6 (AdamW on 8-bit moments, both bodies) against their
@@ -52,10 +54,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              with the default chain, a checkpoint at step 4, a resume from
              step 8 that loads the four video ``.bin`` files strictly and
              runs steps 9-10; then next@224, next2@224 and middle@336 (remat
-             from the gate) 2 optimizer steps each at their published batch
-             (32 x accumulation 2); step time, rows/s (sliding: valid rows,
-             padding left out), peak memory and the launch counts of every
-             kernel, per mode.
+             from the gate) 4 optimizer steps each at their published batch
+             (32 x accumulation 2); step time (sliding: steps 3-8, the others
+             2-3), rows/s (sliding: valid rows, padding left out), peak
+             memory, the launch counts of every kernel, per mode, and device
+             time by kernel (K5/K5b's share) in each mode's last step (the
+             sliding resume's step 10), run under torch.profiler.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -518,12 +522,23 @@ def phase_kernels_flash():
                       f"forward {rec['flash_attention']['library_ms']:.3f} ms, backward "
                       f"{rec['flash_attention_bwd']['library_ms']:.3f} ms", flush=True)
                 del lib_f, lib_b
-            # products: forward 3 (QK^T twice, PV), backward 8 (QK^T and dP in
-            # both halves, dV twice for the hi/lo split, dK, dQ), 2 L^2 D each
+            # the wgmma products each kernel runs, 2 B H L^2 D flops each:
+            # forward 3 (QK^T in both passes, PV); backward 8 (S^T and dP^T in
+            # the dk/dv kernel, S and dP in the dq kernel, dV twice for p's
+            # hi/lo split, dK, dQ); the function itself needs 2 and 5
             unit = 2.0 * b * h * l * l * d
-            timing = (f"; K5 {fms:.3f} ms ({3 * unit / fms / 1e9:.1f} TFLOP/s), plain "
-                      f"{fpms:.3f}; K5b {bms:.3f} ms ({8 * unit / bms / 1e9:.1f} TFLOP/s), "
-                      f"plain {bpms:.3f}")
+            rates = {}
+            for n, ms, prods, least in (("flash_attention", fms, 3, 2),
+                                        ("flash_attention_bwd", bms, 8, 5)):
+                tf = prods * unit / ms / 1e9
+                rates[n] = (tf, tf * 1e12 / BF16_PEAK, least * unit / ms / 1e9)
+                rec[n].setdefault("tflops_by_shape", {})[what] = round(tf, 1)
+            timing = "".join(
+                f"; {tag} {ms:.3f} ms ({rates[n][0]:.1f} TFLOP/s run, "
+                f"{100 * rates[n][1]:.1f}% of the 989 TFLOP/s peak; {rates[n][2]:.1f} TFLOP/s "
+                f"of the function's {least} products), plain {pms:.3f}"
+                for tag, n, ms, pms, least in (("K5", "flash_attention", fms, fpms, 2),
+                                               ("K5b", "flash_attention_bwd", bms, bpms, 5)))
         dv_rel = ((got[2].float() - want[2].float()).abs().max()
                   / want[2].float().abs().max()).item()
         print(f"[kernels] flash_attention {what} B={b} L={l} H={h} D={d} {str(dtype)[6:]}: "
@@ -553,6 +568,19 @@ def phase_kernels_flash():
             rec["flash_attention_bwd"]["max_abs_err"], g_abs)
         del q, k, v, do, o, lse, ro, rlse, got, want
         _free()
+    # the TMA reads 16-byte-aligned views only: one misaligned by an element
+    # must raise (and launch nothing), never fall back
+    fused = _rand(gen, (2, 964, 3 * 24 * 128 + 8), bf16)
+    bad = fused[..., 1: 1 + 24 * 128].reshape(2, 964, 24, 128)
+    before = dict(F.LAUNCHES)
+    try:
+        F._fwd_kernel(bad, bad, bad, want_lse=True)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"[kernels] flash_attention misaligned view (1 element past 16 bytes): "
+          f"{'raises: ' + raised if raised else 'did not raise'}", flush=True)
+    check(raised and F.LAUNCHES == before, "K5: a misaligned bf16 view did not raise")
     for r in rec.values():
         r["ms"], r["plain_ms"] = r["ms_by_shape"]["sliding@224"]
     return rec
@@ -1567,7 +1595,10 @@ def _int8_report(name, trainer, counts, wall, peak, steps, timed_from):
 
 
 # device kernels by what they compute: (label, substrings of the kernel name)
-DEVICE_KINDS = (("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
+DEVICE_KINDS = (("K5 (flash fwd)", ("sm90::fwd_kernel",)),
+                ("K5b (flash bwd)", ("sm90::dkdv_kernel", "sm90::dq_kernel")),
+                ("D_i rows (K1b/K2b/K5b)", ("dot_rows",)),
+                ("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
                 ("K7 (rowquant)", ("rowquant_kernel",)),
                 ("K4 (adamw_quant)", ("adamw_quant_kernel",)),
                 ("K6 (adamw8)", ("adamw8_kernel",)),
@@ -1578,7 +1609,7 @@ DEVICE_KINDS = (("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
                 ("bf16/f32 GEMM and conv", ("gemm", "nvjet", "xmma", "conv", "cutlass")))
 
 
-def _print_device_time(prof, steps, step_s):
+def _print_device_time(prof, steps, step_s, tag="[int8]"):
     """Device time per step by kind of kernel from a torch.profiler run of
     ``steps`` steps; copies (the checkpoint the trainer writes when it
     stops) are left out; the rest is eager elementwise, cast and reduction
@@ -1594,7 +1625,7 @@ def _print_device_time(prof, steps, step_s):
                     "elementwise, casts, reductions")
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     per_step = total / steps / 1e3
-    print(f"[int8] device kernel time per step {per_step:.1f} ms of {step_s * 1e3:.1f} ms wall "
+    print(f"{tag} device kernel time per step {per_step:.1f} ms of {step_s * 1e3:.1f} ms wall "
           f"(busy {per_step / (step_s * 1e3):.3f}): "
           + ", ".join(f"{k} {v / steps / 1e3:.1f} ms ({v / total:.1%})"
                       for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])), flush=True)
@@ -1686,14 +1717,46 @@ def _write_video_shards(root, frames, n_shards=2):
     return root
 
 
-def _trainer_run(cfg, steps_done=0):
-    """Build a Trainer for ``cfg``, zero the counts, train; returns (trainer,
-    launch counts, wall seconds, peak GiB)."""
+class _LastStepProfile:
+    """Runs a Trainer's last step under torch.profiler (CUDA activity),
+    synchronised on both sides, so that the trace holds that step's device
+    work and no warm-up; ``wall_s`` is the step's time with the profiler on."""
+
+    def __init__(self):
+        self.prof, self.wall_s = None, None
+
+    def install(self, trainer):
+        import torch
+        inner, left = trainer.step_fn, [trainer.max_steps - trainer.state.step]
+
+        def step_fn(*args):
+            left[0] -= 1
+            if left[0]:
+                return inner(*args)
+            torch.cuda.synchronize()
+            self.prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            self.prof.start()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            self.wall_s = time.perf_counter() - t0
+            self.prof.stop()
+            return out
+        trainer.step_fn = step_fn
+
+
+def _trainer_run(cfg, steps_done=0, profile=None):
+    """Build a Trainer for ``cfg``, zero the counts, train (the last step
+    under ``profile``, a _LastStepProfile, when one is given); returns
+    (trainer, launch counts, wall seconds, peak GiB)."""
     import torch
     from genhancer_tpu_torch.train.trainer import Trainer
     trainer = Trainer(cfg, device="cuda")
     check(trainer.state.step == steps_done,
           f"{cfg['task']}: Trainer starts at step {trainer.state.step}, not {steps_done}")
+    if profile is not None:
+        profile.install(trainer)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
@@ -1719,15 +1782,23 @@ def phase_video_train(work):
     pair_dir = _write_video_shards(os.path.join(work, "clips"), [4] * 40)
     print(f"[video] wrote synthetic video shards (256-px JPEG frames) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def device_time(profile, step):
+        _print_device_time(profile.prof, 1, profile.wall_s,
+                           f"[video] {mode} (step {step}, profiled):")
+
     runs = {}
     for mode, name in VIDEO_CONFIGS.items():
         cfg = load_config(os.path.join(ROOT, "configs", name))
         cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
-        steps = 8 if mode == "sliding" else 2
+        steps = 8 if mode == "sliding" else 4
         cfg.update(output_dir=os.path.join(work, f"out-{mode}"), max_train_steps=steps,
                    checkpointing_steps=4, log_interval=1, report_to="none")
         t0 = time.perf_counter()
-        trainer, counts, wall, peak = _trainer_run(cfg)
+        # sliding: steps 3-8 timed, the resume's step 10 profiled; the
+        # others: steps 2-3 timed, step 4 profiled
+        profile = None if mode == "sliding" else _LastStepProfile()
+        trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
         spec, hist = trainer.spec, trainer.history
         rows = int(cfg.get_path("data_config.train_batch_size")) * (
             int(cfg.get("max_windows_per_video", 1)) if mode == "sliding" else 1) * 2
@@ -1735,7 +1806,8 @@ def phase_video_train(work):
               f"{mode}: synced steps {[h['step'] for h in hist]}")
         check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
               f"{mode}: non-finite loss or grad norm: {hist}")
-        step_s = statistics.median(h["step_time"] for h in hist[2:] or hist[1:])
+        timed = hist[2:] if mode == "sliding" else hist[1:-1]
+        step_s = statistics.median(h["step_time"] for h in timed)
         seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
         print(f"[video] {mode} ({name}): joint L={seq}, remat {spec.remat}; {steps} steps "
               f"in {wall:.1f} s (Trainer built in {time.perf_counter() - t0 - wall:.1f} s); "
@@ -1746,13 +1818,15 @@ def phase_video_train(work):
             # count the valid ones over the timed steps
             eff = [h["bs_eff"] for h in hist]
             check(min(eff) < 16, f"sliding: no padded rows occurred ({eff})")
-            timed = hist[2:]
             valid_s = sum(2 * h["bs_eff"] for h in timed) / sum(h["step_time"] for h in timed)
             rate = (f"{valid_s:.2f} valid rows/s over steps 3-{steps} ({rows / step_s:.2f} "
                     f"padded rows/s at {rows} rows per optimizer step; valid rows per "
                     f"micro-batch, mean of 2: {eff})")
-        print(f"[video] {mode}: median step time {step_s * 1e3:.1f} ms = {rate}; peak device "
+        print(f"[video] {mode}: median step time of steps {timed[0]['step']}-"
+              f"{timed[-1]['step']} {step_s * 1e3:.1f} ms = {rate}; peak device "
               f"memory {peak:.2f} GiB", flush=True)
+        if profile is not None:
+            device_time(profile, steps)
         want = _video_want(spec, steps)
         print(f"[video] {mode}: kernel launches {counts}, expected {want}", flush=True)
         check(counts == want, f"{mode}: launch counts {counts} != expected {want}")
@@ -1769,7 +1843,8 @@ def phase_video_train(work):
             ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
             cfg2 = copy.deepcopy(cfg)
             cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
-            trainer, _, wall, _ = _trainer_run(cfg2, steps_done=8)
+            profile = _LastStepProfile()
+            trainer, _, wall, _ = _trainer_run(cfg2, steps_done=8, profile=profile)
             hist2 = trainer.history
             check([h["step"] for h in hist2] == [9, 10]
                   and all(np.isfinite(h["loss"]) for h in hist2), f"sliding resume: {hist2}")
@@ -1777,8 +1852,10 @@ def phase_video_train(work):
                   f"-project-clip-8, -visual-adapter-8 (strict) and optimizer-state-8, "
                   f"resumed at step 8 and ran steps 9-10 in {wall:.1f} s, losses "
                   f"{[round(h['loss'], 4) for h in hist2]}", flush=True)
+            device_time(profile, 10)
             del trainer
             _free()
+        del profile
         shutil.rmtree(out, ignore_errors=True)
     return runs
 

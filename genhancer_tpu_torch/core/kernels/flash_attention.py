@@ -1,11 +1,12 @@
 """Flash attention for long sequences: K5 (forward) and K5b (backward).
 
 Port of ``genhancer_tpu/core/pallas/flash_attention.py``.  The kernels are
-hand-written CUDA for Hopper in ``csrc/flash_attention.cu`` (sharing device
-code with the short-attention kernels through ``csrc/attention_tiles.cuh``);
-this module holds their wrappers, their plain PyTorch versions, the
-``torch.autograd.Function`` that joins the two halves, and the launch
-counters.
+hand-written CUDA for Hopper in ``csrc/flash_attention.cu``: in bfloat16
+warp-specialised kernels whose products are ``wgmma`` and whose tiles arrive
+by TMA (building blocks in ``csrc/flash_sm90.cuh``); in float32 the scalar
+kernels of ``csrc/attention_tiles.cuh``.  This module holds their wrappers,
+their plain PyTorch versions, the ``torch.autograd.Function`` that joins the
+two halves, and the launch counters.
 
 ``flash_attention(q, k, v)``: exact unmasked softmax attention, no RoPE (the
 caller has rotated q and k).  q, k, v are ``[B, L, H, D]`` (any B/L/H
@@ -27,6 +28,16 @@ The TPU's VMEM ceiling (``flash_supported``) and the query-chunked fallback
 past it (``core.attention.sdpa_xla_qchunk``) have no counterpart: the CUDA
 kernel streams K/V and takes any L.
 
+The bfloat16 kernels read q, k, v (and the backward's dO) through TMA tensor
+maps, which need each base pointer and each B/L/H stride in bytes to be a
+multiple of 16, and D contiguous (``_tma_layout_error``; strides of size-1
+dimensions are never followed and do not count).  The DiT's layouts pass
+without a copy: ``apply_rope``'s fresh q and k, the ``_split_qkv`` views of a
+fused projection, the ``torch.cat`` results of the double blocks.  A layout
+that fails raises ``ValueError``; nothing is copied to make it pass.  The
+head dim is padded to 64 or 128 in shared memory, so every D the wrapper
+takes (a multiple of 8 up to 128) has its kernel.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``*_ref``), which the tests and ``chip_smoke.py`` also compare the
 kernel against.  ``LAUNCHES`` counts kernel-wrapper launches only.
@@ -40,7 +51,7 @@ from typing import Dict
 import torch
 
 from . import _build
-from .short_attention import _DTYPES, _check, _raise_on, _strides, _under_grad
+from .short_attention import _DTYPES, _check, _raise_on, _under_grad
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
@@ -99,9 +110,61 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_TMAP_ERROR = 10000   # sm90::TMAP_ERROR: a tensor map that did not encode, + CUresult
+
+
+def _tma_layout_error(*ts):
+    """Why the TMA cannot read these [B, L, H, D] bf16 tensors in place, or
+    None: D contiguous, the base pointer and each B/L/H stride (of a
+    dimension longer than 1) a multiple of 16 bytes and below 2^40.  Reads
+    only shapes, strides, dtypes and ``data_ptr() % 16``."""
+    for i, t in enumerate(ts):
+        es = t.element_size()
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            return f"operand {i}: D must be contiguous (stride 1), got stride {t.stride(-1)}"
+        if t.data_ptr() % 16:
+            return (f"operand {i}: the TMA needs a 16-byte-aligned base pointer, got "
+                    f"{t.data_ptr() % 16} bytes past one")
+        for dim in range(3):
+            st = t.stride(dim) * es
+            if t.shape[dim] > 1 and (st % 16 or not 0 < st < 2 ** 40):
+                return (f"operand {i}: the TMA needs each B/L/H stride to be a positive "
+                        f"multiple of 16 bytes, got {t.stride(dim)} elements "
+                        f"({st} bytes) in dimension {dim}")
+    return None
+
+
+def _check_tma_layout(name: str, *ts) -> None:
+    """Raise ``ValueError`` where the bf16 kernels' TMA cannot read ``ts``
+    in place (float32 runs the scalar kernels, which take any strides)."""
+    err = _tma_layout_error(*ts) if ts[0].dtype == torch.bfloat16 else None
+    if err is not None:
+        raise ValueError(f"{name}: {err}")
+
+
+def _tma_strides(*ts):
+    """(B, L, H) element strides of each tensor, those of size-1 dimensions
+    replaced by the contiguous stride (never followed; keeps the tensor map
+    legal)."""
+    out = []
+    for t in ts:
+        b, l, h, d = t.shape
+        dense = (l * h * d, h * d, d)
+        out += [t.stride(i) if t.shape[i] > 1 else dense[i] for i in range(3)]
+    return out
+
+
+def _raise_on_flash(rc: int, name: str) -> None:
+    if rc >= _TMAP_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - _TMAP_ERROR}")
+    _raise_on(rc, name)
+
+
 def _fwd_kernel(q, k, v, want_lse: bool):
     """Launch K5; returns (o, lse or None)."""
     _check("flash_attention", q, k, v)
+    _check_tma_layout("flash_attention", q, k, v)
     b, l, h, d = q.shape
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
@@ -109,9 +172,9 @@ def _fwd_kernel(q, k, v, want_lse: bool):
     with torch.cuda.device(q.device):
         rc = _lib().genhancer_flash_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if want_lse else None, *_strides(q, k, v), b, l, h, d,
+            lse.data_ptr() if want_lse else None, *_tma_strides(q, k, v), b, l, h, d,
             1.0 / (d ** 0.5), torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, "flash_attention")
+    _raise_on_flash(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o, lse
 
@@ -127,6 +190,7 @@ def _bwd_kernel(q, k, v, o, lse, do):
         raise ValueError(f"{name}: lse must be a contiguous float32 [B, H, L]")
     do = do.to(q.dtype).contiguous()
     o = o.contiguous()
+    _check_tma_layout(name, q, k, v, do)
     di = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
@@ -134,9 +198,9 @@ def _bwd_kernel(q, k, v, o, lse, do):
         rc = _lib().genhancer_flash_attention_bwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5),
+            dv.data_ptr(), *_tma_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(rc, name)
+    _raise_on_flash(rc, name)
     LAUNCHES[name] += 1
     return dq, dk, dv
 

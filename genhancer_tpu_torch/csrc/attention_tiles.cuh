@@ -1,8 +1,9 @@
 // Device code shared by the attention kernels of this package:
-// short_attention.cu (K1/K2 forward, K1b/K2b backward) and
-// flash_attention.cu (K5 forward, K5b backward).  Each .cu includes it
-// once and compiles into its own shared library, so everything here
-// stays in an anonymous namespace.
+// short_attention.cu (K1/K2 forward, K1b/K2b backward) and, for float32 and
+// the backward's D_i pass, flash_attention.cu (K5 forward, K5b backward;
+// its bf16 kernels are in flash_sm90.cuh and flash_attention.cu).  Each .cu
+// includes it once and compiles into its own shared library, so everything
+// here stays in an anonymous namespace.
 
 #pragma once
 
@@ -390,12 +391,12 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 }  // namespace fp
 
 // ---------------------------------------------------------------------------
-// Backward (K1b, K2b; K5b with DV_F32): FlashAttention-2's split of the work
+// Backward (K1b, K2b; K5b in float32): FlashAttention-2's split of the work
 // ---------------------------------------------------------------------------
 //
 // Replaces _bwd_kernel:112 (K1b) and _bwd_kernel_norope:125 (K2b) of
 // genhancer_tpu/core/pallas/short_attention.py, which share _bwd_body:90,
-// and (DV_F32) _dq_kernel:156 / _dkv_kernel:175 of flash_attention.py.
+// and (float32) _dq_kernel:156 / _dkv_kernel:175 of flash_attention.py.
 // The TPU runs one program per batch element with the whole [H, L, L]
 // logits in VMEM; here the work is split so that no block needs more than
 // one 64-row tile of each operand and nothing is summed across blocks:
@@ -413,10 +414,7 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 //   * d_rq, d_rk are scaled in float32 and rounded to T, then (K1b)
 //     un-rotated with (cos, -sin) in float32 and rounded to T again;
 //   * dv is rounded to T once.
-// DV_F32 (K5b) differs in one place: dv = p^T dO with p unrounded float32
-// (_dkv_kernel:203-205).  dO is stored in T, so on the tensor cores that is
-// p_hi^T dO + p_lo^T dO with p_hi = bf16(p), p_lo = bf16(p - p_hi): two bf16
-// products whose sum is within about 2^-16 of p's float32 product.
+// (K5b keeps p in float32 for dv; its float32 kernels here never round p.)
 // What bounds it: like the forward, a few MFLOP per (batch, head) at the
 // training shape (B=16, L=197, H=24, D=128) — the backward does 2.5x the
 // forward's products, so bf16 again runs them on the tensor cores (WMMA,
@@ -483,11 +481,10 @@ __device__ __forceinline__ void store_pair(T* out, float e, float o, float mult,
 namespace tc {
 constexpr int BT = 64;  // rows per tile: 4 warps x 16
 
-__host__ __device__ constexpr size_t bwd_smem_bytes(int D, bool dv_f32) {
-  // four bf16 operand tiles, float32 S and dP, bf16 P and dS, lse and D_i,
-  // and with dv_f32 the low half of P
+__host__ __device__ constexpr size_t bwd_smem_bytes(int D) {
+  // four bf16 operand tiles, float32 S and dP, bf16 P and dS, lse and D_i
   return (size_t)4 * BT * ldx(D) * sizeof(bf16) + (size_t)2 * BT * LDS * sizeof(float) +
-         (size_t)(dv_f32 ? 3 : 2) * BT * LDP * sizeof(bf16) + 2 * BT * sizeof(float);
+         (size_t)2 * BT * LDP * sizeof(bf16) + 2 * BT * sizeof(float);
 }
 
 struct BwdSmem {
@@ -495,7 +492,6 @@ struct BwdSmem {
   float *s, *dp;
   bf16 *p, *ds;
   float *lse, *di;
-  bf16* plo;  // only with DV_F32
 };
 
 __device__ __forceinline__ BwdSmem bwd_smem(unsigned char* raw, int ld) {
@@ -510,7 +506,6 @@ __device__ __forceinline__ BwdSmem bwd_smem(unsigned char* raw, int ld) {
   m.ds = m.p + BT * LDP;
   m.lse = reinterpret_cast<float*>(m.ds + BT * LDP);
   m.di = m.lse + BT;
-  m.plo = reinterpret_cast<bf16*>(m.di + BT);
   return m;
 }
 
@@ -573,7 +568,7 @@ __device__ __forceinline__ void store_rows(const FragC* acc, float* stage, int D
   __syncwarp();
 }
 
-template <bool ROPE, bool DV_F32>
+template <bool ROPE>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
@@ -624,16 +619,13 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
         const float pr = (kvalid && q0 + c < L)
                              ? expf(sm.s[row * LDS + c] * p.scale - sm.lse[c])
                              : 0.f;
-        const bf16 hi = __float2bfloat16(pr);
-        sm.p[row * LDP + c] = hi;
-        if (DV_F32) sm.plo[row * LDP + c] = __float2bfloat16(pr - __bfloat162float(hi));
+        sm.p[row * LDP + c] = __float2bfloat16(pr);
         sm.ds[row * LDP + c] = __float2bfloat16(pr * (sm.dp[row * LDS + c] - sm.di[c]));
       }
     }
     __syncwarp();
     // dV += P^T dO and dK += dS^T Q over this tile's q rows
     accumulate(dv, sm.p + wr0 * LDP, sO, ld, nf);
-    if (DV_F32) accumulate(dv, sm.plo + wr0 * LDP, sO, ld, nf);
     accumulate(dk, sm.ds + wr0 * LDP, sQ, ld, nf);
     __syncthreads();  // the next q tile overwrites sQ, sO, lse and D_i
   }
@@ -877,6 +869,12 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
 }
 }  // namespace fp
 
+// shapes no kernel here takes: D a multiple of 8 up to DMAX, non-empty
+// B, L, H within the grid's y and z
+inline bool bad_shape(int D, int L, int B, int H) {
+  return D % 8 != 0 || D > DMAX || L < 1 || B < 1 || H < 1 || B > 65535 || H > 65535;
+}
+
 template <typename Kernel, typename P>
 int launch(Kernel kernel, int bq, int threads, size_t smem, size_t smem_max, const P& p,
            cudaStream_t stream) {
@@ -890,9 +888,7 @@ int launch(Kernel kernel, int bq, int threads, size_t smem, size_t smem_max, con
 
 template <bool ROPE>
 int dispatch(int dtype, const Params& p, cudaStream_t stream) {
-  if (p.D % 8 != 0 || p.D > DMAX || p.L < 1 || p.B < 1 || p.H < 1 || p.B > 65535 ||
-      p.H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(p.D, p.L, p.B, p.H)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch(fp::kernel<ROPE>, fp::BQ, fp::THREADS, fp::smem_bytes(p.D),
                   fp::smem_bytes(DMAX), p, stream);
@@ -902,12 +898,8 @@ int dispatch(int dtype, const Params& p, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-// DV_F32 (K5b): see bwd_dkdv.  The float32 kernels keep p in float32 anyway.
-template <bool ROPE, bool DV_F32>
-int dispatch_bwd(int dtype, const void* o, const BwdParams& p, cudaStream_t stream) {
-  if (p.D % 8 != 0 || p.D > DMAX || p.L < 1 || p.B < 1 || p.H < 1 || p.B > 65535 ||
-      p.H > 65535)
-    return (int)cudaErrorInvalidValue;
+// D_i = sum_d dO * O per row (dot_rows) into p.di: the backward's first pass.
+inline int launch_dot_rows(int dtype, const void* o, const BwdParams& p, cudaStream_t stream) {
   const int64_t rows = (int64_t)p.B * p.L * p.H;
   const int blocks = (int)((rows + 7) / 8);  // 8 warps of 32, one row each
   float* di = const_cast<float*>(p.di);
@@ -922,7 +914,13 @@ int dispatch_bwd(int dtype, const void* o, const BwdParams& p, cudaStream_t stre
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  int rc = (int)cudaGetLastError();
+  return (int)cudaGetLastError();
+}
+
+template <bool ROPE>
+int dispatch_bwd(int dtype, const void* o, const BwdParams& p, cudaStream_t stream) {
+  if (bad_shape(p.D, p.L, p.B, p.H)) return (int)cudaErrorInvalidValue;
+  int rc = launch_dot_rows(dtype, o, p, stream);
   if (rc != 0) return rc;
   if (dtype == 0) {
     rc = launch(fp::bwd_dkdv<ROPE>, fp::BT, fp::THREADS, fp::bwd_smem_bytes(p.D),
@@ -931,11 +929,11 @@ int dispatch_bwd(int dtype, const void* o, const BwdParams& p, cudaStream_t stre
     return launch(fp::bwd_dq<ROPE>, fp::BT, fp::THREADS, fp::bwd_smem_bytes(p.D),
                   fp::bwd_smem_bytes(DMAX), p, stream);
   }
-  rc = launch(tc::bwd_dkdv<ROPE, DV_F32>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D, DV_F32),
-              tc::bwd_smem_bytes(DMAX, DV_F32), p, stream);
+  rc = launch(tc::bwd_dkdv<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D),
+              tc::bwd_smem_bytes(DMAX), p, stream);
   if (rc != 0) return rc;
-  return launch(tc::bwd_dq<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D, false),
-                tc::bwd_smem_bytes(DMAX, false), p, stream);
+  return launch(tc::bwd_dq<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D),
+                tc::bwd_smem_bytes(DMAX), p, stream);
 }
 
 }  // namespace

@@ -74,7 +74,7 @@ extern "C" int genhancer_fused_rope_attention_bwd(
                     static_cast<const float*>(sin), static_cast<const float*>(lse),
                     static_cast<const float*>(di), dq, dk, dv, q_sb, q_sl, q_sh, k_sb, k_sl,
                     k_sh, v_sb, v_sl, v_sh, B, L, H, D, scale};
-  return dispatch_bwd<true, false>(dtype, o, p, static_cast<cudaStream_t>(stream));
+  return dispatch_bwd<true>(dtype, o, p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int genhancer_fused_attention_bwd(
@@ -85,5 +85,5 @@ extern "C" int genhancer_fused_attention_bwd(
   const BwdParams p{q, k, v, dout, nullptr, nullptr, static_cast<const float*>(lse),
                     static_cast<const float*>(di), dq, dk, dv, q_sb, q_sl, q_sh, k_sb, k_sl,
                     k_sh, v_sb, v_sl, v_sh, B, L, H, D, scale};
-  return dispatch_bwd<false, false>(dtype, o, p, static_cast<cudaStream_t>(stream));
+  return dispatch_bwd<false>(dtype, o, p, static_cast<cudaStream_t>(stream));
 }

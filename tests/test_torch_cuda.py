@@ -138,12 +138,15 @@ def test_adamw_matches_plain_within_one_ulp(cuda, pdt, gdt, shape):
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("l, d", [(600, 64), (729, 72), (1031, 128)])
-def test_flash_matches_plain_and_counts(cuda, dtype, tol, l, d):
+@pytest.mark.parametrize("l, d, h", [(600, 64, 3), (729, 72, 3), (1031, 128, 3),
+                                     (964, 128, 24)])
+def test_flash_matches_plain_and_counts(cuda, dtype, tol, l, d, h):
     """K5 forward (o and lse) and K5b through the autograd Function against
-    the plain versions, on strided q/k/v views of one fused projection."""
+    the plain versions, on strided q/k/v views of one fused projection (bf16:
+    the wgmma/TMA kernels; L = 964 is the sliding@224 length, not a multiple
+    of the 128-row tiles)."""
     g = torch.Generator(device=cuda).manual_seed(200 + l)
-    b, h = 2, 3
+    b = 2
     fused = torch.randn((b, l, 3 * h * d + 8), generator=g, device=cuda).to(dtype)
     q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, dim=-1))
     do = torch.randn((b, l, h, d), generator=g, device=cuda).to(dtype)
@@ -169,6 +172,46 @@ def test_flash_matches_plain_and_counts(cuda, dtype, tol, l, d):
         assert _mean_rel(o, ro) <= ROUNDING_BOUND < _mean_rel(K.fused_attention(q, k, v), ro)
         ctl = K.fused_attention_bwd_ref(q, k, v, out.detach(), do)[2]
         assert _mean_rel(grads[2], want[2]) <= ROUNDING_BOUND < _mean_rel(ctl, want[2])
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_flash_backward_where_lse_is_very_negative(cuda, dtype, tol):
+    """Every logit near -113, so every row's lse is below -88 and exp(0 - lse)
+    overflows float32 in the kv columns past L of the last, ragged tile: the
+    gradients stay finite and match the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    b, l, h, d = 1, 601, 2, 128
+    q = (torch.randn((b, l, h, d), generator=g, device=cuda) - 10).to(dtype)
+    k = (1 + 0.1 * torch.randn((b, l, h, d), generator=g, device=cuda)).to(dtype)
+    v, do = (torch.randn((b, l, h, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = F.flash_attention(qq, kk, vv)
+    grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    _, rlse = F.flash_attention_fwd_ref(q, k, v)
+    assert rlse.max().item() < -88
+    want = F.flash_attention_bwd_ref(q, k, v, out.detach(), rlse, do)
+    for gk, gr in zip(grads, want):
+        assert torch.isfinite(gk).all()
+        err = (gk.float() - gr.float()).abs().max().item()
+        assert err <= tol * max(1.0, gr.float().abs().max().item()), err
+
+
+def test_flash_refuses_layouts_the_tma_cannot_read(cuda):
+    """A bf16 view misaligned by one element raises before any launch, in
+    the forward and in the backward; nothing falls back."""
+    b, l, h, d = 1, 700, 2, 64
+    fused = torch.randn((b, l, 3 * h * d + 8), device=cuda).to(torch.bfloat16)
+    good = fused[..., : h * d].reshape(b, l, h, d)
+    bad = fused[..., 1: 1 + h * d].reshape(b, l, h, d)
+    before = dict(F.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        F.flash_attention(good, bad, good)
+    o, lse = F._fwd_kernel(good, good, good, want_lse=True)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        F._bwd_kernel(good, good, bad, o, lse, torch.ones_like(o))
+    assert F.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert F.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

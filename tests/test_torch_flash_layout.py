@@ -1,0 +1,126 @@
+"""The layout rule of the bf16 flash attention kernels K5/K5b, on the CPU.
+
+The kernels read q, k, v (and the backward's dO) through TMA tensor maps:
+D contiguous, each base pointer and each B/L/H stride a multiple of 16
+bytes (``flash_attention._tma_layout_error``, which reads only shapes,
+strides, dtypes and ``data_ptr() % 16``).  The DiT must pass it without a
+copy: its q/k/v are recorded where the DiT hands them to the long-sequence
+attention (a tiny bf16 forward at a joint length of 608, both block kinds)
+and built at the published flux-dev widths.  Views the TMA cannot read are
+refused with the ``ValueError`` the CUDA path raises (``_check_tma_layout``,
+the same call the wrappers make before a launch).
+"""
+
+import re
+
+import pytest
+import torch
+
+from genhancer_tpu_torch.core import attention as A
+from genhancer_tpu_torch.core.kernels import flash_attention as F
+from genhancer_tpu_torch.core.rope import apply_rope, multi_axis_rope
+from genhancer_tpu_torch.models import dit as tdit
+
+torch.set_num_threads(1)
+BF16 = torch.bfloat16
+
+
+def _tiny_dit_attention_inputs(monkeypatch):
+    """q, k, v of every long-sequence attention call of a tiny bf16 DiT
+    forward (1 double block, 1 single block, 608 joint tokens)."""
+    cfg = tdit.DiTConfig(in_channels=64, vec_in_dim=32, context_in_dim=48, hidden_size=128,
+                         num_heads=2, depth=1, depth_single_blocks=1, axes_dim=(16, 24, 24))
+    g = torch.Generator().manual_seed(0)
+    model = tdit.DiT(cfg, dtype=BF16)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    calls = []
+
+    def record(q, k, v):
+        calls.append((q, k, v))
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(A, "sdpa", record)
+    b, l_img, l_txt = 1, 600, 8
+    ids = lambda n: torch.randint(0, 16, (b, n, 3), generator=g).to(torch.float32)  # noqa: E731
+    with torch.no_grad():
+        tdit.dit_forward(model, cfg, img=torch.randn((b, l_img, 64), generator=g).to(BF16),
+                         img_ids=ids(l_img),
+                         txt=torch.randn((b, l_txt, 48), generator=g).to(BF16),
+                         txt_ids=ids(l_txt), timesteps=torch.rand(b, generator=g),
+                         y=torch.randn((b, 32), generator=g).to(BF16),
+                         guidance=torch.full((b,), 4.0))
+    return calls
+
+
+def test_dit_attention_inputs_pass(monkeypatch):
+    calls = _tiny_dit_attention_inputs(monkeypatch)
+    assert len(calls) == 2                  # the double block, then the single block
+    for q, k, v in calls:
+        assert q.dtype == BF16 and q.shape[1] == 608 and q.shape[-1] == 64
+        assert F._tma_layout_error(q, k, v) is None
+        F._check_tma_layout("flash_attention", q, k, v)
+    # the single block hands over a strided view of linear1's output, not a copy
+    v_single = calls[1][2]
+    assert not v_single.is_contiguous() and v_single.stride(1) == 3 * 128 + 4 * 128
+
+
+def test_published_width_layouts_pass():
+    """flux-dev: hidden 3072, 24 heads of 128, mlp 12288; linear1's output
+    rows are 3 * 3072 + 12288 = 21504 wide."""
+    b, l, h, d, hidden = 2, 8, 24, 128, 3072
+    lin1 = torch.zeros((b, l, 3 * hidden + 4 * hidden), dtype=BF16)
+    q, k, v = tdit._split_qkv(lin1[..., : 3 * hidden], h)
+    assert v.stride(1) == 21504
+    ids = torch.zeros((b, l, 3))
+    cos, sin = multi_axis_rope(ids, (16, 56, 56), 10_000)
+    rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    assert F._tma_layout_error(rq, rk, v) is None            # single blocks
+    txt = torch.zeros((b, 4, 3 * hidden), dtype=BF16)
+    tq, tk, tv = tdit._split_qkv(txt, h)
+    cq, ck, cv = (torch.cat([t, i], dim=1) for t, i in ((tq, q), (tk, k), (tv, v)))
+    cos, sin = multi_axis_rope(torch.zeros((b, 12, 3)), (16, 56, 56), 10_000)
+    assert F._tma_layout_error(apply_rope(cq, cos, sin), apply_rope(ck, cos, sin),
+                               cv) is None                   # double blocks
+    # the strided views chip_smoke.py checks on the card: row stride 3 H D + 64
+    fused = torch.zeros((b, l, 3 * h * d + 64), dtype=BF16)
+    assert F._tma_layout_error(*(x.reshape(b, l, h, d)
+                                 for x in fused[..., : 3 * h * d].split(h * d, -1))) is None
+
+
+def _views(kind):
+    b, l, h, d = 2, 16, 3, 64
+    fused = torch.zeros((b, l, 3 * h * d + 16), dtype=BF16)
+    good = fused[..., : h * d].reshape(b, l, h, d)
+    if kind == "misaligned by one element":
+        bad = fused[..., 1: 1 + h * d].reshape(b, l, h, d)
+        return good, bad, "16-byte-aligned base pointer"
+    if kind == "D not contiguous":
+        wide = torch.zeros((b, l, h, 2 * d), dtype=BF16)
+        return good, wide[..., ::2], "D must be contiguous"
+    if kind == "row stride not a multiple of 16 bytes":
+        odd = torch.zeros((b, l, h * d + 4), dtype=BF16)
+        return good, odd[..., : h * d].reshape(b, l, h, d), "multiple of 16 bytes"
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind", ["misaligned by one element", "D not contiguous",
+                                  "row stride not a multiple of 16 bytes"])
+def test_layouts_the_tma_cannot_read_are_refused(kind):
+    good, bad, why = _views(kind)
+    assert F._tma_layout_error(good, good, good) is None
+    err = F._tma_layout_error(good, bad, good)
+    assert err is not None and why in err and err.startswith("operand 1")
+    with pytest.raises(ValueError, match=re.escape(f"flash_attention: {err}")):
+        F._check_tma_layout("flash_attention", good, bad, good)
+    # float32 runs the scalar kernels, which take any B/L/H strides
+    F._check_tma_layout("flash_attention", good.float(), bad.float(), good.float())
+
+
+def test_size_one_dims_do_not_count():
+    """A stride of a length-1 dimension is never followed: it neither fails
+    the rule nor reaches the tensor map."""
+    x = torch.zeros((1, 16, 1, 64), dtype=BF16).as_strided((1, 16, 1, 64), (3, 64, 5, 1))
+    assert F._tma_layout_error(x, x, x) is None
+    assert F._tma_strides(x) == [16 * 64, 64, 64]
