@@ -10,7 +10,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build   — nvcc builds csrc/short_attention.cu, csrc/flash_attention.cu,
              csrc/adamw.cu, csrc/rowquant.cu and csrc/int8_dw.cu (sm_90a)
              from the checkout, one process per source, started together;
-3. kernels — K1/K2 (fused attention forward), K1b/K2b (backward), K5/K5b
+3. kernels — K1/K2 (fused attention forward: in bf16 K1's RoPE pass and
+             the wgmma/TMA forward, o's rounding point against a control
+             that rounds p before normalising it, the device time of 64-
+             and 128-row blocks from CUDA graphs, a misaligned view that
+             must raise), K1b/K2b (backward; K1b's dq/dk/dv rounding points
+             against a control that keeps p in float32 for dv), K5/K5b
              (flash attention forward and backward: in bf16 the wgmma/TMA
              kernels, at the video paths' shapes with their TFLOP/s and
              share of the bf16 peak, the SigLIP tower shape, ragged lengths,
@@ -217,6 +222,37 @@ def _median_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n: int = 20, rounds: int = 4):
+    """Device ms per call of ``fn``: n calls captured in one CUDA graph and
+    the graph replayed, so the host's launch work (Python, ctypes, checks)
+    drops out; the median of ``rounds`` timed replays.  None where two
+    captures of the call fail."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    for attempt in range(2):   # a first capture of autograd's backward may fail once
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                for _ in range(n):
+                    fn()
+            break
+        except RuntimeError as e:
+            print(f"[kernels] CUDA graph capture {attempt + 1} of 2 failed ({str(e)[:80]})")
+    else:
+        return None
+    graph.replay()
+    return statistics.median(_median_ms(graph.replay, 5) for _ in range(rounds)) / n
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def kernel_vs_plain_ms(kfn, pfn, n: int = 50, rounds: int = 6):
     """Median per-call ms of kernel and plain version, timed in turns
     (plain, kernel, kernel, plain, ...) after a warmup."""
@@ -231,10 +267,26 @@ def kernel_vs_plain_ms(kfn, pfn, n: int = 50, rounds: int = 6):
     return statistics.median(ks), statistics.median(ps)
 
 
+def _round_before_normalise(q, k, v):
+    """The control for the forward's rounding point: exp(s - max) rounded to
+    v's dtype before the float32 PV product and divided by the row sum after
+    it, where K1/K2/K5 and the TPU kernels normalise p first."""
+    import torch
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) / q.shape[-1] ** 0.5
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhlm,bmhd->blhd", e.to(v.dtype).float(), v.float())
+    return (o / e.sum(dim=-1).permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
 def phase_kernels():
-    """K1/K2 against their plain versions; returns per-kernel records."""
+    """K1/K2 against their plain versions, o's rounding point on its own
+    (ROUNDING_BOUND, with the round-before-normalise control that must miss
+    it), the bf16 forward's 64- and 128-row blocks timed in turns at the
+    serving buckets, and a misaligned view that must raise; returns
+    per-kernel records."""
     import torch
     from genhancer_tpu_torch.core.kernels import short_attention as K
+    from genhancer_tpu_torch.core.rope import apply_rope
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
@@ -252,14 +304,16 @@ def phase_kernels():
            ("fused_attention", 1, 600, 16, 64, bf16, False)])
     rec = {n: _record(n) for n in ("fused_rope_attention", "fused_attention")}
     for r in rec.values():
-        r["ms_by_batch"] = {}
+        r["ms_by_batch"], r["rounding_mean_rel"], r["ms_by_block_rows"] = {}, 0.0, {}
     for name, b, l, h, d, dtype, main in cases:
         q, k, v = (_rand(gen, (b, l, h, d), dtype) for _ in range(3))
         if name == "fused_rope_attention":
             cos, sin = _tables(gen, b, l, d)
+            tables = (cos, sin)
             kfn = lambda: K.fused_rope_attention(q, k, v, cos, sin)  # noqa: E731
             pfn = lambda: K.fused_rope_attention_ref(q, k, v, cos, sin)  # noqa: E731
         else:
+            tables = None
             kfn = lambda: K.fused_attention(q, k, v)  # noqa: E731
             pfn = lambda: K.fused_attention_ref(q, k, v)  # noqa: E731
         out = kfn()
@@ -270,19 +324,47 @@ def phase_kernels():
         check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
         bound = BOUND[str(dtype).split(".")[-1]]
+        rounding = ""
+        if dtype == bf16:
+            rq, rk = ((apply_rope(q, *tables), apply_rope(k, *tables)) if tables else (q, k))
+            o_mean = _mean_rel(out, ref)
+            o_ctl = _mean_rel(_round_before_normalise(rq, rk, v), ref)
+            rec[name]["rounding_mean_rel"] = max(rec[name]["rounding_mean_rel"], o_mean)
+            rounding = (f"; o mean|kernel-plain|/mean|plain| {o_mean:.3e} (bound "
+                        f"{ROUNDING_BOUND:.0e}; p rounded before normalising {o_ctl:.3e})")
+            check(o_mean <= ROUNDING_BOUND, f"{name} B={b} L={l} D={d}: o's rounding point "
+                  f"moved: mean error {o_mean} > {ROUNDING_BOUND}")
+            check(o_ctl > ROUNDING_BOUND, f"{name} B={b} L={l} D={d}: the control passes the "
+                  f"rounding bound ({o_ctl}), so it cannot tell the rounding points apart")
         timing = ""
         if main:
             ms, pms = kernel_vs_plain_ms(kfn, pfn)
             rec[name]["ms_by_batch"][b] = (ms, pms)
-            timing = f"; kernel {ms:.4f} ms, plain {pms:.4f} ms"
+            rows = K.block_rows(b, l, h, K._sm_count(q.device.index))
+            timing = f"; kernel {ms:.4f} ms ({rows}-row blocks), plain {pms:.4f} ms"
+            # the call is host-bound at these sizes: the device time of each
+            # block height from CUDA graphs, which leave the host out
+            dev = {64: [], 128: []}
+            for rows in (64, 128, 128, 64):
+                dev[rows].append(graph_ms(lambda: K._fwd_kernel(q, k, v, tables, False,
+                                                                rows=rows)))
+            dev = {r: None if None in m else min(m) for r, m in dev.items()}
+            rec[name]["ms_by_block_rows"][b] = {str(r): m for r, m in dev.items()}
+            timing += "; device " + ", ".join(f"{r}-row blocks {_fmt(m)} ms"
+                                              for r, m in dev.items())
             if b == max(BUCKETS):
-                tables = (cos, sin) if name == "fused_rope_attention" else ()
-                _set_bound(rec[name], _nbytes(q, k, v, out, *tables), 4.0 * b * h * l * l * d)
+                _set_bound(rec[name], _nbytes(q, k, v, out, *(tables or ())),
+                           4.0 * b * h * l * l * d)
+                lib_f = _sdpa_fwd_bwd(q, k, v, q)[0]
+                rec[name]["device_ms"] = graph_ms(kfn)
+                rec[name]["library_device_ms"] = graph_ms(lib_f)
+                timing += (f"; device: kernel {_fmt(rec[name]['device_ms'])} ms, SDPA "
+                           f"{_fmt(rec[name]['library_device_ms'])} ms")
                 rec[name]["library_ms"] = _library_ms(_sdpa_fwd_bwd(q, k, v, q)[0])
                 timing += (f"; bound {rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']}),"
                            f" SDPA {rec[name]['library_ms']:.4f} ms")
         print(f"[kernels] {name} B={b} L={l} H={h} D={d} {str(dtype)[6:]}: "
-              f"max|kernel-plain| {err:.3e} (bound {bound:.0e}){timing}")
+              f"max|kernel-plain| {err:.3e} (bound {bound:.0e}){rounding}{timing}", flush=True)
         check(err <= bound, f"{name} B={b} L={l} D={d} {dtype}: error {err} > {bound}")
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
@@ -300,6 +382,21 @@ def phase_kernels():
     check(err <= BOUND["bfloat16"], f"strided K1: error {err}")
     rec["fused_rope_attention"]["max_abs_err"] = max(
         rec["fused_rope_attention"]["max_abs_err"], err)
+
+    # the TMA reads 16-byte-aligned views only: one misaligned by an element
+    # must raise (and launch nothing), never fall back
+    bad = fused[..., 1: 1 + h * d].reshape(b, l, h, d)
+    before = dict(K.LAUNCHES)
+    raised = []
+    for fn in (lambda: K.fused_rope_attention(bad, k, v, cos, sin),
+               lambda: K.fused_attention(q, k, bad)):
+        try:
+            fn()
+        except ValueError as e:
+            raised.append(str(e))
+    print(f"[kernels] K1/K2 misaligned view (1 element past 16 bytes): raises "
+          f"{len(raised)} of 2: {raised}", flush=True)
+    check(len(raised) == 2 and K.LAUNCHES == before, "K1/K2: a misaligned bf16 view did not raise")
 
     for r in rec.values():
         r["ms"], r["plain_ms"] = r.pop("ms_by_batch")[max(BUCKETS)]
@@ -372,8 +469,12 @@ def _mean_rel(got, want):
 
 def phase_kernels_bwd():
     """K1b/K2b against their plain backward versions on dq, dk, dv; the
-    bound is relative to max(1, max|plain|).  Returns per-kernel records."""
+    bound is relative to max(1, max|plain|).  In bf16, K1b's rounding points
+    on their own: dq, dk and dv to ROUNDING_BOUND of the plain version, with
+    a control that keeps p in float32 for dv (K5b's point) and must miss it.
+    Returns per-kernel records."""
     import torch
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
     from genhancer_tpu_torch.core.kernels import short_attention as K
 
     gen = torch.Generator(device="cuda")
@@ -388,20 +489,23 @@ def phase_kernels_bwd():
         (norope, 2, 257, 16, 64, f32, False), (norope, 2, 13, 16, 64, bf16, False),
         (norope, 1, 600, 16, 64, bf16, False))
     rec = {n: _record(n) for n in (rope, norope)}
+    rec[rope]["rounding_mean_rel"] = 0.0
 
     def run(name, q, k, v, do, tables):
-        o, lse = K._fwd_kernel(q, k, v, tables, want_lse=True)
-        kfn = lambda: K._bwd_kernel(q, k, v, o, lse, do, tables)  # noqa: E731
+        """(kernel, plain, (rq, rk, o, lse)): K1b reads the rotated pair and
+        the lse that K1 wrote, as under autograd."""
+        o, lse, rq, rk = K._fwd_kernel(q, k, v, tables, want_lse=True)
+        kfn = lambda: K._bwd_kernel(rq, rk, v, o, lse, do, tables)  # noqa: E731
         if tables is None:
             pfn = lambda: K.fused_attention_bwd_ref(q, k, v, o, do)  # noqa: E731
         else:
             pfn = lambda: K.fused_rope_attention_bwd_ref(q, k, v, o, do, *tables)  # noqa: E731
-        return kfn, pfn
+        return kfn, pfn, (rq, rk, o, lse)
 
     for name, b, l, h, d, dtype, timed in cases:
         q, k, v, do = (_rand(gen, (b, l, h, d), dtype) for _ in range(4))
         tables = _tables(gen, b, l, d) if name == rope else None
-        kfn, pfn = run(name, q, k, v, do, tables)
+        kfn, pfn, (rq, rk, o, lse) = run(name, q, k, v, do, tables)
         got = kfn()
         torch.cuda.synchronize()
         want = pfn()
@@ -409,22 +513,39 @@ def phase_kernels_bwd():
                   for g in got), f"{name}: non-finite or misshapen gradient")
         abs_err, rel_err = _grad_errors(got, want)
         bound = BOUND[str(dtype).split(".")[-1]]
+        rounding = ""
+        if dtype == bf16:
+            means = [_mean_rel(g, w) for g, w in zip(got, want)]
+            rounding = (f"; mean|kernel-plain|/mean|plain| dq {means[0]:.3e}, dk {means[1]:.3e},"
+                        f" dv {means[2]:.3e}")
+            if name == rope:
+                dv_ctl = _mean_rel(F.flash_attention_bwd_ref(rq, rk, v, o, lse, do)[2], want[2])
+                rounding += f" (bound {ROUNDING_BOUND:.0e}; dv from float32 p {dv_ctl:.3e})"
+                rec[rope]["rounding_mean_rel"] = max(rec[rope]["rounding_mean_rel"], *means)
+                check(max(means) <= ROUNDING_BOUND, f"K1b B={b} L={l} D={d}: rounding points "
+                      f"moved: dq, dk, dv mean errors {means}")
+                check(dv_ctl > ROUNDING_BOUND, f"K1b B={b} L={l} D={d}: the control passes the "
+                      f"rounding bound ({dv_ctl}), so it cannot tell the rounding points apart")
         timing = ""
         if timed:
             ms, pms = kernel_vs_plain_ms(kfn, pfn, n=20)
             rec[name]["ms"], rec[name]["plain_ms"] = ms, pms
             # inputs q, k, v, o, lse, dO (+ tables), outputs dq, dk, dv; five
             # products: S, dP, dV, dQ, dK
-            o, lse = K._fwd_kernel(q, k, v, tables, want_lse=True)
             _set_bound(rec[name], _nbytes(q, k, v, o, lse, do, *got, *(tables or ())),
                        5 * 2.0 * b * h * l * l * d)
-            rec[name]["library_ms"] = _library_ms(_sdpa_fwd_bwd(q, k, v, do)[1])
+            lib_b = _sdpa_fwd_bwd(q, k, v, do)[1]
+            rec[name]["library_ms"] = _library_ms(lib_b)
+            rec[name]["device_ms"] = graph_ms(kfn)
+            rec[name]["library_device_ms"] = graph_ms(lib_b)
             timing = (f"; kernel {ms:.4f} ms, plain {pms:.4f} ms; bound "
                       f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']}), SDPA backward "
-                      f"{rec[name]['library_ms']:.4f} ms")
+                      f"{rec[name]['library_ms']:.4f} ms; device (CUDA graph): kernel "
+                      f"{_fmt(rec[name]['device_ms'])} ms, SDPA backward "
+                      f"{_fmt(rec[name]['library_device_ms'])} ms")
         print(f"[kernels] {name} B={b} L={l} H={h} D={d} {str(dtype)[6:]}: dq/dk/dv "
               f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} "
-              f"(bound {bound:.0e}){timing}")
+              f"(bound {bound:.0e}){rounding}{timing}", flush=True)
         check(rel_err <= bound, f"{name} B={b} L={l} D={d} {dtype}: error {rel_err} > {bound}")
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], abs_err)
 
@@ -434,8 +555,8 @@ def phase_kernels_bwd():
     q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, dim=-1))
     do = _rand(gen, (b, l, h, d), bf16)
     tables = _tables(gen, b, l, d)
-    kfn, _ = run(rope, q, k, v, do, tables)
-    _, pfn = run(rope, q.contiguous(), k.contiguous(), v.contiguous(), do, tables)
+    kfn, _, _ = run(rope, q, k, v, do, tables)
+    _, pfn, _ = run(rope, q.contiguous(), k.contiguous(), v.contiguous(), do, tables)
     got, want = kfn(), pfn()
     torch.cuda.synchronize()
     abs_err, rel_err = _grad_errors(got, want)
@@ -452,10 +573,10 @@ def phase_kernels_flash():
     ragged lengths and float32; the bound is relative to max(1, max|plain|).
     In bf16 the rounding points are held on their own (ROUNDING_BOUND): K5's
     o and K5b's dv against the plain versions, and two controls that round
-    p elsewhere and must miss the bound — K2's single-pass kernel (p rounded
-    before it is normalised) and K2b's plain backward (p rounded before
-    p^T dO).  The middle@336 shape runs at B=4: the plain backward's
-    [B, H, L, L] float32 tensors are 7.8 GB each at its published B=32.
+    p elsewhere and must miss the bound — ``_round_before_normalise`` and
+    K2b's plain backward (p rounded before p^T dO).  The middle@336 shape
+    runs at B=4: the plain backward's [B, H, L, L] float32 tensors are
+    7.8 GB each at its published B=32.
     Returns the K5/K5b records, timed at the sliding@224 shape."""
     import torch
     from genhancer_tpu_torch.core.kernels import flash_attention as F
@@ -550,11 +671,11 @@ def phase_kernels_flash():
               f"K5/K5b {what} {dtype}: o {o_rel}, lse {lse_rel}, grads {g_rel} > {bound}")
         if dtype == bf16:
             o_mean, dv_mean = _mean_rel(o, ro), _mean_rel(got[2], want[2])
-            o_ctl = _mean_rel(K._fwd_kernel(q, k, v, None, want_lse=False)[0], ro)
+            o_ctl = _mean_rel(_round_before_normalise(q, k, v), ro)
             dv_ctl = _mean_rel(K.fused_attention_bwd_ref(q, k, v, o, do)[2], want[2])
             print(f"[kernels] flash_attention {what}: rounding points, mean|a-plain|/mean|plain|"
-                  f" (bound {ROUNDING_BOUND:.0e}): K5 o {o_mean:.3e} (K2's single pass "
-                  f"{o_ctl:.3e}), K5b dv {dv_mean:.3e} (p rounded first {dv_ctl:.3e})",
+                  f" (bound {ROUNDING_BOUND:.0e}): K5 o {o_mean:.3e} (p rounded before "
+                  f"normalising {o_ctl:.3e}), K5b dv {dv_mean:.3e} (p rounded first {dv_ctl:.3e})",
                   flush=True)
             for n, x in (("flash_attention", o_mean), ("flash_attention_bwd", dv_mean)):
                 rec[n]["rounding_mean_rel"] = max(rec[n]["rounding_mean_rel"], x)
@@ -1595,7 +1716,11 @@ def _int8_report(name, trainer, counts, wall, peak, steps, timed_from):
 
 
 # device kernels by what they compute: (label, substrings of the kernel name)
-DEVICE_KINDS = (("K5 (flash fwd)", ("sm90::fwd_kernel",)),
+DEVICE_KINDS = (("K1/K2 (short fwd, RoPE pass)", ("short_fwd_kernel", "rope_qk")),
+                ("K5 (flash fwd)", ("sm90::fwd_kernel",)),
+                ("K1b (short bwd)", ("dkdv_kernel<128, false, true>",
+                                     "dkdv_kernel<64, false, true>",
+                                     "dq_kernel<128, true>", "dq_kernel<64, true>")),
                 ("K5b (flash bwd)", ("sm90::dkdv_kernel", "sm90::dq_kernel")),
                 ("D_i rows (K1b/K2b/K5b)", ("dot_rows",)),
                 ("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
@@ -1603,8 +1728,7 @@ DEVICE_KINDS = (("K5 (flash fwd)", ("sm90::fwd_kernel",)),
                 ("K4 (adamw_quant)", ("adamw_quant_kernel",)),
                 ("K6 (adamw8)", ("adamw8_kernel",)),
                 ("K3 (adamw)", ("adamw_kernel",)),
-                ("K1b/K2b", ("bwd_dkdv", "bwd_dq")),
-                ("K1/K2", ("tc::kernel",)),
+                ("K2b (WMMA)", ("bwd_dkdv", "bwd_dq")),
                 ("int8 GEMM (_int_mm)", ("gemm_s8", "s8gemm", "imma")),
                 ("bf16/f32 GEMM and conv", ("gemm", "nvjet", "xmma", "conv", "cutlass")))
 

@@ -16,9 +16,10 @@ each row's log-sum-exp ``[B, H, L]`` float32 (``_fwd_kernel:70-71``), which
 the backward reads back to recompute ``p = exp(s - lse)``; the backward
 returns new contiguous dq, dk, dv.
 
-Rounding points, which differ from K1b/K2b (``short_attention.py``):
+Rounding points, which differ from K1b/K2b (``short_attention.py``) in dv:
   * forward: ``p = e * (1 / den)`` normalised before it is rounded to v's
-    dtype for the float32-accumulated PV product (``_fwd_kernel:63-68``);
+    dtype for the float32-accumulated PV product (``_fwd_kernel:63-68``),
+    as K1/K2 do;
   * backward: ``p = exp(s - lse)``; ``dp = dO_bf16 V^T``, ``ds = p (dp -
     D_i)``; dq = bf16(ds) K * scale and dk = bf16(ds)^T Q * scale, the scale
     after the product; **dv = p^T dO with p unrounded float32 and dO in
@@ -28,10 +29,11 @@ The TPU's VMEM ceiling (``flash_supported``) and the query-chunked fallback
 past it (``core.attention.sdpa_xla_qchunk``) have no counterpart: the CUDA
 kernel streams K/V and takes any L.
 
-The bfloat16 kernels read q, k, v (and the backward's dO) through TMA tensor
-maps, which need each base pointer and each B/L/H stride in bytes to be a
-multiple of 16, and D contiguous (``_tma_layout_error``; strides of size-1
-dimensions are never followed and do not count).  The DiT's layouts pass
+The bfloat16 kernels (``csrc/attention_sm90.cuh``, shared with K1, K2 and
+K1b) read q, k, v (and the backward's dO) through TMA tensor maps, which
+need each base pointer and each B/L/H stride in bytes to be a multiple of
+16, and D contiguous (``short_attention._tma_layout_error``; strides of
+size-1 dimensions are never followed and do not count).  The DiT's layouts pass
 without a copy: ``apply_rope``'s fresh q and k, the ``_split_qkv`` views of a
 fused projection, the ``torch.cat`` results of the double blocks.  A layout
 that fails raises ``ValueError``; nothing is copied to make it pass.  The
@@ -51,7 +53,8 @@ from typing import Dict
 import torch
 
 from . import _build
-from .short_attention import _DTYPES, _check, _raise_on, _under_grad
+from .short_attention import (_DTYPES, _check, _check_tma_layout, _raise_on, _tma_strides,
+                              _under_grad)
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
 
@@ -110,57 +113,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-_TMAP_ERROR = 10000   # sm90::TMAP_ERROR: a tensor map that did not encode, + CUresult
-
-
-def _tma_layout_error(*ts):
-    """Why the TMA cannot read these [B, L, H, D] bf16 tensors in place, or
-    None: D contiguous, the base pointer and each B/L/H stride (of a
-    dimension longer than 1) a multiple of 16 bytes and below 2^40.  Reads
-    only shapes, strides, dtypes and ``data_ptr() % 16``."""
-    for i, t in enumerate(ts):
-        es = t.element_size()
-        if t.shape[-1] > 1 and t.stride(-1) != 1:
-            return f"operand {i}: D must be contiguous (stride 1), got stride {t.stride(-1)}"
-        if t.data_ptr() % 16:
-            return (f"operand {i}: the TMA needs a 16-byte-aligned base pointer, got "
-                    f"{t.data_ptr() % 16} bytes past one")
-        for dim in range(3):
-            st = t.stride(dim) * es
-            if t.shape[dim] > 1 and (st % 16 or not 0 < st < 2 ** 40):
-                return (f"operand {i}: the TMA needs each B/L/H stride to be a positive "
-                        f"multiple of 16 bytes, got {t.stride(dim)} elements "
-                        f"({st} bytes) in dimension {dim}")
-    return None
-
-
-def _check_tma_layout(name: str, *ts) -> None:
-    """Raise ``ValueError`` where the bf16 kernels' TMA cannot read ``ts``
-    in place (float32 runs the scalar kernels, which take any strides)."""
-    err = _tma_layout_error(*ts) if ts[0].dtype == torch.bfloat16 else None
-    if err is not None:
-        raise ValueError(f"{name}: {err}")
-
-
-def _tma_strides(*ts):
-    """(B, L, H) element strides of each tensor, those of size-1 dimensions
-    replaced by the contiguous stride (never followed; keeps the tensor map
-    legal)."""
-    out = []
-    for t in ts:
-        b, l, h, d = t.shape
-        dense = (l * h * d, h * d, d)
-        out += [t.stride(i) if t.shape[i] > 1 else dense[i] for i in range(3)]
-    return out
-
-
-def _raise_on_flash(rc: int, name: str) -> None:
-    if rc >= _TMAP_ERROR:
-        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult "
-                           f"{rc - _TMAP_ERROR}")
-    _raise_on(rc, name)
-
-
 def _fwd_kernel(q, k, v, want_lse: bool):
     """Launch K5; returns (o, lse or None)."""
     _check("flash_attention", q, k, v)
@@ -174,7 +126,7 @@ def _fwd_kernel(q, k, v, want_lse: bool):
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if want_lse else None, *_tma_strides(q, k, v), b, l, h, d,
             1.0 / (d ** 0.5), torch.cuda.current_stream().cuda_stream)
-    _raise_on_flash(rc, "flash_attention")
+    _raise_on(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o, lse
 
@@ -200,7 +152,7 @@ def _bwd_kernel(q, k, v, o, lse, do):
             do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *_tma_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on_flash(rc, name)
+    _raise_on(rc, name)
     LAUNCHES[name] += 1
     return dq, dk, dv
 

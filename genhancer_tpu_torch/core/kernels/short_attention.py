@@ -2,21 +2,32 @@
 (attention), forward and backward.
 
 Port of ``genhancer_tpu/core/pallas/short_attention.py``.  The kernels are
-hand-written CUDA for Hopper in ``csrc/short_attention.cu``; this module
-holds their wrappers, their plain PyTorch versions, the
-``torch.autograd.Function``s that join the two halves, and the launch
-counters.
+hand-written CUDA for Hopper in ``csrc/short_attention.cu`` (in bf16 the
+wgmma/TMA kernels of ``csrc/attention_sm90.cuh``); this module holds their
+wrappers, their plain PyTorch versions, the ``torch.autograd.Function``s
+that join the two halves, the launch counters, and the TMA layout rule the
+bf16 kernels here and in ``flash_attention.py`` share.
 
 * ``fused_rope_attention(q, k, v, cos, sin)`` — K1 forward, K1b backward;
   every DiT block;
 * ``fused_attention(q, k, v)`` — K2 forward, K2b backward; every tower
   encoder layer.
 
-q, k, v are ``[B, L, H, D]`` (any B/L/H strides, D contiguous), cos/sin
-``[B, L, D/2]``; the result is a new contiguous ``[B, L, H, D]``.  Under
-autograd the forward also keeps each row's log-sum-exp ``[B, H, L]`` for
-the backward, which returns new contiguous dq, dk, dv and no gradient for
-cos/sin (as ``_vjp_bwd:271``).
+q, k, v are ``[B, L, H, D]`` (D contiguous; in bf16 the layout rule below),
+cos/sin ``[B, L, D/2]``; the result is a new contiguous ``[B, L, H, D]``.
+K1's launch first writes the rotated pair ``rq, rk`` (contiguous, rounded to
+the input dtype: the TPU kernel's rounding point), then runs K2's attention
+on ``(rq, rk, v)``.  Under autograd the forward keeps ``rq, rk`` in place of
+q and k, and each row's log-sum-exp ``[B, H, L]``, for the backward, which
+returns new contiguous dq, dk, dv (K1b un-rotates dq and dk) and no
+gradient for cos/sin (as ``_vjp_bwd:271``).
+
+The bf16 K1, K2 and K1b read their operands through TMA tensor maps: D
+contiguous, each base pointer and each B/L/H stride in bytes a multiple of
+16 (``_tma_layout_error``; strides of size-1 dimensions are never followed
+and do not count).  A CUDA tensor that fails raises ``ValueError``; nothing
+is copied to make it pass.  The bf16 K2b runs WMMA kernels that take any
+B/L/H strides, as do the float32 kernels.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``*_ref``), which the tests and ``chip_smoke.py`` also compare the
@@ -26,6 +37,7 @@ kernel against.  ``LAUNCHES`` counts kernel-wrapper launches only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -73,14 +85,20 @@ def _bwd_body_ref(rq, rk, v, o, do):
     return d_rq, d_rk, dv
 
 
+def _rotated_bwd_ref(rq, rk, v, o, do, cos, sin):
+    """K1b's plain body on the rotated pair: ``_bwd_body``, then d_rq/d_rk
+    rounded, un-rotated with (cos, -sin) in f32 and rounded again."""
+    d_rq, d_rk, dv = _bwd_body_ref(rq, rk, v, o, do)
+    return (apply_rope(d_rq.to(rq.dtype), cos, -sin),
+            apply_rope(d_rk.to(rk.dtype), cos, -sin), dv.to(v.dtype))
+
+
 def fused_rope_attention_bwd_ref(q, k, v, o, do, cos, sin):
     """Plain version of K1b (``_bwd_kernel:112``): rotate q, k in f32 and
     round; the shared body; round d_rq/d_rk, un-rotate them with (cos, -sin)
     in f32 and round again.  Returns (dq, dk, dv) in the input dtype."""
-    rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    d_rq, d_rk, dv = _bwd_body_ref(rq, rk, v, o, do)
-    return (apply_rope(d_rq.to(q.dtype), cos, -sin),
-            apply_rope(d_rk.to(k.dtype), cos, -sin), dv.to(v.dtype))
+    return _rotated_bwd_ref(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, o, do,
+                            cos, sin)
 
 
 def fused_attention_bwd_ref(q, k, v, o, do):
@@ -95,11 +113,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("short_attention")
     if not getattr(lib, "_genhancer_typed", False):
         strides = [_I64] * 9
-        tail = [_I] * 4 + [ctypes.c_float, _P]
-        lib.genhancer_fused_rope_attention_fwd.argtypes = [_I] + [_P] * 7 + strides + tail
-        lib.genhancer_fused_attention_fwd.argtypes = [_I] + [_P] * 5 + strides + tail
-        lib.genhancer_fused_rope_attention_bwd.argtypes = [_I] + [_P] * 12 + strides + tail
-        lib.genhancer_fused_attention_bwd.argtypes = [_I] + [_P] * 10 + strides + tail
+        tail = [_I] * 4 + [ctypes.c_float]
+        lib.genhancer_fused_rope_attention_fwd.argtypes = ([_I] + [_P] * 9 + strides + tail
+                                                          + [_I, _P])
+        lib.genhancer_fused_attention_fwd.argtypes = [_I] + [_P] * 5 + strides + tail + [_I, _P]
+        lib.genhancer_fused_rope_attention_bwd.argtypes = [_I] + [_P] * 12 + strides + tail + [_P]
+        lib.genhancer_fused_attention_bwd.argtypes = [_I] + [_P] * 10 + strides + tail + [_P]
         for fn in ("genhancer_fused_rope_attention_fwd", "genhancer_fused_attention_fwd",
                    "genhancer_fused_rope_attention_bwd", "genhancer_fused_attention_bwd"):
             getattr(lib, fn).restype = _I
@@ -125,6 +144,50 @@ def _check(name: str, q, k, v) -> None:
         raise ValueError(f"{name}: D must be contiguous (stride 1)")
 
 
+_TMAP_ERROR = 10000   # sm90::TMAP_ERROR: a tensor map that did not encode, + CUresult
+
+
+def _tma_layout_error(*ts):
+    """Why the TMA cannot read these [B, L, H, D] bf16 tensors in place, or
+    None: D contiguous, the base pointer and each B/L/H stride (of a
+    dimension longer than 1) a multiple of 16 bytes and below 2^40.  Reads
+    only shapes, strides, dtypes and ``data_ptr() % 16`` (each once: it runs
+    before every launch)."""
+    for i, t in enumerate(ts):
+        shape, strides, es = t.shape, t.stride(), t.element_size()
+        if shape[3] > 1 and strides[3] != 1:
+            return f"operand {i}: D must be contiguous (stride 1), got stride {strides[3]}"
+        if t.data_ptr() % 16:
+            return (f"operand {i}: the TMA needs a 16-byte-aligned base pointer, got "
+                    f"{t.data_ptr() % 16} bytes past one")
+        for dim in range(3):
+            st = strides[dim] * es
+            if shape[dim] > 1 and (st % 16 or not 0 < st < 2 ** 40):
+                return (f"operand {i}: the TMA needs each B/L/H stride to be a positive "
+                        f"multiple of 16 bytes, got {strides[dim]} elements "
+                        f"({st} bytes) in dimension {dim}")
+    return None
+
+
+def _check_tma_layout(name: str, *ts) -> None:
+    """Raise ``ValueError`` where the bf16 kernels' TMA cannot read ``ts``
+    in place (float32 runs the scalar kernels, which take any strides)."""
+    err = _tma_layout_error(*ts) if ts[0].dtype == torch.bfloat16 else None
+    if err is not None:
+        raise ValueError(f"{name}: {err}")
+
+
+def _tma_strides(*ts):
+    """(B, L, H) element strides of each tensor, those of size-1 dimensions
+    replaced by the contiguous stride (never followed; keeps the tensor map
+    legal)."""
+    out = []
+    for t in ts:
+        (b, l, h, d), st = t.shape, t.stride()
+        out += [st[0] if b > 1 else l * h * d, st[1] if l > 1 else h * d, st[2] if h > 1 else d]
+    return out
+
+
 def _tables(q, cos, sin):
     b, l, h, d = q.shape
     if cos.shape != (b, l, d // 2) or sin.shape != (b, l, d // 2):
@@ -135,63 +198,84 @@ def _tables(q, cos, sin):
     return cos.to(torch.float32).contiguous(), sin.to(torch.float32).contiguous()
 
 
-def _strides(*ts):
-    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
-
-
 def _raise_on(rc: int, name: str) -> None:
+    if rc >= _TMAP_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - _TMAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
-def _fwd_kernel(q, k, v, tables, want_lse: bool):
-    """Launch K1 (``tables`` = (cos, sin)) or K2 (``tables`` = None).
-    Returns (o, lse or None)."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def block_rows(b: int, l: int, h: int, sms: int) -> int:
+    """q rows per block of the bf16 forward: 64 (one consumer warpgroup)
+    where 128-row blocks would leave some of the card's ``sms`` SMs idle,
+    else 128."""
+    return 64 if b * h * -(-l // 128) < sms else 128
+
+
+def _fwd_kernel(q, k, v, tables, want_lse: bool, rows=None):
+    """Launch K1 (``tables`` = (cos, sin)) or K2 (``tables`` = None), with
+    ``rows`` q rows per bf16 block (default ``block_rows``).  Returns
+    (o, lse or None, rq, rk): the rotated pair K1 wrote (q and k themselves
+    for K2), which the backward reads."""
     name = "fused_attention" if tables is None else "fused_rope_attention"
     _check(name, q, k, v)
+    _check_tma_layout(name, q, k, v)
     b, l, h, d = q.shape
+    rows = rows or block_rows(b, l, h, _sm_count(q.device.index))
     o = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
            if want_lse else None)
     lse_ptr = lse.data_ptr() if want_lse else None
+    tail = [b, l, h, d, 1.0 / (d ** 0.5), rows]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         head = [_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr()]
         if tables is None:
+            rq, rk = q, k
             rc = _lib().genhancer_fused_attention_fwd(
-                *head, o.data_ptr(), lse_ptr, *_strides(q, k, v), b, l, h, d,
-                1.0 / (d ** 0.5), stream)
+                *head, o.data_ptr(), lse_ptr, *_tma_strides(q, k, v), *tail, stream)
         else:
             cos, sin = _tables(q, *tables)
+            rq, rk = torch.empty_like(o), torch.empty_like(o)
             rc = _lib().genhancer_fused_rope_attention_fwd(
-                *head, cos.data_ptr(), sin.data_ptr(), o.data_ptr(), lse_ptr,
-                *_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5), stream)
+                *head, cos.data_ptr(), sin.data_ptr(), rq.data_ptr(), rk.data_ptr(),
+                o.data_ptr(), lse_ptr, *_tma_strides(q, k, v), *tail, stream)
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    return o, lse
+    return o, lse, rq, rk
 
 
-def _bwd_kernel(q, k, v, o, lse, do, tables):
-    """Launch K1b (``tables`` = (cos, sin)) or K2b; returns (dq, dk, dv)."""
+def _bwd_kernel(rq, rk, v, o, lse, do, tables):
+    """Launch K1b (``tables`` = (cos, sin): ``rq, rk`` are the rotated pair
+    K1 wrote, and dq, dk come out un-rotated) or K2b (``rq, rk`` = q, k);
+    returns (dq, dk, dv)."""
     name = "fused_attention_bwd" if tables is None else "fused_rope_attention_bwd"
-    _check(name, q, k, v)
-    b, l, h, d = q.shape
-    if do.shape != q.shape or do.device != q.device:
+    _check(name, rq, rk, v)
+    b, l, h, d = rq.shape
+    if do.shape != rq.shape or do.device != rq.device:
         raise ValueError(f"{name}: the output gradient must be [B, L, H, D] on q's device")
-    do = do.to(q.dtype).contiguous()
-    di = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+    do = do.to(rq.dtype).contiguous()
+    if tables is not None:
+        _check_tma_layout(name, rq, rk, v, do)
+    di = torch.empty((b, h, l), dtype=torch.float32, device=rq.device)
+    dq, dk, dv = (torch.empty((b, l, h, d), dtype=rq.dtype, device=rq.device)
                   for _ in range(3))
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(rq.device):
         stream = torch.cuda.current_stream().cuda_stream
-        head = [_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        head = [_DTYPES[rq.dtype], rq.data_ptr(), rk.data_ptr(), v.data_ptr(),
                 o.data_ptr(), do.data_ptr()]
         tail = [lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), *_strides(q, k, v), b, l, h, d, 1.0 / (d ** 0.5), stream]
+                dv.data_ptr(), *_tma_strides(rq, rk, v), b, l, h, d, 1.0 / (d ** 0.5), stream]
         if tables is None:
             rc = _lib().genhancer_fused_attention_bwd(*head, *tail)
         else:
-            cos, sin = _tables(q, *tables)
+            cos, sin = _tables(rq, *tables)
             rc = _lib().genhancer_fused_rope_attention_bwd(
                 *head, cos.data_ptr(), sin.data_ptr(), *tail)
     _raise_on(rc, name)
@@ -202,24 +286,26 @@ def _bwd_kernel(q, k, v, o, lse, do, tables):
 # ---------------------------------------------------------------- autograd
 
 class _FusedRopeAttention(torch.autograd.Function):
-    """K1 forward + K1b backward; on CPU tensors the plain versions."""
+    """K1 forward + K1b backward; on CPU tensors the plain versions.  Both
+    keep the rotated pair for the backward in place of q and k."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin):
         if q.device.type == "cpu":
-            o, lse = fused_rope_attention_ref(q, k, v, cos, sin), None
+            rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            o, lse = sdpa_ref(rq, rk, v), None
         else:
-            o, lse = _fwd_kernel(q, k, v, (cos, sin), want_lse=True)
-        ctx.save_for_backward(q, k, v, cos, sin, o, lse)
+            o, lse, rq, rk = _fwd_kernel(q, k, v, (cos, sin), want_lse=True)
+        ctx.save_for_backward(rq, rk, v, cos, sin, o, lse)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, cos, sin, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = fused_rope_attention_bwd_ref(q, k, v, o, do, cos, sin)
+        rq, rk, v, cos, sin, o, lse = ctx.saved_tensors
+        if rq.device.type == "cpu":
+            grads = _rotated_bwd_ref(rq, rk, v, o, do, cos, sin)
         else:
-            grads = _bwd_kernel(q, k, v, o, lse, do, (cos, sin))
+            grads = _bwd_kernel(rq, rk, v, o, lse, do, (cos, sin))
         return (*grads, None, None)
 
 
@@ -231,7 +317,7 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = fused_attention_ref(q, k, v), None
         else:
-            o, lse = _fwd_kernel(q, k, v, None, want_lse=True)
+            o, lse = _fwd_kernel(q, k, v, None, want_lse=True)[:2]
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 

@@ -1,9 +1,13 @@
-// Device code shared by the attention kernels of this package:
-// short_attention.cu (K1/K2 forward, K1b/K2b backward) and, for float32 and
-// the backward's D_i pass, flash_attention.cu (K5 forward, K5b backward;
-// its bf16 kernels are in flash_sm90.cuh and flash_attention.cu).  Each .cu
-// includes it once and compiles into its own shared library, so everything
-// here stays in an anonymous namespace.
+// Device code shared by the attention kernels of this package: the float32
+// kernels of K1/K2, K1b/K2b and K5/K5b (fp::, scalar FMA), the bf16 K2b
+// backward (tc::, WMMA), and the backward's D_i pass (dot_rows).  The bf16
+// K1, K2, K1b, K5 and K5b run the wgmma/TMA kernels of attention_sm90.cuh.
+// Each .cu includes it once and compiles into its own shared library, so
+// everything here stays in an anonymous namespace.
+//
+// None of these kernels rotates q or k: K1's forward runs the RoPE pass of
+// short_attention.cu first, and K1b reads the rotated pair K1 wrote.  The
+// float32 K1b backward un-rotates dq and dk as it stores them (store_pair).
 
 #pragma once
 
@@ -31,8 +35,6 @@ struct Params {
   const void* q;
   const void* k;
   const void* v;
-  const float* cos;  // [B, L, D/2] contiguous, only with ROPE
-  const float* sin;
   void* o;           // [B, L, H, D] contiguous
   float* lse;        // [B, H, L] row log-sum-exp of the scaled logits, or null
   int64_t q_sb, q_sl, q_sh;
@@ -44,33 +46,23 @@ struct Params {
 
 // Rows [row0, row0 + nrows) of one (batch, head) slice into shared memory,
 // row stride ld, columns [0, Dp) with Dp >= D; rows at or past L and columns
-// at or past D are zero.  With ROPE each (2i, 2i+1) pair is rotated in
-// float32 and rounded to T, as the reference's apply_rope does.
-template <bool ROPE, typename T>
+// at or past D are zero.
+template <typename T>
 __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int64_t s_l, int row0,
-                                          int nrows, int L, int D, int Dp,
-                                          const float* cos_b, const float* sin_b) {
+                                          int nrows, int L, int D, int Dp) {
   const int half = Dp / 2;
   for (int idx = threadIdx.x; idx < nrows * half; idx += blockDim.x) {
     const int r = idx / half;
     const int i = idx - r * half;
     const int l = row0 + r;
-    float e = 0.f, o = 0.f;
+    T e = from_f32<T>(0.f), o = e;
     if (l < L && 2 * i < D) {
       const T* p = src + (int64_t)l * s_l + 2 * i;
-      e = to_f32(p[0]);
-      o = to_f32(p[1]);
-      if (ROPE) {
-        const float c = cos_b[(int64_t)l * (D / 2) + i];
-        const float s = sin_b[(int64_t)l * (D / 2) + i];
-        const float re = c * e - s * o;
-        const float ro = s * e + c * o;
-        e = re;
-        o = ro;
-      }
+      e = p[0];
+      o = p[1];
     }
-    dst[r * ld + 2 * i] = from_f32<T>(e);
-    dst[r * ld + 2 * i + 1] = from_f32<T>(o);
+    dst[r * ld + 2 * i] = e;
+    dst[r * ld + 2 * i + 1] = o;
   }
 }
 
@@ -83,165 +75,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores through WMMA
-// ---------------------------------------------------------------------------
-
-namespace tc {
-namespace wmma = nvcuda::wmma;
-constexpr int BQ = 64;          // q rows per block: 4 warps x 16 rows
-constexpr int THREADS = 128;
-constexpr int LDS = BK + 4;     // float logits row stride
-constexpr int LDP = BK + 8;     // bf16 probability row stride
-
-__host__ __device__ constexpr int dpad(int D) { return (D + 15) / 16 * 16; }
-__host__ __device__ constexpr int ldx(int D) { return dpad(D) + 8; }
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  return (size_t)3 * 64 * ldx(D) * sizeof(bf16) + (size_t)BQ * LDS * sizeof(float) +
-         (size_t)BQ * LDP * sizeof(bf16) + 16 * 16 * sizeof(float) + 3 * BQ * sizeof(float);
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <bool ROPE>
-__global__ void __launch_bounds__(THREADS) kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + 64 * ld;
-  bf16* sV = sK + 64 * ld;
-  float* sS = reinterpret_cast<float*>(sV + 64 * ld);  // this tile's logits
-  bf16* sP = reinterpret_cast<bf16*>(sS + BQ * LDS);    // this tile's probabilities
-  float* sRow = reinterpret_cast<float*>(sP + BQ * LDP); // 16x16 row numbers
-  float* sM = sRow + 256;  // running row max
-  float* sL = sM + BQ;     // running row sum
-  float* sA = sL + BQ;     // rescale of this tile
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr0 = warp * 16;  // this warp's first q row in the block
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
-
-  for (int i = tid; i < 256; i += THREADS) sRow[i] = (float)(i / 16);
-  if (tid < BQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  load_rows<ROPE, bf16>(sQ, ld, qb, p.q_sl, q0, BQ, L, D, Dp, cos_b, sin_b);
-  __syncthreads();
-
-  // The accumulator layout is unspecified but the same for every FragC, so a
-  // fragment loaded from a matrix of row numbers tells each element its row.
-  FragC rowid;
-  wmma::load_matrix_sync(rowid, sRow, 16, wmma::mem_row_major);
-  FragC o[DMAX / 16];
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    const int nk = min(BK, L - k0);
-    load_rows<ROPE, bf16>(sK, ld, kb, p.k_sl, k0, BK, L, D, Dp, cos_b, sin_b);
-    load_rows<false, bf16>(sV, ld, vb, p.v_sl, k0, BK, L, D, Dp, nullptr, nullptr);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      FragC s;
-      wmma::fill_fragment(s, 0.f);
-      for (int kk = 0; kk < nf; ++kk) {
-        FragA a;
-        FragKt kt;
-        wmma::load_matrix_sync(a, sQ + wr0 * ld + kk * 16, ld);
-        wmma::load_matrix_sync(kt, sK + (j * 16) * ld + kk * 16, ld);
-        wmma::mma_sync(s, a, kt, s);
-      }
-      wmma::store_matrix_sync(sS + wr0 * LDS + j * 16, s, LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: two lanes per row, 32 columns each
-    {
-      const int r = wr0 + (lane >> 1);
-      const int c0 = (lane & 1) * 32;
-      float* srow = sS + r * LDS;
-      float mx = -INFINITY;
-      for (int c = c0; c < c0 + 32; ++c) {
-        const float x = c < nk ? srow[c] * p.scale : -INFINITY;
-        srow[c] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: every tile has a valid column
-      float sum = 0.f;
-      bf16* prow = sP + r * LDP;
-      for (int c = c0; c < c0 + 32; ++c) {
-        const float e = expf(srow[c] - m_new);
-        sum += e;
-        prow[c] = __float2bfloat16(e);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();  // both lanes of the row have read sM[r]
-      if ((lane & 1) == 0) {
-        const float alpha = expf(m_old - m_new);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // O = O * alpha + P V
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      if (j < nf) {
-        for (int i = 0; i < o[j].num_elements; ++i) o[j].x[i] *= sA[wr0 + (int)rowid.x[i]];
-      }
-    }
-    for (int kk = 0; kk * 16 < nk; ++kk) {
-      FragA a;
-      wmma::load_matrix_sync(a, sP + wr0 * LDP + kk * 16, LDP);
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) {
-        if (j < nf) {
-          FragV vf;
-          wmma::load_matrix_sync(vf, sV + (kk * 16) * ld + j * 16, ld);
-          wmma::mma_sync(o[j], a, vf, o[j]);
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites sK and sV
-  }
-
-  // O / l -> global, staged through the now free sK/sV region
-  float* sO = reinterpret_cast<float*>(sK) + warp * 16 * Dp;
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) {
-    if (j < nf) wmma::store_matrix_sync(sO + j * 16, o[j], Dp, wmma::mem_row_major);
-  }
-  __syncwarp();
-  if (p.lse != nullptr && lane < 16 && q0 + wr0 + lane < L)
-    p.lse[((int64_t)b * p.H + h) * L + q0 + wr0 + lane] =
-        sM[wr0 + lane] + logf(sL[wr0 + lane]);
-  bf16* ob = static_cast<bf16*>(p.o);
-  for (int idx = lane; idx < 16 * D; idx += 32) {
-    const int r = idx / D, d = idx - r * D;
-    const int l = q0 + wr0 + r;
-    if (l < L) ob[(((int64_t)b * L + l) * p.H + h) * D + d] =
-        __float2bfloat16(sO[r * Dp + d] / sL[wr0 + r]);
-  }
-}
-}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // float32: scalar FMA
@@ -257,7 +90,6 @@ __host__ __device__ constexpr size_t smem_bytes(int D) {
           (size_t)BQ * (BK + 1) + 3 * BQ) * sizeof(float);
 }
 
-template <bool ROPE>
 __global__ void __launch_bounds__(THREADS) kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D, L = p.L;
@@ -278,14 +110,12 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
   const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
 
   if (tid < BQ) {
     sM[tid] = -INFINITY;
     sL[tid] = 0.f;
   }
-  load_rows<ROPE, float>(sQ, ldq, qb, p.q_sl, q0, BQ, L, D, D, cos_b, sin_b);
+  load_rows<float>(sQ, ldq, qb, p.q_sl, q0, BQ, L, D, D);
 
   float acc[4][DMAX / 16];
 #pragma unroll
@@ -295,8 +125,8 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 
   for (int k0 = 0; k0 < L; k0 += BK) {
     const int nk = min(BK, L - k0);
-    load_rows<ROPE, float>(sK, ldk, kb, p.k_sl, k0, BK, L, D, D, cos_b, sin_b);
-    load_rows<false, float>(sV, ldv, vb, p.v_sl, k0, BK, L, D, D, nullptr, nullptr);
+    load_rows<float>(sK, ldk, kb, p.k_sl, k0, BK, L, D, D);
+    load_rows<float>(sV, ldv, vb, p.v_sl, k0, BK, L, D, D);
     __syncthreads();
 
     // S = Q K^T * scale on a 4x4 register tile per thread
@@ -391,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 }  // namespace fp
 
 // ---------------------------------------------------------------------------
-// Backward (K1b, K2b; K5b in float32): FlashAttention-2's split of the work
+// Backward (bf16 K2b; K1b, K2b, K5b in float32): FlashAttention-2's split
 // ---------------------------------------------------------------------------
 //
 // Replaces _bwd_kernel:112 (K1b) and _bwd_kernel_norope:125 (K2b) of
@@ -399,7 +229,8 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 // and (float32) _dq_kernel:156 / _dkv_kernel:175 of flash_attention.py.
 // The TPU runs one program per batch element with the whole [H, L, L]
 // logits in VMEM; here the work is split so that no block needs more than
-// one 64-row tile of each operand and nothing is summed across blocks:
+// one 64-row tile of each operand and nothing is summed across blocks (the
+// bf16 K1b and K5b split it the same way in attention_sm90.cuh):
 //   1. dot_rows: D_i = sum_d dO * O in float32, [B, H, L];
 //   2. dkdv: one block per (batch, head, k tile) walks the q tiles,
 //      recomputes p = exp(s * scale - lse) from the forward's row
@@ -407,7 +238,7 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 //   3. dq: one block per (batch, head, q tile) walks the k tiles and
 //      accumulates dQ.
 // No atomics, and no ceiling on L.  Rounding points, as the TPU kernel:
-//   * rq and rk are rotated in float32 and rounded to T (load_rows);
+//   * q and k arrive rotated (K1's rq and rk, rounded to T by its RoPE pass);
 //   * dO enters dp = dO V^T and dv = p^T dO as stored (type T);
 //   * p is rounded to T before p^T dO;
 //   * ds = p (dp - D_i) is rounded to T before ds rk and ds^T rq;
@@ -416,8 +247,8 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 //   * dv is rounded to T once.
 // (K5b keeps p in float32 for dv; its float32 kernels here never round p.)
 // What bounds it: like the forward, a few MFLOP per (batch, head) at the
-// training shape (B=16, L=197, H=24, D=128) — the backward does 2.5x the
-// forward's products, so bf16 again runs them on the tensor cores (WMMA,
+// training shape (B=16, L=257, H=16, D=64) — the backward does 2.5x the
+// forward's products, so bf16 runs them on the tensor cores (WMMA,
 // 16x16x16, float32 accumulators); float32 runs scalar FMA (no TF32).
 
 struct BwdParams {
@@ -458,9 +289,10 @@ __global__ void dot_rows(const T* o, const T* dout, float* di, int B, int L, int
   }
 }
 
-// One finished gradient row: x = acc * mult (float32), rounded to T; with
-// ROPE each pair is then un-rotated with (cos, -sin) in float32 and rounded
-// to T again, as _bwd_kernel's _apply_rope_full(d.astype(T), cos, -sin).
+// One finished gradient pair: x = acc * mult (float32), rounded to T; with
+// ROPE the pair is then un-rotated with (cos, -sin) in float32 and rounded
+// to T again, as _bwd_kernel's _apply_rope_full(d.astype(T), cos, -sin),
+// each operation rounded on its own as PyTorch's apply_rope does.
 template <bool ROPE, typename T>
 __device__ __forceinline__ void store_pair(T* out, float e, float o, float mult, const float* cos_b,
                                            const float* sin_b, int l, int i, int D) {
@@ -469,17 +301,28 @@ __device__ __forceinline__ void store_pair(T* out, float e, float o, float mult,
   if (ROPE) {
     const float c = cos_b[(int64_t)l * (D / 2) + i];
     const float s = sin_b[(int64_t)l * (D / 2) + i];
-    const float re = c * e + s * o;
-    const float ro = c * o - s * e;
+    const float re = __fadd_rn(__fmul_rn(c, e), __fmul_rn(s, o));
+    o = __fsub_rn(__fmul_rn(c, o), __fmul_rn(s, e));
     e = re;
-    o = ro;
   }
   out[2 * i] = from_f32<T>(e);
   out[2 * i + 1] = from_f32<T>(o);
 }
 
 namespace tc {
-constexpr int BT = 64;  // rows per tile: 4 warps x 16
+namespace wmma = nvcuda::wmma;
+constexpr int BT = 64;          // rows per tile: 4 warps x 16
+constexpr int THREADS = 128;
+constexpr int LDS = BT + 4;     // float logits row stride
+constexpr int LDP = BT + 8;     // bf16 probability row stride
+
+__host__ __device__ constexpr int dpad(int D) { return (D + 15) / 16 * 16; }
+__host__ __device__ constexpr int ldx(int D) { return dpad(D) + 8; }
+
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 __host__ __device__ constexpr size_t bwd_smem_bytes(int D) {
   // four bf16 operand tiles, float32 S and dP, bf16 P and dS, lse and D_i
@@ -548,10 +391,9 @@ __device__ __forceinline__ void accumulate(FragC* acc, const bf16* a_rows, const
 }
 
 // This warp's 16 finished rows (float32 accumulators) -> rows l0.. of out.
-template <bool ROPE>
 __device__ __forceinline__ void store_rows(const FragC* acc, float* stage, int Dp, int nf, bf16* out,
                                            int64_t row_stride, int l0, int L, int D, float mult,
-                                           const float* cos_b, const float* sin_b, int lane) {
+                                           int lane) {
 #pragma unroll
   for (int j = 0; j < DMAX / 16; ++j) {
     if (j < nf) wmma::store_matrix_sync(stage + j * 16, acc[j], Dp, wmma::mem_row_major);
@@ -562,13 +404,12 @@ __device__ __forceinline__ void store_rows(const FragC* acc, float* stage, int D
     const int r = idx / half, i = idx - r * half;
     const int l = l0 + r;
     if (l < L)
-      store_pair<ROPE, bf16>(out + (int64_t)l * row_stride, stage[r * Dp + 2 * i],
-                             stage[r * Dp + 2 * i + 1], mult, cos_b, sin_b, l, i, D);
+      store_pair<false, bf16>(out + (int64_t)l * row_stride, stage[r * Dp + 2 * i],
+                              stage[r * Dp + 2 * i + 1], mult, nullptr, nullptr, l, i, D);
   }
   __syncwarp();
 }
 
-template <bool ROPE>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
@@ -582,13 +423,11 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const int64_t rs = (int64_t)H * D;  // row stride of the contiguous [B, L, H, D]
   const bf16* ob = static_cast<const bf16*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
   const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
   const float* di_b = p.di + ((int64_t)b * H + h) * L;
 
-  load_rows<ROPE, bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp, cos_b, sin_b);
-  load_rows<false, bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp, nullptr, nullptr);
+  load_rows<bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp);
+  load_rows<bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp);
   FragC dk[DMAX / 16], dv[DMAX / 16];
 #pragma unroll
   for (int j = 0; j < DMAX / 16; ++j) {
@@ -597,8 +436,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
   }
 
   for (int q0 = 0; q0 < L; q0 += BT) {
-    load_rows<ROPE, bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp, cos_b, sin_b);
-    load_rows<false, bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp, nullptr, nullptr);
+    load_rows<bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp);
+    load_rows<bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp);
     if (tid < BT) {
       const int l = q0 + tid;
       sm.lse[tid] = l < L ? lse_b[l] : 0.f;
@@ -634,11 +473,10 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
   float* stage = reinterpret_cast<float*>(smem_raw) + warp * 16 * Dp;
   bf16* dkb = static_cast<bf16*>(p.dk) + ((int64_t)b * L * H + h) * D;
   bf16* dvb = static_cast<bf16*>(p.dv) + ((int64_t)b * L * H + h) * D;
-  store_rows<ROPE>(dk, stage, Dp, nf, dkb, rs, k0 + wr0, L, D, p.scale, cos_b, sin_b, lane);
-  store_rows<false>(dv, stage, Dp, nf, dvb, rs, k0 + wr0, L, D, 1.f, nullptr, nullptr, lane);
+  store_rows(dk, stage, Dp, nf, dkb, rs, k0 + wr0, L, D, p.scale, lane);
+  store_rows(dv, stage, Dp, nf, dvb, rs, k0 + wr0, L, D, 1.f, lane);
 }
 
-template <bool ROPE>
 __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
@@ -652,13 +490,11 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const int64_t rs = (int64_t)H * D;
   const bf16* ob = static_cast<const bf16*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* cos_b = ROPE ? p.cos + (int64_t)b * L * (D / 2) : nullptr;
-  const float* sin_b = ROPE ? p.sin + (int64_t)b * L * (D / 2) : nullptr;
   const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
   const float* di_b = p.di + ((int64_t)b * H + h) * L;
 
-  load_rows<ROPE, bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp, cos_b, sin_b);
-  load_rows<false, bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp, nullptr, nullptr);
+  load_rows<bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp);
+  load_rows<bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp);
   if (tid < BT) {
     const int l = q0 + tid;
     sm.lse[tid] = l < L ? lse_b[l] : 0.f;
@@ -669,8 +505,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
   for (int j = 0; j < DMAX / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
 
   for (int k0 = 0; k0 < L; k0 += BT) {
-    load_rows<ROPE, bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp, cos_b, sin_b);
-    load_rows<false, bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp, nullptr, nullptr);
+    load_rows<bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp);
+    load_rows<bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T: this warp's 16 q rows, 64 k columns
@@ -696,7 +532,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
 
   float* stage = reinterpret_cast<float*>(smem_raw) + warp * 16 * Dp;
   bf16* dqb = static_cast<bf16*>(p.dq) + ((int64_t)b * L * H + h) * D;
-  store_rows<ROPE>(dq, stage, Dp, nf, dqb, rs, q0 + wr0, L, D, p.scale, cos_b, sin_b, lane);
+  store_rows(dq, stage, Dp, nf, dqb, rs, q0 + wr0, L, D, p.scale, lane);
 }
 }  // namespace tc
 
@@ -757,15 +593,15 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
   const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
   const float* di_b = p.di + ((int64_t)b * H + h) * L;
 
-  load_rows<ROPE, float>(sK, ld, kb, p.k_sl, k0, BT, L, D, D, cos_b, sin_b);
-  load_rows<false, float>(sV, ld, vb, p.v_sl, k0, BT, L, D, D, nullptr, nullptr);
+  load_rows<float>(sK, ld, kb, p.k_sl, k0, BT, L, D, D);
+  load_rows<float>(sV, ld, vb, p.v_sl, k0, BT, L, D, D);
   float ak[DMAX / 8][2], av[DMAX / 8][2];
 #pragma unroll
   for (int j = 0; j < DMAX / 8; ++j) ak[j][0] = ak[j][1] = av[j][0] = av[j][1] = 0.f;
 
   for (int q0 = 0; q0 < L; q0 += BT) {
-    load_rows<ROPE, float>(sQ, ld, qb, p.q_sl, q0, BT, L, D, D, cos_b, sin_b);
-    load_rows<false, float>(sO, ld, ob, rs, q0, BT, L, D, D, nullptr, nullptr);
+    load_rows<float>(sQ, ld, qb, p.q_sl, q0, BT, L, D, D);
+    load_rows<float>(sO, ld, ob, rs, q0, BT, L, D, D);
     if (tid < BT) {
       const int l = q0 + tid;
       sLse[tid] = l < L ? lse_b[l] : 0.f;
@@ -828,8 +664,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
   const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
   const float* di_b = p.di + ((int64_t)b * H + h) * L;
 
-  load_rows<ROPE, float>(sQ, ld, qb, p.q_sl, q0, BT, L, D, D, cos_b, sin_b);
-  load_rows<false, float>(sO, ld, ob, rs, q0, BT, L, D, D, nullptr, nullptr);
+  load_rows<float>(sQ, ld, qb, p.q_sl, q0, BT, L, D, D);
+  load_rows<float>(sO, ld, ob, rs, q0, BT, L, D, D);
   if (tid < BT) {
     const int l = q0 + tid;
     sLse[tid] = l < L ? lse_b[l] : 0.f;
@@ -840,8 +676,8 @@ __global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
   for (int j = 0; j < DMAX / 8; ++j) aq[j][0] = aq[j][1] = 0.f;
 
   for (int k0 = 0; k0 < L; k0 += BT) {
-    load_rows<ROPE, float>(sK, ld, kb, p.k_sl, k0, BT, L, D, D, cos_b, sin_b);
-    load_rows<false, float>(sV, ld, vb, p.v_sl, k0, BT, L, D, D, nullptr, nullptr);
+    load_rows<float>(sK, ld, kb, p.k_sl, k0, BT, L, D, D);
+    load_rows<float>(sV, ld, vb, p.v_sl, k0, BT, L, D, D);
     __syncthreads();
     p_ds_row<false>(sP, sDS, sQ, sK, sO, sV, sLse, sDi, r, cq, D, p.scale, q0 + r < L, k0, L);
     __syncthreads();
@@ -886,18 +722,6 @@ int launch(Kernel kernel, int bq, int threads, size_t smem, size_t smem_max, con
   return (int)cudaGetLastError();
 }
 
-template <bool ROPE>
-int dispatch(int dtype, const Params& p, cudaStream_t stream) {
-  if (bad_shape(p.D, p.L, p.B, p.H)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch(fp::kernel<ROPE>, fp::BQ, fp::THREADS, fp::smem_bytes(p.D),
-                  fp::smem_bytes(DMAX), p, stream);
-  if (dtype == 1)
-    return launch(tc::kernel<ROPE>, tc::BQ, tc::THREADS, tc::smem_bytes(p.D),
-                  tc::smem_bytes(DMAX), p, stream);
-  return (int)cudaErrorInvalidValue;
-}
-
 // D_i = sum_d dO * O per row (dot_rows) into p.di: the backward's first pass.
 inline int launch_dot_rows(int dtype, const void* o, const BwdParams& p, cudaStream_t stream) {
   const int64_t rows = (int64_t)p.B * p.L * p.H;
@@ -917,23 +741,35 @@ inline int launch_dot_rows(int dtype, const void* o, const BwdParams& p, cudaStr
   return (int)cudaGetLastError();
 }
 
-template <bool ROPE>
-int dispatch_bwd(int dtype, const void* o, const BwdParams& p, cudaStream_t stream) {
-  if (bad_shape(p.D, p.L, p.B, p.H)) return (int)cudaErrorInvalidValue;
-  int rc = launch_dot_rows(dtype, o, p, stream);
-  if (rc != 0) return rc;
-  if (dtype == 0) {
-    rc = launch(fp::bwd_dkdv<ROPE>, fp::BT, fp::THREADS, fp::bwd_smem_bytes(p.D),
-                fp::bwd_smem_bytes(DMAX), p, stream);
-    if (rc != 0) return rc;
-    return launch(fp::bwd_dq<ROPE>, fp::BT, fp::THREADS, fp::bwd_smem_bytes(p.D),
-                  fp::bwd_smem_bytes(DMAX), p, stream);
-  }
-  rc = launch(tc::bwd_dkdv<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D),
-              tc::bwd_smem_bytes(DMAX), p, stream);
-  if (rc != 0) return rc;
-  return launch(tc::bwd_dq<ROPE>, tc::BT, tc::THREADS, tc::bwd_smem_bytes(p.D),
-                tc::bwd_smem_bytes(DMAX), p, stream);
+// The launches, shapes checked by the caller (bad_shape).
+
+namespace fp {
+inline int fwd(const Params& p, cudaStream_t stream) {
+  return launch(kernel, BQ, THREADS, smem_bytes(p.D), smem_bytes(DMAX), p, stream);
 }
+
+// D_i, dk/dv, dq; ROPE un-rotates dq and dk as they are stored (K1b)
+template <bool ROPE>
+int bwd(const void* o, const BwdParams& p, cudaStream_t stream) {
+  int rc = launch_dot_rows(0, o, p, stream);
+  if (rc == 0)
+    rc = launch(bwd_dkdv<ROPE>, BT, THREADS, bwd_smem_bytes(p.D), bwd_smem_bytes(DMAX), p, stream);
+  if (rc == 0)
+    rc = launch(bwd_dq<ROPE>, BT, THREADS, bwd_smem_bytes(p.D), bwd_smem_bytes(DMAX), p, stream);
+  return rc;
+}
+}  // namespace fp
+
+namespace tc {
+// D_i, dk/dv, dq of the bf16 K2b
+inline int bwd(const void* o, const BwdParams& p, cudaStream_t stream) {
+  int rc = launch_dot_rows(1, o, p, stream);
+  if (rc == 0)
+    rc = launch(bwd_dkdv, BT, THREADS, bwd_smem_bytes(p.D), bwd_smem_bytes(DMAX), p, stream);
+  if (rc == 0)
+    rc = launch(bwd_dq, BT, THREADS, bwd_smem_bytes(p.D), bwd_smem_bytes(DMAX), p, stream);
+  return rc;
+}
+}  // namespace tc
 
 }  // namespace

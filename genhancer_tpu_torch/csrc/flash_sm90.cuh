@@ -1,6 +1,7 @@
-// Building blocks of the Hopper (sm_90a) flash attention kernels K5 and K5b
-// (csrc/flash_attention.cu): tensor maps and TMA loads, mbarrier rings,
-// warpgroup register hand-over, and wgmma on bf16 with float32 accumulators.
+// Building blocks of the Hopper (sm_90a) attention kernels of
+// attention_sm90.cuh (K1, K2, K5 forward; K1b, K5b backward): tensor maps and
+// TMA loads, mbarrier rings, warpgroup register hand-over, and wgmma on bf16
+// with float32 accumulators.
 //
 // Tiles live in shared memory as the TMA's 128-byte swizzle leaves them: a
 // [rows, DP] bf16 tile (DP = 64 or 128, the head dim padded) is DP/64
@@ -325,23 +326,40 @@ __device__ __forceinline__ void issue_times_tile(float* d, uint32_t (*a)[4], uin
 }
 
 // A finished [64, DP] float32 accumulator of consumer warpgroup wg, times
-// mult in float32 and rounded once to bf16, into rows l0.. (those < L) of
-// one (b, h) of a contiguous [B, L, H, D] array (row stride H * D).  Staged
+// mult in float32 and rounded to bf16, into rows l0.. (those < L) of one
+// (b, h) of a contiguous [B, L, H, D] array (row stride H * D).  With ROPE
+// each (2i, 2i+1) pair, which one thread holds, is then un-rotated with
+// (cos, -sin) in float32 from the [L, D/2] tables of this batch element and
+// rounded again (_bwd_kernel's _apply_rope_full(d.astype(T), cos, -sin)),
+// each operation rounded on its own as PyTorch's apply_rope does.  Staged
 // through `stage` ([64, DP + 8] bf16) so that each thread stores 16 bytes.
-template <int DP>
+template <int DP, bool ROPE = false>
 __device__ __forceinline__ void store_tile(const float* acc, float mult, bf16* stage, bf16* out,
                                            int l0, int L, int64_t row_stride, int D, int wg,
-                                           int tid) {
+                                           int tid, const float* cos_b = nullptr,
+                                           const float* sin_b = nullptr) {
   constexpr int LD = DP + 8;
   const int warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, c2 = 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + r0 * LD + 8 * j + c2) =
-        pack_bf16(acc[4 * j] * mult, acc[4 * j + 1] * mult);
-    *reinterpret_cast<uint32_t*>(stage + (r0 + 8) * LD + 8 * j + c2) =
-        pack_bf16(acc[4 * j + 2] * mult, acc[4 * j + 3] * mult);
-  }
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      float e = acc[4 * j + 2 * half] * mult, o = acc[4 * j + 2 * half + 1] * mult;
+      if constexpr (ROPE) {
+        const int l = l0 + r, i = 4 * j + c2 / 2;
+        if (l < L && 2 * i < D) {
+          e = __bfloat162float(__float2bfloat16(e));
+          o = __bfloat162float(__float2bfloat16(o));
+          const float c = cos_b[(int64_t)l * (D / 2) + i], s = sin_b[(int64_t)l * (D / 2) + i];
+          const float re = __fadd_rn(__fmul_rn(c, e), __fmul_rn(s, o));
+          o = __fsub_rn(__fmul_rn(c, o), __fmul_rn(s, e));
+          e = re;
+        }
+      }
+      *reinterpret_cast<uint32_t*>(stage + r * LD + 8 * j + c2) = pack_bf16(e, o);
+    }
   wg_sync(wg);
   const int vpr = D / 8;  // 16-byte vectors per row
   for (int i = tid; i < 64 * vpr; i += 128) {

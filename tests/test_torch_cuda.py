@@ -5,15 +5,17 @@ no JAX, so it also runs on a GPU machine without the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-Bounds as in chip_smoke.py: float32 1e-4, bfloat16 2e-2 (the kernel rounds
-the unnormalised probabilities to bf16, the plain version the normalised);
-for gradients the bound is relative to max(1, max|plain|); K3 within one
-ulp of the storage dtype.  K5/K5b's bf16 rounding points are held to
-mean|kernel - plain| / mean|plain| <= 2e-4 on o and dv, a bound that
-kernels rounding p elsewhere miss.  The int8 kernels: K7 and K4 bit-identical
-(IEEE division and rint on both sides); K6 codes identical or one apart at a
-rate below 1e-3, scales within 1e-6 relative, p within 1e-6 absolute (the
-card's log2f/exp2f against the host's); K8 within 1e-5 of max|plain| (the
+Bounds as in chip_smoke.py: float32 1e-4, bfloat16 2e-2 (a float32
+summation-order difference can flip a bf16 rounding); for gradients the
+bound is relative to max(1, max|plain|); K3 within one ulp of the storage
+dtype.  The bf16 rounding points are held to mean|kernel - plain| /
+mean|plain| <= 2e-4: K1/K2/K5's o, K1b's dq, dk and dv, K5b's dv, each
+against a control that rounds p elsewhere and must miss the bound (p
+rounded before it is normalised; dv from p in float32 or p rounded).  The
+int8 kernels: K7 and K4 bit-identical (IEEE division and rint on both
+sides); K6 codes identical or one apart at a rate below 1e-3, scales within
+1e-6 relative, p within 1e-6 absolute (the card's log2f/exp2f against the
+host's); K8 within 1e-5 of max|plain| (the
 same codes and int32 sums, float32 partials in the same order).
 """
 
@@ -26,7 +28,7 @@ from genhancer_tpu_torch.core.kernels import flash_attention as F
 from genhancer_tpu_torch.core.kernels import int8_dw as K8
 from genhancer_tpu_torch.core.kernels import rowquant as K7
 from genhancer_tpu_torch.core.kernels import short_attention as K
-from genhancer_tpu_torch.core.rope import multi_axis_rope
+from genhancer_tpu_torch.core.rope import apply_rope, multi_axis_rope
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -36,6 +38,15 @@ ROUNDING_BOUND = 2e-4
 def _mean_rel(got, want):
     got, want = got.float(), want.float()
     return ((got - want).abs().mean() / want.abs().mean()).item()
+
+
+def _round_before_normalise(q, k, v):
+    """The control for o's rounding point: exp(s - max) rounded to v's dtype
+    before the float32 PV product, divided by the row sum after."""
+    s = torch.einsum("blhd,bmhd->bhlm", q.float(), k.float()) / q.shape[-1] ** 0.5
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhlm,bmhd->blhd", e.to(v.dtype).float(), v.float())
+    return (o / e.sum(dim=-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
 @pytest.fixture
@@ -53,7 +64,12 @@ def test_kernels_match_plain_and_count(cuda, dtype, tol, l, d):
     before = dict(K.LAUNCHES)
     out = K.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert (out.float() - K.fused_attention_ref(q, k, v).float()).abs().max().item() <= tol
+    ref = K.fused_attention_ref(q, k, v)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        # p normalised, then rounded (_attn_body), against the single pass
+        assert _mean_rel(out, ref) <= ROUNDING_BOUND < _mean_rel(_round_before_normalise(q, k, v),
+                                                                 ref)
     ids = torch.randint(0, 16, (2, l, 3), generator=g, device=cuda).to(torch.float32)
     axes = (d // 2, d // 4, d // 4)            # sums to D
     cos, sin = multi_axis_rope(ids, axes, 10_000)
@@ -61,6 +77,9 @@ def test_kernels_match_plain_and_count(cuda, dtype, tol, l, d):
     torch.cuda.synchronize()
     ref = K.fused_rope_attention_ref(q, k, v, cos, sin)
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16:
+        ctl = _round_before_normalise(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+        assert _mean_rel(out, ref) <= ROUNDING_BOUND < _mean_rel(ctl, ref)
     assert K.LAUNCHES["fused_attention"] == before["fused_attention"] + 1
     assert K.LAUNCHES["fused_rope_attention"] == before["fused_rope_attention"] + 1
 
@@ -116,6 +135,15 @@ def test_backward_matches_plain_and_counts(cuda, dtype, tol, l, d):
             assert err <= tol * max(1.0, gr.float().abs().max().item()), (rope, err)
         name = "fused_rope_attention_bwd" if rope else "fused_attention_bwd"
         assert K.LAUNCHES[name] == before[name] + 1
+        if rope and dtype == torch.bfloat16:
+            # K1b: p rounded before dV, ds before dQ/dK, d_rq/d_rk rounded,
+            # un-rotated and rounded again; the control keeps p in float32
+            for gk, gr in zip(grads, ref):
+                assert _mean_rel(gk, gr) <= ROUNDING_BOUND
+            rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            lse = F.flash_attention_fwd_ref(rq, rk, v)[1]
+            ctl = F.flash_attention_bwd_ref(rq, rk, v, out.detach(), lse, do)[2]
+            assert _mean_rel(ctl, ref[2]) > ROUNDING_BOUND
 
 
 @pytest.mark.parametrize("pdt, gdt", [(torch.bfloat16, torch.float32),
@@ -168,8 +196,8 @@ def test_flash_matches_plain_and_counts(cuda, dtype, tol, l, d, h):
     assert F.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
     if dtype == torch.bfloat16:
         # the rounding points (o: normalised p; dv: p in float32), against
-        # controls that round p elsewhere: K2's single pass, K2b's plain dv
-        assert _mean_rel(o, ro) <= ROUNDING_BOUND < _mean_rel(K.fused_attention(q, k, v), ro)
+        # controls that round p elsewhere: before normalising, K2b's plain dv
+        assert _mean_rel(o, ro) <= ROUNDING_BOUND < _mean_rel(_round_before_normalise(q, k, v), ro)
         ctl = K.fused_attention_bwd_ref(q, k, v, out.detach(), do)[2]
         assert _mean_rel(grads[2], want[2]) <= ROUNDING_BOUND < _mean_rel(ctl, want[2])
 
@@ -195,6 +223,53 @@ def test_flash_backward_where_lse_is_very_negative(cuda, dtype, tol):
         assert torch.isfinite(gk).all()
         err = (gk.float() - gr.float()).abs().max().item()
         assert err <= tol * max(1.0, gr.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_rope_backward_where_lse_is_very_negative(cuda, dtype, tol):
+    """K1b at L = 197, whose last 64-row kv tile is ragged: every logit near
+    -108, so every row's lse is near -103 and exp(0 - lse) overflows float32
+    in the kv columns past L.  The tables rotate every position alike (ids
+    all 3), so the logits are q.k while dq and dk still go through the
+    un-rotation.  The gradients stay finite and match the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, l, h, d = 1, 197, 2, 128
+    q = (torch.randn((b, l, h, d), generator=g, device=cuda) - 9.5).to(dtype)
+    k = (1 + 0.1 * torch.randn((b, l, h, d), generator=g, device=cuda)).to(dtype)
+    v, do = (torch.randn((b, l, h, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    cos, sin = multi_axis_rope(torch.full((b, l, 3), 3.0, device=cuda), (64, 32, 32), 10_000)
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    out = K.fused_rope_attention(qq, kk, vv, cos, sin)
+    grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    _, rlse = F.flash_attention_fwd_ref(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v)
+    assert rlse.max().item() < -88
+    want = K.fused_rope_attention_bwd_ref(q, k, v, out.detach(), do, cos, sin)
+    for gk, gr in zip(grads, want):
+        assert torch.isfinite(gk).all()
+        err = (gk.float() - gr.float()).abs().max().item()
+        assert err <= tol * max(1.0, gr.float().abs().max().item()), err
+
+
+def test_short_kernels_refuse_layouts_the_tma_cannot_read(cuda):
+    """A bf16 view misaligned by one element raises before any launch in K1,
+    K2 and K1b; nothing falls back."""
+    b, l, h, d = 1, 197, 2, 64
+    fused = torch.randn((b, l, 3 * h * d + 8), device=cuda).to(torch.bfloat16)
+    good = fused[..., : h * d].reshape(b, l, h, d)
+    bad = fused[..., 1: 1 + h * d].reshape(b, l, h, d)
+    cos, sin = multi_axis_rope(torch.zeros((b, l, 3), device=cuda), (32, 16, 16), 10_000)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        K.fused_rope_attention(good, bad, good, cos, sin)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        K.fused_attention(good, good, bad)
+    o, lse, rq, rk = K._fwd_kernel(good, good, good, (cos, sin), want_lse=True)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        K._bwd_kernel(rq, rk, bad, o, lse, torch.ones_like(o), (cos, sin))
+    assert K.LAUNCHES["fused_rope_attention"] == before["fused_rope_attention"] + 1
+    assert K.LAUNCHES["fused_attention"] == before["fused_attention"]
+    assert K.LAUNCHES["fused_rope_attention_bwd"] == before["fused_rope_attention_bwd"]
 
 
 def test_flash_refuses_layouts_the_tma_cannot_read(cuda):

@@ -1,14 +1,18 @@
-"""The layout rule of the bf16 flash attention kernels K5/K5b, on the CPU.
+"""The layout rule of the bf16 wgmma/TMA attention kernels (K1, K2, K1b,
+K5, K5b), on the CPU.
 
 The kernels read q, k, v (and the backward's dO) through TMA tensor maps:
 D contiguous, each base pointer and each B/L/H stride a multiple of 16
-bytes (``flash_attention._tma_layout_error``, which reads only shapes,
-strides, dtypes and ``data_ptr() % 16``).  The DiT must pass it without a
-copy: its q/k/v are recorded where the DiT hands them to the long-sequence
-attention (a tiny bf16 forward at a joint length of 608, both block kinds)
-and built at the published flux-dev widths.  Views the TMA cannot read are
-refused with the ``ValueError`` the CUDA path raises (``_check_tma_layout``,
-the same call the wrappers make before a launch).
+bytes (``short_attention._tma_layout_error``, which reads only shapes,
+strides, dtypes and ``data_ptr() % 16``).  The models must pass it without
+a copy: the q/k/v are recorded where the DiT hands them to the
+long-sequence attention (a tiny bf16 forward at a joint length of 608, both
+block kinds), where the DiT hands them to K1 (joint length 72: the double
+block concatenates, the single block passes a strided ``v`` view) and where
+a tiny bf16 tower hands them to K2, and built at the published flux-dev
+widths.  Views the TMA cannot read are refused with the ``ValueError`` the
+CUDA path raises (``_check_tma_layout``, the same call the wrappers make
+before a launch).
 """
 
 import re
@@ -17,7 +21,7 @@ import pytest
 import torch
 
 from genhancer_tpu_torch.core import attention as A
-from genhancer_tpu_torch.core.kernels import flash_attention as F
+from genhancer_tpu_torch.core.kernels import short_attention as K
 from genhancer_tpu_torch.core.rope import apply_rope, multi_axis_rope
 from genhancer_tpu_torch.models import dit as tdit
 
@@ -25,9 +29,10 @@ torch.set_num_threads(1)
 BF16 = torch.bfloat16
 
 
-def _tiny_dit_attention_inputs(monkeypatch):
-    """q, k, v of every long-sequence attention call of a tiny bf16 DiT
-    forward (1 double block, 1 single block, 608 joint tokens)."""
+def _tiny_dit_attention_inputs(monkeypatch, l_img=600, target=(A, "sdpa")):
+    """q, k, v of every call of ``target`` (module, name) in a tiny bf16 DiT
+    forward (1 double block, 1 single block, l_img + 8 joint tokens): the
+    long-sequence attention by default."""
     cfg = tdit.DiTConfig(in_channels=64, vec_in_dim=32, context_in_dim=48, hidden_size=128,
                          num_heads=2, depth=1, depth_single_blocks=1, axes_dim=(16, 24, 24))
     g = torch.Generator().manual_seed(0)
@@ -37,12 +42,12 @@ def _tiny_dit_attention_inputs(monkeypatch):
             p.copy_(0.02 * torch.randn(p.shape, generator=g))
     calls = []
 
-    def record(q, k, v):
+    def record(q, k, v, *tables):
         calls.append((q, k, v))
         return torch.zeros_like(q)
 
-    monkeypatch.setattr(A, "sdpa", record)
-    b, l_img, l_txt = 1, 600, 8
+    monkeypatch.setattr(*target, record)
+    b, l_txt = 1, 8
     ids = lambda n: torch.randint(0, 16, (b, n, 3), generator=g).to(torch.float32)  # noqa: E731
     with torch.no_grad():
         tdit.dit_forward(model, cfg, img=torch.randn((b, l_img, 64), generator=g).to(BF16),
@@ -59,11 +64,51 @@ def test_dit_attention_inputs_pass(monkeypatch):
     assert len(calls) == 2                  # the double block, then the single block
     for q, k, v in calls:
         assert q.dtype == BF16 and q.shape[1] == 608 and q.shape[-1] == 64
-        assert F._tma_layout_error(q, k, v) is None
-        F._check_tma_layout("flash_attention", q, k, v)
+        assert K._tma_layout_error(q, k, v) is None
+        K._check_tma_layout("flash_attention", q, k, v)
     # the single block hands over a strided view of linear1's output, not a copy
     v_single = calls[1][2]
     assert not v_single.is_contiguous() and v_single.stride(1) == 3 * 128 + 4 * 128
+
+
+def test_dit_short_attention_inputs_pass(monkeypatch):
+    """What K1 receives (q, k before the rotation, v; K1 writes the rotated
+    pair itself, contiguous) at a joint length of 72, both block kinds."""
+    calls = _tiny_dit_attention_inputs(monkeypatch, 64, (K, "fused_rope_attention"))
+    assert len(calls) == 2
+    for q, k, v in calls:
+        assert q.dtype == BF16 and q.shape[1] == 72 and q.shape[-1] == 64
+        assert K._tma_layout_error(q, k, v) is None
+        K._check_tma_layout("fused_rope_attention", q, k, v)
+    v_double, v_single = calls[0][2], calls[1][2]
+    assert v_double.is_contiguous()         # torch.cat of the txt and img streams
+    assert not v_single.is_contiguous() and v_single.stride(1) == 3 * 128 + 4 * 128
+
+
+def test_tower_attention_inputs_pass(monkeypatch):
+    """What K2 receives in a tiny bf16 vision tower (1 layer, 17 tokens)."""
+    from genhancer_tpu_torch.models.towers import clip as tclip
+    cfg = tclip.CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_layers=1,
+                                 num_heads=2, image_size=32, patch_size=8)
+    g = torch.Generator().manual_seed(1)
+    tower = tclip.VisionTransformer(cfg, device=None, dtype=BF16)
+    with torch.no_grad():
+        for p in tower.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    calls = []
+
+    def record(q, k, v):
+        calls.append((q, k, v))
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(K, "fused_attention", record)
+    with torch.no_grad():
+        tclip.vision_forward(tower, torch.randn((2, 32, 32, 3), generator=g).to(BF16), cfg)
+    assert len(calls) == 1
+    q, k, v = calls[0]
+    assert q.dtype == BF16 and q.shape == (2, 17, 2, 64)
+    assert K._tma_layout_error(q, k, v) is None
+    K._check_tma_layout("fused_attention", q, k, v)
 
 
 def test_published_width_layouts_pass():
@@ -76,16 +121,16 @@ def test_published_width_layouts_pass():
     ids = torch.zeros((b, l, 3))
     cos, sin = multi_axis_rope(ids, (16, 56, 56), 10_000)
     rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    assert F._tma_layout_error(rq, rk, v) is None            # single blocks
+    assert K._tma_layout_error(rq, rk, v) is None            # single blocks
     txt = torch.zeros((b, 4, 3 * hidden), dtype=BF16)
     tq, tk, tv = tdit._split_qkv(txt, h)
     cq, ck, cv = (torch.cat([t, i], dim=1) for t, i in ((tq, q), (tk, k), (tv, v)))
     cos, sin = multi_axis_rope(torch.zeros((b, 12, 3)), (16, 56, 56), 10_000)
-    assert F._tma_layout_error(apply_rope(cq, cos, sin), apply_rope(ck, cos, sin),
+    assert K._tma_layout_error(apply_rope(cq, cos, sin), apply_rope(ck, cos, sin),
                                cv) is None                   # double blocks
     # the strided views chip_smoke.py checks on the card: row stride 3 H D + 64
     fused = torch.zeros((b, l, 3 * h * d + 64), dtype=BF16)
-    assert F._tma_layout_error(*(x.reshape(b, l, h, d)
+    assert K._tma_layout_error(*(x.reshape(b, l, h, d)
                                  for x in fused[..., : 3 * h * d].split(h * d, -1))) is None
 
 
@@ -105,22 +150,24 @@ def _views(kind):
     raise AssertionError(kind)
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "fused_rope_attention", "fused_attention",
+                                  "fused_rope_attention_bwd"])
 @pytest.mark.parametrize("kind", ["misaligned by one element", "D not contiguous",
                                   "row stride not a multiple of 16 bytes"])
-def test_layouts_the_tma_cannot_read_are_refused(kind):
+def test_layouts_the_tma_cannot_read_are_refused(kind, name):
     good, bad, why = _views(kind)
-    assert F._tma_layout_error(good, good, good) is None
-    err = F._tma_layout_error(good, bad, good)
+    assert K._tma_layout_error(good, good, good) is None
+    err = K._tma_layout_error(good, bad, good)
     assert err is not None and why in err and err.startswith("operand 1")
-    with pytest.raises(ValueError, match=re.escape(f"flash_attention: {err}")):
-        F._check_tma_layout("flash_attention", good, bad, good)
+    with pytest.raises(ValueError, match=re.escape(f"{name}: {err}")):
+        K._check_tma_layout(name, good, bad, good)
     # float32 runs the scalar kernels, which take any B/L/H strides
-    F._check_tma_layout("flash_attention", good.float(), bad.float(), good.float())
+    K._check_tma_layout(name, good.float(), bad.float(), good.float())
 
 
 def test_size_one_dims_do_not_count():
     """A stride of a length-1 dimension is never followed: it neither fails
     the rule nor reaches the tensor map."""
     x = torch.zeros((1, 16, 1, 64), dtype=BF16).as_strided((1, 16, 1, 64), (3, 64, 5, 1))
-    assert F._tma_layout_error(x, x, x) is None
-    assert F._tma_strides(x) == [16 * 64, 64, 64]
+    assert K._tma_layout_error(x, x, x) is None
+    assert K._tma_strides(x) == [16 * 64, 64, 64]
