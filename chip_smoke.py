@@ -14,8 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              the wgmma/TMA forward, o's rounding point against a control
              that rounds p before normalising it, the device time of 64-
              and 128-row blocks from CUDA graphs, a misaligned view that
-             must raise), K1b/K2b (backward; K1b's dq/dk/dv rounding points
-             against a control that keeps p in float32 for dv), K5/K5b
+             must raise), K1b/K2b (backward on the wgmma/TMA kernels; their
+             dq/dk/dv rounding points against a control that keeps p in
+             float32 for dv; K2b at L=257 and L=256), K5/K5b
              (flash attention forward and backward: in bf16 the wgmma/TMA
              kernels, at the video paths' shapes with their TFLOP/s and
              share of the bf16 peak, the SigLIP tower shape, ragged lengths,
@@ -249,6 +250,22 @@ def graph_ms(fn, n: int = 20, rounds: int = 4):
     return statistics.median(_median_ms(graph.replay, 5) for _ in range(rounds)) / n
 
 
+def profiled_ms(fn, n: int = 10) -> float:
+    """Device ms per call of ``fn`` as the sum of its kernels' times under
+    torch.profiler (no gaps between them), after a warmup: for a call that a
+    CUDA graph cannot capture (PyTorch's default SDPA backward at some shapes
+    touches the legacy stream during a capture)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / n / 1e3
+
+
 def _fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
@@ -469,9 +486,12 @@ def _mean_rel(got, want):
 
 def phase_kernels_bwd():
     """K1b/K2b against their plain backward versions on dq, dk, dv; the
-    bound is relative to max(1, max|plain|).  In bf16, K1b's rounding points
-    on their own: dq, dk and dv to ROUNDING_BOUND of the plain version, with
-    a control that keeps p in float32 for dv (K5b's point) and must miss it.
+    bound is relative to max(1, max|plain|).  In bf16, the rounding points
+    of both on their own: dq, dk and dv to ROUNDING_BOUND of the plain
+    version, with a control that keeps p in float32 for dv (K5b's point) and
+    must miss it.  K2b is timed at the tower's L = 257 and at L = 256 (what
+    the ragged last tile costs); both run on strided views of one fused
+    projection, and a misaligned view must raise before any launch.
     Returns per-kernel records."""
     import torch
     from genhancer_tpu_torch.core.kernels import flash_attention as F
@@ -485,11 +505,12 @@ def phase_kernels_bwd():
         (rope, 16, 197, 24, 128, bf16, True), (rope, 2, 197, 24, 128, f32, False),
         (rope, 2, 13, 24, 128, bf16, False), (rope, 1, 600, 24, 128, bf16, False),
         (rope, 1, 13, 24, 128, f32, False),
-        (norope, 16, 257, 16, 64, bf16, True), (norope, 2, 256, 16, 72, bf16, False),
-        (norope, 2, 257, 16, 64, f32, False), (norope, 2, 13, 16, 64, bf16, False),
-        (norope, 1, 600, 16, 64, bf16, False))
+        (norope, 16, 257, 16, 64, bf16, True), (norope, 16, 256, 16, 64, bf16, True),
+        (norope, 2, 256, 16, 72, bf16, False), (norope, 2, 257, 16, 64, f32, False),
+        (norope, 2, 13, 16, 64, bf16, False), (norope, 1, 600, 16, 64, bf16, False))
     rec = {n: _record(n) for n in (rope, norope)}
-    rec[rope]["rounding_mean_rel"] = 0.0
+    for r in rec.values():
+        r["rounding_mean_rel"], r["ms_by_length"] = 0.0, {}
 
     def run(name, q, k, v, do, tables):
         """(kernel, plain, (rq, rk, o, lse)): K1b reads the rotated pair and
@@ -518,52 +539,79 @@ def phase_kernels_bwd():
             means = [_mean_rel(g, w) for g, w in zip(got, want)]
             rounding = (f"; mean|kernel-plain|/mean|plain| dq {means[0]:.3e}, dk {means[1]:.3e},"
                         f" dv {means[2]:.3e}")
-            if name == rope:
-                dv_ctl = _mean_rel(F.flash_attention_bwd_ref(rq, rk, v, o, lse, do)[2], want[2])
-                rounding += f" (bound {ROUNDING_BOUND:.0e}; dv from float32 p {dv_ctl:.3e})"
-                rec[rope]["rounding_mean_rel"] = max(rec[rope]["rounding_mean_rel"], *means)
-                check(max(means) <= ROUNDING_BOUND, f"K1b B={b} L={l} D={d}: rounding points "
-                      f"moved: dq, dk, dv mean errors {means}")
-                check(dv_ctl > ROUNDING_BOUND, f"K1b B={b} L={l} D={d}: the control passes the "
-                      f"rounding bound ({dv_ctl}), so it cannot tell the rounding points apart")
+            # the control: dv from float32 p (K5b's point) on the pair the
+            # kernel read
+            dv_ctl = _mean_rel(F.flash_attention_bwd_ref(rq, rk, v, o, lse, do)[2], want[2])
+            rounding += f" (bound {ROUNDING_BOUND:.0e}; dv from float32 p {dv_ctl:.3e})"
+            rec[name]["rounding_mean_rel"] = max(rec[name]["rounding_mean_rel"], *means)
+            kid = KERNELS[name][0]
+            check(max(means) <= ROUNDING_BOUND, f"{kid} B={b} L={l} D={d}: rounding points "
+                  f"moved: dq, dk, dv mean errors {means}")
+            check(dv_ctl > ROUNDING_BOUND, f"{kid} B={b} L={l} D={d}: the control passes the "
+                  f"rounding bound ({dv_ctl}), so it cannot tell the rounding points apart")
         timing = ""
         if timed:
             ms, pms = kernel_vs_plain_ms(kfn, pfn, n=20)
-            rec[name]["ms"], rec[name]["plain_ms"] = ms, pms
+            lib_b = _sdpa_fwd_bwd(q, k, v, do)[1]
+            times = {"ms": ms, "plain_ms": pms, "library_ms": _library_ms(lib_b),
+                     "device_ms": graph_ms(kfn), "library_device_ms": graph_ms(lib_b),
+                     "library_device_by": "CUDA graph"}
+            if times["library_device_ms"] is None:
+                times["library_device_ms"] = profiled_ms(lib_b)
+                times["library_device_by"] = "profiler, kernel time per call"
+            rec[name]["ms_by_length"][l] = times
             # inputs q, k, v, o, lse, dO (+ tables), outputs dq, dk, dv; five
             # products: S, dP, dV, dQ, dK
-            _set_bound(rec[name], _nbytes(q, k, v, o, lse, do, *got, *(tables or ())),
+            _set_bound(times, _nbytes(q, k, v, o, lse, do, *got, *(tables or ())),
                        5 * 2.0 * b * h * l * l * d)
-            lib_b = _sdpa_fwd_bwd(q, k, v, do)[1]
-            rec[name]["library_ms"] = _library_ms(lib_b)
-            rec[name]["device_ms"] = graph_ms(kfn)
-            rec[name]["library_device_ms"] = graph_ms(lib_b)
+            if not rec[name]["ms"]:             # the first timed length is the record's
+                rec[name].update(times)
             timing = (f"; kernel {ms:.4f} ms, plain {pms:.4f} ms; bound "
-                      f"{rec[name]['bound_ms']:.4f} ms ({rec[name]['bound_by']}), SDPA backward "
-                      f"{rec[name]['library_ms']:.4f} ms; device (CUDA graph): kernel "
-                      f"{_fmt(rec[name]['device_ms'])} ms, SDPA backward "
-                      f"{_fmt(rec[name]['library_device_ms'])} ms")
+                      f"{times['bound_ms']:.4f} ms ({times['bound_by']}), SDPA backward "
+                      f"{times['library_ms']:.4f} ms; device (CUDA graph): kernel "
+                      f"{_fmt(times['device_ms'])} ms, SDPA backward "
+                      f"{_fmt(times['library_device_ms'])} ms ({times['library_device_by']})")
+            del lib_b
         print(f"[kernels] {name} B={b} L={l} H={h} D={d} {str(dtype)[6:]}: dq/dk/dv "
               f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} "
               f"(bound {bound:.0e}){rounding}{timing}", flush=True)
         check(rel_err <= bound, f"{name} B={b} L={l} D={d} {dtype}: error {rel_err} > {bound}")
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], abs_err)
+    t256, t257 = (rec[norope]["ms_by_length"][n] for n in (256, 257))
+    print(f"[kernels] {norope} B=16 H=16 D=64, L=257 against L=256 (the ragged last tile): "
+          f"call {t257['ms']:.4f} / {t256['ms']:.4f} ms, device "
+          f"{_fmt(t257['device_ms'])} / {_fmt(t256['device_ms'])} ms", flush=True)
 
-    # K1b on the strided q/k/v views of one fused projection
-    b, l, h, d = 2, 197, 24, 128
-    fused = _rand(gen, (b, l, 3 * h * d + 64), bf16)
-    q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, dim=-1))
-    do = _rand(gen, (b, l, h, d), bf16)
-    tables = _tables(gen, b, l, d)
-    kfn, _, _ = run(rope, q, k, v, do, tables)
-    _, pfn, _ = run(rope, q.contiguous(), k.contiguous(), v.contiguous(), do, tables)
-    got, want = kfn(), pfn()
-    torch.cuda.synchronize()
-    abs_err, rel_err = _grad_errors(got, want)
-    print(f"[kernels] {rope} strided q/k/v views (row stride {q.stride(1)}): "
-          f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} (bound 2e-02)")
-    check(rel_err <= BOUND["bfloat16"], f"strided K1b: error {rel_err}")
-    rec[rope]["max_abs_err"] = max(rec[rope]["max_abs_err"], abs_err)
+    # K1b and K2b on the strided q/k/v views of one fused projection
+    for name, h, d in ((rope, 24, 128), (norope, 16, 64)):
+        b, l = 2, 197
+        fused = _rand(gen, (b, l, 3 * h * d + 64), bf16)
+        q, k, v = (x.reshape(b, l, h, d) for x in fused[..., : 3 * h * d].split(h * d, dim=-1))
+        do = _rand(gen, (b, l, h, d), bf16)
+        tables = _tables(gen, b, l, d) if name == rope else None
+        kfn, _, _ = run(name, q, k, v, do, tables)
+        _, pfn, _ = run(name, q.contiguous(), k.contiguous(), v.contiguous(), do, tables)
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        abs_err, rel_err = _grad_errors(got, want)
+        print(f"[kernels] {name} strided q/k/v views (row stride {q.stride(1)}): "
+              f"max|kernel-plain| {abs_err:.3e}, relative {rel_err:.3e} (bound 2e-02)")
+        check(rel_err <= BOUND["bfloat16"], f"strided {KERNELS[name][0]}: error {rel_err}")
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], abs_err)
+
+    # the TMA reads 16-byte-aligned views only: one misaligned by an element
+    # must raise before any launch, never fall back
+    bad = fused[..., 1: 1 + h * d].reshape(b, l, h, d)
+    o, lse, _, _ = K._fwd_kernel(q, k, v, None, want_lse=True)
+    before = dict(K.LAUNCHES)
+    try:
+        K._bwd_kernel(q, k, bad, o, lse, do, None)
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    print(f"[kernels] {norope} misaligned view (1 element past 16 bytes): "
+          f"{'raises: ' + raised if raised else 'did not raise'}", flush=True)
+    check(raised and K.LAUNCHES == before, "K2b: a misaligned bf16 view did not raise")
     return rec
 
 
@@ -899,6 +947,44 @@ def _int8_cache_shapes():
     return [(p, tuple(flat[p].shape)) for p in switchback_cache_paths(flat)]
 
 
+def _k4_edges(gen, sc, hyper, rec):
+    """K4 bit for bit (p, m, v, codes, scales) where its body differs from
+    the cached leaves': float32 p, bf16 grads, clusters of two and eight
+    blocks per row, and the L2 path's rows: a ragged row, a row wider than
+    the register path holds and a leaf whose base is not 16-byte aligned."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import adamw as KA
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (  # shape, p dtype, g dtype, base 16-byte aligned
+        ((64, 3072), f32, f32, True), ((32, 15360), f32, bf16, True),
+        ((64, 4096), bf16, bf16, True), ((16, 6144), bf16, f32, True),
+        ((40, 777), bf16, f32, True), ((4, 40000), bf16, f32, True),
+        ((2, 70000), bf16, f32, True),
+        ((48, 3072), bf16, f32, False))
+    bad = []
+    for shape, pdt, gdt, aligned in cases:
+        n = shape[0] * shape[1]
+        # a misaligned leaf: contiguous views whose bases sit one element past 16 bytes
+        p, m, v = (_rand(gen, shape, pdt) if aligned else _rand(gen, (n + 1,), pdt)[1:].view(shape)
+                   for _ in range(3))
+        v.abs_().mul_(1e-2)
+        g = torch.randn(shape, generator=gen, device="cuda", dtype=f32).to(gdt)
+        wq = torch.empty(shape, dtype=torch.int8, device="cuda")
+        ws = torch.empty(shape[0], dtype=f32, device="cuda")
+        want = KA.fused_adamw_quant_leaf_ref(p, m, v, g, sc, **hyper)
+        KA.fused_adamw_quant_leaf(p, m, v, g, sc, wq, ws, **hyper)
+        torch.cuda.synchronize()
+        n_diff = sum(int((a != b).sum()) for a, b in zip((p, m, v, wq, ws), want))
+        rec["max_abs_err"] = max(rec["max_abs_err"], *((a.float() - b.float()).abs().max().item()
+                                                        for a, b in zip((p, m, v), want[:3])))
+        if n_diff:
+            bad.append((shape, str(pdt), str(gdt), aligned, n_diff))
+    print(f"[kernels] fused_adamw_quant (K4) edges (shape, p, g, aligned) "
+          f"{[(c[0], str(c[1])[6:], str(c[2])[6:], c[3]) for c in cases]}: "
+          f"{bad or 'every output identical to the plain version'}", flush=True)
+    check(not bad, f"K4 edges differ from the plain version: {bad}")
+
+
 def phase_adamw_int8():
     """K4 on every cached DiT leaf of the full stage-1 state (p, m, v within
     one ulp as K3's, wq and ws identical); K6 on the full state with 8-bit
@@ -940,6 +1026,7 @@ def phase_adamw_int8():
     print(f"[kernels] fused_adamw_quant (K4) on the {len(state)} cached DiT leaves: p/m/v max "
           f"{ulps:.2f} ulp (bound 1), {diff} int8 codes or scales differ (bound 0)", flush=True)
     check(ulps <= 1.0 and diff == 0, f"K4: {ulps} ulp, {diff} codes or scales differ")
+    _k4_edges(gen, sc, hyper, rec["fused_adamw_quant"])
 
     def k4():
         for p, m, v, g, wq, ws in state.values():
@@ -956,9 +1043,24 @@ def phase_adamw_int8():
     _set_bound(r, sum(_nbytes(*t) + _nbytes(*t[:3]) for t in state.values()))
     r["library_ms"] = _fused_adamw_library_ms([t[:4] for t in state.values()], hyper)
     print(f"[kernels] fused_adamw_quant whole cache ({len(state)} leaves): kernel "
-          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-          f"(bytes), torch._fused_adamw_ (no int8 copy) {r['library_ms']:.3f} ms", flush=True)
-    del state
+          f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the bound), plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes), torch._fused_adamw_ "
+          f"(no int8 copy) {r['library_ms']:.4f} ms", flush=True)
+
+    # the same update on the L2 path: each p on a base one element past 16 bytes
+    shifted = []
+    for p, *rest in state.values():
+        ps = torch.empty(p.numel() + 1, dtype=p.dtype, device="cuda")[1:].view(p.shape)
+        shifted.append((ps.copy_(p), *rest))
+
+    def k4_l2():
+        for p, m, v, g, wq, ws in shifted:
+            KA.fused_adamw_quant_leaf(p, m, v, g, sc, wq, ws, **hyper)
+
+    reg_ms, l2_ms = kernel_vs_plain_ms(k4, k4_l2, n=3, rounds=4)
+    print(f"[kernels] fused_adamw_quant whole cache, in turns: register path {reg_ms:.4f} ms, "
+          f"L2 path (p misaligned) {l2_ms:.4f} ms", flush=True)
+    del state, shifted
     _free()
 
     # K6: the full state with 8-bit moments where moment8_ok
@@ -1720,15 +1822,18 @@ DEVICE_KINDS = (("K1/K2 (short fwd, RoPE pass)", ("short_fwd_kernel", "rope_qk")
                 ("K5 (flash fwd)", ("sm90::fwd_kernel",)),
                 ("K1b (short bwd)", ("dkdv_kernel<128, false, true>",
                                      "dkdv_kernel<64, false, true>",
-                                     "dq_kernel<128, true>", "dq_kernel<64, true>")),
+                                     "short_dq_kernel<128, true>", "short_dq_kernel<64, true>")),
+                ("K2b (short bwd)", ("dkdv_kernel<128, false, false>",
+                                     "dkdv_kernel<64, false, false>",
+                                     "short_dq_kernel<128, false>",
+                                     "short_dq_kernel<64, false>")),
                 ("K5b (flash bwd)", ("sm90::dkdv_kernel", "sm90::dq_kernel")),
                 ("D_i rows (K1b/K2b/K5b)", ("dot_rows",)),
                 ("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
                 ("K7 (rowquant)", ("rowquant_kernel",)),
-                ("K4 (adamw_quant)", ("adamw_quant_kernel",)),
+                ("K4 (adamw_quant)", ("adamw_quant_kernel", "adamw_quant_l2_kernel")),
                 ("K6 (adamw8)", ("adamw8_kernel",)),
                 ("K3 (adamw)", ("adamw_kernel",)),
-                ("K2b (WMMA)", ("bwd_dkdv", "bwd_dq")),
                 ("int8 GEMM (_int_mm)", ("gemm_s8", "s8gemm", "imma")),
                 ("bf16/f32 GEMM and conv", ("gemm", "nvjet", "xmma", "conv", "cutlass")))
 

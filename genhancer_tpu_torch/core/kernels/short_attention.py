@@ -22,12 +22,12 @@ q and k, and each row's log-sum-exp ``[B, H, L]``, for the backward, which
 returns new contiguous dq, dk, dv (K1b un-rotates dq and dk) and no
 gradient for cos/sin (as ``_vjp_bwd:271``).
 
-The bf16 K1, K2 and K1b read their operands through TMA tensor maps: D
-contiguous, each base pointer and each B/L/H stride in bytes a multiple of
-16 (``_tma_layout_error``; strides of size-1 dimensions are never followed
-and do not count).  A CUDA tensor that fails raises ``ValueError``; nothing
-is copied to make it pass.  The bf16 K2b runs WMMA kernels that take any
-B/L/H strides, as do the float32 kernels.
+The bf16 K1, K2, K1b and K2b read their operands through TMA tensor maps:
+D contiguous, each base pointer and each B/L/H stride in bytes a multiple
+of 16 (``_tma_layout_error``; strides of size-1 dimensions are never
+followed and do not count).  A CUDA tensor that fails raises
+``ValueError`` before any launch; nothing is copied to make it pass.  The
+float32 kernels take any B/L/H strides.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``*_ref``), which the tests and ``chip_smoke.py`` also compare the
@@ -261,8 +261,7 @@ def _bwd_kernel(rq, rk, v, o, lse, do, tables):
     if do.shape != rq.shape or do.device != rq.device:
         raise ValueError(f"{name}: the output gradient must be [B, L, H, D] on q's device")
     do = do.to(rq.dtype).contiguous()
-    if tables is not None:
-        _check_tma_layout(name, rq, rk, v, do)
+    _check_tma_layout(name, rq, rk, v, do)
     di = torch.empty((b, h, l), dtype=torch.float32, device=rq.device)
     dq, dk, dv = (torch.empty((b, l, h, d), dtype=rq.dtype, device=rq.device)
                   for _ in range(3))

@@ -3,14 +3,14 @@
 //   * flash_attention.cu: K5 (fwd_kernel) and K5b (dkdv_kernel, dq_kernel
 //     with dV from p in float32), every length;
 //   * short_attention.cu: K1 and K2 (short_fwd_kernel, the same forward
-//     body, after K1's RoPE pass) and K1b (dkdv_kernel, dq_kernel with dV
+//     body, after K1's RoPE pass), K1b (dkdv_kernel, short_dq_kernel with dV
 //     from p rounded to bf16 and the un-rotation of dq and dk in the
-//     epilogue), L <= 600.
+//     epilogue) and K2b (the same without the un-rotation), L <= 600.
 // The kernels see q and k already rotated: attention itself is the same
 // function for all of them, and the forward's rounding point is the TPU
 // kernels' (p normalised in float32, then rounded to bf16).  The head of
-// flash_attention.cu sets out the design; short_attention.cu what K1, K2 and
-// K1b add.
+// flash_attention.cu sets out the design; short_attention.cu what K1, K2,
+// K1b and K2b add.
 
 #pragma once
 
@@ -220,7 +220,7 @@ __global__ void __launch_bounds__(128 * (NWG + 1), 1)
   fwd_body<DP, NWG>(maps, a);
 }
 
-// ---------------------------------------------------------------- backward (K1b, K5b)
+// ---------------------------------------------------------------- backward (K1b, K2b, K5b)
 
 struct BwdMaps {
   CUtensorMap q, k, v, dout;
@@ -264,7 +264,7 @@ __device__ __forceinline__ const float* table_of(const float* t, int b, int L, i
 // dK and dV of 128 kv rows: walks the q tiles, S^T = K Q^T and dP^T = V dO^T
 // per tile; dK and dV stay in float32 registers throughout.  EXACT_DV: dV
 // from p in float32, as p_hi^T dO + p_lo^T dO (K5b); else from p rounded to
-// bf16, one product (K1b).  ROPE: dK is un-rotated in the epilogue (K1b).
+// bf16, one product (K1b, K2b).  ROPE: dK is un-rotated in the epilogue (K1b).
 template <int DP, bool EXACT_DV, bool ROPE>
 __global__ void __launch_bounds__(THREADS, 1)
     dkdv_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
@@ -398,8 +398,7 @@ struct DqSmem {
 // dQ of 128 q rows: walks the kv tiles, S = Q K^T and dP = dO V^T per tile.
 // ROPE: dQ is un-rotated in the epilogue (K1b).
 template <int DP, bool ROPE>
-__global__ void __launch_bounds__(THREADS, 1)
-    dq_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+__device__ __forceinline__ void dq_body(const BwdMaps& maps, const BwdArgs& a) {
   extern __shared__ unsigned char smem_raw[];
   DqSmem<DP>& sm = *reinterpret_cast<DqSmem<DP>*>(align1024(smem_raw));
   const int q0 = blockIdx.x * Q_ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -490,6 +489,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// K5b's dq
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  dq_body<DP, ROPE>(maps, a);
+}
+
+// K1b's and K2b's dq: the same body under its own name, so that a profile
+// tells the short-sequence backward from K5b
+template <int DP, bool ROPE>
+__global__ void __launch_bounds__(THREADS, 1)
+    short_dq_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  dq_body<DP, ROPE>(maps, a);
+}
+
 // ---------------------------------------------------------------- host
 
 // one warp-specialised kernel: dynamic shared memory above 48 KB (plus the
@@ -559,8 +573,12 @@ int bwd(const BwdParams& p, cudaStream_t stream) {
                                dim3((p.L + KV_ROWS - 1) / KV_ROWS, p.H, p.B), THREADS, kv_maps,
                                args, stream);
   if (rc != 0) return rc;
-  return launch_ws<DqSmem<DP>>(dq_kernel<DP, ROPE>, dim3((p.L + Q_ROWS - 1) / Q_ROWS, p.H, p.B),
-                               THREADS, q_maps, args, stream);
+  // EXACT_DV is K5b's; K1b and K2b round p
+  const dim3 grid((p.L + Q_ROWS - 1) / Q_ROWS, p.H, p.B);
+  if constexpr (EXACT_DV)
+    return launch_ws<DqSmem<DP>>(dq_kernel<DP, ROPE>, grid, THREADS, q_maps, args, stream);
+  else
+    return launch_ws<DqSmem<DP>>(short_dq_kernel<DP, ROPE>, grid, THREADS, q_maps, args, stream);
 }
 
 // D_i, then bwd at the padded head dim

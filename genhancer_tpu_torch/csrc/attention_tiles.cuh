@@ -1,7 +1,7 @@
 // Device code shared by the attention kernels of this package: the float32
-// kernels of K1/K2, K1b/K2b and K5/K5b (fp::, scalar FMA), the bf16 K2b
-// backward (tc::, WMMA), and the backward's D_i pass (dot_rows).  The bf16
-// K1, K2, K1b, K5 and K5b run the wgmma/TMA kernels of attention_sm90.cuh.
+// kernels of K1/K2, K1b/K2b and K5/K5b (fp::, scalar FMA) and the
+// backward's D_i pass (dot_rows).  In bf16 every one of them (K1, K2, K1b,
+// K2b, K5, K5b) runs the wgmma/TMA kernels of attention_sm90.cuh.
 // Each .cu includes it once and compiles into its own shared library, so
 // everything here stays in an anonymous namespace.
 //
@@ -14,7 +14,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -230,7 +229,7 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 // The TPU runs one program per batch element with the whole [H, L, L]
 // logits in VMEM; here the work is split so that no block needs more than
 // one 64-row tile of each operand and nothing is summed across blocks (the
-// bf16 K1b and K5b split it the same way in attention_sm90.cuh):
+// bf16 K1b, K2b and K5b split it the same way in attention_sm90.cuh):
 //   1. dot_rows: D_i = sum_d dO * O in float32, [B, H, L];
 //   2. dkdv: one block per (batch, head, k tile) walks the q tiles,
 //      recomputes p = exp(s * scale - lse) from the forward's row
@@ -248,8 +247,8 @@ __global__ void __launch_bounds__(THREADS) kernel(Params p) {
 // (K5b keeps p in float32 for dv; its float32 kernels here never round p.)
 // What bounds it: like the forward, a few MFLOP per (batch, head) at the
 // training shape (B=16, L=257, H=16, D=64) — the backward does 2.5x the
-// forward's products, so bf16 runs them on the tensor cores (WMMA,
-// 16x16x16, float32 accumulators); float32 runs scalar FMA (no TF32).
+// forward's products, which the bf16 kernels run on the tensor cores;
+// float32 runs scalar FMA here (no TF32).
 
 struct BwdParams {
   const void* q;
@@ -308,233 +307,6 @@ __device__ __forceinline__ void store_pair(T* out, float e, float o, float mult,
   out[2 * i] = from_f32<T>(e);
   out[2 * i + 1] = from_f32<T>(o);
 }
-
-namespace tc {
-namespace wmma = nvcuda::wmma;
-constexpr int BT = 64;          // rows per tile: 4 warps x 16
-constexpr int THREADS = 128;
-constexpr int LDS = BT + 4;     // float logits row stride
-constexpr int LDP = BT + 8;     // bf16 probability row stride
-
-__host__ __device__ constexpr int dpad(int D) { return (D + 15) / 16 * 16; }
-__host__ __device__ constexpr int ldx(int D) { return dpad(D) + 8; }
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragKt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragV = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__host__ __device__ constexpr size_t bwd_smem_bytes(int D) {
-  // four bf16 operand tiles, float32 S and dP, bf16 P and dS, lse and D_i
-  return (size_t)4 * BT * ldx(D) * sizeof(bf16) + (size_t)2 * BT * LDS * sizeof(float) +
-         (size_t)2 * BT * LDP * sizeof(bf16) + 2 * BT * sizeof(float);
-}
-
-struct BwdSmem {
-  bf16 *t0, *t1, *t2, *t3;
-  float *s, *dp;
-  bf16 *p, *ds;
-  float *lse, *di;
-};
-
-__device__ __forceinline__ BwdSmem bwd_smem(unsigned char* raw, int ld) {
-  BwdSmem m;
-  m.t0 = reinterpret_cast<bf16*>(raw);
-  m.t1 = m.t0 + BT * ld;
-  m.t2 = m.t1 + BT * ld;
-  m.t3 = m.t2 + BT * ld;
-  m.s = reinterpret_cast<float*>(m.t3 + BT * ld);
-  m.dp = m.s + BT * LDS;
-  m.p = reinterpret_cast<bf16*>(m.dp + BT * LDS);
-  m.ds = m.p + BT * LDP;
-  m.lse = reinterpret_cast<float*>(m.ds + BT * LDP);
-  m.di = m.lse + BT;
-  return m;
-}
-
-// X Y^T for this warp's 16 rows of X against the 64 rows of Y, into a
-// float32 [16, 64] slice of dst (row stride LDS).
-__device__ __forceinline__ void rows_times_tile_t(float* dst, const bf16* x, const bf16* y, int ld,
-                                                  int nf) {
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < nf; ++kk) {
-      FragA a;
-      FragKt bt;
-      wmma::load_matrix_sync(a, x + kk * 16, ld);
-      wmma::load_matrix_sync(bt, y + (j * 16) * ld + kk * 16, ld);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync(dst + j * 16, acc, LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[j] += A (this warp's [16, 64] bf16 slice, row stride LDP) times the
-// [64, D] tile y (row stride ld).
-__device__ __forceinline__ void accumulate(FragC* acc, const bf16* a_rows, const bf16* y, int ld,
-                                           int nf) {
-#pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    FragA a;
-    wmma::load_matrix_sync(a, a_rows + kk * 16, LDP);
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      if (j < nf) {
-        FragV bv;
-        wmma::load_matrix_sync(bv, y + (kk * 16) * ld + j * 16, ld);
-        wmma::mma_sync(acc[j], a, bv, acc[j]);
-      }
-    }
-  }
-}
-
-// This warp's 16 finished rows (float32 accumulators) -> rows l0.. of out.
-__device__ __forceinline__ void store_rows(const FragC* acc, float* stage, int Dp, int nf, bf16* out,
-                                           int64_t row_stride, int l0, int L, int D, float mult,
-                                           int lane) {
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) {
-    if (j < nf) wmma::store_matrix_sync(stage + j * 16, acc[j], Dp, wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int half = D / 2;
-  for (int idx = lane; idx < 16 * half; idx += 32) {
-    const int r = idx / half, i = idx - r * half;
-    const int l = l0 + r;
-    if (l < L)
-      store_pair<false, bf16>(out + (int64_t)l * row_stride, stage[r * Dp + 2 * i],
-                              stage[r * Dp + 2 * i + 1], mult, nullptr, nullptr, l, i, D);
-  }
-  __syncwarp();
-}
-
-__global__ void __launch_bounds__(THREADS) bwd_dkdv(BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
-  const BwdSmem sm = bwd_smem(smem_raw, ld);
-  bf16 *sK = sm.t0, *sV = sm.t1, *sQ = sm.t2, *sO = sm.t3;
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wr0 = warp * 16;
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int64_t rs = (int64_t)H * D;  // row stride of the contiguous [B, L, H, D]
-  const bf16* ob = static_cast<const bf16*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
-  const float* di_b = p.di + ((int64_t)b * H + h) * L;
-
-  load_rows<bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp);
-  load_rows<bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp);
-  FragC dk[DMAX / 16], dv[DMAX / 16];
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
-
-  for (int q0 = 0; q0 < L; q0 += BT) {
-    load_rows<bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp);
-    load_rows<bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp);
-    if (tid < BT) {
-      const int l = q0 + tid;
-      sm.lse[tid] = l < L ? lse_b[l] : 0.f;
-      sm.di[tid] = l < L ? di_b[l] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 k rows, 64 q columns
-    rows_times_tile_t(sm.s + wr0 * LDS, sK + wr0 * ld, sQ, ld, nf);
-    rows_times_tile_t(sm.dp + wr0 * LDS, sV + wr0 * ld, sO, ld, nf);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr0 + r;
-      const bool kvalid = k0 + row < L;
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int c = lane + 32 * cc;
-        const float pr = (kvalid && q0 + c < L)
-                             ? expf(sm.s[row * LDS + c] * p.scale - sm.lse[c])
-                             : 0.f;
-        sm.p[row * LDP + c] = __float2bfloat16(pr);
-        sm.ds[row * LDP + c] = __float2bfloat16(pr * (sm.dp[row * LDS + c] - sm.di[c]));
-      }
-    }
-    __syncwarp();
-    // dV += P^T dO and dK += dS^T Q over this tile's q rows
-    accumulate(dv, sm.p + wr0 * LDP, sO, ld, nf);
-    accumulate(dk, sm.ds + wr0 * LDP, sQ, ld, nf);
-    __syncthreads();  // the next q tile overwrites sQ, sO, lse and D_i
-  }
-
-  // epilogue staged through the free sK/sV region
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 16 * Dp;
-  bf16* dkb = static_cast<bf16*>(p.dk) + ((int64_t)b * L * H + h) * D;
-  bf16* dvb = static_cast<bf16*>(p.dv) + ((int64_t)b * L * H + h) * D;
-  store_rows(dk, stage, Dp, nf, dkb, rs, k0 + wr0, L, D, p.scale, lane);
-  store_rows(dv, stage, Dp, nf, dvb, rs, k0 + wr0, L, D, 1.f, lane);
-}
-
-__global__ void __launch_bounds__(THREADS) bwd_dq(BwdParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, H = p.H, Dp = dpad(D), ld = ldx(D), nf = Dp / 16;
-  const BwdSmem sm = bwd_smem(smem_raw, ld);
-  bf16 *sQ = sm.t0, *sO = sm.t1, *sK = sm.t2, *sV = sm.t3;
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wr0 = warp * 16;
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const int64_t rs = (int64_t)H * D;
-  const bf16* ob = static_cast<const bf16*>(p.dout) + ((int64_t)b * L * H + h) * D;
-  const float* lse_b = p.lse + ((int64_t)b * H + h) * L;
-  const float* di_b = p.di + ((int64_t)b * H + h) * L;
-
-  load_rows<bf16>(sQ, ld, qb, p.q_sl, q0, BT, L, D, Dp);
-  load_rows<bf16>(sO, ld, ob, rs, q0, BT, L, D, Dp);
-  if (tid < BT) {
-    const int l = q0 + tid;
-    sm.lse[tid] = l < L ? lse_b[l] : 0.f;
-    sm.di[tid] = l < L ? di_b[l] : 0.f;
-  }
-  FragC dq[DMAX / 16];
-#pragma unroll
-  for (int j = 0; j < DMAX / 16; ++j) wmma::fill_fragment(dq[j], 0.f);
-
-  for (int k0 = 0; k0 < L; k0 += BT) {
-    load_rows<bf16>(sK, ld, kb, p.k_sl, k0, BT, L, D, Dp);
-    load_rows<bf16>(sV, ld, vb, p.v_sl, k0, BT, L, D, Dp);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 q rows, 64 k columns
-    rows_times_tile_t(sm.s + wr0 * LDS, sQ + wr0 * ld, sK, ld, nf);
-    rows_times_tile_t(sm.dp + wr0 * LDS, sO + wr0 * ld, sV, ld, nf);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr0 + r;
-      const bool qvalid = q0 + row < L;
-#pragma unroll
-      for (int cc = 0; cc < 2; ++cc) {
-        const int c = lane + 32 * cc;
-        const float pr = (qvalid && k0 + c < L)
-                             ? expf(sm.s[row * LDS + c] * p.scale - sm.lse[row])
-                             : 0.f;
-        sm.ds[row * LDP + c] = __float2bfloat16(pr * (sm.dp[row * LDS + c] - sm.di[row]));
-      }
-    }
-    __syncwarp();
-    accumulate(dq, sm.ds + wr0 * LDP, sK, ld, nf);  // dQ += dS K
-    __syncthreads();  // the next k tile overwrites sK and sV
-  }
-
-  float* stage = reinterpret_cast<float*>(smem_raw) + warp * 16 * Dp;
-  bf16* dqb = static_cast<bf16*>(p.dq) + ((int64_t)b * L * H + h) * D;
-  store_rows(dq, stage, Dp, nf, dqb, rs, q0 + wr0, L, D, p.scale, lane);
-}
-}  // namespace tc
 
 namespace fp {
 constexpr int BT = 32;  // rows per tile; thread t owns row t/4 and pairs t%4 + 4j
@@ -759,17 +531,5 @@ int bwd(const void* o, const BwdParams& p, cudaStream_t stream) {
   return rc;
 }
 }  // namespace fp
-
-namespace tc {
-// D_i, dk/dv, dq of the bf16 K2b
-inline int bwd(const void* o, const BwdParams& p, cudaStream_t stream) {
-  int rc = launch_dot_rows(1, o, p, stream);
-  if (rc == 0)
-    rc = launch(bwd_dkdv, BT, THREADS, bwd_smem_bytes(p.D), bwd_smem_bytes(DMAX), p, stream);
-  if (rc == 0)
-    rc = launch(bwd_dq, BT, THREADS, bwd_smem_bytes(p.D), bwd_smem_bytes(DMAX), p, stream);
-  return rc;
-}
-}  // namespace tc
 
 }  // namespace

@@ -41,14 +41,21 @@
 //   * K2 = the same short_fwd_kernel on (q, k, v);
 //   * K1b reads the rq, rk that K1 wrote (the autograd Function saves them
 //     in place of q and k): dot_rows, then attention_sm90.cuh's dkdv_kernel
-//     and dq_kernel with dV from p rounded to bf16 (one product) and dq, dk
-//     un-rotated in the epilogue, where each thread holds whole pairs of the
-//     wgmma accumulator; no rotation is recomputed per tile;
+//     and short_dq_kernel (K5b's dq_kernel under its own name) with dV from
+//     p rounded to bf16 (one product) and dq, dk un-rotated in the
+//     epilogue, where each thread holds whole pairs of the wgmma
+//     accumulator; no rotation is recomputed per tile;
 //   * the bf16 forward takes 64 or 128 q rows per block (one or two consumer
 //     warpgroups; the wrapper picks), so that small batches still spread
 //     over the 132 SMs.
-// The bf16 K2b keeps the WMMA kernels of attention_tiles.cuh (tc::); float32
-// runs the scalar kernels there (fp::), after the same RoPE pass for K1.
+//   * K2b is K1b's backward without the rotation: dot_rows, dkdv_kernel and
+//     short_dq_kernel with dV from p rounded to bf16 and a plain epilogue.
+//     At the tower's L = 257 (2 x 128 + 1) the third dk/dv block owns one kv row
+//     and each dq block's fifth kv tile one row: rows past L are
+//     zero-filled by the TMA, dq sets ds to 0 in those columns and dk/dv
+//     reads lse = +inf there, so p = 0 (the masks of K1b and K5b).
+// Float32 runs the scalar kernels of attention_tiles.cuh (fp::), after the
+// same RoPE pass for K1.
 //
 // Plain C interface (ctypes): the entry points return cudaGetLastError(),
 // or sm90::TMAP_ERROR + the CUresult of cuTensorMapEncodeTiled when a
@@ -220,6 +227,6 @@ extern "C" int genhancer_fused_attention_bwd(
                     static_cast<const float*>(di), dq, dk, dv, q_sb, q_sl, q_sh, k_sb, k_sl,
                     k_sh, v_sb, v_sl, v_sh, B, L, H, D, scale};
   if (dtype == 0) return fp::bwd<false>(o, p, st);
-  if (dtype == 1) return tc::bwd(o, p, st);
+  if (dtype == 1) return sm90::bwd_padded<false, false>(o, p, st);
   return (int)cudaErrorInvalidValue;
 }

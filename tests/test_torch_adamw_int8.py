@@ -4,7 +4,9 @@ interpret mode (genhancer_tpu/core/pallas/adamw.py), and the 8-bit moments
 through the port's optimizer-state checkpoint.
 
 Bounds, each with its reason:
-  * K4 through the tree-level ``fused_adamw_apply(quant_paths=...)``:
+  * K4 through the tree-level ``fused_adamw_apply(quant_paths=...)``, at
+    small leaves (the JAX side's XLA update), a ragged one and the cached
+    widths (its Pallas kernel):
     p, m, v within one ulp of the storage dtype (as K3's test holds them:
     the same float32 formula, where XLA may contract a multiply-add); the
     emitted codes identical or one apart at a rate below 1e-3 and the scales
@@ -45,16 +47,32 @@ def _codes_close(got, want, rate=1e-3):
     assert d.max() <= 1 and (d > 0).mean() < rate, (d.max(), (d > 0).mean())
 
 
-def test_k4_matches_pallas_quant_emission(monkeypatch):
+@pytest.mark.parametrize("leaves, pallas", [
+    # below the Pallas kernel's 64k elements: the JAX side's XLA update
+    ({"dit.x.weight": ((64, 640), jnp.bfloat16), "dit.odd.weight": ((40, 640), np.float32)},
+     False),
+    # a ragged row (777 columns) of 40 rows: XLA update, quantized outside
+    ({"dit.ragged.weight": ((40, 777), jnp.bfloat16)}, False),
+    # the widest cached row, and a cached width: the Pallas kernel
+    ({"dit.wide.weight": ((32, 15360), jnp.bfloat16),
+      "dit.cached.weight": ((64, 3072), jnp.bfloat16)}, True)], ids=["small", "ragged", "wide"])
+def test_k4_matches_pallas_quant_emission(monkeypatch, leaves, pallas):
     monkeypatch.setattr(jadamw, "_INTERPRET", True)
+    quant_ran = []
+    update_leaf_pallas = jadamw._update_leaf_pallas
+
+    def spy(*args, quant=False, **kw):
+        quant_ran.append(quant)
+        return update_leaf_pallas(*args, quant=quant, **kw)
+
+    monkeypatch.setattr(jadamw, "_update_leaf_pallas", spy)
     rng = np.random.default_rng(1)
     # unit-scale params, as K3's test: |p| near lr would cancel in p - lr*u
     # and make an ulp of the small result a large relative error
-    params = {"dit.x.weight": rng.standard_normal((64, 640)).astype(jnp.bfloat16),
-              "dit.odd.weight": rng.standard_normal((40, 640)).astype(np.float32),
-              "dit.b.bias": rng.standard_normal(640).astype(np.float32)}
+    params = {k: rng.standard_normal(shape).astype(dt) for k, (shape, dt) in leaves.items()}
+    params["dit.b.bias"] = rng.standard_normal(640).astype(np.float32)
     grads = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in params.items()}
-    quant_paths = ("dit.odd.weight", "dit.x.weight")
+    quant_paths = tuple(sorted(leaves))
     jp = {k: jnp.asarray(v) for k, v in params.items()}
     jm = {k: jnp.zeros_like(v) for k, v in jp.items()}
     new_p, new_m, new_v, jquant = jadamw.fused_adamw_apply(
@@ -79,6 +97,7 @@ def test_k4_matches_pallas_quant_emission(monkeypatch):
         from genhancer_tpu_torch.core.quant import quantize_weight
         rq, rs = quantize_weight(tp[k])
         assert torch.equal(wq, rq) and torch.equal(ws, rs[:, 0])
+    assert any(quant_ran) == pallas       # the JAX side ran its Pallas K4 where it should
 
 
 def _args8(rng, rows=64, cols=1024, p_dtype=jnp.bfloat16):

@@ -9,7 +9,7 @@ Bounds as in chip_smoke.py: float32 1e-4, bfloat16 2e-2 (a float32
 summation-order difference can flip a bf16 rounding); for gradients the
 bound is relative to max(1, max|plain|); K3 within one ulp of the storage
 dtype.  The bf16 rounding points are held to mean|kernel - plain| /
-mean|plain| <= 2e-4: K1/K2/K5's o, K1b's dq, dk and dv, K5b's dv, each
+mean|plain| <= 2e-4: K1/K2/K5's o, K1b's and K2b's dq, dk and dv, K5b's dv, each
 against a control that rounds p elsewhere and must miss the bound (p
 rounded before it is normalised; dv from p in float32 or p rounded).  The
 int8 kernels: K7 and K4 bit-identical (IEEE division and rint on both
@@ -135,12 +135,13 @@ def test_backward_matches_plain_and_counts(cuda, dtype, tol, l, d):
             assert err <= tol * max(1.0, gr.float().abs().max().item()), (rope, err)
         name = "fused_rope_attention_bwd" if rope else "fused_attention_bwd"
         assert K.LAUNCHES[name] == before[name] + 1
-        if rope and dtype == torch.bfloat16:
-            # K1b: p rounded before dV, ds before dQ/dK, d_rq/d_rk rounded,
-            # un-rotated and rounded again; the control keeps p in float32
+        if dtype == torch.bfloat16:
+            # K1b and K2b: p rounded before dV, ds before dQ/dK, dq and dk
+            # rounded (K1b: un-rotated and rounded again); the control keeps
+            # p in float32 for dV
             for gk, gr in zip(grads, ref):
                 assert _mean_rel(gk, gr) <= ROUNDING_BOUND
-            rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            rq, rk = (apply_rope(q, cos, sin), apply_rope(k, cos, sin)) if rope else (q, k)
             lse = F.flash_attention_fwd_ref(rq, rk, v)[1]
             ctl = F.flash_attention_bwd_ref(rq, rk, v, out.detach(), lse, do)[2]
             assert _mean_rel(ctl, ref[2]) > ROUNDING_BOUND
@@ -251,9 +252,36 @@ def test_rope_backward_where_lse_is_very_negative(cuda, dtype, tol):
         assert err <= tol * max(1.0, gr.float().abs().max().item()), err
 
 
+def test_tower_backward_where_lse_is_very_negative(cuda):
+    """K2b at the tower's L = 257, whose last 64-row kv tile (dq) and last
+    128-row dk/dv block each hold one row: every logit near -108, so every
+    row's lse is near -103 and exp(0 - lse) overflows float32 in the kv
+    columns past L.  The gradients stay finite and match the plain
+    backward."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    b, l, h, d = 1, 257, 2, 64
+    q = (torch.randn((b, l, h, d), generator=g, device=cuda) - 13.5).to(torch.bfloat16)
+    k = (1 + 0.1 * torch.randn((b, l, h, d), generator=g, device=cuda)).to(torch.bfloat16)
+    v, do = (torch.randn((b, l, h, d), generator=g, device=cuda).to(torch.bfloat16)
+             for _ in range(2))
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    before = K.LAUNCHES["fused_attention_bwd"]
+    out = K.fused_attention(qq, kk, vv)
+    grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_attention_bwd"] == before + 1
+    _, rlse = F.flash_attention_fwd_ref(q, k, v)
+    assert -110 < rlse.min().item() and rlse.max().item() < -88
+    want = K.fused_attention_bwd_ref(q, k, v, out.detach(), do)
+    for gk, gr in zip(grads, want):
+        assert torch.isfinite(gk).all()
+        err = (gk.float() - gr.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, gr.float().abs().max().item()), err
+
+
 def test_short_kernels_refuse_layouts_the_tma_cannot_read(cuda):
     """A bf16 view misaligned by one element raises before any launch in K1,
-    K2 and K1b; nothing falls back."""
+    K2, K1b and K2b; nothing falls back."""
     b, l, h, d = 1, 197, 2, 64
     fused = torch.randn((b, l, 3 * h * d + 8), device=cuda).to(torch.bfloat16)
     good = fused[..., : h * d].reshape(b, l, h, d)
@@ -267,9 +295,13 @@ def test_short_kernels_refuse_layouts_the_tma_cannot_read(cuda):
     o, lse, rq, rk = K._fwd_kernel(good, good, good, (cos, sin), want_lse=True)
     with pytest.raises(ValueError, match="16-byte-aligned"):
         K._bwd_kernel(rq, rk, bad, o, lse, torch.ones_like(o), (cos, sin))
+    o, lse, _, _ = K._fwd_kernel(good, good, good, None, want_lse=True)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        K._bwd_kernel(good, bad, good, o, lse, torch.ones_like(o), None)
     assert K.LAUNCHES["fused_rope_attention"] == before["fused_rope_attention"] + 1
-    assert K.LAUNCHES["fused_attention"] == before["fused_attention"]
+    assert K.LAUNCHES["fused_attention"] == before["fused_attention"] + 1
     assert K.LAUNCHES["fused_rope_attention_bwd"] == before["fused_rope_attention_bwd"]
+    assert K.LAUNCHES["fused_attention_bwd"] == before["fused_attention_bwd"]
 
 
 def test_flash_refuses_layouts_the_tma_cannot_read(cuda):
@@ -321,14 +353,29 @@ def test_int8_dw_matches_plain(cuda, t, o, i):
         assert err.item() <= (1e-5 if out == torch.float32 else 8e-3)
 
 
-@pytest.mark.parametrize("pdt", [torch.bfloat16, torch.float32])
-def test_adamw_quant_bit_identical(cuda, pdt):
-    """K4: K3's update plus the int8 copy of the stored p."""
+@pytest.mark.parametrize("pdt, gdt", [(torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16),
+                                      (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape, aligned", [
+    ((96, 640), True), ((64, 3072), True),   # the register path, one block per row
+    ((16, 6144), True), ((32, 15360), True),  # clusters of two and of four blocks per row
+    ((4, 40000), True),       # a cluster of eight blocks of 640 threads
+    ((40, 777), True),        # a ragged row: the L2 path
+    ((2, 70000), True),       # wider than the register path holds: the L2 path
+    ((48, 3072), False)])     # bases one element past 16 bytes: the L2 path
+def test_adamw_quant_bit_identical(cuda, pdt, gdt, shape, aligned):
+    """K4: K3's update plus the int8 copy of the stored p, on both of its
+    paths."""
     g = torch.Generator(device=cuda).manual_seed(11)
-    shape = (96, 640)
-    p, m = (torch.randn(shape, generator=g, device=cuda).to(pdt) for _ in range(2))
-    v = torch.rand(shape, generator=g, device=cuda).to(pdt)
-    grad = torch.randn(shape, generator=g, device=cuda)
+    n = shape[0] * shape[1]
+
+    def leaf(make):
+        return make(shape) if aligned else make((n + 1,))[1:].view(shape)
+    p, m = (leaf(lambda s: torch.randn(s, generator=g, device=cuda).to(pdt)) for _ in range(2))
+    v = leaf(lambda s: torch.rand(s, generator=g, device=cuda).to(pdt))
+    grad = torch.randn(shape, generator=g, device=cuda).to(gdt)
+    assert (p.data_ptr() % 16 == 0) == aligned
     sc = torch.tensor([0.5, 1e-3, 1 / (1 - 0.9), 1 / (1 - 0.999)], device=cuda)
     want = KA.fused_adamw_quant_leaf_ref(p, m, v, grad, sc, 0.9, 0.999, 1e-8, 0.01)
     wq = torch.empty(shape, dtype=torch.int8, device=cuda)

@@ -1,5 +1,5 @@
 """The layout rule of the bf16 wgmma/TMA attention kernels (K1, K2, K1b,
-K5, K5b), on the CPU.
+K2b, K5, K5b), on the CPU.
 
 The kernels read q, k, v (and the backward's dO) through TMA tensor maps:
 D contiguous, each base pointer and each B/L/H stride a multiple of 16
@@ -9,8 +9,8 @@ a copy: the q/k/v are recorded where the DiT hands them to the
 long-sequence attention (a tiny bf16 forward at a joint length of 608, both
 block kinds), where the DiT hands them to K1 (joint length 72: the double
 block concatenates, the single block passes a strided ``v`` view) and where
-a tiny bf16 tower hands them to K2, and built at the published flux-dev
-widths.  Views the TMA cannot read are refused with the ``ValueError`` the
+a tiny bf16 tower hands them to K2 and, training, to K2b (with o and dO),
+and built at the published flux-dev widths.  Views the TMA cannot read are refused with the ``ValueError`` the
 CUDA path raises (``_check_tma_layout``, the same call the wrappers make
 before a launch).
 """
@@ -86,7 +86,9 @@ def test_dit_short_attention_inputs_pass(monkeypatch):
 
 
 def test_tower_attention_inputs_pass(monkeypatch):
-    """What K2 receives in a tiny bf16 vision tower (1 layer, 17 tokens)."""
+    """What K2 receives in a tiny bf16 vision tower (1 layer, 17 tokens), and
+    what K2b receives when the tower trains (stage 2): q, k, v, the
+    forward's o and dO."""
     from genhancer_tpu_torch.models.towers import clip as tclip
     cfg = tclip.CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_layers=1,
                                  num_heads=2, image_size=32, patch_size=8)
@@ -95,20 +97,36 @@ def test_tower_attention_inputs_pass(monkeypatch):
     with torch.no_grad():
         for p in tower.parameters():
             p.copy_(0.02 * torch.randn(p.shape, generator=g))
-    calls = []
+    pixels = torch.randn((2, 32, 32, 3), generator=g).to(BF16)
+    calls, bwd_calls = [], []
 
     def record(q, k, v):
         calls.append((q, k, v))
         return torch.zeros_like(q)
 
-    monkeypatch.setattr(K, "fused_attention", record)
-    with torch.no_grad():
-        tclip.vision_forward(tower, torch.randn((2, 32, 32, 3), generator=g).to(BF16), cfg)
+    with monkeypatch.context() as mp:
+        mp.setattr(K, "fused_attention", record)
+        with torch.no_grad():
+            tclip.vision_forward(tower, pixels, cfg)
     assert len(calls) == 1
     q, k, v = calls[0]
     assert q.dtype == BF16 and q.shape == (2, 17, 2, 64)
     assert K._tma_layout_error(q, k, v) is None
     K._check_tma_layout("fused_attention", q, k, v)
+
+    bwd_ref = K.fused_attention_bwd_ref
+
+    def record_bwd(q, k, v, o, do):
+        bwd_calls.append((q, k, v, o, do))
+        return bwd_ref(q, k, v, o, do)
+
+    monkeypatch.setattr(K, "fused_attention_bwd_ref", record_bwd)
+    x, pooled = tclip.vision_forward(tower, pixels, cfg)
+    (x.float().square().mean() + pooled.float().sum()).backward()
+    assert len(bwd_calls) == 1
+    assert all(t.dtype == BF16 and t.shape == (2, 17, 2, 64) for t in bwd_calls[0])
+    assert K._tma_layout_error(*bwd_calls[0]) is None
+    K._check_tma_layout("fused_attention_bwd", *bwd_calls[0])
 
 
 def test_published_width_layouts_pass():
@@ -151,7 +169,7 @@ def _views(kind):
 
 
 @pytest.mark.parametrize("name", ["flash_attention", "fused_rope_attention", "fused_attention",
-                                  "fused_rope_attention_bwd"])
+                                  "fused_rope_attention_bwd", "fused_attention_bwd"])
 @pytest.mark.parametrize("kind", ["misaligned by one element", "D not contiguous",
                                   "row stride not a multiple of 16 bytes"])
 def test_layouts_the_tma_cannot_read_are_refused(kind, name):
