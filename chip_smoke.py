@@ -22,11 +22,15 @@ Phases, each printing its own lines; any failure exits non-zero:
              share of the bf16 peak, the SigLIP tower shape, ragged lengths,
              strided views, a misaligned view that must raise, and float32), K3
              (fused AdamW), and the int8 stack's K7 (row quantization), K8
-             (per-block int8 dW), K4 (AdamW with the int8 weight emission)
-             and K6 (AdamW on 8-bit moments, both bodies) against their
-             plain PyTorch versions at the paths' shapes, with kernel, plain
-             and library-call times and each kernel's bound (bytes at 3.35
-             TB/s or operations at 989 TFLOP/s bf16 / 1,979 TOPS int8);
+             (per-block int8 dW: its K-major quantization workspace bit for
+             bit, the count of dW elements off the plain version, and two
+             yardsticks, torch._int_mm on the same codes and the bf16 dW), K4
+             (AdamW with the int8 weight emission) and K6 (AdamW on 8-bit
+             moments, both bodies; its register path and its second path
+             timed in turns) against their plain PyTorch versions at the
+             paths' shapes, with kernel, plain and library-call times and
+             each kernel's bound (bytes at 3.35 TB/s or operations at 989
+             TFLOP/s bf16 / 1,979 TOPS int8);
 4. small   — a tiny engine on the card (kernels) against the same weights on
              the CPU (plain versions), then one tiny float32 training step
              of each optimizer, card against CPU: loss, gradients, params;
@@ -51,8 +55,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``fused_optimizer: pallas``): 8 steps, a resume for steps 9-10
              whose rebuilt int8 cache must equal the one K4 emitted, launch
              counts of every kernel against counts derived from the model;
-             then ``dit_quant: int8_dw`` + ``optimizer_moment_bits: 8`` for 3
-             steps (K8, K6's two bodies);
+             then ``dit_quant: int8_dw`` + ``optimizer_moment_bits: 8`` for 5
+             steps (K8, K6's two bodies): steps 2-3 timed, 4-5 under
+             torch.profiler for the device time by kernel;
 8. video   — the ``Trainer`` on configs/OpenAICLIP_224_sliding_stage1.yaml at
              full width and published batch (2 videos x 8 windows x
              accumulation 2) on synthetic video shards of 256-px JPEGs, some
@@ -874,8 +879,9 @@ def phase_kernels_int8():
     T = 6304 token rows for every width, with and without the column scale,
     bfloat16 and float32, ragged T and odd C; K8 against int8_dw_ref within
     1e-5 of max|plain| at T = 6304 for every dW shape of the stage-1 DiT's
-    SwitchBack layers, at the modulation layers' T = 32 and at a ragged T.
-    Returns the K7 and K8 records."""
+    SwitchBack layers, at the modulation layers' T = 32, at ragged T and on
+    float32 inputs, its quantization workspace bit for bit against the plain
+    per-block quantization.  Returns the K7 and K8 records."""
     import torch
     from genhancer_tpu_torch.core.kernels import int8_dw as K8
     from genhancer_tpu_torch.core.kernels import rowquant as K7
@@ -911,14 +917,24 @@ def phase_kernels_int8():
           f"{diffs} codes or scales differ from the plain version (bound 0)", flush=True)
 
     shapes = sorted({s for _, s in _int8_cache_shapes()})
-    cases = ([(6304, o, i) for o, i in shapes] + [(32, 18432, 3072), (32, 9216, 3072),
-                                                 (777, 3072, 3072)])
-    for t, o, i in cases:
-        g, x = _rand(gen, (t, o), bf16), _rand(gen, (t, i), bf16)
-        dw = K8.int8_dw(g, x, f32)
+    cases = ([(6304, o, i, bf16) for o, i in shapes]
+             + [(32, 18432, 3072, bf16), (32, 9216, 3072, bf16), (777, 3072, 3072, bf16),
+                (513, 3072, 768, bf16), (6304, 3072, 3072, f32), (32, 3072, 768, f32)])
+    n_codes = 0
+    for t, o, i, dtype in cases:
+        g, x = _rand(gen, (t, o), dtype), _rand(gen, (t, i), dtype)
+        dw, codes = K8.int8_dw_with_codes(g, x, f32)
         torch.cuda.synchronize()
         ref = K8.int8_dw_ref(g, x, f32)
+        # the quantization pass against a plain per-block quantization, in
+        # the K-major workspace layout, bit for bit
+        bad = sum(int((a != b).sum())
+                  for a, b in zip(codes, (*K8.block_codes_ref(g), *K8.block_codes_ref(x))))
+        n_codes += bad
+        check(bad == 0, f"K8 [{t}, {o}, {i}] {dtype}: {bad} workspace codes or scales differ "
+              "from the plain per-block quantization")
         err = ((dw - ref).abs().max() / ref.abs().max()).item()
+        n_diff = int((dw != ref).sum())
         rec["int8_dw"]["max_abs_err"] = max(rec["int8_dw"]["max_abs_err"],
                                             (dw - ref).abs().max().item())
         timing = ""
@@ -927,13 +943,25 @@ def phase_kernels_int8():
                                          lambda: K8.int8_dw_ref(g, x, bf16), n=5, rounds=4)
             rec["int8_dw"]["ms"], rec["int8_dw"]["plain_ms"] = ms, pms
             _set_bound(rec["int8_dw"], _nbytes(g, x) + 2 * o * i, 2.0 * t * o * i, INT8_PEAK)
-            timing = (f"; bf16 out: kernel {ms:.3f} ms ({2.0 * t * o * i / ms / 1e9:.1f} TOPS), "
-                      f"plain {pms:.3f} ms, bound {rec['int8_dw']['bound_ms']:.3f} ms "
-                      "(operations); no library call quantizes per 512-row block in the product")
-        print(f"[kernels] int8_dw T={t} O={o} I={i}: max|kernel-plain|/max|plain| {err:.3e} "
-              f"(bound 1e-5){timing}", flush=True)
+            # yardsticks, not K8's function: cuBLAS's int8 product of the same
+            # codes with no per-block rescale, and the bf16 dW of dit_quant: none
+            gq, xq = codes.gq, codes.xq
+            int_mm = _library_ms(lambda: torch._int_mm(gq, xq.t()))
+            bf16_dw = _library_ms(lambda: g.t() @ x)
+            timing = (f"; bf16 out: kernel {ms:.4f} ms ({2.0 * t * o * i / ms / 1e9:.1f} TOPS, "
+                      f"{rec['int8_dw']['bound_ms'] / ms:.1%} of the bound), plain {pms:.3f} ms, "
+                      f"bound {rec['int8_dw']['bound_ms']:.4f} ms (operations); yardsticks: "
+                      f"torch._int_mm on the same codes {int_mm:.4f} ms "
+                      f"({2.0 * gq.shape[1] * o * i / int_mm / 1e9:.1f} TOPS), bf16 g.t() @ x "
+                      f"{bf16_dw:.4f} ms; no library call quantizes per 512-row block in the "
+                      "product")
+        print(f"[kernels] int8_dw T={t} O={o} I={i} {str(dtype)[6:]}: max|kernel-plain|/max|plain| "
+              f"{err:.3e} (bound 1e-5), {n_diff} of {o * i} dW elements differ from the plain "
+              f"version, workspace codes and scales bit for bit{timing}", flush=True)
         check(err <= 1e-5, f"K8 [{t}, {o}, {i}]: error {err} > 1e-5")
-        del g, x, dw, ref
+        del g, x, dw, ref, codes
+    print(f"[kernels] int8_dw: {len(cases)} shapes: {n_codes} workspace codes or scales differ "
+          "from the plain per-block quantization (bound 0)", flush=True)
     _free()
     return rec
 
@@ -985,14 +1013,98 @@ def _k4_edges(gen, sc, hyper, rec):
     check(not bad, f"K4 edges differ from the plain version: {bad}")
 
 
+def _k6_edges(gen, sc, hyper, rec):
+    """K6, both bodies, within its bounds where its body differs from the
+    stage-1 leaves': float32 p with bf16 grads, clusters of two and of eight
+    blocks per row, and the second path's leaves: a ragged row, a row wider
+    than the register path holds and a p whose base is not 16-byte aligned."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import adamw as KA
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (  # shape, p dtype, g dtype, p's base 16-byte aligned
+        ((64, 3072), f32, bf16, True), ((16, 6144), bf16, bf16, True),
+        ((8, 24576), bf16, f32, True),
+        ((40, 777), bf16, f32, True), ((4, 40000), bf16, f32, True),
+        ((48, 3072), bf16, f32, False))
+    bad = []
+    for shape, pdt, gdt, aligned in cases:
+        for quant in (False, True):
+            n = shape[0] * shape[1]
+            p = (_rand(gen, shape, pdt) if aligned
+                 else _rand(gen, (n + 1,), pdt)[1:].view(shape))
+            m8 = KA.m8_encode_m(torch.randn(shape, generator=gen, device="cuda") * 1e-3)
+            v8 = KA.m8_encode_v(10.0 ** (torch.rand(shape, generator=gen, device="cuda") * 6 - 10))
+            g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(gdt)
+            wq = torch.empty(shape, dtype=torch.int8, device="cuda") if quant else None
+            ws = torch.empty(shape[0], dtype=f32, device="cuda") if quant else None
+            want = KA.fused_adamw8_leaf_ref(p, m8, v8, g, sc, quant=quant, **hyper)
+            KA.fused_adamw8_leaf(p, m8, v8, g, sc, wq=wq, ws=ws, **hyper)
+            torch.cuda.synchronize()
+            dp = (p.float() - want[0].float()).abs().max().item()
+            rec["max_abs_err"] = max(rec["max_abs_err"], dp)
+            ok = dp <= 1e-6 and (not quant or (torch.equal(wq, want[3])
+                                               and torch.equal(ws, want[4])))
+            for got, w in ((m8, want[1]), (v8, want[2])):
+                d = (got.q.int() - w.q.int()).abs()
+                ok &= (d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+                       and ((got.s - w.s).abs() <= 1e-6 * w.s.abs()).all().item())
+            if not ok:
+                bad.append((shape, str(pdt)[6:], str(gdt)[6:], aligned, quant))
+    print(f"[kernels] fused_adamw8 (K6) edges (shape, p, g, aligned) x (both bodies) "
+          f"{[(c[0], str(c[1])[6:], str(c[2])[6:], c[3]) for c in cases]}: "
+          f"{bad or 'every output within the bounds'}", flush=True)
+    check(not bad, f"K6 edges out of bounds: {bad}")
+
+
+def _k6_paths_agree(gen, sc, hyper):
+    """K6's register path and its second path (the same update on a copy of p
+    one element past 16 bytes) on one leaf of each width of the 8-bit state,
+    both bodies: every output bit for bit.  The register path takes fast
+    paths for the division, square root, log2 and weight code and redoes the
+    rare elements next to a rounding boundary; this shows that it gives the
+    accurate arithmetic's bits."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import adamw as KA
+    shapes = {}
+    for _, s, dt in _stage1_trainable_shapes():
+        if KA.moment8_ok(torch.empty(s, device="meta")):
+            shapes.setdefault(s[1], (s, dt))
+    n_diff, n_bytes = 0, 0
+    for shape, dt in shapes.values():
+        for quant in (False, True):
+            p = _rand(gen, shape, dt)
+            m8 = KA.m8_encode_m(torch.randn(shape, generator=gen, device="cuda") * 1e-3)
+            v8 = KA.m8_encode_v(10.0 ** (torch.rand(shape, generator=gen, device="cuda") * 6 - 10))
+            g = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+            outs = []
+            for second in (False, True):
+                pp = (torch.empty(p.numel() + 1, dtype=dt, device="cuda")[1:].view(shape)
+                      if second else torch.empty_like(p)).copy_(p)
+                mm, vv = KA.Moment8(*(t.clone() for t in m8)), KA.Moment8(*(t.clone() for t in v8))
+                wq = torch.empty(shape, dtype=torch.int8, device="cuda") if quant else None
+                ws = torch.empty(shape[0], dtype=torch.float32, device="cuda") if quant else None
+                KA.fused_adamw8_leaf(pp, mm, vv, g, sc, wq=wq, ws=ws, **hyper)
+                outs.append([pp, *mm, *vv] + ([wq, ws] if quant else []))
+            torch.cuda.synchronize()
+            n_diff += sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                          for a, b in zip(*outs))
+            n_bytes += sum(_nbytes(a) for a in outs[0])
+            del outs, p, m8, v8, g
+    print(f"[kernels] fused_adamw8 register path vs second path, one leaf of each width "
+          f"{sorted(shapes)} x both bodies: {n_diff} of {n_bytes} output bytes differ (bound 0)",
+          flush=True)
+    check(n_diff == 0, f"K6's two paths disagree in {n_diff} bytes")
+
+
 def phase_adamw_int8():
     """K4 on every cached DiT leaf of the full stage-1 state (p, m, v within
     one ulp as K3's, wq and ws identical); K6 on the full state with 8-bit
     moments on the ``moment8_ok`` leaves, its quant body on the cached ones
     (codes identical or one apart at a rate below 1e-3, scales within 1e-6
-    relative, p within 1e-6 absolute, the weight copy identical); then each
-    whole update timed against its plain version.  Returns the K4 and K6
-    records."""
+    relative, p within 1e-6 absolute, the weight copy identical), on its
+    edge shapes, and its two paths against each other bit for bit; then
+    each whole update timed against its plain version, and each kernel's
+    two paths in turns.  Returns the K4 and K6 records."""
     import torch
     from genhancer_tpu_torch.core.kernels import adamw as KA
 
@@ -1100,6 +1212,9 @@ def phase_adamw_int8():
     check(worst["p"] <= 1e-6 and worst["codes"] <= 1 and worst["rate"] < 1e-3
           and worst["scale"] <= 1e-6 and worst["wq"] == 0, f"K6 disagrees: {worst}")
 
+    _k6_edges(gen, sc, hyper, rec["fused_adamw8"])
+    _k6_paths_agree(gen, sc, hyper)
+
     def k6():
         for p, m8, v8, g, wq, ws in state:
             KA.fused_adamw8_leaf(p, m8, v8, g, sc, wq=wq, ws=ws, **hyper)
@@ -1117,9 +1232,24 @@ def phase_adamw_int8():
                       + (_nbytes(wq, ws) if wq is not None else 0)
                       for p, m8, v8, g, wq, ws in state))
     print(f"[kernels] fused_adamw8 whole 8-bit state ({len(state)} leaves): kernel "
-          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms (bytes); "
-          "no library call keeps log-coded 8-bit moments", flush=True)
-    del state
+          f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the bound), plain "
+          f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes); no library call keeps "
+          "log-coded 8-bit moments", flush=True)
+
+    # the same update on the second path: each p on a base one element past 16 bytes
+    shifted = []
+    for p, *rest in state:
+        ps = torch.empty(p.numel() + 1, dtype=p.dtype, device="cuda")[1:].view(p.shape)
+        shifted.append((ps.copy_(p), *rest))
+
+    def k6_second():
+        for p, m8, v8, g, wq, ws in shifted:
+            KA.fused_adamw8_leaf(p, m8, v8, g, sc, wq=wq, ws=ws, **hyper)
+
+    reg_ms, second_ms = kernel_vs_plain_ms(k6, k6_second, n=3, rounds=4)
+    print(f"[kernels] fused_adamw8 whole 8-bit state, in turns: register path {reg_ms:.4f} ms, "
+          f"second path (p misaligned) {second_ms:.4f} ms", flush=True)
+    del state, shifted
     _free()
     return rec
 
@@ -1795,7 +1925,7 @@ def _int8_want(trainer, steps):
             "rowquant": micro * (tower_int8 + 2 * len(cache)), "int8_dw": micro * k8}
 
 
-def _int8_report(name, trainer, counts, wall, peak, steps, timed_from):
+def _int8_report(name, trainer, counts, wall, peak, steps, timed_from, timed_to=None):
     import numpy as np
     from genhancer_tpu_torch.core.nn import Int8Layer
     hist, st = trainer.history, trainer.state
@@ -1803,14 +1933,15 @@ def _int8_report(name, trainer, counts, wall, peak, steps, timed_from):
           f"{name}: synced steps {[h['step'] for h in hist]}")
     check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
           f"{name}: non-finite loss or grad norm: {hist}")
-    step_s = statistics.median(h["step_time"] for h in hist[timed_from:])
+    timed_to = timed_to or steps
+    step_s = statistics.median(h["step_time"] for h in hist[timed_from:timed_to])
     n_lin = sum(isinstance(m, Int8Layer) for m in st.modules["clip"]["model"].modules())
     n_conv = sum(isinstance(m, Int8Layer) for m in st.modules["vae"].modules())
     batch = int(trainer.cfg.get_path("data_config.train_batch_size")) * trainer.accum
     print(f"[int8] {name}: {n_lin} int8 tower linears, {n_conv} int8 VAE encoder convs, "
           f"{len(st.quant)} SwitchBack weights cached; {steps} steps in {wall:.1f} s; losses "
           f"{[round(h['loss'], 4) for h in hist]}; median step time of steps "
-          f"{timed_from + 1}-{steps} {step_s * 1e3:.1f} ms = {batch / step_s:.2f} img/s "
+          f"{timed_from + 1}-{timed_to} {step_s * 1e3:.1f} ms = {batch / step_s:.2f} img/s "
           f"(B={batch}); peak device memory {peak:.2f} GiB", flush=True)
     want = _int8_want(trainer, steps)
     print(f"[int8] {name}: kernel launches {counts}, expected {want}", flush=True)
@@ -1832,7 +1963,7 @@ DEVICE_KINDS = (("K1/K2 (short fwd, RoPE pass)", ("short_fwd_kernel", "rope_qk")
                 ("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
                 ("K7 (rowquant)", ("rowquant_kernel",)),
                 ("K4 (adamw_quant)", ("adamw_quant_kernel", "adamw_quant_l2_kernel")),
-                ("K6 (adamw8)", ("adamw8_kernel",)),
+                ("K6 (adamw8)", ("adamw8_rows_kernel", "adamw8_kernel")),
                 ("K3 (adamw)", ("adamw_kernel",)),
                 ("int8 GEMM (_int_mm)", ("gemm_s8", "s8gemm", "imma")),
                 ("bf16/f32 GEMM and conv", ("gemm", "nvjet", "xmma", "conv", "cutlass")))
@@ -1864,7 +1995,7 @@ def phase_train_int8(work):
     """The port's Trainer on configs/tpu_fast_stage1.yaml at full width: 8
     steps and a resume for steps 9-10 whose rebuilt int8 cache must equal
     the one K4 emitted at step 8; then the int8_dw + 8-bit-moment variant
-    for 3 steps.  Returns {path: launch counts}."""
+    for 5 steps, 2-3 timed and 4-5 profiled.  Returns {path: launch counts}."""
     import torch
     from genhancer_tpu_torch.train.config import load_config
     from genhancer_tpu_torch.train.trainer import Trainer
@@ -1912,10 +2043,14 @@ def phase_train_int8(work):
     shutil.rmtree(cfg["output_dir"], ignore_errors=True)
 
     cfg = copy.deepcopy(base)
-    cfg.update(output_dir=os.path.join(work, "out-int8-dw"), max_train_steps=3,
+    cfg.update(output_dir=os.path.join(work, "out-int8-dw"), max_train_steps=5,
                checkpointing_steps=0, dit_quant="int8_dw", optimizer_moment_bits=8)
-    trainer, counts, wall, peak = _trainer_run(cfg)
-    _int8_report("int8_dw + 8-bit moments", trainer, counts, wall, peak, 3, 1)
+    # steps 2-3 timed, 4-5 under the profiler (its start and stop in no timed step)
+    profile = _LastStepProfile(steps=2)
+    trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    _int8_report("int8_dw + 8-bit moments", trainer, counts, wall, peak, 5, 1, timed_to=3)
+    _print_device_time(profile.prof, 2, profile.wall_s / 2,
+                       tag="[int8] int8_dw + 8-bit moments, steps 4-5 (profiled):")
     runs["train_int8_dw"] = counts
     del trainer
     _free()
@@ -1947,36 +2082,38 @@ def _write_video_shards(root, frames, n_shards=2):
 
 
 class _LastStepProfile:
-    """Runs a Trainer's last step under torch.profiler (CUDA activity),
-    synchronised on both sides, so that the trace holds that step's device
-    work and no warm-up; ``wall_s`` is the step's time with the profiler on."""
+    """Runs a Trainer's last ``steps`` steps under torch.profiler (CUDA
+    activity), synchronised on both sides, so that the trace holds those
+    steps' device work and no warm-up; ``wall_s`` is their time with the
+    profiler on."""
 
-    def __init__(self):
-        self.prof, self.wall_s = None, None
+    def __init__(self, steps: int = 1):
+        self.steps, self.prof, self.wall_s = steps, None, None
 
     def install(self, trainer):
         import torch
         inner, left = trainer.step_fn, [trainer.max_steps - trainer.state.step]
+        t0 = [0.0]
 
         def step_fn(*args):
             left[0] -= 1
-            if left[0]:
-                return inner(*args)
-            torch.cuda.synchronize()
-            self.prof = torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA])
-            self.prof.start()
-            t0 = time.perf_counter()
+            if left[0] == self.steps - 1:
+                torch.cuda.synchronize()
+                self.prof = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                self.prof.start()
+                t0[0] = time.perf_counter()
             out = inner(*args)
-            torch.cuda.synchronize()
-            self.wall_s = time.perf_counter() - t0
-            self.prof.stop()
+            if left[0] == 0:
+                torch.cuda.synchronize()
+                self.wall_s = time.perf_counter() - t0[0]
+                self.prof.stop()
             return out
         trainer.step_fn = step_fn
 
 
 def _trainer_run(cfg, steps_done=0, profile=None):
-    """Build a Trainer for ``cfg``, zero the counts, train (the last step
+    """Build a Trainer for ``cfg``, zero the counts, train (the last steps
     under ``profile``, a _LastStepProfile, when one is given); returns
     (trainer, launch counts, wall seconds, peak GiB)."""
     import torch

@@ -13,7 +13,12 @@ in int32, and the blocks' partials are added in t order in float32 as
 (``_dw_kernel:76``).  The 512-row blocks are part of the result; there is no
 counterpart of ``GENHANCER_DW_BLOCK_*``.  ``dw_supported`` is the TPU
 package's rule (O and I multiples of 128, T >= 8): ``core.quant._dw`` takes
-K8 exactly where the JAX package takes its kernel.
+K8 exactly where the JAX package takes its kernel, and the kernel takes
+exactly those O and I.
+
+``int8_dw_with_codes`` is K8 returning its quantization workspace as well
+(``Codes``: the codes K-major, t contiguous, zero past T, and the scales),
+so that the quantization pass can be held to ``block_codes_ref``.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version.  ``LAUNCHES`` counts kernel launches only.
@@ -22,7 +27,7 @@ version.  ``LAUNCHES`` counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -33,7 +38,18 @@ from .rowquant import div127
 LAUNCHES: Dict[str, int] = {"int8_dw": 0}
 
 BLOCK_T = 512
+CHUNK_T = 128   # the workspace's t is padded to whole boxes of 128 codes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Codes(NamedTuple):
+    """K8's quantization workspace: ``gq`` int8 [O, Tp] and ``xq`` int8
+    [I, Tp] (t contiguous, Tp = T rounded up to ``CHUNK_T``, zero past T),
+    ``sg`` float32 [nT, O] and ``sx`` float32 [nT, I]."""
+    gq: torch.Tensor
+    sg: torch.Tensor
+    xq: torch.Tensor
+    sx: torch.Tensor
 
 
 def dw_supported(t: int, o: int, i: int) -> bool:
@@ -60,6 +76,20 @@ def int8_dw_ref(g2: torch.Tensor, x2: torch.Tensor, out_dtype=torch.float32) -> 
     return acc.to(out_dtype)
 
 
+def block_codes_ref(a: torch.Tensor):
+    """Plain version of K8's quantization pass for one operand a [T, C]:
+    (codes int8 [C, Tp], t contiguous and zero past T; scales float32
+    [nT, C])."""
+    t, c = a.shape
+    codes = torch.zeros((c, -(-t // CHUNK_T) * CHUNK_T), dtype=torch.int8, device=a.device)
+    scales = []
+    for t0 in range(0, t, BLOCK_T):
+        q, s = _quantize_block(a[t0:t0 + BLOCK_T])
+        codes[:, t0:t0 + q.shape[0]] = q.t()
+        scales.append(s)
+    return codes, torch.stack(scales)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("int8_dw")
     if not getattr(lib, "_genhancer_typed", False):
@@ -72,10 +102,21 @@ def _lib() -> ctypes.CDLL:
 
 
 def int8_dw(g2: torch.Tensor, x2: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
-    """K8; see the module docstring.  The kernel needs O and I multiples of
-    64 (``dw_supported`` asks for 128)."""
+    """K8; see the module docstring."""
     if g2.device.type == "cpu":
         return int8_dw_ref(g2, x2, out_dtype)
+    return _launch(g2, x2, out_dtype)[0]
+
+
+def int8_dw_with_codes(g2: torch.Tensor, x2: torch.Tensor, out_dtype=torch.float32):
+    """K8 and its quantization workspace: (dW, ``Codes``)."""
+    if g2.device.type == "cpu":
+        return (int8_dw_ref(g2, x2, out_dtype),
+                Codes(*block_codes_ref(g2), *block_codes_ref(x2)))
+    return _launch(g2, x2, out_dtype)
+
+
+def _launch(g2, x2, out_dtype):
     t, o = g2.shape
     i = x2.shape[1]
     if (not (g2.is_cuda and x2.device == g2.device) or x2.shape[0] != t
@@ -83,22 +124,26 @@ def int8_dw(g2: torch.Tensor, x2: torch.Tensor, out_dtype=torch.float32) -> torc
         raise ValueError(f"int8_dw: g2 [T, O] and x2 [T, I] must be float32/bfloat16 on one "
                          f"CUDA device, got {g2.dtype} {tuple(g2.shape)}, {x2.dtype} "
                          f"{tuple(x2.shape)}, out {out_dtype}")
-    if t == 0 or o % 64 or i % 64:
-        raise ValueError(f"int8_dw: T > 0 and O, I multiples of 64 needed, got {t}, {o}, {i}")
+    if t == 0 or o % 128 or i % 128:
+        raise ValueError(f"int8_dw: T > 0 and O, I multiples of 128 needed, got {t}, {o}, {i}")
     g2, x2 = g2.contiguous(), x2.contiguous()
-    n_t = -(-t // BLOCK_T)
+    if g2.data_ptr() % 16 or x2.data_ptr() % 16:
+        raise ValueError("int8_dw: g2 and x2 must start on 16-byte boundaries (the "
+                         "quantization pass reads 16 bytes at a time)")
+    n_t, tp = -(-t // BLOCK_T), -(-t // CHUNK_T) * CHUNK_T
     dev = g2.device
-    gq = torch.empty((n_t * BLOCK_T, o), dtype=torch.int8, device=dev)
-    xq = torch.empty((n_t * BLOCK_T, i), dtype=torch.int8, device=dev)
-    sg = torch.empty((n_t, o), dtype=torch.float32, device=dev)
-    sx = torch.empty((n_t, i), dtype=torch.float32, device=dev)
+    codes = Codes(torch.empty((o, tp), dtype=torch.int8, device=dev),
+                  torch.empty((n_t, o), dtype=torch.float32, device=dev),
+                  torch.empty((i, tp), dtype=torch.int8, device=dev),
+                  torch.empty((n_t, i), dtype=torch.float32, device=dev))
     dw = torch.empty((o, i), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         rc = _lib().genhancer_int8_dw(
             _DTYPES[g2.dtype], _DTYPES[out_dtype], g2.data_ptr(), x2.data_ptr(), t, o, i,
-            gq.data_ptr(), sg.data_ptr(), xq.data_ptr(), sx.data_ptr(), dw.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            codes.gq.data_ptr(), codes.sg.data_ptr(), codes.xq.data_ptr(), codes.sx.data_ptr(),
+            dw.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"int8_dw: CUDA kernel launch failed with cudaError {rc}")
+        raise RuntimeError(f"int8_dw: CUDA kernel launch failed with error {rc} (cudaError, "
+                           "or 10000 + CUresult where a tensor map did not encode)")
     LAUNCHES["int8_dw"] += 1
-    return dw
+    return dw, codes

@@ -111,11 +111,16 @@ def _args8(rng, rows=64, cols=1024, p_dtype=jnp.bfloat16):
     return p, m8, v8, g, scalars
 
 
-@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("quant", [False, True])
-def test_k6_matches_pallas8(monkeypatch, quant, p_dtype):
+@pytest.mark.parametrize("quant, p_dtype, shape", [
+    (False, "float32", (64, 1024)), (False, "bfloat16", (64, 1024)),
+    (True, "float32", (64, 1024)), (True, "bfloat16", (64, 1024)),
+    # the widest 8-bit leaf's rows (15360 columns: a cluster of blocks per row on the card)
+    (False, "bfloat16", (32, 15360)), (True, "bfloat16", (32, 15360))],
+    ids=["False-float32", "False-bfloat16", "True-float32", "True-bfloat16",
+         "wide-False-bfloat16", "wide-True-bfloat16"])
+def test_k6_matches_pallas8(monkeypatch, quant, p_dtype, shape):
     monkeypatch.setattr(jadamw, "_INTERPRET", True)
-    p, m8, v8, g, sc = _args8(np.random.default_rng(2), p_dtype=getattr(jnp, p_dtype))
+    p, m8, v8, g, sc = _args8(np.random.default_rng(2), *shape, p_dtype=getattr(jnp, p_dtype))
     out = jadamw._update_leaf_pallas8(p, m8, v8, g, sc, quant=quant, **HYPER)
     tp = t(np.asarray(p))
     tm = KA.Moment8(*(t(np.asarray(a)) for a in m8))

@@ -19,6 +19,8 @@ host's); K8 within 1e-5 of max|plain| (the
 same codes and int32 sums, float32 partials in the same order).
 """
 
+import subprocess
+
 import pytest
 import torch
 
@@ -338,19 +340,40 @@ def test_rowquant_bit_identical(cuda, dtype, t, c):
         assert K7.LAUNCHES["rowquant"] == before + 1
 
 
-@pytest.mark.parametrize("t, o, i", [(6304, 3072, 768), (777, 128, 384), (300, 384, 128)])
+@pytest.mark.parametrize("t, o, i", [
+    (6304, 3072, 768), (777, 128, 384), (300, 384, 128),
+    (32, 3072, 768), (512, 3072, 768), (513, 3072, 768),   # one k32 step; one block; ragged
+    (32, 18432, 3072), (6304, 18432, 3072)])               # the widest modulation, the timed T
 def test_int8_dw_matches_plain(cuda, t, o, i):
+    """K8, bfloat16 and float32 inputs, both out dtypes: the K-major
+    workspace bit for bit against the plain per-block quantization, dW
+    against the plain version."""
     g = torch.Generator(device=cuda).manual_seed(t)
-    gg = torch.randn((t, o), generator=g, device=cuda).to(torch.bfloat16)
-    xx = torch.randn((t, i), generator=g, device=cuda).to(torch.bfloat16)
-    for out in (torch.float32, torch.bfloat16):
-        before = K8.LAUNCHES["int8_dw"]
-        dw = K8.int8_dw(gg, xx, out)
-        torch.cuda.synchronize()
-        ref = K8.int8_dw_ref(gg, xx, out)
-        assert dw.dtype == out and K8.LAUNCHES["int8_dw"] == before + 1
-        err = (dw.float() - ref.float()).abs().max() / ref.float().abs().max()
-        assert err.item() <= (1e-5 if out == torch.float32 else 8e-3)
+    for dtype in (torch.bfloat16, torch.float32):
+        gg = torch.randn((t, o), generator=g, device=cuda).to(dtype)
+        xx = torch.randn((t, i), generator=g, device=cuda).to(dtype)
+        for out in (torch.float32, torch.bfloat16):
+            before = K8.LAUNCHES["int8_dw"]
+            dw, codes = K8.int8_dw_with_codes(gg, xx, out)
+            torch.cuda.synchronize()
+            ref = K8.int8_dw_ref(gg, xx, out)
+            assert dw.dtype == out and K8.LAUNCHES["int8_dw"] == before + 1
+            for got, want in zip(codes, (*K8.block_codes_ref(gg), *K8.block_codes_ref(xx))):
+                assert torch.equal(got, want)
+            err = (dw.float() - ref.float()).abs().max() / ref.float().abs().max()
+            assert err.item() <= (1e-5 if out == torch.float32 else 8e-3)
+
+
+def test_int8_dw_refuses_widths_off_128(cuda):
+    """K8 takes O and I multiples of 128 (``dw_supported``) and raises
+    otherwise, before any launch."""
+    before = K8.LAUNCHES["int8_dw"]
+    for o, i in ((192, 256), (256, 320)):
+        g = torch.zeros((64, o), device=cuda)
+        x = torch.zeros((64, i), device=cuda)
+        with pytest.raises(ValueError, match="multiples of 128"):
+            K8.int8_dw(g, x)
+    assert K8.LAUNCHES["int8_dw"] == before
 
 
 @pytest.mark.parametrize("pdt, gdt", [(torch.bfloat16, torch.float32),
@@ -388,6 +411,97 @@ def test_adamw_quant_bit_identical(cuda, pdt, gdt, shape, aligned):
         assert torch.equal(got, ref)
 
 
+def _k6_check(p, m8, v8, grad, quant, sc):
+    """K6 on one leaf against its plain version, within the bounds of the
+    head of this file."""
+    shape = p.shape
+    want = KA.fused_adamw8_leaf_ref(p, m8, v8, grad, sc, 0.9, 0.999, 1e-8, 0.01, quant)
+    wq = torch.empty(shape, dtype=torch.int8, device=p.device) if quant else None
+    ws = torch.empty(shape[0], device=p.device) if quant else None
+    name = "fused_adamw8_quant" if quant else "fused_adamw8"
+    before = KA.LAUNCHES[name]
+    KA.fused_adamw8_leaf(p, m8, v8, grad, sc, 0.9, 0.999, 1e-8, 0.01, wq=wq, ws=ws)
+    torch.cuda.synchronize()
+    assert KA.LAUNCHES[name] == before + 1
+    assert (p.float() - want[0].float()).abs().max().item() <= 1e-6
+    for got, ref in ((m8, want[1]), (v8, want[2])):
+        d = (got.q.int() - ref.q.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-3
+        assert ((got.s - ref.s).abs() <= 1e-6 * ref.s.abs()).all()
+    if quant:
+        assert torch.equal(wq, want[3]) and torch.equal(ws, want[4])
+    return wq, ws
+
+
+def _k6_leaf(g, shape, pdt=torch.bfloat16, gdt=torch.float32, aligned=True):
+    p = (torch.randn(shape, generator=g, device="cuda") * 0.02).to(pdt)
+    if not aligned:   # the same values on a base one element past 16 bytes
+        p = torch.empty(p.numel() + 1, dtype=pdt, device="cuda")[1:].view(shape).copy_(p)
+    grad = (torch.randn(shape, generator=g, device="cuda") * 1e-3).to(gdt)
+    m8 = KA.m8_encode_m(torch.randn(shape, generator=g, device="cuda") * 1e-3)
+    v8 = KA.m8_encode_v(10.0 ** (torch.rand(shape, generator=g, device="cuda") * 6 - 10))
+    return p, m8, v8, grad
+
+
+@pytest.fixture(scope="module")
+def moment8_shapes():
+    """One leaf shape per width of the 8-bit state: the stage-1 trainable
+    leaves of configs/MetaCLIP_large_stage1.yaml that ``moment8_ok`` takes."""
+    from pathlib import Path
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks.image import build_modules, trainable_predicate
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = Path(__file__).resolve().parents[1] / "configs" / "MetaCLIP_large_stage1.yaml"
+    spec, _, _ = factory.build_spec(load_config(str(cfg)))
+    trains = trainable_predicate(spec)
+    by_width = {}
+    for n, w in build_modules(spec, device="meta").named_parameters():
+        if trains(n) and KA.moment8_ok(w):
+            by_width.setdefault(w.shape[1], tuple(w.shape))
+    return [by_width[c] for c in sorted(by_width)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_adamw8_at_every_state_width(cuda, moment8_shapes, quant):
+    """K6, both bodies, on one leaf of each width of the 8-bit state, so
+    that each cluster size of the register path runs; the second path gives
+    the same bits on copies."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    sc = torch.tensor([1.0, 1e-3, 1.1, 1.05], device=cuda)
+    assert moment8_shapes[0][1] == 256 and moment8_shapes[-1][1] == 15360, moment8_shapes
+    for shape in moment8_shapes:
+        p, m8, v8, grad = _k6_leaf(g, shape)
+        # the second path (p one element past 16 bytes) on copies: the same bits
+        p2 = torch.empty(p.numel() + 1, dtype=p.dtype, device=cuda)[1:].view(shape).copy_(p)
+        m2, v2 = (KA.Moment8(*(t.clone() for t in mom)) for mom in (m8, v8))
+        wq2 = torch.empty(shape, dtype=torch.int8, device=cuda) if quant else None
+        ws2 = torch.empty(shape[0], device=cuda) if quant else None
+        KA.fused_adamw8_leaf(p2, m2, v2, grad, sc, 0.9, 0.999, 1e-8, 0.01, wq=wq2, ws=ws2)
+        wq, ws = _k6_check(p, m8, v8, grad, quant, sc)
+        for got, want in zip((p, *m8, *v8) + ((wq, ws) if quant else ()),
+                             (p2, *m2, *v2) + ((wq2, ws2) if quant else ())):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape, pdt, gdt, aligned", [
+    ((48, 3072), torch.bfloat16, torch.float32, False),   # p's base past 16 bytes
+    ((40, 777), torch.bfloat16, torch.float32, True),     # a ragged row
+    ((4, 40000), torch.bfloat16, torch.float32, True),    # wider than the register path
+    ((64, 3072), torch.float32, torch.bfloat16, True),    # float32 p, bfloat16 grads
+    ((16, 6144), torch.bfloat16, torch.bfloat16, True),   # a cluster of two blocks
+    ((8, 24576), torch.bfloat16, torch.float32, True)])   # a cluster of eight blocks
+@pytest.mark.parametrize("quant", [False, True])
+def test_adamw8_edges_and_second_path(cuda, quant, shape, pdt, gdt, aligned):
+    """K6 where its body differs from the stage-1 leaves': the second path
+    (adamw8_kernel) for a misaligned p, a ragged row and a row wider than
+    the register path holds; float32 p; eight blocks per row."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    sc = torch.tensor([0.5, 1e-3, 1 / (1 - 0.9), 1 / (1 - 0.999)], device=cuda)
+    p, m8, v8, grad = _k6_leaf(g, shape, pdt, gdt, aligned)
+    assert (p.data_ptr() % 16 == 0) == aligned
+    _k6_check(p, m8, v8, grad, quant, sc)
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_adamw8_matches_plain(cuda, quant):
     """K6, both bodies, on a moment8_ok leaf."""
@@ -413,3 +527,129 @@ def test_adamw8_matches_plain(cuda, quant):
         assert ((got.s - ref.s).abs() <= 1e-6 * ref.s.abs()).all()
     if quant:
         assert torch.equal(wq, want[3]) and torch.equal(ws, want[4])
+
+
+# A standalone check of K6's fast paths, compiled against csrc/adamw.cu: it
+# counts, per fast path, the inputs it takes and those whose bits differ
+# from the accurate operation's, and exits non-zero if any differ.
+FAST_PATHS_CHECK = r"""
+#include <cstdio>
+__device__ unsigned long long n_ok[4], n_bad[4], n_slow[4];
+
+__device__ __forceinline__ uint32_t mix(uint64_t x) {
+  x ^= x >> 33;
+  x *= 0xff51afd7ed558ccdULL;
+  x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ULL;
+  x ^= x >> 33;
+  return (uint32_t)x;
+}
+
+__device__ void tally(int k, unsigned long long ok, unsigned long long bad,
+                      unsigned long long slow) {
+  atomicAdd(&n_ok[k], ok);
+  atomicAdd(&n_bad[k], bad);
+  atomicAdd(&n_slow[k], slow);
+}
+
+__global__ void check_sqrt() {
+  unsigned long long ok = 0, bad = 0, slow = 0;
+  for (uint64_t b = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; b < 0x7f800000ull;
+       b += (uint64_t)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((uint32_t)b);
+    bool f;
+    const float s = sqrt_fast(x, f);
+    if (!f) { ++slow; continue; }
+    ++ok;
+    bad += __float_as_uint(s) != __float_as_uint(__fsqrt_rn(x));
+  }
+  tally(0, ok, bad, slow);
+}
+
+__global__ void check_div(uint64_t n) {
+  unsigned long long ok = 0, bad = 0, slow = 0;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * blockDim.x) {
+    const uint32_t a = mix(2 * i), b = mix(2 * i + 1);
+    const float x = __uint_as_float((a & 0x807fffffu) | ((57u + (a >> 8) % 141u) << 23));
+    const float y = __uint_as_float((b & 0x807fffffu) | ((57u + (b >> 8) % 141u) << 23));
+    bool f;
+    const float q = div_fast(x, y, f);
+    if (!f || fabsf(y) < 0x1p-64f || fabsf(y) >= 0x1p64f) { ++slow; continue; }
+    ++ok;
+    bad += __float_as_uint(q) != __float_as_uint(__fdiv_rn(x, y));
+  }
+  tally(1, ok, bad, slow);
+}
+
+__global__ void check_log(uint64_t n) {
+  unsigned long long ok = 0, bad = 0, slow = 0;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * blockDim.x) {
+    const uint32_t a = mix(i + (1ull << 40));
+    const float x = __uint_as_float((a & 0x007fffffu) | ((80u + (a >> 23) % 47u) << 23));
+    bool f;
+    const float k = log_code_fast(x, 1.0f, f);
+    if (!f) { ++slow; continue; }
+    ++ok;
+    bad += k != m8_log_code(x, 1.0f);
+  }
+  tally(2, ok, bad, slow);
+}
+
+__global__ void check_w(uint64_t n) {
+  unsigned long long ok = 0, bad = 0, slow = 0;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * blockDim.x) {
+    const uint32_t a = mix(2 * i + (1ull << 41)), b = mix(2 * i + 1 + (1ull << 41));
+    const float amax = __uint_as_float((b & 0x007fffffu) | ((60u + (b >> 23) % 90u) << 23));
+    const float ws = w_scale(amax);
+    const float p = __fmul_rn(amax, (float)(a >> 8) * 0x1p-23f - 1.0f);  // |p| <= amax
+    bool f;
+    const int8_t c = w_code_fast(p, __frcp_rn(ws), f);
+    if (!f) { ++slow; continue; }
+    ++ok;
+    bad += c != w_code(p, ws);
+  }
+  tally(3, ok, bad, slow);
+}
+
+int main() {
+  check_sqrt<<<1024, 256>>>();
+  check_div<<<1024, 256>>>(1ull << 32);
+  check_log<<<1024, 256>>>(1ull << 31);
+  check_w<<<1024, 256>>>(1ull << 32);
+  const cudaError_t err = cudaDeviceSynchronize();
+  unsigned long long ok[4], bad[4], slow[4];
+  cudaMemcpyFromSymbol(ok, n_ok, sizeof(ok));
+  cudaMemcpyFromSymbol(bad, n_bad, sizeof(bad));
+  cudaMemcpyFromSymbol(slow, n_slow, sizeof(slow));
+  const char* name[4] = {"sqrt_fast", "div_fast", "log_code_fast", "w_code_fast"};
+  printf("cuda %d;", (int)err);
+  for (int k = 0; k < 4; ++k)
+    printf(" %s: %llu fast, %llu differ, %llu to the accurate path;", name[k], ok[k], bad[k],
+           slow[k]);
+  printf("\n");
+  return err != cudaSuccess || bad[0] + bad[1] + bad[2] + bad[3] != 0;
+}
+"""
+
+
+def test_k6_fast_paths_are_exact(cuda, tmp_path):
+    """K6's branch-free fast paths (``csrc/adamw.cu``) give the accurate
+    operations' bits wherever they report ok: every non-negative finite
+    float through ``sqrt_fast``, 2^32 operand pairs through ``div_fast``
+    (exponents in [-70, 70]), 2^31 ratios through ``log_code_fast`` and 2^32
+    (p, max|p|) pairs through ``w_code_fast`` (K8's ``code_fast`` is the
+    same arithmetic).  Run with ``-s`` to see the counts."""
+    from genhancer_tpu_torch.core.kernels import _build
+    src = tmp_path / "fast_paths.cu"
+    src.write_text(f'#include "{_build.CSRC / "adamw.cu"}"\n' + FAST_PATHS_CHECK)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    exe = tmp_path / "fast_paths"
+    build = subprocess.run([_build._nvcc(), *flags, "-o", str(exe), str(src)],
+                           capture_output=True, text=True)
+    assert build.returncode == 0, build.stdout + build.stderr
+    run = subprocess.run([str(exe)], capture_output=True, text=True, timeout=300)
+    print(f"[fast paths] {run.stdout.strip()}")
+    assert run.returncode == 0, run.stdout

@@ -187,7 +187,8 @@ def test_conv2d_int8_matches_jax(kernel, stride, pad):
     assert _rel(ours.permute(0, 2, 3, 1), ref) <= REL
 
 
-@pytest.mark.parametrize("T,O,I", [(1024, 128, 256), (300, 256, 128), (777, 128, 384)])
+@pytest.mark.parametrize("T,O,I", [(1024, 128, 256), (300, 256, 128), (777, 128, 384),
+                                   (32, 128, 256), (513, 256, 768)])
 def test_int8_dw_plain_vs_pallas(monkeypatch, T, O, I):
     monkeypatch.setattr(jdw, "_INTERPRET", True)
     rng = np.random.default_rng(8)
@@ -199,6 +200,35 @@ def test_int8_dw_plain_vs_pallas(monkeypatch, T, O, I):
     ours = K8.int8_dw(t(np.asarray(g)), t(np.asarray(x)), torch.float32)
     assert ours.shape == (O, I) and _rel(ours, ref) <= REL
     assert K8.dw_supported(T, O, I) == jdw.dw_supported(T, O, I)
+
+
+@pytest.mark.parametrize("T", [32, 513])
+def test_block_codes_match_eager_jax(T):
+    """The plain version of K8's quantization pass, in the kernel's K-major
+    workspace (codes [C, Tp], t contiguous, zero past T; scales [nT, C]),
+    against the TPU kernel's per-block quantization (``_dw_kernel:67-70``) in
+    eager JAX, bit for bit; and the workspace's block products, summed in
+    the kernel's association, are ``int8_dw_ref``'s dW bit for bit."""
+    rng = np.random.default_rng(9)
+    g = rng.standard_normal((T, 128)).astype(np.float32)
+    x = rng.standard_normal((T, 256)).astype(np.float32)
+    dw, codes = K8.int8_dw_with_codes(t(g), t(x), torch.float32)
+    blocks = list(range(0, T, 512))
+    for a, q, s in ((g, codes.gq, codes.sg), (x, codes.xq, codes.sx)):
+        assert q.shape == (a.shape[1], -(-T // 128) * 128) and s.shape == (len(blocks), a.shape[1])
+        assert not q[:, T:].any()
+        for k, t0 in enumerate(blocks):
+            blk = jnp.asarray(a[t0:t0 + 512])
+            js = jnp.maximum(jnp.max(jnp.abs(blk), axis=0, keepdims=True), 1e-12) / 127.0
+            jcode = jnp.clip(jnp.round(blk / js), -127, 127).astype(jnp.int8)
+            np.testing.assert_array_equal(s[k].numpy(), np.asarray(js)[0])
+            np.testing.assert_array_equal(q[:, t0:t0 + blk.shape[0]].numpy(), np.asarray(jcode).T)
+    acc = None
+    for k, t0 in enumerate(blocks):
+        gq, xq = (c[:, t0:t0 + 512].to(torch.float64) for c in (codes.gq, codes.xq))
+        part = ((gq @ xq.t()).to(torch.float32) * codes.sg[k][:, None]) * codes.sx[k][None, :]
+        acc = part if acc is None else acc + part
+    assert torch.equal(acc, dw)
 
 
 def _tiny_tower_and_vae():
