@@ -21,7 +21,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernels, at the video paths' shapes with their TFLOP/s and
              share of the bf16 peak, the SigLIP tower shape, ragged lengths,
              strided views, a misaligned view that must raise, and float32), K3
-             (fused AdamW), and the int8 stack's K7 (row quantization), K8
+             (fused AdamW), and the int8 stack's K7 (row quantization: each
+             of its bodies bit for bit, ragged, misaligned and half-way
+             rows, four shapes timed, the host's enqueue time per call), K8
              (per-block int8 dW: its K-major quantization workspace bit for
              bit, the count of dW elements off the plain version, and two
              yardsticks, torch._int_mm on the same codes and the bf16 dW), K4
@@ -872,50 +874,142 @@ def _fused_adamw_library_ms(state, hyper) -> float:
 # the K7 widths of the flux-dev DiT's SwitchBack inputs and gradients, and
 # the CLIP-L tower's int8 linears (T = 32 x 257 tokens)
 ROWQUANT_C = (768, 3072, 4096, 6144, 9216, 12288, 15360, 18432, 21504)
+# K7's timed calls (T, C, column-scaled), bfloat16: the DiT's 3072 (the
+# kernel table's row), the tower's 1024, the widest gradient, a T = 32 gradient
+K7_TIMED = ((6304, 3072, False), (32 * 257, 1024, False), (6304, 21504, True),
+            (32, 18432, True))
+
+
+def _halfway_rows(t, c, scale, dtype):
+    """[t, c] rows whose elements are scale * (k + 0.5), k in [-127, 126],
+    with the row maximum 127 * scale: s = scale and every element lies
+    half-way between two codes, where K7 must redo the code with the IEEE
+    division (at scale 7 the product with 1 / s rounds some the wrong way)."""
+    import torch
+    k = (torch.arange(t * c, device="cuda") % 254 - 127).reshape(t, c).to(torch.float32)
+    x = (k + 0.5) * scale
+    x[:, 0] = 127.0 * scale
+    return x.to(dtype)
+
+
+def _k7_cases(gen):
+    """(label, x, column scales to try) of K7's bit-for-bit checks: every body
+    (warp, block, cluster, scalar) at the int8 paths' widths, ragged and
+    misaligned inputs, and planted half-way rows."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def both(c):
+        return None, torch.rand(c, generator=gen, device="cuda") + 0.5
+
+    def view_past16(t, c, dtype):   # contiguous, its base one element past 16 bytes
+        return _rand(gen, (t * c + 1,), dtype)[1:].view(t, c)
+
+    shapes = ([(6304, c, bf16) for c in ROWQUANT_C] + [(6304, c, f32) for c in (3072, 18432)]
+              + [(32 * 257, 1024, bf16), (32 * 257, 4096, bf16)]
+              + [(32, c, bf16) for c in (768, 3072, 4096, 9216, 12288, 18432)]
+              + [(32, 18432, f32), (777, 3000, bf16), (777, 777, bf16), (5, 60000, f32),
+                 (300, 60000, f32), (3, 200000, bf16)])
+    for t, c, dtype in shapes:
+        yield (f"[{t}, {c}] {str(dtype)[6:]}", lambda t=t, c=c, d=dtype: _rand(gen, (t, c), d),
+               both(c))
+    for t, c, dtype in ((6304, 3072, bf16), (777, 3000, f32), (32, 18432, bf16)):
+        yield (f"[{t}, {c}] {str(dtype)[6:]} view 1 element past 16 bytes",
+               lambda t=t, c=c, d=dtype: view_past16(t, c, d), both(c))
+    yield ("[300, 3072] bf16, column scales 1 element past 16 bytes",
+           lambda: _rand(gen, (300, 3072), bf16),
+           ((torch.rand(3073, generator=gen, device="cuda") + 0.5)[1:],))
+    for t, c, scale, dtype in ((256, 3072, 1.0, bf16), (256, 3072, 7.0, f32),
+                               (512, 1024, 7.0, f32), (512, 9216, 7.0, f32),
+                               (32, 18432, 7.0, f32), (300, 777, 7.0, f32)):
+        yield (f"[{t}, {c}] {str(dtype)[6:]} half-way rows, s = {scale:g}",
+               lambda t=t, c=c, sc=scale, d=dtype: _halfway_rows(t, c, sc, d), (None,))
+    yield ("[256, 3072] bf16 half-way rows, s = 7 from the column scale",
+           lambda: _halfway_rows(256, 3072, 1.0, bf16),
+           (torch.full((3072,), 7.0, device="cuda"),))
+
+
+def _k7(gen):
+    """K7 against rowquant_ref, bit for bit (codes and scales) on every case
+    of ``_k7_cases``; kernel, plain and bound ms at ``K7_TIMED``, the device
+    ms of the [6304, 3072] call from a CUDA graph, and the host's enqueue
+    time per call at T = 32.  Returns K7's record."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import rowquant as K7
+    rec = _record("rowquant")
+    bad, n_checks = [], 0
+    for label, make, scales in _k7_cases(gen):
+        x = make()
+        t, c = x.shape
+        aligned = x.data_ptr() % 16 == 0
+        for col in scales:
+            tl = K7.rowquant_tiling(t, c, x.element_size(),
+                                    aligned and (col is None or col.data_ptr() % 16 == 0))
+            q, sc = K7.rowquant(x, col)
+            torch.cuda.synchronize()
+            rq, rs = K7.rowquant_ref(x, col)
+            n_diff = int((q != rq).sum()) + int((sc != rs).sum())
+            rec["max_abs_err"] = max(rec["max_abs_err"], (q.int() - rq.int()).abs().max().item(),
+                                     (sc - rs).abs().max().item())
+            n_checks += 1
+            print(f"[kernels] rowquant {label} cs={col is not None}: {tl.body} body "
+                  f"(threads {tl.threads}, cluster {tl.cluster}, units {tl.units}), "
+                  f"{n_diff} codes/scales differ", flush=True)
+            if n_diff:
+                bad.append((label, col is not None, n_diff))
+        del x
+    print(f"[kernels] rowquant: {n_checks} calls: {bad or 'every code and scale equal to the '
+                                                     'plain version'} (bound 0)", flush=True)
+    check(not bad, f"K7 differs from the plain version: {bad}")
+
+    for t, c, with_cs in K7_TIMED:
+        x = _rand(gen, (t, c), torch.bfloat16)
+        col = torch.rand(c, generator=gen, device="cuda") + 0.5 if with_cs else None
+        ms, pms = kernel_vs_plain_ms(lambda: K7.rowquant(x, col), lambda: K7.rowquant_ref(x, col))
+        n_bytes = _nbytes(x) + t * c + 4 * t + (4 * c if with_cs else 0)
+        bound = n_bytes / HBM_PEAK * 1e3
+        extra = ""
+        if (t, c, with_cs) == K7_TIMED[0]:
+            rec["ms"], rec["plain_ms"] = ms, pms
+            _set_bound(rec, n_bytes)
+            dev = graph_ms(lambda: K7.rowquant(x, col))
+            rec["device_ms"] = dev
+            extra = f", device {_fmt(dev)} ms (CUDA graph)"
+        print(f"[kernels] rowquant [{t}, {c}] bf16 cs={with_cs} "
+              f"({K7.rowquant_tiling(t, c, 2, True).body} body): kernel {ms:.4f} ms"
+              f"{extra}, plain {pms:.4f} ms, bound {bound:.4f} ms (bytes), "
+              f"{bound / ms:.1%} of the bound; no library call quantizes rows to int8 with "
+              "their own amax in one call", flush=True)
+        del x
+
+    x = _rand(gen, (32, 3072), torch.bfloat16)
+    for _ in range(10):
+        K7.rowquant(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        K7.rowquant(x)
+    enqueue_us = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    dev = graph_ms(lambda: K7.rowquant(x))
+    print(f"[kernels] rowquant [32, 3072] bf16: host enqueue {enqueue_us:.2f} us per call "
+          f"(1000 unsynced calls), device {_fmt(dev)} ms per call (CUDA graph)", flush=True)
+    return rec
 
 
 def phase_kernels_int8():
-    """K7 against rowquant_ref, bit for bit (codes and scales), at the DiT's
-    T = 6304 token rows for every width, with and without the column scale,
-    bfloat16 and float32, ragged T and odd C; K8 against int8_dw_ref within
-    1e-5 of max|plain| at T = 6304 for every dW shape of the stage-1 DiT's
-    SwitchBack layers, at the modulation layers' T = 32, at ragged T and on
-    float32 inputs, its quantization workspace bit for bit against the plain
-    per-block quantization.  Returns the K7 and K8 records."""
+    """K7 (``_k7``); K8 against int8_dw_ref within 1e-5 of max|plain| at T =
+    6304 for every dW shape of the stage-1 DiT's SwitchBack layers, at the
+    modulation layers' T = 32, at ragged T and on float32 inputs, its
+    quantization workspace bit for bit against the plain per-block
+    quantization.  Returns the K7 and K8 records."""
     import torch
     from genhancer_tpu_torch.core.kernels import int8_dw as K8
-    from genhancer_tpu_torch.core.kernels import rowquant as K7
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2024)
     bf16, f32 = torch.bfloat16, torch.float32
-    rec = {n: _record(n) for n in ("rowquant", "int8_dw")}
-    cases = ([(6304, c, bf16) for c in ROWQUANT_C] + [(6304, c, f32) for c in (3072, 18432)]
-             + [(32 * 257, 1024, bf16), (32 * 257, 4096, bf16), (777, 3000, bf16),
-                (5, 60000, f32)])
-    diffs = 0
-    for t, c, dtype in cases:
-        x = _rand(gen, (t, c), dtype)
-        cs = torch.rand(c, generator=gen, device="cuda") + 0.5
-        for col in (None, cs):
-            q, sc = K7.rowquant(x, col)
-            torch.cuda.synchronize()
-            rq, rs = K7.rowquant_ref(x, col)
-            bad = int((q != rq).sum()) + int((sc != rs).sum())
-            diffs += bad
-            check(bad == 0, f"K7 [{t}, {c}] {dtype} cs={col is not None}: {bad} codes/scales "
-                  "differ from the plain version")
-        if (t, c, dtype) == (6304, 3072, bf16):
-            ms, pms = kernel_vs_plain_ms(lambda: K7.rowquant(x), lambda: K7.rowquant_ref(x))
-            rec["rowquant"]["ms"], rec["rowquant"]["plain_ms"] = ms, pms
-            _set_bound(rec["rowquant"], _nbytes(x) + t * c + 4 * t)
-            print(f"[kernels] rowquant [6304, 3072] bf16: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {rec['rowquant']['bound_ms']:.4f} ms (bytes); no library call "
-                  "quantizes rows to int8 with their own amax in one call", flush=True)
-        del x, cs
-    print(f"[kernels] rowquant: {len(cases)} shapes x (with, without the column scale): "
-          f"{diffs} codes or scales differ from the plain version (bound 0)", flush=True)
-
+    rec = {"rowquant": _k7(gen), "int8_dw": _record("int8_dw")}
     shapes = sorted({s for _, s in _int8_cache_shapes()})
     cases = ([(6304, o, i, bf16) for o, i in shapes]
              + [(32, 18432, 3072, bf16), (32, 9216, 3072, bf16), (777, 3072, 3072, bf16),
@@ -1961,7 +2055,8 @@ DEVICE_KINDS = (("K1/K2 (short fwd, RoPE pass)", ("short_fwd_kernel", "rope_qk")
                 ("K5b (flash bwd)", ("sm90::dkdv_kernel", "sm90::dq_kernel")),
                 ("D_i rows (K1b/K2b/K5b)", ("dot_rows",)),
                 ("K8 (int8_dw)", ("dw_kernel", "colquant_kernel")),
-                ("K7 (rowquant)", ("rowquant_kernel",)),
+                ("K7 (rowquant)", ("rowquant_warp_kernel", "rowquant_block_kernel",
+                                   "rowquant_scalar_kernel")),
                 ("K4 (adamw_quant)", ("adamw_quant_kernel", "adamw_quant_l2_kernel")),
                 ("K6 (adamw8)", ("adamw8_rows_kernel", "adamw8_kernel")),
                 ("K3 (adamw)", ("adamw_kernel",)),

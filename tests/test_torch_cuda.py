@@ -324,10 +324,16 @@ def test_flash_refuses_layouts_the_tma_cannot_read(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t, c", [(6304, 3072), (300, 777), (32, 18432), (5, 60000)])
+@pytest.mark.parametrize("t, c", [(6304, 3072), (300, 777), (32, 18432), (5, 60000),
+                                  (8224, 1024), (8224, 4096), (6304, 21504), (32, 3072),
+                                  (300, 60000)])
 def test_rowquant_bit_identical(cuda, dtype, t, c):
-    """K7 with and without the column scale; 60000 columns take the
-    kernel's path that does not stage the row in shared memory."""
+    """K7 with and without the column scale, one launch per call, on each of
+    its bodies (``rowquant_tiling``): the warp body (the tower's 1024), the
+    block body (the tower's 4096, the DiT's 3072 and 21504), a cluster per
+    row (T = 32 and 5 at 3072 to 60000 columns), the scalar body (777
+    columns, and 300 float32 rows of 60000, wider than the block body
+    holds)."""
     g = torch.Generator(device=cuda).manual_seed(c)
     x = torch.randn((t, c), generator=g, device=cuda).to(dtype)
     cs = torch.rand(c, generator=g, device=cuda) + 0.5
@@ -337,6 +343,39 @@ def test_rowquant_bit_identical(cuda, dtype, t, c):
         torch.cuda.synchronize()
         rq, rs = K7.rowquant_ref(x, col)
         assert torch.equal(q, rq) and torch.equal(s, rs)
+        assert K7.LAUNCHES["rowquant"] == before + 1
+
+
+def _halfway_rows(t, c, scale, dtype, device):
+    """Rows of scale * (k + 0.5), k in [-127, 126], with the row maximum 127 *
+    scale: s = scale, every element half-way between two codes."""
+    k = (torch.arange(t * c, device=device) % 254 - 127).reshape(t, c).to(torch.float32)
+    x = (k + 0.5) * scale
+    x[:, 0] = 127.0 * scale
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("t, c", [(512, 1024), (256, 3072), (512, 9216), (32, 18432),
+                                  (300, 777)])
+def test_rowquant_misaligned_and_halfway(cuda, t, c):
+    """K7 bit for bit where its fast codes must defer to the IEEE division
+    (every element half-way, s = 1 and s = 7, and s = 7 from the column
+    scale), and on contiguous views whose base is 2 (bfloat16) or 4
+    (float32) bytes past 16, which run the scalar body."""
+    cases = [(_halfway_rows(t, c, 1.0, torch.bfloat16, cuda), None),
+             (_halfway_rows(t, c, 7.0, torch.float32, cuda), None),
+             (_halfway_rows(t, c, 1.0, torch.bfloat16, cuda), torch.full((c,), 7.0, device=cuda))]
+    g = torch.Generator(device=cuda).manual_seed(t)
+    for dtype in (torch.bfloat16, torch.float32):
+        flat = torch.randn((t * c + 1,), generator=g, device=cuda).to(dtype)
+        cs = torch.rand(c, generator=g, device=cuda) + 0.5
+        cases += [(flat[1:].view(t, c), None), (flat[1:].view(t, c), cs)]
+    for x, col in cases:
+        before = K7.LAUNCHES["rowquant"]
+        q, s = K7.rowquant(x, col)
+        torch.cuda.synchronize()
+        rq, rs = K7.rowquant_ref(x, col)
+        assert torch.equal(q, rq) and torch.equal(s, rs), (x.dtype, col is not None)
         assert K7.LAUNCHES["rowquant"] == before + 1
 
 
