@@ -37,7 +37,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              the CPU (plain versions), then one tiny float32 training step
              of each optimizer, card against CPU: loss, gradients, params;
              then the same for one tiny float32 sliding-window video step
-             whose joint length (637) runs K5/K5b, and for one tiny float32
+             whose joint length (637) runs K5/K5b, for one tiny float32
+             image stage-2 step of each stage (LoRA with a planted nonzero
+             B, dropout on injected masks: K2b), and for one tiny float32
              int8 step of each int8 configuration (int8_full with the cache
              K4 emits; int8_dw with 8-bit moments: K8, K6);
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
@@ -52,7 +54,17 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``fused_optimizer: pallas`` (K3); launch counts per step,
              checkpoints, a resume from step 8, and an engine serving from
              the written components;
-7. int8    — the ``Trainer`` on configs/tpu_fast_stage1.yaml at full width
+7. stage2  — the ``Trainer`` on configs/MetaCLIP_large_stage2_all.yaml at full
+             width (LoRA on the whole MetaCLIP-L/14, B=16 x accumulation 2)
+             from the K3 run's step-10 files (``load_dir``/``load_step``): 7
+             steps, 3-6 timed and 7 under torch.profiler (K2b's device time,
+             the busy share), K2b's first call in the step held against its
+             plain version, the HF export at the end timed and read back by
+             ``registry.load_tower`` to the merged tower's class tokens bit
+             for bit; then ``stage2_only`` with ``fused_optimizer: pallas``
+             (K3 over the 652 LoRA leaves) for 4 steps; K2b 48 launches per
+             optimizer step on both and 0 on every other path;
+8. int8    — the ``Trainer`` on configs/tpu_fast_stage1.yaml at full width
              (B=32, int8 tower and VAE encoder, ``dit_quant: int8_full``,
              ``fused_optimizer: pallas``): 8 steps, a resume for steps 9-10
              whose rebuilt int8 cache must equal the one K4 emitted, launch
@@ -60,7 +72,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              then ``dit_quant: int8_dw`` + ``optimizer_moment_bits: 8`` for 5
              steps (K8, K6's two bodies): steps 2-3 timed, 4-5 under
              torch.profiler for the device time by kernel;
-8. video   — the ``Trainer`` on configs/OpenAICLIP_224_sliding_stage1.yaml at
+9. video   — the ``Trainer`` on configs/OpenAICLIP_224_sliding_stage1.yaml at
              full width and published batch (2 videos x 8 windows x
              accumulation 2) on synthetic video shards of 256-px JPEGs, some
              videos short enough to leave padded rows: 8 optimizer steps
@@ -130,6 +142,7 @@ KERNELS = {
 }
 # the path whose launches a kernel's record reports (the others: train_pallas)
 MAIN_PATH = {"flash_attention": "video_sliding", "flash_attention_bwd": "video_sliding",
+             "fused_attention_bwd": "train_stage2_all",
              "fused_adamw_quant": "train_int8", "rowquant": "train_int8",
              "fused_adamw8": "train_int8_dw", "int8_dw": "train_int8_dw"}
 REQUIRED_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -143,6 +156,8 @@ HBM_PEAK = 3.35e12   # bytes/s, H100 SXM data sheet
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 INT8_PEAK = 1979e12  # dense int8 tensor-core OP/s, H100 SXM data sheet
 NUM_STEPS = 20
+# optimizer steps of the two stage-2 Trainer runs (phase_stage2_train)
+STAGE2_STEPS = {"train_stage2_all": 7, "train_stage2_only": 4}
 BUCKETS = (1, 4, 8)
 
 
@@ -1559,7 +1574,7 @@ def _free():
 
 
 def _tiny_step_card_vs_cpu(label, make_state, loss_fn, micro, stacked, draws, lr,
-                           noise_ref=None):
+                           noise_ref=None, null=()):
     """One tiny float32 step (accumulation 2) on the card (kernels) against
     the same weights, batch and injected draws on the CPU (plain versions):
     the first micro-batch's loss and every gradient within 1e-4 relative
@@ -1570,8 +1585,14 @@ def _tiny_step_card_vs_cpu(label, make_state, loss_fn, micro, stacked, draws, lr
     ``noise_ref`` (an int8 step): (loss, grads) of the same step without
     int8 on the CPU; the loss and each leaf's gradient may then differ
     between the devices by up to twice the int8 noise of the CPU run
-    (|int8 - float|), where that exceeds 1e-4.  Returns the launch counts
-    of the card's first forward + backward."""
+    (|int8 - float|), where that exceeds 1e-4.  A leaf whose path ends
+    with one of ``null`` has a gradient of 0 in exact arithmetic (a key
+    bias: the softmax ignores a constant added to a row), so roundoff on
+    both devices: its error is taken against the largest gradient norm of
+    any leaf instead of its own.  A leaf the loss does not reach (the
+    stage-2 text side) has a zero gradient on both.  Draws may hold lists
+    (the LoRA dropout masks).  Returns the launch counts of the card's first
+    forward + backward."""
     import torch
     from genhancer_tpu_torch.train.step_utils import make_accum_train_step
 
@@ -1582,7 +1603,8 @@ def _tiny_step_card_vs_cpu(label, make_state, loss_fn, micro, stacked, draws, lr
         state, opt = make_state(dev)
 
         def to(arrays):
-            return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+            return {k: ([torch.from_numpy(x).to(dev) for x in v] if isinstance(v, list)
+                        else torch.from_numpy(v).to(dev)) for k, v in arrays.items()}
 
         if dev == "cuda":
             _zero_counts()
@@ -1592,7 +1614,9 @@ def _tiny_step_card_vs_cpu(label, make_state, loss_fn, micro, stacked, draws, lr
             torch.cuda.synchronize()
             launches = _read_counts()
         losses[dev] = loss.item()
-        grads[dev] = {k: p.grad.detach().cpu().clone() for k, p in state.trainable.items()}
+        grads[dev] = {k: (p.grad.detach().cpu().clone() if p.grad is not None
+                          else torch.zeros(p.shape, dtype=p.dtype))
+                      for k, p in state.trainable.items()}
         before[dev] = {k: p.detach().cpu().clone() for k, p in state.trainable.items()}
         for p in state.trainable.values():
             p.grad = None
@@ -1602,7 +1626,9 @@ def _tiny_step_card_vs_cpu(label, make_state, loss_fn, micro, stacked, draws, lr
     l_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
     # per leaf, ||g_cuda - g_cpu|| / ||g_cpu||; the elementwise worst case
     # (relative to the leaf's largest entry) is printed beside it
-    g_rel = {k: ((grads["cuda"][k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+    g_top = max(g.norm().item() for g in grads["cpu"].values())
+    g_rel = {k: ((grads["cuda"][k] - g).norm()
+                 / (g_top if k.endswith(tuple(null)) else g.norm().clamp_min(1e-30))).item()
              for k, g in grads["cpu"].items()}
     g_max = {k: (grads["cuda"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
              for k, g in grads["cpu"].items()}
@@ -1703,6 +1729,66 @@ def phase_small_video():
     print(f"[small] launches of the card's video forward + backward {k5}")
     check(k5 == {"flash_attention": 2, "flash_attention_bwd": 2},
           f"tiny video step: K5/K5b launches {k5}, expected 2 and 2")
+
+
+def _plant_lora_b(tower, seed):
+    """A nonzero B in every LoRA-wrapped module (at B = 0 the branch adds
+    nothing and dA is 0)."""
+    import torch
+    from genhancer_tpu_torch.train import lora
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for path in lora.wrapped_paths(tower):
+            b = tower.get_submodule(path).lora_B
+            b.copy_(0.1 * torch.randn(b.shape, generator=g))
+
+
+def phase_small_stage2():
+    """One tiny float32 image stage-2 step of each stage (the default chain),
+    card against CPU (``_tiny_step_card_vs_cpu``): a nonzero B planted in
+    every wrapped linear, LoRA dropout 0.1 on the same injected masks; the
+    card's tower backward runs K2b."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.tasks.image import (create_state, init_modules, make_loss_fn,
+                                                 trainable_predicate)
+    from genhancer_tpu_torch.train import optim
+
+    lr = 1e-3
+    rng = np.random.default_rng(13)
+    base = dataclasses.replace(_tiny_spec(), dit_param_dtype=torch.float32,
+                               vae_dtype=torch.float32, lora_r=3, lora_alpha=16.0,
+                               lora_dropout=0.1)
+    v = base.tower_cfg.vision
+    n_img = v.grid ** 2 + 1
+    shapes = ([(2, n_img, v.hidden_size)] * 5 + [(2, n_img, v.intermediate_size)]) \
+        * v.num_layers + [(2, v.hidden_size)]
+    lat = base.latent_hw
+    n_tok = (lat[0] // 2) * (lat[1] // 2)
+    imgs = rng.random((2, 2, 32, 32, 3), dtype=np.float32)
+    draws = [{"t": rng.random(2, dtype=np.float32),
+              "x0": rng.standard_normal((2, n_tok, 4 * base.vae_cfg.z_channels),
+                                        dtype=np.float32),
+              "vae_noise": rng.standard_normal((2, *lat, base.vae_cfg.z_channels),
+                                               dtype=np.float32),
+              "lora_masks": [rng.random(sh) < 0.9 for sh in shapes]} for _ in range(2)]
+    for stage in ("stage2_all", "stage2_only"):
+        spec = dataclasses.replace(base, stage=stage)
+
+        def make_state(dev, spec=spec):
+            mods = init_modules(spec, torch.Generator().manual_seed(5))
+            _plant_lora_b(mods["clip"]["model"], 6)
+            opt = optim.AdamWChain(optim.make_lr_schedule("constant", lr))
+            mods = mods.to(dev)
+            return create_state(mods, trainable_predicate(spec, mods), opt), opt
+
+        launches = _tiny_step_card_vs_cpu(
+            f"tiny f32 image {stage} step", make_state, make_loss_fn(spec),
+            {"image": imgs[0]}, {"image": imgs}, draws, lr, null=("self_attn.k_proj.bias",))
+        k2 = {k: launches[k] for k in ("fused_attention", "fused_attention_bwd")}
+        print(f"[small] launches of the card's {stage} forward + backward {k2}", flush=True)
+        check(k2 == {"fused_attention": v.num_layers, "fused_attention_bwd": v.num_layers},
+              f"tiny {stage} step: K2/K2b launches {k2}, expected {v.num_layers} each")
 
 
 def _tiny_int8_spec(dit_quant: str):
@@ -1894,7 +1980,9 @@ def _write_shards(root, n_shards=4, per_shard=96):
 
 def phase_train(work):
     """The port's Trainer at full width, once per optimizer; returns
-    ({optimizer: launch counts of its 8-step run}, trainable leaf count)."""
+    ({optimizer: launch counts of its 8-step run}, trainable leaf count,
+    the K3 run's output directory, which keeps the step-10 component files
+    for stage 2's ``load_dir``)."""
     import numpy as np
     import torch
     from genhancer_tpu_torch.serve.engine import InferenceEngine
@@ -1985,9 +2073,203 @@ def phase_train(work):
               f"served a reconstruct (mean {rec.mean():.4f})")
         del engine
         _free()
-        shutil.rmtree(out)
         runs[opt] = counts
-    return runs, n_leaves
+        if opt == "chain":
+            shutil.rmtree(out)
+            continue
+        # the stage-1 files stage 2 loads: step 10's components
+        ckpt.prune_checkpoints(out, 1)
+        os.remove(os.path.join(out, "optimizer-state-10.bin"))
+        stage1 = out
+    return runs, n_leaves, stage1
+
+
+STAGE2_CONFIG = os.path.join(ROOT, "configs", "MetaCLIP_large_stage2_all.yaml")
+
+
+def _stage2_want(trainer, steps):
+    """Launch counts of ``steps`` optimizer steps of image stage 2, from the
+    model: per micro-batch each DiT block runs K1 and K1b (stage2_only too:
+    the gradient passes through the frozen DiT to the conditioning) and
+    each tower layer K2 and K2b; per step K3 takes each trainable leaf with
+    ``fused_optimizer: pallas``."""
+    spec, micro = trainer.spec, steps * trainer.accum
+    blocks = spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    layers = spec.tower_cfg.vision.num_layers
+    fused = trainer.cfg.get("fused_optimizer") == "pallas"
+    return {**_no_launches(), "fused_rope_attention": micro * blocks,
+            "fused_rope_attention_bwd": micro * blocks, "fused_attention": micro * layers,
+            "fused_attention_bwd": micro * layers,
+            "fused_adamw": steps * len(trainer.state.trainable) if fused else 0}
+
+
+class _K2bSpy:
+    """Keeps the inputs and outputs of the first K2b launch of a run (the
+    tower's first layer's backward in the first micro-batch), so that the
+    step's own K2b call can be held against the plain version."""
+
+    def __init__(self):
+        from genhancer_tpu_torch.core.kernels import short_attention as K
+        self.K, self.inner, self.call = K, K._bwd_kernel, None
+
+    def __enter__(self):
+        def spy(rq, rk, v, o, lse, do, tables):
+            out = self.inner(rq, rk, v, o, lse, do, tables)
+            if tables is None and self.call is None:
+                self.call = ([x.detach().clone() for x in (rq, rk, v, o, do.to(rq.dtype))],
+                             [x.clone() for x in out])
+            return out
+        self.K._bwd_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.K._bwd_kernel = self.inner
+
+
+def _export_timer():
+    """Wraps ``train.checkpoint.export_hf_tower`` (which the Trainer calls at
+    each checkpoint) to record (seconds, bytes of pytorch_model.bin, dir)."""
+    from genhancer_tpu_torch.train import checkpoint as ckpt
+    inner, calls = ckpt.export_hf_tower, []
+
+    def timed(*args, **kwargs):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        secs = time.perf_counter() - t0
+        calls.append((secs, os.path.getsize(os.path.join(out, "pytorch_model.bin")), out))
+        return out
+
+    ckpt.export_hf_tower = timed
+    return calls, lambda: setattr(ckpt, "export_hf_tower", inner)
+
+
+def phase_stage2_train(work, stage1):
+    """The port's Trainer on configs/MetaCLIP_large_stage2_all.yaml at full
+    width from the stage-1 files of ``stage1`` (step 10 of phase_train's K3
+    run): 7 steps, 3-6 timed and 7 under torch.profiler, K2b's first call
+    held against its plain version, the HF export at the end timed and read
+    back by ``registry.load_tower``; then ``stage2_only`` with
+    ``fused_optimizer: pallas`` (K3 over the LoRA leaves) for 4 steps.
+    Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch import registry
+    from genhancer_tpu_torch.tasks.conditioning import (OPENAI_CLIP_MEAN, OPENAI_CLIP_STD,
+                                                        normalize, tower_features)
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+    from genhancer_tpu_torch.train import lora
+    from genhancer_tpu_torch.train.config import load_config
+
+    check(stage1 is not None and os.path.exists(os.path.join(stage1, "checkpoint-dit-10.bin")),
+          f"no stage-1 checkpoint to load from ({stage1})")
+    base = load_config(STAGE2_CONFIG)
+    base["data_config"]["img_dir"] = os.path.join(work, "shards")
+    base.update(load_dir=stage1, load_step=10, log_interval=1, report_to="none",
+                checkpointing_steps=0)
+    runs = {}
+
+    cfg = copy.deepcopy(base)
+    steps = STAGE2_STEPS["train_stage2_all"]
+    cfg.update(output_dir=os.path.join(work, "out-stage2-all"), max_train_steps=steps)
+    exports, restore = _export_timer()
+    profile = _LastStepProfile()
+    try:
+        with _K2bSpy() as spy:
+            trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    finally:
+        restore()
+    st, hist = trainer.state, trainer.history
+    n_par = sum(p.numel() for p in st.trainable.values())
+    n_tower = sum(k.startswith("clip.model.") for k in st.trainable)
+    check([h["step"] for h in hist] == list(range(1, steps + 1)),
+          f"stage2_all: synced steps {[h['step'] for h in hist]}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"stage2_all: non-finite loss or grad norm: {hist}")
+    check(n_tower == 652, f"stage2_all: {n_tower} trainable tower leaves, not 652")
+    step_s = statistics.median(h["step_time"] for h in hist[2:6])
+    print(f"[stage2] stage2_all: {len(st.trainable)} trainable leaves ({n_tower} LoRA and "
+          f"wrapped-bias leaves of the tower), {n_par / 1e9:.4f} B params; {steps} steps in "
+          f"{wall:.1f} s incl. the export; losses {[round(h['loss'], 4) for h in hist]}; "
+          f"grad norms {[round(h['grad_norm'], 3) for h in hist]}", flush=True)
+    print(f"[stage2] stage2_all: median step time of steps 3-6 {step_s * 1e3:.1f} ms = "
+          f"{32 / step_s:.2f} img/s (B=16 x accumulation 2); peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    _print_device_time(profile.prof, 1, profile.wall_s,
+                       tag=f"[stage2] stage2_all (step {steps}, profiled):")
+    want = _stage2_want(trainer, steps)
+    print(f"[stage2] stage2_all: kernel launches {counts}, expected {want}", flush=True)
+    check(counts == want, f"stage2_all: launch counts {counts} != expected {want}")
+    runs["train_stage2_all"] = counts
+
+    # K2b inside the step: its first call against the plain version
+    check(spy.call is not None, "stage2_all: K2b never launched")
+    (q, k, v, o, do), got = spy.call
+    want_g = K.fused_attention_bwd_ref(q, k, v, o, do)
+    abs_err, rel_err = _grad_errors(got, want_g)
+    means = [_mean_rel(g, w) for g, w in zip(got, want_g)]
+    print(f"[stage2] K2b's first call in the step, {tuple(q.shape)} {str(q.dtype)[6:]}: "
+          f"max err {abs_err:.3e} (rel {rel_err:.3e}, bound {BOUND['bfloat16']}); mean "
+          f"|kernel - plain| / mean|plain| dq {means[0]:.3e}, dk {means[1]:.3e}, dv "
+          f"{means[2]:.3e} (bound {ROUNDING_BOUND})", flush=True)
+    check(rel_err <= BOUND["bfloat16"] and max(means) <= ROUNDING_BOUND,
+          "K2b in the stage-2 step disagrees with its plain version")
+    del spy, q, k, v, o, do, got, want_g
+
+    # the export: timed, then read back
+    check(len(exports) == 1, f"stage2_all: {len(exports)} exports, expected 1")
+    secs, nbytes, out = exports[0]
+    print(f"[stage2] HF export {os.path.basename(out)}: merge + pytorch_model.bin of "
+          f"{nbytes / 1e9:.3f} GB in {secs:.2f} s ({nbytes / 1e9 / secs:.2f} GB/s); files "
+          f"{sorted(os.listdir(out))}", flush=True)
+    check(sorted(os.listdir(out)) == ["config.json", "pytorch_model.bin"],
+          f"export files {os.listdir(out)}")
+    spec, dev, size = trainer.spec, st.modules["clip"]["model"].logit_scale.device, \
+        trainer.spec.clip_image_size
+    loaded, cfg_l = registry.load_tower(spec.tower_kind, spec.tower_cfg, out, device=dev)
+    merged = lora.merge(st.modules["clip"]["model"])
+    img = torch.from_numpy(np.random.default_rng(9).random((4, size, size, 3),
+                                                           dtype=np.float32)).to(dev)
+    px = normalize(img, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD).to(spec.compute_dtype)
+    with torch.no_grad():
+        a = tower_features("clip", {"model": loaded}, px, spec.tower_cfg)[0]
+        b = tower_features("clip", {"model": merged}, px, spec.tower_cfg)[0]
+    same = torch.equal(a, b) and cfg_l == spec.tower_cfg
+    print(f"[stage2] registry.load_tower(model_dir=export) class tokens "
+          f"{'equal' if same else 'DIFFER FROM'} the in-memory merged tower's bit for bit "
+          f"({tuple(a.shape)} {str(a.dtype)[6:]}); config.json read back "
+          f"{'equal' if cfg_l == spec.tower_cfg else 'different'}", flush=True)
+    check(same, "the exported tower does not reproduce the merged tower")
+    del trainer, st, loaded, merged, a, b
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+
+    cfg = copy.deepcopy(base)
+    cfg.update(task="image_stage2_only", fused_optimizer="pallas",
+               output_dir=os.path.join(work, "out-stage2-only"),
+               max_train_steps=STAGE2_STEPS["train_stage2_only"])
+    trainer, counts, wall, peak = _trainer_run(cfg)
+    st, hist = trainer.state, trainer.history
+    steps = STAGE2_STEPS["train_stage2_only"]
+    check([h["step"] for h in hist] == list(range(1, steps + 1))
+          and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"stage2_only: {hist}")
+    check(len(st.trainable) == 652 and all(k.startswith("clip.model.") for k in st.trainable),
+          f"stage2_only: {len(st.trainable)} trainable leaves")
+    step_s = statistics.median(h["step_time"] for h in hist[1:])
+    print(f"[stage2] stage2_only, fused_optimizer: pallas: {steps} steps in {wall:.1f} s; "
+          f"losses {[round(h['loss'], 4) for h in hist]}; median step time of steps 2-{steps} "
+          f"{step_s * 1e3:.1f} ms = {32 / step_s:.2f} img/s; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    want = _stage2_want(trainer, steps)
+    print(f"[stage2] stage2_only: kernel launches {counts}, expected {want}", flush=True)
+    check(counts == want, f"stage2_only: launch counts {counts} != expected {want}")
+    runs["train_stage2_only"] = counts
+    del trainer, st
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    return runs
 
 
 def _int8_want(trainer, steps):
@@ -2333,11 +2615,13 @@ def main():
     attempt(phase_small_reference)
     attempt(phase_small_train)
     attempt(phase_small_video)
+    attempt(phase_small_stage2)
     attempt(phase_small_int8)
     serve_counts = attempt(phase_server)
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        train_counts, _ = attempt(phase_train, work) or (None, None)
+        train_counts, _, stage1 = attempt(phase_train, work) or (None, None, None)
+        stage2_counts = attempt(phase_stage2_train, work, stage1)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
@@ -2354,14 +2638,14 @@ def main():
         print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
         sys.exit(1)
     paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()},
-             **int8_counts, **video_counts}
+             **stage2_counts, **int8_counts, **video_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies
         return counts[name] + (counts["fused_adamw8_quant"] if name == "fused_adamw8" else 0)
 
     for r in records.values():
-        # the path of the slice that ported the kernel (K1/K2/K1b/K2b/K3: the
-        # image training path)
+        # the path of the slice that ported the kernel or first ran it
+        # (K1/K2/K1b/K3: the image training path; K2b: image stage 2)
         r["main_path"] = MAIN_PATH.get(r["name"], "train_pallas")
         r["launches"] = launches(paths[r["main_path"]], r["name"])
         r["launches_by_path"] = {p: launches(c, r["name"]) for p, c in paths.items()}
@@ -2371,9 +2655,16 @@ def main():
         check(paths["train_int8_dw"][n] > 0, f"{n} not launched on the int8_dw path")
     check(len(records) == 11 and all(set(REQUIRED_KEYS) <= set(r) for r in records.values()),
           f"kernel records: {sorted(records)}")
-    # every kernel of a path ran on it; K2b is on no path of this slice
+    # every kernel of a path ran on it; K2b runs where the tower trains, 48
+    # times per optimizer step (24 layers x 2 micro-batches), and nowhere else
     for n in ("fused_attention",):
         check(all(c[n] > 0 for c in paths.values()), f"{n} not launched on every path")
+    k2b = {p: c["fused_attention_bwd"] for p, c in paths.items()}
+    check(all(n == (48 * STAGE2_STEPS[p] if p in STAGE2_STEPS else 0) for p, n in k2b.items()),
+          f"K2b launches by path {k2b}: 48 per step on the stage-2 paths "
+          f"({STAGE2_STEPS} steps), 0 elsewhere")
+    print(f"[done] K2b launches by path: {k2b}", flush=True)
+    check(paths["train_stage2_only"]["fused_adamw"] > 0, "fused_adamw not launched in stage 2")
     for n in ("fused_rope_attention", "fused_rope_attention_bwd"):
         check(all(paths[p][n] > 0 for p in ("train_chain", "train_pallas", "video_next")),
               f"{n} not launched on a path below 600 tokens")

@@ -1,7 +1,7 @@
 """Neural-net primitives: parameter-holding modules and the functions that
 apply them.
 
-Port of ``genhancer_tpu/core/nn.py`` (no LoRA yet).  Each JAX ``(init,
+Port of ``genhancer_tpu/core/nn.py``.  Each JAX ``(init,
 apply)`` pair becomes an ``nn.Module`` that holds the parameters under the
 reference torch names (``weight``/``bias``/``scale``, linear weights
 ``[out, in]``, conv weights OIHW) plus an apply function with the JAX name
@@ -14,6 +14,11 @@ surgery quantized; ``linear``/``conv2d`` dispatch on it.  Inside
 optimizer-maintained int8 copy of its weight from the non-persistent buffers
 ``weight_sb_q``/``weight_sb_scale`` when ``train.state.with_quant_cache`` has
 set them.
+
+LoRA (``train.lora``): a wrapped linear carries ``lora_A`` [r, in],
+``lora_B`` [out, r] and the buffer ``lora_scale``; ``linear`` adds the
+low-rank branch after the base product and before the bias, and inside
+``lora_dropout_ctx`` drops the branch's input.
 
 Compute policy (as in JAX): matmuls run in the activation dtype with the
 weight cast at use; normalisation statistics are float32, and layernorm /
@@ -107,11 +112,61 @@ def int8_training_ctx(full: bool = False, dw_int8: bool = False):
         _INT8_TRAIN.dw = prev
 
 
+# the LoRA dropout context while open: {"generator", "rate", "masks", "calls"}
+_LORA_DROPOUT = threading.local()
+
+
+@contextlib.contextmanager
+def lora_dropout_ctx(generator: Optional[torch.Generator], rate: float,
+                     masks: Optional[List[torch.Tensor]] = None):
+    """Drop the input of every LoRA branch ``linear`` runs inside the block
+    (peft's ``nn.Dropout`` on the A-branch, ``nn.py:84-92``): one keep-mask
+    per wrapped call, in call order, drawn from ``generator`` — or, from a
+    test, the i-th of ``masks`` (bool, the input's shape) for the i-th call."""
+    prev = getattr(_LORA_DROPOUT, "state", None)
+    _LORA_DROPOUT.state = {"generator": generator, "rate": float(rate),
+                           "masks": masks, "calls": 0}
+    try:
+        yield
+    finally:
+        _LORA_DROPOUT.state = prev
+
+
+def _lora_dropout(x: torch.Tensor) -> torch.Tensor:
+    """``_lora_dropout`` (``nn.py:95-103``): kept elements divided by keep_p
+    rounded to x.dtype (bf16 0.9 is 0.8984375), dropped ones zero."""
+    ctx = getattr(_LORA_DROPOUT, "state", None)
+    if ctx is None or ctx["rate"] <= 0.0:
+        return x
+    keep_p = 1.0 - ctx["rate"]
+    if ctx["masks"] is not None:
+        keep = ctx["masks"][ctx["calls"]]
+    else:
+        keep = torch.rand(x.shape, generator=ctx["generator"], device=x.device) < keep_p
+    ctx["calls"] += 1
+    return torch.where(keep, x / _device_scalar(keep_p, x.dtype, x.device), 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_scalar(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` rounded to ``dtype`` as a 0-d tensor on ``device``: CUDA
+    divides by a host scalar as a product with its reciprocal, by a device
+    tensor exactly, as the CPU and JAX do."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=dtype).to(device)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x: [..., in] -> [..., out] in x.dtype.  The bias is added after the
     matmul has been rounded to x.dtype, as the JAX version does.  An
     ``Int8Layer`` runs the int8 product; inside ``int8_training_ctx`` a
-    large enough ``Linear`` runs SwitchBack (``nn.py:124-173``)."""
+    large enough ``Linear`` runs SwitchBack (``nn.py:124-173``).  ``p`` may
+    be any module with a 2-D ``weight`` (and optionally ``bias``).
+
+    A LoRA-wrapped ``p`` adds ``up * scale`` with ``down = dropout(x) @ A.T``
+    and ``up = down @ B.T`` before the bias, each product and the scaled
+    branch rounded to x.dtype, the scale cast to x.dtype first
+    (``nn.py:164-169``)."""
     from . import quant
     if isinstance(p, Int8Layer):
         y = quant.linear_int8_base(p, x)
@@ -123,8 +178,14 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
                                  getattr(p, "weight_sb_scale", None), dw=dw)
         else:
             y = torch.matmul(x, w.t())
-    if p.bias is not None:
-        y = y + p.bias.to(x.dtype)
+    lora_a = getattr(p, "lora_A", None)
+    if lora_a is not None:
+        down = torch.matmul(_lora_dropout(x), lora_a.to(x.dtype).t())
+        up = torch.matmul(down, p.lora_B.to(x.dtype).t())
+        y = y + up * p.lora_scale.to(x.dtype)
+    bias = getattr(p, "bias", None)
+    if bias is not None:
+        y = y + bias.to(x.dtype)
     return y
 
 

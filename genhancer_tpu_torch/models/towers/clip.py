@@ -1,9 +1,14 @@
-"""OpenAI-CLIP / MetaCLIP tower, vision side.
+"""OpenAI-CLIP / MetaCLIP tower.
 
 Port of ``genhancer_tpu/models/towers/clip.py``: the configs of every CLIP
-variant the reference uses (text side included, as configuration only) and
-the vision transformer the serving path runs.  Module names follow the HF
-``CLIPModel`` state dict (``vision_model.embeddings.patch_embedding.weight``,
+variant the reference uses (with ``CLIPConfig.to_hf``/``from_hf``), the
+vision transformer the serving and stage-1 paths run (``CLIPVisionTower``:
+``vision_model`` + ``visual_projection``), and for stage 2, which
+fine-tunes and exports the whole HF ``CLIPModel`` (``clip.py:193-203``),
+``CLIPModel``: the same vision side plus the text side's parameters
+(``text_model.*``, ``text_projection``, ``logit_scale``).  The text forward
+is not ported.  Module names follow the HF ``CLIPModel`` state dict
+(``vision_model.embeddings.patch_embedding.weight``,
 ``vision_model.pre_layrnorm`` ..., ``visual_projection.weight``).
 
 Parity details: ``last_hidden_state`` is returned without post_layernorm;
@@ -56,6 +61,12 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"
 
+    @property
+    def encoder(self) -> EncoderConfig:
+        return EncoderConfig(self.hidden_size, self.intermediate_size,
+                             self.num_layers, self.num_heads,
+                             self.layer_norm_eps, self.hidden_act)
+
 
 @dataclass(frozen=True)
 class CLIPConfig:
@@ -63,6 +74,56 @@ class CLIPConfig:
     text: CLIPTextConfig = field(default_factory=CLIPTextConfig)
     projection_dim: int = 768
     logit_scale_init: float = 2.6592
+
+    def to_hf(self) -> dict:
+        """An HF ``CLIPConfig`` dict: the ``config.json`` of a stage-2 export
+        when no base model directory is given (``clip.py:81-111``)."""
+        v, t = self.vision, self.text
+        return {
+            "architectures": ["CLIPModel"], "model_type": "clip",
+            "projection_dim": self.projection_dim,
+            "logit_scale_init_value": self.logit_scale_init,
+            "vision_config": {
+                "model_type": "clip_vision_model", "hidden_size": v.hidden_size,
+                "intermediate_size": v.intermediate_size,
+                "num_hidden_layers": v.num_layers, "num_attention_heads": v.num_heads,
+                "image_size": v.image_size, "patch_size": v.patch_size,
+                "layer_norm_eps": v.layer_norm_eps, "hidden_act": v.hidden_act,
+            },
+            "text_config": {
+                "model_type": "clip_text_model", "hidden_size": t.hidden_size,
+                "intermediate_size": t.intermediate_size,
+                "num_hidden_layers": t.num_layers, "num_attention_heads": t.num_heads,
+                "vocab_size": t.vocab_size,
+                "max_position_embeddings": t.max_position_embeddings,
+                "eos_token_id": t.eos_token_id, "layer_norm_eps": t.layer_norm_eps,
+                "hidden_act": t.hidden_act,
+            },
+        }
+
+    @staticmethod
+    def from_hf(cfg: dict) -> "CLIPConfig":
+        """An HF ``config.json`` dict -> CLIPConfig, with the JAX package's
+        defaults for absent keys (``clip.py:113-130``)."""
+        v, t = cfg["vision_config"], cfg["text_config"]
+        return CLIPConfig(
+            vision=CLIPVisionConfig(
+                hidden_size=v["hidden_size"], intermediate_size=v["intermediate_size"],
+                num_layers=v["num_hidden_layers"], num_heads=v["num_attention_heads"],
+                image_size=v["image_size"], patch_size=v["patch_size"],
+                layer_norm_eps=v.get("layer_norm_eps", 1e-5),
+                hidden_act=v.get("hidden_act", "quick_gelu")),
+            text=CLIPTextConfig(
+                hidden_size=t["hidden_size"], intermediate_size=t["intermediate_size"],
+                num_layers=t["num_hidden_layers"], num_heads=t["num_attention_heads"],
+                vocab_size=t["vocab_size"],
+                max_position_embeddings=t.get("max_position_embeddings", 77),
+                eos_token_id=t.get("eos_token_id", 2),
+                layer_norm_eps=t.get("layer_norm_eps", 1e-5),
+                hidden_act=t.get("hidden_act", "quick_gelu")),
+            projection_dim=cfg.get("projection_dim", 512),
+            logit_scale_init=cfg.get("logit_scale_init_value", 2.6592),
+        )
 
 
 CLIP_VARIANTS = {
@@ -132,6 +193,44 @@ class CLIPVisionTower(tnn.Module):
             (cfg.projection_dim, cfg.vision.hidden_size), 0.02, **fk)
 
 
+class TextEmbeddings(tnn.Module):
+    def __init__(self, cfg: CLIPTextConfig, **fk):
+        super().__init__()
+        self.token_embedding = _Table((cfg.vocab_size, cfg.hidden_size), 0.02, **fk)
+        self.position_embedding = _Table((cfg.max_position_embeddings, cfg.hidden_size),
+                                         0.02, **fk)
+
+
+class TextTransformer(tnn.Module):
+    def __init__(self, cfg: CLIPTextConfig, **fk):
+        super().__init__()
+        self.embeddings = TextEmbeddings(cfg, **fk)
+        self.encoder = Encoder(cfg.encoder, **fk)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, **fk)
+
+
+class CLIPModel(tnn.Module):
+    """The whole HF ``CLIPModel`` (``init_clip``, in its key order): the
+    vision side of ``CLIPVisionTower`` plus the text side's parameters,
+    which stage 2 wraps with LoRA and exports."""
+
+    def __init__(self, cfg: CLIPConfig, *, device=None, dtype=None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.vision_model = VisionTransformer(cfg.vision, **fk)
+        self.text_model = TextTransformer(cfg.text, **fk)
+        self.visual_projection = _Table(
+            (cfg.projection_dim, cfg.vision.hidden_size), 0.02, **fk)
+        self.text_projection = _Table(
+            (cfg.projection_dim, cfg.text.hidden_size), 0.02, **fk)
+        self.logit_scale = tnn.Parameter(torch.empty((), device=device,
+                                                     dtype=dtype or torch.float32))
+
+    def init_(self, g):
+        self.logit_scale.fill_(self.cfg.logit_scale_init)
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -159,9 +258,9 @@ def vision_forward(p: VisionTransformer, pixel_values: torch.Tensor,
     return x, pooled
 
 
-def visual_projection(p: CLIPVisionTower, pooled: torch.Tensor) -> torch.Tensor:
-    """pooled [B, hidden] -> [B, projection_dim] (no bias); int8 once
-    ``tower_quant: int8`` has quantized it, as every eligible linear."""
-    if isinstance(p.visual_projection, nn.Int8Layer):
-        return nn.linear(p.visual_projection, pooled)
-    return torch.matmul(pooled, p.visual_projection.weight.to(pooled.dtype).t())
+def visual_projection(p, pooled: torch.Tensor) -> torch.Tensor:
+    """pooled [B, hidden] -> [B, projection_dim] (no bias) through
+    ``core.nn.linear``: int8 once ``tower_quant: int8`` has quantized it, with
+    the LoRA branch once stage 2 has wrapped it.  ``p``: a CLIPVisionTower
+    or CLIPModel."""
+    return nn.linear(p.visual_projection, pooled)

@@ -1,7 +1,9 @@
 """Pre-LN ViT encoder shared by the CLIP-family towers.
 
-Port of ``genhancer_tpu/models/towers/encoder.py`` (inference subset: the
-unmasked vision path, no LoRA, no remat).  Module names follow the HF
+Port of ``genhancer_tpu/models/towers/encoder.py`` (the unmasked vision
+path, no remat; a LoRA-wrapped projection adds its branch inside
+``core.nn.linear``, so q, k and v stay separate products as in the JAX
+package's LoRA path).  Module names follow the HF
 ``CLIPEncoderLayer`` state dict (``layers.{i}.self_attn.q_proj`` ...).
 Unmasked self-attention goes through ``core.attention.sdpa_auto`` — the
 fused K2 kernel on CUDA.

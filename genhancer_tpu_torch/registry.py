@@ -1,22 +1,30 @@
-"""Model registry: config names -> concrete model configs.
+"""Model registry: config names -> concrete model configs, and the tower
+loader.
 
-Port of ``genhancer_tpu/registry.py`` for the serving slice.  DiT configs
-come from ``models.dit.DIT_CONFIGS`` (random init by design), VAE configs
-from ``models.vae.VAE_CONFIGS``, CLIP-family towers from
-``models.towers.clip.CLIP_VARIANTS``.  Loading pretrained tower weights
-(``clip_config.model_dir``) and the VAE checkpoint (``AE`` /
-``ae_path``) waits for such files in the repository; asking for either
+Port of ``genhancer_tpu/registry.py``.  DiT configs come from
+``models.dit.DIT_CONFIGS`` (random init by design), VAE configs from
+``models.vae.VAE_CONFIGS``, CLIP-family towers from
+``models.towers.clip.CLIP_VARIANTS`` or from a local HF model directory
+(``clip_config.model_dir``: ``load_tower``).  The VAE checkpoint (``AE`` /
+``ae_path``) loader waits for such a file in the repository; asking for one
 raises instead of silently falling back to random weights.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Optional, Tuple
 
+import torch
+
+from .core.nn import init_weights
 from .models import dit as dit_m
 from .models import vae as vae_m
 from .models.towers import clip as clip_m
+from .weights import convert, hf_io
+
+log = logging.getLogger(__name__)
 
 
 def build_dit_config(model_name: str) -> dit_m.DiTConfig:
@@ -52,9 +60,46 @@ def tower_family_and_config(tower: str, clip_image_size: int,
     return "clip", clip_m.CLIP_VARIANTS[name]
 
 
-def check_tower_weights(model_dir: Optional[str]) -> None:
-    """Pretrained tower weights are not loadable yet: refuse a model_dir."""
+def tower_dir(model_dir: Optional[str]) -> Optional[str]:
+    """``model_dir`` if it is a directory; a missing one warns and means
+    random init (``registry.py:77-78``)."""
+    if model_dir and os.path.isdir(model_dir):
+        return model_dir
     if model_dir:
+        log.warning("tower dir %s not found — random init", model_dir)
+    return None
+
+
+def tower_config(kind: str, model_dir: str) -> clip_m.CLIPConfig:
+    """The tower config of an HF model directory's ``config.json``."""
+    _require_clip(kind)
+    return clip_m.CLIPConfig.from_hf(hf_io.load_hf_config(model_dir))
+
+
+def load_tower(kind: str, cfg, model_dir: Optional[str] = None,
+               generator: Optional[torch.Generator] = None, *, text_side: bool = True,
+               device=None) -> Tuple[torch.nn.Module, clip_m.CLIPConfig]:
+    """(tower, cfg) — ``registry.py:62-78``: from a local HF directory
+    (its ``config.json`` overrides ``cfg``; a ``model.`` key prefix is
+    stripped) or, with no directory, random init drawn from ``generator``.
+    ``text_side``: the whole ``CLIPModel`` (stage 2) or the vision-only
+    ``CLIPVisionTower``."""
+    _require_clip(kind)
+    model_dir = tower_dir(model_dir)
+    if model_dir is not None:
+        cfg = tower_config(kind, model_dir)
+    cls = clip_m.CLIPModel if text_side else clip_m.CLIPVisionTower
+    tower = cls(cfg, device=device)
+    if model_dir is None:
+        return init_weights(tower, generator), cfg
+    sd = hf_io.load_hf_dir_state_dict(model_dir)
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[6:] if k.startswith("model.") else k: v for k, v in sd.items()}
+    tower.load_state_dict(convert.tower_from_hf(sd, text_side), strict=True)
+    return tower, cfg
+
+
+def _require_clip(kind: str) -> None:
+    if kind != "clip":
         raise NotImplementedError(
-            f"clip_config.model_dir={model_dir!r}: the HF tower loader is not "
-            "ported yet (ROADMAP: loaders waiting for weight files)")
+            f"tower kind {kind!r} is not ported yet (ROADMAP: the SigLIP tower)")

@@ -220,9 +220,10 @@ class InferenceEngine:
     def from_config(cls, cfg, *, device, load_dir: Optional[str] = None,
                     load_step: Optional[int] = None, **kw) -> "InferenceEngine":
         """Build from a stage-1 training config (dict or path).  Modules are
-        random-init from a generator seeded with the config's ``seed``; with
-        ``load_dir``/``load_step`` the stage-1 DiT and projector ``.bin``
-        files are loaded over them."""
+        random-init from a generator seeded with the config's ``seed``, the
+        tower from ``clip_config.model_dir`` where that names an HF
+        directory; with ``load_dir``/``load_step`` the stage-1 DiT and
+        projector ``.bin`` files are loaded over them."""
         from ..tasks import factory
         from ..tasks.image import init_modules
         from ..train.checkpoint import load_stage1_components

@@ -8,7 +8,9 @@ tokens of the 1-3 conditioning frames pass through the VisualPromptAdapter
 into the txt space with (t, row, col) ids, t the frame's time; the target's
 img_ids carry the target time; ``y`` is the mean of the frames' projected
 class tokens.  Raw [0, 1] pixels are normalised exactly once, here, with the
-CLIP statistics.
+CLIP statistics.  Nothing here stops gradients: stage 2 runs
+``image_conditioning`` under autograd (the LoRA-wrapped tower trains),
+stage 1 calls the tower under ``torch.no_grad()`` itself.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def tower_stats(kind: str):
 def tower_features(kind: str, clip, px: torch.Tensor, cfg):
     """Run the tower's vision side -> (class_token, patch_tokens).
 
-    ``clip`` holds ``model`` (a CLIPVisionTower).  class_token is
+    ``clip`` holds ``model`` (a CLIPVisionTower, or a CLIPModel in stage
+    2).  class_token is
     ``visual_projection(pooler)``; patch_tokens are the CLS-stripped hidden
     states before post-LN."""
     _require_clip(kind)

@@ -1,10 +1,12 @@
 """Task factory: config -> (spec, loader, train-step factory, checkpoint kind).
 
-Port of ``genhancer_tpu/tasks/factory.py`` for the stage-1 tasks
-``image_stage1`` and ``video_{middle,next,next2,sliding}_stage1`` with
-``tower: openai_clip | metaclip``.  Stage-2 tasks and the SigLIP tower are
-not ported yet and raise, as do the options that need several devices
-(ROADMAP slice 7).
+Port of ``genhancer_tpu/tasks/factory.py`` for the tasks ``image_stage1``,
+``image_stage2_only``, ``image_stage2_all`` and
+``video_{middle,next,next2,sliding}_stage1`` with ``tower: openai_clip |
+metaclip``; ``clip_config.model_dir`` names a local HF tower directory
+(``registry.load_tower``: its ``config.json`` overrides the variant's
+config).  The video stage-2 tasks and the SigLIP tower are not ported yet
+and raise, as do the options that need several devices (ROADMAP slice 7).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .. import registry
+from ..train import lora
 from . import image as image_task
 from . import video as video_task
 from .image import TaskSpec
@@ -62,10 +65,14 @@ def validate_single_device(cfg) -> None:
             "(ROADMAP: slice 7, parallelism)")
 
 
-def _lora_kwargs(cfg) -> dict:
+def _lora_kwargs(cfg, tower: str) -> dict:
+    """``lora_config`` -> the spec's LoRA fields (``factory.py:56-63``):
+    CLIP-family towers default to ``all-linear``, SigLIP to its six
+    projection names."""
     lc = cfg.get("lora_config", {}) or {}
+    targets = "all-linear" if tower in ("openai_clip", "metaclip") else lora.SIGLIP_TARGETS
     return dict(lora_r=int(lc.get("r", 16)), lora_alpha=float(lc.get("lora_alpha", 16)),
-                lora_targets=lc.get("target_modules", "all-linear"),
+                lora_targets=lc.get("target_modules", targets),
                 lora_dropout=float(lc.get("lora_dropout", 0.0)))
 
 
@@ -88,9 +95,12 @@ def build_spec(cfg):
         stage = "stage" + task.rsplit("_stage", 1)[1]
     else:
         raise ValueError(f"unknown task {task!r}")
-    if stage != "stage1":
+    if stage != "stage1" and not task.startswith("image_"):
         raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP: slice 5, "
-                                  "stage 2 and the caches)")
+                                  "video stage 2)")
+    if stage != "stage1" and cfg.get("tower_remat"):
+        raise NotImplementedError("tower_remat (checkpointing the tower's layers) is not "
+                                  "ported yet (ROADMAP: slice 5, video stage 2)")
     dc = cfg.get("data_config", {}) or {}
     if dc.get("precomputed"):
         raise NotImplementedError("data_config.precomputed (the feature and latent "
@@ -102,7 +112,9 @@ def build_spec(cfg):
 
     kind, tower_cfg = registry.tower_family_and_config(
         tower, clip_image_size, cc.get("clip_type"))
-    registry.check_tower_weights(cc.get("model_dir"))
+    tower_dir = registry.tower_dir(cc.get("model_dir"))
+    if tower_dir is not None:
+        tower_cfg = registry.tower_config(kind, tower_dir)
     model_name = cfg.get("model_name", "flux-dev")
     compute_dtype = (torch.bfloat16 if cfg.get("mixed_precision", "bf16") == "bf16"
                      else torch.float32)
@@ -123,15 +135,17 @@ def build_spec(cfg):
                   # fp32); `vae_dtype: fp32` restores parity
                   vae_dtype=(torch.float32 if cfg.get("vae_dtype") == "fp32"
                              else torch.bfloat16),
-                  dit_quant=cfg.get("dit_quant", "none"))
+                  dit_quant=cfg.get("dit_quant", "none"), tower_dir=tower_dir)
     if task.startswith("image_"):
         # the int8 stack (core.quant); the weight cache pays only when the
         # fused optimizer emits it (JAX factory.py:177-188)
-        return TaskSpec(**common, tower_quant=cfg.get("tower_quant", "none"),
+        spec = TaskSpec(**common, tower_quant=cfg.get("tower_quant", "none"),
                         vae_quant=cfg.get("vae_quant", "none"),
                         vae_quant_min_ch=int(cfg.get("vae_quant_min_ch", 256)),
                         dit_quant_cache=cfg.get("fused_optimizer") == "pallas",
-                        **_lora_kwargs(cfg)), kind, "image"
+                        **_lora_kwargs(cfg, tower))
+        image_task.require_ported(spec)
+        return spec, kind, "image"
 
     mode = _VIDEO_MODE[task.rsplit("_stage", 1)[0]]
     if cfg.get("remat") is None:

@@ -1,17 +1,28 @@
-"""Image-mode tasks: stage-1 (projectors + DiT).
+"""Image-mode tasks: stage 1 (projectors + DiT) and stage 2 (tower LoRA).
 
-Port of ``genhancer_tpu/tasks/image.py`` for stage 1: ``TaskSpec`` (the
-static description the engine and the trainer read), ``init_modules``
+Port of ``genhancer_tpu/tasks/image.py``: ``TaskSpec`` (the static
+description the engine and the trainer read), ``init_modules``
 (random-init module tree in the reference layout ``{dit, vae,
-clip{model, project_clip, project_t5}}``), ``trainable_predicate``,
-``make_loss_fn`` (the inline ``{image}`` branch: frozen VAE encode and
-tower under ``torch.no_grad()``, logit-normal t, interpolation, DiT
+clip{model, project_clip, project_t5}}``, the tower from
+``clip_config.model_dir`` where one is given), ``trainable_predicate``,
+``make_loss_fn`` (the inline ``{image}`` branch: frozen VAE encode under
+``torch.no_grad()``, the tower, logit-normal t, interpolation, DiT
 forward, float32 MSE against the velocity), ``make_train_step`` and
 ``create_task_state``.
 
+Stage 1 trains the DiT and the projectors on a frozen vision-only tower
+(under ``torch.no_grad()``).  Stage 2 (``stage2_only``: the tower's LoRA
+alone, gradients passing through the frozen DiT and projectors;
+``stage2_all``: LoRA + DiT + projectors) builds the whole ``CLIPModel``,
+wraps it with LoRA (``train.lora``; ``lora_*`` of the spec) and runs the
+tower under autograd inside ``core.nn.lora_dropout_ctx``
+(``image.py:206-275``): K2 saves each row's log-sum-exp and K2b runs the
+tower's attention backward.
+
 Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
-``vae_noise`` [B, h, w, z]).
+``vae_noise`` [B, h, w, z], and in stage 2 ``lora_masks``, one bool keep-mask
+per LoRA-wrapped call in call order).
 
 The int8 stack (``configs/tpu_fast_stage1.yaml``): ``tower_quant: int8``
 and ``vae_quant: int8`` quantize the frozen tower's linears and the VAE
@@ -21,8 +32,9 @@ large linears through SwitchBack inside ``core.nn.int8_training_ctx``, and
 ``dit_quant_cache`` (set with ``fused_optimizer: pallas``) keeps their int8
 copies in the state, emitted by the optimizer (K4/K6) after the first step.
 
-Stage 2, the precomputed-cache batches (``moments``/``cls``), remat and the
-multi-device options raise ``NotImplementedError``, naming ROADMAP.
+QLoRA (``tower_quant: int8`` in stage 2), a static int8 DiT in
+``stage2_only``, the precomputed-cache batches (``moments``/``cls``), remat
+and the multi-device options raise ``NotImplementedError``, naming ROADMAP.
 """
 
 from __future__ import annotations
@@ -34,23 +46,25 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
+from .. import registry
 from ..core import quant
-from ..core.nn import init_weights, int8_training_ctx
+from ..core.nn import init_weights, int8_training_ctx, lora_dropout_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
 from ..models.towers.projectors import Projector
-from ..train import flow
+from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
-from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning_from_cls, normalize,
-                           tower_features, tower_stats)
+from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning,
+                           image_conditioning_from_cls, normalize, tower_features,
+                           tower_stats)
 
 
 @dataclass(frozen=True)
 class TaskSpec:
     """Static description of one image task."""
-    stage: str                       # "stage1" (the only stage ported)
+    stage: str                       # "stage1" | "stage2_only" | "stage2_all"
     tower_kind: str                  # "clip"
     img_size: int                    # VAE input resolution
     clip_image_size: int
@@ -82,6 +96,9 @@ class TaskSpec:
     dit_quant: str = "none"
     # the optimizer-maintained int8 weight cache (with fused_optimizer: pallas)
     dit_quant_cache: bool = False
+    # a local HF model directory holding the tower's weights
+    # (clip_config.model_dir), or None for random init
+    tower_dir: Optional[str] = None
 
     @property
     def latent_hw(self) -> Tuple[int, int]:
@@ -93,28 +110,46 @@ class TaskSpec:
         return self.tower_cfg.projection_dim
 
 
+STAGES = ("stage1", "stage2_only", "stage2_all")
+DIT_QUANT = ("none", "int8", "int8_full", "int8_dw")
+
+
+def is_stage2(spec) -> bool:
+    return spec.stage in ("stage2_only", "stage2_all")
+
+
 def build_modules(spec: TaskSpec, device=None) -> tnn.ModuleDict:
-    """Uninitialised modules in the reference layout, on ``device``."""
+    """Uninitialised modules in the reference layout, on ``device``: the
+    vision-only tower in stage 1, the whole ``CLIPModel`` in stage 2."""
     d = spec.tower_hidden
+    tower_cls = clip_m.CLIPModel if is_stage2(spec) else clip_m.CLIPVisionTower
     return tnn.ModuleDict({
         "dit": dit_m.DiT(spec.dit_cfg, device=device, dtype=spec.dit_param_dtype),
         "vae": vae_m.AutoEncoder(spec.vae_cfg, device=device),
         "clip": tnn.ModuleDict({
-            "model": clip_m.CLIPVisionTower(spec.tower_cfg, device=device),
+            "model": tower_cls(spec.tower_cfg, device=device),
             "project_clip": Projector(d, spec.clip_dim, device=device),
             "project_t5": Projector(d, spec.t5_dim, device=device),
         }),
     })
 
 
-DIT_QUANT = ("none", "int8", "int8_full", "int8_dw")
-
-
 def init_modules(spec: TaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
-    """Random-init modules drawn from ``generator`` (on ``device``), with the
-    spec's frozen int8 surgery applied (``quantize_modules``)."""
-    return quantize_modules(spec, init_weights(build_modules(spec, device), generator))
+    """Random-init modules drawn from ``generator`` (on ``device``), the
+    tower's weights from ``spec.tower_dir`` where one is set, LoRA injected
+    in stage 2 (its A's drawn from ``generator`` after everything else), and
+    the spec's frozen int8 surgery applied (``quantize_modules``)."""
+    require_ported(spec)
+    modules = init_weights(build_modules(spec, device), generator)
+    if spec.tower_dir is not None:
+        modules["clip"]["model"], _ = registry.load_tower(
+            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=is_stage2(spec),
+            device=device)
+    if is_stage2(spec):
+        lora.inject(modules["clip"]["model"], generator, r=spec.lora_r,
+                    alpha=spec.lora_alpha, targets=spec.lora_targets)
+    return quantize_modules(spec, modules)
 
 
 def quantize_modules(spec: TaskSpec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
@@ -132,22 +167,45 @@ def quantize_modules(spec: TaskSpec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
     return modules
 
 
-def _require_stage1(spec: TaskSpec) -> None:
-    if spec.stage != "stage1":
+def require_ported(spec: TaskSpec) -> None:
+    """Raise for the stage-2 options the port does not run yet."""
+    if spec.stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {spec.stage!r}")
+    if not is_stage2(spec):
+        return
+    if spec.tower_quant != "none":
         raise NotImplementedError(
-            f"stage {spec.stage!r} is not ported yet (ROADMAP: slice 5, stage 2 "
-            "and the caches)")
+            f"tower_quant: {spec.tower_quant} in {spec.stage} (QLoRA: LoRA on an int8 "
+            "tower base) is not ported yet (ROADMAP: §1 item 7, the int8 extensions)")
+    if spec.stage == "stage2_only" and spec.dit_quant != "none":
+        raise NotImplementedError(
+            f"dit_quant: {spec.dit_quant} in stage2_only (a static int8 base for the "
+            "frozen DiT) is not ported yet (ROADMAP: §1 item 7, the int8 extensions)")
 
 
 def trainable_predicate(spec: TaskSpec, modules=None) -> Callable[[str], bool]:
     """Which flat paths train — parity with the reference requires_grad
-    setup: stage 1 trains the DiT and both projectors
-    (train_SigLIP_stage1.py:131,137-141)."""
-    _require_stage1(spec)
+    setup (``image.py:178-198``): stage 1 the DiT and both projectors
+    (train_SigLIP_stage1.py:131,137-141); stage2_only the tower's LoRA
+    factors and the biases of the wrapped modules (``bias: lora_only``);
+    stage2_all those, the DiT and the projectors.  Stage 2 reads the
+    wrapped set from ``modules``."""
+    require_ported(spec)
+    lora_paths = set()
+    if is_stage2(spec):
+        lora_paths = {"clip.model." + p
+                      for p in lora.lora_trainable_paths(modules["clip"]["model"])}
 
-    def pred(path: str) -> bool:
+    def stage1(path: str) -> bool:
         return (path.startswith("dit.")
                 or ".project_clip." in path or ".project_t5." in path)
+
+    def pred(path: str) -> bool:
+        if spec.stage == "stage1":
+            return stage1(path)
+        if spec.stage == "stage2_only":
+            return path in lora_paths
+        return path in lora_paths or stage1(path)
 
     return pred
 
@@ -157,7 +215,7 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
 
     ``batch``: ``image`` [B, H, W, 3] float32 in [0, 1] (+ optional
     ``valid`` [B]) on the modules' device."""
-    _require_stage1(spec)
+    require_ported(spec)
     if mesh is not None:
         raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
                                   "(ROADMAP: slice 7, parallelism)")
@@ -172,7 +230,7 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
         if "moments" in batch or "cls" in batch:
             raise NotImplementedError(
                 "precomputed-cache batches (moments/cls) are not ported yet "
-                "(ROADMAP: slice 5, stage 2 and the caches)")
+                "(ROADMAP: slice 5, the precompute caches)")
         draws = draws or {}
         imgs = batch["image"]                   # [B, H, W, 3] in [0, 1]
         b, dev = imgs.shape[0], imgs.device
@@ -181,13 +239,22 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
             vae_in = normalize(imgs, VAE_MEAN, VAE_STD).to(f32)
             x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
                                       dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
-            # frozen tower: its class token feeds the (trained) projectors
-            mean, std = tower_stats(spec.tower_kind)
-            px = normalize(imgs, mean, std).to(cd)
-            cls_tok, _ = tower_features(spec.tower_kind, modules["clip"], px, spec.tower_cfg)
         x1 = dit_m.pack_latent(x1_lat).to(f32)
-        cond = image_conditioning_from_cls(modules["clip"], cls_tok, spec.latent_hw,
-                                           compute_dtype=cd)
+        if is_stage2(spec):
+            # the LoRA-wrapped tower trains: under autograd, its branches'
+            # inputs dropped (peft parity, train_SigLIP_stage2_all.py:134-143)
+            with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")):
+                cond = image_conditioning(spec.tower_kind, modules["clip"], imgs,
+                                          spec.tower_cfg, spec.latent_hw, compute_dtype=cd)
+        else:
+            with torch.no_grad():
+                # frozen tower: its class token feeds the (trained) projectors
+                mean, std = tower_stats(spec.tower_kind)
+                px = normalize(imgs, mean, std).to(cd)
+                cls_tok, _ = tower_features(spec.tower_kind, modules["clip"], px,
+                                            spec.tower_cfg)
+            cond = image_conditioning_from_cls(modules["clip"], cls_tok, spec.latent_hw,
+                                               compute_dtype=cd)
         t = draws.get("t")
         if t is None:
             t = flow.sample_timesteps(b, spec.scale_factor, generator, dev)

@@ -31,6 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
+from .. import registry
 from ..core.nn import init_weights
 from ..models import dit as dit_m
 from ..models import vae as vae_m
@@ -74,6 +75,9 @@ class VideoTaskSpec:
     tower_quant: str = "none"
     vae_quant: str = "none"
     dit_quant: str = "none"
+    # a local HF model directory holding the tower's weights
+    # (clip_config.model_dir), or None for random init
+    tower_dir: Optional[str] = None
 
     @property
     def n_cond(self) -> int:
@@ -113,8 +117,13 @@ def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
 
 def init_modules(spec: VideoTaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
-    """Random-init modules drawn from ``generator`` (on ``device``)."""
-    return init_weights(build_modules(spec, device), generator)
+    """Random-init modules drawn from ``generator`` (on ``device``), the
+    tower's weights from ``spec.tower_dir`` where one is set."""
+    modules = init_weights(build_modules(spec, device), generator)
+    if spec.tower_dir is not None:
+        modules["clip"]["model"], _ = registry.load_tower(
+            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=False, device=device)
+    return modules
 
 
 def require_ported(spec: VideoTaskSpec) -> None:

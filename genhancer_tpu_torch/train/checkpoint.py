@@ -1,6 +1,6 @@
-"""Stage-1 checkpoints in the reference layout, and resume.
+"""Checkpoints in the reference layout, resume, and the stage-2 HF export.
 
-Port of ``genhancer_tpu/train/checkpoint.py`` (stage 1).  A stage-1 run
+Port of ``genhancer_tpu/train/checkpoint.py``.  A stage-1 run
 writes torch state-dict ``.bin`` files under the reference key names — image
 mode ``checkpoint-dit-N.bin``, ``checkpoint-project-clip-N.bin`` and
 ``checkpoint-project-t5-N.bin`` (``train_SigLIP_stage1.py:284-300``), video
@@ -14,17 +14,27 @@ scales, ``mu.i.q`` and ``mu.i.s``) and resumes from it.  The ``.bin`` files
 hold the float masters only: the int8 weight cache is rebuilt from them.
 
 Step discovery uses a strict regex over ``checkpoint-dit-(\\d+).bin``.
+
+Stage 2 writes the same stage-1 component files and optimizer state (its
+moments include the tower's LoRA leaves) and, beside them, the
+LoRA-merged tower as an HF model directory (``export_hf_tower``).  A resume
+reloads the components and the optimizer state only: the LoRA factors
+restart from their initial values while their moments come back, as the
+JAX package does (``checkpoint.py:192-207``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
+import shutil
 from typing import List, Optional
 
 import torch
 
 from ..core.kernels.adamw import Moment8
+from ..weights import hf_io
 
 STAGE1_FILES = {
     "image": (("dit", "checkpoint-dit-{step}.bin"),
@@ -58,8 +68,7 @@ def load_stage1_components(modules, load_dir: str, load_step: int,
         path = os.path.join(load_dir, pattern.format(step=int(load_step)))
         if not os.path.exists(path):
             raise FileNotFoundError(f"stage-1 checkpoint file missing: {path}")
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        targets[name].load_state_dict(sd, strict=True)
+        targets[name].load_state_dict(hf_io.load_state_dict(path), strict=True)
 
 
 def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[str]:
@@ -71,7 +80,7 @@ def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[
     for name, module in _components(state.modules, kind).items():
         pattern = dict(STAGE1_FILES[kind])[name]
         path = os.path.join(output_dir, pattern.format(step=step))
-        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, path)
+        hf_io.save_state_dict(module.state_dict(), path)
         written.append(path)
     path = os.path.join(output_dir, f"optimizer-state-{step}.bin")
     save_optimizer_state(state, path)
@@ -92,13 +101,13 @@ def save_optimizer_state(state, path: str) -> None:
                 sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"] = (t.detach().cpu() for t in leaf)
             else:
                 sd[f"{name}.{i}"] = leaf.detach().cpu()
-    torch.save(sd, path)
+    hf_io.save_state_dict(sd, path)
 
 
 def load_optimizer_state(state, path: str) -> None:
     """Restore what ``save_optimizer_state`` wrote into ``state``, in place:
     each moment lands on its parameter's device in the saved dtype."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = hf_io.load_state_dict(path)
     keys = sorted(state.trainable)
     n_saved = sum(1 for k in sd if k.startswith("mu.") and not k.endswith(".s"))
     if n_saved != len(keys):
@@ -161,3 +170,32 @@ def resume_latest(state, output_dir: str, kind: str = "image") -> None:
         load_optimizer_state(state, opt_path)
     else:
         state.step = step
+
+
+# ---------------------------------------------------------------------------
+# stage-2 HF export
+# ---------------------------------------------------------------------------
+
+def export_hf_tower(state, out_dir: str, base_config: Optional[dict] = None,
+                    base_model_dir: Optional[str] = None) -> str:
+    """Write the LoRA-merged tower as an HF model directory
+    (``merge_and_unload().save_pretrained``, ``checkpoint.py:214-238``):
+    ``pytorch_model.bin`` under the HF key names; ``config.json`` (and
+    ``preprocessor_config.json``) copied from ``base_model_dir`` where it
+    has one, else ``base_config`` written.  The training tower is left as
+    it is."""
+    from . import lora
+    merged = lora.merge(state.modules["clip"]["model"])
+    os.makedirs(out_dir, exist_ok=True)
+    hf_io.save_state_dict(merged.state_dict(), os.path.join(out_dir, "pytorch_model.bin"))
+    del merged
+    if base_model_dir and os.path.exists(os.path.join(base_model_dir, "config.json")):
+        shutil.copy(os.path.join(base_model_dir, "config.json"),
+                    os.path.join(out_dir, "config.json"))
+        pre = os.path.join(base_model_dir, "preprocessor_config.json")
+        if os.path.exists(pre):
+            shutil.copy(pre, os.path.join(out_dir, "preprocessor_config.json"))
+    elif base_config is not None:
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            json.dump(base_config, f, indent=2)
+    return out_dir

@@ -1,0 +1,99 @@
+"""LoRA injection and merge for tower fine-tuning (stage 2).
+
+Port of ``genhancer_tpu/train/lora.py`` on ``nn.Module``s, with peft's
+semantics (``train_SigLIP_stage2_all.py:134-143``):
+
+  * ``targets``: an explicit list of leaf names (SigLIP: ``SIGLIP_TARGETS``)
+    or ``"all-linear"``, every module with a 2-D ``weight`` whose path holds
+    no ``embedding``/``embeddings``/``logit_scale`` — the CLIP projection
+    heads included (``lora.py:54-59``); paths are the JAX package's own;
+  * init: ``lora_A`` float32 [r, in] kaiming-uniform (bound sqrt(3/in)),
+    ``lora_B`` zeros [out, r] in the weight's dtype, ``lora_scale`` =
+    alpha/r in the weight's dtype, a (persistent) buffer;
+  * ``bias: lora_only``: the factors and the biases of wrapped modules
+    train (``lora_trainable_paths``);
+  * ``merge``: W' = (W.f32 + (B.f32 @ A.f32) * scale) in W's dtype, the
+    factors dropped (``merge_and_unload`` before the HF export).
+
+The factors become attributes of the wrapped module, so its state-dict keys
+are the JAX tree's paths (``...q_proj.lora_A``) and ``core.nn.linear`` adds
+the branch.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+from typing import Iterator, List, Tuple
+
+import torch
+from torch import nn as tnn
+
+SIGLIP_TARGETS = ("k_proj", "v_proj", "q_proj", "out_proj", "fc1", "fc2")
+_FACTORS = ("lora_A", "lora_B", "lora_scale")
+
+
+def _iter_linears(root: tnn.Module) -> Iterator[Tuple[str, tnn.Module]]:
+    """(path, module) for every module holding a 2-D ``weight`` parameter."""
+    for path, m in root.named_modules():
+        w = m._parameters.get("weight")
+        if w is not None and w.dim() == 2:
+            yield path, m
+
+
+def _matches(path: str, targets) -> bool:
+    if targets == "all-linear":
+        return not any(s in path for s in ("embedding", "embeddings", "logit_scale"))
+    return path.rsplit(".", 1)[-1] in targets
+
+
+def inject(tower: tnn.Module, generator: torch.Generator, r: int = 16, alpha: float = 16.0,
+           targets="all-linear") -> Tuple[tnn.Module, List[str]]:
+    """Wrap the targeted modules of ``tower`` in place, drawing each A from
+    ``generator`` in module order; returns (tower, wrapped paths)."""
+    wrapped: List[str] = []
+    for path, m in list(_iter_linears(tower)):
+        if not _matches(path, targets):
+            continue
+        w = m.weight
+        out_dim, in_dim = w.shape
+        bound = math.sqrt(3.0 / in_dim)     # kaiming_uniform(a=sqrt(5))
+        a = torch.empty((r, in_dim), dtype=torch.float32, device=w.device)
+        with torch.no_grad():
+            a.uniform_(-bound, bound, generator=generator)
+        m.lora_A = tnn.Parameter(a)
+        m.lora_B = tnn.Parameter(torch.zeros((out_dim, r), dtype=w.dtype, device=w.device))
+        m.register_buffer("lora_scale", torch.tensor(alpha / r, dtype=w.dtype, device=w.device))
+        wrapped.append(path)
+    return tower, wrapped
+
+
+def wrapped_paths(tower: tnn.Module) -> List[str]:
+    return [path for path, m in tower.named_modules() if "lora_A" in m._parameters]
+
+
+@torch.no_grad()
+def merge(tower: tnn.Module) -> tnn.Module:
+    """A copy of ``tower`` with every LoRA factor folded into its weight and
+    dropped (``lora.py:87-94``); ``tower`` is left as it is."""
+    merged = copy.deepcopy(tower)
+    for path in wrapped_paths(merged):
+        m = merged.get_submodule(path)
+        w = m.weight
+        delta = (m.lora_B.to(torch.float32) @ m.lora_A.to(torch.float32)) \
+            * m.lora_scale.to(torch.float32)
+        w.copy_((w.to(torch.float32) + delta).to(w.dtype))
+        for name in _FACTORS:
+            delattr(m, name)
+    return merged
+
+
+def lora_trainable_paths(tower: tnn.Module) -> List[str]:
+    """The paths that train under ``bias: lora_only``: each wrapped
+    module's bias (where it has one), ``lora_A`` and ``lora_B``."""
+    out = []
+    for path in wrapped_paths(tower):
+        m = tower.get_submodule(path)
+        names = (["bias"] if getattr(m, "bias", None) is not None else []) + ["lora_A", "lora_B"]
+        out += [f"{path}.{n}" if path else n for n in names]
+    return out

@@ -6,8 +6,10 @@ Port of ``genhancer_tpu/train/trainer.py`` for one device:
   * gradient accumulation (``train.step_utils``) or a plain step;
   * a depth-2 host thread that pins each batch and copies it to the device
     (``data.prefetch``);
-  * image and video stage-1 tasks; the checkpoint layout and the loss
-    follow the task's ``ckpt_kind``;
+  * image stage-1 and stage-2 tasks and video stage-1 tasks; the
+    checkpoint layout and the loss follow the task's ``ckpt_kind``, and a
+    stage-2 checkpoint adds the LoRA-merged tower as an HF model directory
+    named as the reference names it (``hf_export_name``);
   * step/data timers and tracker scalars under the reference names
     (``train_loss``, ``step_time``, ``data_load_time``, and in sliding mode
     ``avg_windows_per_video``/``bs_eff``, averaged over an accumulation
@@ -97,6 +99,21 @@ class SummaryWriterProxy:
             self.writer.close()
         if self.wandb is not None:
             self.wandb.finish()
+
+
+def hf_export_name(cfg, step: int) -> str:
+    """The stage-2 export directory's name (``trainer.py:91-102``):
+    siglip-so400m-patch14-{size}-{step}, clip-vit-large-patch14[-336]-{step}
+    or metaclip-{l14,h14}-fullcc2.5b-{step}."""
+    tower = cfg.get("tower", "openai_clip")
+    size = int(cfg.get_path("clip_config.clip_image_size", 224))
+    if tower == "siglip":
+        return f"siglip-so400m-patch14-{size}-{step}"
+    if tower == "metaclip":
+        t = cfg.get_path("clip_config.clip_type", "large")
+        return f"metaclip-{'l14' if t == 'large' else 'h14'}-fullcc2.5b-{step}"
+    return (f"clip-vit-large-patch14-{step}" if size == 224
+            else f"clip-vit-large-patch14-336-{step}")
 
 
 class Trainer:
@@ -206,6 +223,11 @@ class Trainer:
 
     def _checkpoint(self, step: int) -> None:
         ckpt.save_stage1(self.state, self.output_dir, step, self.ckpt_kind)
+        if self.spec.stage.startswith("stage2"):
+            ckpt.export_hf_tower(
+                self.state, os.path.join(self.output_dir, hf_export_name(self.cfg, step)),
+                base_config=self.spec.tower_cfg.to_hf(),
+                base_model_dir=self.cfg.get_path("clip_config.model_dir"))
         limit = int(self.cfg.get("checkpoints_total_limit") or 0)
         if limit:
             pruned = ckpt.prune_checkpoints(self.output_dir, limit)

@@ -1,4 +1,4 @@
-"""JAX parameter trees -> this package's state dicts.
+"""JAX parameter trees and HF tower state dicts -> this package's state dicts.
 
 The JAX package keeps its parameters as nested dicts with numpy leaves
 (image tasks ``{dit, vae, clip{model, project_clip, project_t5}}``, video
@@ -11,13 +11,22 @@ write — which this package's modules load with ``strict=True``:
   * the DiT's grouped streams are renamed (``double_blocks.{i}.img.attn`` ->
     ``double_blocks.{i}.img_attn``);
   * conv weights are transposed HWIO -> OIHW (every 4-D leaf is a conv);
-  * the tower's text side is dropped by an explicit list — the port's tower
-    is vision-only;
+  * the tower's text side is dropped by an explicit list for the
+    vision-only tower of stage 1 and serving, and kept for stage 2's
+    ``CLIPModel``; a stage-2 tree's LoRA leaves (``lora_A``, ``lora_B``,
+    ``lora_scale``) keep their paths, which are the port's parameter and
+    buffer names;
   * int8 trees (``core.quant`` surgery): a linear's ``weight_q`` [o, i] and
     ``w_scale`` [o, 1] are kept as they are, a conv's ``weight_q`` goes
     HWIO -> OIHW while its ``w_scale`` keeps the [1, 1, 1, O] layout;
     ``load_jax_params`` swaps the matching port modules for
     ``core.nn.Int8Layer`` first, so both packages compute the same.
+
+HF ``CLIPModel`` state dicts are already the port tower's names and layouts
+(the patch embedding is OIHW in both): a merged tower's ``state_dict()`` is
+its HF state dict (``hf_convert.tower_to_torch``'s counterpart), and
+``tower_from_hf`` (``tower_from_torch``'s) only drops the ``position_ids``
+buffers and, for a vision-only tower, the text side.
 """
 
 from __future__ import annotations
@@ -52,11 +61,12 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
 
 
 def to_tensor(v) -> torch.Tensor:
-    """numpy (incl. ml_dtypes bfloat16) -> a CPU tensor of the same dtype."""
-    v = np.ascontiguousarray(np.asarray(v))
+    """numpy (incl. ml_dtypes bfloat16) -> a CPU tensor of the same dtype
+    and shape (0-d stays 0-d: ``logit_scale``, ``lora_scale``)."""
+    v = np.array(v, order="C", copy=True)
     if v.dtype.name == "bfloat16":
-        return torch.from_numpy(v.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(v.copy())
+        return torch.from_numpy(v.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(v)
 
 
 def _leaf(v, key: str = "") -> torch.Tensor:
@@ -82,10 +92,18 @@ def vae_state_dict(tree) -> StateDict:
     return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()}
 
 
-def tower_state_dict(tree) -> StateDict:
-    """CLIP tower -> vision_model.* and visual_projection.weight."""
+def tower_state_dict(tree, text_side: bool = False) -> StateDict:
+    """CLIP tower -> vision_model.* and visual_projection.* (+ the text
+    side's keys with ``text_side``)."""
     return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()
-            if not k.startswith(TEXT_SIDE_PREFIXES)}
+            if text_side or not k.startswith(TEXT_SIDE_PREFIXES)}
+
+
+def tower_from_hf(sd: StateDict, text_side: bool = True) -> StateDict:
+    """An HF ``CLIPModel`` state dict -> the port tower's: ``position_ids``
+    dropped, and the text side too unless ``text_side``."""
+    return {k: v for k, v in sd.items() if not k.endswith("position_ids")
+            and (text_side or not k.startswith(TEXT_SIDE_PREFIXES))}
 
 
 def module_state_dict(tree) -> StateDict:
@@ -110,15 +128,16 @@ def adopt_int8(root, sd: StateDict) -> None:
                 getattr(mod, "bias", None)))
 
 
-def state_dicts_from_jax(params) -> Dict[str, StateDict]:
+def state_dicts_from_jax(params, text_side: bool = False) -> Dict[str, StateDict]:
     """An image or video tree (numpy leaves) -> ``{"dit", "vae", "tower",
     "project_clip"}`` state dicts plus ``"project_t5"`` (image) or
-    ``"visual_adapter"`` (video)."""
+    ``"visual_adapter"`` (video); the tower's text side only with
+    ``text_side``."""
     clip = params["clip"]
     out = {
         "dit": dit_state_dict(params["dit"]),
         "vae": vae_state_dict(params["vae"]),
-        "tower": tower_state_dict(clip["model"]),
+        "tower": tower_state_dict(clip["model"], text_side),
         "project_clip": module_state_dict(clip["project_clip"]),
     }
     if "project_t5" in clip:
@@ -130,8 +149,9 @@ def state_dicts_from_jax(params) -> Dict[str, StateDict]:
 
 def load_jax_params(modules, params) -> None:
     """Load a JAX parameter tree into ``init_modules``-layout modules of the
-    same task kind (strict: every key on both sides must match)."""
-    sds = state_dicts_from_jax(params)
+    same task kind (strict: every key on both sides must match; a stage-2
+    tower, a ``CLIPModel``, takes the text side as well)."""
+    sds = state_dicts_from_jax(params, text_side=hasattr(modules["clip"]["model"], "text_model"))
     adopt_int8(modules["vae"], sds["vae"])
     adopt_int8(modules["clip"]["model"], sds["tower"])
     modules["dit"].load_state_dict(sds["dit"], strict=True)

@@ -87,7 +87,8 @@ def test_dit_short_attention_inputs_pass(monkeypatch):
 
 def test_tower_attention_inputs_pass(monkeypatch):
     """What K2 receives in a tiny bf16 vision tower (1 layer, 17 tokens), and
-    what K2b receives when the tower trains (stage 2): q, k, v, the
+    what K2b receives when the tower trains as stage 2 trains it (LoRA on
+    every linear, a nonzero B, the base frozen, dropout on): q, k, v, the
     forward's o and dO."""
     from genhancer_tpu_torch.models.towers import clip as tclip
     cfg = tclip.CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_layers=1,
@@ -121,9 +122,19 @@ def test_tower_attention_inputs_pass(monkeypatch):
         return bwd_ref(q, k, v, o, do)
 
     monkeypatch.setattr(K, "fused_attention_bwd_ref", record_bwd)
-    x, pooled = tclip.vision_forward(tower, pixels, cfg)
+    from genhancer_tpu_torch.core.nn import lora_dropout_ctx
+    from genhancer_tpu_torch.train import lora
+    tower.requires_grad_(False)
+    _, wrapped = lora.inject(tower, g, r=16, alpha=16.0)
+    assert len(wrapped) == 6
+    with torch.no_grad():
+        for path in wrapped:
+            tower.get_submodule(path).lora_B.normal_(0.0, 0.02, generator=g)
+    with lora_dropout_ctx(g, 0.1):
+        x, pooled = tclip.vision_forward(tower, pixels, cfg)
     (x.float().square().mean() + pooled.float().sum()).backward()
     assert len(bwd_calls) == 1
+    assert tower.get_submodule(wrapped[0]).lora_A.grad.abs().sum() > 0
     assert all(t.dtype == BF16 and t.shape == (2, 17, 2, 64) for t in bwd_calls[0])
     assert K._tma_layout_error(*bwd_calls[0]) is None
     K._check_tma_layout("fused_attention_bwd", *bwd_calls[0])

@@ -179,7 +179,6 @@ class TestEngine:
     @pytest.mark.parametrize("override, match", [
         ({"task": "video_middle_stage2_all"}, "not ported"),
         ({"tower": "siglip"}, "siglip"),
-        ({"clip_config": {"model_dir": "/nonexistent"}}, "model_dir"),
         ({"ae_path": "ae.safetensors"}, "AE"),
     ])
     def test_unported_config_paths_raise(self, override, match):
@@ -188,6 +187,40 @@ class TestEngine:
         cfg = load_config("configs/MetaCLIP_large_stage1.yaml").merged_with(override)
         with pytest.raises(NotImplementedError, match=match):
             build_spec(cfg)
+
+    def test_model_dir_tower_is_served(self, spec, params, engine, tmp_path, monkeypatch):
+        """``clip_config.model_dir``: the engine serves the weights of an HF
+        tower directory (the JAX package's ``tower_to_torch`` of the JAX
+        tower, text side included), whose ``config.json`` overrides the
+        named variant's; its embeddings equal those of the engine holding
+        the same tree, and the JAX engine's."""
+        import json as json_m
+        from genhancer_tpu.weights import hf_convert
+        from genhancer_tpu.weights.torch_io import save_torch_state_dict
+        from genhancer_tpu_torch import registry
+        from genhancer_tpu_torch.models.towers.clip import CLIP_VARIANTS
+        from genhancer_tpu_torch.train.config import load_config
+        from test_torch_parity import port_cfg
+        d = tmp_path / "tower"
+        save_torch_state_dict(hf_convert.tower_to_torch(params["clip"]["model"]),
+                              str(d / "pytorch_model.bin"))
+        (d / "config.json").write_text(json_m.dumps(spec.tower_cfg.to_hf()))
+        monkeypatch.setattr(registry, "build_dit_config", lambda name: port_cfg(spec.dit_cfg))
+        monkeypatch.setattr(registry, "build_vae_config",
+                            lambda name, ae_path=None: port_cfg(spec.vae_cfg))
+        cfg = load_config("configs/MetaCLIP_large_stage1.yaml").merged_with(
+            {"clip_config": {"model_dir": str(d), "clip_image_size": 32, "clip_dim": 24,
+                             "t5_dim": 32},
+             "data_config": {"img_size": 32}, "mixed_precision": "no"})
+        served = InferenceEngine.from_config(cfg, device="cpu", buckets=(1, 4), num_steps=2)
+        assert served.spec.tower_cfg == port_cfg(spec.tower_cfg)
+        assert served.spec.tower_cfg != CLIP_VARIANTS["metaclip-l14-fullcc2.5b"]
+        img = np.random.default_rng(4).random((3, 32, 32, 3), dtype=np.float32)
+        ours = served.embed(img)
+        np.testing.assert_array_equal(ours, engine.embed(img))
+        jeng = JaxEngine(spec, jax.tree_util.tree_map(jnp.asarray, params),
+                         num_steps=2, buckets=(1, 4))
+        np.testing.assert_allclose(ours, jeng.embed(img), rtol=1e-4, atol=1e-4)
 
 
 def test_http_round_trip(engine):

@@ -188,8 +188,9 @@ def test_unported_options_raise():
     # unknown dit_quant is refused
     with pytest.raises(ValueError, match="dit_quant"):
         timage.make_loss_fn(dataclasses.replace(ps, dit_quant="int4"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        timage.make_loss_fn(dataclasses.replace(ps, stage="stage2_all"))
+    # stage 2 is ported (tests/test_torch_stage2.py); QLoRA is not
+    with pytest.raises(NotImplementedError, match="QLoRA"):
+        timage.make_loss_fn(dataclasses.replace(ps, stage="stage2_all", tower_quant="int8"))
     loss_fn = timage.make_loss_fn(ps)
     with pytest.raises(NotImplementedError, match="slice 5"):
         loss_fn(None, {"moments": torch.zeros(1), "cls": torch.zeros(1)})
