@@ -13,10 +13,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernels — K1/K2 (fused attention forward: in bf16 K1's RoPE pass and
              the wgmma/TMA forward, o's rounding point against a control
              that rounds p before normalising it, the device time of 64-
-             and 128-row blocks from CUDA graphs, a misaligned view that
-             must raise), K1b/K2b (backward on the wgmma/TMA kernels; their
-             dq/dk/dv rounding points against a control that keeps p in
-             float32 for dv; K2b at L=257 and L=256), K5/K5b
+             and 128-row blocks from CUDA graphs, a misaligned view and
+             float16 that must raise), K1b/K2b (backward on the wgmma/TMA
+             kernels; their dq/dk/dv rounding points against a control that
+             keeps p in float32 for dv; K2b at L=257, L=256 and, B=32,
+             CLIP-L/14@336's L=577), K2 in float32 at the MMVP-VLM eval's
+             B=50, L=257 and L=577 (the scalar body, timed with SDPA
+             float32), K5/K5b
              (flash attention forward and backward: in bf16 the wgmma/TMA
              kernels, at the video paths' shapes with their TFLOP/s and
              share of the bf16 peak, the SigLIP tower shape, ragged lengths,
@@ -39,9 +42,13 @@ Phases, each printing its own lines; any failure exits non-zero:
              then the same for one tiny float32 sliding-window video step
              whose joint length (637) runs K5/K5b, for one tiny float32
              image stage-2 step of each stage (LoRA with a planted nonzero
-             B, dropout on injected masks: K2b), and for one tiny float32
-             int8 step of each int8 configuration (int8_full with the cache
-             K4 emits; int8_dw with 8-bit moments: K8, K6);
+             B, dropout on injected masks: K2b), for one tiny float32 video
+             middle stage2_all step with tower_remat on (the recompute reads
+             the injected masks again: K2 twice, K2b once), for a tiny
+             MMVP-VLM eval (a tiny CLIPModel, a toy tokenizer: the whole
+             result and the embeddings), and for one tiny float32 int8 step
+             of each int8 configuration (int8_full with the cache K4 emits;
+             int8_dw with 8-bit moments: K8, K6);
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
              at full width (flux-dev DiT, MetaCLIP-L/14 tower, FLUX VAE;
              random weights from the config's seed), warmup, real HTTP
@@ -84,7 +91,23 @@ Phases, each printing its own lines; any failure exits non-zero:
              2-3), rows/s (sliding: valid rows, padding left out), peak
              memory, the launch counts of every kernel, per mode, and device
              time by kernel (K5/K5b's share) in each mode's last step (the
-             sliding resume's step 10), run under torch.profiler.
+             sliding resume's step 10), run under torch.profiler;
+10. video2 — the ``Trainer`` on the four published video stage-2 configs
+             (``configs/OpenAICLIP_*_stage2_all.yaml``: LoRA on all 218
+             linears of OpenAI CLIP-L/14, the gates' DiT remat and
+             tower_remat) at full width and batch x accumulation 2, each
+             from its own mode's stage-1 files: 4 steps, 2-3 timed, 4
+             profiled, K2b's first call held against its plain version, the
+             export timed and read back; middle@336's peak memory with
+             tower_remat on and off; a resume of next; K2b 48 launches per
+             optimizer step on every stage-2 path, 0 elsewhere;
+11. eval   — ``evaluate_model_dir`` on image stage 2's export
+             (MetaCLIP-L/14, 224 px) and on middle@336 stage 2's
+             (CLIP-L/14@336): a synthetic MMVP-VLM tree of 9 x 15 pairs and a
+             toy tokenizer (the card has no ``transformers``), seconds,
+             images/s and texts/s, nine categories, 135 CSV rows, scores in
+             [0, 100], the first pair's embeddings against the CPU's plain
+             path at 1e-4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -155,9 +178,17 @@ ROUNDING_BOUND = 2e-4
 HBM_PEAK = 3.35e12   # bytes/s, H100 SXM data sheet
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 INT8_PEAK = 1979e12  # dense int8 tensor-core OP/s, H100 SXM data sheet
+FP32_PEAK = 67e12    # float32 FLOP/s outside the tensor cores, H100 SXM data sheet
 NUM_STEPS = 20
-# optimizer steps of the two stage-2 Trainer runs (phase_stage2_train)
-STAGE2_STEPS = {"train_stage2_all": 7, "train_stage2_only": 4}
+VIDEO2_CONFIGS = {"sliding": "OpenAICLIP_224_sliding_stage2_all.yaml",
+                  "next": "OpenAICLIP_nextpredic_stage2_all.yaml",
+                  "next2": "OpenAICLIP_use2frames_stage2_all.yaml",
+                  "middle": "OpenAICLIP_336_video_stage2_all.yaml"}
+# optimizer steps of the stage-2 Trainer runs (phase_stage2_train,
+# phase_video_stage2): K2b launches 48 times in each
+STAGE2_STEPS = {"train_stage2_all": 7, "train_stage2_only": 4,
+                **{f"video_{m}_stage2": 4 for m in VIDEO2_CONFIGS}}
+EVAL_PAIRS = 15      # pairs per category: MMVP-VLM's 9 x 15 pairs, 270 images
 BUCKETS = (1, 4, 8)
 
 
@@ -437,9 +468,59 @@ def phase_kernels():
           f"{len(raised)} of 2: {raised}", flush=True)
     check(len(raised) == 2 and K.LAUNCHES == before, "K1/K2: a misaligned bf16 view did not raise")
 
+    # no kernel takes float16 (a float16 tower directory loads as float16):
+    # K2 refuses it at its dtype check, before any launch, never the plain path
+    h16 = _rand(gen, (2, 257, 16, 64), torch.float16)
+    try:
+        K.fused_attention(h16, h16, h16)
+        raised16 = ""
+    except TypeError as e:
+        raised16 = str(e)
+    print(f"[kernels] fused_attention float16 q/k/v: "
+          f"{'raises: ' + raised16 if raised16 else 'did not raise'}", flush=True)
+    check(raised16 and K.LAUNCHES == before, "K2: float16 q/k/v did not raise")
+
     for r in rec.values():
         r["ms"], r["plain_ms"] = r.pop("ms_by_batch")[max(BUCKETS)]
+    rec["fused_attention"]["float32_eval"] = _k2_float32_eval(gen)
     return rec
+
+
+def _k2_float32_eval(gen):
+    """K2 in float32 (the scalar fp:: body) at the MMVP-VLM eval's batch of
+    50: MetaCLIP-L/14 at 224 px (L=257) and CLIP-L/14@336 (L=577), H=16,
+    D=64; against the plain version (1e-4), timed with its bound (float32
+    FLOP/s outside the tensor cores) and SDPA in float32 (TF32 off)."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_rec = {}
+    for l in (257, 577):
+        q, k, v = (_rand(gen, (50, l, 16, 64), torch.float32) for _ in range(3))
+        kfn = lambda: K.fused_attention(q, k, v)  # noqa: E731
+        pfn = lambda: K.fused_attention_ref(q, k, v)  # noqa: E731
+        out = kfn()
+        torch.cuda.synchronize()
+        err = (out - pfn()).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err <= BOUND["float32"],
+              f"fused_attention float32 B=50 L={l}: error {err} > {BOUND['float32']}")
+        ms, pms = kernel_vs_plain_ms(kfn, pfn, n=5, rounds=4)
+        lib_f = _sdpa_fwd_bwd(q, k, v, q)[0]
+        times = {"ms": ms, "plain_ms": pms, "max_abs_err": err, "device_ms": graph_ms(kfn, n=5),
+                 "library_ms": _library_ms(lib_f, n=5), "library_device_ms": graph_ms(lib_f, n=5)}
+        _set_bound(times, _nbytes(q, k, v, out), 4.0 * 50 * 16 * l * l * 64, peak=FP32_PEAK)
+        out_rec[l] = times
+        print(f"[kernels] fused_attention B=50 L={l} H=16 D=64 float32 (the eval's tower): "
+              f"max|kernel-plain| {err:.3e} (bound 1e-04); kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, device (CUDA graph) {_fmt(times['device_ms'])} ms; bound "
+              f"{times['bound_ms']:.4f} ms ({times['bound_by']}, 67 TFLOP/s float32); SDPA "
+              f"float32 {times['library_ms']:.4f} ms, device {_fmt(times['library_device_ms'])}"
+              f" ms", flush=True)
+        del q, k, v, out, lib_f
+        _free()
+    return out_rec
 
 
 def _record(name):
@@ -511,9 +592,11 @@ def phase_kernels_bwd():
     bound is relative to max(1, max|plain|).  In bf16, the rounding points
     of both on their own: dq, dk and dv to ROUNDING_BOUND of the plain
     version, with a control that keeps p in float32 for dv (K5b's point) and
-    must miss it.  K2b is timed at the tower's L = 257 and at L = 256 (what
-    the ragged last tile costs); both run on strided views of one fused
-    projection, and a misaligned view must raise before any launch.
+    must miss it.  K2b is timed at the tower's L = 257, at L = 256 (what
+    the ragged last tile costs) and at CLIP-L/14@336's L = 577 (B = 32, the
+    frames of one middle@336 stage-2 micro-batch); both run on strided views
+    of one fused projection, and a misaligned view must raise before any
+    launch.
     Returns per-kernel records."""
     import torch
     from genhancer_tpu_torch.core.kernels import flash_attention as F
@@ -528,6 +611,7 @@ def phase_kernels_bwd():
         (rope, 2, 13, 24, 128, bf16, False), (rope, 1, 600, 24, 128, bf16, False),
         (rope, 1, 13, 24, 128, f32, False),
         (norope, 16, 257, 16, 64, bf16, True), (norope, 16, 256, 16, 64, bf16, True),
+        (norope, 32, 577, 16, 64, bf16, True),       # CLIP-L/14@336, video stage 2
         (norope, 2, 256, 16, 72, bf16, False), (norope, 2, 257, 16, 64, f32, False),
         (norope, 2, 13, 16, 64, bf16, False), (norope, 1, 600, 16, 64, bf16, False))
     rec = {n: _record(n) for n in (rope, norope)}
@@ -603,6 +687,11 @@ def phase_kernels_bwd():
     print(f"[kernels] {norope} B=16 H=16 D=64, L=257 against L=256 (the ragged last tile): "
           f"call {t257['ms']:.4f} / {t256['ms']:.4f} ms, device "
           f"{_fmt(t257['device_ms'])} / {_fmt(t256['device_ms'])} ms", flush=True)
+    t577 = rec[norope]["ms_by_length"][577]
+    print(f"[kernels] {norope} B=32 L=577 H=16 D=64 (middle@336 stage 2): call "
+          f"{t577['ms']:.4f} ms, device {_fmt(t577['device_ms'])} ms, bound "
+          f"{t577['bound_ms']:.4f} ms ({t577['bound_by']}), SDPA backward "
+          f"{t577['library_ms']:.4f} ms", flush=True)
 
     # K1b and K2b on the strided q/k/v views of one fused projection
     for name, h, d in ((rope, 24, 128), (norope, 16, 64)):
@@ -1791,6 +1880,161 @@ def phase_small_stage2():
               f"tiny {stage} step: K2/K2b launches {k2}, expected {v.num_layers} each")
 
 
+def phase_small_video_stage2():
+    """One tiny float32 middle-mode stage-2 step (the default chain) with
+    ``tower_remat`` on, card against CPU (``_tiny_step_card_vs_cpu``): a
+    nonzero B planted in every wrapped linear, LoRA dropout 0.1 on the same
+    injected masks, which the recompute in the backward must read again; the
+    card runs K2 twice per layer (the forward and its recompute) and K2b
+    once."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.tasks import video as tv
+    from genhancer_tpu_torch.train import optim
+
+    tiny = _tiny_spec()
+    spec = tv.VideoTaskSpec(mode="middle", stage="stage2_all", tower_kind="clip",
+                            img_size=32, clip_image_size=32, dit_cfg=tiny.dit_cfg,
+                            vae_cfg=tiny.vae_cfg, tower_cfg=tiny.tower_cfg, clip_dim=24,
+                            t5_dim=32, adapter_in_dim=16, compute_dtype=torch.float32,
+                            dit_param_dtype=torch.float32, vae_dtype=torch.float32,
+                            lora_r=3, lora_alpha=16.0, lora_dropout=0.1, tower_remat=True)
+    lr = 1e-3
+    rng = np.random.default_rng(14)
+    v = spec.tower_cfg.vision
+    frames, n_img = 2 * spec.n_cond, v.grid ** 2 + 1
+    shapes = ([(frames, n_img, v.hidden_size)] * 5 + [(frames, n_img, v.intermediate_size)]) \
+        * v.num_layers + [(frames, v.hidden_size)]
+    lat = spec.latent_hw
+    n_tok = (lat[0] // 2) * (lat[1] // 2)
+    batch = {"cond": rng.random((2, 2, spec.n_cond, 32, 32, 3), dtype=np.float32),
+             "target": rng.random((2, 2, 32, 32, 3), dtype=np.float32)}
+    draws = [{"t": rng.random(2, dtype=np.float32),
+              "x0": rng.standard_normal((2, n_tok, 4 * spec.vae_cfg.z_channels),
+                                        dtype=np.float32),
+              "vae_noise": rng.standard_normal((2, *lat, spec.vae_cfg.z_channels),
+                                               dtype=np.float32),
+              "lora_masks": [rng.random(sh) < 0.9 for sh in shapes]} for _ in range(2)]
+
+    def make_state(dev):
+        mods = tv.init_modules(spec, torch.Generator().manual_seed(5))
+        _plant_lora_b(mods["clip"]["model"], 6)
+        opt = optim.AdamWChain(optim.make_lr_schedule("constant", lr))
+        mods = mods.to(dev)
+        return tv.create_state(mods, tv.trainable_predicate(spec, mods), opt), opt
+
+    launches = _tiny_step_card_vs_cpu(
+        "tiny f32 video middle stage2_all step, tower_remat on", make_state,
+        tv.make_loss_fn(spec), {k: x[0] for k, x in batch.items()}, batch, draws, lr,
+        null=("self_attn.k_proj.bias",))
+    k2 = {k: launches[k] for k in ("fused_attention", "fused_attention_bwd")}
+    print(f"[small] launches of the card's video stage-2 forward + backward {k2}", flush=True)
+    check(k2 == {"fused_attention": 2 * v.num_layers, "fused_attention_bwd": v.num_layers},
+          f"tiny video stage-2 step: K2/K2b launches {k2}, expected {2 * v.num_layers} "
+          f"(forward and recompute) and {v.num_layers}")
+
+
+def _write_mmvp(root, pairs, size, seed=0):
+    """A synthetic MMVP-VLM tree: ``Questions.csv`` and ``MLLM_VLM Images/
+    {category}/{qid}.jpg``, ``pairs`` pairs in each of the nine categories,
+    noise JPEGs of ``size`` x ``size`` px."""
+    import csv
+    import numpy as np
+    from genhancer_tpu_torch.eval import mmvp
+    rng = np.random.default_rng(seed)
+    rows, qid = [["qid", "type", "statement"]], 1
+    for cat in mmvp.CATEGORIES:
+        d = os.path.join(root, "MLLM_VLM Images", cat)
+        os.makedirs(d, exist_ok=True)
+        for _ in range(pairs):
+            for q in (qid, qid + 1):
+                with open(os.path.join(d, f"{q}.jpg"), "wb") as f:
+                    f.write(_jpeg(rng, size, size))
+                rows.append([str(q), cat, f"the statement of question {q} about {cat}"])
+            qid += 2
+    with open(os.path.join(root, "Questions.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    return root
+
+
+def _toy_tokenize(length, eos):
+    """A deterministic tokenizer in place of the HF one (the card has no
+    ``transformers``): characters hashed into ids 3-42, then ``eos`` to the
+    end (the first EOS is the pooled position)."""
+    import numpy as np
+
+    def fn(texts):
+        ids = np.full((len(texts), length), eos, dtype=np.int64)
+        for i, t in enumerate(texts):
+            for j, ch in enumerate(t[: length - 1]):
+                ids[i, j] = 3 + ord(ch) % 40
+        return ids, None
+    return fn
+
+
+def _same_results(a, b, csv_a, csv_b, tag):
+    """Equal result dicts; equal CSV rows but for the two scores (1e-5)."""
+    import csv
+    with open(csv_a) as f:
+        ra = list(csv.reader(f))
+    with open(csv_b) as f:
+        rb = list(csv.reader(f))
+    score_err = max(abs(float(x) - float(y)) for r1, r2 in zip(ra[1:], rb[1:])
+                    for x, y in zip(r1[6:], r2[6:]))
+    same = a == b and len(ra) == len(rb) and all(r1[:6] == r2[:6] for r1, r2 in zip(ra, rb))
+    print(f"{tag} result dicts and CSV rows {'equal' if same else 'DIFFER'}; scores "
+          f"max|card - cpu| {score_err:.3e} (bound 1e-5)", flush=True)
+    check(same and score_err <= 1e-5, f"{tag} the card's MMVP-VLM result differs from the CPU's")
+
+
+def phase_small_eval(work):
+    """A tiny CLIPModel (random, seeded; vision D=64 at L=17, text 16
+    positions) evaluated on a tiny synthetic MMVP-VLM tree (9 categories x 2
+    pairs) with a toy tokenizer, on the card (K2 in float32) and on the CPU
+    (plain versions): the whole ``evaluate`` output equal, the embeddings
+    within 1e-5 of the CPU's largest."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.core.nn import init_weights
+    from genhancer_tpu_torch.eval import mmvp
+    from genhancer_tpu_torch.models.towers import clip as cm
+
+    cfg = cm.CLIPConfig(
+        vision=cm.CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_layers=2,
+                                   num_heads=2, image_size=32, patch_size=8),
+        text=cm.CLIPTextConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                               num_heads=2, vocab_size=100, max_position_embeddings=16,
+                               eos_token_id=99),
+        projection_dim=32)
+    model = init_weights(cm.CLIPModel(cfg), torch.Generator().manual_seed(21)).eval()
+    bench = _write_mmvp(os.path.join(work, "tiny-mmvp"), 2, 40, seed=1)
+    tok = _toy_tokenize(16, 99)
+    cpu = mmvp.evaluate(model, cfg, "clip", bench, tok,
+                        results_csv=os.path.join(work, "tiny-cpu.csv"))
+    card = copy.deepcopy(model).cuda()
+    _zero_counts()
+    got = mmvp.evaluate(card, cfg, "clip", bench, tok,
+                        results_csv=os.path.join(work, "tiny-card.csv"))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _read_counts().items() if v}
+    _same_results(got, cpu, os.path.join(work, "tiny-card.csv"),
+                  os.path.join(work, "tiny-cpu.csv"), "[small] tiny MMVP-VLM eval card vs cpu:")
+    pairs = mmvp.load_pairs(bench)
+    images = np.stack([mmvp.preprocess_image(p, "clip", 32)
+                       for pair in pairs for p in (pair.img1, pair.img2)])
+    ids = tok([t for pair in pairs for t in (pair.text1, pair.text2)])[0]
+    errs = []
+    for want, have in zip(mmvp._embed_all(model, cfg, "clip", images, ids),
+                          mmvp._embed_all(card, cfg, "clip", images, ids)):
+        errs.append(float(np.abs(have - want).max() / np.abs(want).max()))
+    print(f"[small] tiny eval embeddings card vs cpu: images {errs[0]:.3e}, texts "
+          f"{errs[1]:.3e} of the largest (bound 1e-5); the card's launches {counts}",
+          flush=True)
+    check(max(errs) <= 1e-5, f"tiny eval: embeddings differ by {errs}")
+    check(counts == {"fused_attention": cfg.vision.num_layers},
+          f"tiny eval: launches {counts}, expected K2 {cfg.vision.num_layers} times")
+
+
 def _tiny_int8_spec(dit_quant: str):
     """The tiny spec cut for the int8 stack: a DiT of hidden 512 (its large
     linears reach the SwitchBack threshold), a tower of hidden 64 (its
@@ -2145,21 +2389,72 @@ def _export_timer():
     return calls, lambda: setattr(ckpt, "export_hf_tower", inner)
 
 
-def phase_stage2_train(work, stage1):
-    """The port's Trainer on configs/MetaCLIP_large_stage2_all.yaml at full
-    width from the stage-1 files of ``stage1`` (step 10 of phase_train's K3
-    run): 7 steps, 3-6 timed and 7 under torch.profiler, K2b's first call
-    held against its plain version, the HF export at the end timed and read
-    back by ``registry.load_tower``; then ``stage2_only`` with
-    ``fused_optimizer: pallas`` (K3 over the LoRA leaves) for 4 steps.
-    Returns {path: launch counts}."""
+def _check_k2b_call(spy, tag, path):
+    """K2b's first call in a stage-2 step (kept by a _K2bSpy) against its
+    plain version: 2e-2 max (relative to max(1, max|plain|)), 2e-4 mean."""
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+    check(spy.call is not None, f"{path}: K2b never launched")
+    (q, k, v, o, do), got = spy.call
+    want = K.fused_attention_bwd_ref(q, k, v, o, do)
+    abs_err, rel_err = _grad_errors(got, want)
+    means = [_mean_rel(g, w) for g, w in zip(got, want)]
+    print(f"{tag} K2b's first call in the step, {tuple(q.shape)} {str(q.dtype)[6:]}: "
+          f"max err {abs_err:.3e} (rel {rel_err:.3e}, bound {BOUND['bfloat16']}); mean "
+          f"|kernel - plain| / mean|plain| dq {means[0]:.3e}, dk {means[1]:.3e}, dv "
+          f"{means[2]:.3e} (bound {ROUNDING_BOUND})", flush=True)
+    check(rel_err <= BOUND["bfloat16"] and max(means) <= ROUNDING_BOUND,
+          f"{path}: K2b in the stage-2 step disagrees with its plain version")
+
+
+def _check_export(trainer, exports, tag):
+    """The one HF export a stage-2 run wrote (``_export_timer``'s record):
+    its seconds and bytes, its files, and ``registry.load_tower`` of it
+    against the in-memory merged tower: class tokens bit for bit and
+    config.json.  Returns the export's directory."""
     import numpy as np
     import torch
     from genhancer_tpu_torch import registry
     from genhancer_tpu_torch.tasks.conditioning import (OPENAI_CLIP_MEAN, OPENAI_CLIP_STD,
                                                         normalize, tower_features)
-    from genhancer_tpu_torch.core.kernels import short_attention as K
     from genhancer_tpu_torch.train import lora
+    check(len(exports) == 1, f"{len(exports)} exports, expected 1")
+    secs, nbytes, out = exports[0]
+    print(f"{tag} HF export {os.path.basename(out)}: merge + pytorch_model.bin of "
+          f"{nbytes / 1e9:.3f} GB in {secs:.2f} s ({nbytes / 1e9 / secs:.2f} GB/s); files "
+          f"{sorted(os.listdir(out))}", flush=True)
+    check(sorted(os.listdir(out)) == ["config.json", "pytorch_model.bin"],
+          f"export files {os.listdir(out)}")
+    spec, st = trainer.spec, trainer.state
+    dev, size = st.modules["clip"]["model"].logit_scale.device, spec.clip_image_size
+    loaded, cfg_l = registry.load_tower(spec.tower_kind, spec.tower_cfg, out, device=dev)
+    merged = lora.merge(st.modules["clip"]["model"])
+    img = torch.from_numpy(np.random.default_rng(9).random((4, size, size, 3),
+                                                           dtype=np.float32)).to(dev)
+    px = normalize(img, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD).to(spec.compute_dtype)
+    with torch.no_grad():
+        a = tower_features("clip", {"model": loaded}, px, spec.tower_cfg)[0]
+        b = tower_features("clip", {"model": merged}, px, spec.tower_cfg)[0]
+    same = torch.equal(a, b) and cfg_l == spec.tower_cfg
+    print(f"{tag} registry.load_tower(model_dir=export) class tokens "
+          f"{'equal' if same else 'DIFFER FROM'} the in-memory merged tower's bit for bit "
+          f"({tuple(a.shape)} {str(a.dtype)[6:]}); config.json read back "
+          f"{'equal' if cfg_l == spec.tower_cfg else 'different'}", flush=True)
+    check(same, "the exported tower does not reproduce the merged tower")
+    del loaded, merged
+    _free()
+    return out
+
+
+def phase_stage2_train(work, stage1, eval_root=None):
+    """The port's Trainer on configs/MetaCLIP_large_stage2_all.yaml at full
+    width from the stage-1 files of ``stage1`` (step 10 of phase_train's K3
+    run): 7 steps, 3-6 timed and 7 under torch.profiler, K2b's first call
+    held against its plain version, the HF export at the end timed and read
+    back by ``registry.load_tower`` (then moved into ``eval_root`` for
+    phase_eval); then ``stage2_only`` with ``fused_optimizer: pallas`` (K3
+    over the LoRA leaves) for 4 steps.  Returns ({path: launch counts},
+    the kept export's directory)."""
+    import numpy as np
     from genhancer_tpu_torch.train.config import load_config
 
     check(stage1 is not None and os.path.exists(os.path.join(stage1, "checkpoint-dit-10.bin")),
@@ -2168,7 +2463,7 @@ def phase_stage2_train(work, stage1):
     base["data_config"]["img_dir"] = os.path.join(work, "shards")
     base.update(load_dir=stage1, load_step=10, log_interval=1, report_to="none",
                 checkpointing_steps=0)
-    runs = {}
+    runs, export = {}, None
 
     cfg = copy.deepcopy(base)
     steps = STAGE2_STEPS["train_stage2_all"]
@@ -2203,45 +2498,14 @@ def phase_stage2_train(work, stage1):
     check(counts == want, f"stage2_all: launch counts {counts} != expected {want}")
     runs["train_stage2_all"] = counts
 
-    # K2b inside the step: its first call against the plain version
-    check(spy.call is not None, "stage2_all: K2b never launched")
-    (q, k, v, o, do), got = spy.call
-    want_g = K.fused_attention_bwd_ref(q, k, v, o, do)
-    abs_err, rel_err = _grad_errors(got, want_g)
-    means = [_mean_rel(g, w) for g, w in zip(got, want_g)]
-    print(f"[stage2] K2b's first call in the step, {tuple(q.shape)} {str(q.dtype)[6:]}: "
-          f"max err {abs_err:.3e} (rel {rel_err:.3e}, bound {BOUND['bfloat16']}); mean "
-          f"|kernel - plain| / mean|plain| dq {means[0]:.3e}, dk {means[1]:.3e}, dv "
-          f"{means[2]:.3e} (bound {ROUNDING_BOUND})", flush=True)
-    check(rel_err <= BOUND["bfloat16"] and max(means) <= ROUNDING_BOUND,
-          "K2b in the stage-2 step disagrees with its plain version")
-    del spy, q, k, v, o, do, got, want_g
-
-    # the export: timed, then read back
-    check(len(exports) == 1, f"stage2_all: {len(exports)} exports, expected 1")
-    secs, nbytes, out = exports[0]
-    print(f"[stage2] HF export {os.path.basename(out)}: merge + pytorch_model.bin of "
-          f"{nbytes / 1e9:.3f} GB in {secs:.2f} s ({nbytes / 1e9 / secs:.2f} GB/s); files "
-          f"{sorted(os.listdir(out))}", flush=True)
-    check(sorted(os.listdir(out)) == ["config.json", "pytorch_model.bin"],
-          f"export files {os.listdir(out)}")
-    spec, dev, size = trainer.spec, st.modules["clip"]["model"].logit_scale.device, \
-        trainer.spec.clip_image_size
-    loaded, cfg_l = registry.load_tower(spec.tower_kind, spec.tower_cfg, out, device=dev)
-    merged = lora.merge(st.modules["clip"]["model"])
-    img = torch.from_numpy(np.random.default_rng(9).random((4, size, size, 3),
-                                                           dtype=np.float32)).to(dev)
-    px = normalize(img, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD).to(spec.compute_dtype)
-    with torch.no_grad():
-        a = tower_features("clip", {"model": loaded}, px, spec.tower_cfg)[0]
-        b = tower_features("clip", {"model": merged}, px, spec.tower_cfg)[0]
-    same = torch.equal(a, b) and cfg_l == spec.tower_cfg
-    print(f"[stage2] registry.load_tower(model_dir=export) class tokens "
-          f"{'equal' if same else 'DIFFER FROM'} the in-memory merged tower's bit for bit "
-          f"({tuple(a.shape)} {str(a.dtype)[6:]}); config.json read back "
-          f"{'equal' if cfg_l == spec.tower_cfg else 'different'}", flush=True)
-    check(same, "the exported tower does not reproduce the merged tower")
-    del trainer, st, loaded, merged, a, b
+    _check_k2b_call(spy, "[stage2]", "stage2_all")
+    del spy
+    out = _check_export(trainer, exports, "[stage2]")
+    if eval_root is not None:       # the MMVP-VLM eval reads it (phase_eval)
+        keep = os.path.join(eval_root, os.path.basename(out))
+        shutil.move(out, keep)
+        export = keep
+    del trainer, st
     _free()
     shutil.rmtree(cfg["output_dir"], ignore_errors=True)
 
@@ -2269,7 +2533,7 @@ def phase_stage2_train(work, stage1):
     del trainer, st
     _free()
     shutil.rmtree(cfg["output_dir"], ignore_errors=True)
-    return runs
+    return runs, export
 
 
 def _int8_want(trainer, steps):
@@ -2436,15 +2700,19 @@ def phase_train_int8(work):
 
 def _video_want(spec, steps):
     """Launch counts of ``steps`` optimizer steps (accumulation 2) of a
-    video mode: the tower's 24 layers run K2 once per micro-batch; each of
-    the 6 DiT blocks runs K1/K1b below 600 joint tokens and K5/K5b above,
-    K5 twice with remat (the forward again in the backward)."""
+    video mode: the tower's 24 layers run K2 once per micro-batch (twice
+    with ``tower_remat``: the recompute in the backward) and, in stage 2,
+    K2b once; each of the 6 DiT blocks runs K1/K1b below 600 joint tokens
+    and K5/K5b above, K5 twice with remat (the forward again in the
+    backward)."""
     micro, blocks = 2 * steps, spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    layers, stage2 = spec.tower_cfg.vision.num_layers, spec.stage == "stage2_all"
     seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
     long_ = seq >= 600
     return {**_no_launches(), "fused_rope_attention": 0 if long_ else micro * blocks,
             "fused_rope_attention_bwd": 0 if long_ else micro * blocks,
-            "fused_attention": micro * spec.tower_cfg.vision.num_layers,
+            "fused_attention": micro * layers * (2 if stage2 and spec.tower_remat else 1),
+            "fused_attention_bwd": micro * layers if stage2 else 0,
             "flash_attention": micro * blocks * (2 if spec.remat else 1) if long_ else 0,
             "flash_attention_bwd": micro * blocks if long_ else 0}
 
@@ -2466,6 +2734,7 @@ class _LastStepProfile:
 
     def __init__(self, steps: int = 1):
         self.steps, self.prof, self.wall_s = steps, None, None
+        self.step_peak = 0.0     # GiB allocated at most by the steps (no checkpoint)
 
     def install(self, trainer):
         import torch
@@ -2485,6 +2754,7 @@ class _LastStepProfile:
                 torch.cuda.synchronize()
                 self.wall_s = time.perf_counter() - t0[0]
                 self.prof.stop()
+            self.step_peak = max(self.step_peak, torch.cuda.max_memory_allocated() / 2**30)
             return out
         trainer.step_fn = step_fn
 
@@ -2512,7 +2782,9 @@ def _trainer_run(cfg, steps_done=0, profile=None):
 
 def phase_video_train(work):
     """The port's Trainer on the four published stage-1 video configs at full
-    width and published batch; returns {path: launch counts}."""
+    width and published batch; returns ({path: launch counts}, {mode:
+    (output dir, step)}: the component files of each mode's last step,
+    which phase_video_stage2 loads)."""
     import numpy as np
     from genhancer_tpu_torch.train import checkpoint as ckpt
     from genhancer_tpu_torch.train.config import load_config
@@ -2530,7 +2802,7 @@ def phase_video_train(work):
         _print_device_time(profile.prof, 1, profile.wall_s,
                            f"[video] {mode} (step {step}, profiled):")
 
-    runs = {}
+    runs, stage1 = {}, {}
     for mode, name in VIDEO_CONFIGS.items():
         cfg = load_config(os.path.join(ROOT, "configs", name))
         cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
@@ -2599,7 +2871,261 @@ def phase_video_train(work):
             del trainer
             _free()
         del profile
-        shutil.rmtree(out, ignore_errors=True)
+        # stage 2 loads the last step's components; the rest goes
+        last = ckpt.latest_step(out)
+        ckpt.prune_checkpoints(out, 1)
+        os.remove(os.path.join(out, f"optimizer-state-{last}.bin"))
+        stage1[mode] = (out, last)
+    return runs, stage1
+
+
+def _video2_report(mode, trainer, counts, wall, peak, profile, steps):
+    """Prints and checks one video stage-2 run: synced steps, losses, the
+    trainable tower leaves, step time of steps 2-3, rows/s, peak memory (of
+    the run and of its steps), the profiled last step and the launch
+    counts."""
+    import numpy as np
+    spec, hist, st = trainer.spec, trainer.history, trainer.state
+    n_tower = sum(k.startswith("clip.model.") for k in st.trainable)
+    check([h["step"] for h in hist] == list(range(1, steps + 1)),
+          f"{mode} stage 2: synced steps {[h['step'] for h in hist]}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"{mode} stage 2: non-finite loss or grad norm: {hist}")
+    check(n_tower == 652, f"{mode} stage 2: {n_tower} trainable tower leaves, not 652")
+    timed = hist[1:-1]
+    step_s = statistics.median(h["step_time"] for h in timed)
+    seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
+    frames = 16 * spec.n_cond      # 16 rows per micro-batch (sliding: 2 videos x 8 windows)
+    rate = f"{32 / step_s:.2f} rows/s (32 rows per optimizer step)"
+    if mode == "sliding":
+        valid_s = sum(2 * h["bs_eff"] for h in timed) / sum(h["step_time"] for h in timed)
+        rate = (f"{valid_s:.2f} valid rows/s ({32 / step_s:.2f} padded rows/s; valid rows "
+                f"per micro-batch, mean of 2: {[h['bs_eff'] for h in hist]})")
+    print(f"[video2] {mode}: joint L={seq}, remat {spec.remat}, tower_remat "
+          f"{spec.tower_remat}, {frames} tower frames of L={spec.patch_grid ** 2 + 1} per "
+          f"micro-batch; {len(st.trainable)} trainable leaves ({n_tower} of the tower); "
+          f"{steps} steps in {wall:.1f} s incl. the export; losses "
+          f"{[round(h['loss'], 4) for h in hist]}", flush=True)
+    print(f"[video2] {mode}: median step time of steps 2-{steps - 1} {step_s * 1e3:.1f} ms = "
+          f"{rate}; peak device memory {peak:.2f} GiB (steps alone {profile.step_peak:.2f} "
+          f"GiB)", flush=True)
+    _print_device_time(profile.prof, 1, profile.wall_s,
+                       f"[video2] {mode} (step {steps}, profiled):")
+    want = _video_want(spec, steps)
+    print(f"[video2] {mode}: kernel launches {counts}, expected {want}", flush=True)
+    check(counts == want, f"{mode} stage 2: launch counts {counts} != expected {want}")
+
+
+def _peak_of_steps(cfg, n=2):
+    """A Trainer for ``cfg`` whose first ``n`` steps run by hand (no
+    checkpoint): (peak GiB allocated by them, their seconds), or (None,
+    the error) where the card runs out of memory."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, device="cuda")
+    batches = trainer._batches()
+    it = iter(batches)
+    out = None
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for i in range(n):
+            batch = next(it)
+            batch.pop("__extras__", None)
+            trainer.generator.manual_seed(i)
+            t0 = time.perf_counter()
+            trainer.state, m = trainer.step_fn(trainer.state, batch, trainer.generator)
+            check(bool(np.isfinite(float(m["loss"]))), "non-finite loss")
+            secs.append(time.perf_counter() - t0)
+        out = (torch.cuda.max_memory_allocated() / 2**30, secs, trainer.spec)
+    except torch.cuda.OutOfMemoryError as e:
+        out = (None, str(e)[:200], trainer.spec)
+    finally:
+        batches.close()
+        trainer.loader.close()
+        del trainer
+        _free()
+    return out
+
+
+def phase_video_stage2(work, stage1, eval_root=None):
+    """The port's Trainer on the four published video stage-2 configs at full
+    width and published batch x accumulation 2 (LoRA on all 218 linears of
+    OpenAI CLIP-L/14, the tower under autograd: K2b; the gates' DiT remat
+    and tower_remat), each from its own mode's stage-1 files: 4 steps, 2-3
+    timed, 4 under torch.profiler, K2b's first call held against its plain
+    version, the HF export at the end timed and read back; middle@336's
+    export kept in ``eval_root`` for phase_eval, its steps' peak memory
+    measured again with tower_remat off; next resumed for a fifth step (the
+    LoRA factors restart).  Returns ({path: launch counts}, middle@336's
+    export)."""
+    import numpy as np
+    from genhancer_tpu_torch.train.config import load_config
+    from genhancer_tpu_torch.train.trainer import Trainer
+
+    runs, export = {}, None
+    steps = STAGE2_STEPS["video_middle_stage2"]
+    for mode, name in VIDEO2_CONFIGS.items():
+        check(mode in stage1, f"{mode}: no stage-1 files to load")
+        load_dir, load_step = stage1[mode]
+        cfg = load_config(os.path.join(ROOT, "configs", name))
+        cfg["data_config"]["video_dir"] = os.path.join(
+            work, "sliding" if mode == "sliding" else "clips")
+        cfg.update(output_dir=os.path.join(work, f"out2-{mode}"), max_train_steps=steps,
+                   checkpointing_steps=0, log_interval=1, report_to="none",
+                   load_dir=load_dir, load_step=load_step)
+        exports, restore = _export_timer()
+        profile = _LastStepProfile()
+        try:
+            with _K2bSpy() as spy:
+                trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+        finally:
+            restore()
+        print(f"[video2] {mode} ({name}): loaded the stage-1 components of step "
+              f"{load_step}", flush=True)
+        _video2_report(mode, trainer, counts, wall, peak, profile, steps)
+        runs[f"video_{mode}_stage2"] = counts
+        _check_k2b_call(spy, f"[video2] {mode}:", f"video {mode} stage 2")
+        del spy
+        out = _check_export(trainer, exports, f"[video2] {mode}:")
+        del trainer
+        _free()
+        if mode == "middle":
+            if eval_root is not None:
+                export = os.path.join(eval_root, os.path.basename(out))
+                shutil.move(out, export)
+            on, off = copy.deepcopy(cfg), copy.deepcopy(cfg)
+            on.update(output_dir=os.path.join(work, "out2-middle-on"),
+                      resume_from_checkpoint=None)
+            off.update(output_dir=os.path.join(work, "out2-middle-off"),
+                       resume_from_checkpoint=None, tower_remat=False)
+            on_peak, on_s, _ = _peak_of_steps(on)
+            off_peak, off_s, off_spec = _peak_of_steps(off)
+            for c in (on, off):
+                shutil.rmtree(c["output_dir"], ignore_errors=True)
+            check(not off_spec.tower_remat and on_peak is not None, "middle: remat runs")
+            print(f"[video2] middle@336 peak device memory of 2 steps by hand: tower_remat on "
+                  f"(the gate's) {on_peak:.2f} GiB ({[round(x, 3) for x in on_s]} s), off "
+                  + (f"{off_peak:.2f} GiB ({[round(x, 3) for x in off_s]} s)"
+                     if off_peak is not None else f"out of memory ({off_s})"), flush=True)
+        if mode == "next":
+            cfg2 = copy.deepcopy(cfg)
+            cfg2.update(max_train_steps=steps + 1)      # resume_from_checkpoint: latest
+            trainer = Trainer(cfg2, device="cuda")
+            check(trainer.state.step == steps, f"next stage 2: resumed at {trainer.state.step}")
+            b_zero = all(not p.any() for k, p in trainer.state.trainable.items()
+                         if k.endswith(".lora_B"))
+            trainer.train()
+            hist2 = trainer.history
+            check([h["step"] for h in hist2] == [steps + 1] and b_zero
+                  and all(np.isfinite(h["loss"]) for h in hist2),
+                  f"next stage 2 resume: {hist2}, LoRA B restarted at 0: {b_zero}")
+            print(f"[video2] next: a second Trainer resumed at step {steps} (components and "
+                  f"optimizer state; every lora_B back at its initial 0) and ran step "
+                  f"{steps + 1}, loss {hist2[0]['loss']:.4f}", flush=True)
+            del trainer
+            _free()
+        shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+        shutil.rmtree(load_dir, ignore_errors=True)
+    return runs, export
+
+
+def phase_eval(work, exports):
+    """``evaluate_model_dir`` at full width on the card, on each stage-2
+    export of ``exports`` ({label: (dir, tower, clip_image_size)}): a
+    synthetic MMVP-VLM tree of 9 categories x 15 pairs (270 JPEGs) and a
+    deterministic tokenizer in place of the HF one (injected as
+    ``mmvp.default_tokenizer``).  Prints the seconds, images/s and texts/s
+    (the feature calls, synced) and checks nine categories + the average,
+    135 CSV rows and scores in [0, 100]; the first pair's image and text
+    embeddings are held against the CPU's plain path on the same export at
+    1e-4 of their largest.  Returns {path: launch counts}."""
+    import csv
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch import registry
+    from genhancer_tpu_torch.eval import mmvp
+    from genhancer_tpu_torch.models.towers import clip as cm
+
+    t0 = time.perf_counter()
+    bench = _write_mmvp(os.path.join(work, "mmvp"), EVAL_PAIRS, 336)
+    print(f"[eval] wrote a synthetic MMVP-VLM tree (9 x {EVAL_PAIRS} pairs, "
+          f"{18 * EVAL_PAIRS} 336-px JPEGs) in {time.perf_counter() - t0:.1f} s", flush=True)
+    tok = _toy_tokenize(77, 49407)
+    inner = {n: getattr(cm, n) for n in ("get_image_features", "get_text_features")}
+    calls = {n: [] for n in inner}
+
+    def timed(name):
+        def fn(model, x, cfg, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner[name](model, x, cfg, *a)
+            torch.cuda.synchronize()
+            calls[name].append((time.perf_counter() - t, x.shape[0], out[:2].float().cpu()))
+            return out
+        return fn
+
+    runs, default_tok = {}, mmvp.default_tokenizer
+    mmvp.default_tokenizer = lambda d, k: tok
+    try:
+        for label, (model_dir, tower, size) in exports.items():
+            check(model_dir is not None and os.path.isdir(model_dir), f"{label}: no export")
+            for n in inner:
+                calls[n] = []
+                setattr(cm, n, timed(n))
+            csv_path = os.path.join(work, f"eval-{size}.csv")
+            _zero_counts()
+            t0 = time.perf_counter()
+            try:
+                res = mmvp.evaluate_model_dir(model_dir, bench, tower=tower, clip_image_size=size,
+                                              results_csv=csv_path, device="cuda")
+            finally:
+                for n in inner:
+                    setattr(cm, n, inner[n])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _read_counts()
+            with open(csv_path) as f:
+                rows = list(csv.reader(f))[1:]
+            img_s = sum(c[0] for c in calls["get_image_features"])
+            txt_s = sum(c[0] for c in calls["get_text_features"])
+            n_img = sum(c[1] for c in calls["get_image_features"])
+            n_txt = sum(c[1] for c in calls["get_text_features"])
+            print(f"[eval] {label}: evaluate_model_dir({os.path.basename(model_dir)}) in "
+                  f"{secs:.2f} s (loading, preprocessing, embedding, scoring) = "
+                  f"{n_img / secs:.2f} images/s end to end; image features {n_img} in "
+                  f"{img_s:.3f} s = {n_img / img_s:.1f} images/s, text features {n_txt} in "
+                  f"{txt_s:.3f} s = {n_txt / txt_s:.1f} texts/s (batches of 50, float32, "
+                  f"synced); average_score {res['average_score']:.2f}", flush=True)
+            layers = registry.tower_config("clip", model_dir).vision.num_layers
+            want = {**_no_launches(), "fused_attention": layers * -(-n_img // 50)}
+            print(f"[eval] {label}: kernel launches {counts}, expected {want}", flush=True)
+            check(sorted(res) == sorted(mmvp.CATEGORIES + ["average_score"])
+                  and all(0.0 <= x <= 100.0 for x in res.values()) and len(rows) == 135
+                  and n_img == n_txt == 270, f"{label}: eval result {res}, {len(rows)} rows")
+            check(counts == want, f"{label}: launch counts {counts} != expected {want}")
+            runs[f"eval_{size}"] = counts
+            # the first pair on the CPU's plain path, from the same directory
+            model, cfg = registry.load_tower("clip", None, model_dir, device="cpu")
+            pair = mmvp.load_pairs(bench)[0]
+            px = torch.from_numpy(np.stack([mmvp.preprocess_image(p, "clip", size)
+                                            for p in (pair.img1, pair.img2)]))
+            with torch.no_grad():
+                want_i = cm.get_image_features(model, px, cfg)
+                want_t = cm.get_text_features(
+                    model, torch.from_numpy(tok([pair.text1, pair.text2])[0]), cfg)
+            errs = [((calls[n][0][2] - w).abs().max() / w.abs().max()).item()
+                    for n, w in (("get_image_features", want_i), ("get_text_features", want_t))]
+            print(f"[eval] {label}: the first pair's embeddings card vs cpu: images "
+                  f"{errs[0]:.3e}, texts {errs[1]:.3e} of the largest (bound 1e-4)",
+                  flush=True)
+            check(max(errs) <= 1e-4, f"{label}: the card's embeddings differ by {errs}")
+            del model
+            _free()
+    finally:
+        mmvp.default_tokenizer = default_tok
     return runs
 
 
@@ -2616,29 +3142,47 @@ def main():
     attempt(phase_small_train)
     attempt(phase_small_video)
     attempt(phase_small_stage2)
+    attempt(phase_small_video_stage2)
+    work = tempfile.mkdtemp(prefix="chip_smoke_small_")
+    try:
+        attempt(phase_small_eval, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     attempt(phase_small_int8)
     serve_counts = attempt(phase_server)
-    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    # the stage-2 exports the MMVP-VLM eval reads at the end
+    eval_root, exports = tempfile.mkdtemp(prefix="chip_smoke_eval_"), {}
     try:
-        train_counts, _, stage1 = attempt(phase_train, work) or (None, None, None)
-        stage2_counts = attempt(phase_stage2_train, work, stage1)
+        work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+        try:
+            train_counts, _, stage1 = attempt(phase_train, work) or (None, None, None)
+            stage2_counts, exports["image"] = (attempt(phase_stage2_train, work, stage1,
+                                                       eval_root) or (None, None))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+        try:
+            int8_counts = attempt(phase_train_int8, work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke_video_")
+        try:
+            video_counts, video1 = attempt(phase_video_train, work) or (None, None)
+            video2_counts, exports["middle"] = (attempt(phase_video_stage2, work, video1 or {},
+                                                        eval_root) or (None, None))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        eval_counts = attempt(phase_eval, eval_root, {
+            "image stage 2 export (MetaCLIP-L/14, 224 px)": (exports["image"], "metaclip", 224),
+            "middle@336 stage 2 export (CLIP-L/14@336)": (exports["middle"], "openai_clip",
+                                                          336)})
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
-    try:
-        int8_counts = attempt(phase_train_int8, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_video_")
-    try:
-        video_counts = attempt(phase_video_train, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(eval_root, ignore_errors=True)
     if FAILURES:
         print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
         sys.exit(1)
     paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()},
-             **stage2_counts, **int8_counts, **video_counts}
+             **stage2_counts, **int8_counts, **video_counts, **video2_counts, **eval_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies
         return counts[name] + (counts["fused_adamw8_quant"] if name == "fused_adamw8" else 0)
@@ -2655,8 +3199,9 @@ def main():
         check(paths["train_int8_dw"][n] > 0, f"{n} not launched on the int8_dw path")
     check(len(records) == 11 and all(set(REQUIRED_KEYS) <= set(r) for r in records.values()),
           f"kernel records: {sorted(records)}")
-    # every kernel of a path ran on it; K2b runs where the tower trains, 48
-    # times per optimizer step (24 layers x 2 micro-batches), and nowhere else
+    # every kernel of a path ran on it; K2b runs where the tower trains (image
+    # and video stage 2), 48 times per optimizer step (24 layers x 2
+    # micro-batches), and nowhere else
     for n in ("fused_attention",):
         check(all(c[n] > 0 for c in paths.values()), f"{n} not launched on every path")
     k2b = {p: c["fused_attention_bwd"] for p, c in paths.items()}

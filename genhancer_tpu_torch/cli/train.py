@@ -8,14 +8,16 @@ once):
     genhancer-train-torch --config configs/OpenAICLIP_224_sliding_stage1.yaml --device cuda
     genhancer-train-torch --config configs/tpu_fast_stage1.yaml --device cuda
     genhancer-train-torch --config configs/MetaCLIP_large_stage2_all.yaml --device cuda
+    genhancer-train-torch --config configs/OpenAICLIP_336_video_stage2_all.yaml --device cuda
 
 The stage-1 tasks run (the image task also with the int8 stack, which the
 config alone selects: ``tower_quant``, ``vae_quant``, ``dit_quant``,
 ``fused_optimizer: pallas``, ``optimizer_moment_bits``): ``image_stage1`` and the four video modes
-``video_{middle,next,next2,sliding}_stage1``; and image stage 2
-(``image_stage2_only``, ``image_stage2_all``: LoRA on the tower, from the
-stage-1 files of ``load_dir``/``load_step``, an HF export of the merged
-tower at each checkpoint).
+``video_{middle,next,next2,sliding}_stage1``; and stage 2 in image mode
+(``image_stage2_only``, ``image_stage2_all``) and in the four video modes
+(``video_{middle,next,next2,sliding}_stage2_all``): LoRA on the tower, from
+the stage-1 files of ``load_dir``/``load_step``, an HF export of the merged
+tower at each checkpoint.
 
   * ``--task`` / ``--tower`` overrides (else read from the YAML);
   * ``--trainer <reference script name>`` maps a reference trainer name onto

@@ -132,6 +132,40 @@ def lora_dropout_ctx(generator: Optional[torch.Generator], rate: float,
         _LORA_DROPOUT.state = prev
 
 
+def lora_dropout_replay(fn):
+    """``fn`` as a function whose every call draws the LoRA dropout masks of
+    its first call, for a function that ``torch.utils.checkpoint`` runs again
+    in the backward (``tower_remat``).  The checkpoint restores the global
+    RNG, not the context's generator, and the context may be closed by then:
+    a later call reopens the first call's context at its first call's index
+    and, where the masks come from the generator, its state (put back after),
+    as JAX's ``jax.checkpoint`` replays the same ``fold_in(key, call)``
+    keys.  Outside an open context with a nonzero rate ``fn`` is returned."""
+    ctx = getattr(_LORA_DROPOUT, "state", None)
+    if ctx is None or ctx["rate"] <= 0.0:
+        return fn
+    gen = ctx["generator"] if ctx["masks"] is None else None
+    first = {}
+
+    def run(*args):
+        if not first:
+            first.update(calls=ctx["calls"], gen=gen.get_state() if gen is not None else None)
+            return fn(*args)
+        prev, now = getattr(_LORA_DROPOUT, "state", None), None
+        _LORA_DROPOUT.state = {**ctx, "calls": first["calls"]}
+        if gen is not None:
+            now = gen.get_state()
+            gen.set_state(first["gen"])
+        try:
+            return fn(*args)
+        finally:
+            _LORA_DROPOUT.state = prev
+            if gen is not None:
+                gen.set_state(now)
+
+    return run
+
+
 def _lora_dropout(x: torch.Tensor) -> torch.Tensor:
     """``_lora_dropout`` (``nn.py:95-103``): kept elements divided by keep_p
     rounded to x.dtype (bf16 0.9 is 0.8984375), dropped ones zero."""

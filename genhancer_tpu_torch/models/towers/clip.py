@@ -6,14 +6,18 @@ vision transformer the serving and stage-1 paths run (``CLIPVisionTower``:
 ``vision_model`` + ``visual_projection``), and for stage 2, which
 fine-tunes and exports the whole HF ``CLIPModel`` (``clip.py:193-203``),
 ``CLIPModel``: the same vision side plus the text side's parameters
-(``text_model.*``, ``text_projection``, ``logit_scale``).  The text forward
-is not ported.  Module names follow the HF ``CLIPModel`` state dict
+(``text_model.*``, ``text_projection``, ``logit_scale``), with the text
+forward and the feature and logit functions the MMVP-VLM evaluation calls
+(``clip.py:232-268``).  Module names follow the HF ``CLIPModel`` state dict
 (``vision_model.embeddings.patch_embedding.weight``,
 ``vision_model.pre_layrnorm`` ..., ``visual_projection.weight``).
 
 Parity details: ``last_hidden_state`` is returned without post_layernorm;
 ``pooled = post_layernorm(last[:, 0])``; the class token the DiT is
-conditioned on is ``visual_projection(pooled)``.
+conditioned on is ``visual_projection(pooled)``; the text side pools at the
+argmax of the ids when ``eos_token_id == 2`` (legacy configs), else at the
+first EOS; ``logits_per_text = exp(logit_scale) * norm(text) @
+norm(image).T``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 from torch import nn as tnn
 
 from ...core import nn
-from .encoder import Encoder, EncoderConfig, encoder_forward
+from .encoder import Encoder, EncoderConfig, causal_mask, encoder_forward, padding_mask
 
 
 @dataclass(frozen=True)
@@ -264,3 +268,47 @@ def visual_projection(p, pooled: torch.Tensor) -> torch.Tensor:
     the LoRA branch once stage 2 has wrapped it.  ``p``: a CLIPVisionTower
     or CLIPModel."""
     return nn.linear(p.visual_projection, pooled)
+
+
+def text_forward(p: TextTransformer, input_ids: torch.Tensor, cfg: CLIPTextConfig,
+                 attention_mask=None):
+    """Returns (last_hidden_state, pooled_output), pooled at the EOS
+    position; the activations take the embedding tables' dtype."""
+    b, l = input_ids.shape
+    x = (p.embeddings.token_embedding.weight[input_ids]
+         + p.embeddings.position_embedding.weight[None, :l])
+    mask = causal_mask(l, x.dtype, x.device)
+    if attention_mask is not None:
+        mask = mask + padding_mask(attention_mask.to(x.device), x.dtype)
+    x = encoder_forward(p.encoder, x, cfg.encoder, mask)
+    x = nn.layernorm(p.final_layer_norm, x, eps=cfg.layer_norm_eps)
+    if cfg.eos_token_id == 2:      # legacy configs: EOS is the largest token id
+        eos_pos = torch.argmax(input_ids, dim=-1)
+    else:
+        eos_pos = torch.argmax((input_ids == cfg.eos_token_id).to(torch.int32), dim=-1)
+    pooled = x[torch.arange(b, device=x.device), eos_pos]
+    return x, pooled
+
+
+def get_image_features(model, pixel_values: torch.Tensor, cfg: CLIPConfig) -> torch.Tensor:
+    """NHWC pixels -> [B, projection_dim]; ``model``: a CLIPVisionTower or
+    CLIPModel."""
+    _, pooled = vision_forward(model.vision_model, pixel_values, cfg.vision)
+    return visual_projection(model, pooled)
+
+
+def get_text_features(model: CLIPModel, input_ids: torch.Tensor, cfg: CLIPConfig,
+                      attention_mask=None) -> torch.Tensor:
+    _, pooled = text_forward(model.text_model, input_ids, cfg.text, attention_mask)
+    return nn.linear(model.text_projection, pooled)
+
+
+def clip_logits(model: CLIPModel, input_ids, pixel_values, cfg: CLIPConfig,
+                attention_mask=None):
+    """(logits_per_text [T, I], logits_per_image [I, T]) — modeling_clip.py."""
+    img = get_image_features(model, pixel_values, cfg)
+    txt = get_text_features(model, input_ids, cfg, attention_mask)
+    img = img / torch.linalg.norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.norm(txt, dim=-1, keepdim=True)
+    logits_per_text = torch.exp(model.logit_scale) * txt @ img.T
+    return logits_per_text, logits_per_text.T

@@ -83,20 +83,25 @@ def load_tower(kind: str, cfg, model_dir: Optional[str] = None,
     (its ``config.json`` overrides ``cfg``; a ``model.`` key prefix is
     stripped) or, with no directory, random init drawn from ``generator``.
     ``text_side``: the whole ``CLIPModel`` (stage 2) or the vision-only
-    ``CLIPVisionTower``."""
+    ``CLIPVisionTower``.  Each loaded tensor keeps the directory's dtype,
+    bfloat16 widened to float32, as the JAX loader does
+    (``weights/torch_io.py:84-92``): a float16 directory gives a float16
+    tower."""
     _require_clip(kind)
     model_dir = tower_dir(model_dir)
     if model_dir is not None:
         cfg = tower_config(kind, model_dir)
     cls = clip_m.CLIPModel if text_side else clip_m.CLIPVisionTower
-    tower = cls(cfg, device=device)
     if model_dir is None:
-        return init_weights(tower, generator), cfg
+        return init_weights(cls(cfg, device=device), generator), cfg
     sd = hf_io.load_hf_dir_state_dict(model_dir)
     if any(k.startswith("model.") for k in sd):
         sd = {k[6:] if k.startswith("model.") else k: v for k, v in sd.items()}
-    tower.load_state_dict(convert.tower_from_hf(sd, text_side), strict=True)
-    return tower, cfg
+    sd = {k: v.to(torch.float32) if v.dtype == torch.bfloat16 else v
+          for k, v in convert.tower_from_hf(sd, text_side).items()}
+    tower = cls(cfg, device="meta")
+    tower.load_state_dict(sd, strict=True, assign=True)
+    return tower.to(device), cfg
 
 
 def _require_clip(kind: str) -> None:

@@ -1,12 +1,15 @@
 """Task factory: config -> (spec, loader, train-step factory, checkpoint kind).
 
 Port of ``genhancer_tpu/tasks/factory.py`` for the tasks ``image_stage1``,
-``image_stage2_only``, ``image_stage2_all`` and
-``video_{middle,next,next2,sliding}_stage1`` with ``tower: openai_clip |
+``image_stage2_only``, ``image_stage2_all``,
+``video_{middle,next,next2,sliding}_stage1`` and
+``video_{middle,next,next2,sliding}_stage2_all`` with ``tower: openai_clip |
 metaclip``; ``clip_config.model_dir`` names a local HF tower directory
 (``registry.load_tower``: its ``config.json`` overrides the variant's
-config).  The video stage-2 tasks and the SigLIP tower are not ported yet
-and raise, as do the options that need several devices (ROADMAP slice 7).
+config).  The video tasks' DiT remat and ``tower_remat`` follow the JAX
+factory's gates on one device (``factory.py:225-258``) unless the config
+sets them.  The SigLIP tower raises, as do the options that need several
+devices (ROADMAP slice 7).
 """
 
 from __future__ import annotations
@@ -42,9 +45,12 @@ _VIDEO_MODE = {"video_middle": "middle", "video_next": "next",
                "video_next2": "next2", "video_sliding": "sliding"}
 _LOADER_MODE = {"middle": "triplet", "next": "next", "next2": "next2",
                 "sliding": "sliding"}
-# the remat gate's per-device token threshold for stage 1
-# (genhancer_tpu/tasks/factory.py:236-246), set for a 16 GB chip and kept as is
+# the gates' per-device token thresholds (genhancer_tpu/tasks/factory.py:
+# 236-258), set for a 16 GB chip and kept as is: DiT remat above
+# REMAT_TOKENS joint tokens in stage 1 and half that in stage 2 (the tower's
+# residuals share the memory), tower_remat above TOWER_REMAT_TOKENS tower tokens
 REMAT_TOKENS = 8192
+TOWER_REMAT_TOKENS = 6144
 
 # config knob -> its single-device value; any other value needs a mesh
 _MULTI_DEVICE = {"model_parallel": 1, "sequence_parallel": 1, "pipeline_parallel": 1,
@@ -77,13 +83,20 @@ def _lora_kwargs(cfg, tower: str) -> dict:
 
 
 def remat_gate(n_cond: int, clip_image_size: int, patch: int, img_size: int,
-               batch: int) -> bool:
-    """The JAX factory's automatic remat decision for a stage-1 video task
-    on one device and one process (``factory.py:236-246``): on when the
-    joint sequence is at least 1024 tokens and the batch's tokens exceed
-    ``REMAT_TOKENS``."""
+               batch: int, stage2: bool = False) -> bool:
+    """The JAX factory's automatic DiT remat decision for a video task on
+    one device and one process (``factory.py:236-246``): on when the joint
+    sequence is at least 1024 tokens and the batch's tokens exceed
+    ``REMAT_TOKENS`` (half that in stage 2)."""
     seq = n_cond * (clip_image_size // patch) ** 2 + (img_size // 16) ** 2
-    return seq >= 1024 and batch * seq > REMAT_TOKENS
+    return seq >= 1024 and batch * seq > REMAT_TOKENS // (2 if stage2 else 1)
+
+
+def tower_remat_gate(n_cond: int, clip_image_size: int, patch: int, batch: int) -> bool:
+    """The JAX factory's ``tower_remat`` decision for a video stage-2 task on
+    one device (``factory.py:247-258``): on when ``batch x n_cond x (grid^2
+    + 1)`` tower tokens exceed ``TOWER_REMAT_TOKENS``."""
+    return batch * n_cond * ((clip_image_size // patch) ** 2 + 1) > TOWER_REMAT_TOKENS
 
 
 def build_spec(cfg):
@@ -95,12 +108,6 @@ def build_spec(cfg):
         stage = "stage" + task.rsplit("_stage", 1)[1]
     else:
         raise ValueError(f"unknown task {task!r}")
-    if stage != "stage1" and not task.startswith("image_"):
-        raise NotImplementedError(f"task {task!r} is not ported yet (ROADMAP: slice 5, "
-                                  "video stage 2)")
-    if stage != "stage1" and cfg.get("tower_remat"):
-        raise NotImplementedError("tower_remat (checkpointing the tower's layers) is not "
-                                  "ported yet (ROADMAP: slice 5, video stage 2)")
     dc = cfg.get("data_config", {}) or {}
     if dc.get("precomputed"):
         raise NotImplementedError("data_config.precomputed (the feature and latent "
@@ -135,25 +142,27 @@ def build_spec(cfg):
                   # fp32); `vae_dtype: fp32` restores parity
                   vae_dtype=(torch.float32 if cfg.get("vae_dtype") == "fp32"
                              else torch.bfloat16),
-                  dit_quant=cfg.get("dit_quant", "none"), tower_dir=tower_dir)
+                  dit_quant=cfg.get("dit_quant", "none"), tower_dir=tower_dir,
+                  tower_remat=bool(cfg.get("tower_remat") or False),
+                  **_lora_kwargs(cfg, tower))
     if task.startswith("image_"):
         # the int8 stack (core.quant); the weight cache pays only when the
         # fused optimizer emits it (JAX factory.py:177-188)
         spec = TaskSpec(**common, tower_quant=cfg.get("tower_quant", "none"),
                         vae_quant=cfg.get("vae_quant", "none"),
                         vae_quant_min_ch=int(cfg.get("vae_quant_min_ch", 256)),
-                        dit_quant_cache=cfg.get("fused_optimizer") == "pallas",
-                        **_lora_kwargs(cfg, tower))
+                        dit_quant_cache=cfg.get("fused_optimizer") == "pallas")
         image_task.require_ported(spec)
         return spec, kind, "image"
 
     mode = _VIDEO_MODE[task.rsplit("_stage", 1)[0]]
+    n_cond, patch = video_task.VIDEO_MODES[mode]["n_cond"], tower_cfg.vision.patch_size
+    bs = int(cfg.get_path("data_config.train_batch_size", cfg.get("train_batch_size", 8)))
     if cfg.get("remat") is None:
-        bs = int(cfg.get_path("data_config.train_batch_size",
-                              cfg.get("train_batch_size", 8)))
-        common["remat"] = remat_gate(video_task.VIDEO_MODES[mode]["n_cond"],
-                                     clip_image_size, tower_cfg.vision.patch_size,
-                                     img_size, bs)
+        common["remat"] = remat_gate(n_cond, clip_image_size, patch, img_size, bs,
+                                     stage2=stage != "stage1")
+    if cfg.get("tower_remat") is None and stage != "stage1":
+        common["tower_remat"] = tower_remat_gate(n_cond, clip_image_size, patch, bs)
     spec = video_task.VideoTaskSpec(
         mode=mode, adapter_in_dim=tower_cfg.vision.hidden_size,
         remat_policy=cfg.get("remat_policy", "full"),

@@ -17,7 +17,8 @@ alone, gradients passing through the frozen DiT and projectors;
 wraps it with LoRA (``train.lora``; ``lora_*`` of the spec) and runs the
 tower under autograd inside ``core.nn.lora_dropout_ctx``
 (``image.py:206-275``): K2 saves each row's log-sum-exp and K2b runs the
-tower's attention backward.
+tower's attention backward; ``tower_remat`` checkpoints each tower layer
+(``models.towers.encoder.tower_remat_scope``).
 
 Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
@@ -52,6 +53,7 @@ from ..core.nn import init_weights, int8_training_ctx, lora_dropout_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
+from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
@@ -81,6 +83,7 @@ class TaskSpec:
     lora_bias: str = "lora_only"
     lora_dropout: float = 0.0
     remat: bool = False
+    tower_remat: bool = False         # checkpoint each tower layer (stage 2)
     compute_dtype: torch.dtype = torch.bfloat16
     # the reference stores DiT params in bf16; tower, projectors and VAE
     # stay float32 and are cast at use
@@ -243,7 +246,8 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
         if is_stage2(spec):
             # the LoRA-wrapped tower trains: under autograd, its branches'
             # inputs dropped (peft parity, train_SigLIP_stage2_all.py:134-143)
-            with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")):
+            with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")), \
+                    tower_remat_scope(spec.tower_remat):
                 cond = image_conditioning(spec.tower_kind, modules["clip"], imgs,
                                           spec.tower_cfg, spec.latent_hw, compute_dtype=cd)
         else:

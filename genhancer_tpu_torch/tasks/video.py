@@ -1,7 +1,7 @@
-"""Video-mode tasks, stage 1: middle-frame, next-frame, 2-frame and
-sliding-window prediction.
+"""Video-mode tasks: middle-frame, next-frame, 2-frame and sliding-window
+prediction, stage 1 and stage 2 (``stage2_all``).
 
-Port of ``genhancer_tpu/tasks/video.py`` for stage 1.  One parameterized
+Port of ``genhancer_tpu/tasks/video.py``.  One parameterized
 implementation covers the four reference trainer families:
 
   * middle  — cond (start t=0, end t=2) -> target middle t=1;
@@ -10,17 +10,27 @@ implementation covers the four reference trainer families:
   * sliding — cond (t=0, 1, 2) -> target t=3 over per-video windows, which
     arrive pre-windowed from the host loader with a ``valid`` mask.
 
-The conditioning is the frozen tower's *patch tokens* through the trained
+The conditioning is the tower's *patch tokens* through the trained
 VisualPromptAdapter (``tasks.conditioning.video_conditioning``).  Modules:
 ``{dit, vae, clip{model, project_clip}, visual_adapter}``; ``project_clip``
 is kept for the checkpoint layout, but the video forward never reaches it,
 so it takes no gradient and no weight decay (``video.py:160-171``).
 
+Stage 1 runs the vision-only tower frozen, under ``torch.no_grad()``.
+Stage 2 (``stage2_all``, ``video.py:114-141,160-171,215-221``) builds the
+whole ``CLIPModel``, wraps it with LoRA (``train.lora``, the spec's
+``lora_*``), trains the DiT, the visual adapter and the LoRA paths, and runs
+the tower under autograd inside ``core.nn.lora_dropout_ctx`` (K2 saves
+each row's lse, K2b runs the tower's attention backward) and, with
+``tower_remat``, inside ``tower_remat_scope``: each encoder layer
+checkpointed, its dropout masks replayed in the recompute.
+
 Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
-``vae_noise`` [B, h, w, z]).  Stage 2 (``stage2_all``), precomputed batches
+``vae_noise`` [B, h, w, z], and in stage 2 ``lora_masks``, one bool
+keep-mask per LoRA-wrapped call in call order).  Precomputed batches
 (``moments``/``cond_patches``), the int8 knobs and the SigLIP tower raise
-``NotImplementedError``, naming their ROADMAP slice.
+``NotImplementedError``, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,12 +42,13 @@ import torch
 from torch import nn as tnn
 
 from .. import registry
-from ..core.nn import init_weights
+from ..core.nn import init_weights, lora_dropout_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
+from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
-from ..train import flow
+from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
@@ -55,7 +66,7 @@ VIDEO_MODES: Dict[str, Dict] = {
 class VideoTaskSpec:
     """Static description of one video task."""
     mode: str                        # key into VIDEO_MODES
-    stage: str                       # "stage1" (the only stage ported)
+    stage: str                       # "stage1" | "stage2_all"
     tower_kind: str                  # "clip"
     img_size: int                    # VAE input resolution
     clip_image_size: int
@@ -67,8 +78,13 @@ class VideoTaskSpec:
     adapter_in_dim: int = 1024       # the tower's patch-token width
     scale_factor: float = 1.0
     guidance: float = 4.0
+    lora_r: int = 16
+    lora_alpha: float = 16.0
+    lora_targets: object = "all-linear"
+    lora_dropout: float = 0.0          # the published stage-2 configs: 0.1
     remat: bool = False
     remat_policy: str = "full"
+    tower_remat: bool = False          # checkpoint each tower layer (stage 2)
     compute_dtype: torch.dtype = torch.bfloat16
     dit_param_dtype: torch.dtype = torch.bfloat16
     vae_dtype: torch.dtype = torch.float32   # conv dtype of the frozen encode
@@ -101,13 +117,22 @@ class VideoTaskSpec:
         return self.clip_image_size // self.tower_cfg.vision.patch_size
 
 
+STAGES = ("stage1", "stage2_all")
+
+
+def is_stage2(spec) -> bool:
+    return spec.stage == "stage2_all"
+
+
 def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
-    """Uninitialised modules in the reference layout, on ``device``."""
+    """Uninitialised modules in the reference layout, on ``device``: the
+    vision-only tower in stage 1, the whole ``CLIPModel`` in stage 2."""
+    tower_cls = clip_m.CLIPModel if is_stage2(spec) else clip_m.CLIPVisionTower
     return tnn.ModuleDict({
         "dit": dit_m.DiT(spec.dit_cfg, device=device, dtype=spec.dit_param_dtype),
         "vae": vae_m.AutoEncoder(spec.vae_cfg, device=device),
         "clip": tnn.ModuleDict({
-            "model": clip_m.CLIPVisionTower(spec.tower_cfg, device=device),
+            "model": tower_cls(spec.tower_cfg, device=device),
             "project_clip": Projector(spec.clip_dim, spec.clip_dim, device=device),
         }),
         "visual_adapter": VisualPromptAdapter(spec.adapter_in_dim, spec.t5_dim,
@@ -118,20 +143,24 @@ def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
 def init_modules(spec: VideoTaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
     """Random-init modules drawn from ``generator`` (on ``device``), the
-    tower's weights from ``spec.tower_dir`` where one is set."""
+    tower's weights from ``spec.tower_dir`` where one is set, and in stage 2
+    LoRA injected (its A's drawn from ``generator`` after everything else)."""
+    require_ported(spec)
     modules = init_weights(build_modules(spec, device), generator)
     if spec.tower_dir is not None:
         modules["clip"]["model"], _ = registry.load_tower(
-            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=False, device=device)
+            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=is_stage2(spec),
+            device=device)
+    if is_stage2(spec):
+        lora.inject(modules["clip"]["model"], generator, r=spec.lora_r,
+                    alpha=spec.lora_alpha, targets=spec.lora_targets)
     return modules
 
 
 def require_ported(spec: VideoTaskSpec) -> None:
     """Raise for the options of a video spec that the port does not run."""
-    if spec.stage != "stage1":
-        raise NotImplementedError(
-            f"video stage {spec.stage!r} is not ported yet (ROADMAP: slice 5, stage 2 "
-            "and the caches)")
+    if spec.stage not in STAGES:
+        raise ValueError(f"video stage must be one of {STAGES}, got {spec.stage!r}")
     for knob in ("tower_quant", "vae_quant", "dit_quant"):
         if getattr(spec, knob) != "none":
             raise NotImplementedError(
@@ -141,11 +170,18 @@ def require_ported(spec: VideoTaskSpec) -> None:
 
 
 def trainable_predicate(spec: VideoTaskSpec, modules=None) -> Callable[[str], bool]:
-    """Stage 1 trains the DiT and the visual adapter only."""
+    """Stage 1 trains the DiT and the visual adapter; stage 2 adds the
+    tower's LoRA factors and the biases of the wrapped modules (``bias:
+    lora_only``), read from ``modules``."""
     require_ported(spec)
+    lora_paths = set()
+    if is_stage2(spec):
+        lora_paths = {"clip.model." + p
+                      for p in lora.lora_trainable_paths(modules["clip"]["model"])}
 
     def pred(path: str) -> bool:
-        return path.startswith("dit.") or path.startswith("visual_adapter.")
+        return (path.startswith("dit.") or path.startswith("visual_adapter.")
+                or path in lora_paths)
 
     return pred
 
@@ -167,7 +203,7 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
         if "moments" in batch or "cond_patches" in batch:
             raise NotImplementedError(
                 "precomputed video batches (moments/cond_patches) are not ported yet "
-                "(ROADMAP: slice 5, stage 2 and the caches)")
+                "(ROADMAP: slice 5, the precompute caches)")
         draws = draws or {}
         cond, target = batch["cond"], batch["target"]
         b, n_cond, dev = cond.shape[0], cond.shape[1], cond.device
@@ -176,11 +212,20 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
             vae_in = normalize(target, VAE_MEAN, VAE_STD).to(f32)
             x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
                                       dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
-            # one frozen tower pass over all b * n_cond conditioning frames
-            mean, std = tower_stats(spec.tower_kind)
-            px = normalize(cond.reshape((b * n_cond,) + tuple(cond.shape[2:])), mean, std)
-            vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
-                                                     px.to(cd), spec.tower_cfg)
+        # one tower pass over all b * n_cond conditioning frames: frozen in
+        # stage 1; in stage 2 under autograd, its LoRA branches' inputs
+        # dropped (peft parity)
+        mean, std = tower_stats(spec.tower_kind)
+        px = normalize(cond.reshape((b * n_cond,) + tuple(cond.shape[2:])), mean, std).to(cd)
+        if is_stage2(spec):
+            with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")), \
+                    tower_remat_scope(spec.tower_remat):
+                vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
+                                                         px, spec.tower_cfg)
+        else:
+            with torch.no_grad():
+                vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
+                                                         px, spec.tower_cfg)
         x1 = dit_m.pack_latent(x1_lat).to(f32)
         patches = patches_flat.reshape(b, n_cond, *patches_flat.shape[1:])
         vecs = vecs_flat.reshape(b, n_cond, -1)

@@ -7,9 +7,9 @@ semantics (``train_SigLIP_stage2_all.py:134-143``):
     or ``"all-linear"``, every module with a 2-D ``weight`` whose path holds
     no ``embedding``/``embeddings``/``logit_scale`` — the CLIP projection
     heads included (``lora.py:54-59``); paths are the JAX package's own;
-  * init: ``lora_A`` float32 [r, in] kaiming-uniform (bound sqrt(3/in)),
-    ``lora_B`` zeros [out, r] in the weight's dtype, ``lora_scale`` =
-    alpha/r in the weight's dtype, a (persistent) buffer;
+  * init: ``lora_A`` [r, in] kaiming-uniform (bound sqrt(3/in), drawn in
+    float32), ``lora_B`` zeros [out, r] and ``lora_scale`` = alpha/r (a
+    persistent buffer), all three in the weight's dtype;
   * ``bias: lora_only``: the factors and the biases of wrapped modules
     train (``lora_trainable_paths``);
   * ``merge``: W' = (W.f32 + (B.f32 @ A.f32) * scale) in W's dtype, the
@@ -61,7 +61,7 @@ def inject(tower: tnn.Module, generator: torch.Generator, r: int = 16, alpha: fl
         a = torch.empty((r, in_dim), dtype=torch.float32, device=w.device)
         with torch.no_grad():
             a.uniform_(-bound, bound, generator=generator)
-        m.lora_A = tnn.Parameter(a)
+        m.lora_A = tnn.Parameter(a.to(w.dtype))
         m.lora_B = tnn.Parameter(torch.zeros((out_dim, r), dtype=w.dtype, device=w.device))
         m.register_buffer("lora_scale", torch.tensor(alpha / r, dtype=w.dtype, device=w.device))
         wrapped.append(path)

@@ -6,10 +6,12 @@ Port of ``genhancer_tpu/train/trainer.py`` for one device:
   * gradient accumulation (``train.step_utils``) or a plain step;
   * a depth-2 host thread that pins each batch and copies it to the device
     (``data.prefetch``);
-  * image stage-1 and stage-2 tasks and video stage-1 tasks; the
-    checkpoint layout and the loss follow the task's ``ckpt_kind``, and a
-    stage-2 checkpoint adds the LoRA-merged tower as an HF model directory
-    named as the reference names it (``hf_export_name``);
+  * the image stage-1 and stage-2 tasks and the video stage-1 and
+    stage-2 tasks; the checkpoint layout and the loss follow the task's
+    ``ckpt_kind``, a stage-2 run starts from the stage-1 files of
+    ``load_dir``/``load_step``, and a stage-2 checkpoint adds the
+    LoRA-merged tower as an HF model directory named as the reference
+    names it (``hf_export_name``);
   * step/data timers and tracker scalars under the reference names
     (``train_loss``, ``step_time``, ``data_load_time``, and in sliding mode
     ``avg_windows_per_video``/``bs_eff``, averaged over an accumulation

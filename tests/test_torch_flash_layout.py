@@ -10,7 +10,9 @@ long-sequence attention (a tiny bf16 forward at a joint length of 608, both
 block kinds), where the DiT hands them to K1 (joint length 72: the double
 block concatenates, the single block passes a strided ``v`` view) and where
 a tiny bf16 tower hands them to K2 and, training, to K2b (with o and dO),
-and built at the published flux-dev widths.  Views the TMA cannot read are refused with the ``ValueError`` the
+where the CLIP-L/14@336 LoRA tower of video stage 2 hands them over at
+L=577 (forward, ``tower_remat`` recompute, backward), and built at the
+published flux-dev widths.  Views the TMA cannot read are refused with the ``ValueError`` the
 CUDA path raises (``_check_tma_layout``, the same call the wrappers make
 before a launch).
 """
@@ -138,6 +140,51 @@ def test_tower_attention_inputs_pass(monkeypatch):
     assert all(t.dtype == BF16 and t.shape == (2, 17, 2, 64) for t in bwd_calls[0])
     assert K._tma_layout_error(*bwd_calls[0]) is None
     K._check_tma_layout("fused_attention_bwd", *bwd_calls[0])
+
+
+def test_middle336_lora_tower_attention_inputs_pass(monkeypatch):
+    """What K2 and K2b receive from the OpenAI CLIP-L/14@336 tower of video
+    stage 2 at L=577 (one layer at the published width, hidden 1024 in 16
+    heads of 64, LoRA on every linear, dropout on, ``tower_remat`` on): q,
+    k, v of the forward and of the recompute, and q, k, v, o and dO of the
+    backward."""
+    from genhancer_tpu_torch.core.nn import lora_dropout_ctx
+    from genhancer_tpu_torch.models.towers import clip as tclip
+    from genhancer_tpu_torch.models.towers.encoder import tower_remat_scope
+    from genhancer_tpu_torch.train import lora
+    cfg = tclip.CLIPVisionConfig(num_layers=1, image_size=336)
+    g = torch.Generator().manual_seed(2)
+    tower = tclip.VisionTransformer(cfg, device=None, dtype=BF16)
+    with torch.no_grad():
+        for p in tower.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    tower.requires_grad_(False)
+    _, wrapped = lora.inject(tower, g, r=16, alpha=16.0)
+    with torch.no_grad():
+        for path in wrapped:
+            tower.get_submodule(path).lora_B.normal_(0.0, 0.02, generator=g)
+    fwd, bwd = [], []
+    fwd_ref, bwd_ref = K.fused_attention_ref, K.fused_attention_bwd_ref
+
+    def record_fwd(q, k, v):
+        fwd.append((q, k, v))
+        return fwd_ref(q, k, v)
+
+    def record_bwd(q, k, v, o, do):
+        bwd.append((q, k, v, o, do))
+        return bwd_ref(q, k, v, o, do)
+
+    monkeypatch.setattr(K, "fused_attention_ref", record_fwd)
+    monkeypatch.setattr(K, "fused_attention_bwd_ref", record_bwd)
+    pixels = torch.randn((1, 336, 336, 3), generator=g).to(BF16)
+    with lora_dropout_ctx(g, 0.1), tower_remat_scope(True):
+        x, _ = tclip.vision_forward(tower, pixels, cfg)
+    x.float().square().mean().backward()
+    assert len(fwd) == 2 and len(bwd) == 1       # the forward, its recompute, K2b
+    for ts in fwd + bwd:
+        assert all(t.dtype == BF16 and t.shape == (1, 577, 16, 64) for t in ts)
+        assert K._tma_layout_error(*ts) is None
+    K._check_tma_layout("fused_attention_bwd", *bwd[0])
 
 
 def test_published_width_layouts_pass():

@@ -374,7 +374,8 @@ def test_trainer_from_stage1_through_export_and_resume(tiny_models, tmp_path, sh
 
 def test_stage2_refusals():
     """QLoRA and a static int8 DiT in stage2_only wait for ROADMAP §1 item
-    7, tower_remat for video stage 2."""
+    7; ``tower_remat`` is ported and taken from the config (image stage 2
+    has no automatic gate)."""
     from genhancer_tpu_torch.tasks.factory import build_spec
     from genhancer_tpu_torch.train.config import load_config
     _, ps = _specs("stage2_all")
@@ -384,12 +385,11 @@ def test_stage2_refusals():
         timage.init_modules(dataclasses.replace(ps, stage="stage2_only", dit_quant="int8"),
                             torch.Generator())
     cfg = load_config("configs/MetaCLIP_large_stage2_all.yaml")
-    with pytest.raises(NotImplementedError, match="tower_remat"):
-        build_spec(cfg.merged_with({"tower_remat": True}))
+    assert build_spec(cfg.merged_with({"tower_remat": True}))[0].tower_remat
     spec, kind, ckpt_kind = build_spec(cfg)
     assert (spec.stage, spec.lora_r, spec.lora_alpha, spec.lora_dropout,
-            spec.lora_targets, ckpt_kind) == ("stage2_all", 16, 16.0, 0.1, "all-linear",
-                                              "image")
+            spec.lora_targets, spec.tower_remat, ckpt_kind) == (
+        "stage2_all", 16, 16.0, 0.1, "all-linear", False, "image")
 
 
 def test_trainer_names_map_to_stage2():

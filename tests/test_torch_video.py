@@ -263,8 +263,11 @@ def test_remat_recomputes_the_same_grads(jax_init):
 
 def test_unported_options_raise(jax_init):
     ps = port_spec(jax_spec("middle"))
+    # stage 2 is ported (tests/test_torch_video_stage2.py); its precomputed
+    # batches are not
     with pytest.raises(NotImplementedError, match="slice 5"):
-        tvideo.make_loss_fn(dataclasses.replace(ps, stage="stage2_all"))
+        tvideo.make_loss_fn(dataclasses.replace(ps, stage="stage2_all"))(
+            None, {"moments": torch.zeros(1), "cond_patches": torch.zeros(1)})
     for knob in ("tower_quant", "vae_quant", "dit_quant"):
         with pytest.raises(NotImplementedError, match="slice 3"):
             tvideo.make_loss_fn(dataclasses.replace(ps, **{knob: "int8"}))
@@ -281,7 +284,7 @@ def test_unported_options_raise(jax_init):
 
 
 @pytest.mark.parametrize("override, match", [
-    ({"task": "video_sliding_stage2_all"}, "slice 5"),
+    ({"task": "video_sliding_stage2_all", "data_config": {"precomputed": True}}, "slice 5"),
     ({"tower": "siglip"}, "SigLIP"),
     ({"tower_quant": "int8"}, "slice 3"),
     ({"vae_quant": "int8"}, "slice 3"),
