@@ -18,8 +18,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernels; their dq/dk/dv rounding points against a control that
              keeps p in float32 for dv; K2b at L=257, L=256 and, B=32,
              CLIP-L/14@336's L=577), K2 in float32 at the MMVP-VLM eval's
-             B=50, L=257 and L=577 (the scalar body, timed with SDPA
-             float32), K5/K5b
+             B=50, L=257 and L=577 (the split-TF32 wgmma body: max error
+             1e-4 and mean error 1e-5 against exact float32, with controls
+             that drop a TF32 product and must miss it; timed against SDPA
+             float32 and its bound at 495 TFLOP/s TF32), K1/K2/K5 in
+             float32 at D = 8, 72, 128 and L = 1, 65, 129, K5/K5b
              (flash attention forward and backward: in bf16 the wgmma/TMA
              kernels, at the video paths' shapes with their TFLOP/s and
              share of the bf16 peak, the SigLIP tower shape, ragged lengths,
@@ -35,7 +38,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              timed in turns) against their plain PyTorch versions at the
              paths' shapes, with kernel, plain and library-call times and
              each kernel's bound (bytes at 3.35 TB/s or operations at 989
-             TFLOP/s bf16 / 1,979 TOPS int8);
+             TFLOP/s bf16 / 495 TFLOP/s TF32 / 1,979 TOPS int8);
 4. small   — a tiny engine on the card (kernels) against the same weights on
              the CPU (plain versions), then one tiny float32 training step
              of each optimizer, card against CPU: loss, gradients, params;
@@ -179,6 +182,17 @@ HBM_PEAK = 3.35e12   # bytes/s, H100 SXM data sheet
 BF16_PEAK = 989e12   # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
 INT8_PEAK = 1979e12  # dense int8 tensor-core OP/s, H100 SXM data sheet
 FP32_PEAK = 67e12    # float32 FLOP/s outside the tensor cores, H100 SXM data sheet
+TF32_PEAK = 495e12   # dense TF32 tensor-core FLOP/s, H100 SXM data sheet
+# the float32 forward (split TF32, three products per product) against exact
+# float32, as mean|kernel - plain| / mean|plain|: dropping one TF32 product
+# moves it to ~2e-4, which the max bound above cannot see
+TF32_MEAN_BOUND = 1e-5
+# the controls: the plain emulation of the split with products left out
+# (short_attention.split_tf32_attention_ref's (qk, pv) terms); at L = 1,
+# p = 1 and o = v, so only the one-product control can show there
+TF32_CONTROLS = {"one product": (("hh",), ("hh",)),
+                 "Q K^T without hi lo": (("hh", "lh"), ("hh", "hl", "lh")),
+                 "P V without lo hi": (("hh", "hl", "lh"), ("hh", "hl"))}
 NUM_STEPS = 20
 VIDEO2_CONFIGS = {"sliding": "OpenAICLIP_224_sliding_stage2_all.yaml",
                   "next": "OpenAICLIP_nextpredic_stage2_all.yaml",
@@ -348,11 +362,36 @@ def _round_before_normalise(q, k, v):
     return (o / e.sum(dim=-1).permute(0, 2, 1)[..., None]).to(q.dtype)
 
 
+def _tf32_mean_check(tag, out, ref, q, k, v):
+    """The float32 forward's split-TF32 products on their own: mean|out -
+    ref| / mean|ref| (ref exact float32, TF32 off) within TF32_MEAN_BOUND,
+    and each control of TF32_CONTROLS (the plain emulation on the same q, k,
+    v, which K1 has already rotated) above it.  Returns (mean error,
+    {control: mean error}) and prints them."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+    torch.backends.cuda.matmul.allow_tf32 = False      # exact float32 einsums
+    torch.backends.cudnn.allow_tf32 = False
+    mean = _mean_rel(out, ref)
+    names = TF32_CONTROLS if q.shape[1] > 1 else ["one product"]
+    ctl = {n: _mean_rel(K.split_tf32_attention_ref(q, k, v, *TF32_CONTROLS[n]), ref)
+           for n in names}
+    print(f"[kernels] {tag} float32: mean|kernel-plain|/mean|plain| {mean:.3e} (bound "
+          f"{TF32_MEAN_BOUND:.0e}); controls " + ", ".join(f"{n} {x:.3e}" for n, x in ctl.items()),
+          flush=True)
+    check(mean <= TF32_MEAN_BOUND, f"{tag} float32: mean error {mean} > {TF32_MEAN_BOUND}")
+    check(min(ctl.values()) > TF32_MEAN_BOUND, f"{tag} float32: a control passes the mean "
+          f"bound ({ctl}), so it cannot tell a dropped TF32 product")
+    return mean, ctl
+
+
 def phase_kernels():
     """K1/K2 against their plain versions, o's rounding point on its own
     (ROUNDING_BOUND, with the round-before-normalise control that must miss
     it), the bf16 forward's 64- and 128-row blocks timed in turns at the
-    serving buckets, and a misaligned view that must raise; returns
+    serving buckets, the float32 forward's mean error (TF32_MEAN_BOUND,
+    with the controls of TF32_CONTROLS that must miss it) at D = 8, 64, 72,
+    128 and ragged L, and a misaligned view that must raise; returns
     per-kernel records."""
     import torch
     from genhancer_tpu_torch.core.kernels import short_attention as K
@@ -365,16 +404,24 @@ def phase_kernels():
         # name, B, L, H, D, dtype, main-path shape
         [("fused_rope_attention", b, 197, 24, 128, bf16, True) for b in BUCKETS]
         + [("fused_rope_attention", 2, 197, 24, 128, f32, False),
+           ("fused_rope_attention", 1, 1, 4, 128, f32, False),
+           ("fused_rope_attention", 2, 65, 4, 128, f32, False),
+           ("fused_rope_attention", 2, 129, 4, 128, f32, False),
            ("fused_rope_attention", 2, 13, 24, 128, bf16, False),
            ("fused_rope_attention", 1, 600, 24, 128, bf16, False)]
         + [("fused_attention", b, 257, 16, 64, bf16, True) for b in BUCKETS]
         + [("fused_attention", 2, 257, 16, 64, f32, False),
+           ("fused_attention", 2, 1, 4, 8, f32, False),
+           ("fused_attention", 2, 65, 4, 72, f32, False),
+           ("fused_attention", 2, 129, 4, 8, f32, False),
+           ("fused_attention", 2, 129, 4, 128, f32, False),
            ("fused_attention", 2, 256, 16, 72, bf16, False),
            ("fused_attention", 2, 13, 16, 64, bf16, False),
            ("fused_attention", 1, 600, 16, 64, bf16, False)])
     rec = {n: _record(n) for n in ("fused_rope_attention", "fused_attention")}
     for r in rec.values():
         r["ms_by_batch"], r["rounding_mean_rel"], r["ms_by_block_rows"] = {}, 0.0, {}
+        r["float32_mean_rel"] = 0.0
     for name, b, l, h, d, dtype, main in cases:
         q, k, v = (_rand(gen, (b, l, h, d), dtype) for _ in range(3))
         if name == "fused_rope_attention":
@@ -395,8 +442,11 @@ def phase_kernels():
         err = (out.float() - ref.float()).abs().max().item()
         bound = BOUND[str(dtype).split(".")[-1]]
         rounding = ""
+        rq, rk = ((apply_rope(q, *tables), apply_rope(k, *tables)) if tables else (q, k))
+        if dtype == f32:
+            mean, _ = _tf32_mean_check(f"{name} B={b} L={l} H={h} D={d}", out, ref, rq, rk, v)
+            rec[name]["float32_mean_rel"] = max(rec[name]["float32_mean_rel"], mean)
         if dtype == bf16:
-            rq, rk = ((apply_rope(q, *tables), apply_rope(k, *tables)) if tables else (q, k))
             o_mean = _mean_rel(out, ref)
             o_ctl = _mean_rel(_round_before_normalise(rq, rk, v), ref)
             rec[name]["rounding_mean_rel"] = max(rec[name]["rounding_mean_rel"], o_mean)
@@ -487,15 +537,16 @@ def phase_kernels():
 
 
 def _k2_float32_eval(gen):
-    """K2 in float32 (the scalar fp:: body) at the MMVP-VLM eval's batch of
-    50: MetaCLIP-L/14 at 224 px (L=257) and CLIP-L/14@336 (L=577), H=16,
-    D=64; against the plain version (1e-4), timed with its bound (float32
-    FLOP/s outside the tensor cores) and SDPA in float32 (TF32 off)."""
+    """K2 in float32 (the split-TF32 wgmma body) at the MMVP-VLM eval's
+    batch of 50: MetaCLIP-L/14 at 224 px (L=257) and CLIP-L/14@336 (L=577),
+    H=16, D=64; against the plain version in exact float32 (TF32 off): max
+    1e-4 and mean TF32_MEAN_BOUND, with the controls of TF32_CONTROLS that
+    must miss the latter; timed, call and device, with SDPA in float32 and
+    its bound: the three TF32 products of each of its two products at 495
+    TFLOP/s (the scalar cores' 67 TFLOP/s line printed beside it)."""
     import torch
     from genhancer_tpu_torch.core.kernels import short_attention as K
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out_rec = {}
     for l in (257, 577):
         q, k, v = (_rand(gen, (50, l, 16, 64), torch.float32) for _ in range(3))
@@ -503,21 +554,29 @@ def _k2_float32_eval(gen):
         pfn = lambda: K.fused_attention_ref(q, k, v)  # noqa: E731
         out = kfn()
         torch.cuda.synchronize()
-        err = (out - pfn()).abs().max().item()
+        ref = pfn()
+        err = (out - ref).abs().max().item()
         check(bool(torch.isfinite(out).all()) and err <= BOUND["float32"],
               f"fused_attention float32 B=50 L={l}: error {err} > {BOUND['float32']}")
+        mean, ctl = _tf32_mean_check(f"fused_attention B=50 L={l} H=16 D=64", out, ref, q, k, v)
+        del ref
+        _free()
         ms, pms = kernel_vs_plain_ms(kfn, pfn, n=5, rounds=4)
         lib_f = _sdpa_fwd_bwd(q, k, v, q)[0]
-        times = {"ms": ms, "plain_ms": pms, "max_abs_err": err, "device_ms": graph_ms(kfn, n=5),
+        times = {"ms": ms, "plain_ms": pms, "max_abs_err": err, "mean_rel": mean,
+                 "controls_mean_rel": ctl, "device_ms": graph_ms(kfn, n=5),
                  "library_ms": _library_ms(lib_f, n=5), "library_device_ms": graph_ms(lib_f, n=5)}
-        _set_bound(times, _nbytes(q, k, v, out), 4.0 * 50 * 16 * l * l * 64, peak=FP32_PEAK)
+        flops = 4.0 * 50 * 16 * l * l * 64            # the function: two products
+        _set_bound(times, _nbytes(q, k, v, out), 3 * flops, peak=TF32_PEAK)
+        times["scalar_bound_ms"] = flops / FP32_PEAK * 1e3
         out_rec[l] = times
         print(f"[kernels] fused_attention B=50 L={l} H=16 D=64 float32 (the eval's tower): "
               f"max|kernel-plain| {err:.3e} (bound 1e-04); kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, device (CUDA graph) {_fmt(times['device_ms'])} ms; bound "
-              f"{times['bound_ms']:.4f} ms ({times['bound_by']}, 67 TFLOP/s float32); SDPA "
-              f"float32 {times['library_ms']:.4f} ms, device {_fmt(times['library_device_ms'])}"
-              f" ms", flush=True)
+              f"{times['bound_ms']:.4f} ms ({times['bound_by']}: 3 TF32 products per product at "
+              f"495 TFLOP/s; the scalar cores' line {times['scalar_bound_ms']:.4f} ms at 67 "
+              f"TFLOP/s); SDPA float32 {times['library_ms']:.4f} ms, device "
+              f"{_fmt(times['library_device_ms'])} ms", flush=True)
         del q, k, v, out, lib_f
         _free()
     return out_rec
@@ -729,9 +788,10 @@ def phase_kernels_bwd():
 def phase_kernels_flash():
     """K5 (o and lse) and K5b (dq, dk, dv) against their plain versions at
     the shapes the video paths give them, the SigLIP-384 tower shape (D=72),
-    ragged lengths and float32; the bound is relative to max(1, max|plain|).
-    In bf16 the rounding points are held on their own (ROUNDING_BOUND): K5's
-    o and K5b's dv against the plain versions, and two controls that round
+    ragged lengths and float32 (whose o is also held to TF32_MEAN_BOUND, with
+    the controls that must miss it); the bound is relative to max(1,
+    max|plain|).  In bf16 the rounding points are held on their own
+    (ROUNDING_BOUND): K5's o and K5b's dv against the plain versions, and two controls that round
     p elsewhere and must miss the bound — ``_round_before_normalise`` and
     K2b's plain backward (p rounded before p^T dO).  The middle@336 shape
     runs at B=4: the plain backward's [B, H, L, L] float32 tensors are
@@ -828,6 +888,11 @@ def phase_kernels_flash():
               flush=True)
         check(o_rel <= bound and lse_rel <= 1e-4 and g_rel <= bound,
               f"K5/K5b {what} {dtype}: o {o_rel}, lse {lse_rel}, grads {g_rel} > {bound}")
+        if dtype == f32:
+            mean, _ = _tf32_mean_check(f"flash_attention {what} B={b} L={l} H={h} D={d}", o, ro,
+                                       q, k, v)
+            rec["flash_attention"]["float32_mean_rel"] = max(
+                rec["flash_attention"].get("float32_mean_rel", 0.0), mean)
         if dtype == bf16:
             o_mean, dv_mean = _mean_rel(o, ro), _mean_rel(got[2], want[2])
             o_ctl = _mean_rel(_round_before_normalise(q, k, v), ro)

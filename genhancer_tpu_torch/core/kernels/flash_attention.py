@@ -3,8 +3,10 @@
 Port of ``genhancer_tpu/core/pallas/flash_attention.py``.  The kernels are
 hand-written CUDA for Hopper in ``csrc/flash_attention.cu``: in bfloat16
 warp-specialised kernels whose products are ``wgmma`` and whose tiles arrive
-by TMA (building blocks in ``csrc/flash_sm90.cuh``); in float32 the scalar
-kernels of ``csrc/attention_tiles.cuh``.  This module holds their wrappers,
+by TMA (building blocks in ``csrc/flash_sm90.cuh``); in float32 the
+split-TF32 ``wgmma`` forward of ``csrc/attention_tf32.cuh`` (shared with K1
+and K2, see ``short_attention.py``) and the scalar backward of
+``csrc/attention_tiles.cuh``.  This module holds their wrappers,
 their plain PyTorch versions, the ``torch.autograd.Function`` that joins the
 two halves, and the launch counters.
 

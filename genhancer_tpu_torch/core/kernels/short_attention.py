@@ -29,6 +29,16 @@ followed and do not count).  A CUDA tensor that fails raises
 ``ValueError`` before any launch; nothing is copied to make it pass.  The
 float32 kernels take any B/L/H strides.
 
+In float32 the forward (K1, K2, and K5 in ``flash_attention.py``) runs on
+the tensor cores as split TF32 (``csrc/attention_tf32.cuh``): each operand
+x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and each product as
+hi hi + hi lo + lo hi, which keeps float32's accuracy.  Its plain version
+stays ``sdpa_ref`` in exact float32; ``split_tf32_attention_ref`` emulates
+the split (and, with terms left out, the controls that must miss the
+card's mean-error bound of 1e-5), for the tests and ``chip_smoke.py``
+only.  The float32 backward is the scalar kernels of
+``csrc/attention_tiles.cuh``.
+
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``*_ref``), which the tests and ``chip_smoke.py`` also compare the
 kernel against.  ``LAUNCHES`` counts kernel-wrapper launches only.
@@ -65,6 +75,44 @@ def fused_rope_attention_ref(q, k, v, cos, sin):
 def fused_attention_ref(q, k, v):
     """Plain version of K2."""
     return sdpa_ref(q, k, v)
+
+
+# the three products of a split-TF32 product: (left part, right part), h = hi, l = lo
+SPLIT_TERMS = ("hh", "hl", "lh")
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``: half of the 13 low
+    bits' weight added to the magnitude, then those bits cleared (a carry
+    runs into the exponent; subnormals and zeros follow the same rule).
+    Infinities and NaNs pass unchanged."""
+    x = x.to(torch.float32).contiguous()
+    bits = (x.view(torch.int32) + 0x1000) & -0x2000
+    return torch.where(torch.isfinite(x), bits.view(torch.float32), x)
+
+
+def _split_tf32(x):
+    hi = tf32_round(x)
+    return {"h": hi, "l": tf32_round(x - hi)}
+
+
+def split_tf32_attention_ref(q, k, v, qk=SPLIT_TERMS, pv=SPLIT_TERMS):
+    """Plain emulation of the float32 forward's split-TF32 products on
+    [B, L, H, D]: S = sum of the ``qk`` terms of q and k's hi/lo parts,
+    e = exp(S * scale - max), O = sum of the ``pv`` terms of e's and v's
+    parts divided by the row sum; each term a float32 product of TF32
+    values.  The default terms are the kernel's; leaving one out gives a
+    control.  Run it with TF32 off (``torch.backends.cuda.matmul.
+    allow_tf32 = False``) on the card.  Returns float32."""
+    f32 = torch.float32
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    qs, ks, vs = (_split_tf32(x.to(f32)) for x in (q, k, v))
+    s = sum(torch.einsum("blhd,bmhd->bhlm", qs[a], ks[b]) for a, b in qk) * scale
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    es = _split_tf32(e)
+    o = sum(torch.einsum("bhlm,bmhd->blhd", es[a], vs[b]) for a, b in pv)
+    return o / e.sum(dim=-1).permute(0, 2, 1)[..., None]
 
 
 def _bwd_body_ref(rq, rk, v, o, do):
@@ -171,7 +219,8 @@ def _tma_layout_error(*ts):
 
 def _check_tma_layout(name: str, *ts) -> None:
     """Raise ``ValueError`` where the bf16 kernels' TMA cannot read ``ts``
-    in place (float32 runs the scalar kernels, which take any strides)."""
+    in place (the float32 kernels load their tiles with the threads and
+    take any strides)."""
     err = _tma_layout_error(*ts) if ts[0].dtype == torch.bfloat16 else None
     if err is not None:
         raise ValueError(f"{name}: {err}")

@@ -1,13 +1,17 @@
-// Device code shared by the attention kernels of this package: the float32
-// kernels of K1/K2, K1b/K2b and K5/K5b (fp::, scalar FMA) and the
-// backward's D_i pass (dot_rows).  In bf16 every one of them (K1, K2, K1b,
-// K2b, K5, K5b) runs the wgmma/TMA kernels of attention_sm90.cuh.
+// Device code shared by the attention kernels of this package: their
+// parameters, the float32 backward of K1b/K2b and K5b (fp::, scalar FMA),
+// the backward's D_i pass (dot_rows) and the shape check.  In bf16 every
+// kernel (K1, K2, K1b, K2b, K5, K5b) runs the wgmma/TMA kernels of
+// attention_sm90.cuh; the float32 forward (K1, K2, K5) runs the split-TF32
+// wgmma kernel of attention_tf32.cuh.
 // Each .cu includes it once and compiles into its own shared library, so
 // everything here stays in an anonymous namespace.
 //
 // None of these kernels rotates q or k: K1's forward runs the RoPE pass of
 // short_attention.cu first, and K1b reads the rotated pair K1 wrote.  The
 // float32 K1b backward un-rotates dq and dk as it stores them (store_pair).
+// The float32 backward runs on the CUDA cores; no main path runs it (the
+// training paths' attention is bf16).
 
 #pragma once
 
@@ -20,7 +24,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int DMAX = 128;  // head dim ceiling (multiple of 8 up to this)
-constexpr int BK = 64;     // k/v rows per streamed tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -65,159 +68,10 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int64_t 
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
-
-// ---------------------------------------------------------------------------
-// float32: scalar FMA
-// ---------------------------------------------------------------------------
-
-namespace fp {
-constexpr int BQ = 32;         // q rows per block
-constexpr int THREADS = 128;   // 4 warps
-
-__host__ __device__ constexpr size_t smem_bytes(int D) {
-  // sQ, sK (rows padded by one float against bank conflicts), sV, sS, m/l/alpha
-  return ((size_t)BQ * (D + 1) + (size_t)BK * (D + 1) + (size_t)BK * D +
-          (size_t)BQ * (BK + 1) + 3 * BQ) * sizeof(float);
-}
-
-__global__ void __launch_bounds__(THREADS) kernel(Params p) {
-  extern __shared__ float smem[];
-  const int D = p.D, L = p.L;
-  const int ldq = D + 1, ldk = D + 1, ldv = D, lds = BK + 1;
-  float* sQ = smem;
-  float* sK = sQ + BQ * ldq;
-  float* sV = sK + BK * ldk;
-  float* sS = sV + BK * ldv;
-  float* sM = sS + BQ * lds;  // running row max
-  float* sL = sM + BQ;        // running row sum
-  float* sA = sL + BQ;        // rescale of this tile
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = tid >> 4;  // row group: rows rg*4 .. rg*4+3
-  const int cg = tid & 15;  // column group: cols cg + 16*j
-
-  const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  if (tid < BQ) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  load_rows<float>(sQ, ldq, qb, p.q_sl, q0, BQ, L, D, D);
-
-  float acc[4][DMAX / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    const int nk = min(BK, L - k0);
-    load_rows<float>(sK, ldk, kb, p.k_sl, k0, BK, L, D, D);
-    load_rows<float>(sV, ldv, vb, p.v_sl, k0, BK, L, D, D);
-    __syncthreads();
-
-    // S = Q K^T * scale on a 4x4 register tile per thread
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(rg * 4 + i) * ldq + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(cg + 16 * j) * ldk + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cg + 16 * j;
-        sS[(rg * 4 + i) * lds + c] = c < nk ? s[i][j] * p.scale : -INFINITY;
-      }
-    __syncthreads();
-
-    // online softmax: each warp owns BQ/4 rows; every row has >= 1 valid
-    // column in every tile, so the running max is finite after the first
-#pragma unroll
-    for (int rr = 0; rr < BQ / 4; ++rr) {
-      const int r = warp * (BQ / 4) + rr;
-      const float x0 = sS[r * lds + lane];
-      const float x1 = sS[r * lds + lane + 32];
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new);
-      const float p1 = expf(x1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      sS[r * lds + lane] = p0;
-      sS[r * lds + lane + 32] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V on a 4x8 register tile per thread
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = sA[rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) acc[i][j] *= a;
-    }
-    for (int c = 0; c < nk; ++c) {
-      float pv[4], vv[DMAX / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sS[(rg * 4 + i) * lds + c];
-#pragma unroll
-      for (int j = 0; j < DMAX / 16; ++j) {
-        const int d = cg + 16 * j;
-        vv[j] = d < D ? sV[c * ldv + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DMAX / 16; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();  // the next tile overwrites sK, sV and sS
-  }
-
-  float* ob = static_cast<float*>(p.o);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    const int l = q0 + r;
-    if (l >= L) continue;
-    const float inv = 1.f / sL[r];
-    if (p.lse != nullptr && cg == 0) p.lse[((int64_t)b * p.H + h) * L + l] = sM[r] + logf(sL[r]);
-    float* orow = ob + (((int64_t)b * L + l) * p.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < DMAX / 16; ++j) {
-      const int d = cg + 16 * j;
-      if (d < D) orow[d] = acc[i][j] * inv;
-    }
-  }
-}
-}  // namespace fp
 
 // ---------------------------------------------------------------------------
 // Backward (bf16 K2b; K1b, K2b, K5b in float32): FlashAttention-2's split
@@ -309,7 +163,8 @@ __device__ __forceinline__ void store_pair(T* out, float e, float o, float mult,
 }
 
 namespace fp {
-constexpr int BT = 32;  // rows per tile; thread t owns row t/4 and pairs t%4 + 4j
+constexpr int THREADS = 128;  // 4 warps
+constexpr int BT = 32;        // rows per tile; thread t owns row t/4 and pairs t%4 + 4j
 
 __host__ __device__ constexpr size_t bwd_smem_bytes(int D) {
   return ((size_t)4 * BT * (D + 1) + (size_t)2 * BT * (BT + 1) + 2 * BT) * sizeof(float);
@@ -516,10 +371,6 @@ inline int launch_dot_rows(int dtype, const void* o, const BwdParams& p, cudaStr
 // The launches, shapes checked by the caller (bad_shape).
 
 namespace fp {
-inline int fwd(const Params& p, cudaStream_t stream) {
-  return launch(kernel, BQ, THREADS, smem_bytes(p.D), smem_bytes(DMAX), p, stream);
-}
-
 // D_i, dk/dv, dq; ROPE un-rotates dq and dk as they are stored (K1b)
 template <bool ROPE>
 int bwd(const void* o, const BwdParams& p, cudaStream_t stream) {

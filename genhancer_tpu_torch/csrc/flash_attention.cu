@@ -57,22 +57,24 @@
 //     probability tile is written to shared memory.
 // The kernels live in attention_sm90.cuh, which K1, K2 and K1b
 // (short_attention.cu) share; this file holds K5/K5b's entry points.
-// float32 keeps the scalar kernels of attention_tiles.cuh (fp::): the
-// tensor cores would round float32 to TF32, and no training path runs the
-// DiT in float32.
+// float32 runs the split-TF32 wgmma forward of attention_tf32.cuh (three
+// TF32 products per product, float32's accuracy; one TF32 product alone
+// would keep 10 mantissa bits) and the scalar backward of
+// attention_tiles.cuh (fp::): no training path runs the DiT in float32.
 //
 // Plain C interface (ctypes): the entry points return cudaGetLastError(),
 // or sm90::TMAP_ERROR + the driver's CUresult when a tensor map does not
 // encode.
 
 #include "attention_sm90.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 namespace flash {
 
 int dispatch_fwd(int dtype, const Params& p, cudaStream_t stream) {
   if (bad_shape(p.D, p.L, p.B, p.H)) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return fp::fwd(p, stream);
+  if (dtype == 0) return tf32::fwd(p, stream);
   if (dtype == 1) return sm90::fwd_padded<2, false>(p, stream);
   return (int)cudaErrorInvalidValue;
 }

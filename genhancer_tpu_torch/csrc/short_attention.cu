@@ -54,14 +54,16 @@
 //     and each dq block's fifth kv tile one row: rows past L are
 //     zero-filled by the TMA, dq sets ds to 0 in those columns and dk/dv
 //     reads lse = +inf there, so p = 0 (the masks of K1b and K5b).
-// Float32 runs the scalar kernels of attention_tiles.cuh (fp::), after the
-// same RoPE pass for K1.
+// Float32 (K2 on the MMVP-VLM eval's tower; K1 after the same RoPE pass)
+// runs the split-TF32 wgmma forward of attention_tf32.cuh, which takes any
+// B/L/H strides, and the scalar backward of attention_tiles.cuh (fp::).
 //
 // Plain C interface (ctypes): the entry points return cudaGetLastError(),
 // or sm90::TMAP_ERROR + the CUresult of cuTensorMapEncodeTiled when a
 // tensor map does not encode.
 
 #include "attention_sm90.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -144,7 +146,7 @@ int launch_rope(const Params& p, const float* cos, const float* sin, void* rq, v
 
 // attention over (q, k, v) of p; bf16 with 64 or 128 q rows per block
 int fwd(int dtype, const Params& p, int block_rows, cudaStream_t stream) {
-  if (dtype == 0) return fp::fwd(p, stream);
+  if (dtype == 0) return tf32::fwd(p, stream);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (block_rows == 64) return sm90::fwd_padded<1, true>(p, stream);
   if (block_rows == 128) return sm90::fwd_padded<2, true>(p, stream);

@@ -12,6 +12,9 @@ dtype.  The bf16 rounding points are held to mean|kernel - plain| /
 mean|plain| <= 2e-4: K1/K2/K5's o, K1b's and K2b's dq, dk and dv, K5b's dv, each
 against a control that rounds p elsewhere and must miss the bound (p
 rounded before it is normalised; dv from p in float32 or p rounded).  The
+float32 forward (split TF32 on the tensor cores) is held to exact float32
+(TF32 off) at max 1e-4 and mean|kernel - plain| / mean|plain| <= 1e-5,
+against controls that leave a TF32 product out and must miss it.  The
 int8 kernels: K7 and K4 bit-identical (IEEE division and rint on both
 sides); K6 codes identical or one apart at a rate below 1e-3, scales within
 1e-6 relative, p within 1e-6 absolute (the card's log2f/exp2f against the
@@ -35,6 +38,13 @@ from genhancer_tpu_torch.core.rope import apply_rope, multi_axis_rope
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 ROUNDING_BOUND = 2e-4
+TF32_MEAN_BOUND = 1e-5
+# the plain emulation's (qk, pv) terms with a TF32 product left out
+TF32_CONTROLS = {"one product": (("hh",), ("hh",)),
+                 "Q K^T without hi lo": (("hh", "lh"), K.SPLIT_TERMS),
+                 "Q K^T without lo hi": (("hh", "hl"), K.SPLIT_TERMS),
+                 "P V without hi lo": (K.SPLIT_TERMS, ("hh", "lh")),
+                 "P V without lo hi": (K.SPLIT_TERMS, ("hh", "hl"))}
 
 
 def _mean_rel(got, want):
@@ -311,6 +321,72 @@ def test_tower_kernels_at_l577(cuda):
     assert _mean_rel(ctl, ref[2]) > ROUNDING_BOUND
     assert K.LAUNCHES["fused_attention"] == before["fused_attention"] + 2
     assert K.LAUNCHES["fused_attention_bwd"] == before["fused_attention_bwd"] + 1
+
+
+@pytest.mark.parametrize("kernel, b, l, h, d", [
+    ("K2", 50, 257, 16, 64), ("K2", 50, 577, 16, 64),      # the MMVP-VLM eval's tower
+    ("K1", 2, 197, 24, 128), ("K5", 2, 700, 4, 128),       # D = 128
+    ("K1", 2, 129, 4, 128), ("K2", 2, 65, 4, 72), ("K2", 2, 1, 4, 8), ("K5", 1, 1031, 4, 72)])
+def test_float32_forward_keeps_float32_accuracy(cuda, monkeypatch, kernel, b, l, h, d):
+    """K1, K2 and K5 in float32 (the split-TF32 wgmma body) against their
+    plain versions in exact float32: max 1e-4 and mean error 1e-5; every
+    control (the plain emulation with a product left out) misses the mean
+    bound.  At L = 1, p = 1 and o = v: only the one-product control can
+    show there."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(l + d)
+    q, k, v = (torch.randn((b, l, h, d), generator=g, device=cuda) for _ in range(3))
+    before = dict(K.LAUNCHES), dict(F.LAUNCHES)
+    if kernel == "K1":
+        ids = torch.randint(0, 16, (b, l, 3), generator=g, device=cuda).to(torch.float32)
+        cos, sin = multi_axis_rope(ids, (d // 2, d // 4, d // 4), 10_000)
+        out = K.fused_rope_attention(q, k, v, cos, sin)
+        ref = K.fused_rope_attention_ref(q, k, v, cos, sin)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    elif kernel == "K2":
+        out, ref = K.fused_attention(q, k, v), K.fused_attention_ref(q, k, v)
+    else:
+        out, ref = F.flash_attention(q, k, v), F.flash_attention_fwd_ref(q, k, v)[0]
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert _mean_rel(out, ref) <= TF32_MEAN_BOUND
+    for name in (TF32_CONTROLS if l > 1 else ["one product"]):
+        ctl = K.split_tf32_attention_ref(q, k, v, *TF32_CONTROLS[name])
+        assert _mean_rel(ctl, ref) > TF32_MEAN_BOUND, name
+    launched = {"K1": K.LAUNCHES["fused_rope_attention"] - before[0]["fused_rope_attention"],
+                "K2": K.LAUNCHES["fused_attention"] - before[0]["fused_attention"],
+                "K5": F.LAUNCHES["flash_attention"] - before[1]["flash_attention"]}
+    assert launched == {n: int(n == kernel) for n in launched}
+
+
+@pytest.mark.parametrize("l", [257, 577])
+def test_float32_lse_where_one_row_is_very_negative(cuda, l):
+    """K2 in float32 at the towers' lengths with one q row planted so that
+    its logits are near -108: that row's lse (near -103) and every other
+    row's match the plain version's, and K2b in float32, which reads them,
+    stays finite and matches the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    b, h, d = 2, 2, 64
+    q = torch.randn((b, l, h, d), generator=g, device=cuda)
+    q[:, l // 2] -= 13.5
+    k = 1 + 0.1 * torch.randn((b, l, h, d), generator=g, device=cuda)
+    v, do = (torch.randn((b, l, h, d), generator=g, device=cuda) for _ in range(2))
+    _, lse, _, _ = K._fwd_kernel(q, k, v, None, want_lse=True)
+    _, rlse = F.flash_attention_fwd_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert -110 < rlse[:, :, l // 2].min().item() and rlse[:, :, l // 2].max().item() < -88
+    assert (lse - rlse).abs().max().item() <= 1e-4 * rlse.abs().max().item()
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    before = K.LAUNCHES["fused_attention_bwd"]
+    out = K.fused_attention(qq, kk, vv)
+    grads = torch.autograd.grad(out, (qq, kk, vv), do)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fused_attention_bwd"] == before + 1
+    want = K.fused_attention_bwd_ref(q, k, v, out.detach(), do)
+    for gk, gr in zip(grads, want):
+        assert torch.isfinite(gk).all()
+        err = (gk - gr).abs().max().item()
+        assert err <= 1e-4 * max(1.0, gr.abs().max().item()), err
 
 
 def test_short_kernels_refuse_layouts_the_tma_cannot_read(cuda):

@@ -237,7 +237,7 @@ def test_layouts_the_tma_cannot_read_are_refused(kind, name):
     assert err is not None and why in err and err.startswith("operand 1")
     with pytest.raises(ValueError, match=re.escape(f"{name}: {err}")):
         K._check_tma_layout(name, good, bad, good)
-    # float32 runs the scalar kernels, which take any B/L/H strides
+    # the float32 kernels load their tiles with the threads and take any B/L/H strides
     K._check_tma_layout(name, good.float(), bad.float(), good.float())
 
 
