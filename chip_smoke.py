@@ -38,7 +38,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              timed in turns) against their plain PyTorch versions at the
              paths' shapes, with kernel, plain and library-call times and
              each kernel's bound (bytes at 3.35 TB/s or operations at 989
-             TFLOP/s bf16 / 495 TFLOP/s TF32 / 1,979 TOPS int8);
+             TFLOP/s bf16 / 495 TFLOP/s TF32 / 1,979 TOPS int8); then K1/K1b
+             at the SigLIP-384 joint L=577 and K5/K5b at the so400m tower's
+             [16, 729, 16, 72], bf16, checked and timed (call, device, bound,
+             SDPA);
 4. small   — a tiny engine on the card (kernels) against the same weights on
              the CPU (plain versions), then one tiny float32 training step
              of each optimizer, card against CPU: loss, gradients, params;
@@ -49,7 +52,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              middle stage2_all step with tower_remat on (the recompute reads
              the injected masks again: K2 twice, K2b once), for a tiny
              MMVP-VLM eval (a tiny CLIPModel, a toy tokenizer: the whole
-             result and the embeddings), and for one tiny float32 int8 step
+             result and the embeddings), for one tiny float32 SigLIP stage-1
+             and stage2_all step (tower L=625, D=72: K5, K5b) and a tiny
+             SigLIP eval (K5; K2 on its 64-token text side), and for one tiny
+             float32 int8 step
              of each int8 configuration (int8_full with the cache K4 emits;
              int8_dw with 8-bit moments: K8, K6);
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
@@ -86,7 +92,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              full width and published batch (2 videos x 8 windows x
              accumulation 2) on synthetic video shards of 256-px JPEGs, some
              videos short enough to leave padded rows: 8 optimizer steps
-             with the default chain, a checkpoint at step 4, a resume from
+             with the default chain, a checkpoint at step 8, a resume from
              step 8 that loads the four video ``.bin`` files strictly and
              runs steps 9-10; then next@224, next2@224 and middle@336 (remat
              from the gate) 4 optimizer steps each at their published batch
@@ -104,13 +110,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              export timed and read back; middle@336's peak memory with
              tower_remat on and off; a resume of next; K2b 48 launches per
              optimizer step on every stage-2 path, 0 elsewhere;
-11. eval   — ``evaluate_model_dir`` on image stage 2's export
-             (MetaCLIP-L/14, 224 px) and on middle@336 stage 2's
-             (CLIP-L/14@336): a synthetic MMVP-VLM tree of 9 x 15 pairs and a
-             toy tokenizer (the card has no ``transformers``), seconds,
-             images/s and texts/s, nine categories, 135 CSV rows, scores in
-             [0, 100], the first pair's embeddings against the CPU's plain
-             path at 1e-4.
+11. siglip — the SigLIP-384 paths at full width (so400m: 27 layers, L=729,
+             D=72; the flux-dev DiT at joint L=577; B=16 x accumulation 2,
+             bf16) on synthetic 384-px shards: the ``Trainer`` on
+             configs/SigLIP_384_stage1.yaml 8 steps (8 profiled), an engine
+             on its files (reconstruct B=1, embed [1, 1152]),
+             SigLIP_384_stage2_all.yaml 5 steps (K5b's first call held to its
+             plain version, the ``siglip-so400m-patch14-384-5/`` export timed
+             and read back bit for bit), SigLIP_384_stage2_only.yaml with
+             ``fused_optimizer: pallas`` 3 steps; per step K5 54, K5b 54 in
+             stage 2, K1 12, K1b 12, K2 and K2b 0;
+12. eval   — ``evaluate_model_dir`` on image stage 2's export
+             (MetaCLIP-L/14, 224 px), on middle@336 stage 2's
+             (CLIP-L/14@336) and on SigLIP stage2_all's (so400m, 384 px: K5
+             and, on the text side, K2 in float32): a synthetic MMVP-VLM tree
+             of 9 x 15 pairs and a toy tokenizer (the card has no
+             ``transformers``), seconds, images/s and texts/s, nine
+             categories, 135 CSV rows, scores in [0, 100], the first pair's
+             embeddings against the CPU's plain path at 1e-4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -222,12 +239,15 @@ def attempt(phase, *args):
     """Run a phase; a failed check is recorded and the run goes on to the
     phases that do not depend on it (every failure shows in one run; the
     script still exits non-zero).  Crashes propagate."""
+    t0 = time.perf_counter()
     try:
         return phase(*args)
     except SmokeFailure as e:
         print(f"FAIL [{phase.__name__}]: {e}", flush=True)
         FAILURES.append(f"{phase.__name__}: {e}")
         return None
+    finally:
+        print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------- phases
@@ -415,6 +435,7 @@ def phase_kernels():
            ("fused_attention", 2, 65, 4, 72, f32, False),
            ("fused_attention", 2, 129, 4, 8, f32, False),
            ("fused_attention", 2, 129, 4, 128, f32, False),
+           ("fused_attention", 50, 64, 16, 72, f32, False),     # SigLIP eval, text side
            ("fused_attention", 2, 256, 16, 72, bf16, False),
            ("fused_attention", 2, 13, 16, 64, bf16, False),
            ("fused_attention", 1, 600, 16, 64, bf16, False)])
@@ -787,8 +808,9 @@ def phase_kernels_bwd():
 
 def phase_kernels_flash():
     """K5 (o and lse) and K5b (dq, dk, dv) against their plain versions at
-    the shapes the video paths give them, the SigLIP-384 tower shape (D=72),
-    ragged lengths and float32 (whose o is also held to TF32_MEAN_BOUND, with
+    the shapes the video paths give them (the SigLIP-384 tower's bf16 shape:
+    phase_kernels_siglip), ragged lengths and float32 (the SigLIP eval's
+    image side, B=50, L=729, D=72, among them) (whose o is also held to TF32_MEAN_BOUND, with
     the controls that must miss it); the bound is relative to max(1,
     max|plain|).  In bf16 the rounding points are held on their own
     (ROUNDING_BOUND): K5's o and K5b's dv against the plain versions, and two controls that round
@@ -809,7 +831,7 @@ def phase_kernels_flash():
         ("next2@224", 32, 708, 24, 128, bf16, True),
         ("middle@336 (B cut from 32)", 4, 1593, 24, 128, bf16, True),
         ("sliding@336", 2, 2169, 24, 128, bf16, True),
-        ("SigLIP-384 tower", 2, 729, 16, 72, bf16, False),
+        ("SigLIP-384 eval's image side", 50, 729, 16, 72, f32, False),
         ("ragged", 2, 601, 24, 128, bf16, False),
         ("ragged", 2, 1031, 24, 128, bf16, False),
         ("strided q/k/v views", 2, 964, 24, 128, bf16, False),
@@ -929,6 +951,103 @@ def phase_kernels_flash():
     for r in rec.values():
         r["ms"], r["plain_ms"] = r["ms_by_shape"]["sliding@224"]
     return rec
+
+
+# the SigLIP-384 paths' attention shapes [B, L, H, D]: the DiT's joint
+# sequence (576 latent tokens + 1 text token) and the so400m tower
+SIGLIP_SHAPES = {"K1/K1b (DiT, joint L=577)": (16, 577, 24, 128),
+                 "K5/K5b (so400m tower)": (16, 729, 16, 72)}
+
+
+def phase_kernels_siglip(records):
+    """K1/K1b at the SigLIP-384 image mode's joint L = 577 = 9 x 64 + 1
+    (B=16, H=24, D=128: the last 64-row kv tile holds one row) and K5/K5b
+    at the so400m tower's L = 729 = 5 x 128 + 89, D = 72 (B=16, H=16: D
+    padded to 128 in shared memory), bf16: against their plain versions
+    (2e-2), the rounding points (ROUNDING_BOUND: o; K1b's dq, dk, dv; K5b's
+    dv) with their controls, and timed: the call and its plain version in
+    turns, the device time from CUDA graphs, SDPA's call and device time on
+    the same q, k, v, and the bound (bytes at 3.35 TB/s or the function's
+    products, 2 forward and 5 backward, at 989 TFLOP/s).  The timings go
+    into the four kernels' records under ``siglip_shape``."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(729)
+    for what, (b, l, h, d) in SIGLIP_SHAPES.items():
+        q, k, v, do = (_rand(gen, (b, l, h, d), torch.bfloat16) for _ in range(4))
+        if what.startswith("K1"):
+            tables = _tables(gen, b, l, d)
+            names = ("fused_rope_attention", "fused_rope_attention_bwd")
+            o, lse, rq, rk = K._fwd_kernel(q, k, v, tables, want_lse=True)
+            ffn = lambda: K._fwd_kernel(q, k, v, tables, want_lse=True)  # noqa: E731
+            bfn = lambda: K._bwd_kernel(rq, rk, v, o, lse, do, tables)  # noqa: E731
+            fref = lambda: K.fused_rope_attention_ref(q, k, v, *tables)  # noqa: E731
+            bref = lambda: K.fused_rope_attention_bwd_ref(q, k, v, o, do, *tables)  # noqa: E731
+            # dv from float32 p (K5b's point), on the pair K1 wrote
+            dv_ctl = lambda: F.flash_attention_bwd_ref(rq, rk, v, o, lse, do)[2]  # noqa: E731
+        else:
+            tables, rq, rk = None, q, k
+            names = ("flash_attention", "flash_attention_bwd")
+            o, lse = F._fwd_kernel(q, k, v, want_lse=True)
+            ffn = lambda: F._fwd_kernel(q, k, v, want_lse=True)  # noqa: E731
+            bfn = lambda: F._bwd_kernel(q, k, v, o, lse, do)  # noqa: E731
+            fref = lambda: F.flash_attention_fwd_ref(q, k, v)[0]  # noqa: E731
+            bref = lambda: F.flash_attention_bwd_ref(q, k, v, o, lse, do)  # noqa: E731
+            dv_ctl = lambda: K.fused_attention_bwd_ref(q, k, v, o, do)[2]  # noqa: E731
+        got = bfn()
+        torch.cuda.synchronize()
+        ro, want = fref(), bref()
+        check(bool(torch.isfinite(o).all()) and all(bool(torch.isfinite(g).all()) for g in got),
+              f"{what}: non-finite output or gradient")
+        o_abs, o_rel = _grad_errors((o,), (ro,))
+        g_abs, g_rel = _grad_errors(got, want)
+        o_mean, o_ctl = _mean_rel(o, ro), _mean_rel(_round_before_normalise(rq, rk, v), ro)
+        means = [_mean_rel(g, w) for g, w in zip(got, want)]
+        held = means if what.startswith("K1") else means[2:]     # K5b: dv's point
+        d_ctl = _mean_rel(dv_ctl(), want[2])
+        print(f"[kernels] SigLIP-384 {what} B={b} L={l} H={h} D={d} bf16: o max "
+              f"{o_abs:.3e} (rel {o_rel:.3e}), dq/dk/dv max {g_abs:.3e} (rel {g_rel:.3e}; bound "
+              f"2e-02); mean|kernel-plain|/mean|plain| o {o_mean:.3e} (p rounded before "
+              f"normalising {o_ctl:.3e}), dq {means[0]:.3e}, dk {means[1]:.3e}, dv "
+              f"{means[2]:.3e} (the other kernel's p for dv {d_ctl:.3e}; bound "
+              f"{ROUNDING_BOUND:.0e})", flush=True)
+        check(o_rel <= BOUND["bfloat16"] and g_rel <= BOUND["bfloat16"],
+              f"{what}: o {o_rel}, grads {g_rel} > {BOUND['bfloat16']}")
+        check(o_mean <= ROUNDING_BOUND and max(held) <= ROUNDING_BOUND,
+              f"{what}: rounding points moved: o {o_mean}, gradients {means}")
+        check(o_ctl > ROUNDING_BOUND and d_ctl > ROUNDING_BOUND,
+              f"{what}: a control passes the rounding bound (o {o_ctl}, dv {d_ctl})")
+        lib_f, lib_b = _sdpa_fwd_bwd(q, k, v, do)
+        unit = 2.0 * b * h * l * l * d
+        rows = {}
+        for name, kfn, pfn, lib, n, prods, io in (
+                (names[0], ffn, fref, lib_f, 10, 2, (q, k, v, o, lse) + tuple(tables or ())),
+                (names[1], bfn, bref, lib_b, 5, 5,
+                 (q, k, v, o, lse, do, *got) + tuple(tables or ()))):
+            ms, pms = kernel_vs_plain_ms(kfn, pfn, n=n, rounds=4)
+            row = {"shape": [b, l, h, d], "ms": ms, "plain_ms": pms,
+                   "device_ms": graph_ms(kfn, n=n), "library_ms": _library_ms(lib, n=n),
+                   "library_device_ms": graph_ms(lib, n=n), "library_device_by": "CUDA graph"}
+            if row["library_device_ms"] is None:
+                row["library_device_ms"] = profiled_ms(lib, n=n)
+                row["library_device_by"] = "profiler, kernel time per call"
+            _set_bound(row, _nbytes(*io), prods * unit)
+            rows[name] = row
+            if records.get(name) is not None:
+                records[name]["siglip_shape"] = row
+            kid = KERNELS[name][0]
+            share = (f", {100 * row['bound_ms'] / row['device_ms']:.1f}% of the bound"
+                     if row["device_ms"] else "")
+            print(f"[kernels] SigLIP-384 {kid} B={b} L={l} H={h} D={d}: call {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms; device {_fmt(row['device_ms'])} ms{share}; bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); SDPA call "
+                  f"{row['library_ms']:.4f} ms, device {_fmt(row['library_device_ms'])} ms "
+                  f"({row['library_device_by']})", flush=True)
+        del q, k, v, do, o, lse, got, want, ro, lib_f, lib_b
+        _free()
 
 
 def _stage1_trainable_shapes():
@@ -1999,6 +2118,82 @@ def phase_small_video_stage2():
           f"(forward and recompute) and {v.num_layers}")
 
 
+def _tiny_siglip_spec(stage="stage1"):
+    """The tiny spec of ``_tiny_spec`` with a SigLIP tower whose grid gives
+    L > 600 at D = 72: 100 px, patch 4 (625 tokens), hidden 144 in two
+    heads; float32; LoRA r=3 with dropout 0.1 on SIGLIP_TARGETS."""
+    import torch
+    from genhancer_tpu_torch.models.towers import siglip as sm
+    from genhancer_tpu_torch.train import lora
+    tower = sm.SiglipConfig(
+        vision=sm.SiglipVisionConfig(hidden_size=144, intermediate_size=64, num_layers=2,
+                                     num_heads=2, image_size=100, patch_size=4),
+        text=sm.SiglipTextConfig(hidden_size=144, intermediate_size=64, num_layers=2,
+                                 num_heads=2, vocab_size=100, max_position_embeddings=64,
+                                 projection_size=144))
+    return dataclasses.replace(
+        _tiny_spec(), stage=stage, tower_kind="siglip", img_size=100, clip_image_size=100,
+        tower_cfg=tower, dit_param_dtype=torch.float32, vae_dtype=torch.float32, lora_r=3,
+        lora_alpha=16.0, lora_dropout=0.1, lora_targets=lora.SIGLIP_TARGETS)
+
+
+def phase_small_siglip():
+    """One tiny float32 SigLIP image step of stage 1 and of stage2_all (the
+    default chain), card against CPU (``_tiny_step_card_vs_cpu``): the tower
+    at L = 625, D = 72 runs K5 (and, in stage 2, K5b) on the card; stage 2
+    with a nonzero B planted in every wrapped linear and LoRA dropout on the
+    same injected masks (six per layer, then the head's out_proj, fc1,
+    fc2).  The DiT's joint length is 25 x 25 + 1 = 626: K5/K5b there too."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.tasks.image import (create_state, init_modules, make_loss_fn,
+                                                 trainable_predicate)
+    from genhancer_tpu_torch.train import optim
+
+    lr = 1e-3
+    rng = np.random.default_rng(15)
+    spec = _tiny_siglip_spec()
+    v = spec.tower_cfg.vision
+    n_img = v.grid ** 2
+    shapes = ([(2, n_img, v.hidden_size)] * 5 + [(2, n_img, v.intermediate_size)]) \
+        * v.num_layers + [(2, 1, v.hidden_size)] * 2 + [(2, 1, v.intermediate_size)]
+    lat = spec.latent_hw
+    n_tok = (lat[0] // 2) * (lat[1] // 2)
+    imgs = rng.random((2, 2, 100, 100, 3), dtype=np.float32)
+    draws = [{"t": rng.random(2, dtype=np.float32),
+              "x0": rng.standard_normal((2, n_tok, 4 * spec.vae_cfg.z_channels),
+                                        dtype=np.float32),
+              "vae_noise": rng.standard_normal((2, *lat, spec.vae_cfg.z_channels),
+                                               dtype=np.float32),
+              "lora_masks": [rng.random(sh) < 0.9 for sh in shapes]} for _ in range(2)]
+    blocks = spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    for stage in ("stage1", "stage2_all"):
+        sp = dataclasses.replace(spec, stage=stage)
+        stage_draws = draws if stage != "stage1" else [
+            {k: x for k, x in d.items() if k != "lora_masks"} for d in draws]
+
+        def make_state(dev, sp=sp):
+            mods = init_modules(sp, torch.Generator().manual_seed(5))
+            if sp.stage != "stage1":
+                _plant_lora_b(mods["clip"]["model"], 6)
+            opt = optim.AdamWChain(optim.make_lr_schedule("constant", lr))
+            mods = mods.to(dev)
+            return create_state(mods, trainable_predicate(sp, mods), opt), opt
+
+        launches = _tiny_step_card_vs_cpu(
+            f"tiny f32 SigLIP image {stage} step (tower L=625, D=72)", make_state,
+            make_loss_fn(sp), {"image": imgs[0]}, {"image": imgs}, stage_draws, lr,
+            null=("self_attn.k_proj.bias",))
+        got = {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
+                                        "fused_attention", "fused_attention_bwd")}
+        want = {"flash_attention": v.num_layers + blocks,
+                "flash_attention_bwd": (v.num_layers if stage != "stage1" else 0) + blocks,
+                "fused_attention": 0, "fused_attention_bwd": 0}
+        print(f"[small] launches of the card's SigLIP {stage} forward + backward {got}",
+              flush=True)
+        check(got == want, f"tiny SigLIP {stage} step: launches {got}, expected {want}")
+
+
 def _write_mmvp(root, pairs, size, seed=0):
     """A synthetic MMVP-VLM tree: ``Questions.csv`` and ``MLLM_VLM Images/
     {category}/{qid}.jpg``, ``pairs`` pairs in each of the nine categories,
@@ -2098,6 +2293,52 @@ def phase_small_eval(work):
     check(max(errs) <= 1e-5, f"tiny eval: embeddings differ by {errs}")
     check(counts == {"fused_attention": cfg.vision.num_layers},
           f"tiny eval: launches {counts}, expected K2 {cfg.vision.num_layers} times")
+
+
+def phase_small_eval_siglip(work):
+    """A tiny SigLIP model (random, seeded; vision D=72 at L=625, text D=72
+    at 64 positions) evaluated on a tiny synthetic MMVP-VLM tree with a toy
+    64-token tokenizer, on the card (K5 and, for the text side, K2 in
+    float32) and on the CPU (plain versions): the whole ``evaluate``
+    output equal, the embeddings within 1e-5 of the CPU's largest."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.core.nn import init_weights
+    from genhancer_tpu_torch.eval import mmvp
+    from genhancer_tpu_torch.models.towers import siglip as sm
+
+    cfg = _tiny_siglip_spec().tower_cfg
+    model = init_weights(sm.SiglipModel(cfg), torch.Generator().manual_seed(22)).eval()
+    with torch.no_grad():
+        model.logit_scale.fill_(2.3)
+        model.logit_bias.fill_(-1.7)
+    bench = _write_mmvp(os.path.join(work, "tiny-mmvp-siglip"), 2, 40, seed=2)
+    tok = _toy_tokenize(64, 1)
+    cpu = mmvp.evaluate(model, cfg, "siglip", bench, tok,
+                        results_csv=os.path.join(work, "siglip-cpu.csv"))
+    card = copy.deepcopy(model).cuda()
+    _zero_counts()
+    got = mmvp.evaluate(card, cfg, "siglip", bench, tok,
+                        results_csv=os.path.join(work, "siglip-card.csv"))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _read_counts().items() if v}
+    _same_results(got, cpu, os.path.join(work, "siglip-card.csv"),
+                  os.path.join(work, "siglip-cpu.csv"),
+                  "[small] tiny SigLIP MMVP-VLM eval card vs cpu:")
+    pairs = mmvp.load_pairs(bench)
+    images = np.stack([mmvp.preprocess_image(p, "siglip", 100)
+                       for pair in pairs for p in (pair.img1, pair.img2)])
+    ids = tok([t for pair in pairs for t in (pair.text1, pair.text2)])[0]
+    errs = []
+    for want, have in zip(mmvp._embed_all(model, cfg, "siglip", images, ids),
+                          mmvp._embed_all(card, cfg, "siglip", images, ids)):
+        errs.append(float(np.abs(have - want).max() / np.abs(want).max()))
+    print(f"[small] tiny SigLIP eval embeddings card vs cpu: images {errs[0]:.3e}, texts "
+          f"{errs[1]:.3e} of the largest (bound 1e-5); the card's launches {counts}",
+          flush=True)
+    check(max(errs) <= 1e-5, f"tiny SigLIP eval: embeddings differ by {errs}")
+    want = {"flash_attention": cfg.vision.num_layers, "fused_attention": cfg.text.num_layers}
+    check(counts == want, f"tiny SigLIP eval: launches {counts}, expected {want}")
 
 
 def _tiny_int8_spec(dit_quant: str):
@@ -2279,11 +2520,11 @@ def _small_int8_step(dit_quant: str, bits: int):
           f"tiny int8 step {dit_quant}: launches {k}")
 
 
-def _write_shards(root, n_shards=4, per_shard=96):
+def _write_shards(root, n_shards=4, per_shard=96, size=256):
     from genhancer_tpu_torch.data.testing import make_image_shard
     os.makedirs(root, exist_ok=True)
     for i in range(n_shards):
-        make_image_shard(os.path.join(root, f"shard-{i:03d}.tar"), per_shard, 256, seed=i)
+        make_image_shard(os.path.join(root, f"shard-{i:03d}.tar"), per_shard, size, seed=i)
     return root
 
 
@@ -2306,7 +2547,9 @@ def phase_train(work):
           f"{shutil.disk_usage(work).free / 2**30:.0f} GiB")
     base = load_config(CONFIG)
     base["data_config"]["img_dir"] = shards
-    base.update(max_train_steps=8, checkpointing_steps=4, log_interval=1, report_to="none")
+    # one checkpoint, at step 8, which the resume and the engine load (the
+    # cadence itself is the CPU tests'; a step-4 one cost ~10 s of writes)
+    base.update(max_train_steps=8, checkpointing_steps=8, log_interval=1, report_to="none")
     runs, n_leaves = {}, None
     for opt in ("chain", "pallas"):
         cfg = copy.deepcopy(base)
@@ -2336,7 +2579,7 @@ def phase_train(work):
         mu_dtype = next(iter(trainer.state.opt_state["mu"].values())).dtype
         print(f"[train] {opt}: Trainer built in {built:.1f} s ({n_leaves} trainable leaves, "
               f"{n_par / 1e9:.4f} B params; moments now {str(mu_dtype)[6:]}); 8 steps in "
-              f"{wall:.1f} s incl. 2 checkpoints; losses "
+              f"{wall:.1f} s incl. the checkpoint; losses "
               f"{[round(h['loss'], 4) for h in hist]}; grad norms "
               f"{[round(h['grad_norm'], 3) for h in hist]}")
         print(f"[train] {opt}: median step time of steps 3-8 {step_s * 1e3:.1f} ms = "
@@ -2348,11 +2591,10 @@ def phase_train(work):
                 "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
         print(f"[train] {opt}: kernel launches {counts}, expected {want}")
         check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
-        for s in (4, 8):
-            for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
-                        "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
-                check(os.path.exists(os.path.join(out, pat.format(s))),
-                      f"{opt}: {pat.format(s)} missing")
+        for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
+                    "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
+            check(os.path.exists(os.path.join(out, pat.format(8))),
+                  f"{opt}: {pat.format(8)} missing")
         del trainer
         _free()
         ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
@@ -2412,27 +2654,33 @@ def _stage2_want(trainer, steps):
             "fused_adamw": steps * len(trainer.state.trainable) if fused else 0}
 
 
-class _K2bSpy:
-    """Keeps the inputs and outputs of the first K2b launch of a run (the
-    tower's first layer's backward in the first micro-batch), so that the
-    step's own K2b call can be held against the plain version."""
+class _BwdSpy:
+    """Keeps the inputs and outputs of the first ``_bwd_kernel`` launch of a
+    run in ``module`` (the short kernels' or the flash kernel's) that
+    ``keep`` accepts, so that the step's own call can be held against the
+    plain version: K2b (``tables`` None: the tower's first layer's backward
+    in the first micro-batch) or K5b (the SigLIP tower's last layer's)."""
 
-    def __init__(self):
-        from genhancer_tpu_torch.core.kernels import short_attention as K
-        self.K, self.inner, self.call = K, K._bwd_kernel, None
+    def __init__(self, module, keep=lambda *args: True):
+        self.mod, self.keep, self.inner, self.call = module, keep, module._bwd_kernel, None
 
     def __enter__(self):
-        def spy(rq, rk, v, o, lse, do, tables):
-            out = self.inner(rq, rk, v, o, lse, do, tables)
-            if tables is None and self.call is None:
-                self.call = ([x.detach().clone() for x in (rq, rk, v, o, do.to(rq.dtype))],
-                             [x.clone() for x in out])
+        def spy(*args):
+            out = self.inner(*args)
+            if self.call is None and self.keep(*args):
+                self.call = ([x.detach().clone() if x is not None and hasattr(x, "detach")
+                              else x for x in args], [x.clone() for x in out])
             return out
-        self.K._bwd_kernel = spy
+        self.mod._bwd_kernel = spy
         return self
 
     def __exit__(self, *exc):
-        self.K._bwd_kernel = self.inner
+        self.mod._bwd_kernel = self.inner
+
+
+def _k2b_spy():
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+    return _BwdSpy(K, keep=lambda rq, rk, v, o, lse, do, tables: tables is None)
 
 
 def _export_timer():
@@ -2455,11 +2703,12 @@ def _export_timer():
 
 
 def _check_k2b_call(spy, tag, path):
-    """K2b's first call in a stage-2 step (kept by a _K2bSpy) against its
+    """K2b's first call in a stage-2 step (kept by ``_k2b_spy``) against its
     plain version: 2e-2 max (relative to max(1, max|plain|)), 2e-4 mean."""
     from genhancer_tpu_torch.core.kernels import short_attention as K
     check(spy.call is not None, f"{path}: K2b never launched")
-    (q, k, v, o, do), got = spy.call
+    (q, k, v, o, _, do, _), got = spy.call
+    do = do.to(q.dtype)
     want = K.fused_attention_bwd_ref(q, k, v, o, do)
     abs_err, rel_err = _grad_errors(got, want)
     means = [_mean_rel(g, w) for g, w in zip(got, want)]
@@ -2474,13 +2723,13 @@ def _check_k2b_call(spy, tag, path):
 def _check_export(trainer, exports, tag):
     """The one HF export a stage-2 run wrote (``_export_timer``'s record):
     its seconds and bytes, its files, and ``registry.load_tower`` of it
-    against the in-memory merged tower: class tokens bit for bit and
-    config.json.  Returns the export's directory."""
+    against the in-memory merged tower: class tokens (SigLIP: the
+    MAP-pooled features) bit for bit and config.json.  Returns the export's
+    directory."""
     import numpy as np
     import torch
     from genhancer_tpu_torch import registry
-    from genhancer_tpu_torch.tasks.conditioning import (OPENAI_CLIP_MEAN, OPENAI_CLIP_STD,
-                                                        normalize, tower_features)
+    from genhancer_tpu_torch.tasks.conditioning import normalize, tower_features, tower_stats
     from genhancer_tpu_torch.train import lora
     check(len(exports) == 1, f"{len(exports)} exports, expected 1")
     secs, nbytes, out = exports[0]
@@ -2495,10 +2744,10 @@ def _check_export(trainer, exports, tag):
     merged = lora.merge(st.modules["clip"]["model"])
     img = torch.from_numpy(np.random.default_rng(9).random((4, size, size, 3),
                                                            dtype=np.float32)).to(dev)
-    px = normalize(img, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD).to(spec.compute_dtype)
+    px = normalize(img, *tower_stats(spec.tower_kind)).to(spec.compute_dtype)
     with torch.no_grad():
-        a = tower_features("clip", {"model": loaded}, px, spec.tower_cfg)[0]
-        b = tower_features("clip", {"model": merged}, px, spec.tower_cfg)[0]
+        a = tower_features(spec.tower_kind, {"model": loaded}, px, spec.tower_cfg)[0]
+        b = tower_features(spec.tower_kind, {"model": merged}, px, spec.tower_cfg)[0]
     same = torch.equal(a, b) and cfg_l == spec.tower_cfg
     print(f"{tag} registry.load_tower(model_dir=export) class tokens "
           f"{'equal' if same else 'DIFFER FROM'} the in-memory merged tower's bit for bit "
@@ -2536,7 +2785,7 @@ def phase_stage2_train(work, stage1, eval_root=None):
     exports, restore = _export_timer()
     profile = _LastStepProfile()
     try:
-        with _K2bSpy() as spy:
+        with _k2b_spy() as spy:
             trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
     finally:
         restore()
@@ -2596,6 +2845,187 @@ def phase_stage2_train(work, stage1, eval_root=None):
     check(counts == want, f"stage2_only: launch counts {counts} != expected {want}")
     runs["train_stage2_only"] = counts
     del trainer, st
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    return runs, export
+
+
+SIGLIP_CONFIGS = {s: os.path.join(ROOT, "configs", f"SigLIP_384_{s}.yaml")
+                  for s in ("stage1", "stage2_all", "stage2_only")}
+# optimizer steps of phase_siglip's Trainer runs
+SIGLIP_STEPS = {"siglip_stage1": 8, "siglip_stage2_all": 5, "siglip_stage2_only": 3}
+
+
+def _siglip_want(trainer, steps):
+    """Launch counts of ``steps`` optimizer steps of a SigLIP-384 image run,
+    from the model: per micro-batch each DiT block runs K1 and K1b at the
+    joint L = 577 and each tower layer K5 at L = 729 (and K5b in stage 2,
+    where the tower trains); K3 takes each trainable leaf per step with
+    ``fused_optimizer: pallas``; K2 and K2b never run."""
+    spec, micro = trainer.spec, steps * trainer.accum
+    blocks = spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    layers = spec.tower_cfg.vision.num_layers
+    fused = trainer.cfg.get("fused_optimizer") == "pallas"
+    return {**_no_launches(), "fused_rope_attention": micro * blocks,
+            "fused_rope_attention_bwd": micro * blocks, "flash_attention": micro * layers,
+            "flash_attention_bwd": micro * layers if spec.stage != "stage1" else 0,
+            "fused_adamw": steps * len(trainer.state.trainable) if fused else 0}
+
+
+def _siglip_report(tag, trainer, counts, wall, peak, steps, timed_from):
+    """Check a SigLIP run's synced steps, print its losses, step time, peak
+    memory and launches per step, and hold its launch counts to
+    ``_siglip_want``."""
+    import numpy as np
+    hist = trainer.history
+    check([h["step"] for h in hist] == list(range(1, steps + 1))
+          and all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"{tag}: synced steps {hist}")
+    step_s = statistics.median(h["step_time"] for h in hist[timed_from - 1:])
+    n_par = sum(p.numel() for p in trainer.state.trainable.values())
+    print(f"[siglip] {tag}: {len(trainer.state.trainable)} trainable leaves, "
+          f"{n_par / 1e9:.4f} B params; {steps} steps in {wall:.1f} s; losses "
+          f"{[round(h['loss'], 4) for h in hist]}; median step time of steps {timed_from}-{steps} "
+          f"{step_s * 1e3:.1f} ms = {32 / step_s:.2f} img/s (B=16 x accumulation 2); peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    want = _siglip_want(trainer, steps)
+    per_step = {k: v // steps for k, v in counts.items() if v}
+    print(f"[siglip] {tag}: kernel launches per optimizer step {per_step}; expected "
+          f"{ {k: v // steps for k, v in want.items() if v} }", flush=True)
+    check(counts == want, f"{tag}: launch counts {counts} != expected {want}")
+    return step_s
+
+
+def phase_siglip(work, eval_root=None):
+    """The SigLIP-384 paths at full published width (so400m, 27 layers,
+    L=729, D=72; the flux-dev DiT at joint L=577; B=16 x accumulation 2,
+    bf16) on synthetic 384-px shards: the Trainer on
+    configs/SigLIP_384_stage1.yaml 8 steps (steps 3-8 timed, 8 profiled);
+    an engine serving its step-8 files (one reconstruct at B=1, one embed:
+    [1, 1152]); configs/SigLIP_384_stage2_all.yaml from those files 5
+    steps (3-5 timed, 5 profiled; K5b's first call in the step held against
+    its plain version) with the merged ``siglip-so400m-patch14-384-5/``
+    export timed and read back by ``registry.load_tower`` bit for bit
+    (moved into ``eval_root`` for phase_eval); then
+    configs/SigLIP_384_stage2_only.yaml with ``fused_optimizer: pallas``
+    (K3 over the 981 LoRA leaves) 3 steps.  Returns ({path: launch
+    counts}, the kept export's directory)."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
+    from genhancer_tpu_torch.serve.engine import InferenceEngine
+    from genhancer_tpu_torch.train.config import load_config
+
+    t0 = time.perf_counter()
+    shards = _write_shards(os.path.join(work, "shards"), size=384)
+    print(f"[siglip] wrote 4 synthetic shards of 96 384-px JPEGs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs, export = {}, None
+    out1 = os.path.join(work, "out-stage1")
+
+    def config(stage, **kw):
+        cfg = load_config(SIGLIP_CONFIGS[stage])
+        cfg["data_config"]["img_dir"] = shards
+        cfg.update(log_interval=1, report_to="none", output_dir=os.path.join(work, f"out-{stage}"),
+                   max_train_steps=SIGLIP_STEPS[f"siglip_{stage}"], **kw)
+        return cfg
+
+    cfg = config("stage1", checkpointing_steps=SIGLIP_STEPS["siglip_stage1"])
+    profile = _LastStepProfile()
+    trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    tower = trainer.state.modules["clip"]["model"]
+    n_tower = sum(p.numel() for p in tower.parameters())
+    print(f"[siglip] stage1: tower {type(tower).__name__} {n_tower / 1e6:.1f} M params "
+          f"(L={trainer.spec.tower_cfg.vision.grid ** 2}, D=72), DiT joint L="
+          f"{(trainer.spec.latent_hw[0] // 2) ** 2 + 1}", flush=True)
+    check(n_tower == 428_225_600, f"stage1: the so400m vision tower holds {n_tower} params")
+    steps = SIGLIP_STEPS["siglip_stage1"]
+    step_s = _siglip_report("stage1", trainer, counts, wall, peak, steps, 3)
+    _print_device_time(profile.prof, 1, profile.wall_s,
+                       tag=f"[siglip] stage1 (step {steps}, profiled; {step_s * 1e3:.1f} ms "
+                           f"unprofiled):")
+    runs["siglip_stage1"] = counts
+    del trainer, tower
+    _free()
+    os.remove(os.path.join(out1, f"optimizer-state-{steps}.bin"))
+
+    engine = InferenceEngine.from_config(copy.deepcopy(cfg), device="cuda", load_dir=out1,
+                                         load_step=steps, buckets=(1,), num_steps=4)
+    img = np.random.default_rng(4).random((1, 384, 384, 3), dtype=np.float32)
+    engine.reconstruct(img, seed=0)                     # warm
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = engine.reconstruct(img, seed=0)
+    torch.cuda.synchronize()
+    rec_ms = (time.perf_counter() - t0) * 1e3
+    r_counts = {k: v for k, v in _read_counts().items() if v}
+    t0 = time.perf_counter()
+    emb = engine.embed(img)
+    emb_ms = (time.perf_counter() - t0) * 1e3
+    e_counts = {k: v for k, v in _read_counts().items() if v}
+    blocks = engine.spec.dit_cfg.depth + engine.spec.dit_cfg.depth_single_blocks
+    print(f"[siglip] engine on the stage-1 files: reconstruct B=1 at 384 px (4 Euler steps) "
+          f"{rec_ms:.1f} ms, launches {r_counts}; embed {emb_ms:.1f} ms -> {emb.shape} "
+          f"{emb.dtype}, launches then {e_counts}", flush=True)
+    check(rec.shape == img.shape and np.isfinite(rec).all(), "siglip engine: reconstruct")
+    check(emb.shape == (1, 1152) and emb.dtype == np.float32 and np.isfinite(emb).all(),
+          f"siglip engine: embed {emb.shape}")
+    check(r_counts == {"fused_rope_attention": 4 * blocks, "flash_attention": 27}
+          and e_counts == {**r_counts, "flash_attention": 54},
+          f"siglip engine: launches {r_counts}, {e_counts}")
+    runs["serve_siglip"] = {**_no_launches(), **e_counts}
+    del engine
+    _free()
+
+    cfg = config("stage2_all", load_dir=out1, load_step=steps, checkpointing_steps=0)
+    steps = SIGLIP_STEPS["siglip_stage2_all"]
+    exports, restore = _export_timer()
+    profile = _LastStepProfile()
+    try:
+        with _BwdSpy(F) as spy:
+            trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    finally:
+        restore()
+    n_tower = sum(k.startswith("clip.model.") for k in trainer.state.trainable)
+    check(n_tower == 981, f"stage2_all: {n_tower} trainable tower leaves, not 981")
+    step_s = _siglip_report("stage2_all", trainer, counts, wall, peak, steps, 3)
+    _print_device_time(profile.prof, 1, profile.wall_s,
+                       tag=f"[siglip] stage2_all (step {steps}, profiled; {step_s * 1e3:.1f} ms "
+                           f"unprofiled):")
+    runs["siglip_stage2_all"] = counts
+    check(spy.call is not None, "stage2_all: K5b never launched")
+    (q, k, v, o, lse, do), got = spy.call
+    want = F.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    abs_err, rel_err = _grad_errors(got, want)
+    dv_mean = _mean_rel(got[2], want[2])
+    print(f"[siglip] K5b's first call in the stage2_all step, {tuple(q.shape)} "
+          f"{str(q.dtype)[6:]}: max err {abs_err:.3e} (rel {rel_err:.3e}, bound "
+          f"{BOUND['bfloat16']}); dv mean|kernel - plain| / mean|plain| {dv_mean:.3e} "
+          f"(bound {ROUNDING_BOUND})", flush=True)
+    check(tuple(q.shape) == (16, 729, 16, 72), f"K5b in the step at {tuple(q.shape)}")
+    check(rel_err <= BOUND["bfloat16"] and dv_mean <= ROUNDING_BOUND,
+          "stage2_all: K5b in the step disagrees with its plain version")
+    del spy, q, k, v, o, lse, do, got, want
+    out = _check_export(trainer, exports, "[siglip]")
+    check(os.path.basename(out) == f"siglip-so400m-patch14-384-{steps}", f"export {out}")
+    if eval_root is not None:       # the MMVP-VLM eval reads it (phase_eval)
+        export = os.path.join(eval_root, os.path.basename(out))
+        shutil.move(out, export)
+    del trainer
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+
+    cfg = config("stage2_only", load_dir=out1, load_step=SIGLIP_STEPS["siglip_stage1"],
+                 checkpointing_steps=0, fused_optimizer="pallas")
+    steps = SIGLIP_STEPS["siglip_stage2_only"]
+    trainer, counts, wall, peak = _trainer_run(cfg)
+    check(len(trainer.state.trainable) == 981
+          and all(k.startswith("clip.model.") for k in trainer.state.trainable),
+          f"stage2_only: {len(trainer.state.trainable)} trainable leaves")
+    _siglip_report("stage2_only, fused_optimizer: pallas", trainer, counts, wall, peak, steps, 2)
+    runs["siglip_stage2_only"] = counts
+    del trainer
     _free()
     shutil.rmtree(cfg["output_dir"], ignore_errors=True)
     return runs, export
@@ -2872,8 +3302,9 @@ def phase_video_train(work):
         cfg = load_config(os.path.join(ROOT, "configs", name))
         cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
         steps = 8 if mode == "sliding" else 4
+        # one checkpoint at the last step: sliding's resume and stage 2 load it
         cfg.update(output_dir=os.path.join(work, f"out-{mode}"), max_train_steps=steps,
-                   checkpointing_steps=4, log_interval=1, report_to="none")
+                   checkpointing_steps=steps, log_interval=1, report_to="none")
         t0 = time.perf_counter()
         # sliding: steps 3-8 timed, the resume's step 10 profiled; the
         # others: steps 2-3 timed, step 4 profiled
@@ -2915,11 +3346,10 @@ def phase_video_train(work):
         del trainer
         _free()
         if mode == "sliding":
-            for s_ in (4, 8):
-                for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
-                            "checkpoint-visual-adapter-{}.bin", "optimizer-state-{}.bin"):
-                    check(os.path.exists(os.path.join(out, pat.format(s_))),
-                          f"sliding: {pat.format(s_)} missing")
+            for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
+                        "checkpoint-visual-adapter-{}.bin", "optimizer-state-{}.bin"):
+                check(os.path.exists(os.path.join(out, pat.format(8))),
+                      f"sliding: {pat.format(8)} missing")
             ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
             cfg2 = copy.deepcopy(cfg)
             cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
@@ -3044,7 +3474,7 @@ def phase_video_stage2(work, stage1, eval_root=None):
         exports, restore = _export_timer()
         profile = _LastStepProfile()
         try:
-            with _K2bSpy() as spy:
+            with _k2b_spy() as spy:
                 trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
         finally:
             restore()
@@ -3102,44 +3532,49 @@ def phase_eval(work, exports):
     export of ``exports`` ({label: (dir, tower, clip_image_size)}): a
     synthetic MMVP-VLM tree of 9 categories x 15 pairs (270 JPEGs) and a
     deterministic tokenizer in place of the HF one (injected as
-    ``mmvp.default_tokenizer``).  Prints the seconds, images/s and texts/s
-    (the feature calls, synced) and checks nine categories + the average,
-    135 CSV rows and scores in [0, 100]; the first pair's image and text
-    embeddings are held against the CPU's plain path on the same export at
-    1e-4 of their largest.  Returns {path: launch counts}."""
+    ``mmvp.default_tokenizer``: 77 tokens for CLIP, 64 for SigLIP).  Prints
+    the seconds, images/s and texts/s (the feature calls, synced) and checks
+    nine categories + the average, 135 CSV rows and scores in [0, 100]; the
+    first pair's image and text embeddings are held against the CPU's plain
+    path on the same export at 1e-4 of their largest.  Returns {path:
+    launch counts}."""
     import csv
     import numpy as np
     import torch
     from genhancer_tpu_torch import registry
     from genhancer_tpu_torch.eval import mmvp
     from genhancer_tpu_torch.models.towers import clip as cm
+    from genhancer_tpu_torch.models.towers import siglip as sm
 
     t0 = time.perf_counter()
     bench = _write_mmvp(os.path.join(work, "mmvp"), EVAL_PAIRS, 336)
     print(f"[eval] wrote a synthetic MMVP-VLM tree (9 x {EVAL_PAIRS} pairs, "
           f"{18 * EVAL_PAIRS} 336-px JPEGs) in {time.perf_counter() - t0:.1f} s", flush=True)
-    tok = _toy_tokenize(77, 49407)
-    inner = {n: getattr(cm, n) for n in ("get_image_features", "get_text_features")}
-    calls = {n: [] for n in inner}
+    toks = {"clip": _toy_tokenize(77, 49407), "siglip": _toy_tokenize(64, 1)}
+    names = ("get_image_features", "get_text_features")
+    calls = {n: [] for n in names}
 
-    def timed(name):
+    def timed(inner, name):
         def fn(model, x, cfg, *a):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = inner[name](model, x, cfg, *a)
+            out = inner(model, x, cfg, *a)
             torch.cuda.synchronize()
             calls[name].append((time.perf_counter() - t, x.shape[0], out[:2].float().cpu()))
             return out
         return fn
 
     runs, default_tok = {}, mmvp.default_tokenizer
-    mmvp.default_tokenizer = lambda d, k: tok
+    mmvp.default_tokenizer = lambda d, k: toks[k]
     try:
         for label, (model_dir, tower, size) in exports.items():
             check(model_dir is not None and os.path.isdir(model_dir), f"{label}: no export")
-            for n in inner:
+            kind = "siglip" if tower == "siglip" else "clip"
+            mod, tok = (sm if kind == "siglip" else cm), toks[kind]
+            inner = {n: getattr(mod, n) for n in names}
+            for n in names:
                 calls[n] = []
-                setattr(cm, n, timed(n))
+                setattr(mod, n, timed(inner[n], n))
             csv_path = os.path.join(work, f"eval-{size}.csv")
             _zero_counts()
             t0 = time.perf_counter()
@@ -3147,8 +3582,8 @@ def phase_eval(work, exports):
                 res = mmvp.evaluate_model_dir(model_dir, bench, tower=tower, clip_image_size=size,
                                               results_csv=csv_path, device="cuda")
             finally:
-                for n in inner:
-                    setattr(cm, n, inner[n])
+                for n in names:
+                    setattr(mod, n, inner[n])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = _read_counts()
@@ -3164,8 +3599,14 @@ def phase_eval(work, exports):
                   f"{img_s:.3f} s = {n_img / img_s:.1f} images/s, text features {n_txt} in "
                   f"{txt_s:.3f} s = {n_txt / txt_s:.1f} texts/s (batches of 50, float32, "
                   f"synced); average_score {res['average_score']:.2f}", flush=True)
-            layers = registry.tower_config("clip", model_dir).vision.num_layers
-            want = {**_no_launches(), "fused_attention": layers * -(-n_img // 50)}
+            tcfg = registry.tower_config(kind, model_dir)
+            batches = -(-n_img // 50)
+            # the image side: K2 at CLIP's 257 or 577 tokens, K5 at SigLIP's
+            # 729; SigLIP's unmasked text side: K2 (CLIP's is masked: einsum)
+            want = {**_no_launches(), "fused_attention": tcfg.vision.num_layers * batches}
+            if kind == "siglip":
+                want.update(flash_attention=tcfg.vision.num_layers * batches,
+                            fused_attention=tcfg.text.num_layers * batches)
             print(f"[eval] {label}: kernel launches {counts}, expected {want}", flush=True)
             check(sorted(res) == sorted(mmvp.CATEGORIES + ["average_score"])
                   and all(0.0 <= x <= 100.0 for x in res.values()) and len(rows) == 135
@@ -3173,13 +3614,13 @@ def phase_eval(work, exports):
             check(counts == want, f"{label}: launch counts {counts} != expected {want}")
             runs[f"eval_{size}"] = counts
             # the first pair on the CPU's plain path, from the same directory
-            model, cfg = registry.load_tower("clip", None, model_dir, device="cpu")
+            model, cfg = registry.load_tower(kind, None, model_dir, device="cpu")
             pair = mmvp.load_pairs(bench)[0]
-            px = torch.from_numpy(np.stack([mmvp.preprocess_image(p, "clip", size)
+            px = torch.from_numpy(np.stack([mmvp.preprocess_image(p, kind, size)
                                             for p in (pair.img1, pair.img2)]))
             with torch.no_grad():
-                want_i = cm.get_image_features(model, px, cfg)
-                want_t = cm.get_text_features(
+                want_i = mod.get_image_features(model, px, cfg)
+                want_t = mod.get_text_features(
                     model, torch.from_numpy(tok([pair.text1, pair.text2])[0]), cfg)
             errs = [((calls[n][0][2] - w).abs().max() / w.abs().max()).item()
                     for n, w in (("get_image_features", want_i), ("get_text_features", want_t))]
@@ -3200,6 +3641,7 @@ def main():
     phase_build()
     records = {**(attempt(phase_kernels) or {}), **(attempt(phase_kernels_bwd) or {}),
                **(attempt(phase_kernels_flash) or {})}
+    attempt(phase_kernels_siglip, records)
     records["fused_adamw"] = attempt(phase_adamw)
     records.update(attempt(phase_kernels_int8) or {})
     records.update(attempt(phase_adamw_int8) or {})
@@ -3208,9 +3650,11 @@ def main():
     attempt(phase_small_video)
     attempt(phase_small_stage2)
     attempt(phase_small_video_stage2)
+    attempt(phase_small_siglip)
     work = tempfile.mkdtemp(prefix="chip_smoke_small_")
     try:
         attempt(phase_small_eval, work)
+        attempt(phase_small_eval_siglip, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     attempt(phase_small_int8)
@@ -3237,17 +3681,25 @@ def main():
                                                         eval_root) or (None, None))
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        work = tempfile.mkdtemp(prefix="chip_smoke_siglip_")
+        try:
+            siglip_counts, exports["siglip"] = (attempt(phase_siglip, work, eval_root)
+                                                or (None, None))
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
         eval_counts = attempt(phase_eval, eval_root, {
             "image stage 2 export (MetaCLIP-L/14, 224 px)": (exports["image"], "metaclip", 224),
             "middle@336 stage 2 export (CLIP-L/14@336)": (exports["middle"], "openai_clip",
-                                                          336)})
+                                                          336),
+            "SigLIP stage2_all export (so400m, 384 px)": (exports["siglip"], "siglip", 384)})
     finally:
         shutil.rmtree(eval_root, ignore_errors=True)
     if FAILURES:
         print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
         sys.exit(1)
     paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()},
-             **stage2_counts, **int8_counts, **video_counts, **video2_counts, **eval_counts}
+             **stage2_counts, **int8_counts, **video_counts, **video2_counts, **siglip_counts,
+             **eval_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies
         return counts[name] + (counts["fused_adamw8_quant"] if name == "fused_adamw8" else 0)
@@ -3267,8 +3719,25 @@ def main():
     # every kernel of a path ran on it; K2b runs where the tower trains (image
     # and video stage 2), 48 times per optimizer step (24 layers x 2
     # micro-batches), and nowhere else
-    for n in ("fused_attention",):
-        check(all(c[n] > 0 for c in paths.values()), f"{n} not launched on every path")
+    # K2 runs on every path but SigLIP's training and serving ones, whose
+    # tower (L = 729) runs K5; the SigLIP eval's text side runs K2
+    siglip = [p for p in paths if p.startswith("siglip_") or p == "serve_siglip"]
+    check(all(c["fused_attention"] > 0 for p, c in paths.items() if p not in siglip)
+          and all(paths[p]["fused_attention"] == 0 for p in siglip),
+          "fused_attention not launched on every path but SigLIP's, or launched on SigLIP's")
+    for p in siglip:
+        for n in ("flash_attention", "fused_rope_attention"):
+            check(paths[p][n] > 0, f"{n} not launched on {p}")
+    for p in ("siglip_stage1", "siglip_stage2_all", "siglip_stage2_only"):
+        check(paths[p]["fused_rope_attention_bwd"] > 0
+              and (paths[p]["flash_attention_bwd"] > 0) == (p != "siglip_stage1"),
+              f"{p}: K1b/K5b launches {paths[p]}")
+    print("[done] SigLIP launches per optimizer step: " + "; ".join(
+        f"{p} K5 {paths[p]['flash_attention'] // SIGLIP_STEPS[p]}, K5b "
+        f"{paths[p]['flash_attention_bwd'] // SIGLIP_STEPS[p]}, K1 "
+        f"{paths[p]['fused_rope_attention'] // SIGLIP_STEPS[p]}, K1b "
+        f"{paths[p]['fused_rope_attention_bwd'] // SIGLIP_STEPS[p]}, K2b "
+        f"{paths[p]['fused_attention_bwd']}" for p in SIGLIP_STEPS), flush=True)
     k2b = {p: c["fused_attention_bwd"] for p, c in paths.items()}
     check(all(n == (48 * STAGE2_STEPS[p] if p in STAGE2_STEPS else 0) for p, n in k2b.items()),
           f"K2b launches by path {k2b}: 48 per step on the stage-2 paths "

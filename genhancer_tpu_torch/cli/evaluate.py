@@ -1,12 +1,13 @@
 """MMVP-VLM evaluation CLI (PyTorch port of ``genhancer_tpu/cli/evaluate.py``).
 
     genhancer-eval-torch --benchmark_dir <MMVP-VLM dir> --model_dir <HF tower dir>
-        [--tower openai_clip|metaclip] [--clip_image_size N] [--clip_type large|huge]
+        [--tower openai_clip|siglip|metaclip] [--clip_image_size N] [--clip_type large|huge]
         [--base_model_dir ...] [--device cuda|cpu]
 
 Runs on the card unless ``--device cpu`` is given (``cuda`` with no CUDA
 device raises).  The tokenizer comes from ``transformers`` on the model (or
-base model) directory; ``tower: siglip`` is not ported yet.
+base model) directory.  ``--tower siglip --clip_image_size 384`` scores a
+SigLIP so400m export (``siglip-so400m-patch14-384-{step}/``).
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ def parity_digest(model_dir: str, tower: str, clip_image_size: int,
 
     from .. import registry
     from ..models.towers import clip as clip_m
+    from ..models.towers import siglip as siglip_m
     from ..serve.engine import resolve_device
 
     if not os.path.isdir(model_dir):
@@ -50,19 +51,20 @@ def parity_digest(model_dir: str, tower: str, clip_image_size: int,
     pixels = rng.random((2, img_size, img_size, 3)).astype(np.float32)
     vocab = cfg.text.vocab_size
     ids = rng.integers(3, max(4, vocab - 1), (2, 8)).astype(np.int64)
-    ids[:, -1] = cfg.text.eos_token_id
+    ids[:, -1] = getattr(cfg.text, "eos_token_id", 2)
+    mod = siglip_m if kind == "siglip" else clip_m
 
     # NHWC pixels — the entry points the MMVP harness embeds through
     with torch.no_grad():
-        pimg = clip_m.get_image_features(model, torch.from_numpy(pixels).to(dev), cfg)
-        ptxt = clip_m.get_text_features(model, torch.from_numpy(ids).to(dev), cfg)
+        pimg = mod.get_image_features(model, torch.from_numpy(pixels).to(dev), cfg)
+        ptxt = mod.get_text_features(model, torch.from_numpy(ids).to(dev), cfg)
     pimg, ptxt = pimg.float().cpu().numpy(), ptxt.float().cpu().numpy()
 
     out = {"framework_image_embed_norm": float(np.linalg.norm(pimg)),
            "framework_text_embed_norm": float(np.linalg.norm(ptxt))}
     try:
-        from transformers import CLIPModel
-        hf = CLIPModel.from_pretrained(model_dir).eval()
+        from transformers import CLIPModel, SiglipModel
+        hf = (SiglipModel if kind == "siglip" else CLIPModel).from_pretrained(model_dir).eval()
         with torch.no_grad():
             himg = hf.get_image_features(
                 pixel_values=torch.from_numpy(pixels.transpose(0, 3, 1, 2))).numpy()

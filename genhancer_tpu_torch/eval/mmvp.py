@@ -1,4 +1,4 @@
-"""MMVP-VLM pairwise evaluation of a CLIP-family tower.
+"""MMVP-VLM pairwise evaluation of a CLIP-family or SigLIP tower.
 
 Port of ``genhancer_tpu/eval/mmvp.py`` (protocol parity with the
 reference's ``evaluation/evaluate_mmvp_*.py``):
@@ -8,8 +8,9 @@ reference's ``evaluation/evaluate_mmvp_*.py``):
     statement``;
   * every image and text embedded in batches of 50 (float32, on the tower's
     device, TF32 off), then per text ``softmax(logits_per_text)`` over
-    [img1, img2]: pred = img1 iff p > 0.5; GT img1 iff qid odd; a pair
-    scores only if both texts are right;
+    [img1, img2] (SigLIP's ``logit_bias`` added to the logits): pred = img1
+    iff p > 0.5; GT img1 iff qid odd; a pair scores only if both texts are
+    right;
   * per-category % + ``average_score``; the raw rows optionally written to
     a CSV.
 
@@ -17,8 +18,9 @@ The pairwise scoring runs in NumPy on the host, line for line as in JAX, so
 the embeddings are the only thing the two packages can differ in.  The
 tokenizer is an injectable ``texts -> (ids, mask | None)``;
 ``default_tokenizer`` builds one from a local model directory with
-``transformers``.  The SigLIP tower is not ported (ROADMAP: the SigLIP
-tower): its kind raises in ``tower_stats``.
+``transformers`` (77 tokens for CLIP, 64 for SigLIP, no mask).  SigLIP
+images are resized straight to (size, size), CLIP's resized on the short
+edge and center-cropped (``mmvp.py:78-90``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from ..data.transforms import decode_image, resize_center_crop, to_float01
 from ..models.towers import clip as clip_m
+from ..models.towers import siglip as siglip_m
 from ..tasks.conditioning import normalize, tower_stats
 
 CATEGORIES = [
@@ -75,16 +78,25 @@ def load_pairs(benchmark_dir: str) -> List[Pair]:
 
 
 def preprocess_image(path: str, kind: str, image_size: int) -> np.ndarray:
-    """CLIPImageProcessor semantics: shortest-edge bicubic resize, center
-    crop, rescale, mean/std normalise (float32, HWC)."""
+    """The HF processors' semantics: ``CLIPImageProcessor`` a shortest-edge
+    bicubic resize and a center crop, ``SiglipImageProcessor`` a bicubic
+    resize straight to (size, size); then rescale and the tower's mean/std
+    (float32, HWC)."""
     mean, std = tower_stats(kind)
     with open(path, "rb") as f:
-        img = resize_center_crop(decode_image(f.read()), image_size)
+        img = decode_image(f.read())
+    if kind == "siglip":
+        from PIL import Image
+        img = img.resize((image_size, image_size), Image.BICUBIC)
+    else:
+        img = resize_center_crop(img, image_size)
     return normalize(torch.from_numpy(to_float01(img)), mean, std).numpy()
 
 
 def default_tokenizer(model_dir: str, kind: str) -> Callable:
-    """The HF tokenizer of ``model_dir``: texts -> (ids [N, 77], None)."""
+    """The HF tokenizer of ``model_dir``: texts -> (ids [N, 77] for CLIP,
+    [N, 64] for SigLIP, padded to that length; None: the reference passes no
+    attention mask)."""
     try:
         from transformers import AutoTokenizer
     except ImportError as e:
@@ -92,9 +104,10 @@ def default_tokenizer(model_dir: str, kind: str) -> Callable:
             "the default MMVP-VLM tokenizer needs the transformers package, which is not "
             "installed; pass evaluate() a tokenize function instead") from e
     tok = AutoTokenizer.from_pretrained(model_dir)
+    length = 64 if kind == "siglip" else 77
 
     def fn(texts):
-        out = tok(texts, padding="max_length", truncation=True, max_length=77,
+        out = tok(texts, padding="max_length", truncation=True, max_length=length,
                   return_tensors="np")
         return out["input_ids"], None
     return fn
@@ -104,6 +117,7 @@ def default_tokenizer(model_dir: str, kind: str) -> Callable:
 def _embed_all(model, cfg, kind: str, images: np.ndarray, input_ids: np.ndarray,
                batch: int = 50):
     """Batched float32 image and text embeddings on the tower's device."""
+    mod = siglip_m if kind == "siglip" else clip_m
     dev = model.logit_scale.device
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,18 +125,18 @@ def _embed_all(model, cfg, kind: str, images: np.ndarray, input_ids: np.ndarray,
     img_out, txt_out = [], []
     for i in range(0, len(images), batch):
         x = torch.from_numpy(np.ascontiguousarray(images[i:i + batch])).to(dev)
-        img_out.append(clip_m.get_image_features(model, x, cfg).float().cpu().numpy())
+        img_out.append(mod.get_image_features(model, x, cfg).float().cpu().numpy())
     for i in range(0, len(input_ids), batch):
         ids = torch.from_numpy(np.ascontiguousarray(input_ids[i:i + batch])).to(dev)
-        txt_out.append(clip_m.get_text_features(model, ids, cfg).float().cpu().numpy())
+        txt_out.append(mod.get_text_features(model, ids, cfg).float().cpu().numpy())
     return np.concatenate(img_out), np.concatenate(txt_out)
 
 
 def evaluate(model, cfg, kind: str, benchmark_dir: str,
              tokenize: Callable, image_size: Optional[int] = None,
              results_csv: Optional[str] = None, batch: int = 50) -> Dict[str, float]:
-    """Run the full benchmark on ``model`` (a ``CLIPModel``); returns
-    {category: pct, 'average_score': pct}."""
+    """Run the full benchmark on ``model`` (a ``CLIPModel`` or
+    ``SiglipModel``); returns {category: pct, 'average_score': pct}."""
     pairs = load_pairs(benchmark_dir)
     image_size = image_size or cfg.vision.image_size
 
@@ -135,6 +149,8 @@ def evaluate(model, cfg, kind: str, benchmark_dir: str,
     img_emb = img_emb / np.linalg.norm(img_emb, axis=-1, keepdims=True)
     txt_emb = txt_emb / np.linalg.norm(txt_emb, axis=-1, keepdims=True)
     scale = float(np.exp(model.logit_scale.detach().float().cpu().numpy().reshape(())))
+    bias = getattr(model, "logit_bias", None)       # SigLIP's; CLIP has none
+    bias = 0.0 if bias is None else float(bias.detach().float().cpu().numpy().reshape(()))
 
     cat_correct: Dict[str, int] = {}
     cat_total: Dict[str, int] = {}
@@ -143,7 +159,7 @@ def evaluate(model, cfg, kind: str, benchmark_dir: str,
         ims = img_emb[2 * i: 2 * i + 2]          # [2, d]
         preds, scores = [], []
         for j, txt in enumerate(txt_emb[2 * i: 2 * i + 2]):
-            logits = scale * (txt @ ims.T)       # CLIP has no logit_bias
+            logits = scale * (txt @ ims.T) + bias
             p = np.exp(logits - logits.max())
             p = p / p.sum()
             scores.append(float(p[0]))

@@ -1,15 +1,17 @@
-"""Pre-LN ViT / text encoder shared by the CLIP-family towers.
+"""Pre-LN ViT / text encoder shared by the CLIP-family and SigLIP towers.
 
 Port of ``genhancer_tpu/models/towers/encoder.py``.  A LoRA-wrapped
 projection adds its branch inside ``core.nn.linear``, so q, k and v stay
 separate products as in the JAX package's LoRA path.  Module names follow
 the HF ``CLIPEncoderLayer`` state dict (``layers.{i}.self_attn.q_proj`` ...).
 
-Unmasked self-attention (the vision side) goes through
-``core.attention.sdpa_auto`` — the fused K2 kernel on CUDA; masked
-attention (the text side: ``causal_mask`` + ``padding_mask``) is JAX's
-einsum path outside any kernel: float32 logits plus the additive mask,
-softmax, probabilities cast to the input dtype, float32-accumulated PV.
+Unmasked self-attention (the vision sides, SigLIP's text side) goes through
+``core.attention.sdpa_auto`` — on CUDA the fused K2 kernel up to 600
+tokens, the flash kernel K5 above (the SigLIP-384 tower's 729); masked
+attention (CLIP's text side: ``causal_mask`` + ``padding_mask``) and
+cross-attention (the SigLIP head's probe) are JAX's einsum path outside any
+kernel: float32 logits plus the additive mask, softmax, probabilities cast
+to the input dtype, float32-accumulated PV.
 
 ``tower_remat_scope`` (``encoder.py:36-46,149-155``): inside it, under
 autograd, each encoder layer runs under ``torch.utils.checkpoint`` (non-
@@ -89,23 +91,30 @@ class Encoder(tnn.Module):
                                      for _ in range(cfg.num_layers))
 
 
-def mha(p: Attention, x: torch.Tensor, num_heads: int,
+def mha(p, x_q: torch.Tensor, x_kv: torch.Tensor, num_heads: int,
         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head self-attention; x: [B, L, H]; ``mask`` additive, [B, 1, L,
-    L] or broadcastable (0 where attended), or None."""
-    b, l, h = x.shape
+    """Multi-head attention (``encoder.py:106-133``); x_q: [B, Lq, H], x_kv:
+    [B, Lk, H]; ``p`` holds ``q_proj``, ``k_proj``, ``v_proj`` and
+    ``out_proj``; ``mask`` additive, [B, 1, Lq, Lk] or broadcastable (0
+    where attended), or None.  Unmasked self-attention (Lq == Lk) goes to
+    ``sdpa_auto`` (K2 up to 600 tokens, K5 above); the SigLIP head's probe
+    (Lq = 1) and masked calls take the einsum path."""
+    b, lq, h = x_q.shape
+    lk = x_kv.shape[1]
     d = h // num_heads
-    q = nn.linear(p.q_proj, x).reshape(b, l, num_heads, d)
-    k = nn.linear(p.k_proj, x).reshape(b, l, num_heads, d)
-    v = nn.linear(p.v_proj, x).reshape(b, l, num_heads, d)
-    if mask is None:
+    q = nn.linear(p.q_proj, x_q).reshape(b, lq, num_heads, d)
+    k = nn.linear(p.k_proj, x_kv).reshape(b, lk, num_heads, d)
+    v = nn.linear(p.v_proj, x_kv).reshape(b, lk, num_heads, d)
+    if mask is None and lq == lk:
         out = sdpa_auto(q, k, v)
     else:
         f32 = torch.float32
         logits = torch.einsum("blhd,bmhd->bhlm", q.to(f32), k.to(f32)) * (d ** -0.5)
-        probs = torch.softmax(logits + mask.to(f32), dim=-1).to(x.dtype)
-        out = torch.einsum("bhlm,bmhd->blhd", probs.to(f32), v.to(f32)).to(x.dtype)
-    return nn.linear(p.out_proj, out.reshape(b, l, h))
+        if mask is not None:
+            logits = logits + mask.to(f32)
+        probs = torch.softmax(logits, dim=-1).to(x_q.dtype)
+        out = torch.einsum("bhlm,bmhd->blhd", probs.to(f32), v.to(f32)).to(x_q.dtype)
+    return nn.linear(p.out_proj, out.reshape(b, lq, h))
 
 
 def encoder_layer(p: EncoderLayer, x: torch.Tensor, cfg: EncoderConfig,
@@ -113,7 +122,7 @@ def encoder_layer(p: EncoderLayer, x: torch.Tensor, cfg: EncoderConfig,
     act = nn.ACTIVATIONS[cfg.hidden_act]
     res = x
     x = nn.layernorm(p.layer_norm1, x, eps=cfg.layer_norm_eps)
-    x = res + mha(p.self_attn, x, cfg.num_heads, mask)
+    x = res + mha(p.self_attn, x, x, cfg.num_heads, mask)
     res = x
     x = nn.layernorm(p.layer_norm2, x, eps=cfg.layer_norm_eps)
     return res + nn.linear(p.mlp.fc2, act(nn.linear(p.mlp.fc1, x)))

@@ -3,8 +3,9 @@ loader.
 
 Port of ``genhancer_tpu/registry.py``.  DiT configs come from
 ``models.dit.DIT_CONFIGS`` (random init by design), VAE configs from
-``models.vae.VAE_CONFIGS``, CLIP-family towers from
-``models.towers.clip.CLIP_VARIANTS`` or from a local HF model directory
+``models.vae.VAE_CONFIGS``, towers from ``models.towers.clip.CLIP_VARIANTS``
+(CLIP/MetaCLIP, kind ``clip``) and ``models.towers.siglip.SIGLIP_VARIANTS``
+(kind ``siglip``) or from a local HF model directory
 (``clip_config.model_dir``: ``load_tower``).  The VAE checkpoint (``AE`` /
 ``ae_path``) loader waits for such a file in the repository; asking for one
 raises instead of silently falling back to random weights.
@@ -22,6 +23,7 @@ from .core.nn import init_weights
 from .models import dit as dit_m
 from .models import vae as vae_m
 from .models.towers import clip as clip_m
+from .models.towers import siglip as siglip_m
 from .weights import convert, hf_io
 
 log = logging.getLogger(__name__)
@@ -46,12 +48,9 @@ def tower_family_and_config(tower: str, clip_image_size: int,
                             clip_type: Optional[str] = None) -> Tuple[str, object]:
     """(kind, config) for a reference tower selection.
 
-    tower: openai_clip | metaclip (clip_type large|huge).  siglip is not
-    ported yet."""
+    tower: openai_clip | siglip | metaclip (clip_type large|huge)."""
     if tower == "siglip":
-        raise NotImplementedError(
-            "tower: siglip is not ported yet (ROADMAP: the SigLIP tower, the next "
-            "item of slice 4)")
+        return "siglip", siglip_m.SIGLIP_VARIANTS[f"siglip-so400m-patch14-{clip_image_size}"]
     if tower == "metaclip":
         name = f"metaclip-{'l14' if (clip_type or 'large') == 'large' else 'h14'}-fullcc2.5b"
         return "clip", clip_m.CLIP_VARIANTS[name]
@@ -70,28 +69,39 @@ def tower_dir(model_dir: Optional[str]) -> Optional[str]:
     return None
 
 
-def tower_config(kind: str, model_dir: str) -> clip_m.CLIPConfig:
+def tower_class(kind: str, text_side: bool = True):
+    """The tower module of a kind: the whole ``CLIPModel``/``SiglipModel``
+    (``text_side``: stage 2, the eval) or its vision side (stage 1,
+    serving)."""
+    classes = {"clip": (clip_m.CLIPModel, clip_m.CLIPVisionTower),
+               "siglip": (siglip_m.SiglipModel, siglip_m.SiglipVisionTower)}
+    if kind not in classes:
+        raise ValueError(f"tower kind must be clip or siglip, got {kind!r}")
+    return classes[kind][0 if text_side else 1]
+
+
+def tower_config(kind: str, model_dir: str):
     """The tower config of an HF model directory's ``config.json``."""
-    _require_clip(kind)
-    return clip_m.CLIPConfig.from_hf(hf_io.load_hf_config(model_dir))
+    cfg_cls = siglip_m.SiglipConfig if kind == "siglip" else clip_m.CLIPConfig
+    return cfg_cls.from_hf(hf_io.load_hf_config(model_dir))
 
 
 def load_tower(kind: str, cfg, model_dir: Optional[str] = None,
                generator: Optional[torch.Generator] = None, *, text_side: bool = True,
-               device=None) -> Tuple[torch.nn.Module, clip_m.CLIPConfig]:
+               device=None) -> Tuple[torch.nn.Module, object]:
     """(tower, cfg) — ``registry.py:62-78``: from a local HF directory
     (its ``config.json`` overrides ``cfg``; a ``model.`` key prefix is
     stripped) or, with no directory, random init drawn from ``generator``.
-    ``text_side``: the whole ``CLIPModel`` (stage 2) or the vision-only
-    ``CLIPVisionTower``.  Each loaded tensor keeps the directory's dtype,
+    ``text_side``: the whole ``CLIPModel``/``SiglipModel`` (stage 2, the
+    eval) or the vision-only ``CLIPVisionTower``/``SiglipVisionTower``.
+    Each loaded tensor keeps the directory's dtype,
     bfloat16 widened to float32, as the JAX loader does
     (``weights/torch_io.py:84-92``): a float16 directory gives a float16
     tower."""
-    _require_clip(kind)
+    cls = tower_class(kind, text_side)
     model_dir = tower_dir(model_dir)
     if model_dir is not None:
         cfg = tower_config(kind, model_dir)
-    cls = clip_m.CLIPModel if text_side else clip_m.CLIPVisionTower
     if model_dir is None:
         return init_weights(cls(cfg, device=device), generator), cfg
     sd = hf_io.load_hf_dir_state_dict(model_dir)
@@ -102,9 +112,3 @@ def load_tower(kind: str, cfg, model_dir: Optional[str] = None,
     tower = cls(cfg, device="meta")
     tower.load_state_dict(sd, strict=True, assign=True)
     return tower.to(device), cfg
-
-
-def _require_clip(kind: str) -> None:
-    if kind != "clip":
-        raise NotImplementedError(
-            f"tower kind {kind!r} is not ported yet (ROADMAP: the SigLIP tower)")

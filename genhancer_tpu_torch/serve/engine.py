@@ -1,11 +1,13 @@
 """Inference engine: reconstruction + embedding over batch buckets.
 
 Port of ``genhancer_tpu/serve/engine.py``.  One reconstruct request runs the
-frozen CLIP tower (24 layers through the fused K2 attention kernel on
-CUDA), the two projectors, ``num_steps`` Euler steps of the DiT (every
+frozen tower (CLIP: 24 layers through the fused K2 attention kernel on
+CUDA; SigLIP-384: 27 layers at 729 tokens through the flash kernel K5, then
+the MAP head), the two projectors, ``num_steps`` Euler steps of the DiT (every
 block's attention through the fused K1 RoPE-attention kernel), the float32
 VAE decode, then the clamp and — at the uint8 wire — the rounding to uint8
-on the device.  An embed request runs the tower and ``visual_projection``.
+on the device.  An embed request runs the tower and ``visual_projection``
+(CLIP) or returns the MAP-pooled output (SigLIP, 1152-d).
 
 PyTorch runs eagerly, so there is no per-bucket compile; requests are still
 padded to the smallest bucket that holds them, which keeps the device's
@@ -193,7 +195,8 @@ class InferenceEngine:
         return out[:n]
 
     def embed(self, images01: np.ndarray) -> np.ndarray:
-        """images01: [n, H, W, 3] -> [n, D] tower class tokens (float32)."""
+        """images01: [n, H, W, 3] -> [n, D] tower class tokens (float32):
+        ``visual_projection(pooler)`` for CLIP, MAP-pooled for SigLIP."""
         n = images01.shape[0]
         b = self.bucket_for(n)
         batch = self._place(_pad_to(self._wire(images01), b))

@@ -1,14 +1,15 @@
 """Tower -> DiT conditioning (image and video modes).
 
 Port of ``genhancer_tpu/tasks/conditioning.py``.  Image mode: the tower's
-projected class token becomes a 1-token txt sequence via ``project_t5`` and
+class token (CLIP: the projected pooler output; SigLIP: the MAP-pooled
+output) becomes a 1-token txt sequence via ``project_t5`` and
 the ``y`` vector via ``project_clip``; img_ids are the (0, row, col) grid
 over the packed latent tokens; txt_ids are zeros.  Video modes: the patch
 tokens of the 1-3 conditioning frames pass through the VisualPromptAdapter
 into the txt space with (t, row, col) ids, t the frame's time; the target's
 img_ids carry the target time; ``y`` is the mean of the frames' projected
 class tokens.  Raw [0, 1] pixels are normalised exactly once, here, with the
-CLIP statistics.  Nothing here stops gradients: stage 2 runs
+tower's statistics (``tower_stats``).  Nothing here stops gradients: stage 2 runs
 ``image_conditioning`` under autograd (the LoRA-wrapped tower trains),
 stage 1 calls the tower under ``torch.no_grad()`` itself.
 """
@@ -21,10 +22,13 @@ import torch
 
 from ..core.rope import spatial_ids
 from ..models.towers import clip as clip_m
+from ..models.towers import siglip as siglip_m
 from ..models.towers.projectors import projector, visual_adapter
 
 OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+SIGLIP_MEAN = (0.5, 0.5, 0.5)
+SIGLIP_STD = (0.5, 0.5, 0.5)
 VAE_MEAN = (0.5, 0.5, 0.5)
 VAE_STD = (0.5, 0.5, 0.5)
 
@@ -36,28 +40,24 @@ def normalize(px: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> 
     return (px - mean) / std
 
 
-def _require_clip(kind: str) -> None:
-    if kind != "clip":
-        raise NotImplementedError(
-            f"tower kind {kind!r} is not ported yet (ROADMAP: the SigLIP tower, the "
-            "next item of slice 4); the port runs CLIP/MetaCLIP towers")
-
-
 def tower_stats(kind: str):
     """(mean, std) of the tower's pixel normalisation."""
-    _require_clip(kind)
-    return OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
+    return (SIGLIP_MEAN, SIGLIP_STD) if kind == "siglip" else (OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)
 
 
 def tower_features(kind: str, clip, px: torch.Tensor, cfg):
-    """Run the tower's vision side -> (class_token, patch_tokens).
+    """Run the tower's vision side -> (class_token, patch_tokens)
+    (``conditioning.py:50-65``).
 
-    ``clip`` holds ``model`` (a CLIPVisionTower, or a CLIPModel in stage
-    2).  class_token is
-    ``visual_projection(pooler)``; patch_tokens are the CLS-stripped hidden
-    states before post-LN."""
-    _require_clip(kind)
+    ``clip`` holds ``model`` (a CLIPVisionTower or SiglipVisionTower, the
+    whole CLIPModel or SiglipModel in stage 2).  CLIP: class_token is
+    ``visual_projection(pooler)``, patch_tokens the CLS-stripped hidden
+    states before post-LN; SigLIP: class_token is the MAP-pooled output,
+    patch_tokens all post-LN tokens (it has no CLS)."""
     tower = clip["model"]
+    if kind == "siglip":
+        last, pooled = siglip_m.vision_forward(tower.vision_model, px, cfg.vision)
+        return pooled, last
     last, pooled = clip_m.vision_forward(tower.vision_model, px, cfg.vision)
     return clip_m.visual_projection(tower, pooled), last[:, 1:]
 

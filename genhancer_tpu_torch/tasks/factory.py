@@ -4,12 +4,13 @@ Port of ``genhancer_tpu/tasks/factory.py`` for the tasks ``image_stage1``,
 ``image_stage2_only``, ``image_stage2_all``,
 ``video_{middle,next,next2,sliding}_stage1`` and
 ``video_{middle,next,next2,sliding}_stage2_all`` with ``tower: openai_clip |
-metaclip``; ``clip_config.model_dir`` names a local HF tower directory
-(``registry.load_tower``: its ``config.json`` overrides the variant's
-config).  The video tasks' DiT remat and ``tower_remat`` follow the JAX
-factory's gates on one device (``factory.py:225-258``) unless the config
-sets them.  The SigLIP tower raises, as do the options that need several
-devices (ROADMAP slice 7).
+siglip | metaclip`` (SigLIP in image mode only); ``clip_config.model_dir``
+names a local HF tower directory (``registry.load_tower``: its
+``config.json`` overrides the variant's config).  The video tasks' DiT
+remat and ``tower_remat`` follow the JAX factory's gates on one device
+(``factory.py:225-258``) unless the config sets them.  SigLIP in video
+mode raises, as do the options that need several devices (ROADMAP slice
+7).
 """
 
 from __future__ import annotations

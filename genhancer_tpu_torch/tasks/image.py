@@ -10,14 +10,17 @@ clip{model, project_clip, project_t5}}``, the tower from
 forward, float32 MSE against the velocity), ``make_train_step`` and
 ``create_task_state``.
 
-Stage 1 trains the DiT and the projectors on a frozen vision-only tower
-(under ``torch.no_grad()``).  Stage 2 (``stage2_only``: the tower's LoRA
-alone, gradients passing through the frozen DiT and projectors;
-``stage2_all``: LoRA + DiT + projectors) builds the whole ``CLIPModel``,
+The tower is CLIP/MetaCLIP (kind ``clip``) or SigLIP so400m (kind
+``siglip``, whose MAP-pooled 1152-d output feeds the projectors).  Stage 1
+trains the DiT and the projectors on a frozen vision-only tower (under
+``torch.no_grad()``).  Stage 2 (``stage2_only``: the tower's LoRA alone,
+gradients passing through the frozen DiT and projectors; ``stage2_all``:
+LoRA + DiT + projectors) builds the whole ``CLIPModel`` or ``SiglipModel``,
 wraps it with LoRA (``train.lora``; ``lora_*`` of the spec) and runs the
 tower under autograd inside ``core.nn.lora_dropout_ctx``
-(``image.py:206-275``): K2 saves each row's log-sum-exp and K2b runs the
-tower's attention backward; ``tower_remat`` checkpoints each tower layer
+(``image.py:206-275``): K2 (K5 at the SigLIP-384 tower's 729 tokens) saves
+each row's log-sum-exp and K2b (K5b) runs the tower's attention backward;
+``tower_remat`` checkpoints each tower layer
 (``models.towers.encoder.tower_remat_scope``).
 
 Random draws come from one ``torch.Generator``; a test hands the loss the
@@ -33,8 +36,8 @@ large linears through SwitchBack inside ``core.nn.int8_training_ctx``, and
 ``dit_quant_cache`` (set with ``fused_optimizer: pallas``) keeps their int8
 copies in the state, emitted by the optimizer (K4/K6) after the first step.
 
-QLoRA (``tower_quant: int8`` in stage 2), a static int8 DiT in
-``stage2_only``, the precomputed-cache batches (``moments``/``cls``), remat
+QLoRA (``tower_quant: int8`` in stage 2), an int8 SigLIP tower, a static
+int8 DiT in ``stage2_only``, the precomputed-cache batches (``moments``/``cls``), remat
 and the multi-device options raise ``NotImplementedError``, naming ROADMAP.
 """
 
@@ -52,7 +55,6 @@ from ..core import quant
 from ..core.nn import init_weights, int8_training_ctx, lora_dropout_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
-from ..models.towers import clip as clip_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
 from ..train import flow, lora
@@ -67,12 +69,12 @@ from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning,
 class TaskSpec:
     """Static description of one image task."""
     stage: str                       # "stage1" | "stage2_only" | "stage2_all"
-    tower_kind: str                  # "clip"
+    tower_kind: str                  # "clip" | "siglip"
     img_size: int                    # VAE input resolution
     clip_image_size: int
     dit_cfg: dit_m.DiTConfig
     vae_cfg: vae_m.VAEConfig
-    tower_cfg: clip_m.CLIPConfig
+    tower_cfg: object                # CLIPConfig | SiglipConfig
     clip_dim: int = 768
     t5_dim: int = 4096
     scale_factor: float = 1.0
@@ -110,7 +112,9 @@ class TaskSpec:
 
     @property
     def tower_hidden(self) -> int:
-        return self.tower_cfg.projection_dim
+        """Width of the class token the projectors take (``image.py:115-118``)."""
+        return (self.tower_cfg.vision.hidden_size if self.tower_kind == "siglip"
+                else self.tower_cfg.projection_dim)
 
 
 STAGES = ("stage1", "stage2_only", "stage2_all")
@@ -123,9 +127,10 @@ def is_stage2(spec) -> bool:
 
 def build_modules(spec: TaskSpec, device=None) -> tnn.ModuleDict:
     """Uninitialised modules in the reference layout, on ``device``: the
-    vision-only tower in stage 1, the whole ``CLIPModel`` in stage 2."""
+    vision-only tower in stage 1, the whole ``CLIPModel`` or ``SiglipModel``
+    in stage 2."""
     d = spec.tower_hidden
-    tower_cls = clip_m.CLIPModel if is_stage2(spec) else clip_m.CLIPVisionTower
+    tower_cls = registry.tower_class(spec.tower_kind, is_stage2(spec))
     return tnn.ModuleDict({
         "dit": dit_m.DiT(spec.dit_cfg, device=device, dtype=spec.dit_param_dtype),
         "vae": vae_m.AutoEncoder(spec.vae_cfg, device=device),
@@ -171,9 +176,13 @@ def quantize_modules(spec: TaskSpec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
 
 
 def require_ported(spec: TaskSpec) -> None:
-    """Raise for the stage-2 options the port does not run yet."""
+    """Raise for the options the port does not run yet."""
     if spec.stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {spec.stage!r}")
+    if spec.tower_kind == "siglip" and spec.tower_quant != "none":
+        raise NotImplementedError(
+            f"tower_quant: {spec.tower_quant} with the SigLIP tower (siglip) is not ported "
+            "yet (ROADMAP: §1, the int8 extensions); no published config asks for it")
     if not is_stage2(spec):
         return
     if spec.tower_quant != "none":

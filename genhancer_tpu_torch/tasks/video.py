@@ -29,7 +29,8 @@ Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
 ``vae_noise`` [B, h, w, z], and in stage 2 ``lora_masks``, one bool
 keep-mask per LoRA-wrapped call in call order).  Precomputed batches
-(``moments``/``cond_patches``), the int8 knobs and the SigLIP tower raise
+(``moments``/``cond_patches``), the int8 knobs and the SigLIP tower (no
+published video config uses it) raise
 ``NotImplementedError``, naming their ROADMAP item.
 """
 
@@ -166,7 +167,11 @@ def require_ported(spec: VideoTaskSpec) -> None:
             raise NotImplementedError(
                 f"{knob}: {getattr(spec, knob)} is not ported for video tasks yet "
                 "(ROADMAP: video int8; slice 3 ported the int8 stack for image stage 1)")
-    tower_stats(spec.tower_kind)        # SigLIP raises there
+    if spec.tower_kind != "clip":
+        raise NotImplementedError(
+            f"tower kind {spec.tower_kind!r} in video mode: the SigLIP tower runs in image "
+            "mode only; no published video config uses it (ROADMAP: §1, SigLIP in video "
+            "mode)")
 
 
 def trainable_predicate(spec: VideoTaskSpec, modules=None) -> Callable[[str], bool]:

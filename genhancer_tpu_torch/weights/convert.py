@@ -22,11 +22,11 @@ write — which this package's modules load with ``strict=True``:
     ``load_jax_params`` swaps the matching port modules for
     ``core.nn.Int8Layer`` first, so both packages compute the same.
 
-HF ``CLIPModel`` state dicts are already the port tower's names and layouts
-(the patch embedding is OIHW in both): a merged tower's ``state_dict()`` is
-its HF state dict (``hf_convert.tower_to_torch``'s counterpart), and
-``tower_from_hf`` (``tower_from_torch``'s) only drops the ``position_ids``
-buffers and, for a vision-only tower, the text side.
+HF ``CLIPModel`` and ``SiglipModel`` state dicts are already the port
+tower's names and layouts (the patch embedding is OIHW in both): a merged
+tower's ``state_dict()`` is its HF state dict (``hf_convert.tower_to_torch``'s
+counterpart), and ``tower_from_hf`` (``tower_from_torch``'s) only drops the
+``position_ids`` buffers and, for a vision-only tower, the text side.
 """
 
 from __future__ import annotations
@@ -38,8 +38,10 @@ import torch
 
 StateDict = Dict[str, torch.Tensor]
 
-# tower keys of the text side of an HF CLIPModel
-TEXT_SIDE_PREFIXES = ("text_model.", "text_projection.", "logit_scale")
+# tower keys of the text side of an HF CLIPModel or SiglipModel
+TEXT_SIDE_PREFIXES = ("text_model.", "text_projection.", "logit_scale", "logit_bias")
+# 0-d in the port's towers (and JAX's init), [1] in an HF SiglipModel
+_SCALARS = ("logit_scale", "logit_bias")
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -93,16 +95,19 @@ def vae_state_dict(tree) -> StateDict:
 
 
 def tower_state_dict(tree, text_side: bool = False) -> StateDict:
-    """CLIP tower -> vision_model.* and visual_projection.* (+ the text
-    side's keys with ``text_side``)."""
+    """CLIP tower -> vision_model.* and visual_projection.*, SigLIP tower ->
+    vision_model.* (+ the text side's keys with ``text_side``); SigLIP's
+    patch conv HWIO -> OIHW like every 4-D leaf."""
     return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()
             if text_side or not k.startswith(TEXT_SIDE_PREFIXES)}
 
 
 def tower_from_hf(sd: StateDict, text_side: bool = True) -> StateDict:
-    """An HF ``CLIPModel`` state dict -> the port tower's: ``position_ids``
-    dropped, and the text side too unless ``text_side``."""
-    return {k: v for k, v in sd.items() if not k.endswith("position_ids")
+    """An HF ``CLIPModel``/``SiglipModel`` state dict -> the port tower's:
+    ``position_ids`` dropped, ``logit_scale``/``logit_bias`` 0-d, and the
+    text side dropped too unless ``text_side``."""
+    return {k: v.reshape(()) if k in _SCALARS else v for k, v in sd.items()
+            if not k.endswith("position_ids")
             and (text_side or not k.startswith(TEXT_SIDE_PREFIXES))}
 
 

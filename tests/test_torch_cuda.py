@@ -323,6 +323,94 @@ def test_tower_kernels_at_l577(cuda):
     assert K.LAUNCHES["fused_attention_bwd"] == before["fused_attention_bwd"] + 1
 
 
+def _siglip_inputs(g, cuda, path, negative=False):
+    """bf16 q, k, v, dO (and RoPE tables for K1) at the SigLIP-384 paths'
+    shapes: the DiT's joint L = 577 = 9 x 64 + 1 (K1/K1b: the last 64-row kv
+    tile holds one row) and the so400m tower's L = 729 = 5 x 128 + 89, D =
+    72 (K5/K5b, D padded to 128 in shared memory), both at B = 16.  With
+    ``negative`` every logit is near -108, so every lse is below -88."""
+    b, l, h, d = (16, 577, 24, 128) if path == "K1" else (16, 729, 16, 72)
+    shift = 9.5 if d == 128 else 12.7
+    q = torch.randn((b, l, h, d), generator=g, device=cuda)
+    k = torch.randn((b, l, h, d), generator=g, device=cuda)
+    if negative:
+        q, k = q - shift, 1 + 0.1 * k
+    v, do = (torch.randn((b, l, h, d), generator=g, device=cuda) for _ in range(2))
+    tables = None
+    if path == "K1":
+        ids = (torch.full((b, l, 3), 3.0, device=cuda) if negative else
+               torch.randint(0, 24, (b, l, 3), generator=g, device=cuda).to(torch.float32))
+        tables = multi_axis_rope(ids, (16, 56, 56), 10_000)
+    return [x.to(torch.bfloat16) for x in (q, k, v, do)], tables
+
+
+def _siglip_run(path, q, k, v, do, tables):
+    """(o, grads, plain o, plain grads, the inputs the plain attention sees)."""
+    qq, kk, vv = (x.clone().requires_grad_(True) for x in (q, k, v))
+    if path == "K1":
+        cos, sin = tables
+        out = K.fused_rope_attention(qq, kk, vv, cos, sin)
+        grads = torch.autograd.grad(out, (qq, kk, vv), do)
+        rq, rk = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        ro = K.fused_rope_attention_ref(q, k, v, cos, sin)
+        want = K.fused_rope_attention_bwd_ref(q, k, v, out.detach(), do, cos, sin)
+    else:
+        out = F.flash_attention(qq, kk, vv)
+        grads = torch.autograd.grad(out, (qq, kk, vv), do)
+        rq, rk = q, k
+        ro, rlse = F.flash_attention_fwd_ref(q, k, v)
+        want = F.flash_attention_bwd_ref(q, k, v, out.detach(), rlse, do)
+    torch.cuda.synchronize()
+    return out.detach(), grads, ro, want, (rq, rk)
+
+
+@pytest.mark.parametrize("path", ["K1", "K5"])
+def test_siglip_path_shapes_match_plain(cuda, path):
+    """K1/K1b at [16, 577, 24, 128] and K5/K5b at [16, 729, 16, 72], bf16,
+    against their plain versions: 2e-2, and the rounding points (o; K1b's
+    dq, dk, dv; K5b's dv) to a mean error of 2e-4, with the controls (p
+    rounded before normalising; dv from the other kernel's p) missing it."""
+    g = torch.Generator(device=cuda).manual_seed(13 + len(path))
+    (q, k, v, do), tables = _siglip_inputs(g, cuda, path)
+    names = (("fused_rope_attention", "fused_rope_attention_bwd") if path == "K1"
+             else ("flash_attention", "flash_attention_bwd"))
+    table = K.LAUNCHES if path == "K1" else F.LAUNCHES
+    before = dict(table)
+    out, grads, ro, want, (rq, rk) = _siglip_run(path, q, k, v, do, tables)
+    assert [table[n] - before[n] for n in names] == [1, 1]
+    assert (out.float() - ro.float()).abs().max().item() <= 2e-2
+    assert _mean_rel(out, ro) <= ROUNDING_BOUND < _mean_rel(_round_before_normalise(rq, rk, v), ro)
+    for gk, gr in zip(grads, want):
+        err = (gk.float() - gr.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, gr.float().abs().max().item()), err
+    if path == "K1":
+        for gk, gr in zip(grads, want):
+            assert _mean_rel(gk, gr) <= ROUNDING_BOUND
+        lse = F.flash_attention_fwd_ref(rq, rk, v)[1]
+        ctl = F.flash_attention_bwd_ref(rq, rk, v, out, lse, do)[2]
+    else:
+        assert _mean_rel(grads[2], want[2]) <= ROUNDING_BOUND
+        ctl = K.fused_attention_bwd_ref(q, k, v, out, do)[2]
+    assert _mean_rel(ctl, want[2]) > ROUNDING_BOUND
+
+
+@pytest.mark.parametrize("path", ["K1", "K5"])
+def test_siglip_path_shapes_where_lse_is_very_negative(cuda, path):
+    """The same shapes with every lse below -88: exp(0 - lse) overflows
+    float32 in the columns past L of the ragged last tile (one row of
+    K1b's 64-row kv tile, 89 of K5b's 128-row one); the gradients stay
+    finite and match the plain backward."""
+    g = torch.Generator(device=cuda).manual_seed(17 + len(path))
+    (q, k, v, do), tables = _siglip_inputs(g, cuda, path, negative=True)
+    _, grads, _, want, (rq, rk) = _siglip_run(path, q, k, v, do, tables)
+    _, rlse = F.flash_attention_fwd_ref(rq, rk, v)
+    assert -115 < rlse.min().item() and rlse.max().item() < -88
+    for gk, gr in zip(grads, want):
+        assert torch.isfinite(gk).all()
+        err = (gk.float() - gr.float()).abs().max().item()
+        assert err <= 2e-2 * max(1.0, gr.float().abs().max().item()), err
+
+
 @pytest.mark.parametrize("kernel, b, l, h, d", [
     ("K2", 50, 257, 16, 64), ("K2", 50, 577, 16, 64),      # the MMVP-VLM eval's tower
     ("K1", 2, 197, 24, 128), ("K5", 2, 700, 4, 128),       # D = 128

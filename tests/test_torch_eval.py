@@ -288,11 +288,15 @@ def test_default_tokenizer_and_siglip_refuse_clearly(monkeypatch):
             raise ImportError("no module named transformers")
         return real(name, *a, **kw)
     monkeypatch.setattr(builtins, "__import__", no_transformers)
-    with pytest.raises(ImportError, match="tokenize function"):
-        mmvp.default_tokenizer("/nonexistent", "clip")
+    for kind in ("clip", "siglip"):
+        with pytest.raises(ImportError, match="tokenize function"):
+            mmvp.default_tokenizer("/nonexistent", kind)
     monkeypatch.setattr(builtins, "__import__", real)
-    with pytest.raises(NotImplementedError, match="SigLIP"):
-        mmvp.evaluate_model_dir(".", ".", tower="siglip", device="cpu")
+    # SigLIP is ported (tests/test_torch_siglip.py); a missing export is
+    # refused before anything random is built
+    with pytest.raises(FileNotFoundError, match="random-init"):
+        mmvp.evaluate_model_dir("/nonexistent", ".", tower="siglip", clip_image_size=384,
+                                device="cpu")
     with pytest.raises(NotImplementedError, match="extra models"):
         recon.reconstruct(None, None, np.zeros((1, 4, 4, 3)), controlnet_params={})
 

@@ -11,8 +11,10 @@ block kinds), where the DiT hands them to K1 (joint length 72: the double
 block concatenates, the single block passes a strided ``v`` view) and where
 a tiny bf16 tower hands them to K2 and, training, to K2b (with o and dO),
 where the CLIP-L/14@336 LoRA tower of video stage 2 hands them over at
-L=577 (forward, ``tower_remat`` recompute, backward), and built at the
-published flux-dev widths.  Views the TMA cannot read are refused with the ``ValueError`` the
+L=577 (forward, ``tower_remat`` recompute, backward), where the SigLIP
+so400m tower hands them to K5 at L=729, D=72 and, training as stage 2
+trains it, to K5b (with o and dO), and built at the published flux-dev
+widths.  Views the TMA cannot read are refused with the ``ValueError`` the
 CUDA path raises (``_check_tma_layout``, the same call the wrappers make
 before a launch).
 """
@@ -185,6 +187,57 @@ def test_middle336_lora_tower_attention_inputs_pass(monkeypatch):
         assert all(t.dtype == BF16 and t.shape == (1, 577, 16, 64) for t in ts)
         assert K._tma_layout_error(*ts) is None
     K._check_tma_layout("fused_attention_bwd", *bwd[0])
+
+
+def test_siglip_lora_tower_attention_inputs_pass(monkeypatch):
+    """What K5 and K5b receive from the SigLIP so400m tower at 384 px (one
+    layer at the published width: hidden 1152 in 16 heads of 72, 729
+    tokens; LoRA on ``SIGLIP_TARGETS``, a nonzero B, dropout on, under
+    autograd as stage 2 runs it): q, k, v of the forward and q, k, v, o and
+    dO of the backward.  The head stride is 144 bytes and the token stride
+    2304, both multiples of 16; the MAP head's probe takes no kernel."""
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
+    from genhancer_tpu_torch.core.nn import lora_dropout_ctx
+    from genhancer_tpu_torch.models.towers import siglip as tsiglip
+    from genhancer_tpu_torch.train import lora
+    cfg = tsiglip.SiglipVisionConfig(num_layers=1, image_size=384)
+    g = torch.Generator().manual_seed(3)
+    tower = tsiglip.VisionTransformer(cfg, device=None, dtype=BF16)
+    with torch.no_grad():
+        for p in tower.parameters():
+            p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    tower.requires_grad_(False)
+    _, wrapped = lora.inject(tower, g, r=16, alpha=16.0, targets=lora.SIGLIP_TARGETS)
+    assert len(wrapped) == 6 + 3
+    with torch.no_grad():
+        for path in wrapped:
+            tower.get_submodule(path).lora_B.normal_(0.0, 0.02, generator=g)
+    fwd, bwd = [], []
+    fwd_ref, bwd_ref = F.flash_attention_fwd_ref, F.flash_attention_bwd_ref
+
+    def record_fwd(q, k, v):
+        fwd.append((q, k, v))
+        return fwd_ref(q, k, v)
+
+    def record_bwd(q, k, v, o, lse, do):
+        bwd.append((q, k, v, o, do))
+        return bwd_ref(q, k, v, o, lse, do)
+
+    monkeypatch.setattr(F, "flash_attention_fwd_ref", record_fwd)
+    monkeypatch.setattr(F, "flash_attention_bwd_ref", record_bwd)
+    pixels = torch.randn((1, 384, 384, 3), generator=g).to(BF16)
+    with lora_dropout_ctx(g, 0.1):
+        x, pooled = tsiglip.vision_forward(tower, pixels, cfg)
+    (x.float().square().mean() + pooled.float().sum()).backward()
+    assert len(fwd) == 1 and len(bwd) == 1
+    assert tower.get_submodule(wrapped[0]).lora_A.grad.abs().sum() > 0
+    for ts in fwd + bwd:
+        assert all(t.dtype == BF16 and t.shape == (1, 729, 16, 72) for t in ts)
+        assert K._tma_layout_error(*ts) is None
+    q = fwd[0][0]
+    assert q.stride(2) * 2 == 144 and q.stride(1) * 2 == 2304
+    K._check_tma_layout("flash_attention", *fwd[0])
+    K._check_tma_layout("flash_attention_bwd", *bwd[0])
 
 
 def test_published_width_layouts_pass():

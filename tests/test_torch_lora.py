@@ -4,8 +4,9 @@ core/nn.py ``linear``, its dropout) against the JAX package's
 HF file readers (weights/hf_io.py).
 
 The wrapped set and the trainable paths must be the JAX lists exactly, on
-a tiny tower and at MetaCLIP-L/14 width (the JAX side by ``jax.eval_shape``,
-the port on the meta device).  The branch is held with a nonzero B (with
+a tiny tower, at MetaCLIP-L/14 width and on the whole SigLIP so400m with
+``SIGLIP_TARGETS`` (the JAX side by ``jax.eval_shape``, the port on the meta
+device).  The branch is held with a nonzero B (with
 B = 0 it adds nothing and dA is 0) and an alpha/r that bfloat16 cannot
 hold (16/3): float32 at 1e-6 relative, bfloat16 bit for bit.  Dropout runs
 on the masks JAX draws (``fold_in(key, call)`` + ``bernoulli``, as
@@ -23,9 +24,11 @@ import torch
 
 from genhancer_tpu.core import nn as jnn
 from genhancer_tpu.models.towers import clip as jclip
+from genhancer_tpu.models.towers import siglip as jsiglip
 from genhancer_tpu.train import lora as jlora
 from genhancer_tpu_torch.core import nn
 from genhancer_tpu_torch.models.towers import clip as tclip
+from genhancer_tpu_torch.models.towers import siglip as tsiglip
 from genhancer_tpu_torch.train import lora
 from genhancer_tpu_torch.weights import hf_io
 from genhancer_tpu_torch.weights.convert import tower_state_dict
@@ -36,12 +39,14 @@ torch.set_num_threads(1)
 
 
 def _jax_inject_shapes(cfg, targets):
-    """JAX ``inject`` on ``init_clip`` traced by eval_shape: (tree of
-    ShapeDtypeStructs, wrapped list, lora_trainable_paths)."""
+    """JAX ``inject`` on ``init_clip`` (``init_siglip``) traced by
+    eval_shape: (tree of ShapeDtypeStructs, wrapped list,
+    lora_trainable_paths)."""
     out = {}
+    init = jsiglip.init_siglip if isinstance(cfg, jsiglip.SiglipConfig) else jclip.init_clip
 
     def f(k):
-        tree, wrapped = jlora.inject(jclip.init_clip(k, cfg), k, targets=targets)
+        tree, wrapped = jlora.inject(init(k, cfg), k, targets=targets)
         out["wrapped"], out["paths"] = wrapped, jlora.lora_trainable_paths(tree)
         return tree
 
@@ -51,12 +56,14 @@ def _jax_inject_shapes(cfg, targets):
 
 @pytest.mark.parametrize("width, targets", [("tiny", "all-linear"),
                                             ("tiny", lora.SIGLIP_TARGETS),
-                                            ("metaclip-l14", "all-linear")])
+                                            ("metaclip-l14", "all-linear"),
+                                            ("so400m", lora.SIGLIP_TARGETS)])
 def test_wrapped_set_matches_jax(width, targets):
-    jcfg = (TINY_TOWER if width == "tiny"
-            else jclip.CLIP_VARIANTS["metaclip-l14-fullcc2.5b"])
+    jcfg = {"tiny": TINY_TOWER, "metaclip-l14": jclip.CLIP_VARIANTS["metaclip-l14-fullcc2.5b"],
+            "so400m": jsiglip.SIGLIP_VARIANTS["siglip-so400m-patch14-384"]}[width]
     shapes, wrapped, paths = _jax_inject_shapes(jcfg, targets)
-    tower = tclip.CLIPModel(port_cfg(jcfg), device="meta")
+    cls = tsiglip.SiglipModel if width == "so400m" else tclip.CLIPModel
+    tower = cls(port_cfg(jcfg), device="meta")
     _, ours = lora.inject(tower, None, targets=targets)
     assert ours == wrapped and lora.wrapped_paths(tower) == wrapped
     assert lora.lora_trainable_paths(tower) == paths
@@ -74,6 +81,16 @@ def test_wrapped_set_matches_jax(width, targets):
                        for p in wrapped)
         n_par = sum(tower.get_parameter(p).numel() for p in paths)
         assert (len(wrapped), n_vision, len(paths), n_par) == (218, 145, 652, 10_089_472)
+    if width == "so400m":
+        # 27 x 6 a side and the head's out_proj, fc1, fc2; never the head's
+        # in_proj (its key is not ``weight``) nor text_model.head
+        n_vision = sum(p.startswith("vision_model.") for p in wrapped)
+        n_par = sum(tower.get_parameter(p).numel() for p in paths)
+        assert (len(wrapped), n_vision, len(paths)) == (327, 165, 981)
+        assert wrapped[162:165] == ["vision_model.head.attention.out_proj",
+                                    "vision_model.head.mlp.fc1", "vision_model.head.mlp.fc2"]
+        assert "text_model.head" not in wrapped
+        assert n_par == 18_152_112
 
 
 def test_init_draws_within_the_kaiming_bound():

@@ -268,8 +268,8 @@ def test_image_conditioning(spec32, params32, mods32):
     for k in ref:
         assert tuple(got[k].shape) == ref[k].shape, k
         close(got[k], ref[k], 1e-4)
-    with pytest.raises(NotImplementedError, match="siglip"):
-        tcond.tower_features("siglip", mods32["clip"], t(px), None)
+    # SigLIP is ported (tests/test_torch_siglip.py): its statistics are JAX's
+    assert tcond.tower_stats("siglip") == jcond.tower_stats("siglip") == ((0.5,) * 3,) * 2
 
 
 # ---------------------------------------------------------- sampling

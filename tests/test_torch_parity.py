@@ -18,10 +18,12 @@ import torch
 from genhancer_tpu.models import dit as jdit
 from genhancer_tpu.models import vae as jvae
 from genhancer_tpu.models.towers import clip as jclip
+from genhancer_tpu.models.towers import siglip as jsiglip
 from genhancer_tpu.tasks import image as jimage
 from genhancer_tpu_torch.models import dit as tdit
 from genhancer_tpu_torch.models import vae as tvae
 from genhancer_tpu_torch.models.towers import clip as tclip
+from genhancer_tpu_torch.models.towers import siglip as tsiglip
 from genhancer_tpu_torch.tasks import image as timage
 from genhancer_tpu_torch.weights.convert import load_jax_params
 
@@ -60,6 +62,10 @@ def port_cfg(cfg):
             vision=tclip.CLIPVisionConfig(**dataclasses.asdict(cfg.vision)),
             text=tclip.CLIPTextConfig(**dataclasses.asdict(cfg.text)),
             projection_dim=cfg.projection_dim, logit_scale_init=cfg.logit_scale_init)
+    if isinstance(cfg, jsiglip.SiglipConfig):
+        return tsiglip.SiglipConfig(
+            vision=tsiglip.SiglipVisionConfig(**dataclasses.asdict(cfg.vision)),
+            text=tsiglip.SiglipTextConfig(**dataclasses.asdict(cfg.text)))
     raise TypeError(type(cfg))
 
 

@@ -181,7 +181,10 @@ class TestEngine:
         # precomputed caches are not
         ({"task": "video_middle_stage2_all", "data_config": {"precomputed": True}},
          "not ported"),
-        ({"tower": "siglip"}, "siglip"),
+        # SigLIP is ported (test_siglip_config_specs_match_jax); its int8
+        # tower is not
+        ({"tower": "siglip", "clip_config": {"clip_image_size": 384},
+          "tower_quant": "int8"}, "siglip"),
         ({"ae_path": "ae.safetensors"}, "AE"),
     ])
     def test_unported_config_paths_raise(self, override, match):
@@ -190,6 +193,31 @@ class TestEngine:
         cfg = load_config("configs/MetaCLIP_large_stage1.yaml").merged_with(override)
         with pytest.raises(NotImplementedError, match=match):
             build_spec(cfg)
+
+    @pytest.mark.parametrize("name", ["SigLIP_384_stage1", "SigLIP_384_stage2_all",
+                                      "SigLIP_384_stage2_only"])
+    def test_siglip_config_specs_match_jax(self, name):
+        """The published SigLIP configs: the same spec as JAX's ``build_spec``
+        (so400m at 384 px, 1152-d class tokens into the projectors, SigLIP's
+        six LoRA targets)."""
+        import dataclasses
+        from genhancer_tpu.tasks.factory import build_spec as jax_build_spec
+        from genhancer_tpu.train.config import load_config as jax_load_config
+        from genhancer_tpu_torch.models.towers.siglip import SiglipVisionConfig
+        from genhancer_tpu_torch.tasks.factory import build_spec
+        from genhancer_tpu_torch.train.config import load_config
+        path = f"configs/{name}.yaml"
+        ours, kind, ckpt = build_spec(load_config(path))
+        ref, rkind, rckpt = jax_build_spec(jax_load_config(path))
+        assert (kind, ckpt) == (rkind, rckpt) == ("siglip", "image")
+        for f in ("dit_cfg", "vae_cfg", "tower_cfg"):
+            assert dataclasses.asdict(getattr(ours, f)) == dataclasses.asdict(getattr(ref, f))
+        for f in ("stage", "img_size", "clip_image_size", "clip_dim", "t5_dim", "guidance",
+                  "latent_hw", "tower_hidden", "lora_r", "lora_alpha", "lora_dropout",
+                  "lora_targets", "tower_remat"):
+            assert getattr(ours, f) == getattr(ref, f), f
+        assert ours.tower_cfg.vision == SiglipVisionConfig(image_size=384)
+        assert ours.tower_hidden == 1152 and ours.latent_hw == (48, 48)
 
     def test_model_dir_tower_is_served(self, spec, params, engine, tmp_path, monkeypatch):
         """``clip_config.model_dir``: the engine serves the weights of an HF
