@@ -36,7 +36,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              (AdamW with the int8 weight emission) and K6 (AdamW on 8-bit
              moments, both bodies; its register path and its second path
              timed in turns) against their plain PyTorch versions at the
-             paths' shapes, with kernel, plain and library-call times and
+             paths' shapes (K7 also at the static DiT base's and QLoRA's
+             widths 64-3072, T = 16 and 3136, bit for bit and timed), with
+             kernel, plain and library-call times and
              each kernel's bound (bytes at 3.35 TB/s or operations at 989
              TFLOP/s bf16 / 495 TFLOP/s TF32 / 1,979 TOPS int8); then K1/K1b
              at the SigLIP-384 joint L=577 and K5/K5b at the so400m tower's
@@ -57,7 +59,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              SigLIP eval (K5; K2 on its 64-token text side), and for one tiny
              float32 int8 step
              of each int8 configuration (int8_full with the cache K4 emits;
-             int8_dw with 8-bit moments: K8, K6);
+             int8_dw with 8-bit moments: K8, K6), and one tiny float32 QLoRA
+             step of stage2_all (int8_full, K4's cache) and of stage2_only
+             (the static DiT base) on latent-cache batches, each int8 base
+             and SwitchBack call held against the CPU's plain path at 1e-5;
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
              at full width (flux-dev DiT, MetaCLIP-L/14 tower, FLUX VAE;
              random weights from the config's seed), warmup, real HTTP
@@ -87,7 +92,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              counts of every kernel against counts derived from the model;
              then ``dit_quant: int8_dw`` + ``optimizer_moment_bits: 8`` for 5
              steps (K8, K6's two bodies): steps 2-3 timed, 4-5 under
-             torch.profiler for the device time by kernel;
+             torch.profiler for the device time by kernel; then the fast
+             stage-2 path: ``genhancer-precompute-torch --mode latents
+             --augment train --variants 2`` over the int8 run's shards
+             (images/s, bytes, a sample's moments against the trainer's own
+             encode), configs/tpu_fast_stage2_all.yaml (QLoRA tower,
+             int8_full DiT with K4's cache) from the int8_full run's step-10
+             files on that cache, 5 steps with background saves at 3 and 5
+             (the loop's stall, the writer's seconds, steps 3-4 timed, 5
+             profiled, the export read back bit for bit), and
+             configs/tpu_fast_stage2_only.yaml (the static int8 DiT base) 4
+             steps and a resume whose re-derived int8 factors equal those of
+             the load; launch counts of every kernel from the model;
 9. video   — the ``Trainer`` on configs/OpenAICLIP_224_sliding_stage1.yaml at
              full width and published batch (2 videos x 8 windows x
              accumulation 2) on synthetic video shards of 256-px JPEGs, some
@@ -109,7 +125,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              profiled, K2b's first call held against its plain version, the
              export timed and read back; middle@336's peak memory with
              tower_remat on and off; a resume of next; K2b 48 launches per
-             optimizer step on every stage-2 path, 0 elsewhere;
+             optimizer step on every stage-2 path (24 on the fast ones), 0
+             elsewhere; then configs/tpu_fast_video_stage2_all.yaml
+             (middle@336 at B=4, QLoRA tower, int8_full DiT under remat)
+             from middle@336's stage-1 files, 4 steps, 2-3 timed, 4
+             profiled, the export read back;
 11. siglip — the SigLIP-384 paths at full width (so400m: 27 layers, L=729,
              D=72; the flux-dev DiT at joint L=577; B=16 x accumulation 2,
              bf16) on synthetic 384-px shards: the ``Trainer`` on
@@ -149,6 +169,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "MetaCLIP_large_stage1.yaml")
@@ -2684,22 +2705,22 @@ def _k2b_spy():
 
 
 def _export_timer():
-    """Wraps ``train.checkpoint.export_hf_tower`` (which the Trainer calls at
-    each checkpoint) to record (seconds, bytes of pytorch_model.bin, dir)."""
+    """Wraps ``train.checkpoint.write_hf_tower`` (which the Trainer's
+    checkpoint writer calls, on its background thread, with the tower the
+    step loop merged on the card and snapshotted) to record (seconds,
+    bytes of pytorch_model.bin, dir)."""
     from genhancer_tpu_torch.train import checkpoint as ckpt
-    inner, calls = ckpt.export_hf_tower, []
+    inner, calls = ckpt.write_hf_tower, []
 
     def timed(*args, **kwargs):
-        import torch
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = inner(*args, **kwargs)
         secs = time.perf_counter() - t0
         calls.append((secs, os.path.getsize(os.path.join(out, "pytorch_model.bin")), out))
         return out
 
-    ckpt.export_hf_tower = timed
-    return calls, lambda: setattr(ckpt, "export_hf_tower", inner)
+    ckpt.write_hf_tower = timed
+    return calls, lambda: setattr(ckpt, "write_hf_tower", inner)
 
 
 def _check_k2b_call(spy, tag, path):
@@ -2733,7 +2754,7 @@ def _check_export(trainer, exports, tag):
     from genhancer_tpu_torch.train import lora
     check(len(exports) == 1, f"{len(exports)} exports, expected 1")
     secs, nbytes, out = exports[0]
-    print(f"{tag} HF export {os.path.basename(out)}: merge + pytorch_model.bin of "
+    print(f"{tag} HF export {os.path.basename(out)}: pytorch_model.bin of "
           f"{nbytes / 1e9:.3f} GB in {secs:.2f} s ({nbytes / 1e9 / secs:.2f} GB/s); files "
           f"{sorted(os.listdir(out))}", flush=True)
     check(sorted(os.listdir(out)) == ["config.json", "pytorch_model.bin"],
@@ -3131,7 +3152,9 @@ def phase_train_int8(work):
     """The port's Trainer on configs/tpu_fast_stage1.yaml at full width: 8
     steps and a resume for steps 9-10 whose rebuilt int8 cache must equal
     the one K4 emitted at step 8; then the int8_dw + 8-bit-moment variant
-    for 5 steps, 2-3 timed and 4-5 profiled.  Returns {path: launch counts}."""
+    for 5 steps, 2-3 timed and 4-5 profiled.  Returns ({path: launch
+    counts}, the int8_full run's output directory, whose step-10 files the
+    fast stage-2 paths load)."""
     import torch
     from genhancer_tpu_torch.train.config import load_config
     from genhancer_tpu_torch.train.trainer import Trainer
@@ -3176,7 +3199,7 @@ def phase_train_int8(work):
     _print_device_time(prof, 2, sum(h["step_time"] for h in hist2) / 2)
     del trainer, emitted
     _free()
-    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    stage1 = cfg["output_dir"]      # step 10's files: phase_fast_stage2 loads them
 
     cfg = copy.deepcopy(base)
     cfg.update(output_dir=os.path.join(work, "out-int8-dw"), max_train_steps=5,
@@ -3191,7 +3214,7 @@ def phase_train_int8(work):
     del trainer
     _free()
     shutil.rmtree(cfg["output_dir"], ignore_errors=True)
-    return runs
+    return runs, stage1
 
 def _video_want(spec, steps):
     """Launch counts of ``steps`` optimizer steps (accumulation 2) of a
@@ -3523,7 +3546,8 @@ def phase_video_stage2(work, stage1, eval_root=None):
             del trainer
             _free()
         shutil.rmtree(cfg["output_dir"], ignore_errors=True)
-        shutil.rmtree(load_dir, ignore_errors=True)
+        if mode != "middle":        # phase_fast_video loads middle@336's
+            shutil.rmtree(load_dir, ignore_errors=True)
     return runs, export
 
 
@@ -3635,6 +3659,479 @@ def phase_eval(work, exports):
     return runs
 
 
+# ------------------------------------------------------------- fast stage 2
+
+FAST_CONFIGS = {"stage2_all": os.path.join(ROOT, "configs", "tpu_fast_stage2_all.yaml"),
+                "stage2_only": os.path.join(ROOT, "configs", "tpu_fast_stage2_only.yaml"),
+                "video": os.path.join(ROOT, "configs", "tpu_fast_video_stage2_all.yaml")}
+# optimizer steps of the fast stage-2 Trainer runs (no accumulation: K2b
+# launches 24 times per step on each)
+FAST_STEPS = {"fast_stage2_all": 5, "fast_stage2_only": 4, "fast_video_stage2_all": 4}
+# the widths the static DiT base and QLoRA hand K7: img_in's and
+# final_layer's 64, time_in's and guidance_in's 256, vector_in's 768, the
+# model's 3072; at T = 16 (the vec linears at B = 16) and T = 3136 (img_in,
+# B = 16 x 196 tokens)
+K7_STATIC_WIDTHS = (64, 256, 768, 3072)
+K7_STATIC_ROWS = (16, 3136)
+TEXT_SIDE = ("clip.model.text_model.", "clip.model.text_projection")
+
+
+def phase_k7_static_widths():
+    """K7 at the static DiT base's and QLoRA's widths and rows, bfloat16 and
+    float32, with and without column scales: codes and scales bit for bit
+    against the plain version; kernel, plain and bound ms of each bfloat16
+    call."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import rowquant as K7
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    bad, n = [], 0
+    for t in K7_STATIC_ROWS:
+        for c in K7_STATIC_WIDTHS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = _rand(gen, (t, c), dtype)
+                for col in (None, torch.rand(c, generator=gen, device="cuda") + 0.5):
+                    q, sc = K7.rowquant(x, col)
+                    torch.cuda.synchronize()
+                    rq, rs = K7.rowquant_ref(x, col)
+                    n_diff = int((q != rq).sum()) + int((sc != rs).sum())
+                    n += 1
+                    if n_diff:
+                        bad.append((t, c, str(dtype)[6:], col is not None, n_diff))
+            x = _rand(gen, (t, c), torch.bfloat16)
+            ms, pms = kernel_vs_plain_ms(lambda: K7.rowquant(x), lambda: K7.rowquant_ref(x))
+            bound = (_nbytes(x) + t * c + 4 * t) / HBM_PEAK * 1e3
+            print(f"[kernels] rowquant [{t}, {c}] bf16 ({K7.rowquant_tiling(t, c, 2, True).body}"
+                  f" body): kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bound:.5f} ms "
+                  f"(bytes), {bound / ms:.1%} of the bound", flush=True)
+    print(f"[kernels] rowquant at the static widths {K7_STATIC_WIDTHS} x rows "
+          f"{K7_STATIC_ROWS}: {n} calls, {bad or 'every code and scale equal to the plain '
+                                                'version'} (bound 0)", flush=True)
+    check(not bad, f"K7 at the static widths differs from its plain version: {bad}")
+
+
+def _tiny_qlora_spec(stage):
+    """The tiny int8 spec with a QLoRA tower (width 64, text side too, so
+    that every linear reaches QLoRA's 64) and the config's knobs:
+    stage2_all int8_full with the cache, stage2_only the static DiT base."""
+    from genhancer_tpu_torch.models.towers import clip as cm
+    knobs = ({"dit_quant": "int8_full", "dit_quant_cache": True} if stage == "stage2_all"
+             else {"dit_quant": "int8", "dit_quant_cache": False})
+    base = _tiny_int8_spec("int8_full")
+    return dataclasses.replace(
+        base, stage=stage, vae_quant="none", lora_r=3, lora_alpha=16.0, lora_dropout=0.1,
+        tower_cfg=cm.CLIPConfig(vision=base.tower_cfg.vision, text=cm.CLIPTextConfig(
+            hidden_size=64, intermediate_size=128, num_layers=1, num_heads=2, vocab_size=50,
+            max_position_embeddings=8), projection_dim=64), **knobs)
+
+
+def _static_paths(modules):
+    """Module paths of the int8 bases beside kept weights (QLoRA's and the
+    static DiT's)."""
+    return [p for p, m in modules.named_modules()
+            if "weight_q" in m._buffers and "weight" in m._parameters]
+
+
+def _int8_spy(names):
+    """(calls, base spy, SwitchBack spy): each records its call's layer path
+    (``names``: data pointer of the codes or weight -> path), inputs, codes
+    and scales, output, and through identity taps the g, dx (and dW)."""
+    import torch
+    from genhancer_tpu_torch.core import quant
+
+    class Tap(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, rec, key):
+            ctx.rec, ctx.key = rec, key
+            return a.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            ctx.rec[ctx.key] = g.detach().clone()
+            return g, None, None
+
+    calls, base, sb = {"base": [], "sb": []}, quant.linear_int8_base, quant.switchback
+
+    def spy_base(p, x):
+        rec = dict(path=names.get(p.weight_q.data_ptr()), x=x.detach().clone(),
+                   wq=p.weight_q.clone(), ws=p.w_scale.clone(), w=p.weight.detach().clone())
+        y = base(p, Tap.apply(x, rec, "dx"))
+        rec["y"] = y.detach().clone()
+        calls["base"].append(rec)
+        return Tap.apply(y, rec, "g")
+
+    def spy_sb(x, w, wq=None, ws=None, dw="bf16"):
+        rec = dict(path=names.get(w.data_ptr()), x=x.detach().clone(), w=w.detach().clone(),
+                   dw_kind=dw, wq=None if wq is None else wq.clone(),
+                   ws=None if ws is None else ws.clone())
+        y = sb(Tap.apply(x, rec, "dx"), Tap.apply(w, rec, "dW"), wq, ws, dw)
+        rec["y"] = y.detach().clone()
+        calls["sb"].append(rec)
+        return Tap.apply(y, rec, "g")
+
+    return calls, spy_base, spy_sb
+
+
+def _small_qlora_step(stage):
+    """A tiny float32 QLoRA step of ``stage`` on the card: one accumulation-2
+    step (the fused optimizer: K4 emits the cache in stage2_all), then a
+    forward + backward on latent-cache batches whose every int8 call — each
+    QLoRA / static base (``linear_int8_base``) and each SwitchBack layer —
+    is held against the CPU's plain path on the same inputs and gradient:
+    y, dx (and dW) within 1e-5 of max|CPU|, the codes and scales equal to
+    ``quantize_weight`` of the layer's master (for the cache: K4's emission)
+    bit for bit, the layer sets exactly the static and the cached ones;
+    controls (a QLoRA node on its float weight, SwitchBack unquantized) must
+    miss by 10x."""
+    import types
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.core import quant
+    from genhancer_tpu_torch.tasks.image import (create_state, init_modules, make_loss_fn,
+                                                 trainable_predicate)
+    from genhancer_tpu_torch.train import optim
+    from genhancer_tpu_torch.train.state import with_quant_cache
+    from genhancer_tpu_torch.train.step_utils import make_accum_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec, bound, lr = _tiny_qlora_spec(stage), 1e-5, 1e-3
+    rng = np.random.default_rng(17)
+    v, lat = spec.tower_cfg.vision, spec.latent_hw
+    n_img, n_tok, z = v.grid ** 2 + 1, (lat[0] // 2) * (lat[1] // 2), spec.vae_cfg.z_channels
+    shapes = ([(2, n_img, v.hidden_size)] * 5 + [(2, n_img, v.intermediate_size)]) \
+        * v.num_layers + [(2, v.hidden_size)]
+
+    def batch():
+        return {"image": rng.random((2, 32, 32, 3), dtype=np.float32),
+                "moments": np.concatenate([rng.standard_normal((2, *lat, z)),
+                                           -2 + 0.1 * rng.standard_normal((2, *lat, z))],
+                                          -1).astype(np.float32)}
+
+    def draw():
+        return {"t": rng.random(2, dtype=np.float32),
+                "x0": rng.standard_normal((2, n_tok, 4 * z), dtype=np.float32),
+                "vae_noise": rng.standard_normal((2, *lat, z), dtype=np.float32),
+                "lora_masks": [rng.random(sh) < 0.9 for sh in shapes]}
+
+    def cuda(a):
+        return {k: ([torch.from_numpy(x).cuda() for x in v] if isinstance(v, list)
+                    else torch.from_numpy(v).cuda()) for k, v in a.items()}
+
+    mods = init_modules(spec, torch.Generator().manual_seed(5))
+    _plant_lora_b(mods["clip"]["model"], 6)
+    mods = mods.cuda()
+    opt = optim.FusedAdamW(optim.make_lr_schedule("constant", lr),
+                           emit_quant=stage == "stage2_all")
+    state = create_state(mods, trainable_predicate(spec, mods), opt)
+    if stage == "stage2_all":
+        state = with_quant_cache(state)
+    loss_fn = make_loss_fn(spec)
+    b0, b1 = batch(), batch()
+    stacked = {k: np.stack([b0[k], b1[k]]) for k in b0}
+    _zero_counts()
+    make_accum_train_step(loss_fn, opt, 2)(state, cuda(stacked), None, [cuda(draw()), cuda(draw())])
+    torch.cuda.synchronize()
+    step_counts = _read_counts()
+
+    static = _static_paths(mods)
+    names = {mods.get_submodule(p).weight_q.data_ptr(): p for p in static}
+    names.update({p.data_ptr(): k[: -len(".weight")] for k, p in state.trainable.items()})
+    calls, spy_base, spy_sb = _int8_spy(names)
+    orig = quant.linear_int8_base, quant.switchback
+    quant.linear_int8_base, quant.switchback = spy_base, spy_sb
+    try:
+        loss_fn(state.modules, cuda(batch()), None, cuda(draw())).backward()
+        torch.cuda.synchronize()
+    finally:
+        quant.linear_int8_base, quant.switchback = orig
+    label = f"tiny f32 QLoRA {stage} step"
+    want_base = sorted(p for p in static if not p.startswith(TEXT_SIDE))
+    got_base = sorted(c["path"] for c in calls["base"])
+    want_sb = sorted(k[: -len(".weight")] for k in (state.quant or {}))
+    got_sb = sorted(c["path"] for c in calls["sb"])
+    check(got_base == want_base and got_sb == want_sb,
+          f"{label}: int8 bases ran on {got_base} (want {want_base}), SwitchBack on {got_sb} "
+          f"(want {want_sb})")
+    rel = lambda a, b: ((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()  # noqa: E731
+    worst, gap, codes_ok = {"y": 0.0, "dx": 0.0, "dW": 0.0}, float("inf"), True
+    for c in calls["base"] + calls["sb"]:
+        w = c["w"].cpu()
+        q, s = quant.quantize_weight(w, axis=0)
+        is_sb = "dw_kind" in c
+        codes_ok &= torch.equal(c["wq"].cpu(), q) and torch.equal(
+            c["ws"].cpu().reshape(-1), s.reshape(-1))
+        x = c["x"].cpu().requires_grad_("dx" in c)
+        if is_sb:
+            wr = w.clone().requires_grad_(True)
+            y = quant.switchback(x, wr, c["wq"].cpu(), c["ws"].cpu(), c["dw_kind"])
+        else:
+            y = quant.linear_int8_base(types.SimpleNamespace(weight_q=c["wq"].cpu(),
+                                                             w_scale=c["ws"].cpu()), x)
+        errs = {"y": rel(c["y"], y.detach())}
+        if "g" in c:
+            y.backward(c["g"].cpu())
+            if "dx" in c:
+                errs["dx"] = rel(c["dx"], x.grad)
+            if is_sb:
+                errs["dW"] = rel(c["dW"], wr.grad)
+        worst = {k: max(val, errs.get(k, 0.0)) for k, val in worst.items()}
+        gap = min(gap, rel(c["x"].cpu() @ w.t(), y.detach()))
+    print(f"[small] {label}: {len(calls['base'])} int8-base and {len(calls['sb'])} SwitchBack "
+          f"calls card vs CPU on equal inputs, max|card-cpu|/max|cpu| y {worst['y']:.3e}, dx "
+          f"{worst['dx']:.3e}, dW {worst['dW']:.3e} (bound {bound:g}); codes and scales "
+          f"{'equal' if codes_ok else 'DIFFERENT FROM'} quantize_weight of the masters"
+          f"{' (the cache K4 emitted)' if want_sb else ''}; closest control (the float "
+          f"weight) {gap:.3e} (must exceed {10 * bound:g}); launches of the step "
+          f"{ {k: step_counts[k] for k in ('rowquant', 'fused_adamw', 'fused_adamw_quant')} }",
+          flush=True)
+    check(max(worst.values()) <= bound and codes_ok and gap > 10 * bound,
+          f"{label}: int8 layers disagree ({worst}, codes {codes_ok}, control {gap})")
+    check(step_counts["rowquant"] > 0
+          and (step_counts["fused_adamw_quant"] > 0) == (stage == "stage2_all"),
+          f"{label}: launches {step_counts}")
+    del state, mods
+    _free()
+
+
+def phase_small_qlora():
+    """A tiny float32 QLoRA step of stage2_all (int8_full, K4's cache) and
+    of stage2_only (the static DiT base), per int8 layer card against CPU
+    (``_small_qlora_step``)."""
+    for stage in ("stage2_all", "stage2_only"):
+        attempt(_small_qlora_step, stage)
+
+
+def _fast_want(trainer, steps):
+    """Launch counts of ``steps`` steps (no accumulation) of a fast stage-2
+    run, from the model.  Attention: image — the DiT's 6 blocks K1/K1b at
+    the joint L = 197, the tower's 24 layers K2/K2b at 257; video middle@336
+    — K5/K5b at L = 1593 (K5 twice with remat), K2/K2b at 577.  K7: each
+    int8 base (QLoRA's vision side, in stage2_only the static DiT)
+    quantizes its input once and its gradient once where its input carries
+    one — all but the vision tower's first q/k/v (fed by the frozen
+    embeddings) and, in stage2_only, the DiT's img_in, time_in and
+    guidance_in (fed by the noised latent and the timestep and guidance
+    embeddings); each cached SwitchBack linear its input and its gradient,
+    and with remat a block's its input again in the recompute.  Per step K4
+    takes the cached DiT leaves, K3 the rest."""
+    spec, st = trainer.spec, trainer.state
+    micro = steps * trainer.accum
+    blocks = spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    layers = spec.tower_cfg.vision.num_layers
+    cache = set(st.quant or {})
+    static = [p for p in _static_paths(st.modules) if not p.startswith(TEXT_SIDE)]
+    no_grad_in = [p for p in static if p.endswith(tuple(
+        f"vision_model.encoder.layers.0.self_attn.{n}" for n in ("q_proj", "k_proj", "v_proj")))
+        or p.startswith(("dit.img_in", "dit.time_in.", "dit.guidance_in."))]
+    recomputed = (sum(k.startswith(("dit.double_blocks.", "dit.single_blocks.")) for k in cache)
+                  if spec.remat else 0)
+    long_ = getattr(spec, "n_cond", 0) and (spec.n_cond * spec.patch_grid ** 2
+                                            + (spec.latent_hw[0] // 2) ** 2) >= 600
+    short = 0 if long_ else micro * blocks
+    flash = (micro * blocks * (2 if spec.remat else 1), micro * blocks) if long_ else (0, 0)
+    return {**_no_launches(), "fused_rope_attention": short, "fused_rope_attention_bwd": short,
+            "flash_attention": flash[0], "flash_attention_bwd": flash[1],
+            "fused_attention": micro * layers, "fused_attention_bwd": micro * layers,
+            "fused_adamw": steps * (len(st.trainable) - len(cache)),
+            "fused_adamw_quant": steps * len(cache),
+            "rowquant": micro * (2 * len(static) - len(no_grad_in) + 2 * len(cache)
+                                 + recomputed)}
+
+
+def _fast_report(name, trainer, counts, wall, peak, profile, steps, timed, batch):
+    """Prints and checks one fast stage-2 run: synced steps, losses, the int8
+    layers, step time of the ``timed`` steps (1-based, inclusive), images
+    or rows per second, peak memory, the profiled last step, every save
+    (the loop's stall, the writer's seconds) and the launch counts."""
+    import numpy as np
+    hist, st = trainer.history, trainer.state
+    check([h["step"] for h in hist] == list(range(1, steps + 1)),
+          f"{name}: synced steps {[h['step'] for h in hist]}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"{name}: non-finite loss or grad norm: {hist}")
+    static = _static_paths(st.modules)
+    n_dit = sum(p.startswith("dit.") for p in static)
+    step_s = statistics.median(h["step_time"] for h in hist[timed[0] - 1:timed[1]])
+    print(f"[fast] {name}: {len(static) - n_dit} QLoRA tower bases (text side included), "
+          f"{n_dit} static DiT bases, {len(st.quant or {})} SwitchBack weights cached, "
+          f"{len(st.trainable)} trainable leaves; {steps} steps in {wall:.1f} s incl. the "
+          f"saves; losses {[round(h['loss'], 4) for h in hist]}; step times "
+          f"{[round(h['step_time'] * 1e3, 1) for h in hist]} ms", flush=True)
+    print(f"[fast] {name}: median step time of steps {timed[0]}-{timed[1]} "
+          f"{step_s * 1e3:.1f} ms = {batch / step_s:.2f} {'rows' if 'video' in name else 'img'}"
+          f"/s (B={batch}); peak device memory {peak:.2f} GiB (steps alone "
+          f"{profile.step_peak:.2f} GiB)", flush=True)
+    _print_device_time(profile.prof, 1, profile.wall_s,
+                       tag=f"[fast] {name} (step {steps}, profiled):")
+    w = trainer.ckpt_writer
+    print(f"[fast] {name}: asynchronous checkpoints at steps {trainer.saved_steps}: the step loop "
+          f"stalled {[round(x, 3) for x in w.stalls]} s for the snapshot, the writer took "
+          f"{[round(x, 2) for x in w.writes]} s", flush=True)
+    want = _fast_want(trainer, steps)
+    print(f"[fast] {name}: kernel launches {counts}, expected {want}", flush=True)
+    check(counts == want, f"{name}: launch counts {counts} != expected {want}")
+    check(w.enabled and len(w.writes) == len(w.stalls) == len(trainer.saved_steps),
+          f"{name}: saves {trainer.saved_steps}, stalls {w.stalls}, writes {w.writes}")
+
+
+def _write_yaml(cfg, path):
+    import yaml
+    with open(path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    return path
+
+
+def phase_fast_stage2(work, stage1):
+    """The fast stage-2 path at full width: ``genhancer-precompute-torch
+    --mode latents --augment train --variants 2`` over the int8 phase's
+    synthetic 224-px shards (images/s, bytes, the first image's moments
+    against the trainer's own inline encode of its crops), then
+    configs/tpu_fast_stage2_all.yaml (QLoRA tower, int8_full DiT with the
+    cache K4 emits, B=16) from the int8_full run's step-10 files on that
+    cache, 5 steps with saves at 3 and 5: steps 3-4 timed (4 runs while the
+    writer writes step 3's files), 5 profiled, the export read back bit for
+    bit; then configs/tpu_fast_stage2_only.yaml (QLoRA tower, static DiT
+    base) 4 steps and a resume whose re-derived static factors equal those
+    derived at the load.  Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.cli import precompute as precompute_cli
+    from genhancer_tpu_torch.data import precompute as pre
+    from genhancer_tpu_torch.data.transforms import train_image_transform
+    from genhancer_tpu_torch.data.wds import ShardStream
+    from genhancer_tpu_torch.train.config import load_config
+    from genhancer_tpu_torch.train.trainer import Trainer
+
+    check(stage1 is not None and os.path.exists(os.path.join(stage1, "checkpoint-dit-10.bin")),
+          f"no int8 stage-1 checkpoint to load from ({stage1})")
+    shards, cache = os.path.join(work, "shards"), os.path.join(work, "latents")
+    runs = {}
+    pre_cfg = load_config(FAST_CONFIGS["stage2_all"])
+    pre_cfg["data_config"]["img_dir"] = shards
+    res = precompute_cli.main(["--config", _write_yaml(pre_cfg, os.path.join(work, "pre.yaml")),
+                               "--output_dir", cache, "--mode", "latents", "--augment", "train",
+                               "--variants", "2", "--batch", "32", "--device", "cuda"])
+    _free()
+    print(f"[fast] genhancer-precompute-torch --mode latents --augment train --variants 2: "
+          f"{res['written']} images x 2 crops in {res['seconds']:.2f} s = "
+          f"{res['written'] / res['seconds']:.1f} images/s, {res['bytes'] / 1e6:.1f} MB of "
+          f"moments and float16 crops in {len(os.listdir(cache))} shards", flush=True)
+    check(res["written"] == 384, f"precompute wrote {res['written']} images, not 384")
+
+    base = load_config(FAST_CONFIGS["stage2_all"])
+    base["data_config"]["img_dir"] = cache
+    base.update(load_dir=stage1, load_step=10, log_interval=1, report_to="none")
+    cfg = copy.deepcopy(base)
+    steps = FAST_STEPS["fast_stage2_all"]
+    cfg.update(output_dir=os.path.join(work, "out-fast-all"), max_train_steps=steps,
+               checkpointing_steps=3)
+    exports, restore = _export_timer()
+    profile = _LastStepProfile()
+    try:
+        trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    finally:
+        restore()
+    _fast_report("tpu_fast_stage2_all", trainer, counts, wall, peak, profile, steps, (3, 4), 16)
+    runs["fast_stage2_all"] = counts
+    # the cache's first image against the trainer's own VAE on the CLI's
+    # first batch (images 0-15, two crops each, from the per-image generator)
+    samples = [s for s, _ in zip(ShardStream(shards, shuffle_buffer=0, repeat=False), range(16))]
+    crops = np.stack([train_image_transform(s["jpg"], 224, rng) for s in samples
+                      for rng in [np.random.default_rng((0, zlib.crc32(s["__key__"].encode())))]
+                      for _ in range(2)])
+    spec = trainer.spec
+    inline = pre.make_frozen_latent_fn(trainer.state.modules["vae"], spec.vae_cfg,
+                                       vae_dtype=spec.vae_dtype)(crops)["moments"][:2]
+    import tarfile
+    with tarfile.open(os.path.join(cache, "pre-000000.tar")) as tf:
+        member = next(m for m in tf.getmembers() if m.name.endswith(".feat.npz"))
+        cached = pre.load_feat(tf.extractfile(member).read())
+    err = float(np.abs(cached["moments"] - inline).max() / np.abs(inline).max())
+    same_px = np.array_equal(cached["pixels"], crops[:2].astype(np.float16))
+    print(f"[fast] {member.name}: cached moments {cached['moments'].shape} against the "
+          f"trainer's VAE on the same crops, max|diff|/max {err:.3e} "
+          f"({'bit for bit' if err == 0 else 'not bit for bit'}; bound "
+          f"{BOUND['bfloat16']}); its float16 crops {'equal' if same_px else 'DIFFER FROM'} "
+          f"the per-image generator's", flush=True)
+    check(err <= BOUND["bfloat16"] and same_px, "the latent cache disagrees with the trainer")
+    check(len(exports) == 2, f"{len(exports)} exports, expected 2 (steps 3 and 5)")
+    print(f"[fast] the step-3 export took {exports[0][0]:.2f} s in the writer", flush=True)
+    _check_export(trainer, exports[1:], "[fast] tpu_fast_stage2_all:")
+    del trainer
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+
+    cfg = copy.deepcopy(base)
+    steps = FAST_STEPS["fast_stage2_only"]
+    cfg.update(load_config(FAST_CONFIGS["stage2_only"]))
+    cfg["data_config"]["img_dir"] = cache
+    cfg.update(load_dir=stage1, load_step=10, log_interval=1, report_to="none",
+               output_dir=os.path.join(work, "out-fast-only"), max_train_steps=steps,
+               checkpointing_steps=0)
+    profile = _LastStepProfile()
+    trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    _fast_report("tpu_fast_stage2_only", trainer, counts, wall, peak, profile, steps, (2, 3), 16)
+    runs["fast_stage2_only"] = counts
+    at_load = {p: (trainer.state.modules.get_submodule(p).weight_q.clone(),
+                   trainer.state.modules.get_submodule(p).w_scale.clone())
+               for p in _static_paths(trainer.state.modules)}
+    del trainer
+    _free()
+    cfg2 = copy.deepcopy(cfg)
+    cfg2.update(max_train_steps=steps + 1, resume_from_checkpoint="latest")
+    resumed = Trainer(cfg2, device="cuda")
+    mods = resumed.state.modules
+    same = (resumed.state.step == steps and sorted(_static_paths(mods)) == sorted(at_load)
+            and all(torch.equal(mods.get_submodule(p).weight_q, q)
+                    and torch.equal(mods.get_submodule(p).w_scale, s)
+                    for p, (q, s) in at_load.items()))
+    print(f"[fast] tpu_fast_stage2_only resume at step {resumed.state.step}: the "
+          f"{len(at_load)} static int8 bases re-derived from the loaded masters "
+          f"{'equal' if same else 'DIFFER FROM'} those derived at the stage-1 load", flush=True)
+    check(same, "the resumed static int8 factors differ from those derived at load")
+    del resumed, mods
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    shutil.rmtree(cache, ignore_errors=True)
+    return runs
+
+
+def phase_fast_video(work, stage1):
+    """configs/tpu_fast_video_stage2_all.yaml at full width and its batch of
+    4 (middle@336: QLoRA tower at L=577 without tower_remat, the int8_full
+    DiT with the cache, remat at the joint L=1593) from middle@336's
+    stage-1 files: 4 steps, 2-3 timed, 4 profiled, the export read back.
+    Returns {path: launch counts}."""
+    from genhancer_tpu_torch.train.config import load_config
+
+    check("middle" in stage1, "no middle@336 stage-1 files to load")
+    load_dir, load_step = stage1["middle"]
+    steps = FAST_STEPS["fast_video_stage2_all"]
+    cfg = load_config(FAST_CONFIGS["video"])
+    cfg["data_config"]["video_dir"] = os.path.join(work, "clips")
+    cfg.update(output_dir=os.path.join(work, "out-fast-video"), max_train_steps=steps,
+               checkpointing_steps=0, log_interval=1, report_to="none", load_dir=load_dir,
+               load_step=load_step)
+    exports, restore = _export_timer()
+    profile = _LastStepProfile()
+    try:
+        trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+    finally:
+        restore()
+    spec = trainer.spec
+    print(f"[fast] tpu_fast_video_stage2_all: remat {spec.remat}, tower_remat "
+          f"{spec.tower_remat}, joint L="
+          f"{spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2}", flush=True)
+    check(spec.remat and not spec.tower_remat, "the video config's gates")
+    _fast_report("tpu_fast_video_stage2_all", trainer, counts, wall, peak, profile, steps,
+                 (2, 3), 4)
+    _check_export(trainer, exports, "[fast] tpu_fast_video_stage2_all:")
+    del trainer
+    _free()
+    shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    shutil.rmtree(load_dir, ignore_errors=True)
+    return {"fast_video_stage2_all": counts}
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -3644,6 +4141,7 @@ def main():
     attempt(phase_kernels_siglip, records)
     records["fused_adamw"] = attempt(phase_adamw)
     records.update(attempt(phase_kernels_int8) or {})
+    attempt(phase_k7_static_widths)
     records.update(attempt(phase_adamw_int8) or {})
     attempt(phase_small_reference)
     attempt(phase_small_train)
@@ -3658,6 +4156,7 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     attempt(phase_small_int8)
+    attempt(phase_small_qlora)
     serve_counts = attempt(phase_server)
     # the stage-2 exports the MMVP-VLM eval reads at the end
     eval_root, exports = tempfile.mkdtemp(prefix="chip_smoke_eval_"), {}
@@ -3671,7 +4170,8 @@ def main():
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
         try:
-            int8_counts = attempt(phase_train_int8, work)
+            int8_counts, int8_stage1 = attempt(phase_train_int8, work) or (None, None)
+            fast_counts = attempt(phase_fast_stage2, work, int8_stage1)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_video_")
@@ -3679,6 +4179,7 @@ def main():
             video_counts, video1 = attempt(phase_video_train, work) or (None, None)
             video2_counts, exports["middle"] = (attempt(phase_video_stage2, work, video1 or {},
                                                         eval_root) or (None, None))
+            fast_video_counts = attempt(phase_fast_video, work, video1 or {})
         finally:
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_siglip_")
@@ -3699,7 +4200,7 @@ def main():
         sys.exit(1)
     paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()},
              **stage2_counts, **int8_counts, **video_counts, **video2_counts, **siglip_counts,
-             **eval_counts}
+             **eval_counts, **fast_counts, **fast_video_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies
         return counts[name] + (counts["fused_adamw8_quant"] if name == "fused_adamw8" else 0)
@@ -3739,9 +4240,15 @@ def main():
         f"{paths[p]['fused_rope_attention_bwd'] // SIGLIP_STEPS[p]}, K2b "
         f"{paths[p]['fused_attention_bwd']}" for p in SIGLIP_STEPS), flush=True)
     k2b = {p: c["fused_attention_bwd"] for p, c in paths.items()}
-    check(all(n == (48 * STAGE2_STEPS[p] if p in STAGE2_STEPS else 0) for p, n in k2b.items()),
+    check(all(n == (48 * STAGE2_STEPS[p] if p in STAGE2_STEPS
+                    else 24 * FAST_STEPS[p] if p in FAST_STEPS else 0) for p, n in k2b.items()),
           f"K2b launches by path {k2b}: 48 per step on the stage-2 paths "
-          f"({STAGE2_STEPS} steps), 0 elsewhere")
+          f"({STAGE2_STEPS} steps), 24 on the fast ones (no accumulation, {FAST_STEPS} "
+          "steps), 0 elsewhere")
+    for p in FAST_STEPS:        # the fast stage-2 paths run the int8 kernels
+        check(paths[p]["rowquant"] > 0, f"rowquant not launched on {p}")
+        check((paths[p]["fused_adamw_quant"] > 0) == (p != "fast_stage2_only"),
+              f"{p}: K4 launches {paths[p]['fused_adamw_quant']}")
     print(f"[done] K2b launches by path: {k2b}", flush=True)
     check(paths["train_stage2_only"]["fused_adamw"] > 0, "fused_adamw not launched in stage 2")
     for n in ("fused_rope_attention", "fused_rope_attention_bwd"):

@@ -8,7 +8,9 @@ reference torch names (``weight``/``bias``/``scale``, linear weights
 and signature ``f(p, x)``, so the two packages read side by side.
 
 Int8 (``core.quant``): ``Int8Layer`` is a frozen linear or conv that tree
-surgery quantized; ``linear``/``conv2d`` dispatch on it.  Inside
+surgery quantized; ``linear``/``conv2d`` dispatch on it, and ``linear`` runs
+the int8 base of any module carrying ``weight_q`` (QLoRA's kept-weight
+modules too).  Inside
 ``int8_training_ctx`` every ``linear`` whose smaller dimension reaches
 ``quant.SWITCHBACK_MIN_DIM`` runs SwitchBack, reading the
 optimizer-maintained int8 copy of its weight from the non-persistent buffers
@@ -112,6 +114,27 @@ def int8_training_ctx(full: bool = False, dw_int8: bool = False):
         _INT8_TRAIN.dw = prev
 
 
+def int8_ctx_replay(fn):
+    """``fn`` as a function whose every call runs in the SwitchBack context
+    open when it was made, for a function that ``torch.utils.checkpoint``
+    runs again in the backward (the DiT's remat), where the forward's
+    ``int8_training_ctx`` has closed — and on autograd's own thread, which
+    never saw it.  Outside the context ``fn`` is returned."""
+    dw = getattr(_INT8_TRAIN, "dw", None)
+    if dw is None:
+        return fn
+
+    def run(*args):
+        prev = getattr(_INT8_TRAIN, "dw", None)
+        _INT8_TRAIN.dw = dw
+        try:
+            return fn(*args)
+        finally:
+            _INT8_TRAIN.dw = prev
+
+    return run
+
+
 # the LoRA dropout context while open: {"generator", "rate", "masks", "calls"}
 _LORA_DROPOUT = threading.local()
 
@@ -192,17 +215,19 @@ def _device_scalar(value: float, dtype: torch.dtype, device: torch.device) -> to
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x: [..., in] -> [..., out] in x.dtype.  The bias is added after the
-    matmul has been rounded to x.dtype, as the JAX version does.  An
-    ``Int8Layer`` runs the int8 product; inside ``int8_training_ctx`` a
-    large enough ``Linear`` runs SwitchBack (``nn.py:124-173``).  ``p`` may
-    be any module with a 2-D ``weight`` (and optionally ``bias``).
+    matmul has been rounded to x.dtype, as the JAX version does.  A module
+    carrying ``weight_q`` (an ``Int8Layer``, or QLoRA's kept-weight module)
+    runs the int8 base product, inside ``int8_training_ctx`` too; else
+    inside that context a large enough ``Linear`` runs SwitchBack
+    (``nn.py:124-173``).  ``p`` may be any module with a 2-D ``weight`` (and
+    optionally ``bias``).
 
     A LoRA-wrapped ``p`` adds ``up * scale`` with ``down = dropout(x) @ A.T``
     and ``up = down @ B.T`` before the bias, each product and the scaled
     branch rounded to x.dtype, the scale cast to x.dtype first
     (``nn.py:164-169``)."""
     from . import quant
-    if isinstance(p, Int8Layer):
+    if getattr(p, "weight_q", None) is not None:
         y = quant.linear_int8_base(p, x)
     else:
         w = p.weight.to(x.dtype)

@@ -1,8 +1,7 @@
 """Int8 quantization: the frozen tower and VAE encoder, and SwitchBack int8
 training of the DiT.
 
-Port of ``genhancer_tpu/core/quant.py`` (stage 1; the QLoRA helpers
-``quantize_lora_base`` and ``refresh_static_quant_flat`` come with stage 2).
+Port of ``genhancer_tpu/core/quant.py``.
 
 Scheme (weight-static, activation-dynamic): weights are symmetric int8 per
 output channel, ``w_q = clip(round(w / s_w))`` with ``s_w = max|w[o]| / 127``;
@@ -23,6 +22,13 @@ optimizer-maintained cache, times a bf16 dW, the per-block int8 dW of K8,
 or the per-column int8 dW).  Module surgery replaces ``Linear``/``Conv2d``
 modules by ``core.nn.Int8Layer``, which holds ``weight_q`` and ``w_scale``
 buffers and no float weight, on the layers the JAX tree surgery selects.
+
+QLoRA (stage 2, ``quantize_lora_base``) keeps the float ``weight`` and adds
+``weight_q``/``w_scale`` beside it as non-persistent buffers of the same
+module: ``core.nn.linear`` runs the int8 base from them, ``train.lora``
+merges into the kept weight, and no state dict (checkpoint ``.bin``, HF
+export) carries them; ``refresh_static_quant_flat`` re-derives them after a
+load has replaced the masters.
 """
 
 from __future__ import annotations
@@ -278,4 +284,53 @@ def quantize_conv_tree(root: tnn.Module, min_channels: int = INT8_CONV_MIN_CH
         wq, ws = quantize_weight(mod.weight.detach(), axis=0)
         swap_module(root, path, nn.Int8Layer(wq, ws.reshape(1, 1, 1, o), mod.bias))
         done.append(path)
+    return tuple(done)
+
+
+def quantize_lora_base(root: tnn.Module, min_features: int = 64) -> Tuple[str, ...]:
+    """QLoRA's frozen int8 base (``quantize_lora_base:454``): every module of
+    ``root`` holding a 2-D ``weight`` whose smaller dimension reaches
+    ``min_features`` and whose path names no embedding — LoRA-wrapped ones
+    included — gets ``weight_q`` int8 [out, in] and ``w_scale`` float32
+    [out, 1] beside its kept ``weight``, as non-persistent buffers; in
+    place.  Returns the module paths."""
+    done = []
+    for path, mod in root.named_modules():
+        w = mod._parameters.get("weight")
+        if (w is None or w.dim() != 2 or min(w.shape) < min_features
+                or any(s in path for s in _NOT_LINEAR)):
+            continue
+        wq, ws = quantize_weight(w.detach(), axis=0)
+        mod.register_buffer("weight_q", wq, persistent=False)
+        mod.register_buffer("w_scale", ws, persistent=False)
+        done.append(path)
+    return tuple(done)
+
+
+def static_quant_flat(root: tnn.Module) -> Dict[str, torch.Tensor]:
+    """``{flat path: tensor}`` of ``root``'s parameters and buffers, the
+    non-persistent ``weight_q``/``w_scale`` included: the flat view
+    ``refresh_static_quant_flat`` reads."""
+    return {**dict(root.named_parameters()), **dict(root.named_buffers())}
+
+
+@torch.no_grad()
+def refresh_static_quant_flat(flat: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+    """Re-derive every ``*.weight_q``/``*.w_scale`` pair of a flat view
+    (``static_quant_flat``) from its kept ``*.weight`` master
+    (``refresh_static_quant_flat:495``), writing into the buffers in place —
+    needed after a checkpoint load has replaced masters quantized at init.
+    Returns the refreshed ``.weight`` paths."""
+    done = []
+    for path, wq in flat.items():
+        if not path.endswith(".weight_q"):
+            continue
+        w = flat.get(path[: -len("_q")])
+        if w is None:
+            continue
+        q, s = quantize_weight(w, axis=0)
+        wq.copy_(q)
+        ws = flat[path[: -len(".weight_q")] + ".w_scale"]
+        ws.copy_(s.reshape(ws.shape))
+        done.append(path[: -len("_q")])
     return tuple(done)

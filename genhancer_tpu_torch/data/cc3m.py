@@ -9,8 +9,13 @@ normalisation here (done once on the device).
 ``loader(train_batch_size, num_workers, img_size, img_dir, seed, ...)``
 preserves the reference loader signature (``dataset_cc3m.py:220-222``).
 Decoding runs in a thread pool (PIL releases the GIL for JPEG work).  The
-native JPEG decoder (``data/native_decode.py`` + ``native/ghdata.cc``) and
-the precomputed caches are not ported yet (ROADMAP).
+native JPEG decoder (``data/native_decode.py`` + ``native/ghdata.cc``) is
+not ported yet (ROADMAP).
+
+``precomputed`` reads the shards of ``data.precompute``
+(``_iter_precomputed``): ``true`` the stage-1 features cache, batches
+``{moments, cls}``; ``"latents"`` the latent cache, batches ``{moments,
+image}`` (the cached crop as float32).
 """
 
 from __future__ import annotations
@@ -29,11 +34,9 @@ class CC3MLoader:
                  img_size: int = 224, seed: int = 0, patch_size: int = 1,
                  shuffle_buffer: int = 2000,
                  node_index: int = 0, node_count: int = 1, repeat: bool = True,
-                 precomputed: bool = False, **_unused):
-        if precomputed:
-            raise NotImplementedError("data_config.precomputed is not ported yet "
-                                      "(ROADMAP: slice 5, stage 2 and the caches)")
+                 precomputed=False, **_unused):
         self.batch_size = train_batch_size
+        self.precomputed = precomputed
         self.img_size = img_size
         self.num_workers = max(1, num_workers)
         self.rng = np.random.default_rng(seed)
@@ -54,7 +57,66 @@ class CC3MLoader:
         txt = sample.get("txt", b"")
         return img, txt.decode("utf-8", "replace") if isinstance(txt, bytes) else str(txt)
 
+    def _iter_precomputed(self) -> Iterator[Dict]:
+        """Batches from ``.feat.npz`` shards (``cc3m.py:94-160``): one
+        variant per visit where a sample holds several (the same index for
+        every member, so the moments stay with their crop); a loud failure
+        on a cache of the other kind or on shards holding none."""
+        from .precompute import load_feat
+        cols: Dict[str, list] = {}
+        texts = []
+        seen = loaded = 0
+        want_latents = self.precomputed == "latents"
+
+        def emit():
+            out = {k: np.stack(v) for k, v in cols.items()}
+            if "pixels" in out:
+                out["image"] = out.pop("pixels").astype(np.float32)
+            out["text"] = list(texts)
+            return out
+
+        for sample in self.stream:
+            seen += 1
+            blob = sample.get("feat.npz")
+            if blob is None:
+                if loaded == 0 and seen >= 200:
+                    raise RuntimeError(
+                        "precomputed image loader found no .feat.npz in the first "
+                        f"{seen} samples — are these shards written by "
+                        "genhancer-precompute-torch?")
+                continue
+            try:
+                feats = load_feat(blob)
+            except Exception:   # an unreadable sample is skipped
+                continue
+            if loaded == 0:
+                if want_latents and "pixels" not in feats:
+                    raise RuntimeError(
+                        "precomputed: 'latents' but the cache has no pixels member — "
+                        "re-run genhancer-precompute-torch --mode latents (stage 2 "
+                        "trains the tower and needs the crops)")
+                if not want_latents and "cls" not in feats:
+                    raise RuntimeError(
+                        "features cache expected (precomputed: true) but the shards "
+                        "are a latents cache — set precomputed: 'latents' in data_config")
+            loaded += 1
+            # a stacked [K, ...] sample: K i.i.d. training crops, one drawn
+            j = (int(self.rng.integers(feats["moments"].shape[0]))
+                 if feats["moments"].ndim == 4 else None)
+            for k, v in feats.items():
+                cols.setdefault(k, []).append(v if j is None else v[j])
+            t = sample.get("txt", b"")
+            texts.append(t.decode("utf-8", "replace") if isinstance(t, bytes) else str(t))
+            if len(texts) == self.batch_size:
+                yield emit()
+                cols, texts = {}, []
+        if texts:
+            yield emit()
+
     def __iter__(self) -> Iterator[Dict]:
+        if self.precomputed:
+            yield from self._iter_precomputed()
+            return
         images, texts = [], []
         sample_iter = iter(self.stream)
         while True:

@@ -21,8 +21,10 @@ so one video task (``tasks.video``) serves all four trainers:
 
 The same seed and the same shards give the same windows as the JAX loaders
 (the same ``np.random.default_rng`` draws in the same order).  Frames are
-decoded with PIL in a thread pool; the native decoder and the precomputed
-feature caches are not ported yet (ROADMAP).
+decoded with PIL in a thread pool; the native decoder is not ported yet
+(ROADMAP).  With ``precomputed`` the frames are ``.feat.npz`` members of
+the video features cache (``data.precompute``) and every loader emits
+``{cond_patches, cond_vecs, moments, valid}`` (``_assemble_precomputed``).
 """
 
 from __future__ import annotations
@@ -36,15 +38,21 @@ from .transforms import video_frame_transform
 from .wds import ShardStream
 
 
+def _assemble_precomputed(cond_feats: List[Dict], target_feats: Dict) -> Dict:
+    """A cached example (``video.py:32-40``): the patches stay float16 (the
+    loss casts them to the compute dtype on the device)."""
+    return {"cond_patches": np.stack([f["patches"] for f in cond_feats]),
+            "cond_vecs": np.stack([f["cls"] for f in cond_feats]),
+            "moments": target_feats["moments"]}
+
+
 class VideoLoaderBase:
     def __init__(self, video_dir, train_batch_size: int = 4, num_workers: int = 4,
                  img_size: int = 224, seed: int = 0, shuffle_buffer: int = 100,
                  node_index: int = 0, node_count: int = 1, repeat: bool = True,
                  precomputed: bool = False, **_unused):
-        if precomputed:
-            raise NotImplementedError("data_config.precomputed is not ported yet "
-                                      "(ROADMAP: slice 5, stage 2 and the caches)")
         self.batch_size = train_batch_size
+        self.precomputed = precomputed
         self.img_size = img_size
         self.rng = np.random.default_rng(seed)
         self.stream = ShardStream(video_dir, node_index=node_index,
@@ -62,6 +70,16 @@ class VideoLoaderBase:
             return None
 
     def _gather(self, frames: List, cond_idx: List[int], target_idx: int) -> Optional[Dict]:
+        """One example: {cond, target} from pixels, or the cached features'
+        {cond_patches, cond_vecs, moments} (``video.py:76-91``)."""
+        if self.precomputed:
+            from .precompute import load_feat
+            try:
+                feats = [load_feat(frames[i][1]) for i in cond_idx]
+                tgt = load_feat(frames[target_idx][1])
+            except Exception:   # an unreadable frame skips the example
+                return None
+            return _assemble_precomputed(feats, tgt)
         arr = self._decode_frames(frames, cond_idx + [target_idx])
         if arr is None:
             return None
@@ -70,12 +88,25 @@ class VideoLoaderBase:
     def sample_to_example(self, video) -> Optional[Dict]:
         raise NotImplementedError
 
+    def _check_yields(self, seen: int, produced: int) -> None:
+        """A precomputed stream that yields nothing is a configuration error
+        (pixel shards under ``precomputed: true``): fail rather than spin."""
+        if self.precomputed and produced == 0 and seen >= 100:
+            raise RuntimeError(
+                f"precomputed video loader produced 0 examples from the first {seen} "
+                "videos — are these .feat.npz shards written by genhancer-precompute-torch "
+                "(not pixel shards)?")
+
     def __iter__(self) -> Iterator[Dict]:
         pending: List[Dict] = []
+        seen = produced = 0
         for video in self.stream:
+            seen += 1
             ex = self.sample_to_example(video)
             if ex is None:
+                self._check_yields(seen, produced)
                 continue
+            produced += 1
             pending.append(ex)
             if len(pending) == self.batch_size:
                 out = {k: np.stack([e[k] for e in pending]) for k in pending[0]}
@@ -155,6 +186,14 @@ class SlidingWindowLoader(VideoLoaderBase):
             starts = sorted(self.rng.choice(len(starts), self.max_windows, replace=False))
             starts = [int(s) * self.window_stride for s in starts]
         needed = sorted({s + o for s in starts for o in range(self.window_cond + 1)})
+        if self.precomputed:
+            from .precompute import load_feat
+            try:
+                feats = {f: load_feat(frames[f][1]) for f in needed}
+            except Exception:   # an unreadable frame skips the video
+                return []
+            return [_assemble_precomputed([feats[s + o] for o in range(self.window_cond)],
+                                          feats[s + self.window_cond]) for s in starts]
         arr_all = self._decode_frames(frames, needed)
         if arr_all is None:
             return []
@@ -166,10 +205,14 @@ class SlidingWindowLoader(VideoLoaderBase):
         static_bs = self.batch_size * self.max_windows
         windows: List[Dict] = []
         videos_in_batch = 0
+        seen = produced = 0
         for video in self.stream:
+            seen += 1
             ws = self.video_windows(video)
             if not ws:
+                self._check_yields(seen, produced)
                 continue
+            produced += 1
             windows.extend(ws)
             videos_in_batch += 1
             if videos_in_batch == self.batch_size:

@@ -116,7 +116,8 @@ def group_by_directory(samples: Iterable[Dict[str, bytes]]
             yield emit()
             frames, txt = [], None
         current_dir = d
-        jpg = s.get("jpg") or s.get("jpeg") or s.get("png")
+        jpg = (s.get("jpg") or s.get("jpeg") or s.get("png")
+               or s.get("feat.npz"))   # a frame of the features cache (data.precompute)
         if jpg is not None:
             frames.append((key, jpg))
         if "txt" in s:

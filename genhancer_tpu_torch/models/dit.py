@@ -14,7 +14,8 @@ tokens, RoPE and the flash kernel K5 beyond).
 ``remat=True`` wraps each double and single block in
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the JAX package
 wraps them in ``jax.checkpoint`` (``dit.py:276-280``): only the blocks'
-inputs are kept for the backward, which runs each block's forward again.
+inputs are kept for the backward, which runs each block's forward again,
+inside the SwitchBack context the forward ran in (``core.nn.int8_ctx_replay``).
 """
 
 from __future__ import annotations
@@ -226,11 +227,15 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
             "the port recomputes whole blocks (remat_policy: full)")
     dblock, sblock = _double_block, _single_block
     if remat:
+        # the recompute runs in the backward, after the forward's SwitchBack
+        # context has closed: it must run the forward's int8 path again
+        d_fn, s_fn = nn.int8_ctx_replay(_double_block), nn.int8_ctx_replay(_single_block)
+
         def dblock(*a):
-            return checkpoint(_double_block, *a, use_reentrant=False)
+            return checkpoint(d_fn, *a, use_reentrant=False)
 
         def sblock(*a):
-            return checkpoint(_single_block, *a, use_reentrant=False)
+            return checkpoint(s_fn, *a, use_reentrant=False)
 
     compute_dtype = img.dtype
     img = nn.linear(p.img_in, img)

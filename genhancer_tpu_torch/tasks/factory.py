@@ -8,9 +8,11 @@ siglip | metaclip`` (SigLIP in image mode only); ``clip_config.model_dir``
 names a local HF tower directory (``registry.load_tower``: its
 ``config.json`` overrides the variant's config).  The video tasks' DiT
 remat and ``tower_remat`` follow the JAX factory's gates on one device
-(``factory.py:225-258``) unless the config sets them.  SigLIP in video
-mode raises, as do the options that need several devices (ROADMAP slice
-7).
+(``factory.py:225-258``) unless the config sets them.  ``data_config.
+precomputed`` takes the caches of ``data.precompute``: ``latents`` in every
+stage, a features cache (``true``) in stage 1 only (``_check_precomputed``).
+SigLIP in video mode raises, as do the options that need several devices
+(ROADMAP: parallelism).
 """
 
 from __future__ import annotations
@@ -65,11 +67,26 @@ def validate_single_device(cfg) -> None:
         if value not in (None, single, 0):
             raise NotImplementedError(
                 f"{knob}: {value} needs several devices, which the port does not "
-                "drive yet (ROADMAP: slice 7, parallelism)")
+                "drive yet (ROADMAP: parallelism)")
     if int(cfg.get("num_devices") or 1) > 1:
         raise NotImplementedError(
             f"num_devices: {cfg.get('num_devices')} — the port trains on one device "
-            "(ROADMAP: slice 7, parallelism)")
+            "(ROADMAP: parallelism)")
+
+
+def _check_precomputed(cfg, task: str) -> None:
+    """``_check_precomputed`` (``factory.py:106-120``): a features cache
+    holds the frozen tower's outputs, which stage 2 trains, so it is refused
+    there; the latent cache (the VAE's moments and the crops) is taken in
+    every stage."""
+    dc = cfg.get("data_config", {}) or {}
+    if (dc.get("precomputed") and dc.get("precomputed") != "latents"
+            and not task.endswith("stage1")):
+        raise ValueError(
+            "data_config.precomputed (features cache) is stage-1 only: "
+            "stage-2 trains the tower (LoRA), so conditioning features must "
+            "be computed live.  Use precomputed: 'latents' with a "
+            "--mode latents cache to skip just the frozen VAE")
 
 
 def _lora_kwargs(cfg, tower: str) -> dict:
@@ -110,9 +127,7 @@ def build_spec(cfg):
     else:
         raise ValueError(f"unknown task {task!r}")
     dc = cfg.get("data_config", {}) or {}
-    if dc.get("precomputed"):
-        raise NotImplementedError("data_config.precomputed (the feature and latent "
-                                  "caches) is not ported yet (ROADMAP: slice 5)")
+    _check_precomputed(cfg, task)
     tower: str = cfg.get("tower", "openai_clip")
     cc = cfg.get("clip_config", {}) or {}
     img_size = int(dc.get("img_size", 224))
@@ -143,16 +158,18 @@ def build_spec(cfg):
                   # fp32); `vae_dtype: fp32` restores parity
                   vae_dtype=(torch.float32 if cfg.get("vae_dtype") == "fp32"
                              else torch.bfloat16),
-                  dit_quant=cfg.get("dit_quant", "none"), tower_dir=tower_dir,
+                  tower_dir=tower_dir,
                   tower_remat=bool(cfg.get("tower_remat") or False),
+                  # the int8 stack (core.quant); the weight cache pays only
+                  # when the fused optimizer emits it (JAX factory.py:177-188)
+                  tower_quant=cfg.get("tower_quant", "none"),
+                  vae_quant=cfg.get("vae_quant", "none"),
+                  vae_quant_min_ch=int(cfg.get("vae_quant_min_ch", 256)),
+                  dit_quant=cfg.get("dit_quant", "none"),
+                  dit_quant_cache=cfg.get("fused_optimizer") == "pallas",
                   **_lora_kwargs(cfg, tower))
     if task.startswith("image_"):
-        # the int8 stack (core.quant); the weight cache pays only when the
-        # fused optimizer emits it (JAX factory.py:177-188)
-        spec = TaskSpec(**common, tower_quant=cfg.get("tower_quant", "none"),
-                        vae_quant=cfg.get("vae_quant", "none"),
-                        vae_quant_min_ch=int(cfg.get("vae_quant_min_ch", 256)),
-                        dit_quant_cache=cfg.get("fused_optimizer") == "pallas")
+        spec = TaskSpec(**common)
         image_task.require_ported(spec)
         return spec, kind, "image"
 
@@ -166,9 +183,7 @@ def build_spec(cfg):
         common["tower_remat"] = tower_remat_gate(n_cond, clip_image_size, patch, bs)
     spec = video_task.VideoTaskSpec(
         mode=mode, adapter_in_dim=tower_cfg.vision.hidden_size,
-        remat_policy=cfg.get("remat_policy", "full"),
-        tower_quant=cfg.get("tower_quant", "none"), vae_quant=cfg.get("vae_quant", "none"),
-        **common)
+        remat_policy=cfg.get("remat_policy", "full"), **common)
     video_task.require_ported(spec)
     return spec, kind, "video"
 

@@ -23,6 +23,12 @@ each row's log-sum-exp and K2b (K5b) runs the tower's attention backward;
 ``tower_remat`` checkpoints each tower layer
 (``models.towers.encoder.tower_remat_scope``).
 
+The precomputed caches (``data.precompute``) gate the frozen paths by batch
+key (``image.py:206-240``): ``{image}`` runs the VAE and the tower inline;
+``{moments, image}`` (the latent cache, every stage) samples the posterior
+from the cached moments and runs the tower on the cached crop;
+``{moments, cls}`` (the stage-1 features cache) skips the tower as well.
+
 Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
 ``vae_noise`` [B, h, w, z], and in stage 2 ``lora_masks``, one bool keep-mask
@@ -35,10 +41,14 @@ encoder's wide convs at init (``init_modules``, module surgery of
 large linears through SwitchBack inside ``core.nn.int8_training_ctx``, and
 ``dit_quant_cache`` (set with ``fused_optimizer: pallas``) keeps their int8
 copies in the state, emitted by the optimizer (K4/K6) after the first step.
+In stage 2 ``tower_quant: int8`` is QLoRA (``core.quant.quantize_lora_base``
+on the whole LoRA-wrapped model, text side included: the int8 base beside
+the kept float weights), and in ``stage2_only`` ``dit_quant`` gives the
+frozen DiT the same static int8 base, run outside the SwitchBack context
+(``image.py:150-175, 256-261``).
 
-QLoRA (``tower_quant: int8`` in stage 2), an int8 SigLIP tower, a static
-int8 DiT in ``stage2_only``, the precomputed-cache batches (``moments``/``cls``), remat
-and the multi-device options raise ``NotImplementedError``, naming ROADMAP.
+An int8 SigLIP tower, remat and the multi-device options raise
+``NotImplementedError``, naming ROADMAP.
 """
 
 from __future__ import annotations
@@ -147,7 +157,8 @@ def init_modules(spec: TaskSpec, generator: torch.Generator,
     """Random-init modules drawn from ``generator`` (on ``device``), the
     tower's weights from ``spec.tower_dir`` where one is set, LoRA injected
     in stage 2 (its A's drawn from ``generator`` after everything else), and
-    the spec's frozen int8 surgery applied (``quantize_modules``)."""
+    then, in JAX's order, the spec's frozen int8 surgery applied
+    (``quantize_modules``)."""
     require_ported(spec)
     modules = init_weights(build_modules(spec, device), generator)
     if spec.tower_dir is not None:
@@ -160,18 +171,25 @@ def init_modules(spec: TaskSpec, generator: torch.Generator,
     return quantize_modules(spec, modules)
 
 
-def quantize_modules(spec: TaskSpec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
-    """``init_modules:150-165`` for stage 1: ``tower_quant: int8`` swaps the
-    tower's eligible linears (min(out, in) >= 64) for int8 ones, and
-    ``vae_quant: int8`` the encoder convs whose in and out channels reach
-    ``vae_quant_min_ch``; in place."""
+def quantize_modules(spec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
+    """``init_modules:150-175`` (image and video specs), in place:
+    ``tower_quant: int8`` swaps the stage-1 tower's eligible linears
+    (min(out, in) >= 64) for int8 ones and gives the stage-2 tower QLoRA's
+    int8 base beside its kept weights; ``vae_quant: int8`` swaps the encoder
+    convs whose in and out channels reach ``vae_quant_min_ch``; in
+    ``stage2_only`` a ``dit_quant`` gives the frozen DiT the static int8
+    base (it takes no dW, and its kept masters take the stage-1 load)."""
     for knob in ("tower_quant", "vae_quant"):
         if getattr(spec, knob) not in ("none", "int8"):
             raise ValueError(f"{knob} must be none|int8, got {getattr(spec, knob)!r}")
+    stage2 = spec.stage in ("stage2_only", "stage2_all")
     if spec.tower_quant == "int8":
-        quant.quantize_linear_tree(modules["clip"]["model"])
+        (quant.quantize_lora_base if stage2 else quant.quantize_linear_tree)(
+            modules["clip"]["model"])
     if spec.vae_quant == "int8":
         quant.quantize_conv_tree(modules["vae"].encoder, spec.vae_quant_min_ch)
+    if spec.stage == "stage2_only" and spec.dit_quant != "none":
+        quant.quantize_lora_base(modules["dit"])
     return modules
 
 
@@ -183,16 +201,6 @@ def require_ported(spec: TaskSpec) -> None:
         raise NotImplementedError(
             f"tower_quant: {spec.tower_quant} with the SigLIP tower (siglip) is not ported "
             "yet (ROADMAP: §1, the int8 extensions); no published config asks for it")
-    if not is_stage2(spec):
-        return
-    if spec.tower_quant != "none":
-        raise NotImplementedError(
-            f"tower_quant: {spec.tower_quant} in {spec.stage} (QLoRA: LoRA on an int8 "
-            "tower base) is not ported yet (ROADMAP: §1 item 7, the int8 extensions)")
-    if spec.stage == "stage2_only" and spec.dit_quant != "none":
-        raise NotImplementedError(
-            f"dit_quant: {spec.dit_quant} in stage2_only (a static int8 base for the "
-            "frozen DiT) is not ported yet (ROADMAP: §1 item 7, the int8 extensions)")
 
 
 def trainable_predicate(spec: TaskSpec, modules=None) -> Callable[[str], bool]:
@@ -225,34 +233,47 @@ def trainable_predicate(spec: TaskSpec, modules=None) -> Callable[[str], bool]:
 def make_loss_fn(spec: TaskSpec, mesh=None):
     """loss_fn(modules, batch, generator, draws=None) -> float32 scalar.
 
-    ``batch``: ``image`` [B, H, W, 3] float32 in [0, 1] (+ optional
-    ``valid`` [B]) on the modules' device."""
+    ``batch`` (on the modules' device, + optional ``valid`` [B]): ``image``
+    [B, H, W, 3] float32 in [0, 1]; or the latent cache's ``moments``
+    [B, h, w, 2z] float32 and ``image`` (the cached crop); or the features
+    cache's ``moments`` and ``cls`` [B, P] float32."""
     require_ported(spec)
     if mesh is not None:
         raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
-                                  "(ROADMAP: slice 7, parallelism)")
+                                  "(ROADMAP: parallelism)")
     if spec.remat:
         raise NotImplementedError("remat (activation checkpointing) is not ported yet "
                                   "(ROADMAP: later items)")
     f32, cd = torch.float32, spec.compute_dtype
-    dit_ctx = dit_quant_ctx(spec.dit_quant)
+    # stage2_only's DiT is frozen and carries a static int8 base: no SwitchBack
+    dit_ctx = dit_quant_ctx("none" if spec.stage == "stage2_only" else spec.dit_quant)
 
     def loss_fn(modules, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        if "moments" in batch or "cls" in batch:
-            raise NotImplementedError(
-                "precomputed-cache batches (moments/cls) are not ported yet "
-                "(ROADMAP: slice 5, the precompute caches)")
         draws = draws or {}
-        imgs = batch["image"]                   # [B, H, W, 3] in [0, 1]
-        b, dev = imgs.shape[0], imgs.device
-        with torch.no_grad():
-            # frozen VAE encode: normalised in float32, convs at vae_dtype
-            vae_in = normalize(imgs, VAE_MEAN, VAE_STD).to(f32)
-            x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
-                                      dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
+        if "moments" in batch:
+            # the frozen encoder ran offline: sample the posterior from the
+            # cached moments with the same draw as the inline path
+            moments = batch["moments"].to(f32)
+            b, dev = moments.shape[0], moments.device
+            z = vae_m.diagonal_gaussian(moments, generator=generator,
+                                        noise=draws.get("vae_noise"))
+            x1_lat = spec.vae_cfg.scale_factor * (z - spec.vae_cfg.shift_factor)
+        else:
+            imgs = batch["image"]                   # [B, H, W, 3] in [0, 1]
+            b, dev = imgs.shape[0], imgs.device
+            with torch.no_grad():
+                # frozen VAE encode: normalised in float32, convs at vae_dtype
+                vae_in = normalize(imgs, VAE_MEAN, VAE_STD).to(f32)
+                x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
+                                          dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
         x1 = dit_m.pack_latent(x1_lat).to(f32)
-        if is_stage2(spec):
+        if "cls" in batch:
+            # the stage-1 features cache: the frozen tower ran offline too
+            cond = image_conditioning_from_cls(modules["clip"], batch["cls"].to(f32),
+                                               spec.latent_hw, compute_dtype=cd)
+        elif is_stage2(spec):
+            imgs = batch["image"]
             # the LoRA-wrapped tower trains: under autograd, its branches'
             # inputs dropped (peft parity, train_SigLIP_stage2_all.py:134-143)
             with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")), \
@@ -260,6 +281,7 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
                 cond = image_conditioning(spec.tower_kind, modules["clip"], imgs,
                                           spec.tower_cfg, spec.latent_hw, compute_dtype=cd)
         else:
+            imgs = batch["image"]
             with torch.no_grad():
                 # frozen tower: its class token feeds the (trained) projectors
                 mean, std = tower_stats(spec.tower_kind)

@@ -28,10 +28,18 @@ checkpointed, its dropout masks replayed in the recompute.
 Random draws come from one ``torch.Generator``; a test hands the loss the
 JAX package's own draws instead (``draws``: ``t`` [B], ``x0`` [B, L, C],
 ``vae_noise`` [B, h, w, z], and in stage 2 ``lora_masks``, one bool
-keep-mask per LoRA-wrapped call in call order).  Precomputed batches
-(``moments``/``cond_patches``), the int8 knobs and the SigLIP tower (no
-published video config uses it) raise
-``NotImplementedError``, naming their ROADMAP item.
+keep-mask per LoRA-wrapped call in call order).
+
+The video features cache (``data.precompute``, stage 1) hands the loss
+``{moments, cond_patches, cond_vecs}``: the posterior is sampled from the
+cached moments and the tower is skipped (``video.py:188-200``).  The int8
+knobs are the image task's (``tasks.image.quantize_modules``, ``video.py:
+141-156``): ``tower_quant: int8`` swaps the stage-1 tower's linears for
+int8 ones and gives the stage-2 tower QLoRA's base, ``vae_quant`` the
+encoder's wide convs, and ``dit_quant`` runs the DiT through SwitchBack, its
+int8 copies kept in the state where the fused optimizer emits them
+(``dit_quant_cache``, K4).  The SigLIP tower (no published video config uses
+it) raises ``NotImplementedError``, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from torch import nn as tnn
 
 from .. import registry
+from ..core import quant
 from ..core.nn import init_weights, lora_dropout_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
@@ -50,10 +59,11 @@ from ..models.towers import clip as clip_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
 from ..train import flow, lora
-from ..train.state import TrainState, apply_gradients, create_state
+from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
                            video_conditioning)
+from .image import dit_quant_ctx, quantize_modules
 
 VIDEO_MODES: Dict[str, Dict] = {
     "middle": {"n_cond": 2, "frame_times": (0.0, 2.0), "target_time": 1.0},
@@ -91,7 +101,9 @@ class VideoTaskSpec:
     vae_dtype: torch.dtype = torch.float32   # conv dtype of the frozen encode
     tower_quant: str = "none"
     vae_quant: str = "none"
+    vae_quant_min_ch: int = quant.INT8_CONV_MIN_CH
     dit_quant: str = "none"
+    dit_quant_cache: bool = False      # the optimizer-maintained int8 weight cache
     # a local HF model directory holding the tower's weights
     # (clip_config.model_dir), or None for random init
     tower_dir: Optional[str] = None
@@ -144,8 +156,9 @@ def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
 def init_modules(spec: VideoTaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
     """Random-init modules drawn from ``generator`` (on ``device``), the
-    tower's weights from ``spec.tower_dir`` where one is set, and in stage 2
-    LoRA injected (its A's drawn from ``generator`` after everything else)."""
+    tower's weights from ``spec.tower_dir`` where one is set, in stage 2
+    LoRA injected (its A's drawn from ``generator`` after everything else),
+    then the spec's frozen int8 surgery (``image.quantize_modules``)."""
     require_ported(spec)
     modules = init_weights(build_modules(spec, device), generator)
     if spec.tower_dir is not None:
@@ -155,18 +168,13 @@ def init_modules(spec: VideoTaskSpec, generator: torch.Generator,
     if is_stage2(spec):
         lora.inject(modules["clip"]["model"], generator, r=spec.lora_r,
                     alpha=spec.lora_alpha, targets=spec.lora_targets)
-    return modules
+    return quantize_modules(spec, modules)
 
 
 def require_ported(spec: VideoTaskSpec) -> None:
     """Raise for the options of a video spec that the port does not run."""
     if spec.stage not in STAGES:
         raise ValueError(f"video stage must be one of {STAGES}, got {spec.stage!r}")
-    for knob in ("tower_quant", "vae_quant", "dit_quant"):
-        if getattr(spec, knob) != "none":
-            raise NotImplementedError(
-                f"{knob}: {getattr(spec, knob)} is not ported for video tasks yet "
-                "(ROADMAP: video int8; slice 3 ported the int8 stack for image stage 1)")
     if spec.tower_kind != "clip":
         raise NotImplementedError(
             f"tower kind {spec.tower_kind!r} in video mode: the SigLIP tower runs in image "
@@ -194,46 +202,56 @@ def trainable_predicate(spec: VideoTaskSpec, modules=None) -> Callable[[str], bo
 def make_loss_fn(spec: VideoTaskSpec, mesh=None):
     """loss_fn(modules, batch, generator, draws=None) -> float32 scalar.
 
-    ``batch``: ``cond`` [B, n_cond, H, W, 3] and ``target`` [B, H, W, 3],
-    float32 in [0, 1], plus ``valid`` [B] (the sliding loader's padded
-    rows), on the modules' device."""
+    ``batch`` (on the modules' device, + ``valid`` [B], the sliding loader's
+    padded rows): ``cond`` [B, n_cond, H, W, 3] and ``target`` [B, H, W, 3],
+    float32 in [0, 1]; or the features cache's ``moments`` [B, h, w, 2z]
+    float32, ``cond_patches`` [B, n_cond, L_p, D] float16 and ``cond_vecs``
+    [B, n_cond, P] float32."""
     require_ported(spec)
     if mesh is not None:
         raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
-                                  "(ROADMAP: slice 7, parallelism)")
+                                  "(ROADMAP: parallelism)")
     f32, cd = torch.float32, spec.compute_dtype
+    dit_ctx = dit_quant_ctx(spec.dit_quant)
 
     def loss_fn(modules, batch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        if "moments" in batch or "cond_patches" in batch:
-            raise NotImplementedError(
-                "precomputed video batches (moments/cond_patches) are not ported yet "
-                "(ROADMAP: slice 5, the precompute caches)")
         draws = draws or {}
-        cond, target = batch["cond"], batch["target"]
-        b, n_cond, dev = cond.shape[0], cond.shape[1], cond.device
-        with torch.no_grad():
-            # frozen VAE encode of the target frame
-            vae_in = normalize(target, VAE_MEAN, VAE_STD).to(f32)
-            x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
-                                      dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
-        # one tower pass over all b * n_cond conditioning frames: frozen in
-        # stage 1; in stage 2 under autograd, its LoRA branches' inputs
-        # dropped (peft parity)
-        mean, std = tower_stats(spec.tower_kind)
-        px = normalize(cond.reshape((b * n_cond,) + tuple(cond.shape[2:])), mean, std).to(cd)
-        if is_stage2(spec):
-            with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")), \
-                    tower_remat_scope(spec.tower_remat):
-                vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
-                                                         px, spec.tower_cfg)
+        if "moments" in batch:
+            # the frozen VAE and tower ran offline: the posterior is sampled
+            # from the cached moments with the inline path's draw
+            moments = batch["moments"].to(f32)
+            z = vae_m.diagonal_gaussian(moments, generator=generator,
+                                        noise=draws.get("vae_noise"))
+            x1_lat = spec.vae_cfg.scale_factor * (z - spec.vae_cfg.shift_factor)
+            patches, vecs = batch["cond_patches"].to(cd), batch["cond_vecs"].to(cd)
+            b, n_cond, dev = patches.shape[0], patches.shape[1], patches.device
         else:
+            cond, target = batch["cond"], batch["target"]
+            b, n_cond, dev = cond.shape[0], cond.shape[1], cond.device
             with torch.no_grad():
-                vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
-                                                         px, spec.tower_cfg)
+                # frozen VAE encode of the target frame
+                vae_in = normalize(target, VAE_MEAN, VAE_STD).to(f32)
+                x1_lat = vae_m.vae_encode(modules["vae"], spec.vae_cfg, vae_in, generator,
+                                          dtype=spec.vae_dtype, noise=draws.get("vae_noise"))
+            # one tower pass over all b * n_cond conditioning frames: frozen
+            # in stage 1; in stage 2 under autograd, its LoRA branches'
+            # inputs dropped (peft parity)
+            mean, std = tower_stats(spec.tower_kind)
+            px = normalize(cond.reshape((b * n_cond,) + tuple(cond.shape[2:])), mean,
+                           std).to(cd)
+            if is_stage2(spec):
+                with lora_dropout_ctx(generator, spec.lora_dropout, draws.get("lora_masks")), \
+                        tower_remat_scope(spec.tower_remat):
+                    vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
+                                                             px, spec.tower_cfg)
+            else:
+                with torch.no_grad():
+                    vecs_flat, patches_flat = tower_features(spec.tower_kind, modules["clip"],
+                                                             px, spec.tower_cfg)
+            patches = patches_flat.reshape(b, n_cond, *patches_flat.shape[1:])
+            vecs = vecs_flat.reshape(b, n_cond, -1)
         x1 = dit_m.pack_latent(x1_lat).to(f32)
-        patches = patches_flat.reshape(b, n_cond, *patches_flat.shape[1:])
-        vecs = vecs_flat.reshape(b, n_cond, -1)
         dit_in = video_conditioning(
             modules, [patches[:, i] for i in range(n_cond)],
             [vecs[:, i] for i in range(n_cond)], spec.latent_hw, spec.patch_grid,
@@ -246,11 +264,12 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
             x0 = torch.randn(x1.shape, generator=generator, dtype=f32, device=dev)
         xt = flow.interpolate(x1, x0, t)
         guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
-        pred = dit_m.dit_forward(
-            modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=dit_in["img_ids"],
-            txt=dit_in["txt"].to(cd), txt_ids=dit_in["txt_ids"], timesteps=t.to(cd),
-            y=dit_in["vec"], guidance=guidance, remat=spec.remat,
-            remat_policy=spec.remat_policy)
+        with dit_ctx():
+            pred = dit_m.dit_forward(
+                modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=dit_in["img_ids"],
+                txt=dit_in["txt"].to(cd), txt_ids=dit_in["txt_ids"], timesteps=t.to(cd),
+                y=dit_in["vec"], guidance=guidance, remat=spec.remat,
+                remat_policy=spec.remat_policy)
         # "valid" masks the sliding loader's padded rows
         return flow.mse_loss(pred, flow.velocity_target(x1, x0), mask=batch.get("valid"))
 
@@ -276,4 +295,8 @@ def make_train_step(spec: VideoTaskSpec, optimizer, mesh=None):
 def create_task_state(generator: torch.Generator, spec: VideoTaskSpec, optimizer,
                       device=None) -> TrainState:
     modules = init_modules(spec, generator, device=device)
-    return create_state(modules, trainable_predicate(spec, modules), optimizer)
+    state = create_state(modules, trainable_predicate(spec, modules), optimizer)
+    if spec.dit_quant_cache and spec.dit_quant != "none":
+        # the forward reads the int8 copies instead of quantizing W each step
+        state = with_quant_cache(state)
+    return state

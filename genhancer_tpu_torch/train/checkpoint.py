@@ -29,12 +29,13 @@ import json
 import os
 import re
 import shutil
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from ..core.kernels.adamw import Moment8
 from ..weights import hf_io
+from ..weights.hf_io import StateDict
 
 STAGE1_FILES = {
     "image": (("dit", "checkpoint-dit-{step}.bin"),
@@ -71,41 +72,59 @@ def load_stage1_components(modules, load_dir: str, load_step: int,
         targets[name].load_state_dict(hf_io.load_state_dict(path), strict=True)
 
 
-def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[str]:
-    """Write the reference stage-1 component ``.bin`` files (``kind``: image
-    or video) and the optimizer state of ``state`` at ``step``; returns the
+def stage1_state_dicts(state, kind: str = "image") -> Dict[str, StateDict]:
+    """{file component: its module's state dict} of ``state`` (``kind``:
+    image or video): the tensors are the live ones, not copies."""
+    return {name: module.state_dict() for name, module in _components(state.modules, kind).items()}
+
+
+def write_stage1(components: Dict[str, StateDict], optimizer: StateDict, output_dir: str,
+                 step: int, kind: str = "image") -> List[str]:
+    """Write ``stage1_state_dicts``' component ``.bin`` files and
+    ``optimizer_state_dict``'s ``optimizer-state-{step}.bin``; returns the
     paths."""
     os.makedirs(output_dir, exist_ok=True)
     written = []
-    for name, module in _components(state.modules, kind).items():
-        pattern = dict(STAGE1_FILES[kind])[name]
+    for name, pattern in STAGE1_FILES[kind]:
         path = os.path.join(output_dir, pattern.format(step=step))
-        hf_io.save_state_dict(module.state_dict(), path)
+        hf_io.save_state_dict(components[name], path)
         written.append(path)
     path = os.path.join(output_dir, f"optimizer-state-{step}.bin")
-    save_optimizer_state(state, path)
+    hf_io.save_state_dict(optimizer, path)
     written.append(path)
     return written
 
 
-def save_optimizer_state(state, path: str) -> None:
+def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[str]:
+    """Write the reference stage-1 component ``.bin`` files (``kind``: image
+    or video) and the optimizer state of ``state`` at ``step``; returns the
+    paths."""
+    return write_stage1(stage1_state_dicts(state, kind), optimizer_state_dict(state),
+                        output_dir, step, kind)
+
+
+def optimizer_state_dict(state) -> StateDict:
     """The optimizer state positionally: ``count``, ``mu.i``/``nu.i`` for the
     i-th trainable path in sorted order (``mu.i.q``/``mu.i.s`` for an 8-bit
-    moment), and the train ``step``."""
+    moment), and the train ``step``; the moments are the live tensors."""
     opt = state.opt_state
     sd = {"count": torch.tensor(int(opt["count"])), "step": torch.tensor(int(state.step))}
     for i, key in enumerate(sorted(state.trainable)):
         for name in ("mu", "nu"):
             leaf = opt[name][key]
             if isinstance(leaf, Moment8):
-                sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"] = (t.detach().cpu() for t in leaf)
+                sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"] = (t.detach() for t in leaf)
             else:
-                sd[f"{name}.{i}"] = leaf.detach().cpu()
-    hf_io.save_state_dict(sd, path)
+                sd[f"{name}.{i}"] = leaf.detach()
+    return sd
+
+
+def save_optimizer_state(state, path: str) -> None:
+    hf_io.save_state_dict(optimizer_state_dict(state), path)
 
 
 def load_optimizer_state(state, path: str) -> None:
-    """Restore what ``save_optimizer_state`` wrote into ``state``, in place:
+    """Restore what ``optimizer_state_dict`` wrote into ``state``, in place:
     each moment lands on its parameter's device in the saved dtype."""
     sd = hf_io.load_state_dict(path)
     keys = sorted(state.trainable)
@@ -179,16 +198,21 @@ def resume_latest(state, output_dir: str, kind: str = "image") -> None:
 def export_hf_tower(state, out_dir: str, base_config: Optional[dict] = None,
                     base_model_dir: Optional[str] = None) -> str:
     """Write the LoRA-merged tower as an HF model directory
-    (``merge_and_unload().save_pretrained``, ``checkpoint.py:214-238``):
-    ``pytorch_model.bin`` under the HF key names; ``config.json`` (and
-    ``preprocessor_config.json``) copied from ``base_model_dir`` where it
-    has one, else ``base_config`` written.  The training tower is left as
-    it is."""
+    (``merge_and_unload().save_pretrained``, ``checkpoint.py:214-238``).
+    The training tower is left as it is."""
     from . import lora
-    merged = lora.merge(state.modules["clip"]["model"])
+    return write_hf_tower(lora.merged_state_dict(state.modules["clip"]["model"]), out_dir,
+                          base_config, base_model_dir)
+
+
+def write_hf_tower(merged: StateDict, out_dir: str, base_config: Optional[dict] = None,
+                   base_model_dir: Optional[str] = None) -> str:
+    """``merged`` (``lora.merged_state_dict``) as ``pytorch_model.bin`` under
+    the HF key names; ``config.json`` (and ``preprocessor_config.json``)
+    copied from ``base_model_dir`` where it has one, else ``base_config``
+    written."""
     os.makedirs(out_dir, exist_ok=True)
-    hf_io.save_state_dict(merged.state_dict(), os.path.join(out_dir, "pytorch_model.bin"))
-    del merged
+    hf_io.save_state_dict(merged, os.path.join(out_dir, "pytorch_model.bin"))
     if base_model_dir and os.path.exists(os.path.join(base_model_dir, "config.json")):
         shutil.copy(os.path.join(base_model_dir, "config.json"),
                     os.path.join(out_dir, "config.json"))

@@ -13,7 +13,12 @@ semantics (``train_SigLIP_stage2_all.py:134-143``):
   * ``bias: lora_only``: the factors and the biases of wrapped modules
     train (``lora_trainable_paths``);
   * ``merge``: W' = (W.f32 + (B.f32 @ A.f32) * scale) in W's dtype, the
-    factors dropped (``merge_and_unload`` before the HF export).
+    factors dropped (``merge_and_unload`` before the HF export), and with
+    them QLoRA's derived ``weight_q``/``w_scale`` (``lora.py:105-113``): the
+    export of a QLoRA run merges into the kept float weight, so it equals
+    the export of the same factors on the unquantized tower byte for byte.
+    ``merged_state_dict`` computes the same tensors without copying the
+    tower (the checkpoint writer snapshots it).
 
 The factors become attributes of the wrapped module, so its state-dict keys
 are the JAX tree's paths (``...q_proj.lora_A``) and ``core.nn.linear`` adds
@@ -24,13 +29,14 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 from torch import nn as tnn
 
 SIGLIP_TARGETS = ("k_proj", "v_proj", "q_proj", "out_proj", "fc1", "fc2")
 _FACTORS = ("lora_A", "lora_B", "lora_scale")
+_QUANT = ("weight_q", "w_scale")     # QLoRA's derived int8 base, never exported
 
 
 def _iter_linears(root: tnn.Module) -> Iterator[Tuple[str, tnn.Module]]:
@@ -72,20 +78,40 @@ def wrapped_paths(tower: tnn.Module) -> List[str]:
     return [path for path, m in tower.named_modules() if "lora_A" in m._parameters]
 
 
+def _merged_weight(m: tnn.Module) -> torch.Tensor:
+    w = m.weight
+    delta = (m.lora_B.to(torch.float32) @ m.lora_A.to(torch.float32)) \
+        * m.lora_scale.to(torch.float32)
+    return (w.to(torch.float32) + delta).to(w.dtype)
+
+
 @torch.no_grad()
 def merge(tower: tnn.Module) -> tnn.Module:
     """A copy of ``tower`` with every LoRA factor folded into its weight and
-    dropped (``lora.py:87-94``); ``tower`` is left as it is."""
+    dropped, QLoRA's ``weight_q``/``w_scale`` dropped everywhere
+    (``lora.py:87-113``); ``tower`` is left as it is."""
     merged = copy.deepcopy(tower)
     for path in wrapped_paths(merged):
         m = merged.get_submodule(path)
-        w = m.weight
-        delta = (m.lora_B.to(torch.float32) @ m.lora_A.to(torch.float32)) \
-            * m.lora_scale.to(torch.float32)
-        w.copy_((w.to(torch.float32) + delta).to(w.dtype))
+        m.weight.copy_(_merged_weight(m))
         for name in _FACTORS:
             delattr(m, name)
+    for m in merged.modules():
+        for name in _QUANT:
+            if name in m._buffers:
+                delattr(m, name)
     return merged
+
+
+@torch.no_grad()
+def merged_state_dict(tower: tnn.Module) -> Dict[str, torch.Tensor]:
+    """``merge(tower).state_dict()``, keys in the same order, without the
+    copy: the merged weights are new tensors on the tower's device, every
+    other entry is the tower's own tensor."""
+    merged = {f"{p}.weight" if p else "weight": _merged_weight(tower.get_submodule(p))
+              for p in wrapped_paths(tower)}
+    return {k: merged.get(k, v) for k, v in tower.state_dict().items()
+            if k.rsplit(".", 1)[-1] not in _FACTORS}
 
 
 def lora_trainable_paths(tower: tnn.Module) -> List[str]:

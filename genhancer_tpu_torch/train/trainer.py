@@ -22,14 +22,22 @@ Port of ``genhancer_tpu/train/trainer.py`` for one device:
   * a SIGTERM flag that stops the loop at a step boundary, followed by a
     checkpoint;
   * the reference checkpoint cadence, ``checkpoints_total_limit`` and
-    resume from the latest checkpoint.
+    resume from the latest checkpoint;
+  * checkpoints written by a background thread (``async_checkpointing``,
+    on by default as in JAX, ``train.async_ckpt``): the step loop stalls for
+    the device-to-host snapshot only (logged), the ``.bin`` files, the HF
+    export and the pruning run in the writer, and ``train()`` drains it
+    before it returns;
+  * QLoRA's and the static DiT's int8 factors re-derived from the masters
+    after the stage-1 load and after a resume
+    (``core.quant.refresh_static_quant_flat``).
 
 Random draws come from one ``torch.Generator`` on the device, seeded from
 ``seed + 777`` and the step (as JAX folds the step into its key), so a
 resumed run draws what an uninterrupted one would.  Float32 matmuls and
 convolutions run in full float32 (TF32 off).  The mesh, tensor and
-sequence parallelism, FSDP, ZeRO-1, orbax and the asynchronous checkpoint
-writer are not ported (ROADMAP slice 7); their options raise.
+sequence parallelism, FSDP, ZeRO-1 and orbax are not ported (ROADMAP:
+parallelism); their options raise.
 """
 
 from __future__ import annotations
@@ -50,6 +58,9 @@ from ..tasks import image as image_task
 from ..tasks import video as video_task
 from . import checkpoint as ckpt
 from . import optim
+from ..core.quant import refresh_static_quant_flat, static_quant_flat
+from . import lora
+from .async_ckpt import AsyncCheckpointer
 from .state import with_quant_cache
 from .step_utils import make_accum_train_step, merge_extras, stack_microbatches
 
@@ -57,7 +68,8 @@ log = logging.getLogger("genhancer_tpu_torch.trainer")
 
 DATA_LOAD_TIMEOUT = 60.0
 STEP_TIMEOUT = 300.0
-ARRAY_KEYS = {"image", "cond", "target", "valid"}
+ARRAY_KEYS = {"image", "cond", "target", "valid", "moments", "cls", "cond_patches",
+              "cond_vecs"}
 EXTRA_SCALARS = ("avg_windows_per_video", "bs_eff")
 
 
@@ -125,13 +137,15 @@ class Trainer:
         factory.validate_single_device(cfg)
         if str(cfg.get("checkpoint_backend", "torch")) != "torch":
             raise NotImplementedError("checkpoint_backend: orbax is not ported yet "
-                                      "(ROADMAP: slice 7, parallelism)")
+                                      "(ROADMAP: parallelism)")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.output_dir = cfg.get("output_dir", "output")
         os.makedirs(self.output_dir, exist_ok=True)
+        self.ckpt_writer = AsyncCheckpointer(
+            enabled=bool(cfg.get("async_checkpointing", True)))
 
         (self.spec, self.loader, make_step, create_state,
          self.ckpt_kind) = factory.build_task(cfg)
@@ -164,6 +178,11 @@ class Trainer:
             ckpt.resume_latest(self.state, self.output_dir, self.ckpt_kind)
             if self.state.step != before:
                 log.info("resumed from step %d", self.state.step)
+        # QLoRA's and the static DiT's int8 factors were derived at init:
+        # re-derive them from the (possibly loaded) masters
+        refreshed = refresh_static_quant_flat(static_quant_flat(self.state.modules))
+        if refreshed:
+            log.info("re-derived %d static int8 weights from their masters", len(refreshed))
         if self.state.quant is not None:
             # the int8 weight cache is derived state: rebuilt from the
             # (possibly loaded) masters, never read from a checkpoint
@@ -190,6 +209,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.history = []           # metrics of every synced step
         self._last_saved = None
+        self.saved_steps = []       # the steps checkpointed, in order
         self._preempted = False
 
     # -- input ------------------------------------------------------------
@@ -224,19 +244,37 @@ class Trainer:
         return bool(every) and step % every == 0
 
     def _checkpoint(self, step: int) -> None:
-        ckpt.save_stage1(self.state, self.output_dir, step, self.ckpt_kind)
-        if self.spec.stage.startswith("stage2"):
-            ckpt.export_hf_tower(
-                self.state, os.path.join(self.output_dir, hf_export_name(self.cfg, step)),
-                base_config=self.spec.tower_cfg.to_hf(),
-                base_model_dir=self.cfg.get_path("clip_config.model_dir"))
-        limit = int(self.cfg.get("checkpoints_total_limit") or 0)
-        if limit:
-            pruned = ckpt.prune_checkpoints(self.output_dir, limit)
-            if pruned:
-                log.info("pruned old checkpoints: %s", pruned)
-        log.info("saved checkpoint at step %d", step)
+        """Snapshot the components, the optimizer state and, in stage 2, the
+        LoRA-merged tower (merged on the device, so the export's bits do not
+        depend on the writer), and hand the writing to ``ckpt_writer``.  The
+        int8 weight caches are non-persistent buffers: never snapshotted."""
+        tree = {"components": ckpt.stage1_state_dicts(self.state, self.ckpt_kind),
+                "optimizer": ckpt.optimizer_state_dict(self.state)}
+        stage2 = self.spec.stage.startswith("stage2")
+        if stage2:
+            tree["tower"] = lora.merged_state_dict(self.state.modules["clip"]["model"])
+        out_dir, kind, cfg = self.output_dir, self.ckpt_kind, self.cfg
+        base_config = self.spec.tower_cfg.to_hf() if stage2 else None
+
+        def write(snap):
+            ckpt.write_stage1(snap["components"], snap["optimizer"], out_dir, step, kind)
+            if stage2:
+                ckpt.write_hf_tower(snap["tower"],
+                                    os.path.join(out_dir, hf_export_name(cfg, step)),
+                                    base_config=base_config,
+                                    base_model_dir=cfg.get_path("clip_config.model_dir"))
+            limit = int(cfg.get("checkpoints_total_limit") or 0)
+            if limit:
+                pruned = ckpt.prune_checkpoints(out_dir, limit)
+                if pruned:
+                    log.info("pruned old checkpoints: %s", pruned)
+            log.info("saved checkpoint at step %d", step)
+
+        self.ckpt_writer.save(tree, write)
+        log.info("checkpoint at step %d: the step loop stalled %.3f s for the snapshot",
+                 step, self.ckpt_writer.stalls[-1])
         self._last_saved = step
+        self.saved_steps.append(step)
 
     # -- loop --------------------------------------------------------------
 
@@ -261,6 +299,8 @@ class Trainer:
             self.writer.close()
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
+            # every checkpoint is on disk when train() returns
+            self.ckpt_writer.close()
 
     def _train_loop(self, batches) -> dict:
         step = self.state.step

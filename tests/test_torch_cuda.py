@@ -542,6 +542,71 @@ def test_rowquant_bit_identical(cuda, dtype, t, c):
         assert K7.LAUNCHES["rowquant"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [16, 3136])
+@pytest.mark.parametrize("c", [64, 256, 768, 3072])
+def test_rowquant_at_the_static_base_widths(cuda, dtype, t, c):
+    """K7 at the widths the static DiT base and QLoRA hand it (img_in's and
+    final_layer's 64, time_in's 256, vector_in's 768, the model's 3072) and
+    their rows (T = 16: the vec linears at B = 16; T = 3136: img_in at 16 x
+    196 tokens), with and without the column scale: bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(t + c)
+    x = torch.randn((t, c), generator=g, device=cuda).to(dtype)
+    for col in (None, torch.rand(c, generator=g, device=cuda) + 0.5):
+        before = K7.LAUNCHES["rowquant"]
+        q, s = K7.rowquant(x, col)
+        torch.cuda.synchronize()
+        rq, rs = K7.rowquant_ref(x, col)
+        assert torch.equal(q, rq) and torch.equal(s, rs)
+        assert K7.LAUNCHES["rowquant"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t, i, o", [(16, 3072, 64), (16, 64, 3072), (3136, 64, 3072),
+                                     (48, 1024, 1024)])
+def test_qlora_linear_matches_plain(cuda, dtype, t, i, o):
+    """``core.nn.linear`` on a module carrying its kept weight, QLoRA's int8
+    base (``quant.quantize_lora_base``), LoRA factors and a bias, on the card
+    (K7 and ``_int_mm``) against the same module on the CPU (the plain
+    path): y and dx within 1e-5 of max|CPU| in float32 (the same codes and
+    int32 sums; the dequantization in another order), 2e-2 in bfloat16; the
+    int8 base runs inside the SwitchBack context too."""
+    from genhancer_tpu_torch.core import nn as tnn
+    from genhancer_tpu_torch.core import quant
+    g = torch.Generator().manual_seed(t + i)
+    mod = tnn.Linear(i, o)
+    with torch.no_grad():
+        mod.weight.copy_(torch.randn((o, i), generator=g) * 0.05)
+        mod.bias.copy_(torch.randn(o, generator=g))
+    mod.weight.requires_grad_(False)
+    mod.lora_A = torch.nn.Parameter(torch.randn((4, i), generator=g) * 0.05)
+    mod.lora_B = torch.nn.Parameter(torch.randn((o, 4), generator=g) * 0.05)
+    mod.register_buffer("lora_scale", torch.tensor(4.0))
+    assert quant.quantize_lora_base(mod) == ("",)
+    x = torch.randn((2, t // 2, i), generator=g).to(dtype)
+    gy = torch.randn((2, t // 2, o), generator=g).to(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = mod.to(dev)
+        for ctx in ("plain", "switchback"):
+            xd = x.to(dev).clone().requires_grad_(True)
+            before = K7.LAUNCHES["rowquant"]
+            if ctx == "plain":
+                y = tnn.linear(m, xd)
+            else:
+                with tnn.int8_training_ctx(full=True):
+                    y = tnn.linear(m, xd)
+            y.backward(gy.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert K7.LAUNCHES["rowquant"] == before + 2      # x, then g
+            out[dev, ctx] = (y.detach().cpu().float(), xd.grad.cpu().float())
+    for ctx in ("plain", "switchback"):
+        for got, want in zip(out["cuda", ctx], out["cpu", ctx]):
+            assert (got - want).abs().max() <= tol * max(1.0, want.abs().max().item()), ctx
+
+
 def _halfway_rows(t, c, scale, dtype, device):
     """Rows of scale * (k + 0.5), k in [-127, 126], with the row maximum 127 *
     scale: s = scale, every element half-way between two codes."""

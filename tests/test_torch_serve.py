@@ -176,23 +176,28 @@ class TestEngine:
             assert getattr(ours, f) == getattr(ref, f), f
         assert ours.compute_dtype == ours.dit_param_dtype == torch.bfloat16
 
-    @pytest.mark.parametrize("override, match", [
-        # video stage 2 is ported (tests/test_torch_video_stage2.py); its
-        # precomputed caches are not
-        ({"task": "video_middle_stage2_all", "data_config": {"precomputed": True}},
-         "not ported"),
+    @pytest.mark.parametrize("override, error, match", [
+        # video stage 2 takes the latent cache; a features cache there is
+        # refused, with JAX's message (tests/test_torch_precompute.py)
+        pytest.param({"task": "video_middle_stage2_all", "data_config": {"precomputed": True}},
+                     ValueError, "stage-1 only", id="override0-not ported"),
         # SigLIP is ported (test_siglip_config_specs_match_jax); its int8
         # tower is not
-        ({"tower": "siglip", "clip_config": {"clip_image_size": 384},
-          "tower_quant": "int8"}, "siglip"),
-        ({"ae_path": "ae.safetensors"}, "AE"),
+        pytest.param({"tower": "siglip", "clip_config": {"clip_image_size": 384},
+                      "tower_quant": "int8"}, NotImplementedError, "siglip",
+                     id="override1-siglip"),
+        pytest.param({"ae_path": "ae.safetensors"}, NotImplementedError, "AE",
+                     id="override2-AE"),
     ])
-    def test_unported_config_paths_raise(self, override, match):
+    def test_unported_config_paths_raise(self, override, error, match):
         from genhancer_tpu_torch.tasks.factory import build_spec
         from genhancer_tpu_torch.train.config import load_config
         cfg = load_config("configs/MetaCLIP_large_stage1.yaml").merged_with(override)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             build_spec(cfg)
+        if error is ValueError:     # the same path with the latent cache runs
+            latents = cfg.merged_with({"data_config": {"precomputed": "latents"}})
+            assert build_spec(latents)[0].stage == "stage2_all"
 
     @pytest.mark.parametrize("name", ["SigLIP_384_stage1", "SigLIP_384_stage2_all",
                                       "SigLIP_384_stage2_only"])

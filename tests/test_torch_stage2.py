@@ -373,17 +373,21 @@ def test_trainer_from_stage1_through_export_and_resume(tiny_models, tmp_path, sh
 
 
 def test_stage2_refusals():
-    """QLoRA and a static int8 DiT in stage2_only wait for ROADMAP §1 item
-    7; ``tower_remat`` is ported and taken from the config (image stage 2
-    has no automatic gate)."""
+    """QLoRA and a static int8 DiT in stage2_only, once refused, are ported
+    (tests/test_torch_qlora.py): the spec builds its loss, the DiT takes the
+    static int8 base beside its kept weights, and the stage-1 DiT files
+    still load into it strictly; ``tower_remat`` is ported and taken from
+    the config (image stage 2 has no automatic gate)."""
     from genhancer_tpu_torch.tasks.factory import build_spec
     from genhancer_tpu_torch.train.config import load_config
     _, ps = _specs("stage2_all")
-    with pytest.raises(NotImplementedError, match="QLoRA"):
-        timage.make_loss_fn(dataclasses.replace(ps, tower_quant="int8"))
-    with pytest.raises(NotImplementedError, match="stage2_only"):
-        timage.init_modules(dataclasses.replace(ps, stage="stage2_only", dit_quant="int8"),
-                            torch.Generator())
+    timage.make_loss_fn(dataclasses.replace(ps, tower_quant="int8"))
+    mods = timage.init_modules(dataclasses.replace(ps, stage="stage2_only", dit_quant="int8"),
+                               torch.Generator())
+    static = [p for p, m in mods["dit"].named_modules() if "weight_q" in m._buffers]
+    assert static and all("weight" in mods["dit"].get_submodule(p)._parameters
+                          for p in static)
+    mods["dit"].load_state_dict(mods["dit"].state_dict(), strict=True)
     cfg = load_config("configs/MetaCLIP_large_stage2_all.yaml")
     assert build_spec(cfg.merged_with({"tower_remat": True}))[0].tower_remat
     spec, kind, ckpt_kind = build_spec(cfg)

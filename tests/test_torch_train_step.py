@@ -188,9 +188,25 @@ def test_unported_options_raise():
     # unknown dit_quant is refused
     with pytest.raises(ValueError, match="dit_quant"):
         timage.make_loss_fn(dataclasses.replace(ps, dit_quant="int4"))
-    # stage 2 is ported (tests/test_torch_stage2.py); QLoRA is not
-    with pytest.raises(NotImplementedError, match="QLoRA"):
-        timage.make_loss_fn(dataclasses.replace(ps, stage="stage2_all", tower_quant="int8"))
+    # stage 2 and QLoRA are ported (tests/test_torch_stage2.py,
+    # tests/test_torch_qlora.py)
+    timage.make_loss_fn(dataclasses.replace(ps, stage="stage2_all", tower_quant="int8"))
+    # and the features cache: {moments, cls} made from the frozen VAE and
+    # tower gives the inline loss under the same draws
+    from genhancer_tpu_torch.models import vae as tvae
+    from genhancer_tpu_torch.tasks.conditioning import (VAE_MEAN, VAE_STD, normalize,
+                                                        tower_features, tower_stats)
+    mods = timage.init_modules(ps, torch.Generator().manual_seed(2))
+    imgs = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(3))
+    key = jax.random.key(5)
+    draws = _jax_draws(js, key, 2)
     loss_fn = timage.make_loss_fn(ps)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        loss_fn(None, {"moments": torch.zeros(1), "cls": torch.zeros(1)})
+    with torch.no_grad():
+        moments = tvae.encoder_forward(mods["vae"].encoder, ps.vae_cfg,
+                                       normalize(imgs, VAE_MEAN, VAE_STD).to(ps.vae_dtype))
+        cls, _ = tower_features("clip", mods["clip"], normalize(imgs, *tower_stats("clip")),
+                                ps.tower_cfg)
+        inline = loss_fn(mods, {"image": imgs}, None, draws).item()
+        cached = loss_fn(mods, {"moments": moments.float(), "cls": cls.float()}, None,
+                         draws).item()
+    assert cached == pytest.approx(inline, rel=1e-6)

@@ -262,20 +262,33 @@ def test_remat_recomputes_the_same_grads(jax_init):
 
 
 def test_unported_options_raise(jax_init):
-    ps = port_spec(jax_spec("middle"))
-    # stage 2 is ported (tests/test_torch_video_stage2.py); its precomputed
-    # batches are not
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tvideo.make_loss_fn(dataclasses.replace(ps, stage="stage2_all"))(
-            None, {"moments": torch.zeros(1), "cond_patches": torch.zeros(1)})
+    """The int8 knobs and the features-cache batches run (ported in the fast
+    stage-2 slice: a ``{moments, cond_patches, cond_vecs}`` batch gives
+    JAX's loss within 1e-5); SigLIP in video mode and a remat policy the
+    port lacks still raise."""
+    js = jax_spec("middle")
+    ps = port_spec(js)
     for knob in ("tower_quant", "vae_quant", "dit_quant"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tvideo.make_loss_fn(dataclasses.replace(ps, **{knob: "int8"}))
+        tvideo.make_loss_fn(dataclasses.replace(ps, **{knob: "int8"}))
     with pytest.raises(NotImplementedError, match="SigLIP"):
         tvideo.make_loss_fn(dataclasses.replace(ps, tower_kind="siglip"))
-    loss_fn = tvideo.make_loss_fn(ps)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        loss_fn(None, {"moments": torch.zeros(1), "cond_patches": torch.zeros(1)})
+    rng = np.random.default_rng(6)
+    h, w = js.latent_hw
+    lp = (32 // 16) ** 2
+    batch = {"moments": rng.standard_normal((2, h, w, 8)).astype(np.float32),
+             "cond_patches": rng.standard_normal((2, 2, lp, 16)).astype(np.float16),
+             "cond_vecs": rng.standard_normal((2, 2, 24)).astype(np.float32)}
+    modules, host = jax_init[32]
+    key = jax.random.key(2)
+    flat = jstate.flatten_params(modules)
+    ref = float(jvideo.make_loss_fn(js)({}, flat, {k: jnp.asarray(v) for k, v in batch.items()},
+                                        key))
+    mods = tvideo.build_modules(ps)
+    load_jax_params(mods, host)
+    with torch.no_grad():
+        ours = tvideo.make_loss_fn(ps)(mods, {k: t(v) for k, v in batch.items()}, None,
+                                       _jax_draws(js, key, 2)).item()
+    assert ours == pytest.approx(ref, rel=1e-5)
     dit = tdit.DiT(ps.dit_cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdit.dit_forward(dit, ps.dit_cfg, img=torch.zeros(1, 4, 16), img_ids=None,
@@ -283,18 +296,30 @@ def test_unported_options_raise(jax_init):
                          remat=True, remat_policy="save_attn")
 
 
-@pytest.mark.parametrize("override, match", [
-    ({"task": "video_sliding_stage2_all", "data_config": {"precomputed": True}}, "slice 5"),
-    ({"tower": "siglip"}, "SigLIP"),
-    ({"tower_quant": "int8"}, "slice 3"),
-    ({"vae_quant": "int8"}, "slice 3"),
-    ({"dit_quant": "int8"}, "slice 3"),
-    ({"data_config": {"precomputed": True}}, "slice 5"),
+@pytest.mark.parametrize("override, refused", [
+    # a features cache in stage 2 is refused as JAX refuses it
+    pytest.param({"task": "video_sliding_stage2_all", "data_config": {"precomputed": True}},
+                 ValueError, id="override0-slice 5"),
+    pytest.param({"tower": "siglip"}, NotImplementedError, id="override1-SigLIP"),
+    # the int8 knobs and the stage-1 features cache are ported
+    pytest.param({"tower_quant": "int8"}, None, id="override2-slice 3"),
+    pytest.param({"vae_quant": "int8"}, None, id="override3-slice 3"),
+    pytest.param({"dit_quant": "int8"}, None, id="override4-slice 3"),
+    pytest.param({"data_config": {"precomputed": True}}, None, id="override5-slice 5"),
 ])
-def test_unported_config_options_raise(override, match):
+def test_unported_config_options_raise(override, refused):
+    """Each option on the published sliding config: refused where JAX or
+    the port refuses it, else the spec JAX's ``build_spec`` gives."""
     cfg = load_config(CONFIGS["sliding"]).merged_with(override)
-    with pytest.raises(NotImplementedError, match=match):
-        factory.build_spec(cfg)
+    if refused is not None:
+        with pytest.raises(refused):
+            factory.build_spec(cfg)
+        return
+    ours = factory.build_spec(cfg)[0]
+    ref = jfactory.build_spec(jconfig.load_config(CONFIGS["sliding"]).merged_with(override))[0]
+    for f in ("tower_quant", "vae_quant", "vae_quant_min_ch", "dit_quant", "dit_quant_cache",
+              "stage", "remat"):
+        assert getattr(ours, f) == getattr(ref, f), f
 
 
 def test_engine_refuses_a_video_config():
