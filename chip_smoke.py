@@ -63,12 +63,31 @@ Phases, each printing its own lines; any failure exits non-zero:
              step of stage2_all (int8_full, K4's cache) and of stage2_only
              (the static DiT base) on latent-cache batches, each int8 base
              and SwitchBack call held against the CPU's plain path at 1e-5;
+             a tiny int8 engine (``quant="int8"``: every int8 linear and VAE
+             conv call of a reconstruct and an embed held at 1e-5 against
+             the CPU's plain path on its input, codes +-1 below 5e-3, the
+             layer set exactly, a control left in float); the extra models
+             card against CPU in float32 at 1e-5 (a ControlNet reconstruct
+             with planted projections and its CFG sampler, a DiT forward with
+             IP k/v in both block kinds, also in bf16 at 1e-4, T5 with and
+             without a padding mask, ``prepare`` and ``denoise_euler_cfg``);
 5. server  — ``InferenceEngine.from_config(configs/MetaCLIP_large_stage1.yaml)``
              at full width (flux-dev DiT, MetaCLIP-L/14 tower, FLUX VAE;
              random weights from the config's seed), warmup, real HTTP
              requests to /v1/reconstruct and /v1/embed through ServeApp,
              launch counters checked against the batches served, then
-             per-bucket images/s;
+             per-bucket images/s; then the same engine with
+             ``quant="int8"`` (42 DiT and 145 tower linears on K7 +
+             ``_int_mm``, the VAE's >= 256-channel convs): K7/K1/K2 launches
+             of a reconstruct and an embed against the layer set, K7 kernels
+             of one reconstruct counted by torch.profiler, reconstruct and
+             embed per bucket beside the bf16 engine's; then the extra
+             models at full width: a depth-2 ControlNet seeded from the
+             flux-dev DiT (reconstruct B=4, 20 steps), an IP-Adapter DiT
+             forward at B=4, the T5-XXL encoder in bf16 at L=512, B=2
+             (initialised on the card) with the CLIP text pooled vector, and
+             a 20-step CFG sample on them at joint L=708 (K5), each with its
+             time, peak memory and K1/K2/K5 launches held to the models';
 6. train   — the port's ``Trainer`` on the same config at full width
              (B=16 x accumulation 2, bf16) on synthetic shards, 8 optimizer
              steps with the default AdamW chain and 8 with
@@ -1743,8 +1762,9 @@ def phase_server():
     t0 = time.perf_counter()
     engine.warmup()
     torch.cuda.synchronize()
+    SERVE_BF16["peak"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"[server] warmup of buckets {BUCKETS} in {time.perf_counter() - t0:.1f} s; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"peak memory {SERVE_BF16['peak']:.2f} GiB")
 
     # the float32 wire on the same modules: reconstructed pixels are finite
     f32_engine = InferenceEngine(engine.spec, engine.modules, device="cuda",
@@ -1829,6 +1849,7 @@ def phase_server():
             engine.embed(imgs)
             emb_s.append(time.perf_counter() - t0)
         rs, es = statistics.median(rec_s), statistics.median(emb_s)
+        SERVE_BF16[b] = (rs, es)
         print(f"[server] bucket {b}: reconstruct {rs * 1e3:.1f} ms/batch = "
               f"{b / rs:.2f} img/s ({NUM_STEPS} steps, uint8 wire); embed "
               f"{es * 1e3:.2f} ms/batch = {b / es:.1f} img/s")
@@ -4132,6 +4153,726 @@ def phase_fast_video(work, stage1):
     return {"fast_video_stage2_all": counts}
 
 
+# ------------------------------------------------- int8 serving, the extra models
+
+# the bf16 engine's numbers of phase_server, printed beside the int8 engine's
+SERVE_BF16 = {}
+K7_NAMES = ("rowquant_warp_kernel", "rowquant_block_kernel", "rowquant_scalar_kernel")
+
+
+# the forward kernels at the shapes the slice's paths give them: K1 at the
+# int8 engine's B=1 and the ControlNet / IP-Adapter paths' B=4 (joint L=197),
+# K5 at the text-conditioned sample's joint L = 512 + 196 = 708 (one branch
+# per call, B=1)
+EXTRAS_SHAPES = {"K1 (int8 engine, B=1)": (1, 197, 24, 128),
+                 "K1 (ControlNet, IP-Adapter, B=4)": (4, 197, 24, 128),
+                 "K5 (T5-conditioned CFG sample)": (1, 708, 24, 128)}
+# (rows per image, width) of every int8 linear input of the served DiT and
+# tower: img stream 196, single blocks 197, tower 257 tokens, the txt
+# stream and the vec/time/guidance/pooled rows one
+K7_SERVE = ((196, 64), (1, 256), (1, 768), (257, 1024), (1, 1024), (196, 3072), (197, 3072),
+            (1, 3072), (257, 4096), (1, 4096), (196, 12288), (1, 12288), (197, 15360))
+
+
+def phase_kernels_extras(records):
+    """The forward kernels at this slice's shapes, bf16: K1 and K5
+    (EXTRAS_SHAPES) against their plain versions (2e-2; o's rounding point
+    at ROUNDING_BOUND with its control), timed with the plain version in
+    turns, the device time from CUDA graphs, SDPA's call and device time and
+    the bound; K7 at every (rows, width) of the int8 engine's linears
+    (K7_SERVE) at B = 1 and 8, codes and scales bit for bit against the plain
+    version, kernel, plain and bound ms.  The rows go into the records under
+    ``extras_shapes`` and ``serve_widths``."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import flash_attention as F
+    from genhancer_tpu_torch.core.kernels import rowquant as K7
+    from genhancer_tpu_torch.core.kernels import short_attention as K
+
+    gen = torch.Generator(device="cuda").manual_seed(708)
+    for what, (b, l, h, d) in EXTRAS_SHAPES.items():
+        q, k, v, do = (_rand(gen, (b, l, h, d), torch.bfloat16) for _ in range(4))
+        if what.startswith("K1"):
+            name, tables = "fused_rope_attention", _tables(gen, b, l, d)
+            o = K._fwd_kernel(q, k, v, tables, False)[0]
+            kfn = lambda: K._fwd_kernel(q, k, v, tables, False)  # noqa: E731
+            pfn = lambda: K.fused_rope_attention_ref(q, k, v, *tables)  # noqa: E731
+            rq, rk = K._fwd_kernel(q, k, v, tables, want_lse=True)[2:]
+        else:
+            name, tables, rq, rk = "flash_attention", (), q, k
+            o = F._fwd_kernel(q, k, v, False)[0]
+            kfn = lambda: F._fwd_kernel(q, k, v, False)  # noqa: E731
+            pfn = lambda: F.flash_attention_fwd_ref(q, k, v)[0]  # noqa: E731
+        torch.cuda.synchronize()
+        ro = pfn()
+        o_abs, o_rel = _grad_errors((o,), (ro,))
+        o_mean, o_ctl = _mean_rel(o, ro), _mean_rel(_round_before_normalise(rq, rk, v), ro)
+        check(o_rel <= BOUND["bfloat16"] and o_mean <= ROUNDING_BOUND < o_ctl,
+              f"{what}: o max rel {o_rel}, mean {o_mean}, control {o_ctl}")
+        lib_f = _sdpa_fwd_bwd(q, k, v, do)[0]
+        ms, pms = kernel_vs_plain_ms(kfn, pfn, n=20, rounds=4)
+        row = {"shape": [b, l, h, d], "ms": ms, "plain_ms": pms, "device_ms": graph_ms(kfn),
+               "library_ms": _library_ms(lib_f), "library_device_ms": graph_ms(lib_f)}
+        _set_bound(row, _nbytes(q, k, v, o, *tables), 2.0 * 2 * b * h * l * l * d)
+        if records.get(name) is not None:
+            records[name].setdefault("extras_shapes", []).append(row)
+        share = (f", {100 * row['bound_ms'] / row['device_ms']:.1f}% of the bound"
+                 if row["device_ms"] else "")
+        print(f"[kernels] {what} [{b}, {l}, {h}, {d}] bf16 forward: o max {o_abs:.3e} (rel "
+              f"{o_rel:.3e}, bound 2e-02), mean|kernel-plain|/mean|plain| {o_mean:.3e} (p "
+              f"rounded before normalising {o_ctl:.3e}, bound {ROUNDING_BOUND:.0e}); call "
+              f"{ms:.4f} ms, plain {pms:.4f} ms; device {_fmt(row['device_ms'])} ms{share}; bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}); SDPA call {row['library_ms']:.4f} "
+              f"ms, device {_fmt(row['library_device_ms'])} ms", flush=True)
+        del q, k, v, do, o, ro
+    bad, rows = [], []
+    for b in (1, 8):
+        for t1, c in K7_SERVE:
+            t = b * t1
+            x = _rand(gen, (t, c), torch.bfloat16)
+            q, sc = K7.rowquant(x)
+            torch.cuda.synchronize()
+            rq, rs = K7.rowquant_ref(x)
+            n_diff = int((q != rq).sum()) + int((sc != rs).sum())
+            if n_diff:
+                bad.append((t, c, n_diff))
+            ms, pms = kernel_vs_plain_ms(lambda: K7.rowquant(x), lambda: K7.rowquant_ref(x),
+                                         n=20, rounds=4)
+            bound = (_nbytes(x) + t * c + 4 * t) / HBM_PEAK * 1e3
+            rows.append({"shape": [t, c], "ms": ms, "plain_ms": pms, "bound_ms": bound,
+                         "bound_by": "bytes", "body": K7.rowquant_tiling(t, c, 2, True).body})
+    if records.get("rowquant") is not None:
+        records["rowquant"]["serve_widths"] = rows
+    print("[kernels] K7 at the int8 engine's linears (bf16 [T, C]: kernel / plain / bound ms, "
+          "body): " + "; ".join(f"[{r['shape'][0]}, {r['shape'][1]}] {r['ms']:.4f} / "
+                                f"{r['plain_ms']:.4f} / {r['bound_ms']:.5f} {r['body']}"
+                                for r in rows)
+          + f"; {bad or 'every code and scale equal to the plain version'} (bound 0)",
+          flush=True)
+    check(not bad, f"K7 at the serving widths differs from its plain version: {bad}")
+    _free()
+
+
+def _tiny_serve_int8_spec():
+    """The tiny serving spec with every int8 kind of the int8 engine: a
+    tower of width 64 (its linears reach the engine's 64) and a VAE with a
+    256-channel level (its convs reach 256, the mid-block attention's 1x1
+    convs too); float32 compute."""
+    from genhancer_tpu_torch.models import vae as vm
+    from genhancer_tpu_torch.models.towers import clip as cm
+    return dataclasses.replace(
+        _tiny_spec(),
+        vae_cfg=vm.VAEConfig(resolution=32, ch=128, ch_mult=(1, 2), num_res_blocks=1,
+                             z_channels=4),
+        tower_cfg=cm.CLIPConfig(vision=cm.CLIPVisionConfig(
+            hidden_size=64, intermediate_size=128, num_layers=1, num_heads=2, image_size=32,
+            patch_size=16), projection_dim=24))
+
+
+def _int8_call_spy(modules):
+    """(calls, spy_base, spy_conv): stand-ins for ``core.quant``'s int8 base
+    product and int8 conv that record each call's module path, input,
+    stride/padding and output."""
+    from genhancer_tpu_torch.core import quant
+    names = {id(m): p for p, m in modules.named_modules()}
+    calls, base, conv = [], quant.linear_int8_base, quant.conv2d_int8
+
+    def spy_base(p, x):
+        y = base(p, x)
+        calls.append(dict(kind="linear", path=names[id(p)], x=x.clone(), y=y.clone()))
+        return y
+
+    def spy_conv(p, x, stride=1, padding=None):
+        y = conv(p, x, stride=stride, padding=padding)
+        calls.append(dict(kind="conv", path=names[id(p)], x=x.clone(), y=y.clone(),
+                          stride=stride, padding=padding))
+        return y
+
+    return calls, spy_base, spy_conv
+
+
+def phase_small_serve_int8():
+    """A tiny int8 engine (``quant="int8"``) on the card against the same
+    weights on the CPU.  Every int8 layer call of one reconstruct (B=2, 2
+    Euler steps, injected noise) and one embed is recorded on the card with
+    its input and held against the CPU's plain path on that input: output
+    within 1e-5 of max|CPU|, the activation codes (K7 per row for a linear,
+    per tensor for a conv) equal or +-1 at a rate below 5e-3; the layers
+    called are exactly the DiT's and the tower's int8 linears and the VAE
+    decoder's int8 convs, and K7 launches once per linear call.  Controls on
+    the same inputs must miss the bound by 10x: the layer's product in float
+    (an int8 conv or linear left unquantized)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from genhancer_tpu_torch.core import quant
+    from genhancer_tpu_torch.serve.engine import InferenceEngine
+    from genhancer_tpu_torch.tasks.image import init_modules
+
+    bound = 1e-5
+    spec = _tiny_serve_int8_spec()
+    mods = init_modules(spec, torch.Generator().manual_seed(5))
+    sd = {k: v.clone() for k, v in mods.state_dict().items()}
+    cpu = InferenceEngine(spec, mods, device="cpu", buckets=(2,), num_steps=2, quant="int8")
+    mods_gpu = init_modules(spec, torch.Generator().manual_seed(6))
+    mods_gpu.load_state_dict(sd, strict=True)
+    gpu = InferenceEngine(spec, mods_gpu, device="cuda", buckets=(2,), num_steps=2,
+                          quant="int8")
+    check(gpu.int8_layers == cpu.int8_layers and all(gpu.int8_layers.values()),
+          f"int8 layer sets: card {gpu.int8_layers}, CPU {cpu.int8_layers}")
+    cpu_sd = cpu.modules.state_dict()
+    check(all(torch.equal(v.cpu(), cpu_sd[k]) for k, v in gpu.modules.state_dict().items()),
+          "the card's int8 factors differ from the CPU's")
+    rng = np.random.default_rng(7)
+    img = rng.random((2, 32, 32, 3), dtype=np.float32)
+    noise = torch.randn((2, *spec.latent_hw, spec.vae_cfg.z_channels),
+                        generator=torch.Generator().manual_seed(8))
+    calls, spy_base, spy_conv = _int8_call_spy(gpu.modules)
+    orig = quant.linear_int8_base, quant.conv2d_int8
+    quant.linear_int8_base, quant.conv2d_int8 = spy_base, spy_conv
+    try:
+        _zero_counts()
+        r_gpu = gpu._recon(gpu._place(img), noise.cuda())
+        e_gpu = gpu._embed(gpu._place(img))
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    finally:
+        quant.linear_int8_base, quant.conv2d_int8 = orig
+    want_paths = ({f"dit.{p}" for p in gpu.int8_layers["dit"]}
+                  | {f"clip.model.{p}" for p in gpu.int8_layers["tower"]}
+                  | {f"vae.{p}" for p in gpu.int8_layers["vae"] if p.startswith("decoder.")})
+    called = {c["path"] for c in calls}
+    check(called == want_paths, f"int8 calls on {sorted(called ^ want_paths)} "
+                                "outside / missing from the layer set")
+    n_lin = sum(c["kind"] == "linear" for c in calls)
+    check(counts["rowquant"] == n_lin, f"K7 launches {counts['rowquant']} != {n_lin} int8 "
+                                       "linear calls")
+    worst, gap, flips, n_codes = 0.0, float("inf"), 0, 0
+    cmods = cpu.modules
+    for c in calls:
+        mod, x = cmods.get_submodule(c["path"]), c["x"].cpu()
+        if c["kind"] == "linear":
+            y = quant.linear_int8_base(mod, x)
+            qg, _ = quant.quantize_activation_rows(c["x"])
+            qc, _ = quant.quantize_activation_rows(x)
+            ctl = torch.matmul(x, (mod.weight_q.to(torch.float32) * mod.w_scale).t())
+        else:
+            y = quant.conv2d_int8(mod, x, stride=c["stride"], padding=c["padding"])
+            qg, _ = quant.quantize_activation_tensor(c["x"])
+            qc, _ = quant.quantize_activation_tensor(x)
+            k = mod.weight_q.shape[-1]
+            w = mod.weight_q.to(torch.float32) * mod.w_scale.reshape(-1, 1, 1, 1)
+            ctl = F.conv2d(x, w, mod.bias, stride=c["stride"],
+                           padding=k // 2 if c["padding"] is None else c["padding"])
+        d = (qg.cpu().to(torch.int32) - qc.to(torch.int32)).abs()
+        check(int(d.max()) <= 1, f"{c['path']}: codes differ by {int(d.max())}")
+        flips, n_codes = flips + int((d > 0).sum()), n_codes + d.numel()
+        scale = y.abs().max().clamp_min(1e-30)
+        worst = max(worst, float((c["y"].cpu() - y).abs().max() / scale))
+        gap = min(gap, float((ctl - y).abs().max() / scale))
+    r_cpu = cpu._recon(cpu._place(img), noise)
+    print(f"[small] tiny int8 engine: {len(calls)} int8 calls card vs CPU on equal inputs "
+          f"({n_lin} linears, {len(calls) - n_lin} VAE decoder convs; {len(called)} layers: "
+          f"{ {k: len(v) for k, v in gpu.int8_layers.items()} } swapped), max|card-cpu|/max|cpu|"
+          f" {worst:.3e} (bound {bound:g}); activation codes differing {flips} of {n_codes} "
+          f"(rate bound 5e-3, each +-1); closest control (the product in float) {gap:.3e} "
+          f"(must exceed {10 * bound:g}); K7 launches {counts['rowquant']}; whole reconstruct "
+          f"max|card-cpu| {float((r_gpu.cpu() - r_cpu).abs().max()):.3e}, embed "
+          f"{float((e_gpu.cpu() - cpu._embed(cpu._place(img))).abs().max()):.3e} "
+          "(the int8 noise, not checked)", flush=True)
+    check(worst <= bound, f"tiny int8 engine: int8 layers disagree: {worst}")
+    check(flips <= 5e-3 * n_codes, f"tiny int8 engine: {flips} of {n_codes} codes flipped")
+    check(gap > 10 * bound, f"tiny int8 engine: a control came within {gap} of the check")
+    check(bool(torch.isfinite(r_gpu).all()) and tuple(r_gpu.shape) == (2, 32, 32, 3),
+          "tiny int8 engine: reconstruct not finite or misshapen")
+    del gpu, cpu, mods, mods_gpu
+    _free()
+
+
+def phase_serve_int8():
+    """``InferenceEngine.from_config(MetaCLIP_large_stage1, quant="int8")``
+    at full width (flux-dev DiT, MetaCLIP-L/14 at 224 px, FLUX VAE; random
+    weights from the config's seed): the int8 layer set, K7/K1/K2 launches of
+    one reconstruct and one embed against the set, the K7 kernels of one
+    reconstruct counted by torch.profiler, reconstruct at B = 1, 4, 8 (20
+    Euler steps, uint8 wire, median of 3) and embed (median of 10) beside
+    phase_server's bf16 engine, and the peak device memory.  Returns the
+    launch counts of the reconstruct and embed."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.serve.engine import InferenceEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_config(CONFIG, device="cuda", buckets=BUCKETS,
+                                         num_steps=NUM_STEPS, wire_dtype="uint8",
+                                         quant="int8")
+    torch.cuda.synchronize()
+    n8 = {k: len(v) for k, v in engine.int8_layers.items()}
+    cfg, tower = engine.spec.dit_cfg, engine.spec.tower_cfg.vision
+    # the DiT: 10 linears per double block, 3 per single block and 10 more
+    # (img_in, txt_in, time_in x 2, vector_in x 2, guidance_in x 2, the final
+    # layer's adaLN and linear); the tower: 6 per layer and visual_projection
+    want_n = {"dit": 10 * cfg.depth + 3 * cfg.depth_single_blocks + 10,
+              "tower": 6 * tower.num_layers + 1}
+    print(f"[serve_int8] engine built and quantized in {time.perf_counter() - t0:.1f} s: "
+          f"int8 layers {n8} (DiT and tower linears with min(out, in) >= 64, VAE convs with "
+          f"in and out >= 256)", flush=True)
+    check({k: n8[k] for k in want_n} == want_n and n8["vae"] > 0,
+          f"int8 layer counts {n8}, expected {want_n} and VAE convs")
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    print(f"[serve_int8] warmup of buckets {BUCKETS} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(3)
+    one = (rng.random((1, 224, 224, 3)) * 255).astype(np.uint8)
+    _zero_counts()
+    out = engine.reconstruct(one, seed=0)
+    emb = engine.embed(one)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    k7_recon = n8["tower"] + NUM_STEPS * n8["dit"]
+    want = {**_no_launches(), "rowquant": k7_recon + n8["tower"],
+            "fused_rope_attention": NUM_STEPS * (cfg.depth + cfg.depth_single_blocks),
+            "fused_attention": 2 * tower.num_layers}
+    print(f"[serve_int8] launches of one reconstruct (B=1) and one embed {counts}, expected "
+          f"{want}", flush=True)
+    check(counts == want, f"int8 engine launches {counts} != {want}")
+    check(out.dtype == np.uint8 and out.shape == (1, 224, 224, 3) and emb.shape == (1, 768)
+          and np.isfinite(emb).all(), "int8 engine: output dtype, shape or finiteness")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.reconstruct(one, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k7_prof = sum(e.count for e in prof.key_averages() if any(n in e.key for n in K7_NAMES))
+    print(f"[serve_int8] torch.profiler over one reconstruct (B=1, {NUM_STEPS} steps): K7 "
+          f"kernels {k7_prof} (expected {k7_recon} = {n8['tower']} tower + {NUM_STEPS} x "
+          f"{n8['dit']} DiT)", flush=True)
+    _print_device_time(prof, 1, wall, tag="[serve_int8] reconstruct B=1:")
+    check(k7_prof == k7_recon, f"profiled K7 kernels {k7_prof} != {k7_recon}")
+    res = {}
+    for b in BUCKETS:
+        imgs = (rng.random((b, 224, 224, 3)) * 255).astype(np.uint8)
+        rec_s, emb_s = [], []
+        for r in range(3):
+            t0 = time.perf_counter()
+            engine.reconstruct(imgs, seed=r)
+            rec_s.append(time.perf_counter() - t0)
+        for _ in range(10):
+            t0 = time.perf_counter()
+            engine.embed(imgs)
+            emb_s.append(time.perf_counter() - t0)
+        res[b] = (statistics.median(rec_s), statistics.median(emb_s))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for b, (rs, es) in res.items():
+        bf = SERVE_BF16.get(b)
+        beside = (f"; bf16 engine (phase_server) {bf[0] * 1e3:.1f} ms, embed {bf[1] * 1e3:.2f} ms"
+                  if bf else "")
+        print(f"[serve_int8] bucket {b}: reconstruct {rs * 1e3:.1f} ms/batch = {b / rs:.2f} "
+              f"img/s ({NUM_STEPS} steps, uint8 wire, median of 3); embed {es * 1e3:.2f} "
+              f"ms/batch = {b / es:.1f} img/s (median of 10){beside}", flush=True)
+    print(f"[serve_int8] peak device memory {peak:.2f} GiB (bf16 engine "
+          f"{SERVE_BF16.get('peak', float('nan')):.2f} GiB after its warmup)", flush=True)
+    del engine
+    _free()
+    return counts
+
+
+def _plant(linear, gen, std):
+    """Seeded nonzero values in a zero-initialised projection."""
+    import torch
+    with torch.no_grad():
+        linear.weight.copy_(torch.randn(linear.weight.shape, generator=gen,
+                                        device=linear.weight.device) * std)
+        if linear.bias is not None:
+            linear.bias.copy_(torch.randn(linear.bias.shape, generator=gen,
+                                          device=linear.bias.device) * std)
+
+
+def _tiny_text_clip():
+    from genhancer_tpu_torch.models.towers import clip as cm
+    return cm.CLIPConfig(
+        vision=cm.CLIPVisionConfig(hidden_size=16, intermediate_size=32, num_layers=1,
+                                   num_heads=2, image_size=32, patch_size=16),
+        text=cm.CLIPTextConfig(hidden_size=16, intermediate_size=32, num_layers=1, num_heads=2,
+                               vocab_size=50, max_position_embeddings=8),
+        projection_dim=24)
+
+
+def _rel(a, b) -> float:
+    return float((a.detach().cpu().float() - b.detach().cpu().float()).abs().max()
+                 / b.detach().cpu().float().abs().max().clamp_min(1e-30))
+
+
+def phase_small_extras():
+    """The extra models at tiny sizes, card against CPU on the same weights
+    and inputs, float32 at 1e-5 of the largest magnitude: a ControlNet
+    reconstruct (depth 3 beside the DiT's double block, planted nonzero
+    ``cond_in`` and ``controlnet_blocks``) and its CFG sampler with
+    ``neg_controlnet_fn``; a DiT forward with nonzero IP k/v in both block
+    kinds, also in bf16 at 1e-4; T5
+    ``encoder_forward`` with and without a padding mask, then ``prepare`` and
+    ``denoise_euler_cfg`` with ``true_gs`` 3.5."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.eval import reconstruct as recon
+    from genhancer_tpu_torch.models import controlnet as cnm
+    from genhancer_tpu_torch.models import dit as dm
+    from genhancer_tpu_torch.models import ip_adapter as ipm
+    from genhancer_tpu_torch.models.towers import clip as cm
+    from genhancer_tpu_torch.models.towers import t5 as t5m
+    from genhancer_tpu_torch.tasks import text_conditioning as tc
+    from genhancer_tpu_torch.tasks.image import init_modules
+    from genhancer_tpu_torch.train import flow
+
+    bound = 1e-5
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = _tiny_spec()
+    cfg = spec.dit_cfg
+    errs, launches = {}, {}
+    mods = init_modules(spec, torch.Generator().manual_seed(11))
+    gen = torch.Generator().manual_seed(12)
+    cn = cnm.init_controlnet(gen, cfg, depth=3)
+    for lin in [cn.cond_in, *cn.controlnet_blocks]:
+        _plant(lin, gen, 0.05)
+    mods_gpu, cn_gpu = copy.deepcopy(mods).cuda(), copy.deepcopy(cn).cuda()
+    rng = np.random.default_rng(13)
+    image = rng.random((2, 32, 32, 3), dtype=np.float32)
+    noise = rng.standard_normal((2, *spec.latent_hw, spec.vae_cfg.z_channels), dtype=np.float32)
+    out = {}
+    for dev, m, c in (("cpu", mods, cn), ("cuda", mods_gpu, cn_gpu)):
+        _zero_counts()
+        out[dev] = recon.reconstruct(m, spec, image, num_steps=2, noise=noise,
+                                     controlnet_params=c, controlnet_gs=0.8)
+        launches[f"controlnet reconstruct {dev}"] = _read_counts()["fused_rope_attention"]
+    plain = recon.reconstruct(mods, spec, image, num_steps=2, noise=noise)
+    errs["ControlNet reconstruct"] = _rel(torch.from_numpy(out["cuda"]),
+                                          torch.from_numpy(out["cpu"]))
+    check(np.abs(out["cpu"] - plain).max() > 1e-4, "the planted ControlNet moved nothing")
+    check(launches["controlnet reconstruct cuda"] == 2 * (3 + cfg.depth + cfg.depth_single_blocks),
+          f"tiny ControlNet reconstruct: K1 launches {launches}")
+
+    # the CFG branch: the negative conditioning runs its own ControlNet pass
+    lat = spec.latent_hw
+    ids = torch.zeros((2, (lat[0] // 2) * (lat[1] // 2), 3))
+    ids[..., 1] = torch.arange(ids.shape[1]) // (lat[1] // 2)
+    ids[..., 2] = torch.arange(ids.shape[1]) % (lat[1] // 2)
+    x0 = torch.from_numpy(rng.standard_normal((2, ids.shape[1], cfg.in_channels),
+                                              dtype=np.float32))
+    ctl = torch.from_numpy(rng.standard_normal(x0.shape, dtype=np.float32))
+    txt = {s: torch.from_numpy(rng.standard_normal((2, 3, cfg.context_in_dim), dtype=np.float32))
+           for s in ("pos", "neg")}
+    y = torch.from_numpy(rng.standard_normal((2, cfg.vec_in_dim), dtype=np.float32))
+    ts = flow.get_schedule(3, ids.shape[1])
+
+    def cfg_sample(dev, dit, c):
+        kw = dict(img_ids=ids.to(dev), txt_ids=torch.zeros((2, 3, 3), device=dev), y=y.to(dev))
+
+        def model(side):
+            return lambda x, tv, g, res: dm.dit_forward(
+                dit, cfg, img=x, txt=txt[side].to(dev), timesteps=tv, guidance=g,
+                controlnet_residuals=res, **kw)
+
+        def control(side):
+            return lambda x, tv, g: cnm.controlnet_forward(
+                c, cfg, img=x, txt=txt[side].to(dev), timesteps=tv, guidance=g,
+                controlnet_cond=ctl.to(dev), **kw)
+
+        with torch.no_grad():
+            return flow.denoise_controlnet(model("pos"), control("pos"), x0.to(dev), ts,
+                                           guidance=4.0, true_gs=2.5, controlnet_gs=0.7,
+                                           neg_model_fn=model("neg"),
+                                           neg_controlnet_fn=control("neg"))
+
+    errs["ControlNet CFG sampler"] = _rel(cfg_sample("cuda", mods_gpu["dit"], cn_gpu),
+                                          cfg_sample("cpu", mods["dit"], cn))
+
+    # IP-Adapter in both block kinds, float32 and bf16
+    ip = ipm.init_ip_params(gen, cfg, context_dim=32, clip_embeddings_dim=24)
+    for blk in [*ip.ip_double, *ip.ip_single]:
+        _plant(blk.k_proj, gen, 0.1)
+        _plant(blk.v_proj, gen, 0.1)
+    ip_gpu = copy.deepcopy(ip).cuda()
+    embed = torch.from_numpy(rng.standard_normal((2, 24), dtype=np.float32))
+    tt = torch.from_numpy(rng.random(2, dtype=np.float32))
+    for dtype, name, bnd in ((torch.float32, "IP DiT forward float32", bound),
+                             (torch.bfloat16, "IP DiT forward bf16", 1e-4)):
+        res = {}
+        for dev, dit, ipp in (("cpu", mods["dit"], ip), ("cuda", mods_gpu["dit"], ip_gpu)):
+            with torch.no_grad():
+                res[dev] = dm.dit_forward(
+                    dit, cfg, img=x0.to(dev, dtype), img_ids=ids.to(dev),
+                    txt=txt["pos"].to(dev, dtype), txt_ids=torch.zeros((2, 3, 3), device=dev),
+                    timesteps=tt.to(dev, dtype), y=y.to(dev, dtype),
+                    guidance=torch.full((2,), 4.0, dtype=dtype, device=dev),
+                    image_proj=embed.to(dev), ip_params=ipp, ip_scale=0.6)
+        errs[name] = _rel(res["cuda"], res["cpu"])
+        check(errs[name] <= bnd, f"{name}: card vs CPU {errs[name]} (bound {bnd})")
+        if dtype == torch.float32:
+            with torch.no_grad():
+                off = dm.dit_forward(mods["dit"], cfg, img=x0, img_ids=ids, txt=txt["pos"],
+                                     txt_ids=torch.zeros((2, 3, 3)), timesteps=tt, y=y,
+                                     guidance=torch.full((2,), 4.0))
+            check(_rel(off, res["cpu"]) > 1e-3, "the planted IP k/v moved nothing")
+
+    # T5, prepare and the CFG sampler on a text-conditioned DiT
+    t5_cfg = t5m.T5Config(d_model=cfg.context_in_dim, d_kv=8, d_ff=64, num_layers=2,
+                          num_heads=4, vocab_size=120, relative_attention_num_buckets=8,
+                          relative_attention_max_distance=16)
+    t5 = t5m.init_t5(gen, t5_cfg)
+    t5_gpu = copy.deepcopy(t5).cuda()
+    clip_cfg = _tiny_text_clip()
+    clip = cm.CLIPModel(clip_cfg)
+    from genhancer_tpu_torch.core.nn import init_weights
+    init_weights(clip, gen)
+    clip_gpu = copy.deepcopy(clip).cuda()
+    t5_ids = torch.from_numpy(rng.integers(0, 120, (2, 9)))
+    mask = torch.ones((2, 9), dtype=torch.int64)
+    mask[1, 5:] = 0
+    clip_ids = torch.from_numpy(rng.integers(0, 50, (2, 8)))
+    latent = torch.from_numpy(rng.standard_normal((1, *lat, spec.vae_cfg.z_channels),
+                                                  dtype=np.float32))
+    ts = flow.get_schedule(3, ids.shape[1])
+    samples = {}
+    for dev, enc, cl, dit in (("cpu", t5, clip, mods["dit"]),
+                              ("cuda", t5_gpu, clip_gpu, mods_gpu["dit"])):
+        with torch.no_grad():
+            _zero_counts()
+            for masked in (False, True):
+                seq = tc.t5_sequence_provider(enc, t5_cfg)(
+                    t5_ids.to(dev), mask.to(dev) if masked else None)
+                samples[(dev, masked)] = seq
+            vec = tc.clip_text_pooled_provider(cl, clip_cfg)(clip_ids.to(dev))
+            prep = [tc.prepare(seq[i:i + 1], vec[i:i + 1], latent.to(dev)) for i in (0, 1)]
+
+            def model(p):
+                return lambda x, tv, g: dm.dit_forward(
+                    dit, cfg, img=x, img_ids=p["img_ids"], txt=p["txt"], txt_ids=p["txt_ids"],
+                    timesteps=tv, y=p["vec"], guidance=g)
+            samples[(dev, "cfg")] = flow.denoise_euler_cfg(
+                model(prep[0]), prep[0]["img"], ts, guidance=4.0, true_gs=3.5,
+                neg_model_fn=model(prep[1]), timestep_to_start_cfg=1)
+            launches[f"text {dev}"] = _read_counts()
+    for key, name in ((False, "T5 unmasked"), (True, "T5 masked"), ("cfg", "T5 -> CFG sample")):
+        errs[name] = _rel(samples[("cuda", key)], samples[("cpu", key)])
+    check(_rel(samples[("cpu", True)], samples[("cpu", False)]) > 1e-3, "the T5 mask changed "
+                                                                         "nothing")
+    want_k1 = (2 * 3 - 1) * (cfg.depth + cfg.depth_single_blocks)   # 3 steps, CFG from step 1
+    check(launches["text cuda"] == {**_no_launches(), "fused_rope_attention": want_k1},
+          f"text-conditioned sample: launches {launches['text cuda']}, expected K1 {want_k1}")
+    print(f"[small] tiny extras card vs CPU, max|card-cpu|/max|cpu|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {bound:g} in float32, 1e-4 in bf16); K1 launches "
+          f"{ {k: v if isinstance(v, int) else v['fused_rope_attention'] for k, v in launches.items()} }",
+          flush=True)
+    for k, v in errs.items():
+        if "bf16" not in k:
+            check(v <= bound, f"tiny extras: {k} card vs CPU {v} (bound {bound})")
+    del mods_gpu, cn_gpu, ip_gpu, t5_gpu, clip_gpu
+    _free()
+
+
+def phase_extras():
+    """The extra models at full width on the card (random weights from a
+    seed, bf16 DiT): a depth-2 ControlNet seeded from the flux-dev DiT with
+    its zero projections replaced by seeded random ones, reconstruct at B=4
+    (20 steps, median of 3); an IP-Adapter DiT forward at B=4, 224 px
+    (context 4096, CLIP embedding 1024, 4 tokens; median of 10); the T5-XXL
+    encoder (``google/t5-v1_1-xxl``'s published shape, initialised on the
+    card) in bf16 at L=512, B=2 (a positive and a padded negative prompt;
+    median of 3) and the MetaCLIP-L/14 text side's pooled vector; a 20-step
+    CFG sample conditioned on them (joint L = 512 + 196 = 708: K5) and its VAE
+    decode.  Each path's time, peak memory and K1/K2/K5 launches, held equal to
+    the counts the models imply.  Returns the launch counts by path."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.core.nn import init_weights
+    from genhancer_tpu_torch.core.rope import spatial_ids
+    from genhancer_tpu_torch.eval import reconstruct as recon
+    from genhancer_tpu_torch.models import controlnet as cnm
+    from genhancer_tpu_torch.models import dit as dm
+    from genhancer_tpu_torch.models import ip_adapter as ipm
+    from genhancer_tpu_torch.models import vae as vm
+    from genhancer_tpu_torch.models.towers import clip as cm
+    from genhancer_tpu_torch.models.towers import t5 as t5m
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks import text_conditioning as tc
+    from genhancer_tpu_torch.tasks.image import init_modules
+    from genhancer_tpu_torch.train import flow
+    from genhancer_tpu_torch.train.config import load_config
+
+    spec = factory.build_spec(load_config(CONFIG))[0]
+    cfg, n_blocks = spec.dit_cfg, spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mods = init_modules(spec, gen, device="cuda").eval().requires_grad_(False)
+    cn = cnm.init_controlnet_from_dit(gen, mods["dit"], cfg, depth=2, device="cuda",
+                                      dtype=torch.bfloat16).requires_grad_(False)
+    for lin in [cn.cond_in, *cn.controlnet_blocks]:
+        _plant(lin, gen, 0.02)
+    torch.cuda.synchronize()
+    print(f"[extras] modules and a depth-2 ControlNet seeded from the DiT "
+          f"({sum(p.numel() for p in cn.parameters()) / 1e9:.3f} B params) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(22)
+    counts, peaks = {}, {}
+
+    def timed(fn, n):
+        t = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        return statistics.median(t)
+
+    # ControlNet reconstruct, B=4
+    images = rng.random((4, 224, 224, 3), dtype=np.float32)
+    run = lambda: recon.reconstruct(mods, spec, images, num_steps=NUM_STEPS, seed=1,  # noqa: E731
+                                    controlnet_params=cn)
+    out = run()
+    plain = recon.reconstruct(mods, spec, images, num_steps=NUM_STEPS, seed=1)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    out2 = run()
+    counts["extras_controlnet"] = _read_counts()
+    cn_s = timed(run, 3)
+    peaks["ControlNet reconstruct"] = torch.cuda.max_memory_allocated() / 2**30
+    want = {**_no_launches(), "fused_rope_attention": NUM_STEPS * (n_blocks + 2),
+            "fused_attention": spec.tower_cfg.vision.num_layers}
+    check(counts["extras_controlnet"] == want,
+          f"ControlNet reconstruct launches {counts['extras_controlnet']} != {want}")
+    check(np.isfinite(out).all() and out.shape == (4, 224, 224, 3),
+          "ControlNet reconstruct: not finite or misshapen")
+    print(f"[extras] ControlNet reconstruct B=4, {NUM_STEPS} steps: {cn_s * 1e3:.1f} ms "
+          f"(median of 3) = {4 / cn_s:.2f} img/s; peak {peaks['ControlNet reconstruct']:.2f} "
+          f"GiB; launches K1 {want['fused_rope_attention']} ({NUM_STEPS} x ({n_blocks} DiT + 2 "
+          f"ControlNet blocks)), K2 {want['fused_attention']}; mean |with - without "
+          f"ControlNet| {np.abs(out - plain).mean():.4f}, between two runs of one seed "
+          f"{np.abs(out - out2).max():.3e}", flush=True)
+
+    # IP-Adapter DiT forward, B=4 at 224 px
+    ip = ipm.init_ip_params(gen, cfg, device="cuda").requires_grad_(False)
+    for blk in [*ip.ip_double, *ip.ip_single]:
+        _plant(blk.k_proj, gen, 0.02)
+        _plant(blk.v_proj, gen, 0.02)
+    bf = torch.bfloat16
+    lat = spec.latent_hw
+    n_img = (lat[0] // 2) * (lat[1] // 2)
+    kw = dict(img=torch.randn((4, n_img, cfg.in_channels), generator=gen, device="cuda").to(bf),
+              img_ids=spatial_ids(lat[0] // 2, lat[1] // 2, device="cuda")[None].expand(4, -1, -1),
+              txt=torch.randn((4, 1, cfg.context_in_dim), generator=gen, device="cuda").to(bf),
+              txt_ids=torch.zeros((4, 1, 3), device="cuda"),
+              timesteps=torch.rand(4, generator=gen, device="cuda").to(bf),
+              y=torch.randn((4, cfg.vec_in_dim), generator=gen, device="cuda").to(bf),
+              guidance=torch.full((4,), 4.0, dtype=bf, device="cuda"))
+    embeds = torch.randn((4, 1024), generator=gen, device="cuda")
+    with torch.no_grad():
+        fwd = lambda: dm.dit_forward(mods["dit"], cfg, image_proj=embeds, ip_params=ip,  # noqa: E731
+                                     ip_scale=0.8, **kw)
+        with_ip, without = fwd(), dm.dit_forward(mods["dit"], cfg, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        fwd()
+        counts["extras_ip"] = _read_counts()
+        ip_s = timed(fwd, 10)
+        peaks["IP DiT forward"] = torch.cuda.max_memory_allocated() / 2**30
+    want = {**_no_launches(), "fused_rope_attention": n_blocks}
+    check(counts["extras_ip"] == want, f"IP forward launches {counts['extras_ip']} != {want}")
+    check(bool(torch.isfinite(with_ip).all()) and float((with_ip - without).abs().max()) > 0,
+          "IP forward: not finite, or the IP residual added nothing")
+    print(f"[extras] IP-Adapter DiT forward B=4 (L=197, 4 IP tokens in {cfg.depth} double and "
+          f"{cfg.depth_single_blocks} single blocks): {ip_s * 1e3:.2f} ms (median of 10); peak "
+          f"{peaks['IP DiT forward']:.2f} GiB; K1 {n_blocks}; mean |with - without IP| "
+          f"{float((with_ip - without).float().abs().mean()):.4f}", flush=True)
+    del ip, with_ip, without
+    _free()
+
+    # T5-XXL at L=512, B=2, and the CLIP text side's pooled vector
+    t0 = time.perf_counter()
+    t5_cfg = t5m.T5Config()
+    t5 = t5m.init_t5(gen, t5_cfg, device="cuda", dtype=bf).requires_grad_(False)
+    clip_cfg = spec.tower_cfg
+    clip = init_weights(cm.CLIPModel(clip_cfg, device="cuda"), gen).requires_grad_(False)
+    torch.cuda.synchronize()
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    n_mm = sum(p.numel() for n, p in t5.named_parameters()
+               if n.endswith((".q.weight", ".k.weight", ".v.weight", ".o.weight", "wi_0.weight",
+                              "wi_1.weight", "wo.weight")))
+    print(f"[extras] T5-XXL ({n_t5 / 1e9:.3f} B params, bf16) and the MetaCLIP-L/14 CLIPModel "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    ids = torch.randint(0, t5_cfg.vocab_size, (2, 512), generator=gen, device="cuda")
+    mask = torch.ones((2, 512), dtype=torch.int64, device="cuda")
+    mask[1, 77:] = 0                                   # the negative prompt is padded
+    clip_ids = torch.randint(0, clip_cfg.text.vocab_size - 2, (2, 77), generator=gen,
+                             device="cuda")
+    clip_ids[:, 20] = clip_cfg.text.eos_token_id
+    encode = tc.t5_sequence_provider(t5, t5_cfg, dtype=bf)
+    pooled = tc.clip_text_pooled_provider(clip, clip_cfg)
+    with torch.no_grad():
+        seq = encode(ids, mask)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        vec = pooled(clip_ids)
+        seq = encode(ids, mask)
+        counts["extras_t5"] = _read_counts()
+        t5_s = timed(lambda: encode(ids, mask), 3)
+        clip_s = timed(lambda: pooled(clip_ids), 3)
+        peaks["T5-XXL encode"] = torch.cuda.max_memory_allocated() / 2**30
+    check(counts["extras_t5"] == _no_launches(),
+          f"T5 and CLIP text launched kernels: {counts['extras_t5']} (their attention is "
+          "plain products: T5's position bias, CLIP text's causal mask)")
+    check(tuple(seq.shape) == (2, 512, 4096) and seq.dtype == bf and bool(torch.isfinite(seq).all())
+          and tuple(vec.shape) == (2, 768), "T5 / CLIP text: shape, dtype or finiteness")
+    tok = 2 * 512
+    print(f"[extras] T5-XXL encode B=2, L=512 bf16: {t5_s * 1e3:.1f} ms (median of 3) = "
+          f"{tok / t5_s:.0f} tokens/s, {2 * n_mm * tok / t5_s / 1e12:.1f} TFLOP/s of the "
+          f"linears' products; peak {peaks['T5-XXL encode']:.2f} GiB; CLIP text pooled vector B=2, L=77: "
+          f"{clip_s * 1e3:.2f} ms; kernel launches none", flush=True)
+    del t5
+    _free()
+
+    # a 20-step CFG sample on the T5 sequence and the pooled vector (K5 at L=708)
+    noise = torch.randn((1, *lat, spec.vae_cfg.z_channels), generator=gen, device="cuda")
+    prep = [tc.prepare(seq[i:i + 1], vec[i:i + 1], noise) for i in (0, 1)]
+    ts = flow.get_schedule(NUM_STEPS, n_img)
+
+    def model(p):
+        return lambda x, tv, g: dm.dit_forward(
+            mods["dit"], cfg, img=x, img_ids=p["img_ids"], txt=p["txt"].to(x.dtype),
+            txt_ids=p["txt_ids"], timesteps=tv, y=p["vec"].to(x.dtype), guidance=g)
+
+    sample = lambda: flow.denoise_euler_cfg(  # noqa: E731
+        model(prep[0]), prep[0]["img"].to(bf), ts, guidance=4.0, true_gs=3.5,
+        neg_model_fn=model(prep[1]))
+    with torch.no_grad():
+        sample()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        tokens = sample()
+        counts["extras_text_cfg"] = _read_counts()
+        cfg_s = timed(sample, 3)
+        peaks["CFG sample"] = torch.cuda.max_memory_allocated() / 2**30
+        img = vm.vae_decode(mods["vae"], spec.vae_cfg,
+                            dm.unpack_latent(tokens.float(), lat[0], lat[1]))
+    want = {**_no_launches(), "flash_attention": 2 * NUM_STEPS * n_blocks}
+    check(counts["extras_text_cfg"] == want,
+          f"CFG sample launches {counts['extras_text_cfg']} != {want}")
+    check(bool(torch.isfinite(img).all()) and tuple(img.shape) == (1, 224, 224, 3),
+          "CFG sample: the decoded image is not finite or misshapen")
+    print(f"[extras] text-conditioned CFG sample B=1, {NUM_STEPS} steps (true_gs 3.5, "
+          f"joint L={512 + n_img}): {cfg_s * 1e3:.1f} ms (median of 3); peak "
+          f"{peaks['CFG sample']:.2f} GiB; K5 {want['flash_attention']} ({NUM_STEPS} steps x 2 "
+          f"branches x {n_blocks} blocks), K1 0; decoded image finite, mean "
+          f"{float(img.mean()):.4f}", flush=True)
+    del mods, cn, clip, seq, vec
+    _free()
+    return counts
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
@@ -4142,6 +4883,7 @@ def main():
     records["fused_adamw"] = attempt(phase_adamw)
     records.update(attempt(phase_kernels_int8) or {})
     attempt(phase_k7_static_widths)
+    attempt(phase_kernels_extras, records)
     records.update(attempt(phase_adamw_int8) or {})
     attempt(phase_small_reference)
     attempt(phase_small_train)
@@ -4157,7 +4899,11 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     attempt(phase_small_int8)
     attempt(phase_small_qlora)
+    attempt(phase_small_serve_int8)
+    attempt(phase_small_extras)
     serve_counts = attempt(phase_server)
+    serve_int8_counts = attempt(phase_serve_int8)
+    extras_counts = attempt(phase_extras)
     # the stage-2 exports the MMVP-VLM eval reads at the end
     eval_root, exports = tempfile.mkdtemp(prefix="chip_smoke_eval_"), {}
     try:
@@ -4198,7 +4944,8 @@ def main():
     if FAILURES:
         print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
         sys.exit(1)
-    paths = {"serve": serve_counts, **{f"train_{k}": v for k, v in train_counts.items()},
+    paths = {"serve": serve_counts, "serve_int8": serve_int8_counts, **extras_counts,
+             **{f"train_{k}": v for k, v in train_counts.items()},
              **stage2_counts, **int8_counts, **video_counts, **video2_counts, **siglip_counts,
              **eval_counts, **fast_counts, **fast_video_counts}
 
@@ -4222,10 +4969,13 @@ def main():
     # micro-batches), and nowhere else
     # K2 runs on every path but SigLIP's training and serving ones, whose
     # tower (L = 729) runs K5; the SigLIP eval's text side runs K2
+    # the extra models' paths run no tower but the ControlNet reconstruct's
     siglip = [p for p in paths if p.startswith("siglip_") or p == "serve_siglip"]
-    check(all(c["fused_attention"] > 0 for p, c in paths.items() if p not in siglip)
-          and all(paths[p]["fused_attention"] == 0 for p in siglip),
-          "fused_attention not launched on every path but SigLIP's, or launched on SigLIP's")
+    no_tower = [*siglip, "extras_ip", "extras_t5", "extras_text_cfg"]
+    check(all(c["fused_attention"] > 0 for p, c in paths.items() if p not in no_tower)
+          and all(paths[p]["fused_attention"] == 0 for p in no_tower),
+          "fused_attention not launched on every path with a tower but SigLIP's, or launched "
+          "on SigLIP's or a path without a tower")
     for p in siglip:
         for n in ("flash_attention", "fused_rope_attention"):
             check(paths[p][n] > 0, f"{n} not launched on {p}")

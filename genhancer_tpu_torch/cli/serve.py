@@ -36,7 +36,8 @@ def main(argv=None):
     parser.add_argument("--endpoints", default="reconstruct,embed",
                         help="which endpoints to warm up/serve")
     parser.add_argument("--quant", default="none", choices=("none", "int8"),
-                        help="int8 is not ported yet and is refused")
+                        help="int8: the DiT's and the tower's linears and the VAE's "
+                             "convs run int8 (weights quantized at load)")
     parser.add_argument("--num_devices", type=int, default=1,
                         help=">1 is not ported yet and is refused")
     parser.add_argument("--model_parallel", type=int, default=1,

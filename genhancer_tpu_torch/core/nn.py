@@ -81,6 +81,16 @@ class Linear(nn.Module):
             self.bias.uniform_(-bound_b, bound_b, generator=g)
 
 
+class ZeroLinear(Linear):
+    """A linear whose weight (and bias) start at zero: the ControlNet's and
+    the IP-Adapter's zero-init projections."""
+
+    def init_(self, g):
+        self.weight.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
+
+
 class Int8Layer(nn.Module):
     """A frozen linear or conv as int8 factors, the JAX tree's leaves:
     ``weight_q`` int8 and ``w_scale`` float32 buffers (state-dict keys) and

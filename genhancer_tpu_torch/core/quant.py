@@ -255,12 +255,14 @@ def quantize_linear_tree(root: tnn.Module, min_features: int = 64) -> Tuple[str,
     """Replace, in place, every eligible linear of ``root`` — a module with a
     2-D ``weight`` (``Linear`` or a bare weight such as the CLIP
     ``visual_projection``) whose path names no embedding and whose smaller
-    dimension reaches ``min_features`` (``_eligible_linear:423``) — by an
-    ``Int8Layer``.  Returns the replaced module paths."""
+    dimension reaches ``min_features`` and which carries no LoRA factors
+    (``_eligible_linear:423``: a trainable node is never frozen to int8) —
+    by an ``Int8Layer``.  Returns the replaced module paths."""
     done = []
     for path, mod in list(root.named_modules()):
         w = mod._parameters.get("weight")
         if (w is None or w.dim() != 2 or min(w.shape) < min_features
+                or getattr(mod, "lora_A", None) is not None
                 or any(s in path for s in _NOT_LINEAR)):
             continue
         wq, ws = quantize_weight(w.detach(), axis=0)

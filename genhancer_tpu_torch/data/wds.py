@@ -2,7 +2,7 @@
 ``webdataset`` package is not a dependency).
 
 Carried over from ``genhancer_tpu/data/wds.py`` (pure Python and numpy;
-the JAX package's ``data/__init__`` would import jax).
+importing it through the JAX package's ``data/__init__`` would load JAX).
 
 Replaces the reference's webdataset pipelines (``image_datasets/
 dataset_cc3m.py:169-188``, ``dataset_video.py:288-328``,

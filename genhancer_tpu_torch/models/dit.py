@@ -1,7 +1,10 @@
 """FLUX-style rectified-flow DiT (the lightweight GenHancer denoiser).
 
-Port of ``genhancer_tpu/models/dit.py`` (no IP-adapter, no ControlNet
-residuals; remat with the "full" policy only).  The module tree carries the reference
+Port of ``genhancer_tpu/models/dit.py`` (remat with the "full" policy
+only), with its two hooks: ControlNet residuals added to the img stream
+after each double block (``models.controlnet``) and the IP-Adapter's
+cross-attention residual after each block's own attention
+(``models.ip_adapter``).  The module tree carries the reference
 torch names (``double_blocks.{i}.img_attn.qkv.weight``, ``img_mlp.0`` ...,
 ``final_layer.adaLN_modulation.1``), so a ``checkpoint-dit-N.bin`` loads with
 ``load_state_dict(strict=True)``.  flux-dev: hidden 3072, 24 heads (D=128),
@@ -21,7 +24,7 @@ inside the SwitchBack context the forward ran in (``core.nn.int8_ctx_replay``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn as tnn
@@ -164,7 +167,20 @@ def _qk_norm(norm: QKNorm, q, k, v):
     return q, k
 
 
-def _double_block(p: DoubleStreamBlock, img, txt, vec, cos, sin, num_heads):
+def _ip_residual(ip, q):
+    """``ip_scale * ip_attention(...)`` of a block's ``ip`` triple
+    (block IP module, projected tokens, scale), the scale rounded to q's
+    dtype as JAX rounds the weakly-typed constant."""
+    from .ip_adapter import ip_attention
+    block_ip, image_proj, ip_scale = ip
+    return nn.as_dtype_scalar(ip_scale, q.dtype) * ip_attention(block_ip, q, image_proj,
+                                                                q.shape[2])
+
+
+def _double_block(p: DoubleStreamBlock, img, txt, vec, cos, sin, num_heads, ip=None):
+    """DoubleStreamBlockProcessor; with ``ip`` = (block IP module,
+    image_proj, ip_scale) the IP residual of the img-stream queries is added
+    to the img stream at the block's end (``dit.py:172-230``)."""
     (img_m1, img_m2) = nn.modulation(p.img_mod, vec)
     (txt_m1, txt_m2) = nn.modulation(p.txt_mod, vec)
 
@@ -195,10 +211,14 @@ def _double_block(p: DoubleStreamBlock, img, txt, vec, cos, sin, num_heads):
     txt_h = (1 + txt_m2[1]) * nn.layernorm(None, txt) + txt_m2[0]
     txt = txt + txt_m2[2] * nn.linear(p.txt_mlp["2"],
                                       nn.gelu_tanh(nn.linear(p.txt_mlp["0"], txt_h)))
+    if ip is not None:
+        img = img + _ip_residual(ip, iq)
     return img, txt
 
 
-def _single_block(p: SingleStreamBlock, x, vec, cos, sin, num_heads, hidden_size):
+def _single_block(p: SingleStreamBlock, x, vec, cos, sin, num_heads, hidden_size, ip=None):
+    """SingleStreamBlockProcessor; ``ip`` adds the IP residual of the whole
+    joint sequence's queries to the attention output."""
     (mod,) = nn.modulation(p.modulation, vec)
     x_mod = (1 + mod[1]) * nn.layernorm(None, x) + mod[0]
     lin1 = nn.linear(p.linear1, x_mod)
@@ -206,8 +226,30 @@ def _single_block(p: SingleStreamBlock, x, vec, cos, sin, num_heads, hidden_size
     q, k, v = _split_qkv(qkv, num_heads)
     q, k = _qk_norm(p.norm, q, k, v)
     attn_out = attention(q, k, v, cos, sin)
+    if ip is not None:
+        attn_out = attn_out + _ip_residual(ip, q)
     out = nn.linear(p.linear2, torch.cat([attn_out, nn.gelu_tanh(mlp)], dim=-1))
     return x + mod[2] * out
+
+
+def embed_inputs(p, cfg: DiTConfig, img, img_ids, txt, txt_ids, timesteps, y, guidance):
+    """The prologue a DiT shares with a ControlNet (``p`` holds ``img_in``,
+    ``time_in``, ``vector_in``, ``txt_in`` and, for a dev model,
+    ``guidance_in``): (img, txt, vec, cos, sin) — the embedded streams, the
+    modulation vector in img's dtype, the RoPE tables of [txt; img]."""
+    compute_dtype = img.dtype
+    img = nn.linear(p.img_in, img)
+    vec = nn.mlp_embedder(p.time_in,
+                          nn.timestep_embedding(timesteps, 256).to(compute_dtype))
+    if cfg.guidance_embed:
+        if guidance is None:
+            raise ValueError("guidance required for guidance-embedded (dev) model")
+        vec = vec + nn.mlp_embedder(p.guidance_in,
+                                    nn.timestep_embedding(guidance, 256).to(compute_dtype))
+    vec = vec + nn.mlp_embedder(p.vector_in, y.to(compute_dtype))
+    txt = nn.linear(p.txt_in, txt)
+    cos, sin = multi_axis_rope(torch.cat([txt_ids, img_ids], dim=1), cfg.axes_dim, cfg.theta)
+    return img, txt, vec, cos, sin
 
 
 def dit_forward(p: DiT, cfg: DiTConfig, *,
@@ -215,10 +257,22 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
                 txt: torch.Tensor, txt_ids: torch.Tensor,
                 timesteps: torch.Tensor, y: torch.Tensor,
                 guidance: Optional[torch.Tensor] = None,
-                remat: bool = False, remat_policy: Optional[str] = None) -> torch.Tensor:
+                remat: bool = False, remat_policy: Optional[str] = None,
+                image_proj: Optional[torch.Tensor] = None, ip_params=None,
+                ip_scale: float = 1.0,
+                controlnet_residuals: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
     """img: [B, L_img, 64] packed latent tokens; txt: [B, L_txt, 4096];
     ids: [B, L, 3]; timesteps/guidance: [B]; y: [B, vec_in_dim].
-    Returns velocity tokens [B, L_img, 64] in img's dtype."""
+    Returns velocity tokens [B, L_img, 64] in img's dtype.
+
+    ``controlnet_residuals``: [B, L_img, hidden] tensors
+    (``controlnet.controlnet_forward``); after double block i the img stream
+    adds ``res[i % len(res)]`` in its dtype (``dit.py:292-295``).
+    ``image_proj`` with ``ip_params`` (an ``ip_adapter.IPAdapter``): IP
+    tokens [B, N, ctx], or a raw image embedding [B, clip_dim] that
+    ``image_proj_model`` projects first, cast to img's dtype; each block
+    adds ``ip_scale`` times its IP cross-attention."""
     if img.ndim != 3 or txt.ndim != 3:
         raise ValueError("img and txt must be 3-D [B, L, C]")
     if remat and (remat_policy or "full") != "full":
@@ -238,26 +292,26 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
             return checkpoint(s_fn, *a, use_reentrant=False)
 
     compute_dtype = img.dtype
-    img = nn.linear(p.img_in, img)
-    vec = nn.mlp_embedder(p.time_in,
-                          nn.timestep_embedding(timesteps, 256).to(compute_dtype))
-    if cfg.guidance_embed:
-        if guidance is None:
-            raise ValueError("guidance required for guidance-embedded (dev) model")
-        vec = vec + nn.mlp_embedder(p.guidance_in,
-                                    nn.timestep_embedding(guidance, 256).to(compute_dtype))
-    vec = vec + nn.mlp_embedder(p.vector_in, y.to(compute_dtype))
-    txt = nn.linear(p.txt_in, txt)
+    img, txt, vec, cos, sin = embed_inputs(p, cfg, img, img_ids, txt, txt_ids, timesteps, y,
+                                           guidance)
 
-    ids = torch.cat([txt_ids, img_ids], dim=1)
-    cos, sin = multi_axis_rope(ids, cfg.axes_dim, cfg.theta)
+    use_ip = image_proj is not None and ip_params is not None
+    if use_ip:
+        if image_proj.ndim == 2:            # a raw image embedding: project it
+            from .ip_adapter import image_proj_model
+            image_proj = image_proj_model(ip_params.image_proj_model, image_proj)
+        image_proj = image_proj.to(compute_dtype)
 
-    for blk in p.double_blocks:
-        img, txt = dblock(blk, img, txt, vec, cos, sin, cfg.num_heads)
+    for i, blk in enumerate(p.double_blocks):
+        ip = (ip_params.ip_double[i], image_proj, ip_scale) if use_ip else None
+        img, txt = dblock(blk, img, txt, vec, cos, sin, cfg.num_heads, ip)
+        if controlnet_residuals is not None:
+            img = img + controlnet_residuals[i % len(controlnet_residuals)].to(img.dtype)
 
     x = torch.cat([txt, img], dim=1)
-    for blk in p.single_blocks:
-        x = sblock(blk, x, vec, cos, sin, cfg.num_heads, cfg.hidden_size)
+    for i, blk in enumerate(p.single_blocks):
+        ip = (ip_params.ip_single[i], image_proj, ip_scale) if use_ip else None
+        x = sblock(blk, x, vec, cos, sin, cfg.num_heads, cfg.hidden_size, ip)
     img = x[:, txt.shape[1]:]
 
     fl = p.final_layer

@@ -6,9 +6,10 @@ Port of ``genhancer_tpu/registry.py``.  DiT configs come from
 ``models.vae.VAE_CONFIGS``, towers from ``models.towers.clip.CLIP_VARIANTS``
 (CLIP/MetaCLIP, kind ``clip``) and ``models.towers.siglip.SIGLIP_VARIANTS``
 (kind ``siglip``) or from a local HF model directory
-(``clip_config.model_dir``: ``load_tower``).  The VAE checkpoint (``AE`` /
-``ae_path``) loader waits for such a file in the repository; asking for one
-raises instead of silently falling back to random weights.
+(``clip_config.model_dir``: ``load_tower``).  The VAE's weights come from
+the FLUX ``ae.safetensors`` named by ``ae_path`` or ``$AE``
+(``vae_weights_path``, ``load_vae``); a path that names no file logs a
+warning and leaves the VAE at its random init, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -35,13 +36,32 @@ def build_dit_config(model_name: str) -> dit_m.DiTConfig:
 
 def build_vae_config(model_name: str = "flux-dev",
                      ae_path: Optional[str] = None) -> vae_m.VAEConfig:
-    """The VAE config; the weights are random init (seeded by the caller)."""
-    path = ae_path or os.environ.get("AE")
-    if path:
-        raise NotImplementedError(
-            f"VAE checkpoint {path!r} (AE / ae_path): the ae.safetensors loader "
-            "is not ported yet (ROADMAP: loaders waiting for weight files)")
+    """The VAE config of ``model_name``; its weights come from
+    ``vae_weights_path(ae_path)`` where that names a file (``load_vae``),
+    else from the caller's seeded random init."""
     return vae_m.VAE_CONFIGS[model_name]
+
+
+def vae_weights_path(ae_path: Optional[str] = None) -> Optional[str]:
+    """The ``ae.safetensors`` to load: ``ae_path``, else ``$AE``
+    (``registry.py:33-42``).  A path naming no file logs a warning and
+    gives None: the VAE stays at its random init."""
+    path = ae_path or os.environ.get("AE")
+    if path and os.path.exists(path):
+        return path
+    if path:
+        log.warning("AE checkpoint %s not found — random-init VAE", path)
+    return None
+
+
+def load_vae(vae: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load the FLUX ``ae.safetensors`` at ``path`` into ``vae`` (an
+    ``AutoEncoder``), in place, strictly: the file's keys are the port's
+    names and its convs OIHW, the port's layout (``hf_convert.
+    load_vae_params`` transposes them to HWIO for JAX).  Each tensor is cast
+    to the module's dtype."""
+    vae.load_state_dict(hf_io.load_safetensors(path), strict=True)
+    return vae
 
 
 def tower_family_and_config(tower: str, clip_image_size: int,

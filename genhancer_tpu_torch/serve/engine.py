@@ -14,6 +14,13 @@ padded to the smallest bucket that holds them, which keeps the device's
 batch shapes to the configured set and the seeded noise a function of the
 bucket only.  Device calls run under ``torch.inference_mode()`` and one lock.
 
+``quant="int8"`` swaps the served tree for int8 layers at load
+(``quantize_int8``): each int8 linear quantizes its input per row through
+K7 and multiplies on ``torch._int_mm``; each int8 VAE conv quantizes its
+input per tensor, with one amax over the whole bucket, so a request's
+pixels depend on its bucket mates (in both packages; padding repeats the
+last row, which leaves the amax as it was).
+
 Float32 matmuls and convolutions run in full float32: the engine turns
 TF32 off for both (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so the float32 VAE is not silently
@@ -25,11 +32,12 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import quant as quant_m
 from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..tasks.conditioning import image_conditioning, normalize, tower_features, tower_stats
@@ -45,6 +53,19 @@ def _pad_to(arr: np.ndarray, b: int) -> np.ndarray:
         return arr
     pad = np.repeat(arr[-1:], b - n, axis=0)
     return np.concatenate([arr, pad], axis=0)
+
+
+def quantize_int8(modules) -> Dict[str, Tuple[str, ...]]:
+    """``quant="int8"`` (``engine.py:93-103``), in place: every linear of the
+    DiT and of the tower (``clip.model``) whose smaller dimension reaches 64
+    becomes an int8 layer, and every conv of the whole VAE, encoder and
+    decoder (the mid-block attention's 1x1 q/k/v/proj_out too), whose in-
+    and out-channels reach 256.  Inference has no dW to protect, so every
+    eligible layer of the served tree is int8.  Returns the swapped module
+    paths of each tree."""
+    return {"dit": quant_m.quantize_linear_tree(modules["dit"]),
+            "tower": quant_m.quantize_linear_tree(modules["clip"]["model"]),
+            "vae": quant_m.quantize_conv_tree(modules["vae"])}
 
 
 def resolve_device(device) -> torch.device:
@@ -80,11 +101,9 @@ class InferenceEngine:
         if wire_dtype not in ("float32", "uint8"):
             raise ValueError(f"wire_dtype must be float32|uint8, got {wire_dtype!r}")
         self.wire_dtype = wire_dtype
-        if quant == "int8":
-            raise NotImplementedError(
-                "quant='int8' is not ported yet (ROADMAP: serve quant=int8)")
-        if quant != "none":
+        if quant not in ("none", "int8"):
             raise ValueError(f"quant must be none|int8, got {quant!r}")
+        self.quant = quant
         if int(num_devices) > 1 or int(model_parallel) > 1:
             raise NotImplementedError(
                 "multi-device serving (num_devices / model_parallel > 1) is not "
@@ -98,6 +117,8 @@ class InferenceEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.modules = modules.to(self.device).eval().requires_grad_(False)
+        # the module paths swapped for int8 ones, by tree ({} without int8)
+        self.int8_layers = quantize_int8(self.modules) if quant == "int8" else {}
         self._lock = threading.Lock()
         # unseeded noise must differ across restarts and replicas
         self._gen = torch.Generator(device=self.device)

@@ -159,6 +159,7 @@ def build_spec(cfg):
                   vae_dtype=(torch.float32 if cfg.get("vae_dtype") == "fp32"
                              else torch.bfloat16),
                   tower_dir=tower_dir,
+                  vae_path=registry.vae_weights_path(cfg.get("ae_path")),
                   tower_remat=bool(cfg.get("tower_remat") or False),
                   # the int8 stack (core.quant); the weight cache pays only
                   # when the fused optimizer emits it (JAX factory.py:177-188)

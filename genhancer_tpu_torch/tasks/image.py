@@ -114,6 +114,9 @@ class TaskSpec:
     # a local HF model directory holding the tower's weights
     # (clip_config.model_dir), or None for random init
     tower_dir: Optional[str] = None
+    # the FLUX ae.safetensors the VAE loads (ae_path / $AE), or None for
+    # random init
+    vae_path: Optional[str] = None
 
     @property
     def latent_hw(self) -> Tuple[int, int]:
@@ -155,20 +158,29 @@ def build_modules(spec: TaskSpec, device=None) -> tnn.ModuleDict:
 def init_modules(spec: TaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
     """Random-init modules drawn from ``generator`` (on ``device``), the
-    tower's weights from ``spec.tower_dir`` where one is set, LoRA injected
-    in stage 2 (its A's drawn from ``generator`` after everything else), and
-    then, in JAX's order, the spec's frozen int8 surgery applied
-    (``quantize_modules``)."""
+    tower's weights from ``spec.tower_dir`` and the VAE's from
+    ``spec.vae_path`` where they are set, LoRA injected in stage 2 (its A's
+    drawn from ``generator`` after everything else), and then, in JAX's
+    order, the spec's frozen int8 surgery applied (``quantize_modules``)."""
     require_ported(spec)
     modules = init_weights(build_modules(spec, device), generator)
-    if spec.tower_dir is not None:
-        modules["clip"]["model"], _ = registry.load_tower(
-            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=is_stage2(spec),
-            device=device)
+    load_pretrained(spec, modules, device)
     if is_stage2(spec):
         lora.inject(modules["clip"]["model"], generator, r=spec.lora_r,
                     alpha=spec.lora_alpha, targets=spec.lora_targets)
     return quantize_modules(spec, modules)
+
+
+def load_pretrained(spec, modules: tnn.ModuleDict, device=None) -> None:
+    """The weight files of an image or video spec, in place: the tower from
+    ``spec.tower_dir`` (the whole model in stage 2) and the VAE from
+    ``spec.vae_path``."""
+    if spec.tower_dir is not None:
+        modules["clip"]["model"], _ = registry.load_tower(
+            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=is_stage2(spec),
+            device=device)
+    if spec.vae_path is not None:
+        registry.load_vae(modules["vae"], spec.vae_path)
 
 
 def quantize_modules(spec, modules: tnn.ModuleDict) -> tnn.ModuleDict:

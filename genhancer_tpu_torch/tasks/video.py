@@ -50,7 +50,6 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
-from .. import registry
 from ..core import quant
 from ..core.nn import init_weights, lora_dropout_ctx
 from ..models import dit as dit_m
@@ -63,7 +62,7 @@ from ..train.state import TrainState, apply_gradients, create_state, with_quant_
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
                            video_conditioning)
-from .image import dit_quant_ctx, quantize_modules
+from .image import dit_quant_ctx, load_pretrained, quantize_modules
 
 VIDEO_MODES: Dict[str, Dict] = {
     "middle": {"n_cond": 2, "frame_times": (0.0, 2.0), "target_time": 1.0},
@@ -107,6 +106,8 @@ class VideoTaskSpec:
     # a local HF model directory holding the tower's weights
     # (clip_config.model_dir), or None for random init
     tower_dir: Optional[str] = None
+    # the FLUX ae.safetensors the VAE loads (ae_path / $AE), or None
+    vae_path: Optional[str] = None
 
     @property
     def n_cond(self) -> int:
@@ -156,15 +157,13 @@ def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
 def init_modules(spec: VideoTaskSpec, generator: torch.Generator,
                  device=None) -> tnn.ModuleDict:
     """Random-init modules drawn from ``generator`` (on ``device``), the
-    tower's weights from ``spec.tower_dir`` where one is set, in stage 2
+    tower's weights from ``spec.tower_dir`` and the VAE's from
+    ``spec.vae_path`` where they are set, in stage 2
     LoRA injected (its A's drawn from ``generator`` after everything else),
     then the spec's frozen int8 surgery (``image.quantize_modules``)."""
     require_ported(spec)
     modules = init_weights(build_modules(spec, device), generator)
-    if spec.tower_dir is not None:
-        modules["clip"]["model"], _ = registry.load_tower(
-            spec.tower_kind, spec.tower_cfg, spec.tower_dir, text_side=is_stage2(spec),
-            device=device)
+    load_pretrained(spec, modules, device)
     if is_stage2(spec):
         lora.inject(modules["clip"]["model"], generator, r=spec.lora_r,
                     alpha=spec.lora_alpha, targets=spec.lora_targets)

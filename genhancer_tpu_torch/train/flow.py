@@ -8,9 +8,15 @@ in every reference trainer)::
     x_t = (1-t) x_1 + t x_0
     loss = MSE(DiT(x_t, cond, t), x_0 - x_1)    # velocity target
 
-and the resolution-shifted sigmoid schedule with the plain (no-CFG) Euler
-denoiser the reconstruction path runs.  Random draws come from an explicit
-``torch.Generator``.
+the resolution-shifted sigmoid schedule with the plain (no-CFG) Euler
+denoiser the reconstruction path runs, and the two samplers of the
+generative core: ``denoise_euler_cfg`` (classifier-free guidance) and
+``denoise_controlnet`` (ControlNet residuals, with CFG).  Random draws come
+from an explicit ``torch.Generator``.
+
+JAX rounds the weakly-typed constants of the samplers (``t_prev - t_curr``,
+``true_gs``, ``controlnet_gs``) to the array's dtype; so do these
+(``as_dtype_scalar``).
 """
 
 from __future__ import annotations
@@ -81,5 +87,61 @@ def denoise_euler(model_fn, img: torch.Tensor, timesteps, guidance: float = 4.0)
     for t_curr, t_prev in zip(timesteps[:-1], timesteps[1:]):
         t_vec = torch.full((b,), t_curr, dtype=img.dtype, device=img.device)
         pred = model_fn(img, t_vec, guidance_vec)
+        img = img + as_dtype_scalar(t_prev - t_curr, img.dtype) * pred
+    return img
+
+
+def denoise_euler_cfg(model_fn, img: torch.Tensor, timesteps, *, guidance: float = 4.0,
+                      true_gs: float = 1.0, neg_model_fn=None,
+                      timestep_to_start_cfg: int = 0):
+    """Euler sampler with classifier-free guidance (``flow.py:75-95``):
+    ``pred = neg + true_gs * (pos - neg)`` from step
+    ``timestep_to_start_cfg`` on, ``neg`` from ``neg_model_fn``; without it
+    this is ``denoise_euler``."""
+    b = img.shape[0]
+    guidance_vec = torch.full((b,), guidance, dtype=img.dtype, device=img.device)
+    gs = as_dtype_scalar(true_gs, img.dtype)
+    for i, (t_curr, t_prev) in enumerate(zip(timesteps[:-1], timesteps[1:])):
+        t_vec = torch.full((b,), t_curr, dtype=img.dtype, device=img.device)
+        pred = model_fn(img, t_vec, guidance_vec)
+        if neg_model_fn is not None and i >= timestep_to_start_cfg:
+            neg_pred = neg_model_fn(img, t_vec, guidance_vec)
+            pred = neg_pred + gs * (pred - neg_pred)
+        img = img + as_dtype_scalar(t_prev - t_curr, img.dtype) * pred
+    return img
+
+
+def denoise_controlnet(model_fn, controlnet_fn, img: torch.Tensor, timesteps, *,
+                       guidance: float = 4.0, true_gs: float = 1.0,
+                       controlnet_gs: float = 0.7, neg_model_fn=None,
+                       neg_controlnet_fn=None, timestep_to_start_cfg: int = 0):
+    """ControlNet-guided Euler sampler (``flow.py:98-134``).
+
+    ``controlnet_fn(img, t_vec, g_vec)`` gives the residuals, each scaled by
+    ``controlnet_gs`` and handed to ``model_fn(img, t_vec, g_vec,
+    residuals)``.  Under CFG the negative branch runs its own ControlNet
+    pass under the negative conditioning, as the reference does, so
+    ``neg_controlnet_fn`` is required with ``neg_model_fn`` (pass
+    ``controlnet_fn`` to reuse the positive conditioning knowingly)."""
+    if neg_model_fn is not None and neg_controlnet_fn is None:
+        raise ValueError(
+            "neg_model_fn given without neg_controlnet_fn: the reference runs the "
+            "controlnet under the NEGATIVE text conditioning in the CFG branch "
+            "(sampling.py:205-213).  Pass neg_controlnet_fn (or "
+            "neg_controlnet_fn=controlnet_fn to knowingly reuse the positive conditioning)")
+    b = img.shape[0]
+    guidance_vec = torch.full((b,), guidance, dtype=img.dtype, device=img.device)
+    gs = as_dtype_scalar(true_gs, img.dtype)
+
+    def scaled(residuals):
+        return tuple(as_dtype_scalar(controlnet_gs, r.dtype) * r for r in residuals)
+
+    for i, (t_curr, t_prev) in enumerate(zip(timesteps[:-1], timesteps[1:])):
+        t_vec = torch.full((b,), t_curr, dtype=img.dtype, device=img.device)
+        pred = model_fn(img, t_vec, guidance_vec, scaled(controlnet_fn(img, t_vec, guidance_vec)))
+        if neg_model_fn is not None and i >= timestep_to_start_cfg:
+            neg_res = scaled(neg_controlnet_fn(img, t_vec, guidance_vec))
+            neg_pred = neg_model_fn(img, t_vec, guidance_vec, neg_res)
+            pred = neg_pred + gs * (pred - neg_pred)
         img = img + as_dtype_scalar(t_prev - t_curr, img.dtype) * pred
     return img

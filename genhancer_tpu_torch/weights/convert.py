@@ -22,6 +22,13 @@ write — which this package's modules load with ``strict=True``:
     ``load_jax_params`` swaps the matching port modules for
     ``core.nn.Int8Layer`` first, so both packages compute the same.
 
+The generative core's extra trees ride along under their own keys:
+``controlnet`` (``models.controlnet``: the DiT's prologue and block names,
+renamed the same way), ``ip`` (``models.ip_adapter``: the keys are the
+port's, the tree's ``num_tokens``/``cross_attention_dim`` integers are
+module attributes, not tensors) and ``t5`` (``models.towers.t5``: HF's
+names in both packages).
+
 HF ``CLIPModel`` and ``SiglipModel`` state dicts are already the port
 tower's names and layouts (the patch embedding is OIHW in both): a merged
 tower's ``state_dict()`` is its HF state dict (``hf_convert.tower_to_torch``'s
@@ -117,6 +124,20 @@ def module_state_dict(tree) -> StateDict:
     return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()}
 
 
+# the IP tree's static integers (module attributes in the port)
+_IP_STATIC = ("num_tokens", "cross_attention_dim")
+
+
+def ip_state_dict(tree) -> StateDict:
+    """An ``init_ip_params`` tree -> the ``IPAdapter``'s state dict."""
+    return {k: _leaf(v, k) for k, v in flatten_tree(tree).items()
+            if not k.endswith(_IP_STATIC)}
+
+
+# the extra trees of the generative core: tree key -> its state-dict function
+_EXTRAS = {"controlnet": dit_state_dict, "ip": ip_state_dict, "t5": module_state_dict}
+
+
 def adopt_int8(root, sd: StateDict) -> None:
     """Swap, in place, each module of ``root`` whose state-dict entries in
     ``sd`` are int8 factors (``<path>.weight_q``) for a ``core.nn.Int8Layer``
@@ -137,14 +158,18 @@ def state_dicts_from_jax(params, text_side: bool = False) -> Dict[str, StateDict
     """An image or video tree (numpy leaves) -> ``{"dit", "vae", "tower",
     "project_clip"}`` state dicts plus ``"project_t5"`` (image) or
     ``"visual_adapter"`` (video); the tower's text side only with
-    ``text_side``."""
+    ``text_side``.  A ``controlnet``, ``ip`` or ``t5`` tree beside them (or
+    alone) gives the state dict of that key."""
+    out = {key: fn(params[key]) for key, fn in _EXTRAS.items() if key in params}
+    if "clip" not in params:
+        return out
     clip = params["clip"]
-    out = {
+    out.update({
         "dit": dit_state_dict(params["dit"]),
         "vae": vae_state_dict(params["vae"]),
         "tower": tower_state_dict(clip["model"], text_side),
         "project_clip": module_state_dict(clip["project_clip"]),
-    }
+    })
     if "project_t5" in clip:
         out["project_t5"] = module_state_dict(clip["project_t5"])
     if "visual_adapter" in params:
@@ -155,7 +180,15 @@ def state_dicts_from_jax(params, text_side: bool = False) -> Dict[str, StateDict
 def load_jax_params(modules, params) -> None:
     """Load a JAX parameter tree into ``init_modules``-layout modules of the
     same task kind (strict: every key on both sides must match; a stage-2
-    tower, a ``CLIPModel``, takes the text side as well)."""
+    tower, a ``CLIPModel``, takes the text side as well).  A ``controlnet``,
+    ``ip`` or ``t5`` tree loads into ``modules[key]`` (a ``ControlNet``,
+    ``IPAdapter`` or ``T5Encoder``), whose IP integers must equal the
+    tree's."""
+    for key in _EXTRAS:
+        if key in params:
+            _load_extra(key, modules[key], params[key])
+    if "clip" not in params:
+        return
     sds = state_dicts_from_jax(params, text_side=hasattr(modules["clip"]["model"], "text_model"))
     adopt_int8(modules["vae"], sds["vae"])
     adopt_int8(modules["clip"]["model"], sds["tower"])
@@ -167,3 +200,13 @@ def load_jax_params(modules, params) -> None:
         modules["clip"]["project_t5"].load_state_dict(sds["project_t5"], strict=True)
     if "visual_adapter" in modules or "visual_adapter" in sds:
         modules["visual_adapter"].load_state_dict(sds["visual_adapter"], strict=True)
+
+
+def _load_extra(key: str, module, tree) -> None:
+    if key == "ip":
+        ipm, want = module.image_proj_model, tree["image_proj_model"]
+        got = (ipm.num_tokens, ipm.cross_attention_dim)
+        if got != tuple(int(want[k]) for k in _IP_STATIC):
+            raise ValueError(f"IP adapter (num_tokens, cross_attention_dim) {got} != the "
+                             f"tree's {tuple(int(want[k]) for k in _IP_STATIC)}")
+    module.load_state_dict(_EXTRAS[key](tree), strict=True)

@@ -297,8 +297,7 @@ def test_default_tokenizer_and_siglip_refuse_clearly(monkeypatch):
     with pytest.raises(FileNotFoundError, match="random-init"):
         mmvp.evaluate_model_dir("/nonexistent", ".", tower="siglip", clip_image_size=384,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="extra models"):
-        recon.reconstruct(None, None, np.zeros((1, 4, 4, 3)), controlnet_params={})
+    # reconstruct(controlnet_params=...) is ported: tests/test_torch_controlnet.py
 
 
 # ---------------------------------------------------------------- reconstruction

@@ -4,7 +4,9 @@
 * ``reconstruct``'s device program on injected NHWC noise equals the JAX
   composition of genhancer_tpu/serve/engine.py (tower -> projectors -> Euler
   DiT -> VAE decode -> clamp -> uint8) on the same noise, at both wires;
-* bucket padding, oversize rejection and the unported options;
+* bucket padding, oversize rejection and the unported options (int8
+  serving is held in tests/test_torch_serve_int8.py, the AE loader in
+  tests/test_torch_vae_loader.py);
 * an HTTP round trip on an ephemeral port.
 
 Tolerances: float32 compute on bf16 DiT weights (the JAX serving test's
@@ -144,7 +146,6 @@ class TestEngine:
 
     @pytest.mark.parametrize("kw, exc", [
         ({"wire_dtype": "bf16"}, ValueError),
-        ({"quant": "int8"}, NotImplementedError),
         ({"quant": "fp8"}, ValueError),
         ({"num_devices": 2}, NotImplementedError),
         ({"model_parallel": 2}, NotImplementedError),
@@ -186,8 +187,6 @@ class TestEngine:
         pytest.param({"tower": "siglip", "clip_config": {"clip_image_size": 384},
                       "tower_quant": "int8"}, NotImplementedError, "siglip",
                      id="override1-siglip"),
-        pytest.param({"ae_path": "ae.safetensors"}, NotImplementedError, "AE",
-                     id="override2-AE"),
     ])
     def test_unported_config_paths_raise(self, override, error, match):
         from genhancer_tpu_torch.tasks.factory import build_spec
