@@ -94,6 +94,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``fused_optimizer: pallas`` (K3); launch counts per step,
              checkpoints, a resume from step 8, and an engine serving from
              the written components;
+6b. dp    — data parallelism and ZeRO-1 (``parallel/mesh.py``): (a) the
+             ``Trainer`` on the same config with ``shard_optimizer_state``
+             as one torchrun-style rank over NCCL (world size 1; its
+             collectives run) in a subprocess, 8 steps on the batches the
+             K3 run read: losses and parameters equal the K3 run's bit for
+             bit, K3 112 launches per step, step time and peak memory; (b)
+             two gloo ranks sharing the card (both ``LOCAL_RANK=0``),
+             configs/tpu_fast_stage1.yaml's settings with the DiT cut to
+             1 + 1 blocks, B=4 per rank, 3 steps of ``int8_full`` (K4) and
+             of ``int8_dw`` + 8-bit moments (K6), each replicated and with
+             ``shard_optimizer_state``: ZeRO-1 equal to replicated and the
+             ranks equal bit for bit (parameters and int8 caches after
+             every step, gathered moments), the loss within 3e-3 of one
+             process on the global batch, each rank's moment bytes its row
+             ranges', K3/K4/K6 once per leaf per rank per step, the
+             host-staged step time; K3/K4/K6 on row ranges at unaligned
+             offsets against the whole-leaf update bit for bit; the time to
+             draw the global batch's LoRA masks at 1, 2 and 4 ranks;
 7. stage2  — the ``Trainer`` on configs/MetaCLIP_large_stage2_all.yaml at full
              width (LoRA on the whole MetaCLIP-L/14, B=16 x accumulation 2)
              from the K3 run's step-10 files (``load_dir``/``load_step``): 7
@@ -362,14 +380,23 @@ def graph_ms(fn, n: int = 20, rounds: int = 4):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    stream = torch.cuda.current_stream()
     for attempt in range(2):   # a first capture of autograd's backward may fail once
-        graph = torch.cuda.CUDAGraph()
+        graph, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, pool=pool):
                 for _ in range(n):
                     fn()
             break
         except RuntimeError as e:
+            # a capture that fails inside leaves the caching allocator
+            # capturing into the graph's pool (every later free deferred, so
+            # the process keeps all it ever allocated) and the capture stream
+            # current: end the pool's capture, release it, restore the stream
+            dev = torch.cuda.current_device()
+            torch._C._cuda_endAllocateToPool(dev, pool)
+            torch._C._cuda_releasePool(dev, pool)
+            torch.cuda.set_stream(stream)
             print(f"[kernels] CUDA graph capture {attempt + 1} of 2 failed ({str(e)[:80]})")
     else:
         return None
@@ -2570,11 +2597,31 @@ def _write_shards(root, n_shards=4, per_shard=96, size=256):
     return root
 
 
+class _Recording:
+    """A loader that keeps a copy of every batch it hands on: the crops of
+    the image loader's decode threads share one generator, so a second
+    run of the same config reads other crops."""
+
+    def __init__(self, inner):
+        self.inner, self.batches = inner, []
+
+    def __iter__(self):
+        for b in self.inner:
+            self.batches.append({k: (v.copy() if hasattr(v, "copy") else v)
+                                 for k, v in b.items()})
+            yield b
+
+    def close(self) -> None:
+        self.inner.close()
+
+
 def phase_train(work):
     """The port's Trainer at full width, once per optimizer; returns
     ({optimizer: launch counts of its 8-step run}, trainable leaf count,
     the K3 run's output directory, which keeps the step-10 component files
-    for stage 2's ``load_dir``)."""
+    for stage 2's ``load_dir``, and the K3 run's reference for phase_dp:
+    its losses, median step time and the digests of its parameters after
+    the 8 steps)."""
     import numpy as np
     import torch
     from genhancer_tpu_torch.serve.engine import InferenceEngine
@@ -2604,6 +2651,8 @@ def phase_train(work):
         built = time.perf_counter() - t0
         n_leaves = len(trainer.state.trainable)
         n_par = sum(p.numel() for p in trainer.state.trainable.values())
+        if opt == "pallas":         # the host batches phase_dp (a) replays
+            trainer.loader = _Recording(trainer.loader)
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         t0 = time.perf_counter()
@@ -2633,6 +2682,11 @@ def phase_train(work):
                 "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
         print(f"[train] {opt}: kernel launches {counts}, expected {want}")
         check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
+        if opt == "pallas":
+            from genhancer_tpu_torch.parallel.testing import digest
+            k3_ref = {"loss": [h["loss"] for h in hist], "step_s": step_s,
+                      "batches": trainer.loader.batches,
+                      "params": {k: digest(v) for k, v in trainer.state.trainable.items()}}
         for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
                     "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
             check(os.path.exists(os.path.join(out, pat.format(8))),
@@ -2674,7 +2728,313 @@ def phase_train(work):
         ckpt.prune_checkpoints(out, 1)
         os.remove(os.path.join(out, "optimizer-state-10.bin"))
         stage1 = out
-    return runs, n_leaves, stage1
+    return runs, n_leaves, stage1, k3_ref
+
+
+# phase_dp (b): the int8 paths of configs/tpu_fast_stage1.yaml, each run
+# replicated and with shard_optimizer_state (ZeRO-1) on two gloo ranks
+DP_GLOO_VARIANTS = {"int8_full": {},
+                    "int8_dw": {"dit_quant": "int8_dw", "optimizer_moment_bits": 8}}
+DP_GLOO_STEPS = 3
+DP_GLOO_BATCH = 4      # rows per rank
+# JAX's bound for int8 under data parallelism (tests/test_quant_parallel.py:134)
+DP_INT8_REL = 3e-3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _optimizer_launches(counts) -> int:
+    return sum(counts[k] for k in ("fused_adamw", "fused_adamw_quant", "fused_adamw8",
+                                   "fused_adamw8_quant"))
+
+
+def _dp_launch(*args, **kw):
+    """``parallel.testing.launch``; a rank that fails or hangs fails the
+    phase (its log's end in the message)."""
+    from genhancer_tpu_torch.parallel import testing as ptest
+    try:
+        return ptest.launch(*args, **kw)
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)[-4000:]) from e
+
+
+def _device_memory(tag):
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    print(f"[dp] {tag}: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved); the card has "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
+
+
+def _dp_nccl(work, k3_ref):
+    """(a): the Trainer as one torchrun-style rank over NCCL, world size 1,
+    ``fused_optimizer: pallas`` with ``shard_optimizer_state``, for the 8
+    steps of phase_train's K3 run on the host batches that run read (its
+    decode threads' crops are not repeatable): the losses and the
+    parameters after step 8 equal the K3 run's bit for bit."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(CONFIG)
+    cfg["data_config"]["img_dir"] = os.path.join(work, "shards")
+    out_dir = os.path.join(work, "out-dp")
+    cfg.update(max_train_steps=8, checkpointing_steps=8, log_interval=1, report_to="none",
+               fused_optimizer="pallas", shard_optimizer_state=True, output_dir=out_dir)
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "LOCAL_RANK": "0"}
+    t0 = time.perf_counter()
+    (res,) = _dp_launch({"scenario": "train", "device": "cuda", "cfg": dict(cfg),
+                           "batches": k3_ref["batches"], "digests": True,
+                           "threads": os.cpu_count() or 1}, 1,
+                          os.path.join(work, "dp-nccl"), timeout=420, env=env)
+    wall = time.perf_counter() - t0
+    hist = res["history"]
+    losses = [h["loss"] for h in hist]
+    n = len(res["params"])
+    check([h["step"] for h in hist] == list(range(1, 9)), f"dp (a): synced steps {hist}")
+    check(losses == k3_ref["loss"], f"dp (a): losses {losses} != the K3 run's {k3_ref['loss']}")
+    diff = [k for k, d in res["params"].items() if d != k3_ref["params"].get(k)]
+    check(not diff, f"dp (a): {len(diff)} of {n} parameters differ from the K3 run's after "
+          f"step 8: {diff[:4]}")
+    check(len(res["rows"]) == n and res["saved_steps"] == [8]
+          and all(os.path.exists(os.path.join(out_dir, f"{f}-8.bin"))
+                  for f in ("checkpoint-dit", "optimizer-state")),
+          f"dp (a): {len(res['rows'])} of {n} leaves by rows, saved {res['saved_steps']}")
+    want = {**_no_launches(), "fused_rope_attention": 8 * 12,
+            "fused_rope_attention_bwd": 8 * 12, "fused_attention": 8 * 2 * 24,
+            "fused_adamw": 8 * n}
+    check(res["launches"] == want, f"dp (a): launches {res['launches']} != {want}")
+    step_s = statistics.median(h["step_time"] for h in hist[2:])
+    print(f"[dp] (a) NCCL, world size 1, shard_optimizer_state: one rank of "
+          f"configs/MetaCLIP_large_stage1.yaml (B=16 x accumulation 2, K3) in a subprocess, 8 "
+          f"steps in {wall:.1f} s with its start and the step-8 checkpoint; losses and the {n} "
+          f"parameters after step 8 identical to the K3 run's (losses {losses}); K3 "
+          f"{res['launches']['fused_adamw'] // 8} launches per step ({n} leaves by rows "
+          f"[0, n)); median step time of steps 3-8 {step_s * 1e3:.1f} ms against the K3 run's "
+          f"{k3_ref['step_s'] * 1e3:.1f} ms; peak device memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; moments {res['moment_bytes'] / 2**30:.3f} GiB",
+          flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return res["launches"]
+
+
+class _DitDepth:
+    """The registry's flux-dev DiT config cut to ``depth`` double and
+    ``single`` single blocks while open (restored on exit)."""
+
+    def __init__(self, depth: int, single: int):
+        self.depth, self.single = depth, single
+
+    def __enter__(self):
+        from genhancer_tpu_torch import registry
+        self.real = registry.build_dit_config
+        cut = dataclasses.replace(self.real("flux-dev"), depth=self.depth,
+                                  depth_single_blocks=self.single)
+        registry.build_dit_config = lambda name: cut
+        return cut
+
+    def __exit__(self, *exc):
+        from genhancer_tpu_torch import registry
+        registry.build_dit_config = self.real
+
+
+def _dp_gloo(work):
+    """(b): two gloo ranks sharing the card (both LOCAL_RANK=0, torchrun's
+    layout of two one-card nodes), configs/tpu_fast_stage1.yaml's settings at
+    flux-dev width with the DiT cut to one double and one single block, B=4
+    per rank, 3 steps of int8_full (K4's cache) and of int8_dw + 8-bit
+    moments (K6), each replicated and with shard_optimizer_state: ZeRO-1
+    equal to replicated and rank equal to rank bit for bit, the loss within
+    3e-3 of one process on the global batch, each rank's moment bytes its
+    row ranges', K3/K4/K6 once per leaf per rank per step."""
+    from genhancer_tpu_torch.parallel import testing as ptest
+    from genhancer_tpu_torch.train.config import load_config
+    from genhancer_tpu_torch.train.trainer import Trainer
+    cfg = load_config(INT8_CONFIG)
+    cfg["data_config"].update(img_dir=os.path.join(work, "shards"),
+                              train_batch_size=DP_GLOO_BATCH)
+    cfg.update(log_interval=1, report_to="none", output_dir=os.path.join(work, "out-dp-gloo"))
+    variants = {}
+    for name, over in DP_GLOO_VARIANTS.items():
+        variants[name] = over
+        variants[name + "_zero1"] = {**over, "shard_optimizer_state": True}
+    with _DitDepth(1, 1) as dit:
+        t0 = time.perf_counter()
+        outs = _dp_launch({"scenario": "steps", "device": "cuda", "steps": DP_GLOO_STEPS,
+                             "cfg": dict(cfg), "registry": {"dit": dit}, "variants": variants,
+                             "init_file": os.path.join(work, "dp-gloo.store"), "threads": 4},
+                            2, os.path.join(work, "dp-gloo"), timeout=480,
+                            env={"LOCAL_RANK": "0"})
+        wall = time.perf_counter() - t0
+        # one process on the global batch (2 x 4 rows), in this process
+        ref = {}
+        for name, over in DP_GLOO_VARIANTS.items():
+            one = copy.deepcopy(cfg).merged_with(over)
+            one["data_config"]["train_batch_size"] = 2 * DP_GLOO_BATCH
+            trainer = Trainer(one, device="cuda")
+            trainer.loader.close()
+            ref[name] = ptest.run_steps(trainer, DP_GLOO_STEPS)
+            del trainer
+            _free()
+    counts = {}
+    for name in variants:
+        runs = [o["runs"][name] for o in outs]
+        r0, r1 = runs
+        for key in ("loss", "params", "caches", "moments"):
+            check(r0[key] == r1[key], f"dp (b) {name}: the ranks' {key} differ")
+        check(r0["rows"] != r1["rows"] or not r0["rows"], f"dp (b) {name}: equal row ranges")
+        for r, run in enumerate(runs):
+            check(run["moment_bytes"] == run["moment_bytes_expected"],
+                  f"dp (b) {name} rank {r}: {run['moment_bytes']} moment bytes, its rows "
+                  f"hold {run['moment_bytes_expected']}")
+            for step, c in enumerate(run["launches"]):
+                cached = len(run["caches"][step])
+                ok = _optimizer_launches(c) == run["leaves"] and (
+                    c["fused_adamw_quant"] == cached if name.startswith("int8_full")
+                    else c["fused_adamw8"] > 0 and c["fused_adamw8_quant"] > 0)
+                check(ok and c["rowquant"] > 0,
+                      f"dp (b) {name} rank {r} step {step + 1}: launches {c}, "
+                      f"{run['leaves']} leaves, {cached} cached")
+        counts[f"dp_gloo_{name}"] = {k: sum(c[k] for c in r0["launches"])
+                                     for k in r0["launches"][0]}
+    lines, far = [], []
+    for name in DP_GLOO_VARIANTS:
+        rep, zero = outs[0]["runs"][name], outs[0]["runs"][name + "_zero1"]
+        for key in ("loss", "params", "caches", "moments"):
+            check(rep[key] == zero[key], f"dp (b) {name}: ZeRO-1's {key} differ from replicated")
+        rel = [abs(a - b) / abs(b) for a, b in zip(rep["loss"], ref[name]["loss"])]
+        if max(rel) > DP_INT8_REL:
+            far.append(f"{name}: losses {rep['loss']} against one process's "
+                       f"{ref[name]['loss']} (relative {rel}, bound {DP_INT8_REL})")
+        c = zero["launches"][0]
+        lines.append(
+            f"{name}: losses {[round(x, 5) for x in rep['loss']]} (one process on the global "
+            f"batch {[round(x, 5) for x in ref[name]['loss']]}, max relative {max(rel):.2e}); "
+            f"moments per rank {rep['moment_bytes'] / 2**20:.1f} MiB replicated, "
+            f"{zero['moment_bytes'] / 2**20:.1f} MiB with ZeRO-1 ({len(zero['rows'])} of "
+            f"{zero['leaves']} leaves by rows); per rank and step K3 {c['fused_adamw']}, K4 "
+            f"{c['fused_adamw_quant']}, K6 {c['fused_adamw8'] + c['fused_adamw8_quant']}; "
+            f"host-staged gloo step (median of steps 2-3) replicated "
+            f"{statistics.median(rep['step_s'][1:]) * 1e3:.1f} ms, ZeRO-1 "
+            f"{statistics.median(zero['step_s'][1:]) * 1e3:.1f} ms, one process on the card "
+            f"{statistics.median(ref[name]['step_s'][1:]) * 1e3:.1f} ms")
+    print(f"[dp] (b) two gloo ranks on one card, tpu_fast_stage1 at flux-dev width with the "
+          f"DiT cut to 1 + 1 blocks, B={DP_GLOO_BATCH} per rank, {DP_GLOO_STEPS} steps, "
+          f"{len(variants)} runs in {wall:.1f} s: ZeRO-1 equal to replicated and rank 0 equal "
+          f"to rank 1 bit for bit (parameters and int8 caches after every step, gathered "
+          f"moments); " + "; ".join(lines), flush=True)
+    check(not far, "dp (b): " + "; ".join(far))
+    return counts
+
+
+def _dp_row_kernels():
+    """K3, K4 and K6 on row ranges through ``fused_adamw_apply``, at offsets
+    that leave the views' bases off 16 bytes (the kernels' own unaligned
+    paths) and on aligned rows: the rows of the whole-leaf update bit for
+    bit, one launch per leaf."""
+    import torch
+    from genhancer_tpu_torch.core.kernels import adamw as KA
+    from genhancer_tpu_torch.train.optim import make_lr_schedule
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    leaves = {"k3": ((10,), (5, 10)), "k3_rows": ((64, 3072), (32, 64)),
+              "k4": ((6, 12), (3, 6)), "k4_rows": ((64, 3072), (32, 64)),
+              "k6": ((192, 512), (96, 192)), "k6_unaligned": ((6, 132), (3, 6))}
+    quant = ("k4", "k4_rows", "k6", "k6_unaligned")
+    eight = ("k6", "k6_unaligned")
+    sched = make_lr_schedule("constant", 1e-3)
+    params = {k: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+              for k, (s, _) in leaves.items()}
+    grads = {k: torch.randn(s, generator=gen, device="cuda") * 1e-2
+             for k, (s, _) in leaves.items()}
+
+    def run(rows):
+        p = {k: v.clone() for k, v in params.items()}
+        local = {k: (v[rows[k][0]:rows[k][1]] if k in rows else v) for k, v in p.items()}
+        mu = {k: KA.moment8_zeros_m(v) if k in eight else torch.zeros_like(v)
+              for k, v in local.items()}
+        nu = {k: KA.moment8_zeros_v(v) if k in eight else torch.zeros_like(v)
+              for k, v in local.items()}
+        q = {k: (torch.zeros(leaves[k][0], dtype=torch.int8, device="cuda"),
+                 torch.zeros(leaves[k][0][0], device="cuda")) for k in quant}
+        before = dict(KA.LAUNCHES)
+        KA.fused_adamw_apply(p, mu, nu, grads, 1, sched, quant=q, rows=rows)
+        torch.cuda.synchronize()
+        return p, mu, nu, q, {k: KA.LAUNCHES[k] - before[k] for k in before}
+
+    rows = {k: r for k, (_, r) in leaves.items()}
+    whole, part = run({}), run(rows)
+    want = {"fused_adamw": 2, "fused_adamw_quant": 2, "fused_adamw8": 0,
+            "fused_adamw8_quant": 2}
+    check(whole[4] == want and part[4] == want,
+          f"dp row kernels: launches {whole[4]}, {part[4]} != {want}")
+    bad = []
+    for k, (a, b) in rows.items():
+        got = [part[0][k][a:b], *(part[1][k] if k in eight else (part[1][k],)),
+               *(part[2][k] if k in eight else (part[2][k],)),
+               *(t[a:b] for t in part[3].get(k, ()))]
+        ref = [whole[0][k][a:b], *(t[a:b] for t in (whole[1][k] if k in eight
+                                                      else (whole[1][k],))),
+               *(t[a:b] for t in (whole[2][k] if k in eight else (whole[2][k],))),
+               *(t[a:b] for t in whole[3].get(k, ()))]
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            bad.append(k)
+    aligned = {k: part[0][k][a:b].data_ptr() % 16 == 0 for k, (a, b) in rows.items()}
+    print(f"[dp] K3/K4/K6 on row ranges (views' bases 16-byte aligned: {aligned}): "
+          f"{bad or 'every row of p, the moments and the int8 copy identical to the whole-leaf update'}; "
+          f"launches {part[4]}", flush=True)
+    check(not bad, f"dp row kernels: the row updates of {bad} differ from the whole leaf's")
+    check(not aligned["k3"] and not aligned["k4"] and not aligned["k6_unaligned"],
+          f"dp row kernels: the unaligned cases are aligned: {aligned}")
+
+
+def _mask_draw_ms():
+    """The time to draw one micro-batch's LoRA dropout masks of the stage-2
+    MetaCLIP-L/14 tower (24 layers x 6 wrapped calls on [B, 257, 1024 or
+    4096], then the projection's [B, 1024]) for the global batch of B = 16
+    rows per rank at 1, 2 and 4 ranks: each rank draws them all."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for w in (1, 2, 4):
+        b = 16 * w
+        shapes = [(b, 257, 1024)] * 5 + [(b, 257, 4096)]
+        shapes = shapes * 24 + [(b, 1024)]
+
+        def draw():
+            for s in shapes:
+                torch.rand(s, generator=gen, device="cuda") < 0.9
+
+        draw()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            draw()
+        end.record()
+        torch.cuda.synchronize()
+        out[w] = start.elapsed_time(end) / 3
+    print(f"[dp] drawing one micro-batch's 145 LoRA dropout masks of the MetaCLIP-L/14 tower "
+          f"for the global batch (each rank draws every rank's rows; B=16 per rank): "
+          + ", ".join(f"{w} rank(s) {ms:.3f} ms" for w, ms in out.items()), flush=True)
+    return out
+
+
+def phase_dp(work, k3_ref):
+    """Data parallelism and ZeRO-1: (a) full width at world size 1 over
+    NCCL against phase_train's K3 run, (b) two gloo ranks sharing the card
+    on the int8 paths, K3/K4/K6 on row ranges, the cost of the global
+    masks.  Returns {path: launch counts}."""
+    check(k3_ref is not None, "dp: phase_train gave no K3 reference")
+    _free()
+    _device_memory("before the ranks start")
+    counts = {"dp_nccl": _dp_nccl(work, k3_ref)}
+    _free()
+    counts.update(_dp_gloo(work))
+    _free()
+    _dp_row_kernels()
+    _mask_draw_ms()
+    return counts
 
 
 STAGE2_CONFIG = os.path.join(ROOT, "configs", "MetaCLIP_large_stage2_all.yaml")
@@ -4909,7 +5269,9 @@ def main():
     try:
         work = tempfile.mkdtemp(prefix="chip_smoke_train_")
         try:
-            train_counts, _, stage1 = attempt(phase_train, work) or (None, None, None)
+            train_counts, _, stage1, k3_ref = (attempt(phase_train, work)
+                                               or (None, None, None, None))
+            dp_counts = attempt(phase_dp, work, k3_ref)
             stage2_counts, exports["image"] = (attempt(phase_stage2_train, work, stage1,
                                                        eval_root) or (None, None))
         finally:
@@ -4946,7 +5308,8 @@ def main():
         sys.exit(1)
     paths = {"serve": serve_counts, "serve_int8": serve_int8_counts, **extras_counts,
              **{f"train_{k}": v for k, v in train_counts.items()},
-             **stage2_counts, **int8_counts, **video_counts, **video2_counts, **siglip_counts,
+             **stage2_counts, **dp_counts, **int8_counts, **video_counts, **video2_counts,
+             **siglip_counts,
              **eval_counts, **fast_counts, **fast_video_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies

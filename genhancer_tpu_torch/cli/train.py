@@ -24,6 +24,20 @@ tower at each checkpoint.
     a task (``tasks.factory.TRAINER_COMPAT``);
   * ``--profile`` writes a ``torch.profiler`` trace of steps 2-4 to
     ``<output_dir>/profile.json``.
+
+Data parallel on N cards: launch N ranks, one process per card, with
+torchrun's launcher (it sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT``; each rank trains on
+``cuda:LOCAL_RANK``)::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m genhancer_tpu_torch.cli.train --config configs/MetaCLIP_large_stage1.yaml
+
+``train_batch_size`` is per rank (the global batch is N times it), each
+rank reads its own shards, and ``shard_optimizer_state: true`` shards the
+AdamW moments by rows over the ranks (ZeRO-1); ``num_devices``, where set,
+must equal N.  JAX's manual contract ``GENHANCER_COORDINATOR=host:port``,
+``GENHANCER_NUM_PROCS``, ``GENHANCER_PROC_ID`` is taken too.
 """
 
 from __future__ import annotations

@@ -18,9 +18,10 @@ tree-level ``fused_adamw_apply``.
   on ``Moment8`` moments, with K4's emission when ``wq``/``ws`` are given
   (``_adamw8_kernel:120``, ``_adamw8_quant_kernel:130``);
 * ``fused_adamw_apply(params, mu, nu, grads, count, schedule, ...,
-  quant=None)`` — ``fused_adamw_apply:338`` over flat ``{path: tensor}``
-  dicts, in place; ``quant`` maps the paths whose int8 copy the update
-  emits to their (wq, ws) buffers.
+  quant=None, rows=None)`` — ``fused_adamw_apply:338`` over flat ``{path:
+  tensor}`` dicts, in place; ``quant`` maps the paths whose int8 copy the
+  update emits to their (wq, ws) buffers, ``rows`` the paths updated by
+  row range under ZeRO-1 to their ``(r0, r1)``.
 
 The port updates p, m, v and the weight cache in place, where the JAX
 package returns new arrays: the kernels' only traffic is the one read and
@@ -349,25 +350,41 @@ def adamw_scalars(gnorm: torch.Tensor, count: int, schedule: Callable[[int], flo
 def fused_adamw_apply(params, mu, nu, grads, count: int, schedule,
                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                       weight_decay: float = 0.01, max_grad_norm: float = 1.0,
-                      quant: Optional[dict] = None) -> torch.Tensor:
+                      quant: Optional[dict] = None,
+                      rows: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
     """``fused_adamw_apply:338`` over flat ``{path: tensor}`` dicts: one
     global norm over every grad leaf, then one kernel per leaf, in place —
     K6 where the moments are ``Moment8``, K3 elsewhere, each with K4's
     emission of the int8 copy for the paths in ``quant`` (``{path: (wq,
     ws)}``, written in place).  ``count`` is the post-increment (1-based)
-    step.  Returns the norm."""
+    step.  Returns the norm.
+
+    ZeRO-1: ``rows`` (``{path: (r0, r1)}``) names the leaves whose moments
+    cover rows ``[r0, r1)`` only; those leaves update the views
+    ``p[r0:r1]`` from ``g[r0:r1]`` and write ``wq[r0:r1]``, ``ws[r0:r1]``,
+    in place and without a copy (every kernel is per row or per element
+    and takes any row count).  A view whose base is not 16-byte aligned
+    takes the kernel's own unaligned path.  The norm is over the whole
+    gradients."""
     gnorm = global_norm(grads)
     scalars = adamw_scalars(gnorm, count, schedule, b1, b2, max_grad_norm)
     quant = quant or {}
+    rows = rows or {}
     hyper = dict(b1=b1, b2=b2, eps=eps, wd=weight_decay)
+
+    def view(x, key):
+        return x[rows[key][0]:rows[key][1]] if key in rows else x
+
     with torch.no_grad():
         for key in params:
-            args = (params[key], mu[key], nu[key], grads[key], scalars)
+            args = (view(params[key], key), mu[key], nu[key], view(grads[key], key), scalars)
+            wq, ws = quant.get(key, (None, None))
+            if wq is not None:
+                wq, ws = view(wq, key), view(ws, key)
             if isinstance(mu[key], Moment8):
-                wq, ws = quant.get(key, (None, None))
                 fused_adamw8_leaf(*args, wq=wq, ws=ws, **hyper)
             elif key in quant:
-                fused_adamw_quant_leaf(*args, *quant[key], **hyper)
+                fused_adamw_quant_leaf(*args, wq, ws, **hyper)
             else:
                 fused_adamw_leaf(*args, **hyper)
     return gnorm

@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import rand_rows
+
 
 def _param(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device,
@@ -209,7 +211,8 @@ def _lora_dropout(x: torch.Tensor) -> torch.Tensor:
     if ctx["masks"] is not None:
         keep = ctx["masks"][ctx["calls"]]
     else:
-        keep = torch.rand(x.shape, generator=ctx["generator"], device=x.device) < keep_p
+        # data parallel: this rank's rows of the global batch's mask
+        keep = rand_rows(x.shape, ctx["generator"], x.device) < keep_p
     ctx["calls"] += 1
     return torch.where(keep, x / _device_scalar(keep_p, x.dtype, x.device), 0.0)
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from ..parallel import mesh
 from . import nn
 from .kernels import int8_dw as K8
 from .kernels import rowquant as K7
@@ -70,16 +71,21 @@ def quantize_activation_rows(x: torch.Tensor, col_scale: Optional[torch.Tensor] 
 
 def quantize_activation_tensor(x: torch.Tensor):
     """Per-tensor symmetric dynamic quant (convs): one amax over the whole
-    call's batch, never per sample."""
+    call's batch, never per sample; under data parallelism over the global
+    batch (the max over the ranks, as XLA reduces over the data axis)."""
     xf = x.to(f32)
-    scale = div127(torch.clamp_min(xf.abs().amax(), 1e-12))
+    amax = mesh.all_reduce_max(xf.abs().amax())
+    scale = div127(torch.clamp_min(amax, 1e-12))
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
 def _quantize_cols(x2: torch.Tensor):
-    """Per-column symmetric quant of a [T, C] matrix -> (int8, float32 [1, C])."""
+    """Per-column symmetric quant of a [T, C] matrix -> (int8, float32 [1,
+    C]); under data parallelism each column's amax spans the global batch's
+    tokens."""
     xf = x2.to(f32)
-    scale = div127(torch.clamp_min(xf.abs().amax(dim=0, keepdim=True), 1e-12))
+    amax = mesh.all_reduce_max(xf.abs().amax(dim=0, keepdim=True))
+    scale = div127(torch.clamp_min(amax, 1e-12))
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 

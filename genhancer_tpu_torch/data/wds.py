@@ -157,9 +157,14 @@ class ShardStream:
                  shuffle_buffer: int = 0, seed: int = 0, repeat: bool = False,
                  sample_iter: Callable = iter_tar_samples,
                  group_videos: bool = False):
-        self.shards = split_shards(
-            split_shards(expand_shards(shards), node_index, node_count),
-            worker_index, worker_count)
+        every = expand_shards(shards)
+        mine = split_shards(every, node_index, node_count)
+        if not mine and every:
+            # a rank without data would sit out while the others wait for
+            # it in the step's collectives: fail here, at construction
+            raise ValueError(f"rank {node_index} of {node_count} gets no shard: {len(every)} "
+                             f"shard(s) for {node_count} ranks; write at least one per rank")
+        self.shards = split_shards(mine, worker_index, worker_count)
         if not self.shards:
             raise ValueError(f"no shards after splitting: {shards}")
         self.shuffle_buffer = shuffle_buffer

@@ -22,6 +22,7 @@ from torch import nn as tnn
 
 from ..core import nn
 from ..core.attention import sdpa_ref
+from ..parallel.mesh import randn_rows
 
 
 @dataclass(frozen=True)
@@ -231,8 +232,8 @@ def diagonal_gaussian(moments: torch.Tensor, sample: bool = True,
         return mean
     std = torch.exp(0.5 * logvar)
     if noise is None:
-        noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
-                            device=mean.device)
+        # data parallel: this rank's rows of the global batch's draw
+        noise = randn_rows(mean.shape, generator, mean.dtype, mean.device)
     return mean + std * noise.to(mean.dtype)
 
 

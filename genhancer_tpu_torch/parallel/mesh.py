@@ -1,0 +1,225 @@
+"""Data parallelism on ``torch.distributed``: the process group, the rank's
+rows, and the collectives of the data-parallel step.
+
+Port of the data-axis half of ``genhancer_tpu/parallel/mesh.py``.  In JAX
+the data axis is a mesh axis and XLA inserts the collectives; here a rank is
+one process with one device, and the step calls the collectives itself:
+
+  * ``maybe_initialize_distributed`` joins the group that the launcher
+    describes: torchrun's ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
+    ``MASTER_PORT`` (with ``LOCAL_RANK`` naming the rank's card), or JAX's
+    manual contract ``GENHANCER_COORDINATOR``/``GENHANCER_NUM_PROCS``/
+    ``GENHANCER_PROC_ID`` (``mesh.py:33-61``).  NCCL for a CUDA device,
+    gloo for the CPU; a failing NCCL raises, there is no fallback;
+  * each rank loads ``train_batch_size`` rows (JAX's batch is per process),
+    draws the random values of the whole global batch from the shared
+    generator and keeps its own rows (``local_rows``);
+  * the gradients are summed over the ranks once per optimizer step, in flat
+    buckets (``all_reduce_sum``);
+  * ZeRO-1 (``shard_optimizer_state``, JAX ``shard_over_data:136``): a leaf
+    whose leading dimension divides the world size keeps the moments of
+    the rank's rows only (``row_range``), the update runs on those rows and
+    the rows are then gathered on every rank (``all_gather_rows``).
+
+The int8 scales that span a batch (a conv's per-tensor amax, the per-column
+amax of the int8 dW over the tokens) are the global batch's
+(``all_reduce_max``).  Only collectives that gloo implements for CUDA
+tensors are used
+(``all_reduce``, ``broadcast``, ``all_gather`` into a list), so a gloo
+group can also run the step on CUDA tensors, staged through the host.
+Outside an initialised group every helper is the one-process identity.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+# the size of one flat buffer of a bucketed collective
+BUCKET_BYTES = 256 << 20
+
+
+def maybe_initialize_distributed(device) -> None:
+    """Join the process group the launcher's environment describes, on
+    ``device`` (the rank's card, or the CPU); return at once when a group
+    is already initialised (a harness that joined one itself) or when the
+    environment names none (one process)."""
+    if not dist.is_available() or dist.is_initialized():
+        return
+    coord = os.environ.get("GENHANCER_COORDINATOR")
+    if coord:
+        init = f"tcp://{coord}"
+        world, rank_ = int(os.environ["GENHANCER_NUM_PROCS"]), int(os.environ["GENHANCER_PROC_ID"])
+    elif "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        init = "env://"
+        world, rank_ = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    else:
+        return
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
+                            world_size=world, rank=rank_)
+
+
+def is_distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if is_distributed() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if is_distributed() else 1
+
+
+def local_rank() -> int:
+    """The rank's card on its host (torchrun's ``LOCAL_RANK``, else 0)."""
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
+def rank_device(device: torch.device) -> torch.device:
+    """``cuda`` without an index is the rank's own card, ``cuda:LOCAL_RANK``."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", local_rank())
+    return device
+
+
+def row_range(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
+    """The rows ``[r0, r1)`` of a leaf of ``shape`` that this rank's ZeRO-1
+    moments cover: ``shard_over_data``'s rule, the leading dimension split
+    evenly over the ranks where it divides the world size; None (the whole
+    leaf on every rank) for a 0-d leaf or one it does not divide."""
+    w = world_size()
+    if len(shape) == 0 or shape[0] % w:
+        return None
+    n = shape[0] // w
+    return rank() * n, (rank() + 1) * n
+
+
+def local_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a tensor drawn for the global batch (the ranks'
+    batches stacked in rank order on the leading axis)."""
+    w = world_size()
+    if w == 1:
+        return x
+    if x.shape[0] % w:
+        raise ValueError(f"a global draw of {x.shape[0]} rows does not split over {w} ranks")
+    n = x.shape[0] // w
+    return x[rank() * n:(rank() + 1) * n]
+
+
+def randn_rows(shape: Sequence[int], generator=None, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+    """This rank's rows of a standard normal draw for the global batch:
+    ``shape[0]`` rows per rank, every rank drawing all ``world_size()``
+    ranks' rows from the shared generator (one process: ``torch.randn``)."""
+    return local_rows(torch.randn((shape[0] * world_size(),) + tuple(shape[1:]),
+                                  generator=generator, dtype=dtype, device=device))
+
+
+def rand_rows(shape: Sequence[int], generator=None, device=None) -> torch.Tensor:
+    """``randn_rows`` for a uniform float32 draw in [0, 1)."""
+    return local_rows(torch.rand((shape[0] * world_size(),) + tuple(shape[1:]),
+                                 generator=generator, device=device))
+
+
+def host_local_batch_slice(global_batch: int) -> slice:
+    """Which rows of the global batch this rank feeds."""
+    per = global_batch // world_size()
+    return slice(rank() * per, (rank() + 1) * per)
+
+
+def _buckets(sizes: Sequence[int], bucket_bytes: int) -> List[List[int]]:
+    """Indices in order, cut into runs of at most ``bucket_bytes`` (a larger
+    item alone)."""
+    out, cur, used = [], [], 0
+    for i, n in enumerate(sizes):
+        if cur and used + n > bucket_bytes:
+            out.append(cur)
+            cur, used = [], 0
+        cur.append(i)
+        used += n
+    if cur:
+        out.append(cur)
+    return out
+
+
+@torch.no_grad()
+def all_reduce_sum(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
+    """Sum each tensor over the ranks, in place: the tensors of one dtype
+    are packed in order into flat buffers of about ``bucket_bytes``, one
+    collective per buffer.  Every rank passes the same tensors in the same
+    order."""
+    if not is_distributed():
+        return
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        for idx in _buckets([t.numel() * t.element_size() for t in group], bucket_bytes):
+            bucket = [group[i] for i in idx]
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.all_reduce(flat)
+            for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+                t.copy_(part.view_as(t))
+
+
+@torch.no_grad()
+def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elementwise maximum over the ranks, in place (returned): a
+    scale that spans the batch (an int8 amax over a whole call, or over a
+    column's tokens) is the global batch's, as XLA takes it over the data
+    axis."""
+    if is_distributed():
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t
+
+
+@torch.no_grad()
+def all_gather_rows(locals_: Sequence[torch.Tensor],
+                    outs: Optional[Sequence[torch.Tensor]] = None,
+                    bucket_bytes: int = BUCKET_BYTES) -> List[torch.Tensor]:
+    """Every rank's rows of each leaf: ``outs[i]`` (contiguous, ``w`` times
+    the rows of ``locals_[i]``; allocated where not given) receives rank
+    j's ``locals_[i]`` at rows ``[j*n, (j+1)*n)``.  A local that is already
+    the rank's rows of its out (a parameter updated in place) is not copied
+    onto itself.  The bytes of all leaves are packed in order into flat
+    buffers of about ``bucket_bytes``, one ``all_gather`` per buffer: a
+    gather moves bits, so one byte buffer serves every dtype."""
+    w, r = world_size(), rank()
+    if outs is None:
+        outs = [t.new_empty((t.shape[0] * w,) + tuple(t.shape[1:])) for t in locals_]
+    if not is_distributed():
+        for o, t in zip(outs, locals_):
+            if o.data_ptr() != t.data_ptr():
+                o.copy_(t)
+        return list(outs)
+    nbytes = [t.numel() * t.element_size() for t in locals_]
+    for idx in _buckets([n * w for n in nbytes], bucket_bytes):
+        send = torch.cat([locals_[i].reshape(-1).view(torch.uint8) for i in idx])
+        recv = [torch.empty_like(send) for _ in range(w)]
+        dist.all_gather(recv, send)
+        for j in range(w):
+            off = 0
+            for i in idx:
+                t, o = locals_[i], outs[i]
+                n = t.shape[0]
+                dst = o[j * n:(j + 1) * n]
+                if not (j == r and dst.data_ptr() == t.data_ptr()):
+                    dst.reshape(-1).view(torch.uint8).copy_(recv[j][off:off + nbytes[i]])
+                off += nbytes[i]
+    return list(outs)
+
+
+def broadcast_flag(flag: bool, device) -> bool:
+    """Rank 0's ``flag`` on every rank (a collective: every rank calls it)."""
+    if not is_distributed():
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32, device=device)
+    dist.broadcast(t, src=0)
+    return bool(t.item())

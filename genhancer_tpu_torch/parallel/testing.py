@@ -1,0 +1,365 @@
+"""Run the port's training paths on several ranks, for tests and the smoke run.
+
+``launch(payload, world, workdir)`` starts ``world`` processes of
+
+    python -m genhancer_tpu_torch.parallel.testing <payload.pt>
+
+with torchrun's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` set, joins them with
+a timeout, and returns what each rank wrote.  The payload (a ``torch.save``
+dict written by the caller) names a scenario and its inputs; a rank joins a
+gloo group through the payload's ``init_file`` (``file://``, so that
+concurrent test processes cannot collide on a port) or, without one, lets
+the ``Trainer`` join the group its environment describes (NCCL on a card).
+Each group has its own timeout, and a rank that fails or outlives the
+launch's timeout fails the launch: a hung collective fails one call.
+
+The scenarios:
+
+  * ``step``: one optimizer step of a task's step function on loaded
+    weights, on this rank's rows of a global batch, with the global draws
+    (``draws``, sliced by rank) or a seeded generator; returns the loss,
+    the norm, the reduced gradients and the parameters;
+  * ``steps``: for each variant of a config, a ``Trainer``, ``steps``
+    optimizer steps on this rank's rows of seeded global image batches,
+    driven as the train loop drives them; per step the loss, digests of
+    the parameters and the int8 cache, the kernels' launches;
+    at the end the gathered optimizer state, the resident moment bytes and
+    the ZeRO-1 row ranges;
+  * ``int8_scales``: the int8 quantizers whose scales span a batch (a
+    conv input's per-tensor, the dW's per-column) on this rank's rows of
+    given global tensors, and the per-column int8 dW summed over the ranks;
+  * ``train``: a ``Trainer`` on its config, ``train()`` run to its end
+    (optionally on this rank's rows of given global batches, optionally
+    with rank 0's SIGTERM flag raised after a step); returns the history,
+    the saved steps, the kernels' launches, the peak device
+    memory and the final parameters (or their digests) and gathered
+    moments.
+
+The workers import torch and this package only.
+"""
+
+from __future__ import annotations
+
+import datetime
+import gc
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+GROUP_TIMEOUT = 120.0
+
+
+def digest(t: torch.Tensor) -> str:
+    """A checksum of ``t``'s bits, computed where it lies: its dtype and
+    shape, the sum of its 32-bit words and their position-weighted sum."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 4:
+        b = torch.cat([b, b.new_zeros(4 - b.numel() % 4)])
+    x = b.view(torch.int32).to(torch.int64)
+    w = torch.arange(x.numel(), device=x.device, dtype=torch.int64) % 1_000_003 + 1
+    return f"{str(t.dtype)[6:]}{list(t.shape)}:{int(x.sum())}:{int((x * w).sum())}"
+
+
+def moment_bytes(opt_state) -> int:
+    """The bytes of the moment tensors the optimizer state holds."""
+    total = 0
+    for name in ("mu", "nu"):
+        for leaf in opt_state[name].values():
+            for t in (leaf if isinstance(leaf, tuple) else (leaf,)):
+                total += t.numel() * t.element_size()
+    return total
+
+
+def expected_moment_bytes(trainable, opt_state) -> int:
+    """The bytes the moments of ``trainable`` take when each leaf keeps the
+    rows its ZeRO-1 range names (all rows elsewhere), in the dtypes of
+    ``opt_state``'s moments."""
+    rows = opt_state.get("rows", {})
+    total = 0
+    for name in ("mu", "nu"):
+        for key, p in trainable.items():
+            n = rows[key][1] - rows[key][0] if key in rows else (p.shape[0] if p.dim() else 1)
+            per_row = p.numel() // max(p.shape[0], 1) if p.dim() else 1
+            leaf = opt_state[name][key]
+            if isinstance(leaf, tuple):     # Moment8: codes and one scale per row
+                total += n * per_row * leaf.q.element_size() + n * leaf.s.element_size()
+            else:
+                total += n * per_row * leaf.element_size()
+    return total
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch counter in this process, by its ``LAUNCHES`` key."""
+    from ..core.kernels import adamw, flash_attention, int8_dw, rowquant, short_attention
+    return {k: v for m in (short_attention, flash_attention, adamw, rowquant, int8_dw)
+            for k, v in m.LAUNCHES.items()}
+
+
+class RowsLoader:
+    """A loader over given global batches (dicts of numpy arrays with the
+    global batch on axis 0): yields this rank's rows of each, in order."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        from .mesh import host_local_batch_slice
+        for b in self.batches:
+            rows = host_local_batch_slice(next(iter(b.values())).shape[0])
+            yield {k: v[rows] for k, v in b.items()}
+
+    def close(self) -> None:
+        pass
+
+
+def _patch_registry(overrides: Optional[dict]) -> None:
+    """Replace the registry's model configs (``dit``, ``vae``, ``tower``:
+    port config dataclasses) for this process."""
+    from .. import registry
+    overrides = overrides or {}
+    if "dit" in overrides:
+        registry.build_dit_config = lambda name: overrides["dit"]
+    if "vae" in overrides:
+        registry.build_vae_config = lambda name, ae_path=None: overrides["vae"]
+    if "tower" in overrides:
+        registry.tower_family_and_config = (
+            lambda tower, size, clip_type=None: ("clip", overrides["tower"]))
+
+
+def _rows(x, axis: int):
+    from .mesh import world_size, rank
+    n = x.shape[axis] // world_size()
+    return x.narrow(axis, rank() * n, n)
+
+
+class _Recorder:
+    """Delegates to an optimizer and keeps the (reduced) grads it was given."""
+
+    def __init__(self, inner):
+        self.inner, self.grads = inner, None
+        self.emit_quant = getattr(inner, "emit_quant", False)
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def apply(self, params, grads, state, **kw):
+        self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        return self.inner.apply(params, grads, state, **kw)
+
+
+def scenario_step(p: dict) -> dict:
+    from ..tasks import image, video
+    from ..train.config import Config
+    from ..train.optim import make_optimizer
+    from ..train.state import create_state
+    from ..train.step_utils import make_accum_train_step
+    from .mesh import local_rows
+    task = image if p["task"] == "image" else video
+    spec, accum = p["spec"], int(p.get("accum", 1))
+    mods = task.init_modules(spec, torch.Generator().manual_seed(0))
+    mods.load_state_dict(p["state_dict"])
+    rec = _Recorder(make_optimizer(Config._wrap(p["opt_cfg"])))
+    state = create_state(mods, task.trainable_predicate(spec, mods), rec)
+    step = (make_accum_train_step(task.make_loss_fn(spec), rec, accum) if accum > 1
+            else task.make_train_step(spec, rec))
+    batch = {k: _rows(v, 1 if accum > 1 else 0) for k, v in p["batch"].items()}
+    draws = p.get("draws")
+    if draws is not None:
+        draws = [{k: [local_rows(m) for m in v] if isinstance(v, list) else local_rows(v)
+                  for k, v in d.items()} for d in draws]
+        if accum == 1:
+            draws = draws[0]
+    gen = torch.Generator().manual_seed(int(p.get("seed", 0)))
+    state, m = step(state, batch, gen, draws)
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "grads": rec.grads,
+            "params": {k: v.detach().clone() for k, v in state.trainable.items()}}
+
+
+def scenario_int8_scales(p: dict) -> dict:
+    from ..core import quant
+    from .mesh import all_reduce_sum, local_rows
+    dw = quant._int8_dw_cols(local_rows(p["g2"]), local_rows(p["x2"]), torch.float32)
+    all_reduce_sum([dw])
+    return {"x": quant.quantize_activation_tensor(local_rows(p["x"])),
+            "g": quant._quantize_cols(local_rows(p["g2"])), "dw": dw}
+
+
+def global_images(step: int, batch: int, size: int, accum: int, seed: int = 0) -> dict:
+    """The global batch of step ``step``: uniform images [batch, size, size,
+    3] float32 (``[accum, batch, ...]`` with accumulation), from a seed."""
+    rng = np.random.default_rng(seed * 1_000_003 + step)
+    shape = ((accum,) if accum > 1 else ()) + (batch, size, size, 3)
+    return {"image": rng.random(shape, dtype=np.float32)}
+
+
+def run_steps(trainer, steps: int, keep_tensors: bool = False, seed: int = 0) -> dict:
+    """``steps`` optimizer steps of ``trainer`` on this rank's rows of the
+    seeded global image batches (``global_images``), seeded and stepped as
+    the train loop does; see the module docstring for what it returns."""
+    from ..train import checkpoint as ckpt
+    from .mesh import host_local_batch_slice, world_size
+    dev, accum = trainer.device, trainer.accum
+    per_rank = int(trainer.cfg.get_path("data_config.train_batch_size"))
+    size = int(trainer.cfg.get_path("data_config.img_size", 224))
+    out = {"loss": [], "params": [], "caches": [], "launches": [], "step_s": []}
+    for _ in range(steps):
+        step = trainer.state.step
+        g = global_images(step, per_rank * world_size(), size, accum, seed)
+        rows = host_local_batch_slice(per_rank * world_size())
+        batch = {k: torch.from_numpy(np.ascontiguousarray(
+            v[:, rows] if accum > 1 else v[rows])).to(dev) for k, v in g.items()}
+        before = launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        trainer._seed(step)
+        trainer.state, m = trainer.step_fn(trainer.state, batch, trainer.generator)
+        out["loss"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append({k: v - before[k] for k, v in launch_counts().items()})
+        out["params"].append({k: digest(v) for k, v in trainer.state.trainable.items()})
+        out["caches"].append({k: [digest(t) for t in v]
+                              for k, v in (trainer.state.quant or {}).items()})
+    opt = trainer.state.opt_state
+    sd = ckpt.optimizer_state_dict(trainer.state)      # gathers the ZeRO-1 rows
+    out.update(moments={k: digest(v) for k, v in sd.items()},
+               moment_bytes=moment_bytes(opt),
+               moment_bytes_expected=expected_moment_bytes(trainer.state.trainable, opt),
+               rows={k: list(r) for k, r in opt.get("rows", {}).items()},
+               leaves=len(trainer.state.trainable))
+    if keep_tensors:
+        out["tensors"] = {
+            "params": {k: v.detach().cpu().clone() for k, v in trainer.state.trainable.items()},
+            "moments": {k: v.cpu().clone() for k, v in sd.items()},
+            "caches": {k: [t.cpu().clone() for t in v]
+                       for k, v in (trainer.state.quant or {}).items()}}
+    return out
+
+
+def scenario_steps(p: dict) -> dict:
+    from ..train.config import Config
+    from ..train.trainer import Trainer
+    _patch_registry(p.get("registry"))
+    runs = {}
+    for name, overrides in p["variants"].items():
+        trainer = Trainer(Config._wrap(p["cfg"]).merged_with(overrides), device=p["device"])
+        trainer.loader.close()
+        runs[name] = run_steps(trainer, int(p["steps"]), bool(p.get("keep_tensors")))
+        del trainer
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return {"runs": runs}
+
+
+def scenario_train(p: dict) -> dict:
+    from ..train.config import Config
+    from ..train.trainer import Trainer
+    from ..train import checkpoint as ckpt
+    from .mesh import rank
+    _patch_registry(p.get("registry"))
+    trainer = Trainer(Config._wrap(p["cfg"]), device=p["device"])
+    if p.get("batches") is not None:
+        trainer.loader.close()
+        trainer.loader = RowsLoader(p["batches"])
+    stop_after = p.get("sigterm_after")
+    if stop_after is not None and rank() == 0:
+        inner = trainer.step_fn
+
+        def step_fn(state, batch, generator=None):
+            out = inner(state, batch, generator)
+            if state.step == stop_after:    # the flag SIGTERM's handler sets
+                trainer._preempted = True
+            return out
+        trainer.step_fn = step_fn
+    if trainer.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(trainer.device)
+    before = launch_counts()
+    trainer.train()
+    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    sd = ckpt.optimizer_state_dict(trainer.state)
+    out = {"history": trainer.history, "saved_steps": trainer.saved_steps,
+           "step": trainer.state.step, "launches": launches,
+           "moment_bytes": moment_bytes(trainer.state.opt_state),
+           "rows": {k: list(r) for k, r in trainer.state.opt_state.get("rows", {}).items()}}
+    if trainer.device.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(trainer.device)
+    if p.get("digests"):     # the full-width run: checksums, not the tensors
+        out["params"] = {k: digest(v) for k, v in trainer.state.trainable.items()}
+        return out
+    out["params"] = {k: v.detach().cpu().clone() for k, v in trainer.state.trainable.items()}
+    out["moments"] = {k: v.cpu().clone() for k, v in sd.items()}
+    return out
+
+
+SCENARIOS = {"step": scenario_step, "steps": scenario_steps, "train": scenario_train,
+             "int8_scales": scenario_int8_scales}
+
+
+def launch(payload: dict, world: int, workdir, timeout: float = 300.0,
+           env: Optional[Dict[str, str]] = None) -> List[dict]:
+    """Run ``payload`` on ``world`` ranks, each a process of this module;
+    returns the ranks' results in rank order.  Raises (with each failed
+    rank's last output) if a rank fails or the launch outlives ``timeout``
+    seconds; every process is gone when it returns."""
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    path = workdir / "payload.pt"
+    torch.save(payload, path)
+    base = {**os.environ, **(env or {}), "WORLD_SIZE": str(world),
+            "PYTHONPATH": os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")])}
+    procs = []
+    try:
+        for r in range(world):
+            log = open(workdir / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "genhancer_tpu_torch.parallel.testing", str(path)],
+                env={**base, "RANK": str(r), "LOCAL_RANK": base.get("LOCAL_RANK", "0")},
+                stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)), log))
+        deadline = time.monotonic() + timeout
+        for proc, _ in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    failed = [(r, proc.returncode) for r, (proc, _) in enumerate(procs) if proc.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- rank {r} (rc {rc}):\n"
+                          + (workdir / f"rank{r}.log").read_text()[-3000:] for r, rc in failed)
+        raise RuntimeError(f"{len(failed)} of {world} ranks failed or timed out "
+                           f"({timeout:.0f} s):\n{tails}")
+    return [torch.load(workdir / f"out{r}.pt", weights_only=False) for r in range(world)]
+
+
+def main(argv=None) -> None:
+    path = Path((argv or sys.argv[1:])[0])
+    p = torch.load(path, weights_only=False)   # written by ``launch`` of this process tree
+    import torch.distributed as dist
+    torch.set_num_threads(int(p.get("threads", 1)))
+    rank_ = int(os.environ["RANK"])
+    if p.get("init_file"):
+        dist.init_process_group("gloo", init_method=f"file://{p['init_file']}", rank=rank_,
+                                world_size=int(os.environ["WORLD_SIZE"]),
+                                timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    try:
+        out = SCENARIOS[p["scenario"]](p)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.save(out, path.parent / f"out{rank_}.pt")
+
+
+if __name__ == "__main__":
+    main()

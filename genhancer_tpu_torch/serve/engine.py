@@ -107,7 +107,7 @@ class InferenceEngine:
         if int(num_devices) > 1 or int(model_parallel) > 1:
             raise NotImplementedError(
                 "multi-device serving (num_devices / model_parallel > 1) is not "
-                "ported yet (ROADMAP: parallelism)")
+                "ported yet (ROADMAP: multi-device serving)")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets:
             raise ValueError("at least one batch bucket required")

@@ -11,8 +11,15 @@ remat and ``tower_remat`` follow the JAX factory's gates on one device
 (``factory.py:225-258``) unless the config sets them.  ``data_config.
 precomputed`` takes the caches of ``data.precompute``: ``latents`` in every
 stage, a features cache (``true``) in stage 1 only (``_check_precomputed``).
-SigLIP in video mode raises, as do the options that need several devices
-(ROADMAP: parallelism).
+SigLIP in video mode raises.
+
+Parallelism: data parallel over the ranks of a ``torch.distributed`` group
+(``parallel.mesh``; one device per rank, ``num_devices`` the world size) and
+ZeRO-1 (``shard_optimizer_state``) are ported; the rank and the world size
+split the loaders' shards (``node_index``/``node_count``).  The
+compositions JAX rejects raise its ``ValueError``s (``validate_parallelism``);
+tensor, sequence and pipeline parallelism and FSDP raise
+``NotImplementedError`` (ROADMAP: parallelism, part 2).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import registry
+from ..parallel import mesh
 from ..train import lora
 from . import image as image_task
 from . import video as video_task
@@ -55,23 +63,60 @@ _LOADER_MODE = {"middle": "triplet", "next": "next", "next2": "next2",
 REMAT_TOKENS = 8192
 TOWER_REMAT_TOKENS = 6144
 
-# config knob -> its single-device value; any other value needs a mesh
+# config knob -> its value without the mesh axes that are not ported yet
 _MULTI_DEVICE = {"model_parallel": 1, "sequence_parallel": 1, "pipeline_parallel": 1,
-                 "fsdp": False, "shard_optimizer_state": False}
+                 "fsdp": False}
 
 
-def validate_single_device(cfg) -> None:
-    """Refuse the parallelism options: they are not ported yet."""
-    for knob, single in _MULTI_DEVICE.items():
+def validate_parallelism(cfg, dit_cfg=None) -> None:
+    """``validate_parallelism`` (``factory.py:66-103``): the compositions the
+    JAX package rejects raise its ``ValueError`` at config time, before any
+    weights load; then the axes this port does not drive yet (tensor,
+    sequence and pipeline parallelism, FSDP) raise ``NotImplementedError``,
+    and ``num_devices``, where set, must equal the world size (one device
+    per rank)."""
+    tp = int(cfg.get("model_parallel", 1) or 1)
+    sp = int(cfg.get("sequence_parallel", 1) or 1)
+    pp = int(cfg.get("pipeline_parallel", 1) or 1)
+    fsdp = bool(cfg.get("fsdp", False))
+    if pp > 1 and (tp > 1 or sp > 1):
+        raise ValueError(
+            "pipeline_parallel composes with data parallelism only "
+            f"(got model_parallel={tp}, sequence_parallel={sp}): TP shards "
+            "the weight dims the PP stage stacking slices, and SP's ring "
+            "would nest a second shard_map inside the stage body "
+            "(parallel/pp.py 'Composition')")
+    if fsdp:
+        if pp > 1:
+            raise ValueError("fsdp does not compose with pipeline_parallel "
+                             "(stage stacking owns the param placement)")
+        if sp > 1:
+            raise ValueError("fsdp does not compose with sequence_parallel "
+                             "(the attention anchor does not cover the ring "
+                             "path); use shard_optimizer_state with SP")
+        if cfg.get("fused_optimizer") == "pallas":
+            raise ValueError(
+                "fsdp requires the default optax optimizer: the fused Pallas "
+                "AdamW would force an all-gather of each sharded param at "
+                "the update (no custom_partitioning on the kernel); drop "
+                "fused_optimizer or fsdp")
+    if pp > 1 and dit_cfg is not None and (
+            dit_cfg.depth % pp or dit_cfg.depth_single_blocks % pp):
+        raise ValueError(
+            f"pipeline_parallel={pp} must divide both depth={dit_cfg.depth} "
+            f"and depth_single_blocks={dit_cfg.depth_single_blocks}")
+    for knob, plain in _MULTI_DEVICE.items():
         value = cfg.get(knob)
-        if value not in (None, single, 0):
+        if value not in (None, plain, 0):
             raise NotImplementedError(
-                f"{knob}: {value} needs several devices, which the port does not "
-                "drive yet (ROADMAP: parallelism)")
-    if int(cfg.get("num_devices") or 1) > 1:
-        raise NotImplementedError(
-            f"num_devices: {cfg.get('num_devices')} — the port trains on one device "
-            "(ROADMAP: parallelism)")
+                f"{knob}: {value} is not ported yet (ROADMAP: parallelism, part 2); "
+                "data parallelism and shard_optimizer_state are")
+    n = cfg.get("num_devices")
+    if n and int(n) != mesh.world_size():
+        raise ValueError(
+            f"num_devices: {n} but this run has {mesh.world_size()} rank(s), one device each: "
+            f"launch {n} processes (python -m torch.distributed.run --nproc_per_node {n} ...) "
+            "or drop num_devices")
 
 
 def _check_precomputed(cfg, task: str) -> None:
@@ -120,6 +165,8 @@ def tower_remat_gate(n_cond: int, clip_image_size: int, patch: int, batch: int) 
 def build_spec(cfg):
     """(spec, tower_kind, ckpt_kind) from a config mapping."""
     task: str = cfg["task"]
+    dit_cfg = registry.build_dit_config(cfg.get("model_name", "flux-dev"))
+    validate_parallelism(cfg, dit_cfg)
     if task.startswith("image_"):
         stage = task[len("image_"):]
     elif task.rsplit("_stage", 1)[0] in _VIDEO_MODE:
@@ -138,13 +185,13 @@ def build_spec(cfg):
     tower_dir = registry.tower_dir(cc.get("model_dir"))
     if tower_dir is not None:
         tower_cfg = registry.tower_config(kind, tower_dir)
-    model_name = cfg.get("model_name", "flux-dev")
     compute_dtype = (torch.bfloat16 if cfg.get("mixed_precision", "bf16") == "bf16"
                      else torch.float32)
     common = dict(stage=stage, tower_kind=kind, img_size=img_size,
                   clip_image_size=clip_image_size,
-                  dit_cfg=registry.build_dit_config(model_name),
-                  vae_cfg=registry.build_vae_config(model_name, cfg.get("ae_path")),
+                  dit_cfg=dit_cfg,
+                  vae_cfg=registry.build_vae_config(cfg.get("model_name", "flux-dev"),
+                                                    cfg.get("ae_path")),
                   tower_cfg=tower_cfg,
                   clip_dim=int(cc.get("clip_dim", 768)),
                   t5_dim=int(cc.get("t5_dim", 4096)),
@@ -197,6 +244,9 @@ def build_task(cfg):
     spec, _, ckpt_kind = build_spec(cfg)
     dc = dict(cfg.get("data_config", {}) or {})
     img_size = int(dc.pop("img_size", 224))
+    # each rank reads its own shards (webdataset split_by_node, factory.py:288-291)
+    dc.setdefault("node_index", mesh.rank())
+    dc.setdefault("node_count", mesh.world_size())
     if ckpt_kind == "image":
         from ..data import cc3m as cc3m_data
         loader = cc3m_data.loader(img_size=img_size, **dc)

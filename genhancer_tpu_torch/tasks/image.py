@@ -67,6 +67,7 @@ from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
+from ..parallel.mesh import local_rows, randn_rows, world_size
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
@@ -251,8 +252,9 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
     cache's ``moments`` and ``cls`` [B, P] float32."""
     require_ported(spec)
     if mesh is not None:
+        # data parallelism needs no mesh, in JAX either (image.py:253-255)
         raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
-                                  "(ROADMAP: parallelism)")
+                                  "(ROADMAP: parallelism, part 2)")
     if spec.remat:
         raise NotImplementedError("remat (activation checkpointing) is not ported yet "
                                   "(ROADMAP: later items)")
@@ -304,10 +306,12 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
                                                compute_dtype=cd)
         t = draws.get("t")
         if t is None:
-            t = flow.sample_timesteps(b, spec.scale_factor, generator, dev)
+            # data parallel: the global batch's draw, this rank's rows
+            t = local_rows(flow.sample_timesteps(b * world_size(), spec.scale_factor,
+                                                 generator, dev))
         x0 = draws.get("x0")
         if x0 is None:
-            x0 = torch.randn(x1.shape, generator=generator, dtype=f32, device=dev)
+            x0 = randn_rows(x1.shape, generator, f32, dev)
         xt = flow.interpolate(x1, x0, t)
         guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
         with dit_ctx():
@@ -342,8 +346,8 @@ def make_train_step(spec: TaskSpec, optimizer, mesh=None):
         loss.backward()
         with torch.no_grad():
             grads = {k: take_grad(p) for k, p in state.trainable.items()}
-        g_norm = apply_gradients(state, grads, optimizer)
-        return state, {"loss": loss.detach(), "grad_norm": g_norm}
+        g_norm, loss = apply_gradients(state, grads, optimizer, loss.detach())
+        return state, {"loss": loss, "grad_norm": g_norm}
 
     return step
 

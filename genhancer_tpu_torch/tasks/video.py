@@ -57,6 +57,7 @@ from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
+from ..parallel.mesh import local_rows, randn_rows, world_size
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
@@ -208,8 +209,9 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
     [B, n_cond, P] float32."""
     require_ported(spec)
     if mesh is not None:
+        # data parallelism needs no mesh, in JAX either (image.py:253-255)
         raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
-                                  "(ROADMAP: parallelism)")
+                                  "(ROADMAP: parallelism, part 2)")
     f32, cd = torch.float32, spec.compute_dtype
     dit_ctx = dit_quant_ctx(spec.dit_quant)
 
@@ -257,10 +259,12 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
             spec.target_time, spec.frame_times, compute_dtype=cd)
         t = draws.get("t")
         if t is None:
-            t = flow.sample_timesteps(b, spec.scale_factor, generator, dev)
+            # data parallel: the global batch's draw, this rank's rows
+            t = local_rows(flow.sample_timesteps(b * world_size(), spec.scale_factor,
+                                                 generator, dev))
         x0 = draws.get("x0")
         if x0 is None:
-            x0 = torch.randn(x1.shape, generator=generator, dtype=f32, device=dev)
+            x0 = randn_rows(x1.shape, generator, f32, dev)
         xt = flow.interpolate(x1, x0, t)
         guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
         with dit_ctx():
@@ -285,8 +289,8 @@ def make_train_step(spec: VideoTaskSpec, optimizer, mesh=None):
         loss.backward()
         with torch.no_grad():
             grads = {k: take_grad(p) for k, p in state.trainable.items()}
-        g_norm = apply_gradients(state, grads, optimizer)
-        return state, {"loss": loss.detach(), "grad_norm": g_norm}
+        g_norm, loss = apply_gradients(state, grads, optimizer, loss.detach())
+        return state, {"loss": loss, "grad_norm": g_norm}
 
     return step
 

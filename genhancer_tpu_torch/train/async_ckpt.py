@@ -1,8 +1,10 @@
 """Asynchronous checkpoint writing: the step loop pays for the device-to-host
 copy, a background thread for the serialization and the disk write.
 
-Port of ``genhancer_tpu/train/async_ckpt.py`` (``AsyncCheckpointer:90-132``)
-for one device.  The snapshot is taken on the calling thread before
+Port of ``genhancer_tpu/train/async_ckpt.py`` (``AsyncCheckpointer:90-132``).
+Data parallel, the trainer gathers the ZeRO-1 moments on every rank first
+(``checkpoint.optimizer_state_dict``, JAX's ``gather_sharded``) and rank 0
+alone hands the tree to ``save``.  The snapshot is taken on the calling thread before
 ``save`` returns, and it must be a copy: the optimizers (the AdamW chain,
 K3, K4, K6) update parameters and moments in place, so a state dict holds
 references that the next step overwrites.  ``host_snapshot`` starts a

@@ -34,6 +34,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core.kernels.adamw import Moment8
+from ..parallel import mesh
 from ..weights import hf_io
 from ..weights.hf_io import StateDict
 
@@ -106,16 +107,28 @@ def save_stage1(state, output_dir: str, step: int, kind: str = "image") -> List[
 def optimizer_state_dict(state) -> StateDict:
     """The optimizer state positionally: ``count``, ``mu.i``/``nu.i`` for the
     i-th trainable path in sorted order (``mu.i.q``/``mu.i.s`` for an 8-bit
-    moment), and the train ``step``; the moments are the live tensors."""
+    moment), and the train ``step``; the moments are the live tensors.
+
+    ZeRO-1: the moments of the leaves the state's ``rows`` names are
+    gathered from every rank first (``gather_sharded:65``), so the file is
+    the same whatever the world size.  A collective: every rank calls it,
+    in the same order."""
     opt = state.opt_state
     sd = {"count": torch.tensor(int(opt["count"])), "step": torch.tensor(int(state.step))}
+    rows = opt.get("rows", {})
+    names, leaves = [], []
     for i, key in enumerate(sorted(state.trainable)):
         for name in ("mu", "nu"):
             leaf = opt[name][key]
-            if isinstance(leaf, Moment8):
-                sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"] = (t.detach() for t in leaf)
-            else:
-                sd[f"{name}.{i}"] = leaf.detach()
+            parts = ([(f"{name}.{i}.q", leaf.q), (f"{name}.{i}.s", leaf.s)]
+                     if isinstance(leaf, Moment8) else [(f"{name}.{i}", leaf)])
+            for n, t in parts:
+                if key in rows:
+                    names.append(n)
+                    leaves.append(t.detach())
+                else:
+                    sd[n] = t.detach()
+    sd.update(zip(names, mesh.all_gather_rows(leaves)))
     return sd
 
 
@@ -125,22 +138,30 @@ def save_optimizer_state(state, path: str) -> None:
 
 def load_optimizer_state(state, path: str) -> None:
     """Restore what ``optimizer_state_dict`` wrote into ``state``, in place:
-    each moment lands on its parameter's device in the saved dtype."""
+    each moment lands on its parameter's device in the saved dtype; under
+    ZeRO-1 a leaf the state's ``rows`` names keeps this rank's rows only,
+    whatever the world size that wrote the file."""
     sd = hf_io.load_state_dict(path)
     keys = sorted(state.trainable)
+    rows = state.opt_state.get("rows", {})
     n_saved = sum(1 for k in sd if k.startswith("mu.") and not k.endswith(".s"))
     if n_saved != len(keys):
         raise ValueError(f"{path}: {n_saved} moment leaves for {len(keys)} trainable leaves")
+
+    def mine(t, key):
+        return t[rows[key][0]:rows[key][1]].contiguous() if key in rows else t
+
     for i, key in enumerate(keys):
         p = state.trainable[key]
         for name in ("mu", "nu"):
             if f"{name}.{i}.q" in sd:
                 q, s = sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"]
-                leaf = Moment8(q.to(p.device), s.to(p.device))
                 shape, want = (tuple(q.shape), tuple(s.shape)), (tuple(p.shape), (p.shape[0], 1))
+                leaf = Moment8(mine(q, key).to(p.device), mine(s, key).to(p.device))
             else:
-                leaf = sd[f"{name}.{i}"].to(p.device)
-                shape, want = tuple(leaf.shape), tuple(p.shape)
+                full = sd[f"{name}.{i}"]
+                shape, want = tuple(full.shape), tuple(p.shape)
+                leaf = mine(full, key).to(p.device)
             if shape != want:
                 raise ValueError(f"optimizer leaf {name}.{i} ({key}) shape mismatch: "
                                  f"{shape} vs {want}")

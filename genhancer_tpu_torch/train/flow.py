@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from ..core.nn import as_dtype_scalar
+from ..parallel import mesh
 
 
 def sample_timesteps(batch: int, scale_factor: float = 1.0,
@@ -48,12 +49,24 @@ def velocity_target(x_1: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean-squared error in float32.  ``mask`` [B] gates padded rows."""
+    """Mean-squared error in float32.  ``mask`` [B] gates padded rows.
+
+    Data parallel: the mean is over the global batch (``flow.py:39-48``
+    takes it over the whole data axis), so each rank returns its rows' sum
+    over the global count of valid elements (the valid rows' count summed
+    over the ranks, one collective) and the ranks' losses and gradients add
+    up to the global batch's.  A mean of the ranks' means would weigh the
+    rows of a rank with fewer valid rows more.  One process: the plain
+    mean."""
     err = (pred.to(torch.float32) - target.to(torch.float32)).square()
     if mask is None:
-        return err.mean()
+        if mesh.world_size() == 1:
+            return err.mean()
+        return err.sum() / float(err.numel() * mesh.world_size())
     m = mask.to(torch.float32)[:, None, None]
-    denom = torch.clamp(m.sum() * err.shape[1] * err.shape[2], min=1.0)
+    count = m.sum()
+    mesh.all_reduce_sum([count])
+    denom = torch.clamp(count * err.shape[1] * err.shape[2], min=1.0)
     return (err * m).sum() / denom
 
 

@@ -22,6 +22,15 @@ optimizer owns its state as plain tensors (no ``torch.optim``).  ``apply``
 updates the parameters in place and returns the new state and the global
 gradient norm.  The schedule is a host function of the step count, so no
 step needs a host sync.
+
+ZeRO-1 (``shard_optimizer_state``, JAX ``shard_over_data``): ``init``
+records in the state's ``rows`` the row range ``[r0, r1)`` that this rank
+updates of each leaf whose leading dimension divides the world size
+(``parallel.mesh.row_range``) and allocates those rows' moments only; the
+other leaves keep whole moments.  ``apply`` takes the global norm over the
+whole (reduced, replicated) gradients and updates the views ``p[r0:r1]``
+from ``g[r0:r1]``: each row's arithmetic is the whole-leaf update's.  The
+caller gathers the other ranks' rows (``train.state.apply_gradients``).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 from ..core.kernels.adamw import (fused_adamw_apply, global_norm, moment8_ok, moment8_zeros_m,
                                   moment8_zeros_v)
 from ..core.nn import as_dtype_scalar
+from ..parallel import mesh
 
 Tensors = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
@@ -134,11 +144,31 @@ def apply_updates(p, update):
     return (p + update).to(p.dtype)
 
 
-def zero_moments(params: Tensors) -> dict:
+def shard_rows(params: Tensors, shard: bool) -> Dict[str, Tuple[int, int]]:
+    """``{path: (r0, r1)}``: the rows of each leaf this rank's ZeRO-1
+    moments cover (``shard``), the leaves it does not split left out."""
+    if not shard:
+        return {}
+    return {k: r for k, p in params.items() if (r := mesh.row_range(p.shape)) is not None}
+
+
+def local_view(x: torch.Tensor, rows: Dict[str, Tuple[int, int]], key: str) -> torch.Tensor:
+    """``x[r0:r1]`` for a leaf the rank updates by rows, else ``x``."""
+    if key not in rows:
+        return x
+    r0, r1 = rows[key]
+    return x[r0:r1]
+
+
+def zero_moments(params: Tensors, shard: bool = False) -> dict:
     """The state both optimizers start from: step count 0, moments of zeros
-    in each parameter's dtype (``optax``'s and ``pallas_adamw_clip``'s init)."""
-    return {"count": 0, "mu": {k: torch.zeros_like(p) for k, p in params.items()},
-            "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+    in each parameter's dtype (``optax``'s and ``pallas_adamw_clip``'s init),
+    of the rank's rows under ZeRO-1 (``shard``: the state's ``rows``)."""
+    rows = shard_rows(params, shard)
+    local = {k: local_view(p, rows, k) for k, p in params.items()}
+    state = {"count": 0, "mu": {k: torch.zeros_like(p) for k, p in local.items()},
+             "nu": {k: torch.zeros_like(p) for k, p in local.items()}}
+    return {**state, "rows": rows} if shard else state
 
 
 class AdamWChain:
@@ -146,13 +176,15 @@ class AdamWChain:
     (temporaries for one leaf at a time)."""
 
     def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 shard: bool = False):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.shard = shard
 
     def init(self, params: Tensors) -> dict:
-        return zero_moments(params)
+        return zero_moments(params, self.shard)
 
     @torch.no_grad()
     def apply(self, params: Tensors, grads: Tensors, state: dict) -> Tuple[dict, torch.Tensor]:
@@ -160,14 +192,16 @@ class AdamWChain:
         count = state["count"]
         lr = _F32(self.schedule(count))      # read at the pre-increment count
         mu, nu = state["mu"], state["nu"]     # replaced leaf by leaf
+        rows = state.get("rows", {})
         for k, p in params.items():
-            g = clip_by_global_norm(grads[k], g_norm, self.max_grad_norm)
+            p = local_view(p, rows, k)
+            g = clip_by_global_norm(local_view(grads[k], rows, k), g_norm, self.max_grad_norm)
             u, mu[k], nu[k] = scale_by_adam(g, mu[k], nu[k], count + 1,
                                             self.b1, self.b2, self.eps)
             u = add_decayed_weights(u, p, self.weight_decay)
             u = scale_by_learning_rate(u, float(lr))
             p.copy_(apply_updates(p, u))
-        return {"count": count + 1, "mu": mu, "nu": nu}, g_norm
+        return {**state, "count": count + 1, "mu": mu, "nu": nu}, g_norm
 
 
 class FusedAdamW:
@@ -179,28 +213,33 @@ class FusedAdamW:
 
     def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0,
-                 emit_quant: bool = False, moment_bits: int = 16):
+                 emit_quant: bool = False, moment_bits: int = 16, shard: bool = False):
         self.schedule = schedule
-        self.emit_quant, self.moment_bits = emit_quant, moment_bits
+        self.emit_quant, self.moment_bits, self.shard = emit_quant, moment_bits, shard
         self.kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                        max_grad_norm=max_grad_norm)
 
     def init(self, params: Tensors) -> dict:
         if self.moment_bits != 8:
-            return zero_moments(params)
-        return {"count": 0,
-                "mu": {k: moment8_zeros_m(p) if moment8_ok(p) else torch.zeros_like(p)
-                       for k, p in params.items()},
-                "nu": {k: moment8_zeros_v(p) if moment8_ok(p) else torch.zeros_like(p)
-                       for k, p in params.items()}}
+            return zero_moments(params, self.shard)
+        # moment8_ok reads the whole leaf; the codes cover the rank's rows
+        rows = shard_rows(params, self.shard)
+        local = {k: local_view(p, rows, k) for k, p in params.items()}
+        state = {"count": 0,
+                 "mu": {k: moment8_zeros_m(local[k]) if moment8_ok(p) else
+                        torch.zeros_like(local[k]) for k, p in params.items()},
+                 "nu": {k: moment8_zeros_v(local[k]) if moment8_ok(p) else
+                        torch.zeros_like(local[k]) for k, p in params.items()}}
+        return {**state, "rows": rows} if self.shard else state
 
     @torch.no_grad()
     def apply(self, params: Tensors, grads: Tensors, state: dict,
               quant: Optional[dict] = None) -> Tuple[dict, torch.Tensor]:
         count = state["count"] + 1
         g_norm = fused_adamw_apply(params, state["mu"], state["nu"], grads, count,
-                                   self.schedule, quant=quant, **self.kw)
-        return {"count": count, "mu": state["mu"], "nu": state["nu"]}, g_norm
+                                   self.schedule, quant=quant, rows=state.get("rows"),
+                                   **self.kw)
+        return {**state, "count": count}, g_norm
 
 
 def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
@@ -209,7 +248,8 @@ def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
     ``fused_optimizer`` "pallas" -> K3 (K4 with ``emit_quant``), True/"xla"
     -> not ported, anything else -> the chain (the default, which ignores
     ``emit_quant``: the state then rebuilds its cache);
-    ``optimizer_moment_bits`` 16, or 8 with pallas only (K6)."""
+    ``optimizer_moment_bits`` 16, or 8 with pallas only (K6);
+    ``shard_optimizer_state`` keeps the moments of the rank's rows (ZeRO-1)."""
     schedule = make_lr_schedule(cfg.get("lr_scheduler", "constant"),
                                 float(cfg.get("learning_rate", 1e-4)),
                                 int(cfg.get("lr_warmup_steps", 0)),
@@ -228,6 +268,7 @@ def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
     if moment_bits == 8 and fused != "pallas":
         raise ValueError("optimizer_moment_bits: 8 requires fused_optimizer: pallas "
                          "(the 8-bit decode/encode lives in the fused kernel)")
+    kw["shard"] = bool(cfg.get("shard_optimizer_state", False))
     if fused == "pallas":
         return FusedAdamW(schedule, emit_quant=emit_quant, moment_bits=moment_bits, **kw)
     if fused in (True, "xla"):

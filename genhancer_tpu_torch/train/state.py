@@ -26,6 +26,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn as tnn
 
+from ..parallel import mesh
+
 
 def flatten_params(modules: tnn.Module) -> Dict[str, tnn.Parameter]:
     """``{flat path: parameter}`` under the module tree's names."""
@@ -63,19 +65,36 @@ def create_state(modules: tnn.Module, trainable_pred, optimizer) -> TrainState:
                       opt_state=optimizer.init({k: v.detach() for k, v in trainable.items()}))
 
 
-def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer):
+def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer,
+                    loss: Optional[torch.Tensor] = None):
     """One optimizer step, parameters updated in place; returns the global
-    gradient norm (a device scalar).  An optimizer that emits the int8 cache
-    (``emit_quant``) writes it in the update; otherwise the cache, if any,
-    is rebuilt from the new masters (``state.py:95-112``)."""
+    gradient norm and ``loss`` (device scalars).  An optimizer that emits
+    the int8 cache (``emit_quant``) writes it in the update; otherwise the
+    cache, if any, is rebuilt from the new masters (``state.py:95-112``).
+
+    Data parallel (an initialised ``torch.distributed`` group): the
+    gradients, and the loss with them, are first summed over the ranks in
+    flat buckets (``parallel.mesh.all_reduce_sum``): each rank's loss and
+    gradients are its rows' share of the global batch's, so every rank then
+    holds the global batch's and runs the same update.  ZeRO-1: the
+    optimizer updates the rows its state's ``rows`` names, and those rows
+    of every rank are then gathered into each parameter, and into the int8
+    cache's codes and scales where the update wrote them."""
+    if mesh.is_distributed():
+        mesh.all_reduce_sum(list(grads.values()) + ([loss] if loss is not None else []))
     params = {k: v.detach() for k, v in state.trainable.items()}
     emits = state.quant is not None and getattr(optimizer, "emit_quant", False)
     state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state,
                                               **({"quant": state.quant} if emits else {}))
+    rows = state.opt_state.get("rows")
+    if rows:
+        leaves = [(t, r) for k, r in rows.items()
+                  for t in (params[k], *(state.quant.get(k, ()) if emits else ()))]
+        mesh.all_gather_rows([t[r0:r1] for t, (r0, r1) in leaves], [t for t, _ in leaves])
     state.step += 1
     if state.quant is not None and not emits:
         with_quant_cache(state)
-    return g_norm
+    return g_norm, loss
 
 
 def with_quant_cache(state: TrainState) -> TrainState:

@@ -29,7 +29,8 @@ def make_accum_train_step(loss_fn, optimizer, accum_steps: int,
     metrics)`` where ``stacked_batch`` leaves are ``[accum, B, ...]`` device
     tensors and ``draws`` (tests) is an optional list of per-micro-batch
     injected random draws.  ``metrics``: ``loss`` (the sum of the scaled
-    micro losses) and ``grad_norm`` (global norm of the accumulated grads),
+    micro losses; under data parallelism summed over the ranks, the global
+    batch's loss) and ``grad_norm`` (global norm of the accumulated grads),
     both device scalars."""
     inv = 1.0 / accum_steps
 
@@ -51,7 +52,7 @@ def make_accum_train_step(loss_fn, optimizer, accum_steps: int,
                         grads[k] += g.to(grads[k].dtype)
                 del micro_grads
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        g_norm = apply_gradients(state, grads, optimizer)
+        g_norm, loss_sum = apply_gradients(state, grads, optimizer, loss_sum)
         return state, {"loss": loss_sum, "grad_norm": g_norm}
 
     return step

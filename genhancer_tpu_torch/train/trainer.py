@@ -1,6 +1,6 @@
-"""The training loop: config-driven, one device, observable, resumable.
+"""The training loop: config-driven, data parallel, observable, resumable.
 
-Port of ``genhancer_tpu/train/trainer.py`` for one device:
+Port of ``genhancer_tpu/train/trainer.py``, one device per process:
 
   * config -> task -> optimizer -> state -> resume -> loop;
   * gradient accumulation (``train.step_utils``) or a plain step;
@@ -30,14 +30,30 @@ Port of ``genhancer_tpu/train/trainer.py`` for one device:
     before it returns;
   * QLoRA's and the static DiT's int8 factors re-derived from the masters
     after the stage-1 load and after a resume
-    (``core.quant.refresh_static_quant_flat``).
+    (``core.quant.refresh_static_quant_flat``);
+  * data parallelism (``parallel.mesh``): launched as N processes
+    (``python -m torch.distributed.run --nproc_per_node N -m
+    genhancer_tpu_torch.cli.train ...``, or JAX's manual
+    ``GENHANCER_COORDINATOR``/``GENHANCER_NUM_PROCS``/``GENHANCER_PROC_ID``),
+    each rank trains on ``cuda:LOCAL_RANK`` with ``train_batch_size`` rows
+    of its own shards, so the global batch is ``train_batch_size x N``;
+    the loss is the masked mean over the global batch, the gradients are
+    summed over the ranks once per optimizer step, and with
+    ``shard_optimizer_state`` the moments are sharded by rows (ZeRO-1).
+    Rank 0 writes the checkpoints, the export and the tracker; the sharded
+    moments are gathered collectively first.  A SIGTERM stops every rank at
+    the same step boundary: rank 0's flag, broadcast at the ``log_interval``
+    cadence (``_preempt_stop``).  Out of device memory, one process stops
+    for a relaunch; a rank of several re-raises, so that the launcher tears
+    the group down.
 
 Random draws come from one ``torch.Generator`` on the device, seeded from
 ``seed + 777`` and the step (as JAX folds the step into its key), so a
-resumed run draws what an uninterrupted one would.  Float32 matmuls and
-convolutions run in full float32 (TF32 off).  The mesh, tensor and
-sequence parallelism, FSDP, ZeRO-1 and orbax are not ported (ROADMAP:
-parallelism); their options raise.
+resumed run draws what an uninterrupted one would; every rank seeds it
+alike, draws the global batch's values and keeps its rows.  Float32 matmuls
+and convolutions run in full float32 (TF32 off).  Tensor, sequence and
+pipeline parallelism, FSDP and orbax are not ported (ROADMAP: parallelism,
+part 2; checkpoint backend); their options raise.
 """
 
 from __future__ import annotations
@@ -52,6 +68,7 @@ import numpy as np
 import torch
 
 from ..data.prefetch import DevicePrefetcher
+from ..parallel import mesh
 from ..serve.engine import resolve_device
 from ..tasks import factory
 from ..tasks import image as image_task
@@ -66,6 +83,8 @@ from .step_utils import make_accum_train_step, merge_extras, stack_microbatches
 
 log = logging.getLogger("genhancer_tpu_torch.trainer")
 
+# the stage-2 tasks also checkpoint at these steps (train_SigLIP_stage2_all.py:305)
+STAGE2_EARLY_SAVES = {50, 100, 200, 300, 500, 1000, 2000, 3000}
 DATA_LOAD_TIMEOUT = 60.0
 STEP_TIMEOUT = 300.0
 ARRAY_KEYS = {"image", "cond", "target", "valid", "moments", "cls", "cond_patches",
@@ -134,11 +153,12 @@ class Trainer:
     def __init__(self, cfg, profile: bool = False, device="cuda"):
         self.cfg = cfg
         self.profile = profile
-        factory.validate_single_device(cfg)
         if str(cfg.get("checkpoint_backend", "torch")) != "torch":
             raise NotImplementedError("checkpoint_backend: orbax is not ported yet "
-                                      "(ROADMAP: parallelism)")
-        self.device = resolve_device(device)
+                                      "(ROADMAP: checkpoint backend and planner)")
+        self.device = mesh.rank_device(resolve_device(device))
+        mesh.maybe_initialize_distributed(self.device)
+        self.is_main = mesh.rank() == 0
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -201,7 +221,7 @@ class Trainer:
         report_to = cfg.get("report_to")
         self.writer = SummaryWriterProxy(
             os.path.join(self.output_dir, cfg.get("logging_dir", "logs")),
-            enabled=report_to in ("tensorboard", "wandb"),
+            enabled=self.is_main and report_to in ("tensorboard", "wandb"),
             backend=report_to or "tensorboard",
             project=cfg.get("tracker_project_name"),
             run_config={k: v for k, v in cfg.items()
@@ -240,16 +260,28 @@ class Trainer:
     # -- checkpointing -----------------------------------------------------
 
     def _should_checkpoint(self, step: int) -> bool:
+        """The reference cadence (``trainer.py:324-330``): every
+        ``checkpointing_steps``, and a stage-2 task also at each of
+        ``STAGE2_EARLY_SAVES``."""
         every = int(self.cfg.get("checkpointing_steps", 0) or 0)
-        return bool(every) and step % every == 0
+        if every and step % every == 0:
+            return True
+        return self.spec.stage.startswith("stage2") and step in STAGE2_EARLY_SAVES
 
     def _checkpoint(self, step: int) -> None:
         """Snapshot the components, the optimizer state and, in stage 2, the
         LoRA-merged tower (merged on the device, so the export's bits do not
         depend on the writer), and hand the writing to ``ckpt_writer``.  The
-        int8 weight caches are non-persistent buffers: never snapshotted."""
+        int8 weight caches are non-persistent buffers: never snapshotted.
+        Every rank gathers the ZeRO-1 moments (a collective); rank 0 alone
+        snapshots and writes."""
+        optimizer = ckpt.optimizer_state_dict(self.state)
+        self._last_saved = step
+        self.saved_steps.append(step)
+        if not self.is_main:
+            return
         tree = {"components": ckpt.stage1_state_dicts(self.state, self.ckpt_kind),
-                "optimizer": ckpt.optimizer_state_dict(self.state)}
+                "optimizer": optimizer}
         stage2 = self.spec.stage.startswith("stage2")
         if stage2:
             tree["tower"] = lora.merged_state_dict(self.state.modules["clip"]["model"])
@@ -273,8 +305,6 @@ class Trainer:
         self.ckpt_writer.save(tree, write)
         log.info("checkpoint at step %d: the step loop stalled %.3f s for the snapshot",
                  step, self.ckpt_writer.stalls[-1])
-        self._last_saved = step
-        self.saved_steps.append(step)
 
     # -- loop --------------------------------------------------------------
 
@@ -302,6 +332,23 @@ class Trainer:
             # every checkpoint is on disk when train() returns
             self.ckpt_writer.close()
 
+    def _preempt_stop(self, step: int) -> bool:
+        """Whether to stop at the step boundary ``step`` (``trainer.py:420-440``).
+        One process: the local SIGTERM flag.  Several: rank 0's flag,
+        broadcast at the ``log_interval`` cadence, where the loop syncs on the
+        loss anyway; the local flag never breaks the loop by itself, since a
+        rank that stopped alone would leave the others waiting in the next
+        step's collectives."""
+        if mesh.world_size() == 1:
+            return self._preempted
+        if step % self.log_interval:
+            return False
+        return mesh.broadcast_flag(self._preempted, self.device)
+
+    def _seed(self, step: int) -> None:
+        """Seed the draws of the step after ``step`` steps (every rank alike)."""
+        self.generator.manual_seed((self.seed + 777) * 1_000_003 + step)
+
     def _train_loop(self, batches) -> dict:
         step = self.state.step
         metrics_out = {}
@@ -310,7 +357,7 @@ class Trainer:
         for batch in batches:
             if step >= self.max_steps:
                 break
-            if self._preempted:
+            if self._preempt_stop(step):
                 log.warning("preempted — stopping at step %d (checkpoint follows; "
                             "relaunch with resume_from_checkpoint: latest)", step)
                 break
@@ -319,7 +366,7 @@ class Trainer:
                 log.warning("data loading slow: %.1fs > %.0fs", data_load_time,
                             DATA_LOAD_TIMEOUT)
             extras = batch.pop("__extras__", {})
-            if self.profile and step == 2:
+            if self.profile and step == 2 and self.is_main:
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA]
@@ -327,7 +374,7 @@ class Trainer:
                 prof.start()
 
             t0 = time.time()
-            self.generator.manual_seed((self.seed + 777) * 1_000_003 + step)
+            self._seed(step)
             sync = (step + 1) % self.log_interval == 0 or (step + 1) >= self.max_steps
             try:
                 self.state, metrics = self.step_fn(self.state, batch, self.generator)
@@ -337,6 +384,8 @@ class Trainer:
             except torch.cuda.OutOfMemoryError as e:
                 log.error("out of device memory at step %d — stopping for a relaunch "
                           "with a smaller batch: %s", step, str(e)[:500])
+                if mesh.world_size() > 1:
+                    raise       # the other ranks wait in a collective: end the group
                 break
             step_time = time.time() - t0
             if step_time > STEP_TIMEOUT:
