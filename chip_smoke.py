@@ -99,11 +99,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              as one torchrun-style rank over NCCL (world size 1; its
              collectives run) in a subprocess, 8 steps on the batches the
              K3 run read: losses and parameters equal the K3 run's bit for
-             bit, K3 112 launches per step, step time and peak memory; (b)
-             two gloo ranks sharing the card (both ``LOCAL_RANK=0``),
-             configs/tpu_fast_stage1.yaml's settings with the DiT cut to
-             1 + 1 blocks, B=4 per rank, 3 steps of ``int8_full`` (K4) and
-             of ``int8_dw`` + 8-bit moments (K6), each replicated and with
+             bit, K3 112 launches per step, step time and peak memory; (b),
+             at once with (a), two gloo ranks sharing the card (both
+             ``LOCAL_RANK=0``), configs/tpu_fast_stage1.yaml's settings with
+             the DiT cut to 1 + 1 blocks, B=4 per rank, 2 steps of
+             ``int8_full`` (K4) and of ``int8_dw`` + 8-bit moments (K6), one
+             launch each, at once, each replicated and with
              ``shard_optimizer_state``: ZeRO-1 equal to replicated and the
              ranks equal bit for bit (parameters and int8 caches after
              every step, gathered moments), the loss within 3e-3 of one
@@ -112,6 +113,25 @@ Phases, each printing its own lines; any failure exits non-zero:
              host-staged step time; K3/K4/K6 on row ranges at unaligned
              offsets against the whole-leaf update bit for bit; the time to
              draw the global batch's LoRA masks at 1, 2 and 4 ranks;
+6c. tp_fsdp — tensor parallelism and FSDP (``parallel/{tp,fsdp,layout}.py``)
+             on gloo ranks sharing the card (NCCL refuses two ranks on one
+             device), in two waves of launches that run at once: (a)
+             ``model_parallel: 2`` on the same config at full width with K3,
+             3 steps on the K3 run's batches, the loss within 1e-2 of the
+             K3 run's, each rank's parameter, frozen and moment bytes those
+             of its blocks' shapes, K1/K1b on 12 heads, K3 once per local
+             leaf, the checkpoint loaded strictly in one process; (b)
+             ``fsdp: true`` on two data ranks (B=8 each), the chain, 3 steps
+             on the chain run's batches against its losses, each rank's
+             bytes its blocks'; (c) configs/tpu_fast_stage1.yaml's settings
+             under TP=2 with the DiT cut to 1 + 1 blocks, B=4, 3 steps: each
+             DiT linear kind through SwitchBack at flux-dev width within
+             1e-5 of one process with the cache bit for bit, the loss within
+             3e-3 of one process, the gathered int8 cache bit for bit the
+             quantization of the gathered masters; (d) dp2 x tp2 with FSDP
+             on four ranks, 1 + 1 blocks, B=4 per data index, 2 steps
+             against one process; each rank's groups and the host-staged
+             step time;
 7. stage2  — the ``Trainer`` on configs/MetaCLIP_large_stage2_all.yaml at full
              width (LoRA on the whole MetaCLIP-L/14, B=16 x accumulation 2)
              from the K3 run's step-10 files (``load_dir``/``load_step``): 7
@@ -148,9 +168,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              with the default chain, a checkpoint at step 8, a resume from
              step 8 that loads the four video ``.bin`` files strictly and
              runs steps 9-10; then next@224, next2@224 and middle@336 (remat
-             from the gate) 4 optimizer steps each at their published batch
+             from the gate) 3 optimizer steps each at their published batch
              (32 x accumulation 2); step time (sliding: steps 3-8, the others
-             2-3), rows/s (sliding: valid rows, padding left out), peak
+             step 2), rows/s (sliding: valid rows, padding left out), peak
              memory, the launch counts of every kernel, per mode, and device
              time by kernel (K5/K5b's share) in each mode's last step (the
              sliding resume's step 10), run under torch.profiler;
@@ -158,7 +178,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              (``configs/OpenAICLIP_*_stage2_all.yaml``: LoRA on all 218
              linears of OpenAI CLIP-L/14, the gates' DiT remat and
              tower_remat) at full width and batch x accumulation 2, each
-             from its own mode's stage-1 files: 4 steps, 2-3 timed, 4
+             from its own mode's stage-1 files: 3 steps, 2 timed, 3
              profiled, K2b's first call held against its plain version, the
              export timed and read back; middle@336's peak memory with
              tower_remat on and off; a resume of next; K2b 48 launches per
@@ -276,7 +296,7 @@ VIDEO2_CONFIGS = {"sliding": "OpenAICLIP_224_sliding_stage2_all.yaml",
 # optimizer steps of the stage-2 Trainer runs (phase_stage2_train,
 # phase_video_stage2): K2b launches 48 times in each
 STAGE2_STEPS = {"train_stage2_all": 7, "train_stage2_only": 4,
-                **{f"video_{m}_stage2": 4 for m in VIDEO2_CONFIGS}}
+                **{f"video_{m}_stage2": 3 for m in VIDEO2_CONFIGS}}
 EVAL_PAIRS = 15      # pairs per category: MMVP-VLM's 9 x 15 pairs, 270 images
 BUCKETS = (1, 4, 8)
 
@@ -2651,8 +2671,8 @@ def phase_train(work):
         built = time.perf_counter() - t0
         n_leaves = len(trainer.state.trainable)
         n_par = sum(p.numel() for p in trainer.state.trainable.values())
-        if opt == "pallas":         # the host batches phase_dp (a) replays
-            trainer.loader = _Recording(trainer.loader)
+        # the host batches phase_dp (a) and phase_tp_fsdp (a, b) replay
+        trainer.loader = _Recording(trainer.loader)
         torch.cuda.reset_peak_memory_stats()
         _zero_counts()
         t0 = time.perf_counter()
@@ -2682,10 +2702,12 @@ def phase_train(work):
                 "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
         print(f"[train] {opt}: kernel launches {counts}, expected {want}")
         check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
+        if opt == "chain":
+            chain_ref = {"loss": [h["loss"] for h in hist], "batches": trainer.loader.batches}
         if opt == "pallas":
             from genhancer_tpu_torch.parallel.testing import digest
             k3_ref = {"loss": [h["loss"] for h in hist], "step_s": step_s,
-                      "batches": trainer.loader.batches,
+                      "batches": trainer.loader.batches, "chain": chain_ref,
                       "params": {k: digest(v) for k, v in trainer.state.trainable.items()}}
         for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
                     "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
@@ -2735,7 +2757,7 @@ def phase_train(work):
 # replicated and with shard_optimizer_state (ZeRO-1) on two gloo ranks
 DP_GLOO_VARIANTS = {"int8_full": {},
                     "int8_dw": {"dit_quant": "int8_dw", "optimizer_moment_bits": 8}}
-DP_GLOO_STEPS = 3
+DP_GLOO_STEPS = 2
 DP_GLOO_BATCH = 4      # rows per rank
 # JAX's bound for int8 under data parallelism (tests/test_quant_parallel.py:134)
 DP_INT8_REL = 3e-3
@@ -2753,16 +2775,6 @@ def _optimizer_launches(counts) -> int:
                                    "fused_adamw8_quant"))
 
 
-def _dp_launch(*args, **kw):
-    """``parallel.testing.launch``; a rank that fails or hangs fails the
-    phase (its log's end in the message)."""
-    from genhancer_tpu_torch.parallel import testing as ptest
-    try:
-        return ptest.launch(*args, **kw)
-    except RuntimeError as e:
-        raise SmokeFailure(str(e)[-4000:]) from e
-
-
 def _device_memory(tag):
     import torch
     free, total = torch.cuda.mem_get_info()
@@ -2771,12 +2783,13 @@ def _device_memory(tag):
           f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free", flush=True)
 
 
-def _dp_nccl(work, k3_ref):
+def _dp_nccl_start(work, k3_ref):
     """(a): the Trainer as one torchrun-style rank over NCCL, world size 1,
     ``fused_optimizer: pallas`` with ``shard_optimizer_state``, for the 8
     steps of phase_train's K3 run on the host batches that run read (its
-    decode threads' crops are not repeatable): the losses and the
-    parameters after step 8 equal the K3 run's bit for bit."""
+    decode threads' crops are not repeatable).  Returns (the launch, its
+    output directory)."""
+    from genhancer_tpu_torch.parallel import testing as ptest
     from genhancer_tpu_torch.train.config import load_config
     cfg = load_config(CONFIG)
     cfg["data_config"]["img_dir"] = os.path.join(work, "shards")
@@ -2784,12 +2797,14 @@ def _dp_nccl(work, k3_ref):
     cfg.update(max_train_steps=8, checkpointing_steps=8, log_interval=1, report_to="none",
                fused_optimizer="pallas", shard_optimizer_state=True, output_dir=out_dir)
     env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "LOCAL_RANK": "0"}
-    t0 = time.perf_counter()
-    (res,) = _dp_launch({"scenario": "train", "device": "cuda", "cfg": dict(cfg),
-                           "batches": k3_ref["batches"], "digests": True,
-                           "threads": os.cpu_count() or 1}, 1,
-                          os.path.join(work, "dp-nccl"), timeout=420, env=env)
-    wall = time.perf_counter() - t0
+    return ptest.start({"scenario": "train", "device": "cuda", "cfg": dict(cfg),
+                        "batches": k3_ref["batches"], "digests": True, "threads": 2}, 1,
+                       os.path.join(work, "dp-nccl"), timeout=420, env=env), out_dir
+
+
+def _dp_nccl_check(res, wall, out_dir, k3_ref):
+    """(a): the losses and the parameters after step 8 equal the K3 run's
+    bit for bit."""
     hist = res["history"]
     losses = [h["loss"] for h in hist]
     n = len(res["params"])
@@ -2809,7 +2824,8 @@ def _dp_nccl(work, k3_ref):
     step_s = statistics.median(h["step_time"] for h in hist[2:])
     print(f"[dp] (a) NCCL, world size 1, shard_optimizer_state: one rank of "
           f"configs/MetaCLIP_large_stage1.yaml (B=16 x accumulation 2, K3) in a subprocess, 8 "
-          f"steps in {wall:.1f} s with its start and the step-8 checkpoint; losses and the {n} "
+          f"steps in {wall:.1f} s with its start and the step-8 checkpoint, while (b)'s gloo "
+          f"ranks shared the card and the host; losses and the {n} "
           f"parameters after step 8 identical to the K3 run's (losses {losses}); K3 "
           f"{res['launches']['fused_adamw'] // 8} launches per step ({n} leaves by rows "
           f"[0, n)); median step time of steps 3-8 {step_s * 1e3:.1f} ms against the K3 run's "
@@ -2840,44 +2856,43 @@ class _DitDepth:
         registry.build_dit_config = self.real
 
 
-def _dp_gloo(work):
-    """(b): two gloo ranks sharing the card (both LOCAL_RANK=0, torchrun's
-    layout of two one-card nodes), configs/tpu_fast_stage1.yaml's settings at
-    flux-dev width with the DiT cut to one double and one single block, B=4
-    per rank, 3 steps of int8_full (K4's cache) and of int8_dw + 8-bit
-    moments (K6), each replicated and with shard_optimizer_state: ZeRO-1
-    equal to replicated and rank equal to rank bit for bit, the loss within
-    3e-3 of one process on the global batch, each rank's moment bytes its
-    row ranges', K3/K4/K6 once per leaf per rank per step."""
-    from genhancer_tpu_torch.parallel import testing as ptest
+def _dp_gloo_cfg(work):
     from genhancer_tpu_torch.train.config import load_config
-    from genhancer_tpu_torch.train.trainer import Trainer
     cfg = load_config(INT8_CONFIG)
     cfg["data_config"].update(img_dir=os.path.join(work, "shards"),
                               train_batch_size=DP_GLOO_BATCH)
     cfg.update(log_interval=1, report_to="none", output_dir=os.path.join(work, "out-dp-gloo"))
-    variants = {}
+    return cfg
+
+
+def _dp_gloo(work, wave, dit):
+    """(b): two gloo ranks sharing the card (both LOCAL_RANK=0, torchrun's
+    layout of two one-card nodes), configs/tpu_fast_stage1.yaml's settings at
+    flux-dev width with the DiT cut to one double and one single block, B=4
+    per rank, DP_GLOO_STEPS steps of int8_full (K4's cache) and of int8_dw +
+    8-bit moments (K6), each replicated and with shard_optimizer_state, one
+    launch per kind, both at once (beside (a)): ZeRO-1 equal to replicated
+    and rank equal to rank bit for bit, the loss within 3e-3 of one process
+    on the global batch (run meanwhile in this process), each rank's moment
+    bytes its row ranges', K3/K4/K6 once per leaf per rank per step."""
+    cfg = _dp_gloo_cfg(work)
+    launches = {}
+    t0 = time.perf_counter()
     for name, over in DP_GLOO_VARIANTS.items():
-        variants[name] = over
-        variants[name + "_zero1"] = {**over, "shard_optimizer_state": True}
-    with _DitDepth(1, 1) as dit:
-        t0 = time.perf_counter()
-        outs = _dp_launch({"scenario": "steps", "device": "cuda", "steps": DP_GLOO_STEPS,
-                             "cfg": dict(cfg), "registry": {"dit": dit}, "variants": variants,
-                             "init_file": os.path.join(work, "dp-gloo.store"), "threads": 4},
-                            2, os.path.join(work, "dp-gloo"), timeout=480,
-                            env={"LOCAL_RANK": "0"})
-        wall = time.perf_counter() - t0
-        # one process on the global batch (2 x 4 rows), in this process
-        ref = {}
-        for name, over in DP_GLOO_VARIANTS.items():
-            one = copy.deepcopy(cfg).merged_with(over)
-            one["data_config"]["train_batch_size"] = 2 * DP_GLOO_BATCH
-            trainer = Trainer(one, device="cuda")
-            trainer.loader.close()
-            ref[name] = ptest.run_steps(trainer, DP_GLOO_STEPS)
-            del trainer
-            _free()
+        launches[name] = wave.start(work, f"dp-gloo-{name}", {
+            "scenario": "steps", "device": "cuda", "steps": DP_GLOO_STEPS, "cfg": dict(cfg),
+            "registry": {"dit": dit}, "variants": {
+                name: over, name + "_zero1": {**over, "shard_optimizer_state": True}}}, 2,
+            timeout=480)
+    # one process on the global batch (2 x 4 rows), in this process
+    ref = {name: _one_process(cfg.merged_with(over), DP_GLOO_STEPS, batch=2 * DP_GLOO_BATCH)
+           for name, over in DP_GLOO_VARIANTS.items()}
+    outs = [{"runs": {}} for _ in range(2)]
+    for launch in launches.values():
+        for o, part in zip(outs, wave.join(launch)):
+            o["runs"].update(part["runs"])
+    wall = time.perf_counter() - t0
+    variants = [v for name in DP_GLOO_VARIANTS for v in (name, name + "_zero1")]
     counts = {}
     for name in variants:
         runs = [o["runs"][name] for o in outs]
@@ -2916,13 +2931,14 @@ def _dp_gloo(work):
             f"{zero['moment_bytes'] / 2**20:.1f} MiB with ZeRO-1 ({len(zero['rows'])} of "
             f"{zero['leaves']} leaves by rows); per rank and step K3 {c['fused_adamw']}, K4 "
             f"{c['fused_adamw_quant']}, K6 {c['fused_adamw8'] + c['fused_adamw8_quant']}; "
-            f"host-staged gloo step (median of steps 2-3) replicated "
+            f"host-staged gloo step (step 2) replicated "
             f"{statistics.median(rep['step_s'][1:]) * 1e3:.1f} ms, ZeRO-1 "
             f"{statistics.median(zero['step_s'][1:]) * 1e3:.1f} ms, one process on the card "
             f"{statistics.median(ref[name]['step_s'][1:]) * 1e3:.1f} ms")
     print(f"[dp] (b) two gloo ranks on one card, tpu_fast_stage1 at flux-dev width with the "
           f"DiT cut to 1 + 1 blocks, B={DP_GLOO_BATCH} per rank, {DP_GLOO_STEPS} steps, "
-          f"{len(variants)} runs in {wall:.1f} s: ZeRO-1 equal to replicated and rank 0 equal "
+          f"{len(variants)} runs (two launches at once, beside (a)) in {wall:.1f} s: ZeRO-1 "
+          f"equal to replicated and rank 0 equal "
           f"to rank 1 bit for bit (parameters and int8 caches after every step, gathered "
           f"moments); " + "; ".join(lines), flush=True)
     check(not far, "dp (b): " + "; ".join(far))
@@ -3023,17 +3039,456 @@ def _mask_draw_ms():
 def phase_dp(work, k3_ref):
     """Data parallelism and ZeRO-1: (a) full width at world size 1 over
     NCCL against phase_train's K3 run, (b) two gloo ranks sharing the card
-    on the int8 paths, K3/K4/K6 on row ranges, the cost of the global
-    masks.  Returns {path: launch counts}."""
+    on the int8 paths, at once with (a); K3/K4/K6 on row ranges, the cost
+    of the global masks.  Returns {path: launch counts}."""
     check(k3_ref is not None, "dp: phase_train gave no K3 reference")
     _free()
     _device_memory("before the ranks start")
-    counts = {"dp_nccl": _dp_nccl(work, k3_ref)}
-    _free()
-    counts.update(_dp_gloo(work))
+    with _DitDepth(1, 1) as dit, _Wave() as wave:
+        t0 = time.perf_counter()
+        la, out_dir = _dp_nccl_start(work, k3_ref)
+        wave.launches.append(la)
+        counts = _dp_gloo(work, wave, dit)
+        (res,) = wave.join(la)
+        counts["dp_nccl"] = _dp_nccl_check(res, time.perf_counter() - t0, out_dir, k3_ref)
     _free()
     _dp_row_kernels()
     _mask_draw_ms()
+    return counts
+
+
+# phase_tp_fsdp: the mesh's paths on gloo ranks sharing the card
+TP_STEPS = 3
+MESH_STEPS = 2
+# the bf16 loss of a step on the mesh against one process on the same rows
+# (the TP partial products are rounded to bf16 before their sum; FSDP and
+# the data axis reorder the sums)
+MESH_LOSS_REL = 1e-2
+GLOO_NOTE = ("host-staged gloo, ranks sharing one card and the host with the other sub-runs "
+             "of their wave and this process's references; says nothing of NCCL")
+
+
+def _rank_bytes(cfg, tp: int, fsdp: bool, dp: int, dit=None) -> dict:
+    """What one rank holds under ``tp`` model ranks and, with ``fsdp``,
+    ``dp`` data ranks: the bytes of its trainable and frozen blocks and of
+    its DiT blocks, and its trainable elements; from the config's shapes on
+    the meta device and the specs of ``parallel.tp`` and ``parallel.fsdp``
+    (FSDP's default ``fsdp_min_size``)."""
+    from genhancer_tpu_torch.parallel import fsdp as fsdp_m
+    from genhancer_tpu_torch.parallel import tp as tp_m
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks import image as timage
+    spec = factory.build_spec(cfg)[0]
+    if dit is not None:
+        spec = dataclasses.replace(spec, dit_cfg=dit)
+    mods = timage.build_modules(spec, device="meta")
+    pred = timage.trainable_predicate(spec, mods)
+    out = {"trainable": 0, "frozen": 0, "dit": 0, "trainable_n": 0, "dit_whole_n": 0}
+    for path, p in mods.named_parameters():
+        base = tp_m.port_spec(path[4:], p) if tp > 1 and path.startswith("dit.") else ()
+        spec_ = fsdp_m.fsdp_spec(p, dp, base) if fsdp else base
+        n = p.numel() // (tp if "model" in spec_ else 1) // (dp if "data" in spec_ else 1)
+        out["trainable" if pred(path) else "frozen"] += n * p.element_size()
+        if pred(path):
+            out["trainable_n"] += n
+        if path.startswith("dit."):
+            out["dit"] += n * p.element_size()
+            out["dit_whole_n"] += p.numel()
+    return out
+
+
+def _mesh_report(tag, runs, step_s):
+    groups = "; ".join(f"rank {g['rank']}: data index {g['data_index']} group "
+                       f"{g['data_group']}, model index {g['model_index']} group "
+                       f"{g['model_group']}" for g in (r["groups"] for r in runs))
+    peaks = [round(r["peak_bytes"] / 2**30, 2) for r in runs if "peak_bytes" in r]
+    print(f"[tp_fsdp] {tag} groups: {groups}; step (median of the timed steps; {GLOO_NOTE}) "
+          f"{statistics.median(step_s) * 1e3:.1f} ms; peak device memory per rank {peaks} GiB",
+          flush=True)
+
+
+class _Wave:
+    """Rank launches that run at once (``parallel.testing.start``); a
+    failed or hung rank fails the phase, and leaving the block kills every
+    launch still running."""
+
+    def __init__(self):
+        self.launches = []
+
+    def start(self, work, name, payload, world, timeout=600):
+        from genhancer_tpu_torch.parallel import testing as ptest
+        self.launches.append(ptest.start(
+            {**payload, "init_file": os.path.join(work, f"{name}.store"), "threads": 2},
+            world, os.path.join(work, name), timeout=timeout, env={"LOCAL_RANK": "0"}))
+        return self.launches[-1]
+
+    @staticmethod
+    def join(launch):
+        try:
+            return launch.join()
+        except RuntimeError as e:
+            raise SmokeFailure(str(e)[-4000:]) from e
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for launch in self.launches:
+            launch.kill()
+
+
+def _tp_k3_payload(work):
+    """(a)'s config: ``model_parallel: 2`` on MetaCLIP_large_stage1 (B=16 x
+    accumulation 2, bf16, K3) at full width, TP_STEPS steps and a
+    checkpoint at the last."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(CONFIG)
+    cfg["data_config"]["img_dir"] = os.path.join(work, "shards")
+    cfg.update(max_train_steps=TP_STEPS, checkpointing_steps=0, log_interval=1,
+               report_to="none", fused_optimizer="pallas", model_parallel=2,
+               output_dir=os.path.join(work, "out-tp"))
+    return cfg
+
+
+def _tp_k3_check(cfg, outs, wall, k3_ref, n_leaves):
+    """(a) on the K3 run's host batches: the loss at each step within
+    MESH_LOSS_REL of the K3 run's, each rank's DiT parameter and moment
+    bytes those of its blocks' shapes, K1/K1b on 12 heads, K3 once per
+    local leaf, and the checkpoint rank 0 wrote loaded strictly in this
+    process with the reference's keys and shapes."""
+    import torch
+    from genhancer_tpu_torch.models import dit as dit_m
+    from genhancer_tpu_torch.weights import hf_io
+    want_b = _rank_bytes(cfg, 2, False, 1)
+    train_b, frozen_b = want_b["trainable"], want_b["frozen"]
+    ref = k3_ref["loss"][:TP_STEPS]
+    want = {**_no_launches(), "fused_rope_attention": TP_STEPS * 2 * 6,
+            "fused_rope_attention_bwd": TP_STEPS * 2 * 6,
+            "fused_attention": TP_STEPS * 2 * 24, "fused_adamw": TP_STEPS * n_leaves}
+    for r, o in enumerate(outs):
+        losses = [h["loss"] for h in o["history"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        check(len(losses) == TP_STEPS and max(rel) <= MESH_LOSS_REL,
+              f"tp_fsdp (a) rank {r}: losses {losses} against the K3 run's {ref} "
+              f"(relative {rel}, bound {MESH_LOSS_REL})")
+        check(o["param_bytes"] == train_b and o["frozen_bytes"] == frozen_b,
+              f"tp_fsdp (a) rank {r}: {o['param_bytes']} trainable and {o['frozen_bytes']} "
+              f"frozen bytes, the shapes give {train_b} and {frozen_b}")
+        check(o["moment_bytes"] == 2 * train_b,
+              f"tp_fsdp (a) rank {r}: {o['moment_bytes']} moment bytes, K3's bf16/f32 moments "
+              f"of its blocks are {2 * train_b}")
+        check(o["heads"] == [12], f"tp_fsdp (a) rank {r}: DiT attention on {o['heads']} heads")
+        check(o["launches"] == want, f"tp_fsdp (a) rank {r}: launches {o['launches']} != {want}")
+        check(o["local_shapes"]["dit.double_blocks.0.img_attn.qkv.weight"] == (4608, 3072),
+              f"tp_fsdp (a) rank {r}: qkv block {o['local_shapes']}")
+    check(outs[0]["params"] == outs[1]["params"],
+          "tp_fsdp (a): the ranks' gathered parameters differ")
+    dit_cfg = dit_m.DIT_CONFIGS["flux-dev"]
+    whole = dit_m.DiT(dit_cfg, device="meta", dtype=torch.bfloat16).state_dict()
+    out_dir = cfg["output_dir"]
+    sd = hf_io.load_state_dict(os.path.join(out_dir, f"checkpoint-dit-{TP_STEPS}.bin"))
+    check(sd.keys() == whole.keys() and all(sd[k].shape == whole[k].shape for k in sd),
+          "tp_fsdp (a): checkpoint-dit keys or shapes differ from the reference's")
+    one = dit_m.DiT(dit_cfg, dtype=torch.bfloat16)
+    one.load_state_dict(sd, strict=True)
+    del one, sd
+    print(f"[tp_fsdp] (a) TP=2 on two gloo ranks sharing the card, "
+          f"configs/MetaCLIP_large_stage1.yaml at full width (B=16 x accumulation 2, K3), "
+          f"{TP_STEPS} steps on the K3 run's batches in {wall:.1f} s with the start and the "
+          f"step-{TP_STEPS} checkpoint: losses "
+          f"{[round(h['loss'], 5) for h in outs[0]['history']]} (K3 run "
+          f"{[round(x, 5) for x in ref]}); per rank the DiT's blocks "
+          f"{want_b['dit'] / 2 / 1e9:.3f} B of its {want_b['dit_whole_n'] / 1e9:.3f} B "
+          f"parameters ({want_b['dit'] / 2**30:.3f} GiB bf16), all trainable "
+          f"{train_b / 2**30:.3f} GiB, moments {outs[0]['moment_bytes'] / 2**30:.3f} GiB, "
+          f"frozen {frozen_b / 2**30:.3f} GiB, as the shapes give; K1/K1b on 12 heads, K3 "
+          f"{n_leaves} per step; checkpoint-dit-{TP_STEPS}.bin loaded strictly in one "
+          f"process", flush=True)
+    _mesh_report("(a)", outs, [h["step_time"] for o in outs for h in o["history"][1:]])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {"tp_k3": outs[0]["launches"]}
+
+
+def _fsdp_payload(work):
+    """(b)'s config: ``fsdp: true`` on two data ranks (B=8 each,
+    accumulation 2), the default chain."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(CONFIG)
+    cfg["data_config"].update(img_dir=os.path.join(work, "shards"), train_batch_size=8)
+    cfg.update(log_interval=1, report_to="none", fsdp=True,
+               output_dir=os.path.join(work, "out-fsdp"))
+    return cfg
+
+
+def _fsdp_check(cfg, outs, wall, chain_ref):
+    """(b): TP_STEPS steps on the chain run's host batches against its
+    losses; each rank's parameters and moments its blocks'."""
+    want_b, whole_b = _rank_bytes(cfg, 1, True, 2), _rank_bytes(cfg, 1, False, 1)
+    train_b, frozen_b, train_n = want_b["trainable"], want_b["frozen"], want_b["trainable_n"]
+    ref = chain_ref["loss"][:TP_STEPS]
+    want = {**_no_launches(), "fused_rope_attention": 2 * 6,
+            "fused_rope_attention_bwd": 2 * 6, "fused_attention": 2 * 24}
+    for r, o in enumerate(outs):
+        rel = [abs(a - b) / abs(b) for a, b in zip(o["loss"], ref)]
+        check(len(o["loss"]) == TP_STEPS and max(rel) <= MESH_LOSS_REL,
+              f"tp_fsdp (b) rank {r}: losses {o['loss']} against the chain run's {ref} "
+              f"(relative {rel}, bound {MESH_LOSS_REL})")
+        check(o["param_bytes"] == train_b and o["frozen_bytes"] == frozen_b,
+              f"tp_fsdp (b) rank {r}: {o['param_bytes']} trainable and {o['frozen_bytes']} "
+              f"frozen bytes, its blocks' shapes give {train_b} and {frozen_b}")
+        check(o["moment_bytes"] == 2 * 4 * train_n,
+              f"tp_fsdp (b) rank {r}: {o['moment_bytes']} moment bytes, the chain's float32 "
+              f"moments of its blocks are {2 * 4 * train_n}")
+        check(o["heads"] == [24], f"tp_fsdp (b) rank {r}: DiT attention on {o['heads']} heads")
+        check(all(c == want for c in o["launches"]),
+              f"tp_fsdp (b) rank {r}: launches per step {o['launches']} != {want}")
+    check(outs[0]["full_params"] == outs[1]["full_params"],
+          "tp_fsdp (b): the ranks' gathered parameters differ")
+    print(f"[tp_fsdp] (b) FSDP on two data ranks (B=8 each x accumulation 2, the chain), "
+          f"{TP_STEPS} steps on the chain run's batches in {wall:.1f} s with the start: losses "
+          f"{[round(x, 5) for x in outs[0]['loss']]} (the chain run's "
+          f"{[round(x, 5) for x in ref]}); per rank {train_b / 2**30:.3f} GiB trainable + "
+          f"{frozen_b / 2**30:.3f} GiB frozen (one process: {whole_b['trainable'] / 2**30:.3f} "
+          f"+ {whole_b['frozen'] / 2**30:.3f}), moments "
+          f"{outs[0]['moment_bytes'] / 2**30:.3f} GiB, as the shapes give", flush=True)
+    _mesh_report("(b)", outs, [s for o in outs for s in o["step_s"][1:]])
+    return {"fsdp_chain": {k: sum(c[k] for c in outs[0]["launches"]) for k in want}}
+
+
+# (c)'s per-call check: the DiT's four linear kinds at flux-dev width
+TP_LINEARS = {"dit.double_blocks.0.img_attn.qkv": (3 * 3072, 3072),
+              "dit.double_blocks.0.img_attn.proj": (3072, 3072),
+              "dit.single_blocks.0.linear1": (3 * 3072 + 12288, 3072),
+              "dit.single_blocks.0.linear2": (3072, 3072 + 12288)}
+
+
+def _tp_linears_payload():
+    """Equal bf16 inputs of each DiT linear kind, for SwitchBack
+    (``int8_full``, the cache read) on two model ranks."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    bf = torch.bfloat16
+    weights, xs, gs = {}, {}, {}
+    for path, (o, i) in TP_LINEARS.items():
+        weights[path] = ((torch.randn(o, i, generator=gen, device="cuda") / i ** 0.5).to(bf),
+                         (torch.randn(o, generator=gen, device="cuda") * 0.1).to(bf))
+        xs[path] = torch.randn(512, i, generator=gen, device="cuda").to(bf)
+        gs[path] = (torch.randn(512, o, generator=gen, device="cuda") * 1e-3).to(bf)
+    return {"tp": 2, "hidden": 3072, "weights": weights, "x": xs, "g": gs, "dw": "cols",
+            "cached": True}
+
+
+def _tp_linears_want(p):
+    """The one-process SwitchBack calls on ``p``'s inputs: {path: (y, dx,
+    dW, the bias's gradient, the cache)}."""
+    import torch
+    from genhancer_tpu_torch.core import nn as tnn_
+    from genhancer_tpu_torch.core.quant import quantize_cache
+    want = {}
+    for path, (w, b) in p["weights"].items():
+        lin = tnn_.Linear(w.shape[1], w.shape[0], device="cuda", dtype=w.dtype)
+        with torch.no_grad():
+            lin.weight.copy_(w)
+            lin.bias.copy_(b)
+        (wq, ws), = quantize_cache({"w": lin.weight}, ["w"]).values()
+        lin.register_buffer("weight_sb_q", wq, persistent=False)
+        lin.register_buffer("weight_sb_scale", ws, persistent=False)
+        x = p["x"][path].clone().requires_grad_(True)
+        with tnn_.int8_training_ctx(full=True):
+            y = tnn_.linear(lin, x)
+        y.backward(p["g"][path])
+        want[path] = {"y": y.detach(), "dx": x.grad, "dw": lin.weight.grad,
+                      "db": lin.bias.grad, "cache": (wq, ws)}
+    return want
+
+
+def _tp_int8_payload(work):
+    """(c)'s config: tpu_fast_stage1's settings (``int8_full``, K4's cache)
+    under TP=2, the DiT cut to 1 + 1 blocks, B=4."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(INT8_CONFIG)
+    cfg["data_config"].update(img_dir=os.path.join(work, "shards"), train_batch_size=4)
+    cfg.update(log_interval=1, report_to="none", output_dir=os.path.join(work, "out-tp-int8"))
+    return cfg
+
+
+def _tp_int8_check(outs, wall, one, lin_want):
+    """(c): every SwitchBack call within 1e-5 of the one-process call on
+    equal inputs and its cache bit for bit; the steps' loss within
+    DP_INT8_REL of one process on the same rows, the gathered int8 cache bit
+    for bit the one-process quantization of the gathered masters, K3 + K4
+    once per leaf per step, K7 launched."""
+    import torch
+    from genhancer_tpu_torch.core.quant import quantize_cache
+    worst = 0.0
+    for r, o in enumerate(outs):
+        for path, want in lin_want.items():
+            got = o["linears"][path]
+            for k in ("y", "dx", "dw", "db"):
+                ref = want[k].float()
+                err = float((got[k].to("cuda").float() - ref).abs().max() / ref.abs().max())
+                worst = max(worst, err)
+                check(err <= 1e-5, f"tp_fsdp (c) {path} rank {r}: {k} off by {err:.2e} of its "
+                      f"largest element (bound 1e-5)")
+            check(all(torch.equal(a.to("cuda"), b) for a, b in zip(got["cache"], want["cache"])),
+                  f"tp_fsdp (c) {path} rank {r}: the gathered cache differs from one process's")
+    print(f"[tp_fsdp] (c) SwitchBack (int8_full, the cache read) on two model ranks against "
+          f"one process, bf16 [512 rows] at flux-dev width: qkv and linear1 column-parallel, "
+          f"proj and linear2 row-parallel (whole-row amax, int32 sum over the model axis); "
+          f"largest relative error {worst:.2e} (bound 1e-5); the caches bit for bit",
+          flush=True)
+    runs = [o["runs"]["int8_full_tp2"] for o in outs]
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs[0]["loss"], one["loss"])]
+    check(max(rel) <= DP_INT8_REL, f"tp_fsdp (c): losses {runs[0]['loss']} against one "
+          f"process's {one['loss']} (relative {rel}, bound {DP_INT8_REL})")
+    for r, run in enumerate(runs):
+        check(run["loss"] == runs[0]["loss"], f"tp_fsdp (c) rank {r}: losses differ")
+        check(run["heads"] == [12], f"tp_fsdp (c) rank {r}: heads {run['heads']}")
+        for step, c in enumerate(run["launches"]):
+            cached = len(run["caches"][step])
+            check(_optimizer_launches(c) == run["leaves"] and c["fused_adamw_quant"] == cached
+                  and c["rowquant"] > 0,
+                  f"tp_fsdp (c) rank {r} step {step + 1}: launches {c}, {run['leaves']} leaves, "
+                  f"{cached} cached")
+        params = {k: v.to("cuda") for k, v in run["tensors"]["params"].items()}
+        caches = run["tensors"]["caches"]
+        want = quantize_cache(params, sorted(caches))
+        bad = [k for k, (wq, ws) in caches.items()
+               if not (torch.equal(wq.to("cuda"), want[k][0])
+                       and torch.equal(ws.to("cuda"), want[k][1]))]
+        check(not bad, f"tp_fsdp (c) rank {r}: the gathered cache of {bad[:4]} differs from "
+              f"the quantization of the gathered masters")
+    c = runs[0]["launches"][0]
+    print(f"[tp_fsdp] (c) int8_full with K4's cache under TP=2, tpu_fast_stage1 at flux-dev "
+          f"width with the DiT cut to 1 + 1 blocks, B=4, {TP_STEPS} steps in {wall:.1f} s: "
+          f"losses {[round(x, 5) for x in runs[0]['loss']]} (one process "
+          f"{[round(x, 5) for x in one['loss']]}, max relative {max(rel):.2e}); the gathered "
+          f"cache of {len(runs[0]['tensors']['caches'])} leaves equal bit for bit to the "
+          f"quantization of the gathered masters; per rank and step K3 {c['fused_adamw']}, "
+          f"K4 {c['fused_adamw_quant']}, K7 {c['rowquant']}; one process's step "
+          f"{statistics.median(one['step_s'][1:]) * 1e3:.1f} ms", flush=True)
+    _mesh_report("(c)", runs, [s for r in runs for s in r["step_s"][1:]])
+    return {"tp_int8": {k: sum(c[k] for c in runs[0]["launches"]) for k in c}}
+
+
+def _dp_tp_payload(work):
+    """(d)'s config: MetaCLIP_large_stage1 with B=4 per data index and no
+    accumulation (the mesh's collectives per step halve), the chain."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(CONFIG)
+    cfg["data_config"].update(img_dir=os.path.join(work, "shards"), train_batch_size=4)
+    cfg.update(log_interval=1, report_to="none", gradient_accumulation_steps=1,
+               output_dir=os.path.join(work, "out-2d"))
+    return cfg
+
+
+def _dp_tp_check(cfg, outs, wall, one, dit):
+    """(d): dp2 x tp2 with FSDP on four ranks, the DiT cut to 1 + 1 blocks,
+    MESH_STEPS steps, against one process on the same 8 rows; each rank's
+    groups, and its bytes its blocks'."""
+    want_b = _rank_bytes(cfg.merged_with({"fsdp": True, "model_parallel": 2}), 2, True, 2, dit)
+    train_b, frozen_b = want_b["trainable"], want_b["frozen"]
+    runs = [o["runs"]["dp2xtp2_fsdp"] for o in outs]
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs[0]["loss"], one["loss"])]
+    check(max(rel) <= MESH_LOSS_REL, f"tp_fsdp (d): losses {runs[0]['loss']} against one "
+          f"process's {one['loss']} (relative {rel}, bound {MESH_LOSS_REL})")
+    for r, run in enumerate(runs):
+        g = run["groups"]
+        check((g["data_index"], g["model_index"]) == (r // 2, r % 2)
+              and g["data_group"] == [r % 2, r % 2 + 2]
+              and g["model_group"] == [r - r % 2, r - r % 2 + 1],
+              f"tp_fsdp (d) rank {r}: groups {g}")
+        check(run["loss"] == runs[0]["loss"] and run["full_params"] == runs[0]["full_params"],
+              f"tp_fsdp (d) rank {r}: losses or gathered parameters differ from rank 0's")
+        # no accumulation: the gradients, and so the chain's moments, keep
+        # the parameters' dtypes
+        check(run["param_bytes"] == train_b and run["frozen_bytes"] == frozen_b
+              and run["moment_bytes"] == 2 * train_b,
+              f"tp_fsdp (d) rank {r}: {run['param_bytes']} trainable, {run['frozen_bytes']} "
+              f"frozen, {run['moment_bytes']} moment bytes; the shapes give {train_b}, "
+              f"{frozen_b}, {2 * train_b}")
+        check(run["heads"] == [12], f"tp_fsdp (d) rank {r}: heads {run['heads']}")
+    print(f"[tp_fsdp] (d) dp2 x tp2 with FSDP on four gloo ranks sharing the card, "
+          f"MetaCLIP_large_stage1 with the DiT cut to 1 + 1 blocks, B=4 per data index, no "
+          f"accumulation, the chain, {MESH_STEPS} steps in {wall:.1f} s: losses "
+          f"{[round(x, 5) for x in runs[0]['loss']]} (one process on the 8 rows "
+          f"{[round(x, 5) for x in one['loss']]}, max relative {max(rel):.2e}); per rank "
+          f"{train_b / 2**20:.1f} MiB trainable, {frozen_b / 2**20:.1f} MiB frozen, "
+          f"{runs[0]['moment_bytes'] / 2**20:.1f} MiB of moments, as the shapes give; one "
+          f"process's step {statistics.median(one['step_s'][1:]) * 1e3:.1f} ms", flush=True)
+    _mesh_report("(d)", runs, [s for r in runs for s in r["step_s"][1:]])
+    return {"dp2xtp2_fsdp": {k: sum(c[k] for c in runs[0]["launches"])
+                             for k in runs[0]["launches"][0]}}
+
+
+def _one_process(cfg, steps, batch=None):
+    """``steps`` steps of one process's Trainer on ``cfg`` (``batch`` rows)
+    on the seeded global batches (``parallel.testing.run_steps``)."""
+    from genhancer_tpu_torch.parallel import testing as ptest
+    from genhancer_tpu_torch.train.trainer import Trainer
+    one_cfg = copy.deepcopy(cfg)
+    if batch is not None:
+        one_cfg["data_config"]["train_batch_size"] = batch
+    trainer = Trainer(one_cfg, device="cuda")
+    trainer.loader.close()
+    out = ptest.run_steps(trainer, steps)
+    del trainer
+    _free()
+    return out
+
+
+def phase_tp_fsdp(work, k3_ref, n_leaves):
+    """Tensor parallelism and FSDP on gloo ranks sharing the card (NCCL
+    refuses two ranks on one device), in two waves of launches that run at
+    once: (a) TP=2 at full width with K3 against phase_train's K3 run and
+    (b) FSDP on two data ranks against its chain run, (c) the int8 stack
+    under TP=2 at 1 + 1 blocks taking (a)'s place when it ends; then (d)
+    dp2 x tp2 with FSDP on four ranks.  The one-process references of (c)
+    and (d) run meanwhile in this process.  Returns {path: launch
+    counts}."""
+    check(k3_ref is not None and "chain" in k3_ref, "tp_fsdp: phase_train gave no reference")
+    counts = {}
+    _free()
+    cfg_a, cfg_b, cfg_c = _tp_k3_payload(work), _fsdp_payload(work), _tp_int8_payload(work)
+    with _Wave() as wave:
+        t0 = time.perf_counter()
+        la = wave.start(work, "tp-k3", {"scenario": "train", "device": "cuda",
+                                        "cfg": dict(cfg_a), "digests": True,
+                                        "batches": k3_ref["batches"][:2 * TP_STEPS]}, 2)
+        lb = wave.start(work, "fsdp", {"scenario": "steps", "device": "cuda",
+                                       "steps": TP_STEPS, "cfg": dict(cfg_b),
+                                       "variants": {"fsdp": {}},
+                                       "batches": k3_ref["chain"]["batches"][:2 * TP_STEPS]}, 2)
+        outs_a = wave.join(la)
+        wall_a = time.perf_counter() - t0
+        # (c) takes (a)'s place on the card while (b) runs on
+        linears = _tp_linears_payload()
+        with _DitDepth(1, 1) as dit:
+            t1 = time.perf_counter()
+            lc = wave.start(work, "tp-int8", {
+                "scenario": "steps", "device": "cuda", "steps": TP_STEPS, "cfg": dict(cfg_c),
+                "registry": {"dit": dit}, "variants": {"int8_full_tp2": {"model_parallel": 2}},
+                "keep_tensors": True, "linears": linears}, 2, timeout=480)
+            lin_want = _tp_linears_want(linears)
+            one_c = _one_process(cfg_c, TP_STEPS)
+            outs_c = wave.join(lc)
+            wall_c = time.perf_counter() - t1
+        outs_b = [o["runs"]["fsdp"] for o in wave.join(lb)]
+        wall_b = time.perf_counter() - t0
+    counts.update(_tp_k3_check(cfg_a, outs_a, wall_a, k3_ref, n_leaves))
+    counts.update(_fsdp_check(cfg_b, outs_b, wall_b, k3_ref["chain"]))
+    counts.update(_tp_int8_check(outs_c, wall_c, one_c, lin_want))
+    _free()
+    cfg_d = _dp_tp_payload(work)
+    with _DitDepth(1, 1) as dit, _Wave() as wave:
+        t0 = time.perf_counter()
+        ld = wave.start(work, "2d", {
+            "scenario": "steps", "device": "cuda", "steps": MESH_STEPS, "cfg": dict(cfg_d),
+            "registry": {"dit": dit},
+            "variants": {"dp2xtp2_fsdp": {"model_parallel": 2, "fsdp": True}}}, 4, timeout=480)
+        one_d = _one_process(cfg_d, MESH_STEPS, batch=8)
+        outs_d = wave.join(ld)
+        counts.update(_dp_tp_check(cfg_d, outs_d, time.perf_counter() - t0, one_d, dit))
     return counts
 
 
@@ -3705,13 +4160,13 @@ def phase_video_train(work):
     for mode, name in VIDEO_CONFIGS.items():
         cfg = load_config(os.path.join(ROOT, "configs", name))
         cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
-        steps = 8 if mode == "sliding" else 4
+        steps = 8 if mode == "sliding" else 3
         # one checkpoint at the last step: sliding's resume and stage 2 load it
         cfg.update(output_dir=os.path.join(work, f"out-{mode}"), max_train_steps=steps,
                    checkpointing_steps=steps, log_interval=1, report_to="none")
         t0 = time.perf_counter()
         # sliding: steps 3-8 timed, the resume's step 10 profiled; the
-        # others: steps 2-3 timed, step 4 profiled
+        # others: step 2 timed, step 3 profiled
         profile = None if mode == "sliding" else _LastStepProfile()
         trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
         spec, hist = trainer.spec, trainer.history
@@ -3853,11 +4308,11 @@ def phase_video_stage2(work, stage1, eval_root=None):
     """The port's Trainer on the four published video stage-2 configs at full
     width and published batch x accumulation 2 (LoRA on all 218 linears of
     OpenAI CLIP-L/14, the tower under autograd: K2b; the gates' DiT remat
-    and tower_remat), each from its own mode's stage-1 files: 4 steps, 2-3
-    timed, 4 under torch.profiler, K2b's first call held against its plain
+    and tower_remat), each from its own mode's stage-1 files: 3 steps, 2
+    timed, 3 under torch.profiler, K2b's first call held against its plain
     version, the HF export at the end timed and read back; middle@336's
     export kept in ``eval_root`` for phase_eval, its steps' peak memory
-    measured again with tower_remat off; next resumed for a fifth step (the
+    measured again with tower_remat off; next resumed for a fourth step (the
     LoRA factors restart).  Returns ({path: launch counts}, middle@336's
     export)."""
     import numpy as np
@@ -5269,9 +5724,10 @@ def main():
     try:
         work = tempfile.mkdtemp(prefix="chip_smoke_train_")
         try:
-            train_counts, _, stage1, k3_ref = (attempt(phase_train, work)
-                                               or (None, None, None, None))
+            train_counts, n_leaves, stage1, k3_ref = (attempt(phase_train, work)
+                                                      or (None, None, None, None))
             dp_counts = attempt(phase_dp, work, k3_ref)
+            tp_counts = attempt(phase_tp_fsdp, work, k3_ref, n_leaves)
             stage2_counts, exports["image"] = (attempt(phase_stage2_train, work, stage1,
                                                        eval_root) or (None, None))
         finally:
@@ -5308,7 +5764,8 @@ def main():
         sys.exit(1)
     paths = {"serve": serve_counts, "serve_int8": serve_int8_counts, **extras_counts,
              **{f"train_{k}": v for k, v in train_counts.items()},
-             **stage2_counts, **dp_counts, **int8_counts, **video_counts, **video2_counts,
+             **stage2_counts, **dp_counts, **tp_counts, **int8_counts, **video_counts,
+             **video2_counts,
              **siglip_counts,
              **eval_counts, **fast_counts, **fast_video_counts}
 

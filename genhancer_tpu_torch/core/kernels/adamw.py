@@ -39,6 +39,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ...parallel import mesh
 from ..nn import as_dtype_scalar
 from . import _build
 from .rowquant import div127
@@ -49,15 +50,27 @@ LAUNCHES: Dict[str, int] = {"fused_adamw": 0, "fused_adamw_quant": 0, "fused_ada
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Dict[str, torch.Tensor],
+                axes: Optional[Dict[str, str]] = None) -> torch.Tensor:
     """``optax.global_norm`` on a flat dict: leaves in sorted key order (the
     order ``jax.tree.leaves`` walks a dict), each leaf's sum of squares
     accumulated in float32 and rounded to the leaf's dtype, the per-leaf
-    sums added with type promotion, then the square root."""
+    sums added with type promotion, then the square root.
+
+    ``axes`` names the leaves that are the rank's block of a sharded leaf
+    and the mesh axis ("model", "data" or "world") their blocks span: their
+    float32 sums are added over that axis first (one collective per axis),
+    so each leaf counts whole and once; a replicated leaf counts once."""
+    axes = axes or {}
+    sums = {key: (x * x).sum(dtype=torch.float32) for key, x in grads.items()}
+    for axis in (mesh.MODEL_AXIS, mesh.DATA_AXIS, "world"):
+        keys = [k for k in sorted(grads) if axes.get(k) == axis]
+        if keys and mesh.axis_size(axis) > 1:
+            spread = mesh.all_reduce_(torch.stack([sums[k] for k in keys]), axis)
+            sums.update(zip(keys, spread))
     total = 0
     for key in sorted(grads):
-        x = grads[key]
-        total = total + (x * x).sum(dtype=torch.float32).to(x.dtype)
+        total = total + sums[key].to(grads[key].dtype)
     return torch.sqrt(total)
 
 
@@ -351,7 +364,8 @@ def fused_adamw_apply(params, mu, nu, grads, count: int, schedule,
                       b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                       weight_decay: float = 0.01, max_grad_norm: float = 1.0,
                       quant: Optional[dict] = None,
-                      rows: Optional[Dict[str, tuple]] = None) -> torch.Tensor:
+                      rows: Optional[Dict[str, tuple]] = None,
+                      layout: Optional[dict] = None) -> torch.Tensor:
     """``fused_adamw_apply:338`` over flat ``{path: tensor}`` dicts: one
     global norm over every grad leaf, then one kernel per leaf, in place —
     K6 where the moments are ``Moment8``, K3 elsewhere, each with K4's
@@ -365,8 +379,18 @@ def fused_adamw_apply(params, mu, nu, grads, count: int, schedule,
     in place and without a copy (every kernel is per row or per element
     and takes any row count).  A view whose base is not 16-byte aligned
     takes the kernel's own unaligned path.  The norm is over the whole
-    gradients."""
-    gnorm = global_norm(grads)
+    gradients.
+
+    Tensor parallel: ``layout`` (``parallel.layout``) places the leaves that
+    are the rank's block; the norm counts each whole and once, and each
+    kernel runs on the rank's block, elementwise and per row as it is.  A
+    row of a row-parallel leaf spans the model axis, and K4's int8 scale
+    and K6's moment scales are per row: one launch cannot wait for the
+    other ranks' amax, so those leaves (K4 or K6 with a model-sharded
+    input dim) are updated on their gathered rows, every model rank alike,
+    and each keeps its columns, the whole rows' scales."""
+    layout = layout or {}
+    gnorm = global_norm(grads, {k: pl.axes for k, pl in layout.items() if k in grads})
     scalars = adamw_scalars(gnorm, count, schedule, b1, b2, max_grad_norm)
     quant = quant or {}
     rows = rows or {}
@@ -377,6 +401,12 @@ def fused_adamw_apply(params, mu, nu, grads, count: int, schedule,
 
     with torch.no_grad():
         for key in params:
+            pl = layout.get(key)
+            if pl is not None and pl.dim(mesh.MODEL_AXIS) == 1 and (
+                    key in quant or isinstance(mu[key], Moment8)):
+                _whole_rows_update(params[key], mu[key], nu[key], grads[key], scalars, pl,
+                                   quant.get(key), hyper)
+                continue
             args = (view(params[key], key), mu[key], nu[key], view(grads[key], key), scalars)
             wq, ws = quant.get(key, (None, None))
             if wq is not None:
@@ -388,3 +418,29 @@ def fused_adamw_apply(params, mu, nu, grads, count: int, schedule,
             else:
                 fused_adamw_leaf(*args, **hyper)
     return gnorm
+
+
+def _whole_rows_update(p, m, v, g, scalars, pl, cache, hyper) -> None:
+    """K4 or K6 on the gathered rows of a row-parallel leaf (``pl``: its
+    placement): p, g, the dense moments or the 8-bit codes and the int8
+    copy gathered over the model axis, the kernel run on the whole leaf
+    (K6's and K4's row scales are whole, and shared), each block written
+    back in place."""
+    from ...parallel.layout import gather, shard
+    whole = [gather(t, pl) for t in (p, g)]
+    if isinstance(m, Moment8):
+        mw, vw = Moment8(gather(m.q, pl), m.s), Moment8(gather(v.q, pl), v.s)
+    else:
+        mw, vw = gather(m, pl), gather(v, pl)
+    wq = ws = None
+    if cache is not None:
+        wq, ws = gather(cache[0], pl), cache[1]
+    if isinstance(m, Moment8):
+        fused_adamw8_leaf(whole[0], mw, vw, whole[1], scalars, wq=wq, ws=ws, **hyper)
+        pairs = [(m.q, mw.q), (v.q, vw.q)]
+    else:
+        fused_adamw_quant_leaf(whole[0], mw, vw, whole[1], scalars, wq, ws, **hyper)
+        pairs = [(m, mw), (v, vw)]
+    pairs += [(p, whole[0])] + ([(cache[0], wq)] if cache is not None else [])
+    for block, full in pairs:
+        block.copy_(shard(full, pl))

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import tp as tp_m
 from ..parallel.mesh import rand_rows
 
 
@@ -238,18 +239,32 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     A LoRA-wrapped ``p`` adds ``up * scale`` with ``down = dropout(x) @ A.T``
     and ``up = down @ B.T`` before the bias, each product and the scaled
     branch rounded to x.dtype, the scale cast to x.dtype first
-    (``nn.py:164-169``)."""
+    (``nn.py:164-169``).
+
+    Tensor parallel (``p.tp_mode``, ``parallel.tp``): a column-parallel
+    ``p`` holds the rank's output rows (and bias) and its input passes
+    ``copy_to_model``; a row-parallel one holds the rank's input columns,
+    its product is summed over the model axis (``reduce_from_model``) and
+    the whole bias added after.  The int8 products do their own sums, in
+    int32 (``core.quant``), and the SwitchBack gate reads the whole
+    weight's shape."""
     from . import quant
+    tp = getattr(p, "tp_mode", None)
     if getattr(p, "weight_q", None) is not None:
         y = quant.linear_int8_base(p, x)
     else:
         w = p.weight.to(x.dtype)
         dw = getattr(_INT8_TRAIN, "dw", None)
-        if dw is not None and min(w.shape) >= quant.SWITCHBACK_MIN_DIM:
+        if dw is not None and min(tp_m.whole_shape(w.shape, tp)) >= quant.SWITCHBACK_MIN_DIM:
             y = quant.switchback(x, w, getattr(p, "weight_sb_q", None),
-                                 getattr(p, "weight_sb_scale", None), dw=dw)
+                                 getattr(p, "weight_sb_scale", None), dw=dw,
+                                 **({"tp": tp} if tp else {}))
         else:
+            if tp == "col":
+                x = tp_m.copy_to_model(x)
             y = torch.matmul(x, w.t())
+            if tp == "row":
+                y = tp_m.reduce_from_model(y)
     lora_a = getattr(p, "lora_A", None)
     if lora_a is not None:
         down = torch.matmul(_lora_dropout(x), lora_a.to(x.dtype).t())
@@ -362,10 +377,10 @@ def conv2d(p, x: torch.Tensor, stride: int = 1,
     if isinstance(p, Int8Layer):
         from .quant import conv2d_int8
         return conv2d_int8(p, x, stride=stride, padding=padding)
-    k = p.weight.shape[-1]
-    pad = k // 2 if padding is None else padding
-    bias = p.bias.to(x.dtype) if p.bias is not None else None
-    return F.conv2d(x, p.weight.to(x.dtype), bias, stride=stride, padding=pad)
+    w, b = p.weight, p.bias       # each read once: an FSDP leaf gathers at a read
+    pad = w.shape[-1] // 2 if padding is None else padding
+    return F.conv2d(x, w.to(x.dtype), b.to(x.dtype) if b is not None else None,
+                    stride=stride, padding=pad)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn as tnn
 
 from ..parallel import mesh
+from ..parallel.mesh import MODEL_AXIS
+from ..parallel.tp import whole_shape
 from . import nn
 from .kernels import int8_dw as K8
 from .kernels import rowquant as K7
@@ -49,23 +51,44 @@ from .kernels.rowquant import div127
 f32 = torch.float32
 
 
-def quantize_weight(w: torch.Tensor, axis: int = 0):
+def quantize_weight(w: torch.Tensor, axis: int = 0, group: Optional[str] = None):
     """Per-output-channel symmetric int8; ``axis`` keeps its own scale (0 for
     [out, in] linears and OIHW convs), the other axes are reduced.  Returns
-    (int8 weights, float32 scales with the reduced axes kept at 1)."""
+    (int8 weights, float32 scales with the reduced axes kept at 1).
+    ``group``: the mesh axis the reduced axes span (a row-parallel weight's
+    columns): the amax is the whole channel's."""
     axis %= w.dim()
     wf = w.to(f32)
     amax = wf.abs().amax(dim=tuple(i for i in range(w.dim()) if i != axis), keepdim=True)
+    if group is not None:
+        mesh.all_reduce_max(amax, group)
     scale = div127(torch.clamp_min(amax, 1e-12))
     return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
 
 
-def quantize_activation_rows(x: torch.Tensor, col_scale: Optional[torch.Tensor] = None):
+def quantize_activation_rows(x: torch.Tensor, col_scale: Optional[torch.Tensor] = None,
+                             group: Optional[str] = None):
     """Per-row (last dim) symmetric dynamic quant through K7: (int8, float32
     [..., 1]).  ``col_scale``: optional [C] float32 multiplier folded in first
-    (the backward's ``g * ws``)."""
+    (the backward's ``g * ws``).
+
+    ``group``: the mesh axis the rows span (the rank holds a block of each
+    row's columns): each row is quantized against the whole row's amax, as
+    one process quantizes it.  K7 runs on the rank's columns and a block of
+    8 more whose first holds that amax (an element's magnitude, exact in
+    x's dtype; with ``col_scale`` the float32 products, as K7 forms them)."""
     c = x.shape[-1]
-    q, s = K7.rowquant(x.reshape(-1, c), None if col_scale is None else col_scale.reshape(c))
+    x2, cs = x.reshape(-1, c), None if col_scale is None else col_scale.reshape(c)
+    if group is None or mesh.axis_size(group) == 1:
+        q, s = K7.rowquant(x2, cs)
+    else:
+        if cs is not None:
+            x2, cs = x2.to(f32) * cs.to(f32), None
+        amax = mesh.all_reduce_max(x2.abs().amax(dim=1).to(f32), group)
+        pad = x2.new_zeros((x2.shape[0], 8))
+        pad[:, 0] = amax
+        q, s = K7.rowquant(torch.cat([x2, pad], dim=1))
+        q = q[:, :c].contiguous()
     return q.reshape(x.shape), s.reshape(x.shape[:-1] + (1,))
 
 
@@ -93,20 +116,40 @@ def _quantize_cols(x2: torch.Tensor):
 # the shared forward and backward blocks (``quant.py:81-132``)
 # ---------------------------------------------------------------------------
 
-def _int8_fwd_base(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
+def _int8_fwd_base(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                   tp: Optional[str] = None) -> torch.Tensor:
     """y = x @ dequant(wq, ws)^T: per-row x times per-output-channel W, int32
-    accumulation, ``(acc * sx) * ws``.  ``ws``: [out] or [out, 1]."""
-    xq, sx = quantize_activation_rows(x)
+    accumulation, ``(acc * sx) * ws``.  ``ws``: [out] or [out, 1].
+
+    ``tp`` "row" (a row-parallel weight: x and wq hold the rank's columns,
+    ws the whole rows'): x's rows are quantized against the whole row's
+    amax and the int32 products summed over the model axis before the
+    dequantization, so y is the whole product, with one process's codes.
+    "col" (the rank's output rows) needs nothing: x is whole."""
+    row = tp == "row"
+    xq, sx = quantize_activation_rows(x, group=MODEL_AXIS if row else None)
     acc = int_mm(xq.reshape(-1, x.shape[-1]), wq.t())
+    if row:
+        mesh.all_reduce_(acc, MODEL_AXIS)
     y = acc.to(f32) * sx.reshape(-1, 1) * ws.reshape(-1)
     return y.reshape(x.shape[:-1] + (wq.shape[0],)).to(x.dtype)
 
 
-def _int8_dx(g: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype) -> torch.Tensor:
+def _int8_dx(g: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, out_dtype,
+             tp: Optional[str] = None) -> torch.Tensor:
     """dx = g @ W with the per-output scales folded into g before its per-row
-    quantization (ws is constant along the contraction): ``acc * sg``."""
-    gq, sg = quantize_activation_rows(g, col_scale=ws.reshape(-1))
+    quantization (ws is constant along the contraction): ``acc * sg``.
+
+    ``tp`` "col" (g, wq and ws hold the rank's output rows): g's rows are
+    quantized against the whole row's amax and the int32 products summed
+    over the model axis, so dx is whole.  "row" needs nothing: g is whole
+    and dx is the rank's columns."""
+    col = tp == "col"
+    gq, sg = quantize_activation_rows(g, col_scale=ws.reshape(-1),
+                                      group=MODEL_AXIS if col else None)
     acc = int_mm(gq.reshape(-1, g.shape[-1]), wq)
+    if col:
+        mesh.all_reduce_(acc, MODEL_AXIS)
     return (acc.to(f32) * sg.reshape(-1, 1)).reshape(g.shape[:-1] + (wq.shape[1],)).to(out_dtype)
 
 
@@ -125,11 +168,15 @@ def _int8_dw_cols(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
     return ((int_mm(gq2.t(), xq2).to(f32) * sgc.t()) * sxc).to(out_dtype)
 
 
-def _dw(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
-    """dW through K8 where ``dw_supported`` (the JAX kernel's rule), else
-    the float32-accumulated dense product (``quant.py:282-290``)."""
+def _dw(g: torch.Tensor, x: torch.Tensor, out_dtype, shape=None) -> torch.Tensor:
+    """dW through K8 where ``dw_supported`` (the JAX kernel's rule, read on
+    the whole weight's ``shape`` [out, in] where the rank holds a slice),
+    else the float32-accumulated dense product (``quant.py:282-290``).
+    K8 quantizes per column, so the rank's columns take one process's
+    codes."""
     g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
-    if K8.dw_supported(g2.shape[0], g2.shape[1], x2.shape[1]):
+    o, i = shape if shape is not None else (g2.shape[1], x2.shape[1])
+    if K8.dw_supported(g2.shape[0], o, i):
         return K8.int8_dw(g2, x2, out_dtype)
     return _bf16_dw(g2, x2, out_dtype)
 
@@ -143,14 +190,15 @@ class _Int8Matmul(torch.autograd.Function):
     the int8 weights take no gradient."""
 
     @staticmethod
-    def forward(ctx, x, wq, ws):
+    def forward(ctx, x, wq, ws, tp):
         ctx.save_for_backward(wq, ws)
-        return _int8_fwd_base(x, wq, ws)
+        ctx.tp = tp
+        return _int8_fwd_base(x, wq, ws, tp)
 
     @staticmethod
     def backward(ctx, g):
         wq, ws = ctx.saved_tensors
-        return _int8_dx(g, wq, ws, g.dtype), None, None
+        return _int8_dx(g, wq, ws, g.dtype, ctx.tp), None, None, None
 
 
 class _SwitchBack(torch.autograd.Function):
@@ -159,36 +207,50 @@ class _SwitchBack(torch.autograd.Function):
     (``wq`` None) or read from the optimizer-maintained cache (``wq``,
     ``ws`` [out]); dW by ``dw`` — "bf16" (float32 products), "int8_dw" (K8)
     or "cols" (per-column int8) — in ``w``'s dtype.  The cache takes no
-    gradient."""
+    gradient.
+
+    Tensor parallel (``tp`` "col" or "row", ``w`` the rank's slice): the
+    forward and dx keep one process's codes (``_int8_fwd_base``,
+    ``_int8_dx``), a row-parallel W is quantized against its whole rows'
+    amax, and each dW kind quantizes per column or sums exact products, so
+    the rank's slice of dW is one process's."""
 
     @staticmethod
-    def forward(ctx, x, w, wq, ws, dw: str):
+    def forward(ctx, x, w, wq, ws, dw: str, tp: Optional[str] = None):
         if wq is None:
-            wq, ws = quantize_weight(w, axis=0)
+            wq, ws = quantize_weight(w, axis=0, group=MODEL_AXIS if tp == "row" else None)
         ctx.save_for_backward(x, wq, ws)
-        ctx.w_dtype, ctx.dw = w.dtype, dw
-        return _int8_fwd_base(x, wq, ws)
+        ctx.w_dtype, ctx.dw, ctx.tp = w.dtype, dw, tp
+        ctx.shape = whole_shape(w.shape, tp)
+        return _int8_fwd_base(x, wq, ws, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, wq, ws = ctx.saved_tensors
-        dx = _int8_dx(g, wq, ws, x.dtype) if ctx.needs_input_grad[0] else None
-        dw = _DW[ctx.dw](g, x, ctx.w_dtype) if ctx.needs_input_grad[1] else None
-        return dx, dw, None, None, None
+        dx = _int8_dx(g, wq, ws, x.dtype, ctx.tp) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = (_dw(g, x, ctx.w_dtype, ctx.shape) if ctx.dw == "int8_dw"
+                  else _DW[ctx.dw](g, x, ctx.w_dtype))
+        return dx, dw, None, None, None, None
 
 
 def linear_int8_base(p, x: torch.Tensor) -> torch.Tensor:
-    """Base matmul of an int8 linear (no bias — ``core.nn.linear`` adds it)."""
-    return _Int8Matmul.apply(x, p.weight_q, p.w_scale)
+    """Base matmul of an int8 linear (no bias — ``core.nn.linear`` adds it);
+    a tensor-parallel one (``tp_mode``) returns the whole product."""
+    return _Int8Matmul.apply(x, p.weight_q, p.w_scale, getattr(p, "tp_mode", None))
 
 
 def switchback(x: torch.Tensor, w: torch.Tensor, wq: Optional[torch.Tensor] = None,
-               ws: Optional[torch.Tensor] = None, dw: str = "bf16") -> torch.Tensor:
+               ws: Optional[torch.Tensor] = None, dw: str = "bf16",
+               tp: Optional[str] = None) -> torch.Tensor:
     """y = x @ w^T through SwitchBack: the JAX package's six functions are
     ``switchback_linear`` (wq None, dw "bf16"), ``_cached`` (wq, ws given),
     ``_dw``/``_cached_dw`` (dw "int8_dw") and ``_full``/``_full_cached``
-    (dw "cols")."""
-    return _SwitchBack.apply(x, w, wq, ws, dw)
+    (dw "cols").  ``tp``: ``w`` is the rank's slice of a column- ("col")
+    or row-parallel ("row") weight; y is the rank's output columns or the
+    whole product, and dx the whole input gradient or the rank's columns."""
+    return _SwitchBack.apply(x, w, wq, ws, dw, tp)
 
 
 def conv2d_int8(p, x: torch.Tensor, stride: int = 1, padding: Optional[int] = None
@@ -233,21 +295,35 @@ INT8_CONV_MIN_CH = 256
 _NOT_LINEAR = ("embedding", "embeddings", "logit_scale", "position_embedding")
 
 
-def switchback_cache_paths(flat_params: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+def switchback_cache_paths(flat_params: Dict[str, torch.Tensor],
+                           layout: Optional[dict] = None) -> Tuple[str, ...]:
     """Flat ``.weight`` paths that the int8 DiT forward routes through
-    SwitchBack: the leaves whose int8 copies the optimizer maintains."""
+    SwitchBack: the leaves whose int8 copies the optimizer maintains.  The
+    gate reads the whole leaf's shape (``layout``: the sharded leaves'
+    placements)."""
+    layout = layout or {}
+
+    def shape(path, leaf):
+        return layout[path].shape if path in layout else tuple(leaf.shape)
+
     return tuple(sorted(path for path, leaf in flat_params.items()
                         if path.startswith("dit.") and path.endswith(".weight")
-                        and leaf.dim() == 2 and min(leaf.shape) >= SWITCHBACK_MIN_DIM))
+                        and leaf.dim() == 2 and min(shape(path, leaf)) >= SWITCHBACK_MIN_DIM))
 
 
-def quantize_cache(flat_params: Dict[str, torch.Tensor], paths) -> Dict[str, tuple]:
-    """{path: (wq int8 [o, i], ws float32 [o])} for the given .weight paths."""
+def quantize_cache(flat_params: Dict[str, torch.Tensor], paths,
+                   layout: Optional[dict] = None) -> Dict[str, tuple]:
+    """{path: (wq int8 [o, i], ws float32 [o])} for the given .weight paths;
+    a sharded weight (``layout``) is quantized whole and the rank keeps its
+    block of the codes and of the scales (a collective)."""
+    from ..parallel.layout import gather, shard
+    layout = layout or {}
     cache = {}
     with torch.no_grad():
         for path in paths:
-            wq, ws = quantize_weight(flat_params[path], axis=0)
-            cache[path] = (wq, ws[:, 0])
+            pl = layout.get(path)
+            wq, ws = quantize_weight(gather(flat_params[path], pl), axis=0)
+            cache[path] = (shard(wq, pl), shard(ws[:, 0], pl.like(ws.shape[:1]) if pl else None))
     return cache
 
 
@@ -323,22 +399,29 @@ def static_quant_flat(root: tnn.Module) -> Dict[str, torch.Tensor]:
 
 
 @torch.no_grad()
-def refresh_static_quant_flat(flat: Dict[str, torch.Tensor]) -> Tuple[str, ...]:
+def refresh_static_quant_flat(flat: Dict[str, torch.Tensor],
+                              layout: Optional[dict] = None) -> Tuple[str, ...]:
     """Re-derive every ``*.weight_q``/``*.w_scale`` pair of a flat view
     (``static_quant_flat``) from its kept ``*.weight`` master
     (``refresh_static_quant_flat:495``), writing into the buffers in place —
     needed after a checkpoint load has replaced masters quantized at init.
-    Returns the refreshed ``.weight`` paths."""
+    A sharded master (``layout``) is quantized whole and each buffer keeps
+    the rank's block (a collective).  Returns the refreshed ``.weight``
+    paths."""
+    from ..parallel.layout import gather, shard
+    layout = layout or {}
     done = []
     for path, wq in flat.items():
         if not path.endswith(".weight_q"):
             continue
-        w = flat.get(path[: -len("_q")])
+        wpath = path[: -len("_q")]
+        w = flat.get(wpath)
         if w is None:
             continue
-        q, s = quantize_weight(w, axis=0)
-        wq.copy_(q)
-        ws = flat[path[: -len(".weight_q")] + ".w_scale"]
-        ws.copy_(s.reshape(ws.shape))
+        q, s = quantize_weight(gather(w, layout.get(wpath)), axis=0)
+        wq.copy_(shard(q, layout.get(path)))
+        spath = path[: -len(".weight_q")] + ".w_scale"
+        ws, pl = flat[spath], layout.get(spath)
+        ws.copy_(shard(s.reshape(pl.shape if pl else ws.shape), pl))
         done.append(path[: -len("_q")])
     return tuple(done)

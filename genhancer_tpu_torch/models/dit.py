@@ -19,6 +19,12 @@ tokens, RoPE and the flash kernel K5 beyond).
 wraps them in ``jax.checkpoint`` (``dit.py:276-280``): only the blocks'
 inputs are kept for the backward, which runs each block's forward again,
 inside the SwitchBack context the forward ran in (``core.nn.int8_ctx_replay``).
+
+Tensor parallel (``parallel.tp``, ``parallel.layout.place`` sets the DiT's
+``tp``): each rank holds the q, k and v rows of ``num_heads / tp`` heads
+and ``1 / tp`` of each MLP, so the blocks split their projections at the
+local widths and attention runs on the local heads; the linears do the
+collectives (``core.nn.linear``).
 """
 
 from __future__ import annotations
@@ -292,6 +298,8 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
             return checkpoint(s_fn, *a, use_reentrant=False)
 
     compute_dtype = img.dtype
+    tp = getattr(p, "tp", 1)
+    heads, hidden = cfg.num_heads // tp, cfg.hidden_size // tp    # the rank's widths
     img, txt, vec, cos, sin = embed_inputs(p, cfg, img, img_ids, txt, txt_ids, timesteps, y,
                                            guidance)
 
@@ -304,14 +312,14 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
 
     for i, blk in enumerate(p.double_blocks):
         ip = (ip_params.ip_double[i], image_proj, ip_scale) if use_ip else None
-        img, txt = dblock(blk, img, txt, vec, cos, sin, cfg.num_heads, ip)
+        img, txt = dblock(blk, img, txt, vec, cos, sin, heads, ip)
         if controlnet_residuals is not None:
             img = img + controlnet_residuals[i % len(controlnet_residuals)].to(img.dtype)
 
     x = torch.cat([txt, img], dim=1)
     for i, blk in enumerate(p.single_blocks):
         ip = (ip_params.ip_single[i], image_proj, ip_scale) if use_ip else None
-        x = sblock(blk, x, vec, cos, sin, cfg.num_heads, cfg.hidden_size, ip)
+        x = sblock(blk, x, vec, cos, sin, heads, hidden, ip)
     img = x[:, txt.shape[1]:]
 
     fl = p.final_layer

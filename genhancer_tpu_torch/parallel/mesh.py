@@ -28,11 +28,24 @@ tensors are used
 (``all_reduce``, ``broadcast``, ``all_gather`` into a list), so a gloo
 group can also run the step on CUDA tensors, staged through the host.
 Outside an initialised group every helper is the one-process identity.
+
+The 2-D mesh (``make_mesh``, JAX ``make_mesh:64-97``): with
+``model_parallel: tp`` the ranks form a ``(world // tp, tp)`` grid, the
+model axis innermost, so rank ``r`` has data index ``r // tp`` and model
+index ``r % tp``.  The ranks of one model index form a data group, the
+ranks of one data index a model group (``dist.new_group``; every rank
+creates every group, in the same order).  Every data-parallel helper
+takes the data axis, not the world: the rank's rows of a global
+draw, the loaders' shards, the gradients' sum, the int8 scales that span
+the batch and the ZeRO-1 row ranges.  The model ranks of one data index
+draw and keep the same rows.  The collectives take ``group=`` "data"
+(the default), "model" or "world"; a group of one rank is the identity.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -40,6 +53,22 @@ import torch.distributed as dist
 
 # the size of one flat buffer of a bucketed collective
 BUCKET_BYTES = 256 << 20
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The (data, model) grid of the ranks and this rank's two groups
+    (None where the group is the world, or a single rank)."""
+    tp: int
+    data: object
+    model: object
+    data_ranks: Tuple[int, ...]
+    model_ranks: Tuple[int, ...]
+
+
+_MESH: Optional[Mesh] = None
 
 
 def maybe_initialize_distributed(device) -> None:
@@ -77,6 +106,66 @@ def world_size() -> int:
     return dist.get_world_size() if is_distributed() else 1
 
 
+def make_mesh(model_parallel: int = 1) -> Mesh:
+    """The (data, model) mesh of the group's ranks with ``model_parallel``
+    ranks on the model axis (innermost), and its sub-groups; JAX's
+    ``make_mesh`` layout.  A collective of the whole group: every rank
+    calls it, with the same ``model_parallel``.  Replaces an earlier mesh."""
+    global _MESH
+    n, tp = world_size(), int(model_parallel or 1)
+    if tp < 1 or n % tp:
+        raise ValueError(f"{n} devices not divisible by model_parallel={tp} x "
+                         f"sequence_parallel=1 x pipeline_parallel=1")
+    r = rank()
+    data_ranks = tuple(range(r % tp, n, tp))
+    model_ranks = tuple(range(r - r % tp, r - r % tp + tp))
+    data = model = None
+    if is_distributed() and 1 < tp < n:
+        for m in range(tp):                  # every rank creates every group, in order
+            g = dist.new_group(list(range(m, n, tp)))
+            if m == r % tp:
+                data = g
+    if is_distributed() and tp > 1:
+        for d in range(n // tp):
+            g = dist.new_group(list(range(d * tp, (d + 1) * tp)))
+            if d == r // tp:
+                model = g
+    _MESH = Mesh(tp, data, model, data_ranks, model_ranks)
+    return _MESH
+
+
+def model_size() -> int:
+    return _MESH.tp if _MESH is not None else 1
+
+
+def model_rank() -> int:
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    return world_size() // model_size()
+
+
+def data_rank() -> int:
+    return rank() // model_size()
+
+
+def _axis(group: str):
+    """(process group or None for the world, size, this rank's index) of an
+    axis name."""
+    if group == "world":
+        return None, world_size(), rank()
+    if group == DATA_AXIS:
+        return (_MESH.data if _MESH is not None else None), data_size(), data_rank()
+    if group == MODEL_AXIS:
+        return (_MESH.model if _MESH is not None else None), model_size(), model_rank()
+    raise ValueError(f"unknown mesh axis {group!r}")
+
+
+def axis_size(group: str) -> int:
+    return _axis(group)[1]
+
+
 def local_rank() -> int:
     """The rank's card on its host (torchrun's ``LOCAL_RANK``, else 0)."""
     return int(os.environ.get("LOCAL_RANK", 0))
@@ -92,46 +181,47 @@ def rank_device(device: torch.device) -> torch.device:
 def row_range(shape: Sequence[int]) -> Optional[Tuple[int, int]]:
     """The rows ``[r0, r1)`` of a leaf of ``shape`` that this rank's ZeRO-1
     moments cover: ``shard_over_data``'s rule, the leading dimension split
-    evenly over the ranks where it divides the world size; None (the whole
+    evenly over the data axis where it divides its size; None (the whole
     leaf on every rank) for a 0-d leaf or one it does not divide."""
-    w = world_size()
+    w = data_size()
     if len(shape) == 0 or shape[0] % w:
         return None
     n = shape[0] // w
-    return rank() * n, (rank() + 1) * n
+    return data_rank() * n, (data_rank() + 1) * n
 
 
 def local_rows(x: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of a tensor drawn for the global batch (the ranks'
-    batches stacked in rank order on the leading axis)."""
-    w = world_size()
+    """This rank's rows of a tensor drawn for the global batch (the data
+    ranks' batches stacked in data-index order on the leading axis); the
+    model ranks of one data index keep the same rows."""
+    w = data_size()
     if w == 1:
         return x
     if x.shape[0] % w:
         raise ValueError(f"a global draw of {x.shape[0]} rows does not split over {w} ranks")
     n = x.shape[0] // w
-    return x[rank() * n:(rank() + 1) * n]
+    return x[data_rank() * n:(data_rank() + 1) * n]
 
 
 def randn_rows(shape: Sequence[int], generator=None, dtype=torch.float32,
                device=None) -> torch.Tensor:
     """This rank's rows of a standard normal draw for the global batch:
-    ``shape[0]`` rows per rank, every rank drawing all ``world_size()``
-    ranks' rows from the shared generator (one process: ``torch.randn``)."""
-    return local_rows(torch.randn((shape[0] * world_size(),) + tuple(shape[1:]),
+    ``shape[0]`` rows per rank, every rank drawing all ``data_size()``
+    data ranks' rows from the shared generator (one process: ``torch.randn``)."""
+    return local_rows(torch.randn((shape[0] * data_size(),) + tuple(shape[1:]),
                                   generator=generator, dtype=dtype, device=device))
 
 
 def rand_rows(shape: Sequence[int], generator=None, device=None) -> torch.Tensor:
     """``randn_rows`` for a uniform float32 draw in [0, 1)."""
-    return local_rows(torch.rand((shape[0] * world_size(),) + tuple(shape[1:]),
+    return local_rows(torch.rand((shape[0] * data_size(),) + tuple(shape[1:]),
                                  generator=generator, device=device))
 
 
 def host_local_batch_slice(global_batch: int) -> slice:
-    """Which rows of the global batch this rank feeds."""
-    per = global_batch // world_size()
-    return slice(rank() * per, (rank() + 1) * per)
+    """Which rows of the global batch this rank feeds (its data index's)."""
+    per = global_batch // data_size()
+    return slice(data_rank() * per, (data_rank() + 1) * per)
 
 
 def _buckets(sizes: Sequence[int], bucket_bytes: int) -> List[List[int]]:
@@ -150,51 +240,95 @@ def _buckets(sizes: Sequence[int], bucket_bytes: int) -> List[List[int]]:
 
 
 @torch.no_grad()
-def all_reduce_sum(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
-    """Sum each tensor over the ranks, in place: the tensors of one dtype
-    are packed in order into flat buffers of about ``bucket_bytes``, one
-    collective per buffer.  Every rank passes the same tensors in the same
-    order."""
-    if not is_distributed():
+def all_reduce_sum(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES,
+                   group: str = DATA_AXIS) -> None:
+    """Sum each tensor over the ranks of ``group``'s axis, in place: the
+    tensors of one dtype are packed in order into flat buffers of about
+    ``bucket_bytes``, one collective per buffer.  Every rank of the group
+    passes the same tensors in the same order."""
+    pg, size, _ = _axis(group)
+    if size == 1:
         return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        for idx in _buckets([t.numel() * t.element_size() for t in group], bucket_bytes):
-            bucket = [group[i] for i in idx]
+    for same in by_dtype.values():
+        for idx in _buckets([t.numel() * t.element_size() for t in same], bucket_bytes):
+            bucket = [same[i] for i in idx]
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=pg)
             for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
                 t.copy_(part.view_as(t))
 
 
 @torch.no_grad()
-def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
-    """``t``'s elementwise maximum over the ranks, in place (returned): a
-    scale that spans the batch (an int8 amax over a whole call, or over a
-    column's tokens) is the global batch's, as XLA takes it over the data
-    axis."""
-    if is_distributed():
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+def all_reduce_max(t: torch.Tensor, group: str = DATA_AXIS) -> torch.Tensor:
+    """``t``'s elementwise maximum over ``group``'s axis, in place
+    (returned): a scale that spans the batch (an int8 amax over a whole
+    call, or over a column's tokens) is the global batch's, as XLA takes it
+    over the data axis; a row that spans the model axis, the whole row's."""
+    pg, size, _ = _axis(group)
+    if size > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=pg)
     return t
+
+
+def all_reduce_(t: torch.Tensor, group: str) -> torch.Tensor:
+    """``t`` summed over ``group``'s axis, in place (returned)."""
+    pg, size, _ = _axis(group)
+    if size > 1:
+        dist.all_reduce(t, group=pg)
+    return t
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, group: str) -> torch.Tensor:
+    """The ranks' ``t`` of ``group``'s axis concatenated along ``dim`` in
+    their order on the axis (a new tensor; ``t`` itself for one rank)."""
+    pg, size, _ = _axis(group)
+    if size == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=pg)
+    return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group: str) -> torch.Tensor:
+    """``t`` summed over ``group``'s axis, and this rank's ``1/size`` chunk
+    of ``dim``: ``dist.reduce_scatter_tensor`` on NCCL; on gloo, which has
+    no reduce-scatter for CUDA tensors, an all-reduce and the rank's
+    slice."""
+    pg, size, idx = _axis(group)
+    if size == 1:
+        return t
+    n = t.shape[dim] // size
+    if dist.get_backend(pg) == "nccl":
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((n,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=pg)
+        return out.movedim(0, dim).contiguous()
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=pg)
+    return t.narrow(dim, idx * n, n).contiguous()
 
 
 @torch.no_grad()
 def all_gather_rows(locals_: Sequence[torch.Tensor],
                     outs: Optional[Sequence[torch.Tensor]] = None,
-                    bucket_bytes: int = BUCKET_BYTES) -> List[torch.Tensor]:
-    """Every rank's rows of each leaf: ``outs[i]`` (contiguous, ``w`` times
-    the rows of ``locals_[i]``; allocated where not given) receives rank
-    j's ``locals_[i]`` at rows ``[j*n, (j+1)*n)``.  A local that is already
-    the rank's rows of its out (a parameter updated in place) is not copied
-    onto itself.  The bytes of all leaves are packed in order into flat
-    buffers of about ``bucket_bytes``, one ``all_gather`` per buffer: a
-    gather moves bits, so one byte buffer serves every dtype."""
-    w, r = world_size(), rank()
+                    bucket_bytes: int = BUCKET_BYTES,
+                    group: str = DATA_AXIS) -> List[torch.Tensor]:
+    """Every rank's rows of each leaf over ``group``'s axis: ``outs[i]``
+    (contiguous, ``w`` times the rows of ``locals_[i]``; allocated where
+    not given) receives the j-th rank's ``locals_[i]`` at rows ``[j*n,
+    (j+1)*n)``.  A local that is already the rank's rows of its out (a
+    parameter updated in place) is not copied onto itself.  The bytes of
+    all leaves are packed in order into flat buffers of about
+    ``bucket_bytes``, one ``all_gather`` per buffer: a gather moves bits,
+    so one byte buffer serves every dtype."""
+    pg, w, r = _axis(group)
     if outs is None:
         outs = [t.new_empty((t.shape[0] * w,) + tuple(t.shape[1:])) for t in locals_]
-    if not is_distributed():
+    if w == 1:
         for o, t in zip(outs, locals_):
             if o.data_ptr() != t.data_ptr():
                 o.copy_(t)
@@ -203,7 +337,7 @@ def all_gather_rows(locals_: Sequence[torch.Tensor],
     for idx in _buckets([n * w for n in nbytes], bucket_bytes):
         send = torch.cat([locals_[i].reshape(-1).view(torch.uint8) for i in idx])
         recv = [torch.empty_like(send) for _ in range(w)]
-        dist.all_gather(recv, send)
+        dist.all_gather(recv, send, group=pg)
         for j in range(w):
             off = 0
             for i in idx:

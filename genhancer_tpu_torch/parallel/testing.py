@@ -5,7 +5,8 @@
     python -m genhancer_tpu_torch.parallel.testing <payload.pt>
 
 with torchrun's ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` set, joins them with
-a timeout, and returns what each rank wrote.  The payload (a ``torch.save``
+a timeout, and returns what each rank wrote (``start`` returns the running
+launch and its ``join`` the results, so that launches can overlap).  The payload (a ``torch.save``
 dict written by the caller) names a scenario and its inputs; a rank joins a
 gloo group through the payload's ``init_file`` (``file://``, so that
 concurrent test processes cannot collide on a port) or, without one, lets
@@ -17,14 +18,25 @@ The scenarios:
 
   * ``step``: one optimizer step of a task's step function on loaded
     weights, on this rank's rows of a global batch, with the global draws
-    (``draws``, sliced by rank) or a seeded generator; returns the loss,
-    the norm, the reduced gradients and the parameters;
+    (``draws``, sliced by data index) or a seeded generator, optionally on
+    the (data, model) mesh (``model_parallel``, ``fsdp``,
+    ``fsdp_min_size``); returns the loss, the norm, the reduced gradients
+    and the parameters, gathered to the reference layout, and the mesh's
+    groups;
   * ``steps``: for each variant of a config, a ``Trainer``, ``steps``
-    optimizer steps on this rank's rows of seeded global image batches,
-    driven as the train loop drives them; per step the loss, digests of
+    optimizer steps on this rank's rows of seeded global image batches
+    (or of given global micro-batches, ``batches``), driven as the train
+    loop drives them (with ``linears``, that scenario's payload, run
+    first); per step the loss, digests of
     the parameters and the int8 cache, the kernels' launches;
-    at the end the gathered optimizer state, the resident moment bytes and
-    the ZeRO-1 row ranges;
+    at the end the gathered optimizer state, the resident parameter and
+    moment bytes, the ZeRO-1 row ranges and the mesh's groups;
+  * ``linears``: linears at given whole weights under DiT paths, placed
+    on the model axis (``tp``), one forward and backward each through
+    ``core.nn.linear`` inside a SwitchBack context (``dw``, reading the int8
+    cache with ``cached``) on the rank's part of given whole inputs and
+    output gradients; returns y, dx, dW, the bias's gradient and the cache,
+    gathered whole;
   * ``int8_scales``: the int8 quantizers whose scales span a batch (a
     conv input's per-tensor, the dW's per-column) on this rank's rows of
     given global tensors, and the per-column int8 dW summed over the ranks;
@@ -95,6 +107,27 @@ def expected_moment_bytes(trainable, opt_state) -> int:
     return total
 
 
+# the head counts of the DiT attention calls this process made (``_spy_heads``)
+HEADS: set = set()
+
+
+def _spy_heads() -> None:
+    """Record the head count of every DiT attention call (K1's and K5's
+    wrappers, read by ``core.attention`` at each call) in ``HEADS``."""
+    from ..core.kernels import flash_attention as FA
+    from ..core.kernels import short_attention as SA
+    for mod, name in ((SA, "fused_rope_attention"), (FA, "flash_attention")):
+        real = getattr(mod, name)
+        if getattr(real, "_spied", False):
+            continue
+
+        def spy(q, *a, _real=real, **kw):
+            HEADS.add(int(q.shape[2]))
+            return _real(q, *a, **kw)
+        spy._spied = True
+        setattr(mod, name, spy)
+
+
 def launch_counts() -> Dict[str, int]:
     """Every kernel's launch counter in this process, by its ``LAUNCHES`` key."""
     from ..core.kernels import adamw, flash_attention, int8_dw, rowquant, short_attention
@@ -134,9 +167,31 @@ def _patch_registry(overrides: Optional[dict]) -> None:
 
 
 def _rows(x, axis: int):
-    from .mesh import world_size, rank
-    n = x.shape[axis] // world_size()
-    return x.narrow(axis, rank() * n, n)
+    from .mesh import data_rank, data_size
+    n = x.shape[axis] // data_size()
+    return x.narrow(axis, data_rank() * n, n)
+
+
+def full_params(state) -> Dict[str, torch.Tensor]:
+    """The trainable parameters in the reference layout (the sharded ones
+    gathered: a collective)."""
+    from .layout import gather
+    return {k: gather(v.detach(), state.layout.get(k)) for k, v in state.trainable.items()}
+
+
+def mesh_groups() -> dict:
+    """This rank's data index and model index and the ranks of its data and
+    model groups."""
+    from . import mesh
+    m = mesh._MESH
+    return {"rank": mesh.rank(), "data_index": mesh.data_rank(),
+            "model_index": mesh.model_rank(),
+            "data_group": list(m.data_ranks) if m else list(range(mesh.world_size())),
+            "model_group": list(m.model_ranks) if m else [mesh.rank()]}
+
+
+def resident_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class _Recorder:
@@ -146,8 +201,8 @@ class _Recorder:
         self.inner, self.grads = inner, None
         self.emit_quant = getattr(inner, "emit_quant", False)
 
-    def init(self, params):
-        return self.inner.init(params)
+    def init(self, params, **kw):
+        return self.inner.init(params, **kw)
 
     def apply(self, params, grads, state, **kw):
         self.grads = {k: g.detach().clone() for k, g in grads.items()}
@@ -158,15 +213,23 @@ def scenario_step(p: dict) -> dict:
     from ..tasks import image, video
     from ..train.config import Config
     from ..train.optim import make_optimizer
-    from ..train.state import create_state
+    from ..train.state import create_state, place_state, with_quant_cache
     from ..train.step_utils import make_accum_train_step
-    from .mesh import local_rows
+    from .layout import gather
+    from .mesh import local_rows, make_mesh
     task = image if p["task"] == "image" else video
     spec, accum = p["spec"], int(p.get("accum", 1))
     mods = task.init_modules(spec, torch.Generator().manual_seed(0))
     mods.load_state_dict(p["state_dict"])
-    rec = _Recorder(make_optimizer(Config._wrap(p["opt_cfg"])))
+    rec = _Recorder(make_optimizer(Config._wrap(p["opt_cfg"]),
+                                   emit_quant=bool(p.get("emit_quant"))))
     state = create_state(mods, task.trainable_predicate(spec, mods), rec)
+    tp = int(p.get("model_parallel", 1))
+    make_mesh(tp)
+    place_state(state, rec, tp, bool(p.get("fsdp")), p.get("fsdp_min_size"),
+                spec.dit_cfg.hidden_size)
+    if spec.dit_quant_cache and spec.dit_quant != "none":
+        with_quant_cache(state)
     step = (make_accum_train_step(task.make_loss_fn(spec), rec, accum) if accum > 1
             else task.make_train_step(spec, rec))
     batch = {k: _rows(v, 1 if accum > 1 else 0) for k, v in p["batch"].items()}
@@ -178,8 +241,74 @@ def scenario_step(p: dict) -> dict:
             draws = draws[0]
     gen = torch.Generator().manual_seed(int(p.get("seed", 0)))
     state, m = step(state, batch, gen, draws)
-    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "grads": rec.grads,
-            "params": {k: v.detach().clone() for k, v in state.trainable.items()}}
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "grads": {k: gather(g, state.layout.get(k)) for k, g in rec.grads.items()},
+            "params": full_params(state), "groups": mesh_groups(),
+            "local_shapes": {k: tuple(v.shape) for k, v in state.trainable.items()},
+            "caches": {k: list(_whole_cache(state, k)) for k in (state.quant or {})}}
+
+
+def _whole_cache(state, key):
+    """The int8 cache of ``key`` (codes, scales) in the reference layout."""
+    from .layout import gather
+    pl = state.layout.get(key)
+    wq, ws = state.quant[key]
+    return gather(wq, pl), gather(ws, pl.like((pl.shape[0],)) if pl else None)
+
+
+def scenario_linears(p: dict) -> dict:
+    from torch import nn as tnn
+    from ..core import nn
+    from ..core.quant import quantize_cache
+    from .layout import Placement, gather, place, shard
+    from .mesh import MODEL_AXIS, make_mesh
+    make_mesh(int(p["tp"]))
+    root = tnn.ModuleDict()
+    for path, (w, b) in p["weights"].items():     # a Linear at each dotted path
+        parent, parts = root, path.split(".")
+        for name in parts[:-1]:
+            if name not in parent._modules:
+                parent.add_module(name, tnn.ModuleDict())
+            parent = parent._modules[name]
+        lin = nn.Linear(w.shape[1], w.shape[0], device=w.device, dtype=w.dtype)
+        with torch.no_grad():
+            lin.weight.copy_(w)
+            lin.bias.copy_(b)
+        parent.add_module(parts[-1], lin)
+    layout = place(root, int(p["tp"]), hidden=int(p["hidden"]))
+    cache = (quantize_cache(dict(root.named_parameters()),
+                            [k + ".weight" for k in p["weights"]], layout)
+             if p.get("cached") else {})
+    out = {}
+    for path in p["weights"]:
+        lin, pl = root.get_submodule(path), layout[path + ".weight"]
+        x, g = p["x"][path], p["g"][path]
+        # the model-sharded columns of x (row-parallel) or of y and g (column)
+        cols = Placement((x.shape[0], pl.shape[1 if lin.tp_mode == "row" else 0]),
+                         (None, MODEL_AXIS), pl.index)
+        if lin.tp_mode == "row":
+            x = shard(x, cols)
+        else:
+            g = shard(g, cols)
+        if path + ".weight" in cache:
+            wq, ws = cache[path + ".weight"]
+            lin.register_buffer("weight_sb_q", wq, persistent=False)
+            lin.register_buffer("weight_sb_scale", ws, persistent=False)
+        x = x.clone().requires_grad_(True)
+        with nn.int8_training_ctx(full=p["dw"] == "cols", dw_int8=p["dw"] == "int8_dw"):
+            y = nn.linear(lin, x)
+        y.backward(g)
+        y, dx = y.detach(), x.grad
+        if lin.tp_mode == "row":
+            dx = gather(dx, cols)
+        else:
+            y = gather(y, cols)
+        out[path] = {"y": y, "dx": dx, "dw": gather(lin.weight.grad, pl),
+                     "db": gather(lin.bias.grad, layout.get(path + ".bias"))}
+        if path + ".weight" in cache:
+            wq, ws = cache[path + ".weight"]
+            out[path]["cache"] = (gather(wq, pl), gather(ws, pl.like((pl.shape[0],))))
+    return out
 
 
 def scenario_int8_scales(p: dict) -> dict:
@@ -199,20 +328,30 @@ def global_images(step: int, batch: int, size: int, accum: int, seed: int = 0) -
     return {"image": rng.random(shape, dtype=np.float32)}
 
 
-def run_steps(trainer, steps: int, keep_tensors: bool = False, seed: int = 0) -> dict:
+def run_steps(trainer, steps: int, keep_tensors: bool = False, seed: int = 0,
+              batches: Optional[list] = None) -> dict:
     """``steps`` optimizer steps of ``trainer`` on this rank's rows of the
-    seeded global image batches (``global_images``), seeded and stepped as
-    the train loop does; see the module docstring for what it returns."""
+    seeded global image batches (``global_images``), or of ``batches``
+    (global micro-batches, ``accum`` per step, in order), seeded and
+    stepped as the train loop does; see the module docstring for what it
+    returns."""
     from ..train import checkpoint as ckpt
-    from .mesh import host_local_batch_slice, world_size
+    from .mesh import data_size, host_local_batch_slice
     dev, accum = trainer.device, trainer.accum
     per_rank = int(trainer.cfg.get_path("data_config.train_batch_size"))
     size = int(trainer.cfg.get_path("data_config.img_size", 224))
     out = {"loss": [], "params": [], "caches": [], "launches": [], "step_s": []}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(steps):
         step = trainer.state.step
-        g = global_images(step, per_rank * world_size(), size, accum, seed)
-        rows = host_local_batch_slice(per_rank * world_size())
+        if batches is not None:
+            micro = batches[len(out["loss"]) * accum:(len(out["loss"]) + 1) * accum]
+            g = {k: (np.stack([m[k] for m in micro]) if accum > 1 else micro[0][k])
+                 for k in ("image",)}
+        else:
+            g = global_images(step, per_rank * data_size(), size, accum, seed)
+        rows = host_local_batch_slice(per_rank * data_size())
         batch = {k: torch.from_numpy(np.ascontiguousarray(
             v[:, rows] if accum > 1 else v[rows])).to(dev) for k, v in g.items()}
         before = launch_counts()
@@ -229,17 +368,28 @@ def run_steps(trainer, steps: int, keep_tensors: bool = False, seed: int = 0) ->
                               for k, v in (trainer.state.quant or {}).items()})
     opt = trainer.state.opt_state
     sd = ckpt.optimizer_state_dict(trainer.state)      # gathers the ZeRO-1 rows
+    st = trainer.state
+    full = full_params(st)
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out.update(moments={k: digest(v) for k, v in sd.items()},
                moment_bytes=moment_bytes(opt),
-               moment_bytes_expected=expected_moment_bytes(trainer.state.trainable, opt),
+               moment_bytes_expected=expected_moment_bytes(st.trainable, opt),
+               param_bytes=resident_bytes(st.trainable.values()),
+               frozen_bytes=resident_bytes([*st.frozen.values(), *(
+                   b for n, b in st.modules.named_buffers()
+                   if n.endswith((".weight_q", ".w_scale")))]),
+               param_bytes_whole=resident_bytes(full.values()),
+               sharded={k: list(pl.spec) for k, pl in st.layout.items()},
+               full_params={k: digest(v) for k, v in full.items()},
                rows={k: list(r) for k, r in opt.get("rows", {}).items()},
-               leaves=len(trainer.state.trainable))
+               leaves=len(st.trainable), groups=mesh_groups())
     if keep_tensors:
         out["tensors"] = {
-            "params": {k: v.detach().cpu().clone() for k, v in trainer.state.trainable.items()},
+            "params": {k: v.detach().cpu().clone() for k, v in full.items()},
             "moments": {k: v.cpu().clone() for k, v in sd.items()},
-            "caches": {k: [t.cpu().clone() for t in v]
-                       for k, v in (trainer.state.quant or {}).items()}}
+            "caches": {k: [t.cpu().clone() for t in _whole_cache(st, k)]
+                   for k in (st.quant or {})}}
     return out
 
 
@@ -247,16 +397,21 @@ def scenario_steps(p: dict) -> dict:
     from ..train.config import Config
     from ..train.trainer import Trainer
     _patch_registry(p.get("registry"))
+    _spy_heads()
     runs = {}
+    linears = scenario_linears(p["linears"]) if p.get("linears") else None
     for name, overrides in p["variants"].items():
+        HEADS.clear()
         trainer = Trainer(Config._wrap(p["cfg"]).merged_with(overrides), device=p["device"])
         trainer.loader.close()
-        runs[name] = run_steps(trainer, int(p["steps"]), bool(p.get("keep_tensors")))
+        runs[name] = run_steps(trainer, int(p["steps"]), bool(p.get("keep_tensors")),
+                               batches=p.get("batches"))
+        runs[name]["heads"] = sorted(HEADS)
         del trainer
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-    return {"runs": runs}
+    return {"runs": runs, "linears": linears}
 
 
 def scenario_train(p: dict) -> dict:
@@ -265,7 +420,9 @@ def scenario_train(p: dict) -> dict:
     from ..train import checkpoint as ckpt
     from .mesh import rank
     _patch_registry(p.get("registry"))
+    _spy_heads()
     trainer = Trainer(Config._wrap(p["cfg"]), device=p["device"])
+    groups = mesh_groups()
     if p.get("batches") is not None:
         trainer.loader.close()
         trainer.loader = RowsLoader(p["batches"])
@@ -285,30 +442,70 @@ def scenario_train(p: dict) -> dict:
     trainer.train()
     launches = {k: v - before[k] for k, v in launch_counts().items()}
     sd = ckpt.optimizer_state_dict(trainer.state)
+    full = full_params(trainer.state)
+    st = trainer.state
     out = {"history": trainer.history, "saved_steps": trainer.saved_steps,
-           "step": trainer.state.step, "launches": launches,
+           "step": trainer.state.step, "launches": launches, "groups": groups,
+           "heads": sorted(HEADS), "param_bytes": resident_bytes(st.trainable.values()),
+           "frozen_bytes": resident_bytes(st.frozen.values()),
+           "local_shapes": {k: tuple(v.shape) for k, v in st.trainable.items()},
            "moment_bytes": moment_bytes(trainer.state.opt_state),
            "rows": {k: list(r) for k, r in trainer.state.opt_state.get("rows", {}).items()}}
     if trainer.device.type == "cuda":
         out["peak_bytes"] = torch.cuda.max_memory_allocated(trainer.device)
     if p.get("digests"):     # the full-width run: checksums, not the tensors
-        out["params"] = {k: digest(v) for k, v in trainer.state.trainable.items()}
+        out["params"] = {k: digest(v) for k, v in full.items()}
         return out
-    out["params"] = {k: v.detach().cpu().clone() for k, v in trainer.state.trainable.items()}
+    out["params"] = {k: v.detach().cpu().clone() for k, v in full.items()}
     out["moments"] = {k: v.cpu().clone() for k, v in sd.items()}
     return out
 
 
 SCENARIOS = {"step": scenario_step, "steps": scenario_steps, "train": scenario_train,
-             "int8_scales": scenario_int8_scales}
+             "int8_scales": scenario_int8_scales, "linears": scenario_linears}
 
 
-def launch(payload: dict, world: int, workdir, timeout: float = 300.0,
-           env: Optional[Dict[str, str]] = None) -> List[dict]:
-    """Run ``payload`` on ``world`` ranks, each a process of this module;
-    returns the ranks' results in rank order.  Raises (with each failed
-    rank's last output) if a rank fails or the launch outlives ``timeout``
-    seconds; every process is gone when it returns."""
+class Launch:
+    """The rank processes of one ``start``; ``join`` waits for them."""
+
+    def __init__(self, procs, workdir: Path, world: int, timeout: float):
+        self.procs, self.workdir, self.world = procs, workdir, world
+        self.deadline, self.timeout = time.monotonic() + timeout, timeout
+
+    def join(self) -> List[dict]:
+        """The ranks' results in rank order.  Raises (with each failed
+        rank's last output) if a rank fails or outlives the launch's
+        timeout; every process is gone when it returns."""
+        try:
+            for proc, _ in self.procs:
+                proc.wait(timeout=max(self.deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.kill()
+        failed = [(r, proc.returncode) for r, (proc, _) in enumerate(self.procs)
+                  if proc.returncode != 0]
+        if failed:
+            tails = "\n".join(f"--- rank {r} (rc {rc}):\n"
+                              + (self.workdir / f"rank{r}.log").read_text()[-3000:]
+                              for r, rc in failed)
+            raise RuntimeError(f"{len(failed)} of {self.world} ranks failed or timed out "
+                               f"({self.timeout:.0f} s):\n{tails}")
+        return [torch.load(self.workdir / f"out{r}.pt", weights_only=False)
+                for r in range(self.world)]
+
+    def kill(self) -> None:
+        for proc, log in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+
+def start(payload: dict, world: int, workdir, timeout: float = 300.0,
+          env: Optional[Dict[str, str]] = None) -> Launch:
+    """Start ``payload`` on ``world`` ranks, each a process of this module;
+    ``join`` the returned launch for their results."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     path = workdir / "payload.pt"
@@ -323,24 +520,17 @@ def launch(payload: dict, world: int, workdir, timeout: float = 300.0,
                 [sys.executable, "-m", "genhancer_tpu_torch.parallel.testing", str(path)],
                 env={**base, "RANK": str(r), "LOCAL_RANK": base.get("LOCAL_RANK", "0")},
                 stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)), log))
-        deadline = time.monotonic() + timeout
-        for proc, _ in procs:
-            proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    failed = [(r, proc.returncode) for r, (proc, _) in enumerate(procs) if proc.returncode != 0]
-    if failed:
-        tails = "\n".join(f"--- rank {r} (rc {rc}):\n"
-                          + (workdir / f"rank{r}.log").read_text()[-3000:] for r, rc in failed)
-        raise RuntimeError(f"{len(failed)} of {world} ranks failed or timed out "
-                           f"({timeout:.0f} s):\n{tails}")
-    return [torch.load(workdir / f"out{r}.pt", weights_only=False) for r in range(world)]
+    except BaseException:
+        Launch(procs, workdir, world, timeout).kill()
+        raise
+    return Launch(procs, workdir, world, timeout)
+
+
+def launch(payload: dict, world: int, workdir, timeout: float = 300.0,
+           env: Optional[Dict[str, str]] = None) -> List[dict]:
+    """Run ``payload`` on ``world`` ranks (``start`` then ``join``):
+    the ranks' results in rank order."""
+    return start(payload, world, workdir, timeout, env).join()
 
 
 def main(argv=None) -> None:

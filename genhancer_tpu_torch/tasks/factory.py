@@ -14,12 +14,13 @@ stage, a features cache (``true``) in stage 1 only (``_check_precomputed``).
 SigLIP in video mode raises.
 
 Parallelism: data parallel over the ranks of a ``torch.distributed`` group
-(``parallel.mesh``; one device per rank, ``num_devices`` the world size) and
-ZeRO-1 (``shard_optimizer_state``) are ported; the rank and the world size
-split the loaders' shards (``node_index``/``node_count``).  The
-compositions JAX rejects raise its ``ValueError``s (``validate_parallelism``);
-tensor, sequence and pipeline parallelism and FSDP raise
-``NotImplementedError`` (ROADMAP: parallelism, part 2).
+(``parallel.mesh``; one device per rank, ``num_devices`` the world size),
+ZeRO-1 (``shard_optimizer_state``), tensor parallelism (``model_parallel``,
+``parallel.tp``) and FSDP (``fsdp``, ``parallel.fsdp``) are ported; the
+rank's data index and the data axis's size split the loaders' shards
+(``node_index``/``node_count``).  The compositions JAX rejects raise its
+``ValueError``s (``validate_parallelism``); sequence and pipeline
+parallelism raise ``NotImplementedError`` (ROADMAP: parallelism, part 3).
 """
 
 from __future__ import annotations
@@ -64,17 +65,16 @@ REMAT_TOKENS = 8192
 TOWER_REMAT_TOKENS = 6144
 
 # config knob -> its value without the mesh axes that are not ported yet
-_MULTI_DEVICE = {"model_parallel": 1, "sequence_parallel": 1, "pipeline_parallel": 1,
-                 "fsdp": False}
+_MULTI_DEVICE = {"sequence_parallel": 1, "pipeline_parallel": 1}
 
 
 def validate_parallelism(cfg, dit_cfg=None) -> None:
     """``validate_parallelism`` (``factory.py:66-103``): the compositions the
     JAX package rejects raise its ``ValueError`` at config time, before any
-    weights load; then the axes this port does not drive yet (tensor,
-    sequence and pipeline parallelism, FSDP) raise ``NotImplementedError``,
-    and ``num_devices``, where set, must equal the world size (one device
-    per rank)."""
+    weights load; then the axes this port does not drive yet (sequence and
+    pipeline parallelism) raise ``NotImplementedError``, and
+    ``num_devices``, where set, must equal the world size (one device per
+    rank)."""
     tp = int(cfg.get("model_parallel", 1) or 1)
     sp = int(cfg.get("sequence_parallel", 1) or 1)
     pp = int(cfg.get("pipeline_parallel", 1) or 1)
@@ -109,8 +109,8 @@ def validate_parallelism(cfg, dit_cfg=None) -> None:
         value = cfg.get(knob)
         if value not in (None, plain, 0):
             raise NotImplementedError(
-                f"{knob}: {value} is not ported yet (ROADMAP: parallelism, part 2); "
-                "data parallelism and shard_optimizer_state are")
+                f"{knob}: {value} is not ported yet (ROADMAP: parallelism, part 3); "
+                "data parallelism, shard_optimizer_state, model_parallel and fsdp are")
     n = cfg.get("num_devices")
     if n and int(n) != mesh.world_size():
         raise ValueError(
@@ -244,9 +244,10 @@ def build_task(cfg):
     spec, _, ckpt_kind = build_spec(cfg)
     dc = dict(cfg.get("data_config", {}) or {})
     img_size = int(dc.pop("img_size", 224))
-    # each rank reads its own shards (webdataset split_by_node, factory.py:288-291)
-    dc.setdefault("node_index", mesh.rank())
-    dc.setdefault("node_count", mesh.world_size())
+    # each data index reads its own shards (webdataset split_by_node,
+    # factory.py:288-291); the model ranks of one data index read the same
+    dc.setdefault("node_index", mesh.data_rank())
+    dc.setdefault("node_count", mesh.data_size())
     if ckpt_kind == "image":
         from ..data import cc3m as cc3m_data
         loader = cc3m_data.loader(img_size=img_size, **dc)

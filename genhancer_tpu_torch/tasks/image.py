@@ -47,7 +47,7 @@ the kept float weights), and in ``stage2_only`` ``dit_quant`` gives the
 frozen DiT the same static int8 base, run outside the SwitchBack context
 (``image.py:150-175, 256-261``).
 
-An int8 SigLIP tower, remat and the multi-device options raise
+An int8 SigLIP tower, remat and a mesh with ring or pipeline axes raise
 ``NotImplementedError``, naming ROADMAP.
 """
 
@@ -67,7 +67,7 @@ from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
-from ..parallel.mesh import local_rows, randn_rows, world_size
+from ..parallel.mesh import Mesh, data_size, local_rows, randn_rows
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
@@ -251,10 +251,11 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
     [B, h, w, 2z] float32 and ``image`` (the cached crop); or the features
     cache's ``moments`` and ``cls`` [B, P] float32."""
     require_ported(spec)
-    if mesh is not None:
-        # data parallelism needs no mesh, in JAX either (image.py:253-255)
-        raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
-                                  "(ROADMAP: parallelism, part 2)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        # data parallelism needs no mesh, in JAX either (image.py:253-255);
+        # TP and FSDP live in the modules' placement (parallel.layout)
+        raise NotImplementedError("a device mesh with ring or pipeline axes is not ported yet "
+                                  "(ROADMAP: parallelism, part 3)")
     if spec.remat:
         raise NotImplementedError("remat (activation checkpointing) is not ported yet "
                                   "(ROADMAP: later items)")
@@ -307,7 +308,7 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
         t = draws.get("t")
         if t is None:
             # data parallel: the global batch's draw, this rank's rows
-            t = local_rows(flow.sample_timesteps(b * world_size(), spec.scale_factor,
+            t = local_rows(flow.sample_timesteps(b * data_size(), spec.scale_factor,
                                                  generator, dev))
         x0 = draws.get("x0")
         if x0 is None:

@@ -57,7 +57,7 @@ from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
-from ..parallel.mesh import local_rows, randn_rows, world_size
+from ..parallel.mesh import Mesh, data_size, local_rows, randn_rows
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
@@ -208,10 +208,11 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
     float32, ``cond_patches`` [B, n_cond, L_p, D] float16 and ``cond_vecs``
     [B, n_cond, P] float32."""
     require_ported(spec)
-    if mesh is not None:
-        # data parallelism needs no mesh, in JAX either (image.py:253-255)
-        raise NotImplementedError("a device mesh (ring/pipeline/FSDP) is not ported yet "
-                                  "(ROADMAP: parallelism, part 2)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        # data parallelism needs no mesh, in JAX either (image.py:253-255);
+        # TP and FSDP live in the modules' placement (parallel.layout)
+        raise NotImplementedError("a device mesh with ring or pipeline axes is not ported yet "
+                                  "(ROADMAP: parallelism, part 3)")
     f32, cd = torch.float32, spec.compute_dtype
     dit_ctx = dit_quant_ctx(spec.dit_quant)
 
@@ -260,7 +261,7 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
         t = draws.get("t")
         if t is None:
             # data parallel: the global batch's draw, this rank's rows
-            t = local_rows(flow.sample_timesteps(b * world_size(), spec.scale_factor,
+            t = local_rows(flow.sample_timesteps(b * data_size(), spec.scale_factor,
                                                  generator, dev))
         x0 = draws.get("x0")
         if x0 is None:

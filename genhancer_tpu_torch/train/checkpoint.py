@@ -21,6 +21,12 @@ LoRA-merged tower as an HF model directory (``export_hf_tower``).  A resume
 reloads the components and the optimizer state only: the LoRA factors
 restart from their initial values while their moments come back, as the
 JAX package does (``checkpoint.py:192-207``).
+
+Tensor parallelism and FSDP (the state's ``layout``): every rank gathers
+each sharded leaf, its moments and its 8-bit scales to the reference layout
+before rank 0 writes (``async_ckpt.gather_sharded:65``), so the files are
+those of one process; a load cuts each rank's block out of them, whatever
+the mesh that wrote them.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..core.kernels.adamw import Moment8
+from ..parallel import layout as layout_m
 from ..parallel import mesh
 from ..weights import hf_io
 from ..weights.hf_io import StateDict
@@ -49,6 +56,9 @@ STAGE1_FILES = {
 _PRUNE_PREFIXES = ("checkpoint-dit-", "checkpoint-project-clip-", "checkpoint-project-t5-",
                    "checkpoint-visual-adapter-", "optimizer-state-")
 _STEP_RE = re.compile(r"checkpoint-dit-(\d+)\.bin$")
+# each component's flat path prefix in the module tree
+_PREFIX = {"dit": "dit.", "project_clip": "clip.project_clip.",
+           "project_t5": "clip.project_t5.", "visual_adapter": "visual_adapter."}
 
 
 def _components(modules, kind: str):
@@ -62,21 +72,26 @@ def _components(modules, kind: str):
 
 
 def load_stage1_components(modules, load_dir: str, load_step: int,
-                           kind: str = "image") -> None:
+                           kind: str = "image", layout: Optional[dict] = None) -> None:
     """Load the stage-1 ``.bin`` files of ``load_step`` (``kind``: image or
-    video) into ``init_modules``-layout modules, in place."""
+    video) into ``init_modules``-layout modules, in place; a sharded leaf
+    (``layout``) takes the rank's block."""
     targets = _components(modules, kind)
     for name, pattern in STAGE1_FILES[kind]:
         path = os.path.join(load_dir, pattern.format(step=int(load_step)))
         if not os.path.exists(path):
             raise FileNotFoundError(f"stage-1 checkpoint file missing: {path}")
-        targets[name].load_state_dict(hf_io.load_state_dict(path), strict=True)
+        sd = layout_m.shard_state_dict(hf_io.load_state_dict(path), layout or {}, _PREFIX[name])
+        targets[name].load_state_dict(sd, strict=True)
 
 
 def stage1_state_dicts(state, kind: str = "image") -> Dict[str, StateDict]:
     """{file component: its module's state dict} of ``state`` (``kind``:
-    image or video): the tensors are the live ones, not copies."""
-    return {name: module.state_dict() for name, module in _components(state.modules, kind).items()}
+    image or video): the tensors are the live ones, not copies, but for
+    the sharded leaves, gathered whole (a collective under a layout: every
+    rank calls it)."""
+    return {name: layout_m.full_state_dict(module, state.layout, _PREFIX[name])
+            for name, module in _components(state.modules, kind).items()}
 
 
 def write_stage1(components: Dict[str, StateDict], optimizer: StateDict, output_dir: str,
@@ -110,14 +125,16 @@ def optimizer_state_dict(state) -> StateDict:
     moment), and the train ``step``; the moments are the live tensors.
 
     ZeRO-1: the moments of the leaves the state's ``rows`` names are
-    gathered from every rank first (``gather_sharded:65``), so the file is
-    the same whatever the world size.  A collective: every rank calls it,
-    in the same order."""
+    gathered from every rank first (``gather_sharded:65``), and so are the
+    blocks of the leaves the state's ``layout`` shards, so the file is the
+    same whatever the mesh.  A collective: every rank calls it, in the same
+    order."""
     opt = state.opt_state
     sd = {"count": torch.tensor(int(opt["count"])), "step": torch.tensor(int(state.step))}
     rows = opt.get("rows", {})
     names, leaves = [], []
     for i, key in enumerate(sorted(state.trainable)):
+        pl = state.layout.get(key)
         for name in ("mu", "nu"):
             leaf = opt[name][key]
             parts = ([(f"{name}.{i}.q", leaf.q), (f"{name}.{i}.s", leaf.s)]
@@ -126,10 +143,19 @@ def optimizer_state_dict(state) -> StateDict:
                 if key in rows:
                     names.append(n)
                     leaves.append(t.detach())
+                elif pl is not None:
+                    sd[n] = layout_m.gather(t.detach(), _moment_placement(pl, n, t))
                 else:
                     sd[n] = t.detach()
     sd.update(zip(names, mesh.all_gather_rows(leaves)))
     return sd
+
+
+def _moment_placement(pl, name: str, t):
+    """The placement of a moment tensor of a leaf placed by ``pl``: the
+    leaf's, or for an 8-bit moment's per-row scales [rows, 1] the leaf's
+    on the rows."""
+    return pl.like((pl.shape[0], 1)) if name.endswith(".s") else pl
 
 
 def save_optimizer_state(state, path: str) -> None:
@@ -148,20 +174,25 @@ def load_optimizer_state(state, path: str) -> None:
     if n_saved != len(keys):
         raise ValueError(f"{path}: {n_saved} moment leaves for {len(keys)} trainable leaves")
 
-    def mine(t, key):
+    def mine(t, key, n):
+        if key in state.layout:
+            return layout_m.shard(t, _moment_placement(state.layout[key], n, t))
         return t[rows[key][0]:rows[key][1]].contiguous() if key in rows else t
 
     for i, key in enumerate(keys):
         p = state.trainable[key]
+        whole = state.layout[key].shape if key in state.layout else tuple(p.shape)
         for name in ("mu", "nu"):
             if f"{name}.{i}.q" in sd:
-                q, s = sd[f"{name}.{i}.q"], sd[f"{name}.{i}.s"]
-                shape, want = (tuple(q.shape), tuple(s.shape)), (tuple(p.shape), (p.shape[0], 1))
-                leaf = Moment8(mine(q, key).to(p.device), mine(s, key).to(p.device))
+                n = f"{name}.{i}"
+                q, s = sd[n + ".q"], sd[n + ".s"]
+                shape, want = (tuple(q.shape), tuple(s.shape)), (tuple(whole), (whole[0], 1))
+                leaf = Moment8(mine(q, key, n + ".q").to(p.device),
+                               mine(s, key, n + ".s").to(p.device))
             else:
                 full = sd[f"{name}.{i}"]
-                shape, want = tuple(full.shape), tuple(p.shape)
-                leaf = mine(full, key).to(p.device)
+                shape, want = tuple(full.shape), tuple(whole)
+                leaf = mine(full, key, name).to(p.device)
             if shape != want:
                 raise ValueError(f"optimizer leaf {name}.{i} ({key}) shape mismatch: "
                                  f"{shape} vs {want}")
@@ -204,7 +235,7 @@ def resume_latest(state, output_dir: str, kind: str = "image") -> None:
     if step is None:
         return
     with torch.no_grad():
-        load_stage1_components(state.modules, output_dir, step, kind)
+        load_stage1_components(state.modules, output_dir, step, kind, state.layout)
     opt_path = os.path.join(output_dir, f"optimizer-state-{step}.bin")
     if os.path.exists(opt_path):
         load_optimizer_state(state, opt_path)

@@ -54,15 +54,16 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor,
     Data parallel: the mean is over the global batch (``flow.py:39-48``
     takes it over the whole data axis), so each rank returns its rows' sum
     over the global count of valid elements (the valid rows' count summed
-    over the ranks, one collective) and the ranks' losses and gradients add
-    up to the global batch's.  A mean of the ranks' means would weigh the
-    rows of a rank with fewer valid rows more.  One process: the plain
-    mean."""
+    over the data axis, one collective) and the data ranks' losses and
+    gradients add up to the global batch's.  A mean of the ranks' means
+    would weigh the rows of a rank with fewer valid rows more.  The model
+    ranks of one data index hold the same rows and count them once.  One
+    process: the plain mean."""
     err = (pred.to(torch.float32) - target.to(torch.float32)).square()
     if mask is None:
-        if mesh.world_size() == 1:
+        if mesh.data_size() == 1:
             return err.mean()
-        return err.sum() / float(err.numel() * mesh.world_size())
+        return err.sum() / float(err.numel() * mesh.data_size())
     m = mask.to(torch.float32)[:, None, None]
     count = m.sum()
     mesh.all_reduce_sum([count])

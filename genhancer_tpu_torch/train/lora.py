@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -78,10 +78,13 @@ def wrapped_paths(tower: tnn.Module) -> List[str]:
     return [path for path, m in tower.named_modules() if "lora_A" in m._parameters]
 
 
-def _merged_weight(m: tnn.Module) -> torch.Tensor:
-    w = m.weight
-    delta = (m.lora_B.to(torch.float32) @ m.lora_A.to(torch.float32)) \
-        * m.lora_scale.to(torch.float32)
+def _merged_weight(m) -> torch.Tensor:
+    """``m``'s weight with its LoRA branch folded in; ``m`` is a module or a
+    dict of its state-dict entries."""
+    get = m.__getitem__ if isinstance(m, dict) else m.__getattr__
+    w = get("weight")
+    delta = (get("lora_B").to(torch.float32) @ get("lora_A").to(torch.float32)) \
+        * get("lora_scale").to(torch.float32)
     return (w.to(torch.float32) + delta).to(w.dtype)
 
 
@@ -104,13 +107,18 @@ def merge(tower: tnn.Module) -> tnn.Module:
 
 
 @torch.no_grad()
-def merged_state_dict(tower: tnn.Module) -> Dict[str, torch.Tensor]:
+def merged_state_dict(tower: tnn.Module, sd: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
     """``merge(tower).state_dict()``, keys in the same order, without the
     copy: the merged weights are new tensors on the tower's device, every
-    other entry is the tower's own tensor."""
-    merged = {f"{p}.weight" if p else "weight": _merged_weight(tower.get_submodule(p))
-              for p in wrapped_paths(tower)}
-    return {k: merged.get(k, v) for k, v in tower.state_dict().items()
+    other entry is the tower's own tensor.  ``sd``: the tower's state dict
+    to merge instead of its own (FSDP: its blocks gathered whole)."""
+    sd = tower.state_dict() if sd is None else sd
+    merged = {}
+    for p in wrapped_paths(tower):
+        pre = f"{p}." if p else ""
+        merged[pre + "weight"] = _merged_weight({n: sd[pre + n] for n in ("weight", *_FACTORS)})
+    return {k: merged.get(k, v) for k, v in sd.items()
             if k.rsplit(".", 1)[-1] not in _FACTORS}
 
 

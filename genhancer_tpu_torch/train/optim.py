@@ -31,6 +31,13 @@ other leaves keep whole moments.  ``apply`` takes the global norm over the
 whole (reduced, replicated) gradients and updates the views ``p[r0:r1]``
 from ``g[r0:r1]``: each row's arithmetic is the whole-leaf update's.  The
 caller gathers the other ranks' rows (``train.state.apply_gradients``).
+
+Tensor parallelism and FSDP (``parallel.layout``): ``init`` takes the
+layout of the leaves that are the rank's block; their moments are the
+block's (``shard_over_data`` skips them), the global norm counts each leaf
+whole and once, and the update is the block's (``fused_adamw_apply``
+updates a row-parallel leaf of K4 or K6 on its gathered rows).  The state
+keeps the layout under ``layout``.
 """
 
 from __future__ import annotations
@@ -144,12 +151,16 @@ def apply_updates(p, update):
     return (p + update).to(p.dtype)
 
 
-def shard_rows(params: Tensors, shard: bool) -> Dict[str, Tuple[int, int]]:
+def shard_rows(params: Tensors, shard: bool, layout: Optional[dict] = None
+               ) -> Dict[str, Tuple[int, int]]:
     """``{path: (r0, r1)}``: the rows of each leaf this rank's ZeRO-1
-    moments cover (``shard``), the leaves it does not split left out."""
+    moments cover (``shard``), the leaves it does not split, and those
+    already sharded by TP or FSDP (``layout``), left out."""
     if not shard:
         return {}
-    return {k: r for k, p in params.items() if (r := mesh.row_range(p.shape)) is not None}
+    layout = layout or {}
+    return {k: r for k, p in params.items()
+            if k not in layout and (r := mesh.row_range(p.shape)) is not None}
 
 
 def local_view(x: torch.Tensor, rows: Dict[str, Tuple[int, int]], key: str) -> torch.Tensor:
@@ -160,15 +171,29 @@ def local_view(x: torch.Tensor, rows: Dict[str, Tuple[int, int]], key: str) -> t
     return x[r0:r1]
 
 
-def zero_moments(params: Tensors, shard: bool = False) -> dict:
+def zero_moments(params: Tensors, shard: bool = False, layout: Optional[dict] = None) -> dict:
     """The state both optimizers start from: step count 0, moments of zeros
     in each parameter's dtype (``optax``'s and ``pallas_adamw_clip``'s init),
     of the rank's rows under ZeRO-1 (``shard``: the state's ``rows``)."""
-    rows = shard_rows(params, shard)
+    rows = shard_rows(params, shard, layout)
     local = {k: local_view(p, rows, k) for k, p in params.items()}
     state = {"count": 0, "mu": {k: torch.zeros_like(p) for k, p in local.items()},
              "nu": {k: torch.zeros_like(p) for k, p in local.items()}}
-    return {**state, "rows": rows} if shard else state
+    return _with(state, rows if shard else None, layout)
+
+
+def _with(state: dict, rows, layout) -> dict:
+    """``state`` with its ZeRO-1 ``rows`` (where given) and the layout of the
+    sharded leaves (where any)."""
+    if rows is not None:
+        state["rows"] = rows
+    if layout:
+        state["layout"] = dict(layout)
+    return state
+
+
+def _norm_axes(state: dict) -> Dict[str, str]:
+    return {k: pl.axes for k, pl in state.get("layout", {}).items()}
 
 
 class AdamWChain:
@@ -183,12 +208,12 @@ class AdamWChain:
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
         self.shard = shard
 
-    def init(self, params: Tensors) -> dict:
-        return zero_moments(params, self.shard)
+    def init(self, params: Tensors, layout: Optional[dict] = None) -> dict:
+        return zero_moments(params, self.shard, layout)
 
     @torch.no_grad()
     def apply(self, params: Tensors, grads: Tensors, state: dict) -> Tuple[dict, torch.Tensor]:
-        g_norm = global_norm(grads)
+        g_norm = global_norm(grads, _norm_axes(state))
         count = state["count"]
         lr = _F32(self.schedule(count))      # read at the pre-increment count
         mu, nu = state["mu"], state["nu"]     # replaced leaf by leaf
@@ -219,18 +244,24 @@ class FusedAdamW:
         self.kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
                        max_grad_norm=max_grad_norm)
 
-    def init(self, params: Tensors) -> dict:
+    def init(self, params: Tensors, layout: Optional[dict] = None) -> dict:
         if self.moment_bits != 8:
-            return zero_moments(params, self.shard)
-        # moment8_ok reads the whole leaf; the codes cover the rank's rows
-        rows = shard_rows(params, self.shard)
+            return zero_moments(params, self.shard, layout)
+        # moment8_ok reads the whole leaf; the codes cover the rank's rows,
+        # or its block (TP: a row-parallel block keeps whole rows' scales)
+        layout = layout or {}
+        rows = shard_rows(params, self.shard, layout)
         local = {k: local_view(p, rows, k) for k, p in params.items()}
+
+        def eight(k, p):
+            return moment8_ok(torch.empty(layout[k].shape, device="meta") if k in layout else p)
+
         state = {"count": 0,
-                 "mu": {k: moment8_zeros_m(local[k]) if moment8_ok(p) else
+                 "mu": {k: moment8_zeros_m(local[k]) if eight(k, p) else
                         torch.zeros_like(local[k]) for k, p in params.items()},
-                 "nu": {k: moment8_zeros_v(local[k]) if moment8_ok(p) else
+                 "nu": {k: moment8_zeros_v(local[k]) if eight(k, p) else
                         torch.zeros_like(local[k]) for k, p in params.items()}}
-        return {**state, "rows": rows} if self.shard else state
+        return _with(state, rows if self.shard else None, layout)
 
     @torch.no_grad()
     def apply(self, params: Tensors, grads: Tensors, state: dict,
@@ -238,7 +269,7 @@ class FusedAdamW:
         count = state["count"] + 1
         g_norm = fused_adamw_apply(params, state["mu"], state["nu"], grads, count,
                                    self.schedule, quant=quant, rows=state.get("rows"),
-                                   **self.kw)
+                                   layout=state.get("layout"), **self.kw)
         return {**state, "count": count}, g_norm
 
 

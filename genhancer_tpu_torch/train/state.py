@@ -16,12 +16,18 @@ or None.  The tensors are the non-persistent buffers ``weight_sb_q`` and
 reads them (``core.nn.linear``) without their becoming parameters or
 state-dict keys; K4/K6 overwrite them in place, and anything else rebuilds
 them from the masters.  Derived state: never checkpointed.
+
+Tensor parallelism and FSDP (``place_state``, after the modules are built
+and loaded whole): ``layout`` maps the path of each leaf that is the rank's
+block to its ``parallel.layout.Placement``, ``partial`` names the
+replicated leaves whose gradients are partial sums over the model axis
+(the QK-norm scales), and the optimizer state covers the blocks.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -42,6 +48,8 @@ class TrainState:
     opt_state: dict
     step: int = 0
     quant: Optional[dict] = None
+    layout: dict = field(default_factory=dict)
+    partial: Tuple[str, ...] = ()
 
 
 def partition(modules: tnn.Module, trainable_pred: Callable[[str], bool]):
@@ -65,6 +73,32 @@ def create_state(modules: tnn.Module, trainable_pred, optimizer) -> TrainState:
                       opt_state=optimizer.init({k: v.detach() for k, v in trainable.items()}))
 
 
+def place_state(state: TrainState, optimizer, tp: int = 1, fsdp: bool = False,
+                min_size: Optional[int] = None, hidden: Optional[int] = None) -> TrainState:
+    """Shard the state's modules over the mesh (``parallel.layout.place``:
+    the DiT's TP layout with ``tp > 1``, FSDP's over the data axis with
+    ``fsdp``), in place, and start the optimizer state on the blocks.  Every
+    rank calls it alike, after ``mesh.make_mesh``; a one-axis-free call
+    (``tp`` 1, no ``fsdp``) leaves the state as it is."""
+    from ..parallel import fsdp as fsdp_m
+    from ..parallel import layout as layout_m
+    from ..parallel import tp as tp_m
+    if tp <= 1 and not fsdp:
+        return state
+    state.layout = layout_m.place(state.modules, tp, fsdp,
+                                  fsdp_m.MIN_SHARD_SIZE if min_size is None else min_size,
+                                  hidden)
+    flat = flatten_params(state.modules)
+    state.trainable = {k: flat[k] for k in state.trainable}
+    state.frozen = {k: flat[k] for k in state.frozen}
+    state.partial = tuple(k for k in state.trainable if tp > 1 and k.startswith("dit.")
+                          and tp_m.partial_over_model(k[len("dit."):]))
+    state.opt_state = optimizer.init({k: v.detach() for k, v in state.trainable.items()},
+                                     layout={k: v for k, v in state.layout.items()
+                                             if k in state.trainable})
+    return state
+
+
 def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer,
                     loss: Optional[torch.Tensor] = None):
     """One optimizer step, parameters updated in place; returns the global
@@ -79,9 +113,18 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     holds the global batch's and runs the same update.  ZeRO-1: the
     optimizer updates the rows its state's ``rows`` names, and those rows
     of every rank are then gathered into each parameter, and into the int8
-    cache's codes and scales where the update wrote them."""
+    cache's codes and scales where the update wrote them.
+
+    On the 2-D mesh the sum runs over the data axis; an FSDP block's
+    gradient arrives reduce-scattered over it already (``parallel.fsdp``)
+    and is left out, and the ``partial`` leaves are then summed over the
+    model axis."""
     if mesh.is_distributed():
-        mesh.all_reduce_sum(list(grads.values()) + ([loss] if loss is not None else []))
+        from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+        data = [g for k, g in grads.items()
+                if k not in state.layout or state.layout[k].dim(DATA_AXIS) is None]
+        mesh.all_reduce_sum(data + ([loss] if loss is not None else []))
+        mesh.all_reduce_sum([grads[k] for k in state.partial], group=MODEL_AXIS)
     params = {k: v.detach() for k, v in state.trainable.items()}
     emits = state.quant is not None and getattr(optimizer, "emit_quant", False)
     state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state,
@@ -103,11 +146,11 @@ def with_quant_cache(state: TrainState) -> TrainState:
     every path of ``switchback_cache_paths``, set as the owning ``Linear``'s
     non-persistent buffers."""
     from ..core.quant import quantize_cache, switchback_cache_paths
-    paths = switchback_cache_paths(state.trainable)
+    paths = switchback_cache_paths(state.trainable, state.layout)
     if not paths:
         return state
     state.quant = {}
-    for path, (wq, ws) in quantize_cache(state.trainable, paths).items():
+    for path, (wq, ws) in quantize_cache(state.trainable, paths, state.layout).items():
         mod = state.modules.get_submodule(path[: -len(".weight")])
         mod.register_buffer("weight_sb_q", wq, persistent=False)
         mod.register_buffer("weight_sb_scale", ws, persistent=False)

@@ -45,15 +45,25 @@ Port of ``genhancer_tpu/train/trainer.py``, one device per process:
     the same step boundary: rank 0's flag, broadcast at the ``log_interval``
     cadence (``_preempt_stop``).  Out of device memory, one process stops
     for a relaunch; a rank of several re-raises, so that the launcher tears
-    the group down.
+    the group down;
+  * tensor parallelism and FSDP (``model_parallel: N``, ``fsdp: true`` with
+    ``fsdp_min_size``, or both): the ranks form JAX's (data, model) mesh
+    (``parallel.mesh.make_mesh``, the model axis innermost), the loaders
+    and the draws split over the data axis, and once the modules are built
+    and the stage-1 files loaded, the state is placed as
+    ``genhancer_tpu/train/trainer.py:203-240`` places it
+    (``train.state.place_state``: the DiT's Megatron layout on the model
+    axis, FSDP's blocks of trainable and frozen leaves on the data axis);
+    a resume loads each rank's blocks, and a checkpoint gathers every
+    block to the reference layout before rank 0 writes.
 
 Random draws come from one ``torch.Generator`` on the device, seeded from
 ``seed + 777`` and the step (as JAX folds the step into its key), so a
 resumed run draws what an uninterrupted one would; every rank seeds it
 alike, draws the global batch's values and keeps its rows.  Float32 matmuls
-and convolutions run in full float32 (TF32 off).  Tensor, sequence and
-pipeline parallelism, FSDP and orbax are not ported (ROADMAP: parallelism,
-part 2; checkpoint backend); their options raise.
+and convolutions run in full float32 (TF32 off).  Sequence and pipeline
+parallelism and orbax are not ported (ROADMAP: parallelism, part 3;
+checkpoint backend); their options raise.
 """
 
 from __future__ import annotations
@@ -159,6 +169,10 @@ class Trainer:
         self.device = mesh.rank_device(resolve_device(device))
         mesh.maybe_initialize_distributed(self.device)
         self.is_main = mesh.rank() == 0
+        self.tp = int(cfg.get("model_parallel", 1) or 1)
+        self.fsdp = bool(cfg.get("fsdp", False))
+        # the (data, model) mesh, before the loaders split over the data axis
+        mesh.make_mesh(self.tp)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -193,6 +207,16 @@ class Trainer:
                                             int(cfg["load_step"]), self.ckpt_kind)
             log.info("loaded stage-1 components from %s step %s",
                      cfg["load_dir"], cfg["load_step"])
+        if self.tp > 1 or self.fsdp:
+            from ..parallel import tp as tp_m
+            from ..parallel.fsdp import MIN_SHARD_SIZE
+            from .state import place_state
+            tp_m.validate_tp(self.spec.dit_cfg, self.tp)
+            place_state(self.state, self.optimizer, self.tp, self.fsdp,
+                        int(cfg.get("fsdp_min_size", MIN_SHARD_SIZE)),
+                        self.spec.dit_cfg.hidden_size)
+            log.info("placed %d leaves on the (data %d, model %d) mesh",
+                     len(self.state.layout), mesh.data_size(), mesh.model_size())
         if cfg.get("resume_from_checkpoint") == "latest":
             before = self.state.step
             ckpt.resume_latest(self.state, self.output_dir, self.ckpt_kind)
@@ -200,7 +224,8 @@ class Trainer:
                 log.info("resumed from step %d", self.state.step)
         # QLoRA's and the static DiT's int8 factors were derived at init:
         # re-derive them from the (possibly loaded) masters
-        refreshed = refresh_static_quant_flat(static_quant_flat(self.state.modules))
+        refreshed = refresh_static_quant_flat(static_quant_flat(self.state.modules),
+                                              self.state.layout)
         if refreshed:
             log.info("re-derived %d static int8 weights from their masters", len(refreshed))
         if self.state.quant is not None:
@@ -273,18 +298,23 @@ class Trainer:
         LoRA-merged tower (merged on the device, so the export's bits do not
         depend on the writer), and hand the writing to ``ckpt_writer``.  The
         int8 weight caches are non-persistent buffers: never snapshotted.
-        Every rank gathers the ZeRO-1 moments (a collective); rank 0 alone
-        snapshots and writes."""
+        Every rank gathers the ZeRO-1 moments and the TP and FSDP blocks
+        (collectives); rank 0 alone snapshots and writes."""
         optimizer = ckpt.optimizer_state_dict(self.state)
+        components = ckpt.stage1_state_dicts(self.state, self.ckpt_kind)
+        stage2 = self.spec.stage.startswith("stage2")
+        tower = self.state.modules["clip"]["model"] if stage2 else None
+        tower_sd = None
+        if stage2 and any(k.startswith("clip.model.") for k in self.state.layout):
+            from ..parallel.layout import full_state_dict
+            tower_sd = full_state_dict(tower, self.state.layout, "clip.model.")
         self._last_saved = step
         self.saved_steps.append(step)
         if not self.is_main:
             return
-        tree = {"components": ckpt.stage1_state_dicts(self.state, self.ckpt_kind),
-                "optimizer": optimizer}
-        stage2 = self.spec.stage.startswith("stage2")
+        tree = {"components": components, "optimizer": optimizer}
         if stage2:
-            tree["tower"] = lora.merged_state_dict(self.state.modules["clip"]["model"])
+            tree["tower"] = lora.merged_state_dict(tower, tower_sd)
         out_dir, kind, cfg = self.output_dir, self.ckpt_kind, self.cfg
         base_config = self.spec.tower_cfg.to_hf() if stage2 else None
 

@@ -177,29 +177,36 @@ def state_dicts_from_jax(params, text_side: bool = False) -> Dict[str, StateDict
     return out
 
 
-def load_jax_params(modules, params) -> None:
+def load_jax_params(modules, params, layout=None) -> None:
     """Load a JAX parameter tree into ``init_modules``-layout modules of the
     same task kind (strict: every key on both sides must match; a stage-2
     tower, a ``CLIPModel``, takes the text side as well).  A ``controlnet``,
     ``ip`` or ``t5`` tree loads into ``modules[key]`` (a ``ControlNet``,
     ``IPAdapter`` or ``T5Encoder``), whose IP integers must equal the
-    tree's."""
+    tree's.  Modules placed on the mesh (``layout``, ``parallel.layout``:
+    TP and FSDP blocks, keyed by flat path) take each rank's block of the
+    converted weights."""
     for key in _EXTRAS:
         if key in params:
             _load_extra(key, modules[key], params[key])
     if "clip" not in params:
         return
+    from ..parallel.layout import shard_state_dict
     sds = state_dicts_from_jax(params, text_side=hasattr(modules["clip"]["model"], "text_model"))
     adopt_int8(modules["vae"], sds["vae"])
     adopt_int8(modules["clip"]["model"], sds["tower"])
-    modules["dit"].load_state_dict(sds["dit"], strict=True)
-    modules["vae"].load_state_dict(sds["vae"], strict=True)
-    modules["clip"]["model"].load_state_dict(sds["tower"], strict=True)
-    modules["clip"]["project_clip"].load_state_dict(sds["project_clip"], strict=True)
+
+    def load(module, sd, prefix):
+        module.load_state_dict(shard_state_dict(sd, layout or {}, prefix), strict=True)
+
+    load(modules["dit"], sds["dit"], "dit.")
+    load(modules["vae"], sds["vae"], "vae.")
+    load(modules["clip"]["model"], sds["tower"], "clip.model.")
+    load(modules["clip"]["project_clip"], sds["project_clip"], "clip.project_clip.")
     if "project_t5" in modules["clip"] or "project_t5" in sds:
-        modules["clip"]["project_t5"].load_state_dict(sds["project_t5"], strict=True)
+        load(modules["clip"]["project_t5"], sds["project_t5"], "clip.project_t5.")
     if "visual_adapter" in modules or "visual_adapter" in sds:
-        modules["visual_adapter"].load_state_dict(sds["visual_adapter"], strict=True)
+        load(modules["visual_adapter"], sds["visual_adapter"], "visual_adapter.")
 
 
 def _load_extra(key: str, module, tree) -> None:

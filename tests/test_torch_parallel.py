@@ -592,10 +592,12 @@ def test_invalid_combos_raise_jax_messages(task, knobs, msg):
 
 @pytest.mark.parametrize("knobs", VALID, ids=lambda k: "+".join(sorted(map(str, k))) or "dp")
 def test_valid_combos_build_or_name_part_2(knobs):
-    if not knobs:
-        assert factory.build_spec(_cfg())[2] == "image"
+    """Data parallelism, TP, FSDP and their compositions build (parallelism,
+    part 2); sequence and pipeline parallelism name part 3, which ports them."""
+    if knobs.get("sequence_parallel", 1) == 1 and knobs.get("pipeline_parallel", 1) == 1:
+        assert factory.build_spec(_cfg(**knobs))[2] == "image"
         return
-    with pytest.raises(NotImplementedError, match="parallelism, part 2"):
+    with pytest.raises(NotImplementedError, match="parallelism, part 3"):
         factory.build_spec(_cfg(**knobs))
 
 
