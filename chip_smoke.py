@@ -121,8 +121,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              K3 run's, each rank's parameter, frozen and moment bytes those
              of its blocks' shapes, K1/K1b on 12 heads, K3 once per local
              leaf, the checkpoint loaded strictly in one process; (b)
-             ``fsdp: true`` on two data ranks (B=8 each), the chain, 3 steps
-             on the chain run's batches against its losses, each rank's
+             ``fsdp: true`` on two data ranks (B=8 each), the chain, the DiT
+             cut to 1 + 1 blocks, 3 steps on the chain run's batches against
+             one process on them, each rank's
              bytes its blocks'; (c) configs/tpu_fast_stage1.yaml's settings
              under TP=2 with the DiT cut to 1 + 1 blocks, B=4, 3 steps: each
              DiT linear kind through SwitchBack at flux-dev width within
@@ -130,8 +131,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              3e-3 of one process, the gathered int8 cache bit for bit the
              quantization of the gathered masters; (d) dp2 x tp2 with FSDP
              on four ranks, 1 + 1 blocks, B=4 per data index, 2 steps
-             against one process; each rank's groups and the host-staged
-             step time;
+             against one process, beside sp_pp's (b); each rank's groups and
+             the host-staged step time;
 7. stage2  — the ``Trainer`` on configs/MetaCLIP_large_stage2_all.yaml at full
              width (LoRA on the whole MetaCLIP-L/14, B=16 x accumulation 2)
              from the K3 run's step-10 files (``load_dir``/``load_step``): 7
@@ -168,7 +169,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              with the default chain, a checkpoint at step 8, a resume from
              step 8 that loads the four video ``.bin`` files strictly and
              runs steps 9-10; then next@224, next2@224 and middle@336 (remat
-             from the gate) 3 optimizer steps each at their published batch
+             from the gate; these three and their stage 2 with the DiT cut
+             to 1 + 1 blocks) 3 optimizer steps each at their published batch
              (32 x accumulation 2); step time (sliding: steps 3-8, the others
              step 2), rows/s (sliding: valid rows, padding left out), peak
              memory, the launch counts of every kernel, per mode, and device
@@ -180,23 +182,36 @@ Phases, each printing its own lines; any failure exits non-zero:
              tower_remat) at full width and batch x accumulation 2, each
              from its own mode's stage-1 files: 3 steps, 2 timed, 3
              profiled, K2b's first call held against its plain version, the
-             export timed and read back; middle@336's peak memory with
-             tower_remat on and off; a resume of next; K2b 48 launches per
+             export timed and read back; middle@336's peak memory of one step
+             with tower_remat on and off; a resume of next; K2b 48 launches per
              optimizer step on every stage-2 path (24 on the fast ones), 0
              elsewhere; then configs/tpu_fast_video_stage2_all.yaml
              (middle@336 at B=4, QLoRA tower, int8_full DiT under remat)
              from middle@336's stage-1 files, 4 steps, 2-3 timed, 4
              profiled, the export read back;
+10b. sp_pp — sequence and pipeline parallelism on gloo ranks sharing the
+             card (host-staged; says nothing of NCCL): (a) SP=2 on the
+             sliding@224 stage-1 config at full width, depth and published
+             batch (joint L=964, 482 tokens per rank), 3 steps on the
+             sliding run's batches, losses within 1e-2 of that run, K2 48
+             per rank per step and no K1/K5, then ring attention at [16,
+             964, 24, 128] bf16 against ``sdpa_ref`` at 3e-2; (b) PP=2 with
+             2 micro-batches on configs/MetaCLIP_large_stage1.yaml with K3,
+             3 steps on the K3 run's batches (launched beside tp_fsdp's
+             (d)), losses within 1e-2, per rank per step K1/K1b 12, K2 48,
+             K3 112; each rank's peak memory against the bytes its shapes
+             give;
 11. siglip — the SigLIP-384 paths at full width (so400m: 27 layers, L=729,
-             D=72; the flux-dev DiT at joint L=577; B=16 x accumulation 2,
-             bf16) on synthetic 384-px shards: the ``Trainer`` on
+             D=72; the flux-dev DiT cut to 1 + 1 blocks at joint L=577;
+             B=16 x accumulation 2, bf16) on synthetic 384-px shards: the ``Trainer`` on
              configs/SigLIP_384_stage1.yaml 8 steps (8 profiled), an engine
              on its files (reconstruct B=1, embed [1, 1152]),
              SigLIP_384_stage2_all.yaml 5 steps (K5b's first call held to its
              plain version, the ``siglip-so400m-patch14-384-5/`` export timed
              and read back bit for bit), SigLIP_384_stage2_only.yaml with
              ``fused_optimizer: pallas`` 3 steps; per step K5 54, K5b 54 in
-             stage 2, K1 12, K1b 12, K2 and K2b 0;
+             stage 2, K1 and K1b once per DiT block and micro-batch, K2 and
+             K2b 0;
 12. eval   — ``evaluate_model_dir`` on image stage 2's export
              (MetaCLIP-L/14, 224 px), on middle@336 stage 2's
              (CLIP-L/14@336) and on SigLIP stage2_all's (so400m, 384 px: K5
@@ -212,6 +227,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -325,7 +341,25 @@ def attempt(phase, *args):
         FAILURES.append(f"{phase.__name__}: {e}")
         return None
     finally:
-        print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s; {_host_memory()}",
+              flush=True)
+
+
+def _meminfo_gib(key: str) -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def _host_memory() -> str:
+    """The host's available memory and this process's resident size."""
+    import resource
+    return (f"host MemAvailable {_meminfo_gib('MemAvailable'):.1f} of "
+            f"{_meminfo_gib('MemTotal'):.1f} GiB (Shmem {_meminfo_gib('Shmem'):.1f}), "
+            f"this process's max RSS "
+            f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.1f} GiB")
 
 
 # ---------------------------------------------------------------- phases
@@ -3059,6 +3093,9 @@ def phase_dp(work, k3_ref):
 
 # phase_tp_fsdp: the mesh's paths on gloo ranks sharing the card
 TP_STEPS = 3
+# host memory free before (a), (b) and (c) share the first wave (six ranks
+# of about 5-6 GiB each), else (c) waits for (a)
+TOGETHER_GIB = 48.0
 MESH_STEPS = 2
 # the bf16 loss of a step on the mesh against one process on the same rows
 # (the TP partial products are rounded to bf16 before their sum; FSDP and
@@ -3211,7 +3248,8 @@ def _tp_k3_check(cfg, outs, wall, k3_ref, n_leaves):
 
 def _fsdp_payload(work):
     """(b)'s config: ``fsdp: true`` on two data ranks (B=8 each,
-    accumulation 2), the default chain."""
+    accumulation 2), the default chain (run with the DiT cut to 1 + 1
+    blocks, to keep the whole run inside its time)."""
     from genhancer_tpu_torch.train.config import load_config
     cfg = load_config(CONFIG)
     cfg["data_config"].update(img_dir=os.path.join(work, "shards"), train_batch_size=8)
@@ -3220,18 +3258,20 @@ def _fsdp_payload(work):
     return cfg
 
 
-def _fsdp_check(cfg, outs, wall, chain_ref):
-    """(b): TP_STEPS steps on the chain run's host batches against its
-    losses; each rank's parameters and moments its blocks'."""
-    want_b, whole_b = _rank_bytes(cfg, 1, True, 2), _rank_bytes(cfg, 1, False, 1)
+def _fsdp_check(cfg, outs, wall, one, dit):
+    """(b): TP_STEPS steps on the chain run's host batches against one
+    process's on them (the DiT ``dit``); each rank's parameters and
+    moments its blocks'."""
+    want_b, whole_b = _rank_bytes(cfg, 1, True, 2, dit), _rank_bytes(cfg, 1, False, 1, dit)
     train_b, frozen_b, train_n = want_b["trainable"], want_b["frozen"], want_b["trainable_n"]
-    ref = chain_ref["loss"][:TP_STEPS]
-    want = {**_no_launches(), "fused_rope_attention": 2 * 6,
-            "fused_rope_attention_bwd": 2 * 6, "fused_attention": 2 * 24}
+    ref = one["loss"]
+    blocks = dit.depth + dit.depth_single_blocks
+    want = {**_no_launches(), "fused_rope_attention": 2 * blocks,
+            "fused_rope_attention_bwd": 2 * blocks, "fused_attention": 2 * 24}
     for r, o in enumerate(outs):
         rel = [abs(a - b) / abs(b) for a, b in zip(o["loss"], ref)]
         check(len(o["loss"]) == TP_STEPS and max(rel) <= MESH_LOSS_REL,
-              f"tp_fsdp (b) rank {r}: losses {o['loss']} against the chain run's {ref} "
+              f"tp_fsdp (b) rank {r}: losses {o['loss']} against one process's {ref} "
               f"(relative {rel}, bound {MESH_LOSS_REL})")
         check(o["param_bytes"] == train_b and o["frozen_bytes"] == frozen_b,
               f"tp_fsdp (b) rank {r}: {o['param_bytes']} trainable and {o['frozen_bytes']} "
@@ -3245,8 +3285,9 @@ def _fsdp_check(cfg, outs, wall, chain_ref):
     check(outs[0]["full_params"] == outs[1]["full_params"],
           "tp_fsdp (b): the ranks' gathered parameters differ")
     print(f"[tp_fsdp] (b) FSDP on two data ranks (B=8 each x accumulation 2, the chain), "
-          f"{TP_STEPS} steps on the chain run's batches in {wall:.1f} s with the start: losses "
-          f"{[round(x, 5) for x in outs[0]['loss']]} (the chain run's "
+          f"the DiT cut to {dit.depth} + {dit.depth_single_blocks} blocks, {TP_STEPS} steps on "
+          f"the chain run's batches in {wall:.1f} s with the start: losses "
+          f"{[round(x, 5) for x in outs[0]['loss']]} (one process on them "
           f"{[round(x, 5) for x in ref]}); per rank {train_b / 2**30:.3f} GiB trainable + "
           f"{frozen_b / 2**30:.3f} GiB frozen (one process: {whole_b['trainable'] / 2**30:.3f} "
           f"+ {whole_b['frozen'] / 2**30:.3f}), moments "
@@ -3421,9 +3462,10 @@ def _dp_tp_check(cfg, outs, wall, one, dit):
                              for k in runs[0]["launches"][0]}}
 
 
-def _one_process(cfg, steps, batch=None):
+def _one_process(cfg, steps, batch=None, batches=None):
     """``steps`` steps of one process's Trainer on ``cfg`` (``batch`` rows)
-    on the seeded global batches (``parallel.testing.run_steps``)."""
+    on the seeded global batches, or on ``batches`` (global micro-batches;
+    ``parallel.testing.run_steps``)."""
     from genhancer_tpu_torch.parallel import testing as ptest
     from genhancer_tpu_torch.train.trainer import Trainer
     one_cfg = copy.deepcopy(cfg)
@@ -3431,64 +3473,289 @@ def _one_process(cfg, steps, batch=None):
         one_cfg["data_config"]["train_batch_size"] = batch
     trainer = Trainer(one_cfg, device="cuda")
     trainer.loader.close()
-    out = ptest.run_steps(trainer, steps)
+    out = ptest.run_steps(trainer, steps, batches=batches)
     del trainer
     _free()
     return out
 
 
-def phase_tp_fsdp(work, k3_ref, n_leaves):
+def phase_tp_fsdp(work, k3_ref, n_leaves, beside=None):
     """Tensor parallelism and FSDP on gloo ranks sharing the card (NCCL
     refuses two ranks on one device), in two waves of launches that run at
-    once: (a) TP=2 at full width with K3 against phase_train's K3 run and
-    (b) FSDP on two data ranks against its chain run, (c) the int8 stack
-    under TP=2 at 1 + 1 blocks taking (a)'s place when it ends; then (d)
-    dp2 x tp2 with FSDP on four ranks.  The one-process references of (c)
-    and (d) run meanwhile in this process.  Returns {path: launch
-    counts}."""
+    once: (a) TP=2 at full width with K3 against phase_train's K3 run,
+    (b) FSDP on two data ranks with the DiT cut to 1 + 1 blocks against one
+    process on the chain run's batches, and (c) the int8 stack under TP=2
+    at 1 + 1 blocks, beside them where the host has the memory, else
+    taking (a)'s place when it ends; then (d)
+    dp2 x tp2 with FSDP on four ranks, beside phase_sp_pp's (b) where
+    ``beside`` (a dict) is given: its launch starts with (d) and its ranks'
+    outputs, wall seconds or failure go into ``beside``.  The one-process
+    references of (b), (c) and (d) run meanwhile in this process.  Returns
+    {path: launch counts}."""
     check(k3_ref is not None and "chain" in k3_ref, "tp_fsdp: phase_train gave no reference")
     counts = {}
     _free()
     cfg_a, cfg_b, cfg_c = _tp_k3_payload(work), _fsdp_payload(work), _tp_int8_payload(work)
-    with _Wave() as wave:
+    chain = k3_ref["chain"]["batches"][:2 * TP_STEPS]
+    linears = _tp_linears_payload()
+    together = _meminfo_gib("MemAvailable") >= TOGETHER_GIB
+    print(f"[tp_fsdp] first wave: (c) {'beside' if together else 'after'} (a); "
+          f"{_host_memory()}", flush=True)
+    with _Wave() as wave, _DitDepth(1, 1) as dit:
         t0 = time.perf_counter()
         la = wave.start(work, "tp-k3", {"scenario": "train", "device": "cuda",
                                         "cfg": dict(cfg_a), "digests": True,
                                         "batches": k3_ref["batches"][:2 * TP_STEPS]}, 2)
         lb = wave.start(work, "fsdp", {"scenario": "steps", "device": "cuda",
                                        "steps": TP_STEPS, "cfg": dict(cfg_b),
-                                       "variants": {"fsdp": {}},
-                                       "batches": k3_ref["chain"]["batches"][:2 * TP_STEPS]}, 2)
-        outs_a = wave.join(la)
-        wall_a = time.perf_counter() - t0
-        # (c) takes (a)'s place on the card while (b) runs on
-        linears = _tp_linears_payload()
-        with _DitDepth(1, 1) as dit:
-            t1 = time.perf_counter()
-            lc = wave.start(work, "tp-int8", {
+                                       "registry": {"dit": dit}, "variants": {"fsdp": {}},
+                                       "batches": chain}, 2)
+
+        def start_c():
+            return time.perf_counter(), wave.start(work, "tp-int8", {
                 "scenario": "steps", "device": "cuda", "steps": TP_STEPS, "cfg": dict(cfg_c),
                 "registry": {"dit": dit}, "variants": {"int8_full_tp2": {"model_parallel": 2}},
                 "keep_tensors": True, "linears": linears}, 2, timeout=480)
-            lin_want = _tp_linears_want(linears)
-            one_c = _one_process(cfg_c, TP_STEPS)
-            outs_c = wave.join(lc)
-            wall_c = time.perf_counter() - t1
+        if together:
+            t1, lc = start_c()
+        lin_want = _tp_linears_want(linears)
+        one_cfg_b = copy.deepcopy(cfg_b)
+        one_cfg_b["fsdp"] = False
+        one_b = _one_process(one_cfg_b, TP_STEPS, batches=chain)
+        one_c = _one_process(cfg_c, TP_STEPS)
+        outs_a = wave.join(la)
+        wall_a = time.perf_counter() - t0
+        if not together:        # (c) takes (a)'s place on the card
+            t1, lc = start_c()
+        outs_c = wave.join(lc)
+        wall_c = time.perf_counter() - t1
         outs_b = [o["runs"]["fsdp"] for o in wave.join(lb)]
         wall_b = time.perf_counter() - t0
     counts.update(_tp_k3_check(cfg_a, outs_a, wall_a, k3_ref, n_leaves))
-    counts.update(_fsdp_check(cfg_b, outs_b, wall_b, k3_ref["chain"]))
+    counts.update(_fsdp_check(cfg_b, outs_b, wall_b, one_b, dit))
     counts.update(_tp_int8_check(outs_c, wall_c, one_c, lin_want))
     _free()
     cfg_d = _dp_tp_payload(work)
-    with _DitDepth(1, 1) as dit, _Wave() as wave:
+    with _Wave() as wave:
+        lb = _pp_start(work, k3_ref, wave, beside) if beside is not None else None
+        try:
+            with _DitDepth(1, 1) as dit:
+                t0 = time.perf_counter()
+                ld = wave.start(work, "2d", {
+                    "scenario": "steps", "device": "cuda", "steps": MESH_STEPS,
+                    "cfg": dict(cfg_d), "registry": {"dit": dit},
+                    "variants": {"dp2xtp2_fsdp": {"model_parallel": 2, "fsdp": True}}}, 4,
+                    timeout=480)
+                one_d = _one_process(cfg_d, MESH_STEPS, batch=8)
+                outs_d = wave.join(ld)
+                counts.update(_dp_tp_check(cfg_d, outs_d, time.perf_counter() - t0, one_d,
+                                           dit))
+        finally:
+            if lb is not None:
+                _pp_join(wave, lb, beside)
+    return counts
+
+
+# phase_sp_pp: ring SP and GPipe PP on gloo ranks sharing the card
+SP_PP_STEPS = 3
+SLIDING_CONFIG = os.path.join(ROOT, "configs", "OpenAICLIP_224_sliding_stage1.yaml")
+# JAX's bf16 bound of its ring against the unsharded attention
+# (tests/test_ring.py:47)
+RING_BF16_ATOL = 3e-2
+
+
+def _sp_pp_rank_bytes(cfg, moment_bytes_per_elem: int) -> dict:
+    """What one SP or PP rank holds, from the config's shapes on the meta
+    device: its parameters are whole (neither axis shards a weight), the
+    float32 gradient accumulators of the trainable ones, and the moments
+    (``moment_bytes_per_elem`` per element for both: 8 for the chain's
+    float32 pair, 2 x the parameter's bytes for K3's)."""
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks import image as timage
+    from genhancer_tpu_torch.tasks import video as tvideo
+    spec, _, kind = factory.build_spec(cfg)
+    task = timage if kind == "image" else tvideo
+    mods = task.build_modules(spec, device="meta")
+    pred = task.trainable_predicate(spec, mods)
+    b = {"trainable": 0, "frozen": 0, "trainable_n": 0}
+    for path, p in mods.named_parameters():
+        b["trainable" if pred(path) else "frozen"] += p.numel() * p.element_size()
+        b["trainable_n"] += p.numel() if pred(path) else 0
+    n = b["trainable_n"]
+    moments = n * moment_bytes_per_elem if moment_bytes_per_elem else 2 * b["trainable"]
+    return {**b, "grads": 4 * n, "moments": moments,
+            "static": b["trainable"] + b["frozen"] + 4 * n + moments}
+
+
+# host memory a pair of SP or PP ranks may take (each about 5 GiB of CUDA
+# context and libraries, its payload, pinned staging buffers), with room
+HOST_ROOM_GIB = 40.0
+
+
+def _host_room(tag) -> None:
+    """Fail the phase, launching nothing, where the host lacks the memory
+    a pair of ranks may take."""
+    free = _meminfo_gib("MemAvailable")
+    print(f"[sp_pp] {tag} before the launch: {_host_memory()}", flush=True)
+    check(free >= HOST_ROOM_GIB, f"sp_pp {tag}: host MemAvailable {free:.1f} GiB < "
+          f"{HOST_ROOM_GIB} GiB: not launching two more ranks")
+
+
+def _sp_payload(work):
+    """(a)'s config: ``sequence_parallel: 2`` on the published sliding@224
+    stage-1 config (2 videos x 8 windows x accumulation 2, the chain)."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(SLIDING_CONFIG)
+    cfg["data_config"]["video_dir"] = os.path.join(work, "sliding")
+    cfg.update(sequence_parallel=2, log_interval=1, report_to="none",
+               output_dir=os.path.join(work, "out-sp"))
+    return cfg
+
+
+def _pp_payload(work):
+    """(b)'s config: ``pipeline_parallel: 2`` with 2 micro-batches per
+    pipeline on MetaCLIP_large_stage1 (B=16 x accumulation 2, K3)."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(CONFIG)
+    cfg["data_config"]["img_dir"] = os.path.join(work, "shards")
+    cfg.update(pipeline_parallel=2, pipeline_microbatches=2, fused_optimizer="pallas",
+               log_interval=1, report_to="none", output_dir=os.path.join(work, "out-pp"))
+    return cfg
+
+
+def _ring_case():
+    """The DiT's attention at sliding@224 (B=16, L=964, 24 heads of 128)
+    in bf16 from a seed, with an output cotangent."""
+    import torch
+    gen = torch.Generator().manual_seed(18)
+    return {x: torch.randn((16, 964, 24, 128), generator=gen).to(torch.bfloat16)
+            for x in "qkvg"}
+
+
+def _sp_pp_report(tag, name, outs, ref, want, reckon):
+    """Checks and prints one SP or PP run: per step and rank the loss
+    against the one-process run's within MESH_LOSS_REL and the launches
+    against ``want``; the ranks' groups, step times and peak memory
+    against the reckoned static bytes."""
+    for r, o in enumerate(outs):
+        rel = [abs(a - b) / abs(b) for a, b in zip(o["loss"], ref)]
+        check(len(o["loss"]) == SP_PP_STEPS and max(rel) <= MESH_LOSS_REL,
+              f"sp_pp {tag} rank {r}: losses {o['loss']} against the one-process run's {ref} "
+              f"(relative {rel}, bound {MESH_LOSS_REL})")
+        for i, got in enumerate(o["launches"]):
+            check(got == want, f"sp_pp {tag} rank {r} step {i + 1}: launches {got} != {want}")
+        print(f"[sp_pp] {tag} rank {r} launches per step: " + "; ".join(
+            f"step {i + 1}: " + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+            for i, got in enumerate(o["launches"])), flush=True)
+    check(outs[0]["full_params"] == outs[1]["full_params"],
+          f"sp_pp {tag}: the ranks' parameters differ after the steps")
+    groups = "; ".join(f"rank {g['rank']}: data {g['data_index']}, seq {g['seq_index']} "
+                       f"(group {g['seq_group']}), pipe {g['pipe_index']} (group "
+                       f"{g['pipe_group']})" for g in (o["groups"] for o in outs))
+    peaks = [round(o["peak_bytes"] / 2**30, 2) for o in outs]
+    step_s = [s for o in outs for s in o["step_s"][1:]]
+    print(f"[sp_pp] {tag} {name}: losses {[round(x, 5) for x in outs[0]['loss']]} (one "
+          f"process {[round(x, 5) for x in ref]}); {groups}; step (median of steps 2-"
+          f"{SP_PP_STEPS} of both ranks; {GLOO_NOTE}) {statistics.median(step_s) * 1e3:.1f} ms; "
+          f"peak device memory per rank {peaks} GiB, reckoned static {reckon['static'] / 2**30:.2f}"
+          f" GiB (parameters {reckon['trainable'] / 2**30:.2f}, frozen "
+          f"{reckon['frozen'] / 2**30:.2f}, float32 gradients {reckon['grads'] / 2**30:.2f}, "
+          f"moments {reckon['moments'] / 2**30:.2f})", flush=True)
+
+
+def _pp_start(work, k3_ref, wave, beside):
+    """(b)'s launch in ``wave`` (phase_tp_fsdp's second, beside (d), whose
+    1 + 1-block ranks leave the card and the host room for it): PP=2, M=2
+    on phase_train's K3 batches.  Returns the launch, or None where it
+    could not start (the reason in ``beside``)."""
+    try:
+        check(k3_ref is not None, "phase_train gave no K3 reference")
+        cfg = _pp_payload(work)
+        beside.update(cfg=cfg, reckon=_sp_pp_rank_bytes(cfg, 0))
+        _host_room("(b)")
+        beside["t0"] = time.perf_counter()
+        return wave.start(work, "pp", {
+            "scenario": "steps", "device": "cuda", "steps": SP_PP_STEPS, "cfg": dict(cfg),
+            "variants": {"pp2": {}}, "batches": k3_ref["batches"][:2 * SP_PP_STEPS]}, 2,
+            timeout=480)
+    except SmokeFailure as e:
+        beside["error"] = str(e)
+        return None
+
+
+def _pp_join(wave, launch, beside) -> None:
+    try:
+        beside["runs"] = [o["runs"]["pp2"] for o in wave.join(launch)]
+        beside["wall"] = time.perf_counter() - beside["t0"]
+    except SmokeFailure as e:
+        beside["error"] = str(e)
+
+
+def phase_sp_pp(work, sliding_ref, pp_run):
+    """Sequence and pipeline parallelism on gloo ranks sharing the card
+    (each pair of ranks holds two whole models: (a)'s pair and (b)'s
+    cannot share the card): (a) SP=2 on the sliding@224 stage-1 config at
+    full width and published batch, on the host batches of
+    phase_video_train's sliding run, against its losses, then the ring at
+    the DiT's attention shape against ``sdpa_ref``; (b) PP=2 with 2
+    micro-batches on MetaCLIP_large_stage1 with K3, whose launch ran
+    beside phase_tp_fsdp's (d) on phase_train's K3 batches
+    (``pp_run``), against the K3 run's losses.  Returns {path: launch
+    counts of the last step}."""
+    import torch
+    from genhancer_tpu_torch.core.attention import sdpa_ref
+    counts = {}
+    check("runs" in pp_run, f"sp_pp (b): the PP launch gave no result: "
+          f"{pp_run.get('error', 'phase_tp_fsdp did not start it')}")
+    runs = pp_run["runs"]
+    n_leaves = runs[0]["leaves"]
+    # per rank per step: 3 of the 6 blocks x 2 micro-batches x accumulation 2
+    want_b = {**_no_launches(), "fused_rope_attention": 12, "fused_rope_attention_bwd": 12,
+              "fused_attention": 2 * 24, "fused_adamw": n_leaves}
+    _sp_pp_report("(b)", f"PP=2, M=2, {os.path.basename(CONFIG)} with K3 (B=16 x 2), "
+                  f"{SP_PP_STEPS} steps in {pp_run['wall']:.1f} s with the start, beside "
+                  "phase_tp_fsdp's (d)", runs, pp_run["k3_loss"][:SP_PP_STEPS], want_b,
+                  pp_run["reckon"])
+    check(n_leaves == 112, f"sp_pp (b): {n_leaves} trainable leaves, not 112")
+    counts["pp_k3"] = runs[0]["launches"][-1]
+    check(sliding_ref is not None, "sp_pp (a): phase_video_train gave no reference")
+    _free()
+    cfg_a = _sp_payload(work)
+    reckon_a = _sp_pp_rank_bytes(cfg_a, 8)
+    free, total = torch.cuda.mem_get_info()
+    print(f"[sp_pp] reckoned static bytes per rank: (a) {reckon_a['static'] / 2**30:.2f} GiB, "
+          f"(b) {pp_run['reckon']['static'] / 2**30:.2f} GiB; with the one-process sliding "
+          f"step's activations (36.17 GiB peak there) (a)'s pair and (b)'s pair cannot share "
+          f"the card's {total / 2**30:.1f} GiB ({free / 2**30:.1f} free)", flush=True)
+    ring = _ring_case()
+    _host_room("(a)")
+    with _Wave() as wave:
         t0 = time.perf_counter()
-        ld = wave.start(work, "2d", {
-            "scenario": "steps", "device": "cuda", "steps": MESH_STEPS, "cfg": dict(cfg_d),
-            "registry": {"dit": dit},
-            "variants": {"dp2xtp2_fsdp": {"model_parallel": 2, "fsdp": True}}}, 4, timeout=480)
-        one_d = _one_process(cfg_d, MESH_STEPS, batch=8)
-        outs_d = wave.join(ld)
-        counts.update(_dp_tp_check(cfg_d, outs_d, time.perf_counter() - t0, one_d, dit))
+        la = wave.start(work, "sp", {
+            "scenario": "steps", "device": "cuda", "steps": SP_PP_STEPS, "cfg": dict(cfg_a),
+            "variants": {"sp2": {}}, "batches": sliding_ref["batches"][:2 * SP_PP_STEPS],
+            "ring": {"sp": 2, "device": "cuda", "cases": [ring]}}, 2, timeout=480)
+        outs = wave.join(la)
+        wall_a = time.perf_counter() - t0
+    runs = [o["runs"]["sp2"] for o in outs]
+    want_a = {**_no_launches(), "fused_attention": 2 * 24}
+    _sp_pp_report("(a)", f"SP=2, {os.path.basename(SLIDING_CONFIG)} (joint L=964, 482 "
+                  f"tokens per rank, 2 x 8 windows x 2), {SP_PP_STEPS} steps and the ring's "
+                  f"check in {wall_a:.1f} s with the start", runs,
+                  sliding_ref["loss"][:SP_PP_STEPS], want_a, reckon_a)
+    counts["sp_sliding"] = runs[0]["launches"][-1]
+    # the ring at the DiT's shape against the unsharded attention on the card
+    got = torch.cat([o["ring"]["cases"][0]["o"] for o in outs], dim=1)[:, :964].cuda()
+    with torch.no_grad():
+        want = sdpa_ref(*(ring[x].cuda() for x in "qkv"))
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= RING_BF16_ATOL, f"sp_pp (a): ring against sdpa_ref max error {err} > "
+          f"{RING_BF16_ATOL}")
+    c0 = outs[0]["ring"]["cases"][0]
+    print(f"[sp_pp] (a) ring attention [16, 964, 24, 128] bf16 on 2 seq ranks (chunks "
+          f"{c0['lengths']}), after the steps: max |ring - sdpa_ref| {err:.5f} (bound "
+          f"{RING_BF16_ATOL}); forward {c0['fwd_s'] * 1e3:.1f} ms, backward "
+          f"{c0['bwd_s'] * 1e3:.1f} ms on rank 0 ({GLOO_NOTE})", flush=True)
     return counts
 
 
@@ -3755,8 +4022,8 @@ def _siglip_report(tag, trainer, counts, wall, peak, steps, timed_from):
 
 def phase_siglip(work, eval_root=None):
     """The SigLIP-384 paths at full published width (so400m, 27 layers,
-    L=729, D=72; the flux-dev DiT at joint L=577; B=16 x accumulation 2,
-    bf16) on synthetic 384-px shards: the Trainer on
+    L=729, D=72; the flux-dev DiT at joint L=577, which ``main`` cuts to 1 +
+    1 blocks; B=16 x accumulation 2, bf16) on synthetic 384-px shards: the Trainer on
     configs/SigLIP_384_stage1.yaml 8 steps (steps 3-8 timed, 8 profiled);
     an engine serving its step-8 files (one reconstruct at B=1, one embed:
     [1, 1152]); configs/SigLIP_384_stage2_all.yaml from those files 5
@@ -4071,6 +4338,18 @@ def _video_want(spec, steps):
             "flash_attention_bwd": micro * blocks if long_ else 0}
 
 
+# video modes whose stage 1 and 2 (and the fast video stage 2, on
+# middle@336's files) run the DiT cut to 1 + 1 blocks, to keep the whole
+# run inside 1100 s (sliding keeps full depth:
+# K5/K5b's main path and phase_sp_pp's reference)
+DEPTH_CUT_MODES = ("next", "next2", "middle")
+
+
+def _video_depth(mode):
+    """The DiT depth cut of ``mode``'s runs while open (or no cut)."""
+    return _DitDepth(1, 1) if mode in DEPTH_CUT_MODES else contextlib.nullcontext()
+
+
 def _write_video_shards(root, frames, n_shards=2):
     from genhancer_tpu_torch.data.testing import make_video_shard
     os.makedirs(root, exist_ok=True)
@@ -4113,13 +4392,16 @@ class _LastStepProfile:
         trainer.step_fn = step_fn
 
 
-def _trainer_run(cfg, steps_done=0, profile=None):
+def _trainer_run(cfg, steps_done=0, profile=None, record=False):
     """Build a Trainer for ``cfg``, zero the counts, train (the last steps
-    under ``profile``, a _LastStepProfile, when one is given); returns
-    (trainer, launch counts, wall seconds, peak GiB)."""
+    under ``profile``, a _LastStepProfile, when one is given; with
+    ``record`` keeping the host batches in ``trainer.loader.batches``);
+    returns (trainer, launch counts, wall seconds, peak GiB)."""
     import torch
     from genhancer_tpu_torch.train.trainer import Trainer
     trainer = Trainer(cfg, device="cuda")
+    if record:
+        trainer.loader = _Recording(trainer.loader)
     check(trainer.state.step == steps_done,
           f"{cfg['task']}: Trainer starts at step {trainer.state.step}, not {steps_done}")
     if profile is not None:
@@ -4136,9 +4418,11 @@ def _trainer_run(cfg, steps_done=0, profile=None):
 
 def phase_video_train(work):
     """The port's Trainer on the four published stage-1 video configs at full
-    width and published batch; returns ({path: launch counts}, {mode:
+    width and published batch (``DEPTH_CUT_MODES`` with the DiT cut to 1 + 1
+    blocks); returns ({path: launch counts}, {mode:
     (output dir, step)}: the component files of each mode's last step,
-    which phase_video_stage2 loads)."""
+    which phase_video_stage2 loads, and sliding's losses and first host
+    batches, which phase_sp_pp replays)."""
     import numpy as np
     from genhancer_tpu_torch.train import checkpoint as ckpt
     from genhancer_tpu_torch.train.config import load_config
@@ -4156,81 +4440,86 @@ def phase_video_train(work):
         _print_device_time(profile.prof, 1, profile.wall_s,
                            f"[video] {mode} (step {step}, profiled):")
 
-    runs, stage1 = {}, {}
+    runs, stage1, sliding_ref = {}, {}, None
     for mode, name in VIDEO_CONFIGS.items():
-        cfg = load_config(os.path.join(ROOT, "configs", name))
-        cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
-        steps = 8 if mode == "sliding" else 3
-        # one checkpoint at the last step: sliding's resume and stage 2 load it
-        cfg.update(output_dir=os.path.join(work, f"out-{mode}"), max_train_steps=steps,
-                   checkpointing_steps=steps, log_interval=1, report_to="none")
-        t0 = time.perf_counter()
-        # sliding: steps 3-8 timed, the resume's step 10 profiled; the
-        # others: step 2 timed, step 3 profiled
-        profile = None if mode == "sliding" else _LastStepProfile()
-        trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
-        spec, hist = trainer.spec, trainer.history
-        rows = int(cfg.get_path("data_config.train_batch_size")) * (
-            int(cfg.get("max_windows_per_video", 1)) if mode == "sliding" else 1) * 2
-        check([h["step"] for h in hist] == list(range(1, steps + 1)),
-              f"{mode}: synced steps {[h['step'] for h in hist]}")
-        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
-              f"{mode}: non-finite loss or grad norm: {hist}")
-        timed = hist[2:] if mode == "sliding" else hist[1:-1]
-        step_s = statistics.median(h["step_time"] for h in timed)
-        seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
-        print(f"[video] {mode} ({name}): joint L={seq}, remat {spec.remat}; {steps} steps "
-              f"in {wall:.1f} s (Trainer built in {time.perf_counter() - t0 - wall:.1f} s); "
-              f"losses {[round(h['loss'], 4) for h in hist]}", flush=True)
-        rate = f"{rows / step_s:.2f} rows/s ({rows} rows per optimizer step)"
-        if mode == "sliding":
-            # rows past a short video's windows are padding (valid=False):
-            # count the valid ones over the timed steps
-            eff = [h["bs_eff"] for h in hist]
-            check(min(eff) < 16, f"sliding: no padded rows occurred ({eff})")
-            valid_s = sum(2 * h["bs_eff"] for h in timed) / sum(h["step_time"] for h in timed)
-            rate = (f"{valid_s:.2f} valid rows/s over steps 3-{steps} ({rows / step_s:.2f} "
-                    f"padded rows/s at {rows} rows per optimizer step; valid rows per "
-                    f"micro-batch, mean of 2: {eff})")
-        print(f"[video] {mode}: median step time of steps {timed[0]['step']}-"
-              f"{timed[-1]['step']} {step_s * 1e3:.1f} ms = {rate}; peak device "
-              f"memory {peak:.2f} GiB", flush=True)
-        if profile is not None:
-            device_time(profile, steps)
-        want = _video_want(spec, steps)
-        print(f"[video] {mode}: kernel launches {counts}, expected {want}", flush=True)
-        check(counts == want, f"{mode}: launch counts {counts} != expected {want}")
-        runs[f"video_{mode}"] = counts
-        out = cfg["output_dir"]
-        del trainer
-        _free()
-        if mode == "sliding":
-            for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
-                        "checkpoint-visual-adapter-{}.bin", "optimizer-state-{}.bin"):
-                check(os.path.exists(os.path.join(out, pat.format(8))),
-                      f"sliding: {pat.format(8)} missing")
-            ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
-            cfg2 = copy.deepcopy(cfg)
-            cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
-            profile = _LastStepProfile()
-            trainer, _, wall, _ = _trainer_run(cfg2, steps_done=8, profile=profile)
-            hist2 = trainer.history
-            check([h["step"] for h in hist2] == [9, 10]
-                  and all(np.isfinite(h["loss"]) for h in hist2), f"sliding resume: {hist2}")
-            print(f"[video] sliding: a second Trainer loaded checkpoint-dit-8, "
-                  f"-project-clip-8, -visual-adapter-8 (strict) and optimizer-state-8, "
-                  f"resumed at step 8 and ran steps 9-10 in {wall:.1f} s, losses "
-                  f"{[round(h['loss'], 4) for h in hist2]}", flush=True)
-            device_time(profile, 10)
+        with _video_depth(mode):
+            cfg = load_config(os.path.join(ROOT, "configs", name))
+            cfg["data_config"]["video_dir"] = sliding_dir if mode == "sliding" else pair_dir
+            steps = 8 if mode == "sliding" else 3
+            # one checkpoint at the last step: sliding's resume and stage 2 load it
+            cfg.update(output_dir=os.path.join(work, f"out-{mode}"), max_train_steps=steps,
+                       checkpointing_steps=steps, log_interval=1, report_to="none")
+            t0 = time.perf_counter()
+            # sliding: steps 3-8 timed, the resume's step 10 profiled; the
+            # others: step 2 timed, step 3 profiled
+            profile = None if mode == "sliding" else _LastStepProfile()
+            trainer, counts, wall, peak = _trainer_run(cfg, profile=profile,
+                                                       record=mode == "sliding")
+            spec, hist = trainer.spec, trainer.history
+            if mode == "sliding":       # phase_sp_pp (a) replays these batches
+                sliding_ref = {"loss": [h["loss"] for h in hist],
+                               "batches": trainer.loader.batches[:2 * SP_PP_STEPS]}
+            rows = int(cfg.get_path("data_config.train_batch_size")) * (
+                int(cfg.get("max_windows_per_video", 1)) if mode == "sliding" else 1) * 2
+            check([h["step"] for h in hist] == list(range(1, steps + 1)),
+                  f"{mode}: synced steps {[h['step'] for h in hist]}")
+            check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+                  f"{mode}: non-finite loss or grad norm: {hist}")
+            timed = hist[2:] if mode == "sliding" else hist[1:-1]
+            step_s = statistics.median(h["step_time"] for h in timed)
+            seq = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
+            print(f"[video] {mode} ({name}): joint L={seq}, remat {spec.remat}; {steps} steps "
+                  f"in {wall:.1f} s (Trainer built in {time.perf_counter() - t0 - wall:.1f} s); "
+                  f"losses {[round(h['loss'], 4) for h in hist]}", flush=True)
+            rate = f"{rows / step_s:.2f} rows/s ({rows} rows per optimizer step)"
+            if mode == "sliding":
+                # rows past a short video's windows are padding (valid=False):
+                # count the valid ones over the timed steps
+                eff = [h["bs_eff"] for h in hist]
+                check(min(eff) < 16, f"sliding: no padded rows occurred ({eff})")
+                valid_s = sum(2 * h["bs_eff"] for h in timed) / sum(h["step_time"] for h in timed)
+                rate = (f"{valid_s:.2f} valid rows/s over steps 3-{steps} ({rows / step_s:.2f} "
+                        f"padded rows/s at {rows} rows per optimizer step; valid rows per "
+                        f"micro-batch, mean of 2: {eff})")
+            print(f"[video] {mode}: median step time of steps {timed[0]['step']}-"
+                  f"{timed[-1]['step']} {step_s * 1e3:.1f} ms = {rate}; peak device "
+                  f"memory {peak:.2f} GiB", flush=True)
+            if profile is not None:
+                device_time(profile, steps)
+            want = _video_want(spec, steps)
+            print(f"[video] {mode}: kernel launches {counts}, expected {want}", flush=True)
+            check(counts == want, f"{mode}: launch counts {counts} != expected {want}")
+            runs[f"video_{mode}"] = counts
+            out = cfg["output_dir"]
             del trainer
             _free()
-        del profile
-        # stage 2 loads the last step's components; the rest goes
-        last = ckpt.latest_step(out)
-        ckpt.prune_checkpoints(out, 1)
-        os.remove(os.path.join(out, f"optimizer-state-{last}.bin"))
-        stage1[mode] = (out, last)
-    return runs, stage1
+            if mode == "sliding":
+                for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
+                            "checkpoint-visual-adapter-{}.bin", "optimizer-state-{}.bin"):
+                    check(os.path.exists(os.path.join(out, pat.format(8))),
+                          f"sliding: {pat.format(8)} missing")
+                ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
+                cfg2 = copy.deepcopy(cfg)
+                cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
+                profile = _LastStepProfile()
+                trainer, _, wall, _ = _trainer_run(cfg2, steps_done=8, profile=profile)
+                hist2 = trainer.history
+                check([h["step"] for h in hist2] == [9, 10]
+                      and all(np.isfinite(h["loss"]) for h in hist2), f"sliding resume: {hist2}")
+                print(f"[video] sliding: a second Trainer loaded checkpoint-dit-8, "
+                      f"-project-clip-8, -visual-adapter-8 (strict) and optimizer-state-8, "
+                      f"resumed at step 8 and ran steps 9-10 in {wall:.1f} s, losses "
+                      f"{[round(h['loss'], 4) for h in hist2]}", flush=True)
+                device_time(profile, 10)
+                del trainer
+                _free()
+            del profile
+            # stage 2 loads the last step's components; the rest goes
+            last = ckpt.latest_step(out)
+            ckpt.prune_checkpoints(out, 1)
+            os.remove(os.path.join(out, f"optimizer-state-{last}.bin"))
+            stage1[mode] = (out, last)
+    return runs, stage1, sliding_ref
 
 
 def _video2_report(mode, trainer, counts, wall, peak, profile, steps):
@@ -4322,68 +4611,70 @@ def phase_video_stage2(work, stage1, eval_root=None):
     runs, export = {}, None
     steps = STAGE2_STEPS["video_middle_stage2"]
     for mode, name in VIDEO2_CONFIGS.items():
-        check(mode in stage1, f"{mode}: no stage-1 files to load")
-        load_dir, load_step = stage1[mode]
-        cfg = load_config(os.path.join(ROOT, "configs", name))
-        cfg["data_config"]["video_dir"] = os.path.join(
-            work, "sliding" if mode == "sliding" else "clips")
-        cfg.update(output_dir=os.path.join(work, f"out2-{mode}"), max_train_steps=steps,
-                   checkpointing_steps=0, log_interval=1, report_to="none",
-                   load_dir=load_dir, load_step=load_step)
-        exports, restore = _export_timer()
-        profile = _LastStepProfile()
-        try:
-            with _k2b_spy() as spy:
-                trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
-        finally:
-            restore()
-        print(f"[video2] {mode} ({name}): loaded the stage-1 components of step "
-              f"{load_step}", flush=True)
-        _video2_report(mode, trainer, counts, wall, peak, profile, steps)
-        runs[f"video_{mode}_stage2"] = counts
-        _check_k2b_call(spy, f"[video2] {mode}:", f"video {mode} stage 2")
-        del spy
-        out = _check_export(trainer, exports, f"[video2] {mode}:")
-        del trainer
-        _free()
-        if mode == "middle":
-            if eval_root is not None:
-                export = os.path.join(eval_root, os.path.basename(out))
-                shutil.move(out, export)
-            on, off = copy.deepcopy(cfg), copy.deepcopy(cfg)
-            on.update(output_dir=os.path.join(work, "out2-middle-on"),
-                      resume_from_checkpoint=None)
-            off.update(output_dir=os.path.join(work, "out2-middle-off"),
-                       resume_from_checkpoint=None, tower_remat=False)
-            on_peak, on_s, _ = _peak_of_steps(on)
-            off_peak, off_s, off_spec = _peak_of_steps(off)
-            for c in (on, off):
-                shutil.rmtree(c["output_dir"], ignore_errors=True)
-            check(not off_spec.tower_remat and on_peak is not None, "middle: remat runs")
-            print(f"[video2] middle@336 peak device memory of 2 steps by hand: tower_remat on "
-                  f"(the gate's) {on_peak:.2f} GiB ({[round(x, 3) for x in on_s]} s), off "
-                  + (f"{off_peak:.2f} GiB ({[round(x, 3) for x in off_s]} s)"
-                     if off_peak is not None else f"out of memory ({off_s})"), flush=True)
-        if mode == "next":
-            cfg2 = copy.deepcopy(cfg)
-            cfg2.update(max_train_steps=steps + 1)      # resume_from_checkpoint: latest
-            trainer = Trainer(cfg2, device="cuda")
-            check(trainer.state.step == steps, f"next stage 2: resumed at {trainer.state.step}")
-            b_zero = all(not p.any() for k, p in trainer.state.trainable.items()
-                         if k.endswith(".lora_B"))
-            trainer.train()
-            hist2 = trainer.history
-            check([h["step"] for h in hist2] == [steps + 1] and b_zero
-                  and all(np.isfinite(h["loss"]) for h in hist2),
-                  f"next stage 2 resume: {hist2}, LoRA B restarted at 0: {b_zero}")
-            print(f"[video2] next: a second Trainer resumed at step {steps} (components and "
-                  f"optimizer state; every lora_B back at its initial 0) and ran step "
-                  f"{steps + 1}, loss {hist2[0]['loss']:.4f}", flush=True)
+        with _video_depth(mode):
+            check(mode in stage1, f"{mode}: no stage-1 files to load")
+            load_dir, load_step = stage1[mode]
+            cfg = load_config(os.path.join(ROOT, "configs", name))
+            cfg["data_config"]["video_dir"] = os.path.join(
+                work, "sliding" if mode == "sliding" else "clips")
+            cfg.update(output_dir=os.path.join(work, f"out2-{mode}"), max_train_steps=steps,
+                       checkpointing_steps=0, log_interval=1, report_to="none",
+                       load_dir=load_dir, load_step=load_step)
+            exports, restore = _export_timer()
+            profile = _LastStepProfile()
+            try:
+                with _k2b_spy() as spy:
+                    trainer, counts, wall, peak = _trainer_run(cfg, profile=profile)
+            finally:
+                restore()
+            print(f"[video2] {mode} ({name}): loaded the stage-1 components of step "
+                  f"{load_step}", flush=True)
+            _video2_report(mode, trainer, counts, wall, peak, profile, steps)
+            runs[f"video_{mode}_stage2"] = counts
+            _check_k2b_call(spy, f"[video2] {mode}:", f"video {mode} stage 2")
+            del spy
+            out = _check_export(trainer, exports, f"[video2] {mode}:")
             del trainer
             _free()
-        shutil.rmtree(cfg["output_dir"], ignore_errors=True)
-        if mode != "middle":        # phase_fast_video loads middle@336's
-            shutil.rmtree(load_dir, ignore_errors=True)
+            if mode == "middle":
+                if eval_root is not None:
+                    export = os.path.join(eval_root, os.path.basename(out))
+                    shutil.move(out, export)
+                on, off = copy.deepcopy(cfg), copy.deepcopy(cfg)
+                on.update(output_dir=os.path.join(work, "out2-middle-on"),
+                          resume_from_checkpoint=None)
+                off.update(output_dir=os.path.join(work, "out2-middle-off"),
+                           resume_from_checkpoint=None, tower_remat=False)
+                # one step each, to stay inside 1100 s
+                on_peak, on_s, _ = _peak_of_steps(on, 1)
+                off_peak, off_s, off_spec = _peak_of_steps(off, 1)
+                for c in (on, off):
+                    shutil.rmtree(c["output_dir"], ignore_errors=True)
+                check(not off_spec.tower_remat and on_peak is not None, "middle: remat runs")
+                print(f"[video2] middle@336 peak device memory of 1 step by hand: tower_remat on "
+                      f"(the gate's) {on_peak:.2f} GiB ({[round(x, 3) for x in on_s]} s), off "
+                      + (f"{off_peak:.2f} GiB ({[round(x, 3) for x in off_s]} s)"
+                         if off_peak is not None else f"out of memory ({off_s})"), flush=True)
+            if mode == "next":
+                cfg2 = copy.deepcopy(cfg)
+                cfg2.update(max_train_steps=steps + 1)      # resume_from_checkpoint: latest
+                trainer = Trainer(cfg2, device="cuda")
+                check(trainer.state.step == steps, f"next stage 2: resumed at {trainer.state.step}")
+                b_zero = all(not p.any() for k, p in trainer.state.trainable.items()
+                             if k.endswith(".lora_B"))
+                trainer.train()
+                hist2 = trainer.history
+                check([h["step"] for h in hist2] == [steps + 1] and b_zero
+                      and all(np.isfinite(h["loss"]) for h in hist2),
+                      f"next stage 2 resume: {hist2}, LoRA B restarted at 0: {b_zero}")
+                print(f"[video2] next: a second Trainer resumed at step {steps} (components and "
+                      f"optimizer state; every lora_B back at its initial 0) and ran step "
+                      f"{steps + 1}, loss {hist2[0]['loss']:.4f}", flush=True)
+                del trainer
+                _free()
+            shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+            if mode != "middle":        # phase_fast_video loads middle@336's
+                shutil.rmtree(load_dir, ignore_errors=True)
     return runs, export
 
 
@@ -5727,7 +6018,9 @@ def main():
             train_counts, n_leaves, stage1, k3_ref = (attempt(phase_train, work)
                                                       or (None, None, None, None))
             dp_counts = attempt(phase_dp, work, k3_ref)
-            tp_counts = attempt(phase_tp_fsdp, work, k3_ref, n_leaves)
+            # phase_sp_pp's (b) launches beside phase_tp_fsdp's (d)
+            pp_run = {"k3_loss": (k3_ref or {}).get("loss")}
+            tp_counts = attempt(phase_tp_fsdp, work, k3_ref, n_leaves, pp_run)
             stage2_counts, exports["image"] = (attempt(phase_stage2_train, work, stage1,
                                                        eval_root) or (None, None))
         finally:
@@ -5740,16 +6033,21 @@ def main():
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_video_")
         try:
-            video_counts, video1 = attempt(phase_video_train, work) or (None, None)
+            video_counts, video1, sliding_ref = (attempt(phase_video_train, work)
+                                                 or (None, None, None))
             video2_counts, exports["middle"] = (attempt(phase_video_stage2, work, video1 or {},
                                                         eval_root) or (None, None))
-            fast_video_counts = attempt(phase_fast_video, work, video1 or {})
+            with _video_depth("middle"):        # it loads middle@336's files
+                fast_video_counts = attempt(phase_fast_video, work, video1 or {})
+            sp_pp_counts = attempt(phase_sp_pp, work, sliding_ref, pp_run)
         finally:
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_siglip_")
         try:
-            siglip_counts, exports["siglip"] = (attempt(phase_siglip, work, eval_root)
-                                                or (None, None))
+            # the DiT cut to 1 + 1 blocks, to stay inside 1100 s
+            with _DitDepth(1, 1):
+                siglip_counts, exports["siglip"] = (attempt(phase_siglip, work, eval_root)
+                                                    or (None, None))
         finally:
             shutil.rmtree(work, ignore_errors=True)
         eval_counts = attempt(phase_eval, eval_root, {
@@ -5767,7 +6065,7 @@ def main():
              **stage2_counts, **dp_counts, **tp_counts, **int8_counts, **video_counts,
              **video2_counts,
              **siglip_counts,
-             **eval_counts, **fast_counts, **fast_video_counts}
+             **eval_counts, **fast_counts, **fast_video_counts, **sp_pp_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies
         return counts[name] + (counts["fused_adamw8_quant"] if name == "fused_adamw8" else 0)

@@ -37,7 +37,14 @@ torchrun's launcher (it sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 rank reads its own shards, and ``shard_optimizer_state: true`` shards the
 AdamW moments by rows over the ranks (ZeRO-1); ``num_devices``, where set,
 must equal N.  JAX's manual contract ``GENHANCER_COORDINATOR=host:port``,
-``GENHANCER_NUM_PROCS``, ``GENHANCER_PROC_ID`` is taken too.
+``GENHANCER_NUM_PROCS``, ``GENHANCER_PROC_ID`` is taken too.  The mesh's
+other axes come from the config: ``model_parallel``, ``fsdp``,
+``sequence_parallel`` (ring attention over the joint tokens; composes with
+``model_parallel``) and ``pipeline_parallel`` with ``pipeline_microbatches``
+(the GPipe DiT; data parallelism only), N a multiple of their product::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m genhancer_tpu_torch.cli.train --config <yaml with sequence_parallel: 2>
 """
 
 from __future__ import annotations

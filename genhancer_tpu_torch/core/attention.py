@@ -19,6 +19,11 @@ Shorter sequences that reach ``sdpa`` (odd D, which no model of the port
 has) take ``sdpa_ref`` on the CPU, as the JAX package takes XLA there, and
 raise on CUDA.
 
+Under an open ``parallel.ring.ring_scope`` on a seq axis above one rank
+(``sequence_parallel``), ``attention`` applies RoPE to the rank's q and k
+and runs ring attention over the axis (``attention.py:219-225``): neither
+K1 nor K5.
+
 Layout: activations are [B, L, H, D].
 """
 
@@ -80,7 +85,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """RoPE + SDPA + head merge (the DiT's joint attention).
 
     q, k, v: [B, L, H, D]; cos/sin: [B, L, D/2].  Returns [B, L, H*D].
+    Under an open ring scope L is the rank's tokens of the joint sequence.
     """
+    from ..parallel import ring
+    if ring.active_scope() is not None:
+        return _merge_heads(ring.attention_chunk(apply_rope(q, cos, sin),
+                                                 apply_rope(k, cos, sin), v))
     if _short_ok(q):
         from .kernels.short_attention import fused_rope_attention
         return _merge_heads(fused_rope_attention(q, k, v, cos, sin))

@@ -25,11 +25,21 @@ Tensor parallel (``parallel.tp``, ``parallel.layout.place`` sets the DiT's
 and ``1 / tp`` of each MLP, so the blocks split their projections at the
 local widths and attention runs on the local heads; the linears do the
 collectives (``core.nn.linear``).
+
+Sequence parallel (an open ``parallel.ring.ring_scope`` on a seq axis of
+n > 1 ranks): each rank keeps its contiguous chunk of the joint order
+``[txt; img]`` padded to a multiple of n (``parallel.ring.token_layout``),
+so the ring's chunks and their order are JAX's.  The prologue runs on the
+rank's txt and img tokens (their RoPE rows the chunk's), the double blocks
+apply each stream's weights to its part of the chunk, attention pads the
+chunk and runs the ring, and the result is the velocity of the rank's img
+tokens only (``Layout.img``), which is all the final layer sees.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -39,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core import nn
 from ..core.attention import attention
 from ..core.rope import multi_axis_rope
+from ..parallel import ring
 
 
 @dataclass(frozen=True)
@@ -278,31 +289,38 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
     ``image_proj`` with ``ip_params`` (an ``ip_adapter.IPAdapter``): IP
     tokens [B, N, ctx], or a raw image embedding [B, clip_dim] that
     ``image_proj_model`` projects first, cast to img's dtype; each block
-    adds ``ip_scale`` times its IP cross-attention."""
+    adds ``ip_scale`` times its IP cross-attention.  Under an open ring
+    scope the result holds the rank's img tokens only (``Layout.img``)."""
     if img.ndim != 3 or txt.ndim != 3:
         raise ValueError("img and txt must be 3-D [B, L, C]")
     if remat and (remat_policy or "full") != "full":
         raise NotImplementedError(
             f"remat_policy {remat_policy!r} is not ported yet (ROADMAP: later items); "
             "the port recomputes whole blocks (remat_policy: full)")
-    dblock, sblock = _double_block, _single_block
-    if remat:
-        # the recompute runs in the backward, after the forward's SwitchBack
-        # context has closed: it must run the forward's int8 path again
-        d_fn, s_fn = nn.int8_ctx_replay(_double_block), nn.int8_ctx_replay(_single_block)
-
-        def dblock(*a):
-            return checkpoint(d_fn, *a, use_reentrant=False)
-
-        def sblock(*a):
-            return checkpoint(s_fn, *a, use_reentrant=False)
-
-    compute_dtype = img.dtype
     tp = getattr(p, "tp", 1)
     heads, hidden = cfg.num_heads // tp, cfg.hidden_size // tp    # the rank's widths
+    layout, scope = None, contextlib.nullcontext()
+    axis = ring.active_scope()
+    if axis is not None:
+        # the rank's chunk of [txt; img]: its tokens of each stream
+        layout = ring.token_layout(txt.shape[1], img.shape[1], axis)
+        img, img_ids = img[:, layout.img], img_ids[:, layout.img]
+        txt, txt_ids = txt[:, layout.txt], txt_ids[:, layout.txt]
+        if controlnet_residuals is not None:
+            controlnet_residuals = [r[:, layout.img] for r in controlnet_residuals]
+        scope = ring.layout_scope(layout)
     img, txt, vec, cos, sin = embed_inputs(p, cfg, img, img_ids, txt, txt_ids, timesteps, y,
                                            guidance)
+    with scope:
+        return _blocks_and_head(p, cfg, img, txt, vec, cos, sin, heads, hidden, remat,
+                                image_proj, ip_params, ip_scale, controlnet_residuals)
 
+
+def _blocks_and_head(p: DiT, cfg: DiTConfig, img, txt, vec, cos, sin, heads, hidden,
+                     remat, image_proj, ip_params, ip_scale, controlnet_residuals):
+    """The block stack and the final layer of ``dit_forward``."""
+    compute_dtype = img.dtype
+    dblock, sblock = block_fns(remat)
     use_ip = image_proj is not None and ip_params is not None
     if use_ip:
         if image_proj.ndim == 2:            # a raw image embedding: project it
@@ -322,11 +340,36 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
         x = sblock(blk, x, vec, cos, sin, heads, hidden, ip)
     img = x[:, txt.shape[1]:]
 
+    return final_layer(p, img, vec)
+
+
+def final_layer(p: DiT, img: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """LastLayer: adaLN modulation from ``vec``, then the output linear."""
     fl = p.final_layer
     sm = nn.linear(fl.adaLN_modulation["1"], nn.silu(vec))
     shift, scale = sm.chunk(2, dim=-1)
     img = (1 + scale[:, None, :]) * nn.layernorm(None, img) + shift[:, None, :]
     return nn.linear(fl.linear, img)
+
+
+def block_fns(remat: bool):
+    """(double block, single block) callables: the plain functions, or with
+    ``remat`` each under ``torch.utils.checkpoint`` (non-reentrant), whose
+    recompute in the backward runs again in the SwitchBack context and the
+    ring state of the forward (``core.nn.int8_ctx_replay``,
+    ``parallel.ring.replay``)."""
+    if not remat:
+        return _double_block, _single_block
+    d_fn = ring.replay(nn.int8_ctx_replay(_double_block))
+    s_fn = ring.replay(nn.int8_ctx_replay(_single_block))
+
+    def dblock(*a):
+        return checkpoint(d_fn, *a, use_reentrant=False)
+
+    def sblock(*a):
+        return checkpoint(s_fn, *a, use_reentrant=False)
+
+    return dblock, sblock
 
 
 def pack_latent(x: torch.Tensor) -> torch.Tensor:

@@ -25,8 +25,9 @@ The int8 scales that span a batch (a conv's per-tensor amax, the per-column
 amax of the int8 dW over the tokens) are the global batch's
 (``all_reduce_max``).  Only collectives that gloo implements for CUDA
 tensors are used
-(``all_reduce``, ``broadcast``, ``all_gather`` into a list), so a gloo
-group can also run the step on CUDA tensors, staged through the host.
+(``all_reduce``, ``broadcast``, ``all_gather`` into a list), and the
+point-to-point ``rotate`` copies a CUDA tensor to the host on gloo, so a
+gloo group can also run the step on CUDA tensors, staged through the host.
 Outside an initialised group every helper is the one-process identity.
 
 The 2-D mesh (``make_mesh``, JAX ``make_mesh:64-97``): with
@@ -39,7 +40,21 @@ takes the data axis, not the world: the rank's rows of a global
 draw, the loaders' shards, the gradients' sum, the int8 scales that span
 the batch and the ZeRO-1 row ranges.  The model ranks of one data index
 draw and keep the same rows.  The collectives take ``group=`` "data"
-(the default), "model" or "world"; a group of one rank is the identity.
+(the default), "model", "seq", "pipe" or "world"; a group of one rank is
+the identity.
+
+The seq and pipe axes (JAX ``make_mesh:64-97``): with
+``sequence_parallel: sp`` the grid is ``(data, model, seq)``, seq
+innermost, so rank ``r`` has seq index ``r % sp``, model index
+``(r // sp) % tp`` and data index ``r // (tp * sp)``; with
+``pipeline_parallel: pp`` it is ``(data, pipe)``, pipe innermost.  PP
+composes with the data axis only, JAX's ``ValueError`` otherwise.  The
+ranks of one data and model index form a seq group, those of one data
+index a pipe group.  The seq and pipe ranks of one data index draw and keep
+the same rows.  ``rotate`` is JAX's ``ppermute`` ``[(i, (i + 1) % n)]``
+on an axis: one ``isend``/``irecv`` pair per hop (``batch_isend_irecv``)
+on NCCL; a gloo group, whose send and receive take CPU tensors only,
+stages a CUDA tensor through the host.
 """
 
 from __future__ import annotations
@@ -55,17 +70,30 @@ import torch.distributed as dist
 BUCKET_BYTES = 256 << 20
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The (data, model) grid of the ranks and this rank's two groups
-    (None where the group is the world, or a single rank)."""
+    """The (data, model[, seq]) or (data, pipe) grid of the ranks and this
+    rank's groups (None where the group is the world, or a single rank)."""
     tp: int
     data: object
     model: object
     data_ranks: Tuple[int, ...]
     model_ranks: Tuple[int, ...]
+    sp: int = 1
+    pp: int = 1
+    seq: object = None
+    pipe: object = None
+    seq_ranks: Tuple[int, ...] = ()
+    pipe_ranks: Tuple[int, ...] = ()
+
+    @property
+    def inner(self) -> int:
+        """The size of the innermost axis, seq or pipe (1 without one)."""
+        return self.sp * self.pp
 
 
 _MESH: Optional[Mesh] = None
@@ -106,31 +134,62 @@ def world_size() -> int:
     return dist.get_world_size() if is_distributed() else 1
 
 
-def make_mesh(model_parallel: int = 1) -> Mesh:
-    """The (data, model) mesh of the group's ranks with ``model_parallel``
-    ranks on the model axis (innermost), and its sub-groups; JAX's
-    ``make_mesh`` layout.  A collective of the whole group: every rank
-    calls it, with the same ``model_parallel``.  Replaces an earlier mesh."""
-    global _MESH
-    n, tp = world_size(), int(model_parallel or 1)
-    if tp < 1 or n % tp:
+def validate_mesh(n: int, tp: int = 1, sp: int = 1, pp: int = 1) -> None:
+    """JAX ``make_mesh``'s ``ValueError``s: PP composes with data
+    parallelism only, and the world must divide the axes."""
+    if pp > 1 and (tp > 1 or sp > 1):
+        raise ValueError(
+            "pipeline_parallel composes with data parallelism only "
+            f"(got model_parallel={tp}, sequence_parallel={sp})")
+    if min(tp, sp, pp) < 1 or n % (tp * sp * pp):
         raise ValueError(f"{n} devices not divisible by model_parallel={tp} x "
-                         f"sequence_parallel=1 x pipeline_parallel=1")
-    r = rank()
-    data_ranks = tuple(range(r % tp, n, tp))
-    model_ranks = tuple(range(r - r % tp, r - r % tp + tp))
-    data = model = None
-    if is_distributed() and 1 < tp < n:
+                         f"sequence_parallel={sp} x pipeline_parallel={pp}")
+
+
+def make_mesh(model_parallel: int = 1, sequence_parallel: int = 1,
+              pipeline_parallel: int = 1) -> Mesh:
+    """The mesh of the group's ranks, JAX's ``make_mesh`` layout: (data,
+    model) with ``model_parallel`` ranks on the model axis (innermost), a
+    seq axis innermost of all with ``sequence_parallel``, or (data, pipe)
+    with ``pipeline_parallel``; and its sub-groups.  A collective of the
+    whole group: every rank calls it, with the same sizes, and creates
+    every group in the same order (data, model, seq, pipe).  Replaces an
+    earlier mesh."""
+    global _MESH
+    n = world_size()
+    tp, sp, pp = int(model_parallel or 1), int(sequence_parallel or 1), int(pipeline_parallel or 1)
+    validate_mesh(n, tp, sp, pp)
+    r, inner = rank(), sp * pp
+    d_i, m_i, s_i = r // (tp * inner), (r // inner) % tp, r % inner
+
+    def at(d, m, s):
+        return d * tp * inner + m * inner + s
+
+    n_data = n // (tp * inner)
+    data_ranks = tuple(at(d, m_i, s_i) for d in range(n_data))
+    model_ranks = tuple(at(d_i, m, s_i) for m in range(tp))
+    inner_ranks = tuple(at(d_i, m_i, s) for s in range(inner))
+    data = model = seq = pipe = None
+    if is_distributed() and 1 < tp * inner < n:
         for m in range(tp):                  # every rank creates every group, in order
-            g = dist.new_group(list(range(m, n, tp)))
-            if m == r % tp:
-                data = g
+            for s in range(inner):
+                g = dist.new_group([at(d, m, s) for d in range(n_data)])
+                if (m, s) == (m_i, s_i):
+                    data = g
     if is_distributed() and tp > 1:
-        for d in range(n // tp):
-            g = dist.new_group(list(range(d * tp, (d + 1) * tp)))
-            if d == r // tp:
-                model = g
-    _MESH = Mesh(tp, data, model, data_ranks, model_ranks)
+        for d in range(n_data):
+            for s in range(inner):
+                g = dist.new_group([at(d, m, s) for m in range(tp)])
+                if (d, s) == (d_i, s_i):
+                    model = g
+    if is_distributed() and inner > 1:
+        for d in range(n_data):
+            for m in range(tp):
+                g = dist.new_group([at(d, m, s) for s in range(inner)])
+                if (d, m) == (d_i, m_i):
+                    seq, pipe = (g, None) if sp > 1 else (None, g)
+    _MESH = Mesh(tp, data, model, data_ranks, model_ranks, sp, pp, seq, pipe,
+                 inner_ranks if sp > 1 else (r,), inner_ranks if pp > 1 else (r,))
     return _MESH
 
 
@@ -138,16 +197,36 @@ def model_size() -> int:
     return _MESH.tp if _MESH is not None else 1
 
 
+def _inner() -> int:
+    return _MESH.inner if _MESH is not None else 1
+
+
 def model_rank() -> int:
-    return rank() % model_size()
+    return (rank() // _inner()) % model_size()
+
+
+def seq_size() -> int:
+    return _MESH.sp if _MESH is not None else 1
+
+
+def seq_rank() -> int:
+    return rank() % _inner() if seq_size() > 1 else 0
+
+
+def pipe_size() -> int:
+    return _MESH.pp if _MESH is not None else 1
+
+
+def pipe_rank() -> int:
+    return rank() % _inner() if pipe_size() > 1 else 0
 
 
 def data_size() -> int:
-    return world_size() // model_size()
+    return world_size() // (model_size() * _inner())
 
 
 def data_rank() -> int:
-    return rank() // model_size()
+    return rank() // (model_size() * _inner())
 
 
 def _axis(group: str):
@@ -159,7 +238,20 @@ def _axis(group: str):
         return (_MESH.data if _MESH is not None else None), data_size(), data_rank()
     if group == MODEL_AXIS:
         return (_MESH.model if _MESH is not None else None), model_size(), model_rank()
+    if group == SEQ_AXIS:
+        return (_MESH.seq if _MESH is not None else None), seq_size(), seq_rank()
+    if group == PIPE_AXIS:
+        return (_MESH.pipe if _MESH is not None else None), pipe_size(), pipe_rank()
     raise ValueError(f"unknown mesh axis {group!r}")
+
+
+def _members(group: str) -> Tuple[int, ...]:
+    """The global ranks of this rank's group on ``group``'s axis, in axis order."""
+    if group == "world" or _MESH is None:
+        return tuple(range(world_size()))
+    m = _MESH
+    return {DATA_AXIS: m.data_ranks, MODEL_AXIS: m.model_ranks, SEQ_AXIS: m.seq_ranks,
+            PIPE_AXIS: m.pipe_ranks}[group]
 
 
 def axis_size(group: str) -> int:
@@ -310,6 +402,54 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group: str) -> torch.Tensor:
     t = t.contiguous().clone()
     dist.all_reduce(t, group=pg)
     return t.narrow(dim, idx * n, n).contiguous()
+
+
+def _p2p(send: torch.Tensor, recv: torch.Tensor, dst: int, src: int, pg) -> None:
+    """One ``isend`` of ``send`` to global rank ``dst`` and one ``irecv``
+    into ``recv`` from ``src``, issued together and waited for."""
+    ops = [dist.P2POp(dist.isend, send, dst, group=pg),
+           dist.P2POp(dist.irecv, recv, src, group=pg)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
+@torch.no_grad()
+def rotate(x: torch.Tensor, group: str, shift: int = 1) -> torch.Tensor:
+    """JAX's ``ppermute(x, axis, [(i, (i + shift) % n)])`` on ``group``'s
+    axis: this rank's ``x`` goes to axis index ``i + shift``, and the
+    tensor of index ``i - shift`` comes back (a new tensor; ``x`` itself
+    on one rank).  Every rank of the group calls it with the same shape
+    and dtype.  On gloo a CUDA tensor travels through the host."""
+    pg, n, i = _axis(group)
+    if n == 1:
+        return x
+    ranks = _members(group)
+    dst, src = ranks[(i + shift) % n], ranks[(i - shift) % n]
+    x = x.detach().contiguous()
+    if dist.get_backend(pg) == "nccl":
+        out = torch.empty_like(x)
+        _p2p(x, out, dst, src, pg)
+        return out
+    if not x.is_cuda:
+        out = torch.empty_like(x)
+        _p2p(x, out, dst, src, pg)
+        return out
+    # through pinned host buffers (the caching host allocator keeps them)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    _p2p(host, out, dst, src, pg)
+    return out.to(x.device)
+
+
+@torch.no_grad()
+def broadcast_from(t: torch.Tensor, index: int, group: str) -> torch.Tensor:
+    """``t`` of the rank at axis ``index`` of ``group``'s axis on every
+    rank of the group, in place (returned)."""
+    pg, n, _ = _axis(group)
+    if n > 1:
+        dist.broadcast(t, src=_members(group)[index], group=pg)
+    return t
 
 
 @torch.no_grad()

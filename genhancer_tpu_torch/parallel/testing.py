@@ -19,15 +19,28 @@ The scenarios:
   * ``step``: one optimizer step of a task's step function on loaded
     weights, on this rank's rows of a global batch, with the global draws
     (``draws``, sliced by data index) or a seeded generator, optionally on
-    the (data, model) mesh (``model_parallel``, ``fsdp``,
-    ``fsdp_min_size``); returns the loss, the norm, the reduced gradients
-    and the parameters, gathered to the reference layout, and the mesh's
-    groups;
+    the mesh (``model_parallel``, ``fsdp``, ``fsdp_min_size``,
+    ``sequence_parallel``, ``pipeline_parallel``); returns the loss, the
+    norm, the reduced gradients and the parameters, gathered to the
+    reference layout, and the mesh's groups.  ``control`` runs a known
+    fault instead, for a test to see it miss: ``per_rank_mean`` (each seq
+    rank's loss the mean over its own tokens, the ranks' mean then),
+    ``no_seq_sum`` (the gradients left unsummed over seq);
+  * ``ring``: ``parallel.ring.ring_attention`` on this rank's chunks of
+    given whole q, k, v (its rows on the data axis), each case forward and
+    backward against a given output cotangent; returns o, dq, dk, dv of
+    its chunk and the mesh's groups, and one ``rotate`` of the rank index
+    each way on the seq axis;
+  * ``pp_forward``: ``parallel.pp.pipeline_dit_forward`` of loaded DiT
+    weights on this rank's rows of given whole inputs (``n_micro``,
+    ``remat``), the loss the global mean of the output's squares; returns
+    the rank's output and the gradients summed as the step sums them
+    (``control`` ``sum_all_over_pipe``: every leaf summed over pipe);
   * ``steps``: for each variant of a config, a ``Trainer``, ``steps``
     optimizer steps on this rank's rows of seeded global image batches
     (or of given global micro-batches, ``batches``), driven as the train
     loop drives them (with ``linears``, that scenario's payload, run
-    first); per step the loss, digests of
+    first; with ``ring``, that one's run after); per step the loss, digests of
     the parameters and the int8 cache, the kernels' launches;
     at the end the gathered optimizer state, the resident parameter and
     moment bytes, the ZeRO-1 row ranges and the mesh's groups;
@@ -63,6 +76,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from .mesh import local_rows
 
 ROOT = Path(__file__).resolve().parents[2]
 GROUP_TIMEOUT = 120.0
@@ -145,8 +160,9 @@ class RowsLoader:
     def __iter__(self):
         from .mesh import host_local_batch_slice
         for b in self.batches:
-            rows = host_local_batch_slice(next(iter(b.values())).shape[0])
-            yield {k: v[rows] for k, v in b.items()}
+            arrays = {k: v for k, v in b.items() if isinstance(v, np.ndarray)}
+            rows = host_local_batch_slice(next(iter(arrays.values())).shape[0])
+            yield {**b, **{k: v[rows] for k, v in arrays.items()}}
 
     def close(self) -> None:
         pass
@@ -180,14 +196,17 @@ def full_params(state) -> Dict[str, torch.Tensor]:
 
 
 def mesh_groups() -> dict:
-    """This rank's data index and model index and the ranks of its data and
-    model groups."""
+    """This rank's data, model, seq and pipe indices and the ranks of its
+    groups on those axes."""
     from . import mesh
     m = mesh._MESH
     return {"rank": mesh.rank(), "data_index": mesh.data_rank(),
-            "model_index": mesh.model_rank(),
+            "model_index": mesh.model_rank(), "seq_index": mesh.seq_rank(),
+            "pipe_index": mesh.pipe_rank(),
             "data_group": list(m.data_ranks) if m else list(range(mesh.world_size())),
-            "model_group": list(m.model_ranks) if m else [mesh.rank()]}
+            "model_group": list(m.model_ranks) if m else [mesh.rank()],
+            "seq_group": list(m.seq_ranks) if m else [mesh.rank()],
+            "pipe_group": list(m.pipe_ranks) if m else [mesh.rank()]}
 
 
 def resident_bytes(tensors) -> int:
@@ -216,22 +235,24 @@ def scenario_step(p: dict) -> dict:
     from ..train.state import create_state, place_state, with_quant_cache
     from ..train.step_utils import make_accum_train_step
     from .layout import gather
-    from .mesh import local_rows, make_mesh
+    from .mesh import make_mesh
     task = image if p["task"] == "image" else video
     spec, accum = p["spec"], int(p.get("accum", 1))
     mods = task.init_modules(spec, torch.Generator().manual_seed(0))
     mods.load_state_dict(p["state_dict"])
     rec = _Recorder(make_optimizer(Config._wrap(p["opt_cfg"]),
                                    emit_quant=bool(p.get("emit_quant"))))
-    state = create_state(mods, task.trainable_predicate(spec, mods), rec)
     tp = int(p.get("model_parallel", 1))
-    make_mesh(tp)
+    # the mesh first: the ZeRO-1 rows split over its data axis
+    mesh = make_mesh(tp, spec.sequence_parallel, spec.pipeline_parallel)
+    state = create_state(mods, task.trainable_predicate(spec, mods), rec)
     place_state(state, rec, tp, bool(p.get("fsdp")), p.get("fsdp_min_size"),
                 spec.dit_cfg.hidden_size)
     if spec.dit_quant_cache and spec.dit_quant != "none":
         with_quant_cache(state)
-    step = (make_accum_train_step(task.make_loss_fn(spec), rec, accum) if accum > 1
-            else task.make_train_step(spec, rec))
+    _control(p.get("control"))
+    step = (make_accum_train_step(task.make_loss_fn(spec, mesh), rec, accum) if accum > 1
+            else task.make_train_step(spec, rec, mesh))
     batch = {k: _rows(v, 1 if accum > 1 else 0) for k, v in p["batch"].items()}
     draws = p.get("draws")
     if draws is not None:
@@ -246,6 +267,83 @@ def scenario_step(p: dict) -> dict:
             "params": full_params(state), "groups": mesh_groups(),
             "local_shapes": {k: tuple(v.shape) for k, v in state.trainable.items()},
             "caches": {k: list(_whole_cache(state, k)) for k in (state.quant or {})}}
+
+
+def _control(name: Optional[str]) -> None:
+    """Plant the fault ``name`` of the ``step`` scenario in this process."""
+    if name is None:
+        return
+    from . import mesh
+    from ..train import flow
+    if name == "per_rank_mean":
+        real = flow.mse_loss
+
+        def per_rank(pred, target, mask=None, tokens=None):
+            return real(pred, target, mask) / mesh.seq_size()
+        flow.mse_loss = per_rank
+    elif name == "no_seq_sum":
+        real_sum = mesh.all_reduce_sum
+
+        def no_seq(tensors, *a, group=mesh.DATA_AXIS, **kw):
+            if group != mesh.SEQ_AXIS:
+                real_sum(tensors, *a, group=group, **kw)
+        mesh.all_reduce_sum = no_seq
+    else:
+        raise ValueError(f"unknown control {name!r}")
+
+
+def scenario_ring(p: dict) -> dict:
+    from . import mesh
+    from .ring import chunk, ring_attention
+    dev = torch.device(p.get("device", "cpu"))
+    if dev.type == "cuda":
+        dev = mesh.rank_device(dev)
+    mesh.make_mesh(1, int(p["sp"]))
+    n, r = mesh.seq_size(), mesh.seq_rank()
+    out = {"groups": mesh_groups(), "cases": [],
+           "rotated": [int(mesh.rotate(torch.tensor([mesh.rank()], device=dev),
+                                       mesh.SEQ_AXIS, s)) for s in (1, -1)]}
+    for case in p["cases"]:
+        q, k, v, g = (local_rows(case[x]).to(dev) for x in ("q", "k", "v", "g"))
+        (qc, lengths), (kc, _), (vc, _), (gc, _) = (chunk(x, n, r) for x in (q, k, v, g))
+        qc, kc, vc = (x.clone().requires_grad_(True) for x in (qc, kc, vc))
+        _sync(dev)
+        t0 = time.perf_counter()
+        o = ring_attention(qc, kc, vc, lengths)
+        _sync(dev)
+        t1 = time.perf_counter()
+        o.backward(gc)
+        _sync(dev)
+        out["cases"].append({"o": o.detach().cpu(), "dq": qc.grad.cpu(), "dk": kc.grad.cpu(),
+                             "dv": vc.grad.cpu(), "lengths": lengths,
+                             "fwd_s": t1 - t0, "bwd_s": time.perf_counter() - t1})
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def scenario_pp_forward(p: dict) -> dict:
+    from . import mesh
+    from .pp import pipe_owned, pipeline_dit_forward
+    from ..models import dit as dit_m
+    mesh.make_mesh(1, 1, int(p["pp"]))
+    dit = dit_m.DiT(p["cfg"], dtype=torch.float32)
+    dit.load_state_dict(p["state_dict"])
+    inputs = {k: local_rows(v) for k, v in p["inputs"].items()}
+    out = pipeline_dit_forward(dit, p["cfg"], n_micro=int(p["n_micro"]),
+                               remat=bool(p.get("remat")), **inputs)
+    total = out.numel() * mesh.data_size()
+    (out.float().square().sum() / total).backward()
+    grads = {"dit." + k: v.grad if v.grad is not None else torch.zeros_like(v)
+             for k, v in dit.named_parameters()}
+    mesh.all_reduce_sum(list(grads.values()))
+    pipe = list(grads.values()) if p.get("control") == "sum_all_over_pipe" else [
+        g for k, g in grads.items() if pipe_owned(k)]
+    mesh.all_reduce_sum(pipe, group=mesh.PIPE_AXIS)
+    return {"out": out.detach(), "grads": grads, "groups": mesh_groups()}
 
 
 def _whole_cache(state, key):
@@ -332,9 +430,9 @@ def run_steps(trainer, steps: int, keep_tensors: bool = False, seed: int = 0,
               batches: Optional[list] = None) -> dict:
     """``steps`` optimizer steps of ``trainer`` on this rank's rows of the
     seeded global image batches (``global_images``), or of ``batches``
-    (global micro-batches, ``accum`` per step, in order), seeded and
-    stepped as the train loop does; see the module docstring for what it
-    returns."""
+    (global micro-batches of any task, their array leaves, ``accum`` per
+    step, in order), seeded and stepped as the train loop does; see the
+    module docstring for what it returns."""
     from ..train import checkpoint as ckpt
     from .mesh import data_size, host_local_batch_slice
     dev, accum = trainer.device, trainer.accum
@@ -347,11 +445,12 @@ def run_steps(trainer, steps: int, keep_tensors: bool = False, seed: int = 0,
         step = trainer.state.step
         if batches is not None:
             micro = batches[len(out["loss"]) * accum:(len(out["loss"]) + 1) * accum]
+            keys = [k for k, v in micro[0].items() if isinstance(v, np.ndarray)]
             g = {k: (np.stack([m[k] for m in micro]) if accum > 1 else micro[0][k])
-                 for k in ("image",)}
+                 for k in keys}
         else:
             g = global_images(step, per_rank * data_size(), size, accum, seed)
-        rows = host_local_batch_slice(per_rank * data_size())
+        rows = host_local_batch_slice(next(iter(g.values())).shape[1 if accum > 1 else 0])
         batch = {k: torch.from_numpy(np.ascontiguousarray(
             v[:, rows] if accum > 1 else v[rows])).to(dev) for k, v in g.items()}
         before = launch_counts()
@@ -411,7 +510,8 @@ def scenario_steps(p: dict) -> dict:
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-    return {"runs": runs, "linears": linears}
+    ring = scenario_ring(p["ring"]) if p.get("ring") else None
+    return {"runs": runs, "linears": linears, "ring": ring}
 
 
 def scenario_train(p: dict) -> dict:
@@ -462,7 +562,8 @@ def scenario_train(p: dict) -> dict:
 
 
 SCENARIOS = {"step": scenario_step, "steps": scenario_steps, "train": scenario_train,
-             "int8_scales": scenario_int8_scales, "linears": scenario_linears}
+             "int8_scales": scenario_int8_scales, "linears": scenario_linears,
+             "ring": scenario_ring, "pp_forward": scenario_pp_forward}
 
 
 class Launch:

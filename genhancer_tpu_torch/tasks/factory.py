@@ -16,11 +16,14 @@ SigLIP in video mode raises.
 Parallelism: data parallel over the ranks of a ``torch.distributed`` group
 (``parallel.mesh``; one device per rank, ``num_devices`` the world size),
 ZeRO-1 (``shard_optimizer_state``), tensor parallelism (``model_parallel``,
-``parallel.tp``) and FSDP (``fsdp``, ``parallel.fsdp``) are ported; the
-rank's data index and the data axis's size split the loaders' shards
-(``node_index``/``node_count``).  The compositions JAX rejects raise its
-``ValueError``s (``validate_parallelism``); sequence and pipeline
-parallelism raise ``NotImplementedError`` (ROADMAP: parallelism, part 3).
+``parallel.tp``), FSDP (``fsdp``, ``parallel.fsdp``), sequence parallelism
+(``sequence_parallel``, ring attention, ``parallel.ring``) and pipeline
+parallelism (``pipeline_parallel`` with ``pipeline_microbatches``,
+``parallel.pp``) are ported; the rank's data index and the data axis's
+size split the loaders' shards (``node_index``/``node_count``).  The
+compositions JAX rejects raise its ``ValueError``s
+(``validate_parallelism``); ``sequence_parallel`` with ``dit_quant`` raises
+``NotImplementedError`` (ROADMAP: parallelism, part 3b).
 """
 
 from __future__ import annotations
@@ -64,15 +67,12 @@ _LOADER_MODE = {"middle": "triplet", "next": "next", "next2": "next2",
 REMAT_TOKENS = 8192
 TOWER_REMAT_TOKENS = 6144
 
-# config knob -> its value without the mesh axes that are not ported yet
-_MULTI_DEVICE = {"sequence_parallel": 1, "pipeline_parallel": 1}
-
 
 def validate_parallelism(cfg, dit_cfg=None) -> None:
     """``validate_parallelism`` (``factory.py:66-103``): the compositions the
     JAX package rejects raise its ``ValueError`` at config time, before any
-    weights load; then the axes this port does not drive yet (sequence and
-    pipeline parallelism) raise ``NotImplementedError``, and
+    weights load; then ``sequence_parallel`` with ``dit_quant``, which this
+    port does not drive yet, raises ``NotImplementedError``, and
     ``num_devices``, where set, must equal the world size (one device per
     rank)."""
     tp = int(cfg.get("model_parallel", 1) or 1)
@@ -105,12 +105,7 @@ def validate_parallelism(cfg, dit_cfg=None) -> None:
         raise ValueError(
             f"pipeline_parallel={pp} must divide both depth={dit_cfg.depth} "
             f"and depth_single_blocks={dit_cfg.depth_single_blocks}")
-    for knob, plain in _MULTI_DEVICE.items():
-        value = cfg.get(knob)
-        if value not in (None, plain, 0):
-            raise NotImplementedError(
-                f"{knob}: {value} is not ported yet (ROADMAP: parallelism, part 3); "
-                "data parallelism, shard_optimizer_state, model_parallel and fsdp are")
+    image_task.refuse_sp_quant(sp, cfg.get("dit_quant", "none"))
     n = cfg.get("num_devices")
     if n and int(n) != mesh.world_size():
         raise ValueError(
@@ -146,19 +141,25 @@ def _lora_kwargs(cfg, tower: str) -> dict:
 
 
 def remat_gate(n_cond: int, clip_image_size: int, patch: int, img_size: int,
-               batch: int, stage2: bool = False) -> bool:
-    """The JAX factory's automatic DiT remat decision for a video task on
-    one device and one process (``factory.py:236-246``): on when the joint
-    sequence is at least 1024 tokens and the batch's tokens exceed
-    ``REMAT_TOKENS`` (half that in stage 2)."""
+               batch: int, stage2: bool = False, sequence_parallel: int = 1) -> bool:
+    """The JAX factory's automatic DiT remat decision for a video task
+    (``factory.py:233-246``) on the rank's tokens: on when the joint
+    sequence is at least 1024 tokens and ``batch`` rows (the rank's data
+    index's, ``train_batch_size``) of its ``1 / sequence_parallel`` share
+    exceed ``REMAT_TOKENS`` (half that in stage 2).  JAX's per-device count
+    ``bs * process_count / n_data * seq / sp`` with ``n_data = n_dev //
+    (tp * sp * pp)`` is this with its host's batch split over its data
+    shards."""
     seq = n_cond * (clip_image_size // patch) ** 2 + (img_size // 16) ** 2
-    return seq >= 1024 and batch * seq > REMAT_TOKENS // (2 if stage2 else 1)
+    tokens = batch * (seq / sequence_parallel)
+    return seq >= 1024 and tokens > REMAT_TOKENS // (2 if stage2 else 1)
 
 
 def tower_remat_gate(n_cond: int, clip_image_size: int, patch: int, batch: int) -> bool:
-    """The JAX factory's ``tower_remat`` decision for a video stage-2 task on
-    one device (``factory.py:247-258``): on when ``batch x n_cond x (grid^2
-    + 1)`` tower tokens exceed ``TOWER_REMAT_TOKENS``."""
+    """The JAX factory's ``tower_remat`` decision for a video stage-2 task
+    (``factory.py:247-258``) on the rank's rows: on when ``batch x n_cond x
+    (grid^2 + 1)`` tower tokens exceed ``TOWER_REMAT_TOKENS`` (the tower
+    runs on every token, whatever the seq axis)."""
     return batch * n_cond * ((clip_image_size // patch) ** 2 + 1) > TOWER_REMAT_TOKENS
 
 
@@ -215,6 +216,10 @@ def build_spec(cfg):
                   vae_quant_min_ch=int(cfg.get("vae_quant_min_ch", 256)),
                   dit_quant=cfg.get("dit_quant", "none"),
                   dit_quant_cache=cfg.get("fused_optimizer") == "pallas",
+                  # the mesh's seq and pipe axes (JAX factory.py:191-195)
+                  sequence_parallel=int(cfg.get("sequence_parallel", 1) or 1),
+                  pipeline_parallel=int(cfg.get("pipeline_parallel", 1) or 1),
+                  pipeline_microbatches=int(cfg.get("pipeline_microbatches", 0) or 0),
                   **_lora_kwargs(cfg, tower))
     if task.startswith("image_"):
         spec = TaskSpec(**common)
@@ -226,7 +231,8 @@ def build_spec(cfg):
     bs = int(cfg.get_path("data_config.train_batch_size", cfg.get("train_batch_size", 8)))
     if cfg.get("remat") is None:
         common["remat"] = remat_gate(n_cond, clip_image_size, patch, img_size, bs,
-                                     stage2=stage != "stage1")
+                                     stage2=stage != "stage1",
+                                     sequence_parallel=common["sequence_parallel"])
     if cfg.get("tower_remat") is None and stage != "stage1":
         common["tower_remat"] = tower_remat_gate(n_cond, clip_image_size, patch, bs)
     spec = video_task.VideoTaskSpec(

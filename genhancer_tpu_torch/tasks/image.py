@@ -47,13 +47,25 @@ the kept float weights), and in ``stage2_only`` ``dit_quant`` gives the
 frozen DiT the same static int8 base, run outside the SwitchBack context
 (``image.py:150-175, 256-261``).
 
-An int8 SigLIP tower, remat and a mesh with ring or pipeline axes raise
-``NotImplementedError``, naming ROADMAP.
+Sequence and pipeline parallelism (``image.py:284-342``): with
+``sequence_parallel`` the loss opens ``parallel.ring.ring_scope`` around the
+DiT forward, which then returns the velocity of the rank's img tokens, and
+the loss holds them against the same tokens of the target over the whole
+token count (``flow.mse_loss``'s ``tokens``); with ``pipeline_parallel``
+the DiT runs as ``parallel.pp.pipeline_dit_forward`` with
+``pipeline_microbatches`` (0: one per stage).  Both need the mesh
+(``parallel.mesh.make_mesh``) with the matching axis, else JAX's
+``ValueError``; PP with ``dit_quant`` raises JAX's ``ValueError``, SP with
+it ``NotImplementedError`` (ROADMAP: parallelism, part 3b).
+
+An int8 SigLIP tower and remat raise ``NotImplementedError``, naming
+ROADMAP.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -67,7 +79,7 @@ from ..models import dit as dit_m
 from ..models import vae as vae_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
-from ..parallel.mesh import Mesh, data_size, local_rows, randn_rows
+from ..parallel.mesh import data_size, local_rows, randn_rows
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
@@ -118,6 +130,12 @@ class TaskSpec:
     # the FLUX ae.safetensors the VAE loads (ae_path / $AE), or None for
     # random init
     vae_path: Optional[str] = None
+    # ring attention over the mesh's seq axis (parallel.ring)
+    sequence_parallel: int = 1
+    # the GPipe DiT over the mesh's pipe axis (parallel.pp); 0 micro-batches
+    # = one per stage
+    pipeline_parallel: int = 1
+    pipeline_microbatches: int = 0
 
     @property
     def latent_hw(self) -> Tuple[int, int]:
@@ -251,11 +269,8 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
     [B, h, w, 2z] float32 and ``image`` (the cached crop); or the features
     cache's ``moments`` and ``cls`` [B, P] float32."""
     require_ported(spec)
-    if mesh is not None and not isinstance(mesh, Mesh):
-        # data parallelism needs no mesh, in JAX either (image.py:253-255);
-        # TP and FSDP live in the modules' placement (parallel.layout)
-        raise NotImplementedError("a device mesh with ring or pipeline axes is not ported yet "
-                                  "(ROADMAP: parallelism, part 3)")
+    ring_ctx = ring_ctx_factory(spec, mesh)
+    dit_apply = dit_apply_factory(spec, mesh)
     if spec.remat:
         raise NotImplementedError("remat (activation checkpointing) is not ported yet "
                                   "(ROADMAP: later items)")
@@ -315,15 +330,81 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
             x0 = randn_rows(x1.shape, generator, f32, dev)
         xt = flow.interpolate(x1, x0, t)
         guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
-        with dit_ctx():
-            pred = dit_m.dit_forward(
+        with dit_ctx(), ring_ctx():
+            pred = dit_apply(
                 modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=cond["img_ids"],
                 txt=cond["txt"].to(cd), txt_ids=cond["txt_ids"], timesteps=t.to(cd),
                 y=cond["vec"].to(cd), guidance=guidance)
         # "valid" gates batch rows padded up to a full batch
-        return flow.mse_loss(pred, flow.velocity_target(x1, x0), mask=batch.get("valid"))
+        return masked_loss(spec, pred, flow.velocity_target(x1, x0), batch.get("valid"),
+                           cond["txt"].shape[1])
 
     return loss_fn
+
+
+def refuse_sp_quant(sp: int, dit_quant: str) -> None:
+    """SP with ``dit_quant`` is not ported (ROADMAP: parallelism, part 3b)."""
+    if sp > 1 and dit_quant != "none":
+        raise NotImplementedError(
+            f"sequence_parallel: {sp} with dit_quant: {dit_quant} is not ported yet "
+            "(ROADMAP: parallelism, part 3b): K8's 512-row blocks and int8_full's "
+            "per-column dW amax span the token axis that SP splits")
+
+
+def ring_ctx_factory(spec, mesh):
+    """``_ring_ctx_factory:284-300`` (image and video specs): a () ->
+    context opening the ring scope under ``sequence_parallel`` (a null one
+    without), after checking the mesh."""
+    sp = spec.sequence_parallel
+    if sp <= 1:
+        return contextlib.nullcontext
+    if mesh is None:
+        raise ValueError(
+            f"sequence_parallel={sp} needs the mesh: "
+            "pass mesh= to make_loss_fn/make_train_step (the trainer builds "
+            "it with make_mesh(sequence_parallel=N))")
+    if mesh.sp != sp:
+        raise ValueError(f"mesh seq axis {mesh.sp} != spec.sequence_parallel={sp}")
+    refuse_sp_quant(sp, spec.dit_quant)
+    from ..parallel import ring
+    return ring.ring_scope
+
+
+def dit_apply_factory(spec, mesh):
+    """``_dit_apply_factory:316-342``: the DiT forward, ``dit_forward`` or
+    the GPipe pipeline under ``pipeline_parallel``, after checking the mesh
+    and ``dit_quant``."""
+    pp = spec.pipeline_parallel
+    if pp <= 1:
+        return dit_m.dit_forward
+    if mesh is None:
+        raise ValueError(
+            f"pipeline_parallel={pp} needs the mesh: pass mesh= to "
+            "make_loss_fn/make_train_step (the trainer builds it with "
+            "make_mesh(pipeline_parallel=N))")
+    if mesh.pp != pp:
+        raise ValueError(f"mesh pipe axis {mesh.pp} != spec.pipeline_parallel={pp}")
+    if spec.dit_quant != "none":
+        raise ValueError(
+            "pipeline_parallel does not compose with dit_quant (the "
+            "SwitchBack int8 paths — incl. the optimizer-emitted weight "
+            "cache, which is keyed on the unstacked per-block layout — are "
+            "not validated under the stage shard_map); set dit_quant: none")
+    from ..parallel import pp as pp_m
+    return functools.partial(pp_m.pipeline_dit_forward,
+                             n_micro=spec.pipeline_microbatches or pp)
+
+
+def masked_loss(spec, pred, target, valid, l_txt: int):
+    """``flow.mse_loss`` of the DiT's prediction; under
+    ``sequence_parallel`` ``pred`` holds the rank's img tokens
+    (``parallel.ring.Layout.img``), which the target is cut to, and the
+    count takes every img token."""
+    if spec.sequence_parallel > 1:
+        from ..parallel import ring
+        lay = ring.token_layout(l_txt, target.shape[1])
+        return flow.mse_loss(pred, target[:, lay.img], mask=valid, tokens=target.shape[1])
+    return flow.mse_loss(pred, target, mask=valid)
 
 
 def dit_quant_ctx(dit_quant: str):
@@ -339,7 +420,8 @@ def dit_quant_ctx(dit_quant: str):
 
 def make_train_step(spec: TaskSpec, optimizer, mesh=None):
     """(state, batch, generator, draws=None) -> (state, metrics), one
-    optimizer step without accumulation."""
+    optimizer step without accumulation; ``mesh``: ``parallel.mesh.
+    make_mesh``'s, needed under sequence or pipeline parallelism."""
     loss_fn = make_loss_fn(spec, mesh)
 
     def step(state: TrainState, batch, generator=None, draws=None):

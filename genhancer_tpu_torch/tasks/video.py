@@ -39,7 +39,9 @@ int8 ones and gives the stage-2 tower QLoRA's base, ``vae_quant`` the
 encoder's wide convs, and ``dit_quant`` runs the DiT through SwitchBack, its
 int8 copies kept in the state where the fused optimizer emits them
 (``dit_quant_cache``, K4).  The SigLIP tower (no published video config uses
-it) raises ``NotImplementedError``, naming its ROADMAP item.
+it) raises ``NotImplementedError``, naming its ROADMAP item.  Sequence
+and pipeline parallelism run as in the image task (``tasks.image.
+ring_ctx_factory``, ``dit_apply_factory``, ``masked_loss``).
 """
 
 from __future__ import annotations
@@ -57,13 +59,14 @@ from ..models import vae as vae_m
 from ..models.towers import clip as clip_m
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
-from ..parallel.mesh import Mesh, data_size, local_rows, randn_rows
+from ..parallel.mesh import data_size, local_rows, randn_rows
 from ..train import flow, lora
 from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
                            video_conditioning)
-from .image import dit_quant_ctx, load_pretrained, quantize_modules
+from .image import (dit_apply_factory, dit_quant_ctx, load_pretrained, masked_loss,
+                    quantize_modules, ring_ctx_factory)
 
 VIDEO_MODES: Dict[str, Dict] = {
     "middle": {"n_cond": 2, "frame_times": (0.0, 2.0), "target_time": 1.0},
@@ -109,6 +112,9 @@ class VideoTaskSpec:
     tower_dir: Optional[str] = None
     # the FLUX ae.safetensors the VAE loads (ae_path / $AE), or None
     vae_path: Optional[str] = None
+    sequence_parallel: int = 1         # ring attention (image.TaskSpec)
+    pipeline_parallel: int = 1         # the GPipe DiT (parallel.pp)
+    pipeline_microbatches: int = 0     # 0 = one per stage
 
     @property
     def n_cond(self) -> int:
@@ -208,11 +214,8 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
     float32, ``cond_patches`` [B, n_cond, L_p, D] float16 and ``cond_vecs``
     [B, n_cond, P] float32."""
     require_ported(spec)
-    if mesh is not None and not isinstance(mesh, Mesh):
-        # data parallelism needs no mesh, in JAX either (image.py:253-255);
-        # TP and FSDP live in the modules' placement (parallel.layout)
-        raise NotImplementedError("a device mesh with ring or pipeline axes is not ported yet "
-                                  "(ROADMAP: parallelism, part 3)")
+    ring_ctx = ring_ctx_factory(spec, mesh)
+    dit_apply = dit_apply_factory(spec, mesh)
     f32, cd = torch.float32, spec.compute_dtype
     dit_ctx = dit_quant_ctx(spec.dit_quant)
 
@@ -268,14 +271,15 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
             x0 = randn_rows(x1.shape, generator, f32, dev)
         xt = flow.interpolate(x1, x0, t)
         guidance = torch.full((b,), spec.guidance, dtype=cd, device=dev)
-        with dit_ctx():
-            pred = dit_m.dit_forward(
+        with dit_ctx(), ring_ctx():
+            pred = dit_apply(
                 modules["dit"], spec.dit_cfg, img=xt.to(cd), img_ids=dit_in["img_ids"],
                 txt=dit_in["txt"].to(cd), txt_ids=dit_in["txt_ids"], timesteps=t.to(cd),
                 y=dit_in["vec"], guidance=guidance, remat=spec.remat,
                 remat_policy=spec.remat_policy)
         # "valid" masks the sliding loader's padded rows
-        return flow.mse_loss(pred, flow.velocity_target(x1, x0), mask=batch.get("valid"))
+        return masked_loss(spec, pred, flow.velocity_target(x1, x0), batch.get("valid"),
+                           dit_in["txt"].shape[1])
 
     return loss_fn
 

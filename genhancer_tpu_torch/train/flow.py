@@ -48,7 +48,7 @@ def velocity_target(x_1: torch.Tensor, x_0: torch.Tensor) -> torch.Tensor:
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor,
-             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             mask: Optional[torch.Tensor] = None, tokens: Optional[int] = None) -> torch.Tensor:
     """Mean-squared error in float32.  ``mask`` [B] gates padded rows.
 
     Data parallel: the mean is over the global batch (``flow.py:39-48``
@@ -57,17 +57,22 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor,
     over the data axis, one collective) and the data ranks' losses and
     gradients add up to the global batch's.  A mean of the ranks' means
     would weigh the rows of a rank with fewer valid rows more.  The model
-    ranks of one data index hold the same rows and count them once.  One
-    process: the plain mean."""
+    and pipe ranks of one data index hold the same rows and count them
+    once.  Sequence parallel: ``pred`` and ``target`` hold the rank's share
+    of the token axis and ``tokens`` is the whole axis's length, so the
+    count is valid rows x ``tokens`` x channels and the seq ranks' losses
+    add up too; a rank without tokens returns 0.  One process: the plain
+    mean."""
     err = (pred.to(torch.float32) - target.to(torch.float32)).square()
+    tokens = err.shape[1] if tokens is None else int(tokens)
     if mask is None:
-        if mesh.data_size() == 1:
+        if mesh.data_size() == 1 and tokens == err.shape[1]:
             return err.mean()
-        return err.sum() / float(err.numel() * mesh.data_size())
+        return err.sum() / float(err.shape[0] * tokens * err.shape[2] * mesh.data_size())
     m = mask.to(torch.float32)[:, None, None]
     count = m.sum()
     mesh.all_reduce_sum([count])
-    denom = torch.clamp(count * err.shape[1] * err.shape[2], min=1.0)
+    denom = torch.clamp(count * tokens * err.shape[2], min=1.0)
     return (err * m).sum() / denom
 
 

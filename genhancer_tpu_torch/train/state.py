@@ -118,13 +118,15 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     On the 2-D mesh the sum runs over the data axis; an FSDP block's
     gradient arrives reduce-scattered over it already (``parallel.fsdp``)
     and is left out, and the ``partial`` leaves are then summed over the
-    model axis."""
+    model axis.  Sequence parallel: every rank's loss and gradients are
+    its tokens' share, so all of them (and the loss) are also summed over
+    the seq axis.  Pipeline parallel: a block's gradient lives on its stage
+    (``parallel.pp``), so the blocks are also summed over the pipe axis; the
+    prologue's, the final layer's and the loss are whole on every pipe rank
+    and count once.  The norm is then taken on the reduced gradients, each
+    leaf whole and once."""
     if mesh.is_distributed():
-        from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-        data = [g for k, g in grads.items()
-                if k not in state.layout or state.layout[k].dim(DATA_AXIS) is None]
-        mesh.all_reduce_sum(data + ([loss] if loss is not None else []))
-        mesh.all_reduce_sum([grads[k] for k in state.partial], group=MODEL_AXIS)
+        reduce_gradients(state, grads, loss)
     params = {k: v.detach() for k, v in state.trainable.items()}
     emits = state.quant is not None and getattr(optimizer, "emit_quant", False)
     state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state,
@@ -138,6 +140,22 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     if state.quant is not None and not emits:
         with_quant_cache(state)
     return g_norm, loss
+
+
+def reduce_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
+                     loss: Optional[torch.Tensor] = None) -> None:
+    """The sums of ``apply_gradients`` over the mesh's axes, in place: the
+    data axis (not the FSDP blocks), the model axis (the ``partial``
+    leaves), the seq axis (everything) and the pipe axis (the blocks)."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS
+    from ..parallel.pp import pipe_owned
+    extra = [loss] if loss is not None else []
+    data = [g for k, g in grads.items()
+            if k not in state.layout or state.layout[k].dim(DATA_AXIS) is None]
+    mesh.all_reduce_sum(data + extra)
+    mesh.all_reduce_sum([grads[k] for k in state.partial], group=MODEL_AXIS)
+    mesh.all_reduce_sum(list(grads.values()) + extra, group=SEQ_AXIS)
+    mesh.all_reduce_sum([g for k, g in grads.items() if pipe_owned(k)], group=PIPE_AXIS)
 
 
 def with_quant_cache(state: TrainState) -> TrainState:

@@ -57,13 +57,21 @@ Port of ``genhancer_tpu/train/trainer.py``, one device per process:
     a resume loads each rank's blocks, and a checkpoint gathers every
     block to the reference layout before rank 0 writes.
 
+  * sequence and pipeline parallelism (``sequence_parallel: N``, with
+    ``model_parallel`` too; ``pipeline_parallel: N`` with
+    ``pipeline_microbatches``): the mesh gains JAX's seq or pipe axis
+    (``parallel.mesh.make_mesh``) and the task runs the DiT's attention
+    as ring attention over the rank's tokens (``parallel.ring``) or the
+    DiT as a GPipe pipeline over the rank's stage (``parallel.pp``); the
+    parameters stay whole on every rank, rank 0 writes them, and the loss
+    in the history is the global batch's (``train.state.apply_gradients``).
+
 Random draws come from one ``torch.Generator`` on the device, seeded from
 ``seed + 777`` and the step (as JAX folds the step into its key), so a
 resumed run draws what an uninterrupted one would; every rank seeds it
 alike, draws the global batch's values and keeps its rows.  Float32 matmuls
-and convolutions run in full float32 (TF32 off).  Sequence and pipeline
-parallelism and orbax are not ported (ROADMAP: parallelism, part 3;
-checkpoint backend); their options raise.
+and convolutions run in full float32 (TF32 off).  Orbax is not ported
+(ROADMAP: checkpoint backend); its option raises.
 """
 
 from __future__ import annotations
@@ -171,8 +179,9 @@ class Trainer:
         self.is_main = mesh.rank() == 0
         self.tp = int(cfg.get("model_parallel", 1) or 1)
         self.fsdp = bool(cfg.get("fsdp", False))
-        # the (data, model) mesh, before the loaders split over the data axis
-        mesh.make_mesh(self.tp)
+        # the mesh, before the loaders split over the data axis
+        self.mesh = mesh.make_mesh(self.tp, int(cfg.get("sequence_parallel", 1) or 1),
+                                   int(cfg.get("pipeline_parallel", 1) or 1))
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
@@ -237,10 +246,10 @@ class Trainer:
             acc_dt = cfg.get("grad_accum_dtype", "float32")
             task = image_task if self.ckpt_kind == "image" else video_task
             self.step_fn = make_accum_train_step(
-                task.make_loss_fn(self.spec), self.optimizer, self.accum,
+                task.make_loss_fn(self.spec, self.mesh), self.optimizer, self.accum,
                 accum_dtype=None if acc_dt == "param" else getattr(torch, acc_dt))
         else:
-            self.step_fn = make_step(self.spec, self.optimizer)
+            self.step_fn = make_step(self.spec, self.optimizer, self.mesh)
 
         self.log_interval = max(1, int(cfg.get("log_interval", 10)))
         report_to = cfg.get("report_to")

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from genhancer_tpu.tasks import factory as jfactory
 from genhancer_tpu.tasks import video as jvideo
 from genhancer_tpu.train import config as jconfig
 from genhancer_tpu.train import optim as joptim
@@ -592,13 +593,38 @@ def test_invalid_combos_raise_jax_messages(task, knobs, msg):
 
 @pytest.mark.parametrize("knobs", VALID, ids=lambda k: "+".join(sorted(map(str, k))) or "dp")
 def test_valid_combos_build_or_name_part_2(knobs):
-    """Data parallelism, TP, FSDP and their compositions build (parallelism,
-    part 2); sequence and pipeline parallelism name part 3, which ports them."""
-    if knobs.get("sequence_parallel", 1) == 1 and knobs.get("pipeline_parallel", 1) == 1:
-        assert factory.build_spec(_cfg(**knobs))[2] == "image"
-        return
-    with pytest.raises(NotImplementedError, match="parallelism, part 3"):
-        factory.build_spec(_cfg(**knobs))
+    """Every composition JAX takes builds: data parallelism, TP, FSDP,
+    sequence and pipeline parallelism and their compositions, the spec
+    carrying the seq and pipe sizes (JAX factory.py:191-195)."""
+    spec, _, kind = factory.build_spec(_cfg(**knobs))
+    assert kind == "image"
+    assert (spec.sequence_parallel, spec.pipeline_parallel, spec.pipeline_microbatches) == (
+        knobs.get("sequence_parallel", 1), knobs.get("pipeline_parallel", 1), 0)
+
+
+@pytest.mark.parametrize("axis", ["sequence_parallel", "pipeline_parallel"])
+@pytest.mark.parametrize("task, size", [("video_sliding_stage2_all", 224),
+                                        ("video_middle_stage2_all", 336),
+                                        ("video_sliding_stage1", 336)])
+def test_remat_gates_take_jax_s_decision_on_a_mesh(axis, task, size):
+    """On a 4-rank world with ``axis`` 2 (two data indices), the port's
+    DiT and tower remat gates over the rank's ``train_batch_size`` rows
+    decide as JAX's over its host's batch of both data indices' rows
+    (``factory.py:233-258``: n_data = n_dev // (tp * sp * pp), seq / sp),
+    at batches on both sides of the thresholds."""
+    decisions = set()
+    for bs in (1, 2, 4, 8, 16, 32):
+        knobs = {axis: 2, "task": task, "model_name": "flux-debug",
+                 "data_config": {"train_batch_size": bs, "img_size": size,
+                                 "video_dir": "/nonexistent-never-touched"},
+                 "clip_config": {"clip_image_size": size, "clip_dim": 768, "t5_dim": 4096}}
+        ours = factory.build_spec(_cfg(**knobs))[0]
+        jcfg = jconfig.Config({**_cfg(**knobs), "num_devices": 4, "data_config": {
+            **knobs["data_config"], "train_batch_size": 2 * bs}})
+        ref = jfactory.build_spec(jcfg)[0]
+        assert (ours.remat, ours.tower_remat) == (ref.remat, ref.tower_remat), (bs, ours, ref)
+        decisions.add((ours.remat, ours.tower_remat))
+    assert len(decisions) > 1          # the batches straddle a threshold
 
 
 @pytest.mark.parametrize("knobs", [dict(shard_optimizer_state=True), dict(num_devices=1),
