@@ -2670,18 +2670,15 @@ class _Recording:
 
 
 def phase_train(work):
-    """The port's Trainer at full width, once per optimizer; returns
-    ({optimizer: launch counts of its 8-step run}, trainable leaf count,
-    the K3 run's output directory, which keeps the step-10 component files
-    for stage 2's ``load_dir``, and the K3 run's reference for phase_dp:
-    its losses, median step time and the digests of its parameters after
-    the 8 steps)."""
-    import numpy as np
-    import torch
-    from genhancer_tpu_torch.serve.engine import InferenceEngine
+    """The port's Trainer at full width (the chain's run with the DiT cut
+    to 1 + 1 blocks), once per optimizer; returns ({optimizer: launch
+    counts of its 8-step run}, trainable leaf count, the K3 run's output
+    directory, which keeps the step-10 component files for stage 2's
+    ``load_dir``, and the K3 run's reference for phase_dp: its losses,
+    median step time and the digests of its parameters after the 8 steps,
+    with the chain run's losses and host batches)."""
     from genhancer_tpu_torch.train import checkpoint as ckpt
     from genhancer_tpu_torch.train.config import load_config
-    from genhancer_tpu_torch.train.trainer import Trainer
 
     t0 = time.perf_counter()
     shards = _write_shards(os.path.join(work, "shards"))
@@ -2695,96 +2692,126 @@ def phase_train(work):
     base.update(max_train_steps=8, checkpointing_steps=8, log_interval=1, report_to="none")
     runs, n_leaves = {}, None
     for opt in ("chain", "pallas"):
-        cfg = copy.deepcopy(base)
-        cfg["output_dir"] = out = os.path.join(work, f"out-{opt}")
-        if opt == "pallas":
-            cfg["fused_optimizer"] = "pallas"
-        t0 = time.perf_counter()
-        trainer = Trainer(cfg, device="cuda")
-        torch.cuda.synchronize()
-        built = time.perf_counter() - t0
-        n_leaves = len(trainer.state.trainable)
-        n_par = sum(p.numel() for p in trainer.state.trainable.values())
-        # the host batches phase_dp (a) and phase_tp_fsdp (a, b) replay
-        trainer.loader = _Recording(trainer.loader)
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts()
-        t0 = time.perf_counter()
-        trainer.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = _read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        hist = trainer.history
-        check(len(hist) == 8 and [h["step"] for h in hist] == list(range(1, 9)),
-              f"{opt}: synced steps {[h['step'] for h in hist]}")
-        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
-              f"{opt}: non-finite loss or grad norm: {hist}")
-        step_s = statistics.median(h["step_time"] for h in hist[2:])
-        mu_dtype = next(iter(trainer.state.opt_state["mu"].values())).dtype
-        print(f"[train] {opt}: Trainer built in {built:.1f} s ({n_leaves} trainable leaves, "
-              f"{n_par / 1e9:.4f} B params; moments now {str(mu_dtype)[6:]}); 8 steps in "
-              f"{wall:.1f} s incl. the checkpoint; losses "
-              f"{[round(h['loss'], 4) for h in hist]}; grad norms "
-              f"{[round(h['grad_norm'], 3) for h in hist]}")
-        print(f"[train] {opt}: median step time of steps 3-8 {step_s * 1e3:.1f} ms = "
-              f"{32 / step_s:.2f} img/s (B=16 x accumulation 2); peak device memory "
-              f"{peak:.2f} GiB")
-        steps, blocks = 8, 2 * 6   # micro-batches per step x DiT blocks
-        want = {**_no_launches(), "fused_rope_attention": steps * blocks,
-                "fused_rope_attention_bwd": steps * blocks, "fused_attention": steps * 2 * 24,
-                "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
-        print(f"[train] {opt}: kernel launches {counts}, expected {want}")
-        check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
-        if opt == "chain":
-            chain_ref = {"loss": [h["loss"] for h in hist], "batches": trainer.loader.batches}
-        if opt == "pallas":
-            from genhancer_tpu_torch.parallel.testing import digest
-            k3_ref = {"loss": [h["loss"] for h in hist], "step_s": step_s,
-                      "batches": trainer.loader.batches, "chain": chain_ref,
-                      "params": {k: digest(v) for k, v in trainer.state.trainable.items()}}
-        for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
-                    "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
-            check(os.path.exists(os.path.join(out, pat.format(8))),
-                  f"{opt}: {pat.format(8)} missing")
-        del trainer
-        _free()
-        ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
-
-        cfg2 = copy.deepcopy(cfg)
-        cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
-        trainer = Trainer(cfg2, device="cuda")
-        check(trainer.state.step == 8, f"{opt}: resumed at step {trainer.state.step}, not 8")
-        trainer.train()
-        hist2 = trainer.history
-        check([h["step"] for h in hist2] == [9, 10]
-              and all(np.isfinite(h["loss"]) for h in hist2), f"{opt}: resume ran {hist2}")
-        print(f"[train] {opt}: a second Trainer resumed at step 8 and ran steps 9-10, "
-              f"losses {[round(h['loss'], 4) for h in hist2]}")
-        del trainer
-        _free()
-
-        engine = InferenceEngine.from_config(copy.deepcopy(cfg), device="cuda",
-                                             load_dir=out, load_step=8, buckets=(1,),
-                                             num_steps=4)
-        size = engine.spec.img_size
-        img = np.random.default_rng(3).random((1, size, size, 3), dtype=np.float32)
-        rec = engine.reconstruct(img, seed=0)
-        check(rec.shape == img.shape and np.isfinite(rec).all(),
-              f"{opt}: reconstruct from the trained checkpoint failed")
-        print(f"[train] {opt}: InferenceEngine loaded checkpoint-*-8.bin strictly and "
-              f"served a reconstruct (mean {rec.mean():.4f})")
-        del engine
-        _free()
+        # the chain run at 1 + 1 blocks, to stay within the time limit (its
+        # float32 moments made a 13 GB checkpoint at full width)
+        depth = _DitDepth(1, 1) if opt == "chain" else contextlib.nullcontext()
+        with depth:
+            out, counts, chain_ref_, k3_ref_, n_l = _train_run(base, opt, work)
         runs[opt] = counts
         if opt == "chain":
-            shutil.rmtree(out)
+            chain_ref = chain_ref_
             continue
+        n_leaves, k3_ref = n_l, {**k3_ref_, "chain": chain_ref}
         # the stage-1 files stage 2 loads: step 10's components
         ckpt.prune_checkpoints(out, 1)
         os.remove(os.path.join(out, "optimizer-state-10.bin"))
         stage1 = out
     return runs, n_leaves, stage1, k3_ref
+
+
+def _train_run(base, opt, work):
+    """phase_train's run of one optimizer: 8 steps, a resume for 9-10 and
+    an engine on the step-8 files; returns (its output directory, launch
+    counts, the chain's reference or None, the K3 run's reference or None,
+    its trainable leaf count)."""
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch.parallel.testing import plan_vs_live
+    from genhancer_tpu_torch.serve.engine import InferenceEngine
+    from genhancer_tpu_torch.train import checkpoint as ckpt
+    from genhancer_tpu_torch.train.trainer import Trainer
+    from genhancer_tpu_torch import registry
+    chain_ref = k3_ref = None
+    dit_cfg = registry.build_dit_config("flux-dev")
+    cfg = copy.deepcopy(base)
+    cfg["output_dir"] = out = os.path.join(work, f"out-{opt}")
+    if opt == "pallas":
+        cfg["fused_optimizer"] = "pallas"
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    planned = plan_vs_live(trainer) if opt == "pallas" else None
+    n_leaves = len(trainer.state.trainable)
+    n_par = sum(p.numel() for p in trainer.state.trainable.values())
+    # the host batches phase_dp (a) and phase_tp_fsdp (a, b) replay
+    trainer.loader = _Recording(trainer.loader)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if planned is not None:
+        _plan_report("MetaCLIP_large_stage1 (K3)", planned, torch.cuda.max_memory_allocated())
+    hist = trainer.history
+    check(len(hist) == 8 and [h["step"] for h in hist] == list(range(1, 9)),
+          f"{opt}: synced steps {[h['step'] for h in hist]}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in hist),
+          f"{opt}: non-finite loss or grad norm: {hist}")
+    step_s = statistics.median(h["step_time"] for h in hist[2:])
+    mu_dtype = next(iter(trainer.state.opt_state["mu"].values())).dtype
+    print(f"[train] {opt}: Trainer built in {built:.1f} s (DiT {dit_cfg.depth} + "
+          f"{dit_cfg.depth_single_blocks} blocks, {n_leaves} trainable leaves, "
+          f"{n_par / 1e9:.4f} B params; moments now {str(mu_dtype)[6:]}); 8 steps in "
+          f"{wall:.1f} s incl. the checkpoint; losses "
+          f"{[round(h['loss'], 4) for h in hist]}; grad norms "
+          f"{[round(h['grad_norm'], 3) for h in hist]}")
+    print(f"[train] {opt}: median step time of steps 3-8 {step_s * 1e3:.1f} ms = "
+          f"{32 / step_s:.2f} img/s (B=16 x accumulation 2); peak device memory "
+          f"{peak:.2f} GiB")
+    # micro-batches per step x DiT blocks
+    steps, blocks = 8, 2 * (dit_cfg.depth + dit_cfg.depth_single_blocks)
+    want = {**_no_launches(), "fused_rope_attention": steps * blocks,
+            "fused_rope_attention_bwd": steps * blocks, "fused_attention": steps * 2 * 24,
+            "fused_adamw": steps * n_leaves if opt == "pallas" else 0}
+    print(f"[train] {opt}: kernel launches {counts}, expected {want}")
+    check(counts == want, f"{opt}: launch counts {counts} != expected {want}")
+    if opt == "chain":
+        chain_ref = {"loss": [h["loss"] for h in hist], "batches": trainer.loader.batches}
+    if opt == "pallas":
+        from genhancer_tpu_torch.parallel.testing import digest
+        k3_ref = {"loss": [h["loss"] for h in hist], "step_s": step_s,
+                  "batches": trainer.loader.batches,
+                  "params": {k: digest(v) for k, v in trainer.state.trainable.items()}}
+    for pat in ("checkpoint-dit-{}.bin", "checkpoint-project-clip-{}.bin",
+                "checkpoint-project-t5-{}.bin", "optimizer-state-{}.bin"):
+        check(os.path.exists(os.path.join(out, pat.format(8))),
+              f"{opt}: {pat.format(8)} missing")
+    del trainer
+    _free()
+    ckpt.prune_checkpoints(out, 1)     # bound the disk: keep step 8 only
+
+    cfg2 = copy.deepcopy(cfg)
+    cfg2.update(max_train_steps=10, resume_from_checkpoint="latest")
+    trainer = Trainer(cfg2, device="cuda")
+    check(trainer.state.step == 8, f"{opt}: resumed at step {trainer.state.step}, not 8")
+    trainer.train()
+    hist2 = trainer.history
+    check([h["step"] for h in hist2] == [9, 10]
+          and all(np.isfinite(h["loss"]) for h in hist2), f"{opt}: resume ran {hist2}")
+    print(f"[train] {opt}: a second Trainer resumed at step 8 and ran steps 9-10, "
+          f"losses {[round(h['loss'], 4) for h in hist2]}")
+    del trainer
+    _free()
+
+    engine = InferenceEngine.from_config(copy.deepcopy(cfg), device="cuda",
+                                         load_dir=out, load_step=8, buckets=(1,),
+                                         num_steps=4)
+    size = engine.spec.img_size
+    img = np.random.default_rng(3).random((1, size, size, 3), dtype=np.float32)
+    rec = engine.reconstruct(img, seed=0)
+    check(rec.shape == img.shape and np.isfinite(rec).all(),
+          f"{opt}: reconstruct from the trained checkpoint failed")
+    print(f"[train] {opt}: InferenceEngine loaded checkpoint-*-8.bin strictly and "
+          f"served a reconstruct (mean {rec.mean():.4f})")
+    del engine
+    _free()
+    if opt == "chain":
+        shutil.rmtree(out)
+    return out, counts, chain_ref, k3_ref, n_leaves
 
 
 # phase_dp (b): the int8 paths of configs/tpu_fast_stage1.yaml, each run
@@ -2832,8 +2859,9 @@ def _dp_nccl_start(work, k3_ref):
                fused_optimizer="pallas", shard_optimizer_state=True, output_dir=out_dir)
     env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()), "LOCAL_RANK": "0"}
     return ptest.start({"scenario": "train", "device": "cuda", "cfg": dict(cfg),
-                        "batches": k3_ref["batches"], "digests": True, "threads": 2}, 1,
-                       os.path.join(work, "dp-nccl"), timeout=420, env=env), out_dir
+                        "batches": k3_ref["batches"], "digests": True, "threads": 2,
+                        "dcp": os.path.join(work, "dcp-nccl")}, 1,
+                       os.path.join(work, "dp-nccl"), timeout=480, env=env), out_dir
 
 
 def _dp_nccl_check(res, wall, out_dir, k3_ref):
@@ -2867,7 +2895,29 @@ def _dp_nccl_check(res, wall, out_dir, k3_ref):
           f"{res['peak_bytes'] / 2**30:.2f} GiB; moments {res['moment_bytes'] / 2**30:.3f} GiB",
           flush=True)
     shutil.rmtree(out_dir, ignore_errors=True)
+    _dcp_report("(a) NCCL, world size 1, K3, full width", [res["dcp"]])
+    shutil.rmtree(os.path.join(os.path.dirname(out_dir), "dcp-nccl"), ignore_errors=True)
     return res["launches"]
+
+
+def _dcp_report(tag, runs) -> None:
+    """The sharded checkpoint backend's round trip on each rank
+    (``parallel.testing.dcp_round_trip``): every block restored bit for bit
+    (they differed before), the ZeRO-1 rows and the count kept, the int8
+    cache rebuilt to the saved state's, the next step equal to the
+    uninterrupted run's; each rank's bytes written and seconds."""
+    for r, d in enumerate(runs):
+        check(d["restored_equal"] and d["equal_before"] < d["keys"] and d["rows_equal"]
+              and d["count"][0] == d["count"][1] and d["cache_equal"] and d["next_equal"],
+              f"dcp {tag} rank {r}: {d}")
+    print(f"[dcp] {tag}: saved at step {runs[0]['step']} and restored into a fresh Trainer: "
+          f"{runs[0]['keys']} keys ({runs[0]['sharded']} of them a rank's block) bit for bit, "
+          f"each rank's rows kept, the next step's loss "
+          f"{runs[0]['next_loss'][1]:.6f} equal to the uninterrupted run's and its "
+          f"parameters too; per rank " + "; ".join(
+              f"rank {r} wrote {d['bytes'] / 2**30:.3f} GiB in {d['save_s']:.2f} s, restored in "
+              f"{d['restore_s']:.2f} s" for r, d in enumerate(runs))
+          + " (the save gathers nothing: each rank writes its blocks)", flush=True)
 
 
 class _DitDepth:
@@ -2916,7 +2966,8 @@ def _dp_gloo(work, wave, dit):
         launches[name] = wave.start(work, f"dp-gloo-{name}", {
             "scenario": "steps", "device": "cuda", "steps": DP_GLOO_STEPS, "cfg": dict(cfg),
             "registry": {"dit": dit}, "variants": {
-                name: over, name + "_zero1": {**over, "shard_optimizer_state": True}}}, 2,
+                name: over, name + "_zero1": {**over, "shard_optimizer_state": True}},
+            "dcp": os.path.join(work, "dcp-gloo"), "dcp_variants": ["int8_full_zero1"]}, 2,
             timeout=480)
     # one process on the global batch (2 x 4 rows), in this process
     ref = {name: _one_process(cfg.merged_with(over), DP_GLOO_STEPS, batch=2 * DP_GLOO_BATCH)
@@ -2976,6 +3027,9 @@ def _dp_gloo(work, wave, dit):
           f"to rank 1 bit for bit (parameters and int8 caches after every step, gathered "
           f"moments); " + "; ".join(lines), flush=True)
     check(not far, "dp (b): " + "; ".join(far))
+    _dcp_report("(b) two gloo ranks, int8_full with ZeRO-1 (K4's cache), 1 + 1 blocks",
+                [o["runs"]["int8_full_zero1"]["dcp"] for o in outs])
+    shutil.rmtree(os.path.join(work, "dcp-gloo"), ignore_errors=True)
     return counts
 
 
@@ -3092,7 +3146,7 @@ def phase_dp(work, k3_ref):
 
 
 # phase_tp_fsdp: the mesh's paths on gloo ranks sharing the card
-TP_STEPS = 3
+TP_STEPS = 2
 # host memory free before (a), (b) and (c) share the first wave (six ranks
 # of about 5-6 GiB each), else (c) waits for (a)
 TOGETHER_GIB = 48.0
@@ -3203,6 +3257,7 @@ def _tp_k3_check(cfg, outs, wall, k3_ref, n_leaves):
             "fused_rope_attention_bwd": TP_STEPS * 2 * 6,
             "fused_attention": TP_STEPS * 2 * 24, "fused_adamw": TP_STEPS * n_leaves}
     for r, o in enumerate(outs):
+        _plan_report(f"tp_fsdp (a) TP=2 rank {r}", o["plan"], o["peak_bytes"])
         losses = [h["loss"] for h in o["history"]]
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
         check(len(losses) == TP_STEPS and max(rel) <= MESH_LOSS_REL,
@@ -3504,7 +3559,7 @@ def phase_tp_fsdp(work, k3_ref, n_leaves, beside=None):
     with _Wave() as wave, _DitDepth(1, 1) as dit:
         t0 = time.perf_counter()
         la = wave.start(work, "tp-k3", {"scenario": "train", "device": "cuda",
-                                        "cfg": dict(cfg_a), "digests": True,
+                                        "cfg": dict(cfg_a), "digests": True, "plan": True,
                                         "batches": k3_ref["batches"][:2 * TP_STEPS]}, 2)
         lb = wave.start(work, "fsdp", {"scenario": "steps", "device": "cuda",
                                        "steps": TP_STEPS, "cfg": dict(cfg_b),
@@ -3557,7 +3612,7 @@ def phase_tp_fsdp(work, k3_ref, n_leaves, beside=None):
 
 
 # phase_sp_pp: ring SP and GPipe PP on gloo ranks sharing the card
-SP_PP_STEPS = 3
+SP_PP_STEPS = 2
 SLIDING_CONFIG = os.path.join(ROOT, "configs", "OpenAICLIP_224_sliding_stage1.yaml")
 # JAX's bf16 bound of its ring against the unsharded attention
 # (tests/test_ring.py:47)
@@ -3649,6 +3704,8 @@ def _sp_pp_report(tag, name, outs, ref, want, reckon):
             for i, got in enumerate(o["launches"])), flush=True)
     check(outs[0]["full_params"] == outs[1]["full_params"],
           f"sp_pp {tag}: the ranks' parameters differ after the steps")
+    for r, o in enumerate(outs):
+        _plan_report(f"{tag} rank {r}", o["plan"], o["peak_bytes"])
     groups = "; ".join(f"rank {g['rank']}: data {g['data_index']}, seq {g['seq_index']} "
                        f"(group {g['seq_group']}), pipe {g['pipe_index']} (group "
                        f"{g['pipe_group']})" for g in (o["groups"] for o in outs))
@@ -3676,8 +3733,8 @@ def _pp_start(work, k3_ref, wave, beside):
         beside["t0"] = time.perf_counter()
         return wave.start(work, "pp", {
             "scenario": "steps", "device": "cuda", "steps": SP_PP_STEPS, "cfg": dict(cfg),
-            "variants": {"pp2": {}}, "batches": k3_ref["batches"][:2 * SP_PP_STEPS]}, 2,
-            timeout=480)
+            "variants": {"pp2": {}}, "batches": k3_ref["batches"][:2 * SP_PP_STEPS],
+            "plan": True}, 2, timeout=480)
     except SmokeFailure as e:
         beside["error"] = str(e)
         return None
@@ -3695,8 +3752,9 @@ def phase_sp_pp(work, sliding_ref, pp_run):
     """Sequence and pipeline parallelism on gloo ranks sharing the card
     (each pair of ranks holds two whole models: (a)'s pair and (b)'s
     cannot share the card): (a) SP=2 on the sliding@224 stage-1 config at
-    full width and published batch, on the host batches of
-    phase_video_train's sliding run, against its losses, then the ring at
+    full width and published batch with the DiT cut to 1 + 1 blocks, on
+    the host batches of phase_video_train's sliding run, against one
+    process at that depth on them (run meanwhile), then the ring at
     the DiT's attention shape against ``sdpa_ref``; (b) PP=2 with 2
     micro-batches on MetaCLIP_large_stage1 with K3, whose launch ran
     beside phase_tp_fsdp's (d) on phase_train's K3 batches
@@ -3721,7 +3779,9 @@ def phase_sp_pp(work, sliding_ref, pp_run):
     check(sliding_ref is not None, "sp_pp (a): phase_video_train gave no reference")
     _free()
     cfg_a = _sp_payload(work)
-    reckon_a = _sp_pp_rank_bytes(cfg_a, 8)
+    batches_a = sliding_ref["batches"][:2 * SP_PP_STEPS]
+    with _DitDepth(1, 1) as dit_a:      # (a) at 1 + 1 blocks, to stay within the time limit
+        reckon_a = _sp_pp_rank_bytes(cfg_a, 8)
     free, total = torch.cuda.mem_get_info()
     print(f"[sp_pp] reckoned static bytes per rank: (a) {reckon_a['static'] / 2**30:.2f} GiB, "
           f"(b) {pp_run['reckon']['static'] / 2**30:.2f} GiB; with the one-process sliding "
@@ -3733,16 +3793,23 @@ def phase_sp_pp(work, sliding_ref, pp_run):
         t0 = time.perf_counter()
         la = wave.start(work, "sp", {
             "scenario": "steps", "device": "cuda", "steps": SP_PP_STEPS, "cfg": dict(cfg_a),
-            "variants": {"sp2": {}}, "batches": sliding_ref["batches"][:2 * SP_PP_STEPS],
-            "ring": {"sp": 2, "device": "cuda", "cases": [ring]}}, 2, timeout=480)
+            "registry": {"dit": dit_a}, "variants": {"sp2": {}}, "batches": batches_a,
+            "ring": {"sp": 2, "device": "cuda", "cases": [ring]}, "plan": True}, 2,
+            timeout=480)
+        # one process on the same batches at the same depth, meanwhile
+        one_cfg = copy.deepcopy(cfg_a)
+        one_cfg.pop("sequence_parallel")
+        with _DitDepth(1, 1):
+            one_a = _one_process(one_cfg, SP_PP_STEPS, batches=batches_a)
         outs = wave.join(la)
         wall_a = time.perf_counter() - t0
     runs = [o["runs"]["sp2"] for o in outs]
     want_a = {**_no_launches(), "fused_attention": 2 * 24}
-    _sp_pp_report("(a)", f"SP=2, {os.path.basename(SLIDING_CONFIG)} (joint L=964, 482 "
-                  f"tokens per rank, 2 x 8 windows x 2), {SP_PP_STEPS} steps and the ring's "
-                  f"check in {wall_a:.1f} s with the start", runs,
-                  sliding_ref["loss"][:SP_PP_STEPS], want_a, reckon_a)
+    _sp_pp_report("(a)", f"SP=2, {os.path.basename(SLIDING_CONFIG)} with the DiT cut to 1 + 1 "
+                  f"blocks (joint L=964, 482 tokens per rank, 2 x 8 windows x 2), "
+                  f"{SP_PP_STEPS} steps and the ring's check in {wall_a:.1f} s with the start, "
+                  "against one process at that depth on the same batches", runs,
+                  one_a["loss"], want_a, reckon_a)
     counts["sp_sliding"] = runs[0]["launches"][-1]
     # the ring at the DiT's shape against the unsharded attention on the card
     got = torch.cat([o["ring"]["cases"][0]["o"] for o in outs], dim=1)[:, :964].cuda()
@@ -3756,6 +3823,209 @@ def phase_sp_pp(work, sliding_ref, pp_run):
           f"{c0['lengths']}), after the steps: max |ring - sdpa_ref| {err:.5f} (bound "
           f"{RING_BF16_ATOL}); forward {c0['fwd_s'] * 1e3:.1f} ms, backward "
           f"{c0['bwd_s'] * 1e3:.1f} ms on rank 0 ({GLOO_NOTE})", flush=True)
+    return counts
+
+
+# phase_sp_int8_serve: SP under the int8 DiT, and the serving mesh, on gloo
+# ranks sharing the card (host-staged)
+SP_INT8_STEPS = 2
+SWITCHBACK_REL = 1e-5
+SERVE_MESH_STEPS = 4            # Euler steps (the served default is 20)
+SERVE_MESH_SEED = 11
+# the mesh engines against the one-process engine on the card, pixels in
+# [0, 1] and the embedding (stated in PERF.md before the first run): the
+# data ranks' GEMMs run on 2 rows, the row-parallel linears sum bf16 partials
+SERVE_MESH_MAX = 5e-2
+SERVE_MESH_MEAN = 5e-3
+
+
+def _sp_int8_payload(work, variant, dit_1_1=None):
+    """SP=2 on configs/tpu_fast_stage1.yaml at the published B=32:
+    ``int8_full`` (K4's cache) at full width and depth, or ``int8_dw`` +
+    8-bit moments (K8, K6) with the DiT cut to 1 + 1 blocks; the last
+    step's SwitchBack calls (kept in host memory) held in-rank against one
+    process on the joined inputs."""
+    from genhancer_tpu_torch.train.config import load_config
+    cfg = load_config(INT8_CONFIG)
+    cfg["data_config"]["img_dir"] = os.path.join(work, "shards")
+    cfg.update(sequence_parallel=2, log_interval=1, report_to="none",
+               output_dir=os.path.join(work, f"out-sp-{variant}"))
+    over = ({} if variant == "int8_full" else
+            {"dit_quant": "int8_dw", "optimizer_moment_bits": 8})
+    return {"scenario": "steps", "device": "cuda", "steps": SP_INT8_STEPS, "cfg": dict(cfg),
+            "hold_calls": True, "hold_store": "cpu", "plan": True,
+            **({"registry": {"dit": dit_1_1}} if dit_1_1 is not None else {}),
+            "variants": {variant: over}}
+
+
+def _sp_int8_report(outs, wall) -> dict:
+    """Per variant and rank: every SwitchBack call of the last step within
+    SWITCHBACK_REL of one process (y, dx, dW) with the codes and scales
+    that span tokens bit for bit, token and vector calls both; the ranks'
+    losses and parameters equal; per rank per step K7, and K4
+    (``int8_full``) or K8 and K6 (``int8_dw``); the planner's bytes."""
+    counts = {}
+    for name in ("int8_full", "int8_dw"):
+        runs = [o["runs"][name] for o in outs]
+        for r, run in enumerate(runs):
+            h = run["held"]
+            check(h["calls"] > 0 and h["codes_equal"] == h["calls"]
+                  and max(h["worst"].values()) <= SWITCHBACK_REL
+                  and h["splits"] == ["tokens", "vector"],
+                  f"sp_int8 {name} rank {r}: SwitchBack calls against one process {h}")
+            for step, c in enumerate(run["launches"]):
+                ok = c["rowquant"] > 0 and (
+                    c["fused_adamw_quant"] > 0 if name == "int8_full"
+                    else c["int8_dw"] > 0 and c["fused_adamw8"] + c["fused_adamw8_quant"] > 0)
+                check(ok, f"sp_int8 {name} rank {r} step {step + 1}: launches {c}")
+            _plan_report(f"sp_int8 {name} rank {r}", run["plan"], run["peak_bytes"])
+        check(runs[0]["loss"] == runs[1]["loss"]
+              and runs[0]["full_params"] == runs[1]["full_params"],
+              f"sp_int8 {name}: the ranks' losses or parameters differ")
+        c = runs[0]["launches"][-1]
+        h = runs[0]["held"]
+        counts[f"sp_{name}"] = {k: sum(x[k] for x in runs[0]["launches"]) for k in c}
+        print(f"[sp_int8] {name} ({'full depth' if name == 'int8_full' else '1 + 1 blocks'}, "
+              f"B=32, SP=2, 99 and 98 tokens per rank, rank 1 without the text token): losses "
+              f"{[round(x, 5) for x in runs[0]['loss']]}; the last step's {h['calls']} "
+              f"SwitchBack calls ({', '.join(h['kinds'])}; token and vector calls) against one "
+              f"process on the joined inputs: max rel y {h['worst']['y']:.2e}, dx "
+              f"{h['worst']['dx']:.2e}, dW {h['worst']['dW']:.2e} (bound {SWITCHBACK_REL}), "
+              f"codes and scales equal in {h['codes_equal']} of {h['calls']}; per rank per step "
+              f"K7 {c['rowquant']}, K8 {c['int8_dw']}, K4 {c['fused_adamw_quant']}, K6 "
+              f"{c['fused_adamw8'] + c['fused_adamw8_quant']}, K3 {c['fused_adamw']}, K1 "
+              f"{c['fused_rope_attention']} (0: the ring takes the DiT's attention), K2 "
+              f"{c['fused_attention']}; step {statistics.median(runs[0]['step_s']) * 1e3:.1f} ms "
+              f"({GLOO_NOTE}); peak {[round(x['peak_bytes'] / 2**30, 2) for x in runs]} GiB",
+              flush=True)
+    print(f"[sp_int8] the two pairs (one per variant) and the serving pair ran at once in "
+          f"{wall:.1f} s with their starts", flush=True)
+    return counts
+
+
+def _serve_mesh_payload(img, rgb):
+    """One launch of two ranks, an engine per phase: dp=2 (bf16 reconstruct
+    B=4 and embed, then the HTTP server on rank 0: 4 concurrent
+    reconstructs and an embed), dp=2 with the control (each data rank
+    draws its own rows' noise), tp=2 (the same as the first in bf16), tp=2
+    int8."""
+    base = {"buckets": (4,), "num_steps": SERVE_MESH_STEPS,
+            "requests": [("reconstruct", img, SERVE_MESH_SEED), ("embed", img, None)],
+            "http": True, "http_reconstructs": 4, "max_wait_ms": 1000.0, "jpeg_image": rgb}
+    one = {"buckets": (4,), "num_steps": SERVE_MESH_STEPS,
+           "requests": [("reconstruct", img, SERVE_MESH_SEED)]}
+    return {"scenario": "serve", "device": "cuda", "config": CONFIG, "phases": [
+        {**base, "num_devices": 2}, {**one, "num_devices": 2, "control": "own_noise"},
+        {**base, "model_parallel": 2}, {**one, "model_parallel": 2, "quant": "int8"}]}
+
+
+def _close(tag, got, want, bound_max=SERVE_MESH_MAX, bound_mean=SERVE_MESH_MEAN, scale=1.0):
+    import numpy as np
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    ok = d.max() <= bound_max * scale and d.mean() <= bound_mean * scale
+    check(ok, f"serve_mesh {tag}: max |mesh - one process| {d.max():.3e}, mean {d.mean():.3e} "
+          f"(bounds {bound_max * scale:.3e}, {bound_mean * scale:.3e})")
+    return d.max(), d.mean()
+
+
+def _serve_mesh_report(tag, first, second, ref, ref8=None) -> dict:
+    """The mesh engine's answers (rank 0's ``first`` and ``second``
+    phases) against the one-process engine's (same config, seed and
+    bucket); the HTTP round trips; the control or the int8 engine."""
+    import io
+    import json as json_m
+    import numpy as np
+    from PIL import Image
+    (rec, rec_s), (emb, emb_s) = first["answers"]
+    e_rec = _close(f"{tag} reconstruct", rec, ref["reconstruct"])
+    scale = float(np.abs(ref["embed"]).max())
+    e_emb = _close(f"{tag} embed", emb, ref["embed"], scale=scale)
+    http = first["http"]
+    ok = (len(http) == 5 and all(st == 200 for _, st, _, _ in http)
+          and all(Image.open(io.BytesIO(b)).size == (224, 224) for p, _, _, b in http[:4])
+          and json_m.loads(http[4][3])["dim"] == ref["embed"].shape[-1])
+    check(ok, f"serve_mesh {tag}: HTTP answers {[(p, st, ct) for p, st, ct, _ in http]}: "
+          f"{[b[:300] for _, st, _, b in http if st != 200]}")
+    stats = first["stats"]
+    check(stats["reconstruct"]["requests"] == 4 and stats["reconstruct"]["errors"] == 0,
+          f"serve_mesh {tag}: HTTP stats {stats}")
+    line = (f"[serve_mesh] {tag}: buckets {first['buckets']}; reconstruct B=4 ({SERVE_MESH_STEPS} "
+            f"Euler steps) {rec_s * 1e3:.1f} ms, max |mesh - one process| {e_rec[0]:.3e}, mean "
+            f"{e_rec[1]:.3e}; embed {emb_s * 1e3:.1f} ms, max {e_emb[0]:.3e} (of "
+            f"{scale:.3f}); HTTP: 4 concurrent reconstructs and an embed through rank 0's "
+            f"server, batches {stats['reconstruct'].get('batch_histogram')}; "
+            f"launches on rank 0 {_nonzero(first['launches'])}")
+    counts = {f"serve_{tag}": first["launches"]}
+    (res2, s2), = second["answers"]
+    if ref8 is None:            # the control: each data rank drew its own rows' noise
+        d = np.abs(res2.astype(np.float64) - ref["reconstruct"])
+        check(d.max() > 10 * SERVE_MESH_MAX, f"serve_mesh {tag}: the control (own noise) "
+              f"reads max {d.max():.3e}, not 10x over {SERVE_MESH_MAX}")
+        line += (f"; control (each data rank draws its own rows' noise): max {d.max():.3e}, "
+                 f"mean {d.mean():.3e}, {d.max() / SERVE_MESH_MAX:.0f}x the bound")
+    else:
+        e8 = _close(f"{tag} int8", res2, ref8)
+        line += (f"; int8 at tp=2 {s2 * 1e3:.1f} ms, max |mesh - one-process int8 engine| "
+                 f"{e8[0]:.3e}, mean {e8[1]:.3e}; launches {_nonzero(second['launches'])}")
+        counts["serve_int8_tp2"] = second["launches"]
+    print(line + f" ({GLOO_NOTE})", flush=True)
+    return counts
+
+
+def _nonzero(c) -> dict:
+    return {k: v for k, v in c.items() if v}
+
+
+def phase_sp_int8_serve(work):
+    """SP with the int8 DiT and multi-device serving, on gloo ranks sharing
+    the card, after the one-process engines in this process: three pairs
+    at once, the full-depth SP pair and the 1 + 1-block one
+    (``_sp_int8_payload``) and the serving pair (``_serve_mesh_payload``;
+    the SP pairs keep their records in host memory, so the card holds all
+    three).  Returns {path: launch counts}."""
+    import numpy as np
+    from genhancer_tpu_torch.serve.engine import InferenceEngine
+    check(os.path.isdir(os.path.join(work, "shards")), "sp_int8: no shards")
+    _free()
+    check(_meminfo_gib("MemAvailable") >= HOST_ROOM_GIB * 1.5,
+          f"sp_int8: host MemAvailable below {HOST_ROOM_GIB * 1.5} GiB for three pairs: "
+          f"{_host_memory()}")
+    print(f"[sp_int8] before the launches: {_host_memory()}", flush=True)
+    rng = np.random.default_rng(21)
+    img = rng.random((4, 224, 224, 3), dtype=np.float32)
+    rgb = (rng.random((224, 224, 3)) * 255).astype(np.uint8)
+    counts = {}
+    with _DitDepth(1, 1) as dit_1_1:
+        pass
+    # the one-process engines first: the pairs then have the card to themselves
+    t0 = time.perf_counter()
+    ref = {}
+    for quant in ("none", "int8"):
+        eng = InferenceEngine.from_config(CONFIG, device="cuda", buckets=(4,),
+                                          num_steps=SERVE_MESH_STEPS, quant=quant,
+                                          wire_dtype="float32")
+        ref[quant] = {"reconstruct": eng.reconstruct(img, seed=SERVE_MESH_SEED),
+                      "embed": eng.embed(img)}
+        del eng
+        _free()
+    print(f"[serve_mesh] the one-process engines (bf16, int8) answered in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with _Wave() as wave:
+        t0 = time.perf_counter()
+        la = wave.start(work, "sp-int8-full", _sp_int8_payload(work, "int8_full"), 2,
+                        timeout=600)
+        ld = wave.start(work, "sp-int8-dw", _sp_int8_payload(work, "int8_dw", dit_1_1), 2,
+                        timeout=600)
+        lb = wave.start(work, "serve-mesh", _serve_mesh_payload(img, rgb), 2, timeout=600)
+        served = wave.join(lb)[0]
+        print(f"[serve_mesh] four engines on one pair (dp=2, its control, tp=2, int8 tp=2) "
+              f"beside the SP pairs in {time.perf_counter() - t0:.1f} s", flush=True)
+        counts.update(_serve_mesh_report("dp2", served[0], served[1], ref["none"]))
+        counts.update(_serve_mesh_report("tp2", served[2], served[3], ref["none"],
+                                         ref["int8"]["reconstruct"]))
+        full, dw = wave.join(la), wave.join(ld)
+        counts.update(_sp_int8_report([{"runs": {**a["runs"], **b["runs"]}}
+                                       for a, b in zip(full, dw)], time.perf_counter() - t0))
     return counts
 
 
@@ -4274,7 +4544,7 @@ def phase_train_int8(work):
     cfg = copy.deepcopy(base)
     cfg.update(output_dir=os.path.join(work, "out-int8"), max_train_steps=8,
                checkpointing_steps=8)
-    trainer, counts, wall, peak = _trainer_run(cfg)
+    trainer, counts, wall, peak = _trainer_run(cfg, plan="tpu_fast_stage1 (int8_full, K4)")
     _int8_report("int8_full", trainer, counts, wall, peak, 8, 2)
     emitted = {k: (q.cpu(), s.cpu()) for k, (q, s) in trainer.state.quant.items()}
     runs["train_int8"] = counts
@@ -4392,14 +4662,33 @@ class _LastStepProfile:
         trainer.step_fn = step_fn
 
 
-def _trainer_run(cfg, steps_done=0, profile=None, record=False):
+def _plan_report(tag, got, peak_bytes) -> None:
+    """``genhancer-plan-torch``'s static bytes per rank against a live
+    state's (``parallel.testing.plan_vs_live``, taken at the Trainer's
+    construction): equal, byte for byte; its activation estimate printed
+    beside the measured peak, with no bound (a heuristic)."""
+    check(got["plan"] == got["live"], f"plan {tag}: static bytes {got['plan']} != the live "
+          f"state's {got['live']}")
+    live = got["live"]
+    static = sum(live.values())
+    print(f"[plan] {tag}: the planner's static bytes per rank equal the live state's "
+          f"(trainable {live['trainable'] / 2**30:.3f}, frozen {live['frozen'] / 2**30:.3f}, "
+          f"optimizer {live['opt_state'] / 2**30:.3f} GiB); its activation estimate "
+          f"{got['activations_est'] / 2**30:.2f} GiB ({got['note']}) beside the measured "
+          f"peak {peak_bytes / 2**30:.2f} GiB, of which static {static / 2**30:.2f}", flush=True)
+
+
+def _trainer_run(cfg, steps_done=0, profile=None, record=False, plan=None):
     """Build a Trainer for ``cfg``, zero the counts, train (the last steps
     under ``profile``, a _LastStepProfile, when one is given; with
-    ``record`` keeping the host batches in ``trainer.loader.batches``);
-    returns (trainer, launch counts, wall seconds, peak GiB)."""
+    ``record`` keeping the host batches in ``trainer.loader.batches``;
+    with ``plan`` a tag, the planner held to the built state); returns
+    (trainer, launch counts, wall seconds, peak GiB)."""
     import torch
+    from genhancer_tpu_torch.parallel.testing import plan_vs_live
     from genhancer_tpu_torch.train.trainer import Trainer
     trainer = Trainer(cfg, device="cuda")
+    planned = plan_vs_live(trainer) if plan else None
     if record:
         trainer.loader = _Recording(trainer.loader)
     check(trainer.state.step == steps_done,
@@ -4412,6 +4701,8 @@ def _trainer_run(cfg, steps_done=0, profile=None, record=False):
     t0 = time.perf_counter()
     trainer.train()
     torch.cuda.synchronize()
+    if planned is not None:
+        _plan_report(plan, planned, torch.cuda.max_memory_allocated())
     return (trainer, _read_counts(), time.perf_counter() - t0,
             torch.cuda.max_memory_allocated() / 2**30)
 
@@ -6018,6 +6309,7 @@ def main():
             train_counts, n_leaves, stage1, k3_ref = (attempt(phase_train, work)
                                                       or (None, None, None, None))
             dp_counts = attempt(phase_dp, work, k3_ref)
+            sp_int8_counts = attempt(phase_sp_int8_serve, work)
             # phase_sp_pp's (b) launches beside phase_tp_fsdp's (d)
             pp_run = {"k3_loss": (k3_ref or {}).get("loss")}
             tp_counts = attempt(phase_tp_fsdp, work, k3_ref, n_leaves, pp_run)
@@ -6065,7 +6357,8 @@ def main():
              **stage2_counts, **dp_counts, **tp_counts, **int8_counts, **video_counts,
              **video2_counts,
              **siglip_counts,
-             **eval_counts, **fast_counts, **fast_video_counts, **sp_pp_counts}
+             **eval_counts, **fast_counts, **fast_video_counts, **sp_pp_counts,
+             **sp_int8_counts}
 
     def launches(counts, name):     # K6's record counts both of its bodies
         return counts[name] + (counts["fused_adamw8_quant"] if name == "fused_adamw8" else 0)

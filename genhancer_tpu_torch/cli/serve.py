@@ -7,6 +7,17 @@ Port of ``genhancer_tpu/cli/serve.py`` with the same flags plus
 ``--device``.  Startup runs every (endpoint, bucket) once (``warmup``),
 which also builds the CUDA kernels, then serves with dynamic
 micro-batching.
+
+Several cards: one process per card under torchrun, on the (data, model)
+mesh (``serve.engine``)::
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m genhancer_tpu_torch.cli.serve --config configs/MetaCLIP_large_stage1.yaml \
+        --num_devices 4 --model_parallel 2
+
+Rank 0 runs the HTTP server and the batcher; the other ranks follow its
+batches until it stops.  ``--group_timeout_s`` bounds a collective, so a
+rank that dies fails rank 0's requests instead of blocking it.
 """
 
 from __future__ import annotations
@@ -39,9 +50,11 @@ def main(argv=None):
                         help="int8: the DiT's and the tower's linears and the VAE's "
                              "convs run int8 (weights quantized at load)")
     parser.add_argument("--num_devices", type=int, default=1,
-                        help=">1 is not ported yet and is refused")
+                        help="cards (processes under torchrun) of the serving mesh")
     parser.add_argument("--model_parallel", type=int, default=1,
-                        help=">1 is not ported yet and is refused")
+                        help="the DiT's TP degree on the mesh (implies num_devices >= it)")
+    parser.add_argument("--group_timeout_s", type=float, default=600.0,
+                        help="the process group's timeout for one collective")
     parser.add_argument("--wire_dtype", default="uint8",
                         choices=("uint8", "float32"),
                         help="pixel dtype crossing host<->device: uint8 "
@@ -54,8 +67,12 @@ def main(argv=None):
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     log = logging.getLogger("genhancer.serve")
 
-    from ..serve.engine import InferenceEngine
+    from ..parallel import mesh
+    from ..serve.engine import InferenceEngine, resolve_device
     from ..serve.http import ServeApp
+
+    mesh.maybe_initialize_distributed(mesh.rank_device(resolve_device(args.device)),
+                                      args.group_timeout_s)
 
     buckets = [int(b) for b in args.buckets.split(",") if b]
     endpoints = [e.strip() for e in args.endpoints.split(",") if e.strip()]
@@ -67,6 +84,10 @@ def main(argv=None):
         guidance=args.guidance, buckets=buckets, quant=args.quant,
         num_devices=args.num_devices, model_parallel=args.model_parallel,
         wire_dtype=args.wire_dtype)
+    if engine.mesh is not None and mesh.rank() != 0:
+        log.info("rank %d following rank 0's batches", mesh.rank())
+        engine.follow()
+        return
     log.info("warming up %s x buckets %s", endpoints, list(engine.buckets))
     engine.warmup(endpoints)
 

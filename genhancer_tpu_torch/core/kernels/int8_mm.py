@@ -19,6 +19,8 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch._int_mm(a.contiguous(), b.contiguous())
     m, k = a.shape
     n = b.shape[1]
+    if k == 0:      # no rows to contract (a rank holding none): the zero sum
+        return torch.zeros((m, n), dtype=torch.int32, device=a.device)
     pm, pk, pn = max(17 - m, 0), -k % 8, -n % 8
     if pm or pk:
         a = torch.nn.functional.pad(a, (0, pk, 0, pm))

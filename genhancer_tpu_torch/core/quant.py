@@ -39,8 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
-from ..parallel import mesh
-from ..parallel.mesh import MODEL_AXIS
+from ..parallel import mesh, ring
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
 from ..parallel.tp import whole_shape
 from . import nn
 from .kernels import int8_dw as K8
@@ -79,6 +79,11 @@ def quantize_activation_rows(x: torch.Tensor, col_scale: Optional[torch.Tensor] 
     x's dtype; with ``col_scale`` the float32 products, as K7 forms them)."""
     c = x.shape[-1]
     x2, cs = x.reshape(-1, c), None if col_scale is None else col_scale.reshape(c)
+    if x2.shape[0] == 0:
+        # no rows (a seq rank whose chunk holds none of a stream): nothing
+        # to launch; the ranks of a model group hold the same rows alike
+        return (x2.new_empty(x.shape, dtype=torch.int8),
+                x2.new_empty(x.shape[:-1] + (1,), dtype=f32))
     if group is None or mesh.axis_size(group) == 1:
         q, s = K7.rowquant(x2, cs)
     else:
@@ -102,12 +107,15 @@ def quantize_activation_tensor(x: torch.Tensor):
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
-def _quantize_cols(x2: torch.Tensor):
+def _quantize_cols(x2: torch.Tensor, axes=(DATA_AXIS,)):
     """Per-column symmetric quant of a [T, C] matrix -> (int8, float32 [1,
-    C]); under data parallelism each column's amax spans the global batch's
-    tokens."""
+    C]); each column's amax spans the tokens of every rank on ``axes`` (the
+    global batch's under data parallelism, every seq rank's under SP).  No
+    rows: the amax is 0 there, and the rank still joins the reduction."""
     xf = x2.to(f32)
-    amax = mesh.all_reduce_max(xf.abs().amax(dim=0, keepdim=True))
+    amax = (xf.abs().amax(dim=0, keepdim=True) if xf.shape[0]
+            else xf.new_zeros((1, xf.shape[1])))
+    amax = mesh.all_reduce_max(amax, axes)
     scale = div127(torch.clamp_min(amax, 1e-12))
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
@@ -160,28 +168,78 @@ def _bf16_dw(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
     return torch.matmul(g2.t().to(f32), x2.to(f32)).to(out_dtype)
 
 
-def _int8_dw_cols(g: torch.Tensor, x: torch.Tensor, out_dtype) -> torch.Tensor:
+def _int8_dw_cols(g: torch.Tensor, x: torch.Tensor, out_dtype,
+                  axes=(DATA_AXIS,)) -> torch.Tensor:
     """Full-int8 dW: g and x quantized per column over all tokens,
-    ``(acc * sg^T) * sx``."""
-    gq2, sgc = _quantize_cols(g.reshape(-1, g.shape[-1]))
-    xq2, sxc = _quantize_cols(x.reshape(-1, x.shape[-1]))
-    return ((int_mm(gq2.t(), xq2).to(f32) * sgc.t()) * sxc).to(out_dtype)
+    ``(acc * sg^T) * sx``.  The rows may be split over ``axes`` (the data
+    axis, and the seq axis for a call on token rows under SP): the column
+    amaxes span every rank's rows and the int32 products are summed over
+    those axes before the dequantization, never after, so every rank holds
+    one process's dW of the global rows, bit for bit."""
+    gq2, sgc = _quantize_cols(g.reshape(-1, g.shape[-1]), axes)
+    xq2, sxc = _quantize_cols(x.reshape(-1, x.shape[-1]), axes)
+    acc = mesh.all_reduce_(int_mm(gq2.t(), xq2), axes)
+    return ((acc.to(f32) * sgc.t()) * sxc).to(out_dtype)
 
 
-def _dw(g: torch.Tensor, x: torch.Tensor, out_dtype, shape=None) -> torch.Tensor:
+def global_rows(a: torch.Tensor, split: Optional[str] = None) -> torch.Tensor:
+    """The rows of a call's [B, n, C] (or [B, C]) operand on every rank,
+    flattened [T, C] in one process's order: the seq ranks' tokens of each
+    sample first (``split`` "tokens": the rank holds a chunk of each
+    sample's tokens, ``mesh.gather_tokens`` drops the chunks' pad rows),
+    then the data ranks' samples in rank order (their batches are the
+    global batch's rows in that order).  One process: ``a`` flattened."""
+    if split == "tokens":
+        a = mesh.gather_tokens(a, SEQ_AXIS)
+    return mesh.all_gather_dim(a.reshape(-1, a.shape[-1]), 0, DATA_AXIS)
+
+
+def _dw(g: torch.Tensor, x: torch.Tensor, out_dtype, shape=None,
+        split: Optional[str] = None) -> torch.Tensor:
     """dW through K8 where ``dw_supported`` (the JAX kernel's rule, read on
-    the whole weight's ``shape`` [out, in] where the rank holds a slice),
-    else the float32-accumulated dense product (``quant.py:282-290``).
-    K8 quantizes per column, so the rank's columns take one process's
-    codes."""
-    g2, x2 = g.reshape(-1, g.shape[-1]), x.reshape(-1, x.shape[-1])
+    the whole weight's ``shape`` [out, in] where the rank holds a slice,
+    and on the global rows), else the float32-accumulated dense product
+    (``quant.py:282-290``).  K8 runs once on the rows of every rank that
+    shares the call (``global_rows``: the data ranks', and the seq ranks'
+    for token rows), as GSPMD hands the Pallas call the all-gathered
+    operands: its 512-row blocks are the global batch's, and every rank
+    holds the global dW.  K8 quantizes per column, so a model rank's
+    columns take one process's codes."""
+    g2, x2 = global_rows(g, split), global_rows(x, split)
     o, i = shape if shape is not None else (g2.shape[1], x2.shape[1])
     if K8.dw_supported(g2.shape[0], o, i):
         return K8.int8_dw(g2, x2, out_dtype)
     return _bf16_dw(g2, x2, out_dtype)
 
 
-_DW = {"bf16": _bf16_dw, "int8_dw": _dw, "cols": _int8_dw_cols}
+def row_split(x: torch.Tensor) -> Optional[str]:
+    """How a linear's rows lie on the seq axis, read in the forward:
+    "tokens" where the ring is open and ``x`` is [B, n, C] (the rank's
+    chunk of each sample's tokens), "vector" where it is open and ``x`` is
+    [B, C] (the modulation and embedding vectors, whole on every seq rank,
+    whose gradient is the rank's tokens' share), else None."""
+    if ring.active_scope() is None:
+        return None
+    return "tokens" if x.dim() == 3 else "vector"
+
+
+def _seq_total(g: torch.Tensor, split: Optional[str]) -> torch.Tensor:
+    """A "vector" call's output gradient summed over the seq axis: the
+    whole vector's gradient, which one process quantizes."""
+    return mesh.all_reduce_(g.clone(), SEQ_AXIS) if split == "vector" else g
+
+
+def _count_once(t: Optional[torch.Tensor], split: Optional[str]) -> Optional[torch.Tensor]:
+    """A gradient computed from a "vector" call's whole output gradient
+    (identical on every seq rank) kept on seq index 0 and zero elsewhere,
+    so that the seq sums downstream count it once (exact: x + 0 = x)."""
+    if t is None or split != "vector" or mesh.seq_rank() == 0:
+        return t
+    return torch.zeros_like(t)
+
+
+# the dW kinds whose SwitchBack gradient is the global one on every rank
+GLOBAL_DW = ("int8_dw", "cols")
 
 
 class _Int8Matmul(torch.autograd.Function):
@@ -192,13 +250,14 @@ class _Int8Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wq, ws, tp):
         ctx.save_for_backward(wq, ws)
-        ctx.tp = tp
+        ctx.tp, ctx.split = tp, row_split(x)
         return _int8_fwd_base(x, wq, ws, tp)
 
     @staticmethod
     def backward(ctx, g):
         wq, ws = ctx.saved_tensors
-        return _int8_dx(g, wq, ws, g.dtype, ctx.tp), None, None, None
+        g = _seq_total(g, ctx.split)
+        return _count_once(_int8_dx(g, wq, ws, g.dtype, ctx.tp), ctx.split), None, None, None
 
 
 class _SwitchBack(torch.autograd.Function):
@@ -213,7 +272,16 @@ class _SwitchBack(torch.autograd.Function):
     forward and dx keep one process's codes (``_int8_fwd_base``,
     ``_int8_dx``), a row-parallel W is quantized against its whole rows'
     amax, and each dW kind quantizes per column or sums exact products, so
-    the rank's slice of dW is one process's."""
+    the rank's slice of dW is one process's.
+
+    Data and sequence parallel (the rows split over the data axis, and a
+    token call's over the seq axis, ``row_split``): the int8 dW kinds
+    (``GLOBAL_DW``) are the global rows' dW on every rank — K8 on the
+    gathered rows, the per-column kind with its amaxes and int32 sums over
+    the axes — and ``train.state.reduce_gradients`` leaves them out of the
+    data and seq sums.  A "vector" call (an input whole on every seq rank)
+    first sums its output gradient over seq, as one process sees it, and
+    its dx (and a float32 dW) count on seq index 0 only."""
 
     @staticmethod
     def forward(ctx, x, w, wq, ws, dw: str, tp: Optional[str] = None):
@@ -222,17 +290,25 @@ class _SwitchBack(torch.autograd.Function):
         ctx.save_for_backward(x, wq, ws)
         ctx.w_dtype, ctx.dw, ctx.tp = w.dtype, dw, tp
         ctx.shape = whole_shape(w.shape, tp)
+        ctx.split = row_split(x)
         return _int8_fwd_base(x, wq, ws, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, wq, ws = ctx.saved_tensors
+        split = ctx.split
+        g = _seq_total(g, split)
         dx = _int8_dx(g, wq, ws, x.dtype, ctx.tp) if ctx.needs_input_grad[0] else None
         dw = None
         if ctx.needs_input_grad[1]:
-            dw = (_dw(g, x, ctx.w_dtype, ctx.shape) if ctx.dw == "int8_dw"
-                  else _DW[ctx.dw](g, x, ctx.w_dtype))
-        return dx, dw, None, None, None, None
+            if ctx.dw == "int8_dw":
+                dw = _dw(g, x, ctx.w_dtype, ctx.shape, split)
+            elif ctx.dw == "cols":
+                dw = _int8_dw_cols(g, x, ctx.w_dtype,
+                                   (DATA_AXIS, SEQ_AXIS) if split == "tokens" else (DATA_AXIS,))
+            else:
+                dw = _count_once(_bf16_dw(g, x, ctx.w_dtype), split)
+        return _count_once(dx, split), dw, None, None, None, None
 
 
 def linear_int8_base(p, x: torch.Tensor) -> torch.Tensor:
@@ -293,6 +369,16 @@ SWITCHBACK_MIN_DIM = 512
 INT8_CONV_MIN_CH = 256
 
 _NOT_LINEAR = ("embedding", "embeddings", "logit_scale", "position_embedding")
+
+
+def global_dw_paths(flat_params: Dict[str, torch.Tensor], dit_quant: str,
+                    layout: Optional[dict] = None) -> Tuple[str, ...]:
+    """The trainable leaves whose gradient every rank computes whole
+    (``GLOBAL_DW``): the SwitchBack weights of ``int8_dw`` and
+    ``int8_full``; none for the other modes."""
+    if dit_quant not in ("int8_dw", "int8_full"):
+        return ()
+    return switchback_cache_paths(flat_params, layout)
 
 
 def switchback_cache_paths(flat_params: Dict[str, torch.Tensor],

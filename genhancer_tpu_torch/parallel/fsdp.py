@@ -13,7 +13,9 @@ inserts the collectives; here:
     DiT's remat) runs the gather again in the recompute;
   * the gathered tensor's gradient is reduce-scattered over the data axis
     (``_Gather``'s backward), so the leaf's ``.grad`` is the rank's block
-    of the global batch's gradient and takes no further all-reduce;
+    of the global batch's gradient and takes no further all-reduce; a leaf
+    whose gradient every rank computes whole (``whole_grad``: the int8 dW
+    of the global rows, ``core.quant``) keeps its block of it instead;
   * the optimizer updates the rank's block: its moments live on the block,
     so FSDP implies ZeRO-1 for those leaves (``mesh.row_range`` is not
     applied to them, as JAX's ``shard_over_data`` skips sharded leaves).
@@ -90,20 +92,25 @@ def validate_fsdp(cfg) -> None:
 
 class _Gather(torch.autograd.Function):
     """The data axis's blocks of a leaf concatenated along ``dim``; the
-    gradient reduce-scattered back to the rank's block."""
+    gradient reduce-scattered back to the rank's block (``whole``: the
+    gradient is the global one on every rank already, and the rank keeps
+    its block of it)."""
 
     @staticmethod
-    def forward(ctx, block, dim):
-        ctx.dim = dim
+    def forward(ctx, block, dim, whole):
+        ctx.dim, ctx.whole = dim, whole
         return mesh.all_gather_dim(block, dim, DATA_AXIS)
 
     @staticmethod
     def backward(ctx, g):
-        return mesh.reduce_scatter_dim(g, ctx.dim, DATA_AXIS), None
+        if ctx.whole:
+            n = g.shape[ctx.dim] // mesh.data_size()
+            return g.narrow(ctx.dim, mesh.data_rank() * n, n).contiguous(), None, None
+        return mesh.reduce_scatter_dim(g, ctx.dim, DATA_AXIS), None, None
 
 
-def gather(block: torch.Tensor, dim: int) -> torch.Tensor:
-    return _Gather.apply(block, dim)
+def gather(block: torch.Tensor, dim: int, whole: bool = False) -> torch.Tensor:
+    return _Gather.apply(block, dim, whole)
 
 
 class _Sharded:
@@ -116,7 +123,7 @@ class _Sharded:
         dims = self.__dict__.get("_fsdp_dims")
         if dims is not None and name in dims:
             leaf = self._parameters[name] if name in self._parameters else self._buffers[name]
-            return gather(leaf, dims[name])
+            return gather(leaf, dims[name], name in self.__dict__.get("_fsdp_whole", ()))
         return super().__getattr__(name)
 
 
@@ -133,3 +140,13 @@ def shard_leaf(module: torch.nn.Module, name: str, dim: int) -> None:
         module.__class__ = _CLASSES[cls]
         object.__setattr__(module, "_fsdp_dims", {})
     module._fsdp_dims[name] = dim
+
+
+def whole_grad(module: torch.nn.Module, name: str) -> None:
+    """The FSDP leaf ``module.<name>`` takes a gradient that every rank
+    computes whole: its gather keeps the rank's block of it."""
+    whole = module.__dict__.get("_fsdp_whole")
+    if whole is None:
+        whole = set()
+        object.__setattr__(module, "_fsdp_whole", whole)
+    whole.add(name)

@@ -23,7 +23,9 @@ one process with one device, and the step calls the collectives itself:
 
 The int8 scales that span a batch (a conv's per-tensor amax, the per-column
 amax of the int8 dW over the tokens) are the global batch's
-(``all_reduce_max``).  Only collectives that gloo implements for CUDA
+(``all_reduce_max``, over the data and seq axes where the rows span both),
+and K8 runs on the rows gathered in one process's order
+(``all_gather_dim`` over data, ``gather_tokens`` over seq).  Only collectives that gloo implements for CUDA
 tensors are used
 (``all_reduce``, ``broadcast``, ``all_gather`` into a list), and the
 point-to-point ``rotate`` copies a CUDA tensor to the host on gloo, so a
@@ -59,6 +61,7 @@ stages a CUDA tensor through the host.
 
 from __future__ import annotations
 
+import datetime
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -99,11 +102,12 @@ class Mesh:
 _MESH: Optional[Mesh] = None
 
 
-def maybe_initialize_distributed(device) -> None:
+def maybe_initialize_distributed(device, timeout_s: Optional[float] = None) -> None:
     """Join the process group the launcher's environment describes, on
     ``device`` (the rank's card, or the CPU); return at once when a group
     is already initialised (a harness that joined one itself) or when the
-    environment names none (one process)."""
+    environment names none (one process).  ``timeout_s``: the group's
+    timeout for a collective (the default's otherwise)."""
     if not dist.is_available() or dist.is_initialized():
         return
     coord = os.environ.get("GENHANCER_COORDINATOR")
@@ -118,8 +122,9 @@ def maybe_initialize_distributed(device) -> None:
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=init,
-                            world_size=world, rank=rank_)
+                            world_size=world, rank=rank_, **kw)
 
 
 def is_distributed() -> bool:
@@ -353,24 +358,57 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_B
                 t.copy_(part.view_as(t))
 
 
+def _axes(group) -> Tuple[str, ...]:
+    return (group,) if isinstance(group, str) else tuple(group)
+
+
 @torch.no_grad()
-def all_reduce_max(t: torch.Tensor, group: str = DATA_AXIS) -> torch.Tensor:
-    """``t``'s elementwise maximum over ``group``'s axis, in place
-    (returned): a scale that spans the batch (an int8 amax over a whole
-    call, or over a column's tokens) is the global batch's, as XLA takes it
-    over the data axis; a row that spans the model axis, the whole row's."""
-    pg, size, _ = _axis(group)
-    if size > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=pg)
+def all_reduce_max(t: torch.Tensor, group=DATA_AXIS) -> torch.Tensor:
+    """``t``'s elementwise maximum over ``group``'s axis (or over each axis
+    of a tuple in turn), in place (returned): a scale that spans the batch
+    (an int8 amax over a whole call, or over a column's tokens) is the
+    global batch's, as XLA takes it over the data and seq axes; a row that
+    spans the model axis, the whole row's.  An empty ``t`` (every rank of
+    the group holds no rows alike) skips the collective."""
+    for axis in _axes(group):
+        pg, size, _ = _axis(axis)
+        if size > 1 and t.numel():
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=pg)
     return t
 
 
-def all_reduce_(t: torch.Tensor, group: str) -> torch.Tensor:
-    """``t`` summed over ``group``'s axis, in place (returned)."""
-    pg, size, _ = _axis(group)
-    if size > 1:
-        dist.all_reduce(t, group=pg)
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``'s axis (or each axis of a tuple), in
+    place (returned); an empty ``t`` skips the collective."""
+    for axis in _axes(group):
+        pg, size, _ = _axis(axis)
+        if size > 1 and t.numel():
+            dist.all_reduce(t, group=pg)
     return t
+
+
+def gather_tokens(a: torch.Tensor, group: str = SEQ_AXIS, keep_pad: bool = False
+                  ) -> torch.Tensor:
+    """Every rank's tokens of a [B, n_r, ...] tensor on ``group``'s axis,
+    concatenated along dim 1 in axis order: the seq ranks' chunks of one
+    stream back in one process's token order.  The ranks' ``n_r`` may
+    differ (a chunk of [txt; img] holds a share of each stream, maybe
+    none): each chunk is padded to the largest for the gather and its pad
+    rows are dropped (``keep_pad`` keeps them, a planted fault for the
+    tests).  ``a`` itself on one rank."""
+    pg, size, _ = _axis(group)
+    if size == 1:
+        return a
+    n = torch.tensor([a.shape[1]], dtype=torch.int64, device=a.device)
+    counts = [int(c) for c in all_gather_dim(n, 0, group)]
+    c = max(counts)
+    if a.shape[1] < c:
+        a = torch.cat([a, a.new_zeros((a.shape[0], c - a.shape[1]) + tuple(a.shape[2:]))],
+                      dim=1)
+    a = a.contiguous()
+    parts = [torch.empty_like(a) for _ in range(size)]
+    dist.all_gather(parts, a, group=pg)
+    return torch.cat(parts if keep_pad else [p[:, :k] for p, k in zip(parts, counts)], dim=1)
 
 
 def all_gather_dim(t: torch.Tensor, dim: int, group: str) -> torch.Tensor:

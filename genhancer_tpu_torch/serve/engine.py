@@ -25,6 +25,27 @@ Float32 matmuls and convolutions run in full float32: the engine turns
 TF32 off for both (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32``), so the float32 VAE is not silently
 TF32.
+
+Several cards (``num_devices`` > 1 or ``model_parallel`` > 1, JAX
+``engine.py:57-141``): the engine is one process per card, in the process
+group that torchrun's environment describes (``parallel.mesh``), on the
+(data, model) mesh of the trainer (``--model_parallel`` alone implies
+``num_devices = model_parallel``; any other world size raises).  Rank 0
+serves: for each batch it broadcasts the operation, the bucket, the seed
+and the wire batch (``_run``), and the other ranks answer in ``follow``
+until ``stop``.  Buckets round up to multiples of the data axis's size;
+each data rank runs its rows of the bucket, the whole bucket's NHWC noise
+drawn from one generator (``mesh.randn_rows``), so the result is one
+process's for the same seed; rank 0 gathers the rows.  The DiT is placed
+with the trainer's TP layout (``parallel.layout.place``) and its
+forward's collectives are the trainer's; the tower and the VAE are
+replicated.  Under ``quant="int8"`` every weight is quantized whole and
+then sharded like the weight it replaces (a row-parallel weight keeps its
+whole rows' scales), and the int32 products are summed over the model axis
+before the dequantization (``core.quant``), so the codes are one
+process's.  A failure on any rank fails the requests: a rank that dies
+leaves rank 0's next collective to the group's timeout, which raises, and
+the engine then refuses every later request.
 """
 
 from __future__ import annotations
@@ -39,6 +60,7 @@ import torch
 
 from ..core import quant as quant_m
 from ..models import dit as dit_m
+from ..parallel import mesh as mesh_m
 from ..models import vae as vae_m
 from ..tasks.conditioning import image_conditioning, normalize, tower_features, tower_stats
 from ..train import flow
@@ -104,11 +126,27 @@ class InferenceEngine:
         if quant not in ("none", "int8"):
             raise ValueError(f"quant must be none|int8, got {quant!r}")
         self.quant = quant
-        if int(num_devices) > 1 or int(model_parallel) > 1:
-            raise NotImplementedError(
-                "multi-device serving (num_devices / model_parallel > 1) is not "
-                "ported yet (ROADMAP: multi-device serving)")
-        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        self.mesh, self.layout, self._failed, self._stopped = None, {}, None, False
+        tp = int(model_parallel)
+        # --model_parallel alone implies that many devices (dp 1 x tp N)
+        n = max(int(num_devices), tp)
+        dp = 1
+        if n > 1:
+            from ..parallel import tp as tp_m
+            if not mesh_m.is_distributed() or mesh_m.world_size() != n:
+                raise ValueError(
+                    f"num_devices={n} (model_parallel={tp}) serves as {n} processes, one "
+                    f"card each, in one process group; this process's group has "
+                    f"{mesh_m.world_size()}: launch them with torchrun (python -m "
+                    f"torch.distributed.run --nproc_per_node {n} -m "
+                    f"genhancer_tpu_torch.cli.serve ... --num_devices {n} "
+                    f"--model_parallel {tp})")
+            tp_m.validate_tp(spec.dit_cfg, tp)
+            self.mesh = mesh_m.make_mesh(tp)
+            self.device = mesh_m.rank_device(self.device)
+            dp = mesh_m.data_size()
+        # every data rank holds equal rows: buckets round up to multiples of dp
+        self.buckets = tuple(sorted(set(-(-int(b) // dp) * dp for b in buckets)))
         if not self.buckets:
             raise ValueError("at least one batch bucket required")
         self.max_batch = self.buckets[-1]
@@ -117,8 +155,12 @@ class InferenceEngine:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.modules = modules.to(self.device).eval().requires_grad_(False)
-        # the module paths swapped for int8 ones, by tree ({} without int8)
+        # the module paths swapped for int8 ones, by tree ({} without int8):
+        # whole weights first, then sharded like the weights they replace
         self.int8_layers = quantize_int8(self.modules) if quant == "int8" else {}
+        if tp > 1:
+            from ..parallel.layout import place
+            self.layout = place(self.modules, tp, hidden=spec.dit_cfg.hidden_size)
         self._lock = threading.Lock()
         # unseeded noise must differ across restarts and replicas
         self._gen = torch.Generator(device=self.device)
@@ -181,6 +223,90 @@ class InferenceEngine:
                                     spec.tower_cfg)
         return cls_tok.to(torch.float32)
 
+    # ------------------------------------------------------------ the mesh
+
+    _OPS = ("stop", "reconstruct", "embed")
+
+    def _compute(self, op: str, batch: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
+        """One bucket on this rank: its data index's rows of ``batch`` (the
+        whole bucket, on the device), the noise of the whole bucket drawn
+        from ``seed`` (a one-process engine: its own generator for None),
+        the rows of every data rank gathered back (every rank)."""
+        b = batch.shape[0]
+        if self.mesh is None:
+            if op == "embed":
+                return self._embed(batch)
+            return self._recon(batch, self._noise(b, seed))
+        rows = mesh_m.local_rows(batch)
+        if op == "embed":
+            out = self._embed(rows)
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+            noise = mesh_m.randn_rows((rows.shape[0], self._lat_h, self._lat_w,
+                                       self.spec.vae_cfg.z_channels), gen, device=self.device)
+            out = self._recon(rows, noise)
+        return mesh_m.all_gather_dim(out, 0, mesh_m.DATA_AXIS)
+
+    def _wire_torch_dtype(self) -> torch.dtype:
+        return torch.uint8 if self.wire_dtype == "uint8" else torch.float32
+
+    def _broadcast(self, op: str, batch: Optional[torch.Tensor], seed: int):
+        """Rank 0: the operation, the bucket, the seed and the wire batch to
+        every rank (a collective)."""
+        head = torch.tensor([self._OPS.index(op), 0 if batch is None else batch.shape[0],
+                             seed], dtype=torch.int64, device=self.device)
+        mesh_m.broadcast_from(head, 0, "world")
+        if batch is not None:
+            mesh_m.broadcast_from(batch.contiguous(), 0, "world")
+
+    def _run(self, op: str, wire: np.ndarray, seed: Optional[int]) -> np.ndarray:
+        """One bucket through the engine (the lock held): on a mesh rank 0
+        sends it to every rank first; a failure marks the engine failed."""
+        if self._failed is not None:
+            raise RuntimeError(f"the serving group failed earlier ({self._failed}); "
+                               "restart every rank")
+        batch = self._place(wire)
+        try:
+            if self.mesh is not None:
+                if seed is None:     # rank 0's draw, the same on every rank
+                    seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._gen,
+                                             device=self.device))
+                self._broadcast(op, batch, int(seed))
+                self._stopped = False
+            return self._compute(op, batch, seed).cpu().numpy()
+        except Exception as e:
+            if self.mesh is not None:
+                self._failed = repr(e)[:200]
+            raise
+
+    @torch.inference_mode()
+    def follow(self) -> None:
+        """A rank other than 0: answer rank 0's broadcasts until ``stop``."""
+        if self.mesh is None or mesh_m.rank() == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a mesh engine")
+        s = self.spec.img_size
+        while True:
+            head = torch.empty(3, dtype=torch.int64, device=self.device)
+            mesh_m.broadcast_from(head, 0, "world")
+            op, b, seed = (int(v) for v in head.tolist())
+            if self._OPS[op] == "stop":
+                return
+            batch = torch.empty((b, s, s, 3), dtype=self._wire_torch_dtype(), device=self.device)
+            mesh_m.broadcast_from(batch, 0, "world")
+            self._compute(self._OPS[op], batch, seed)
+
+    def stop(self) -> None:
+        """Rank 0 of a mesh engine: release the followers from ``follow``
+        (a collective; again only after another request).  Nothing to do
+        on one process."""
+        if self.mesh is None or mesh_m.rank() != 0:
+            return
+        with self._lock:
+            if self._failed is None and not self._stopped:
+                self._broadcast("stop", None, 0)
+            self._stopped = True
+
     # --------------------------------------------------------------- api
 
     def bucket_for(self, n: int) -> int:
@@ -209,20 +335,18 @@ class InferenceEngine:
         Returns [n, H, W, 3]: float32 [0,1] at the float32 wire, uint8 at the
         uint8 wire."""
         n = images01.shape[0]
-        b = self.bucket_for(n)
-        batch = self._place(_pad_to(self._wire(images01), b))
+        wire = _pad_to(self._wire(images01), self.bucket_for(n))
         with self._lock:
-            out = self._recon(batch, self._noise(b, seed)).cpu().numpy()
+            out = self._run("reconstruct", wire, seed)
         return out[:n]
 
     def embed(self, images01: np.ndarray) -> np.ndarray:
         """images01: [n, H, W, 3] -> [n, D] tower class tokens (float32):
         ``visual_projection(pooler)`` for CLIP, MAP-pooled for SigLIP."""
         n = images01.shape[0]
-        b = self.bucket_for(n)
-        batch = self._place(_pad_to(self._wire(images01), b))
+        wire = _pad_to(self._wire(images01), self.bucket_for(n))
         with self._lock:
-            out = self._embed(batch).cpu().numpy()
+            out = self._run("embed", wire, None)
         return out[:n]
 
     def warmup(self, endpoints: Sequence[str] = ("reconstruct", "embed")):
@@ -247,13 +371,16 @@ class InferenceEngine:
         random-init from a generator seeded with the config's ``seed``, the
         tower from ``clip_config.model_dir`` where that names an HF
         directory; with ``load_dir``/``load_step`` the stage-1 DiT and
-        projector ``.bin`` files are loaded over them."""
+        projector ``.bin`` files are loaded over them.  On a mesh every
+        rank loads them, on its own card, before the engine places them."""
         from ..tasks import factory
         from ..tasks.image import init_modules
         from ..train.checkpoint import load_stage1_components
         from ..train.config import load_config
 
         device = resolve_device(device)
+        if mesh_m.is_distributed():
+            device = mesh_m.rank_device(device)
         if isinstance(cfg, str):
             cfg = load_config(cfg)
         cfg.setdefault("task", "image_stage1")

@@ -197,3 +197,6 @@ class ServeApp:
             self._server.server_close()
         for b in self.batchers.values():
             b.close()
+        stop = getattr(self.engine, "stop", None)
+        if stop is not None:    # a mesh engine's followers: released
+            stop()

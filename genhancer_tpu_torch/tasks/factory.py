@@ -22,8 +22,8 @@ parallelism (``pipeline_parallel`` with ``pipeline_microbatches``,
 ``parallel.pp``) are ported; the rank's data index and the data axis's
 size split the loaders' shards (``node_index``/``node_count``).  The
 compositions JAX rejects raise its ``ValueError``s
-(``validate_parallelism``); ``sequence_parallel`` with ``dit_quant`` raises
-``NotImplementedError`` (ROADMAP: parallelism, part 3b).
+(``validate_parallelism``); ``sequence_parallel`` composes with
+``dit_quant``, as in JAX.
 """
 
 from __future__ import annotations
@@ -71,10 +71,8 @@ TOWER_REMAT_TOKENS = 6144
 def validate_parallelism(cfg, dit_cfg=None) -> None:
     """``validate_parallelism`` (``factory.py:66-103``): the compositions the
     JAX package rejects raise its ``ValueError`` at config time, before any
-    weights load; then ``sequence_parallel`` with ``dit_quant``, which this
-    port does not drive yet, raises ``NotImplementedError``, and
-    ``num_devices``, where set, must equal the world size (one device per
-    rank)."""
+    weights load; then ``num_devices``, where set, must equal the world
+    size (one device per rank)."""
     tp = int(cfg.get("model_parallel", 1) or 1)
     sp = int(cfg.get("sequence_parallel", 1) or 1)
     pp = int(cfg.get("pipeline_parallel", 1) or 1)
@@ -105,7 +103,6 @@ def validate_parallelism(cfg, dit_cfg=None) -> None:
         raise ValueError(
             f"pipeline_parallel={pp} must divide both depth={dit_cfg.depth} "
             f"and depth_single_blocks={dit_cfg.depth_single_blocks}")
-    image_task.refuse_sp_quant(sp, cfg.get("dit_quant", "none"))
     n = cfg.get("num_devices")
     if n and int(n) != mesh.world_size():
         raise ValueError(

@@ -55,8 +55,10 @@ token count (``flow.mse_loss``'s ``tokens``); with ``pipeline_parallel``
 the DiT runs as ``parallel.pp.pipeline_dit_forward`` with
 ``pipeline_microbatches`` (0: one per stage).  Both need the mesh
 (``parallel.mesh.make_mesh``) with the matching axis, else JAX's
-``ValueError``; PP with ``dit_quant`` raises JAX's ``ValueError``, SP with
-it ``NotImplementedError`` (ROADMAP: parallelism, part 3b).
+``ValueError``; PP with ``dit_quant`` raises JAX's ``ValueError``.  SP with
+``dit_quant`` runs the int8 DiT on the rank's tokens: the scales and K8's
+blocks that span tokens are taken over every seq rank's (``core.quant``),
+so each SwitchBack call is one process's.
 
 An int8 SigLIP tower and remat raise ``NotImplementedError``, naming
 ROADMAP.
@@ -81,7 +83,8 @@ from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
 from ..parallel.mesh import data_size, local_rows, randn_rows
 from ..train import flow, lora
-from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
+from ..train.state import (TrainState, apply_gradients, create_state, mark_whole_grads,
+                           with_quant_cache)
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning,
                            image_conditioning_from_cls, normalize, tower_features,
@@ -342,15 +345,6 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
     return loss_fn
 
 
-def refuse_sp_quant(sp: int, dit_quant: str) -> None:
-    """SP with ``dit_quant`` is not ported (ROADMAP: parallelism, part 3b)."""
-    if sp > 1 and dit_quant != "none":
-        raise NotImplementedError(
-            f"sequence_parallel: {sp} with dit_quant: {dit_quant} is not ported yet "
-            "(ROADMAP: parallelism, part 3b): K8's 512-row blocks and int8_full's "
-            "per-column dW amax span the token axis that SP splits")
-
-
 def ring_ctx_factory(spec, mesh):
     """``_ring_ctx_factory:284-300`` (image and video specs): a () ->
     context opening the ring scope under ``sequence_parallel`` (a null one
@@ -365,7 +359,6 @@ def ring_ctx_factory(spec, mesh):
             "it with make_mesh(sequence_parallel=N))")
     if mesh.sp != sp:
         raise ValueError(f"mesh seq axis {mesh.sp} != spec.sequence_parallel={sp}")
-    refuse_sp_quant(sp, spec.dit_quant)
     from ..parallel import ring
     return ring.ring_scope
 
@@ -439,6 +432,7 @@ def create_task_state(generator: torch.Generator, spec: TaskSpec, optimizer,
                       device=None) -> TrainState:
     modules = init_modules(spec, generator, device=device)
     state = create_state(modules, trainable_predicate(spec, modules), optimizer)
+    mark_whole_grads(state, spec.dit_quant)
     if spec.dit_quant_cache and spec.dit_quant != "none":
         # the forward reads the int8 copies instead of quantizing W each step
         state = with_quant_cache(state)

@@ -61,7 +61,8 @@ from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
 from ..parallel.mesh import data_size, local_rows, randn_rows
 from ..train import flow, lora
-from ..train.state import TrainState, apply_gradients, create_state, with_quant_cache
+from ..train.state import (TrainState, apply_gradients, create_state, mark_whole_grads,
+                           with_quant_cache)
 from ..train.step_utils import take_grad
 from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
                            video_conditioning)
@@ -304,6 +305,7 @@ def create_task_state(generator: torch.Generator, spec: VideoTaskSpec, optimizer
                       device=None) -> TrainState:
     modules = init_modules(spec, generator, device=device)
     state = create_state(modules, trainable_predicate(spec, modules), optimizer)
+    mark_whole_grads(state, spec.dit_quant)
     if spec.dit_quant_cache and spec.dit_quant != "none":
         # the forward reads the int8 copies instead of quantizing W each step
         state = with_quant_cache(state)

@@ -22,6 +22,11 @@ and loaded whole): ``layout`` maps the path of each leaf that is the rank's
 block to its ``parallel.layout.Placement``, ``partial`` names the
 replicated leaves whose gradients are partial sums over the model axis
 (the QK-norm scales), and the optimizer state covers the blocks.
+
+``whole`` names the leaves whose gradient every rank computes whole, for
+the global batch (the SwitchBack weights of ``dit_quant: int8_dw`` and
+``int8_full``: K8 and the per-column int8 dW run on the rows of every
+rank, ``core.quant``): they take no data or seq sum.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ class TrainState:
     quant: Optional[dict] = None
     layout: dict = field(default_factory=dict)
     partial: Tuple[str, ...] = ()
+    whole: Tuple[str, ...] = ()
 
 
 def partition(modules: tnn.Module, trainable_pred: Callable[[str], bool]):
@@ -96,6 +102,19 @@ def place_state(state: TrainState, optimizer, tp: int = 1, fsdp: bool = False,
     state.opt_state = optimizer.init({k: v.detach() for k, v in state.trainable.items()},
                                      layout={k: v for k, v in state.layout.items()
                                              if k in state.trainable})
+    for k in state.whole:           # an FSDP block of a whole gradient: sliced, not summed
+        pl = state.layout.get(k)
+        if pl is not None and pl.dim(mesh.DATA_AXIS) is not None:
+            parent, _, name = k.rpartition(".")
+            fsdp_m.whole_grad(state.modules.get_submodule(parent), name)
+    return state
+
+
+def mark_whole_grads(state: TrainState, dit_quant: str) -> TrainState:
+    """Name the state's ``whole`` leaves for ``dit_quant`` (before
+    ``place_state``, which reads them)."""
+    from ..core.quant import global_dw_paths
+    state.whole = global_dw_paths(state.trainable, dit_quant, state.layout)
     return state
 
 
@@ -123,8 +142,9 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     the seq axis.  Pipeline parallel: a block's gradient lives on its stage
     (``parallel.pp``), so the blocks are also summed over the pipe axis; the
     prologue's, the final layer's and the loss are whole on every pipe rank
-    and count once.  The norm is then taken on the reduced gradients, each
-    leaf whole and once."""
+    and count once.  The ``whole`` leaves (the global batch's gradient on
+    every rank already) take no data or seq sum.  The norm is then taken on
+    the reduced gradients, each leaf whole and once."""
     if mesh.is_distributed():
         reduce_gradients(state, grads, loss)
     params = {k: v.detach() for k, v in state.trainable.items()}
@@ -146,15 +166,18 @@ def reduce_gradients(state: TrainState, grads: Dict[str, torch.Tensor],
                      loss: Optional[torch.Tensor] = None) -> None:
     """The sums of ``apply_gradients`` over the mesh's axes, in place: the
     data axis (not the FSDP blocks), the model axis (the ``partial``
-    leaves), the seq axis (everything) and the pipe axis (the blocks)."""
+    leaves), the seq axis (everything) and the pipe axis (the blocks); the
+    ``whole`` leaves on neither the data nor the seq axis."""
     from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS
     from ..parallel.pp import pipe_owned
     extra = [loss] if loss is not None else []
-    data = [g for k, g in grads.items()
-            if k not in state.layout or state.layout[k].dim(DATA_AXIS) is None]
+    whole = set(state.whole)
+    data = [g for k, g in grads.items() if k not in whole and (
+        k not in state.layout or state.layout[k].dim(DATA_AXIS) is None)]
     mesh.all_reduce_sum(data + extra)
     mesh.all_reduce_sum([grads[k] for k in state.partial], group=MODEL_AXIS)
-    mesh.all_reduce_sum(list(grads.values()) + extra, group=SEQ_AXIS)
+    mesh.all_reduce_sum([g for k, g in grads.items() if k not in whole] + extra,
+                        group=SEQ_AXIS)
     mesh.all_reduce_sum([g for k, g in grads.items() if pipe_owned(k)], group=PIPE_AXIS)
 
 

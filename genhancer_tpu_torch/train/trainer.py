@@ -66,12 +66,19 @@ Port of ``genhancer_tpu/train/trainer.py``, one device per process:
     parameters stay whole on every rank, rank 0 writes them, and the loss
     in the history is the global batch's (``train.state.apply_gradients``).
 
+  * ``checkpoint_backend``: ``torch`` (the default: the reference layout,
+    gathered, rank 0 writes) or ``orbax`` (``train.orbax_ckpt``: DCP files
+    in ``orbax-{step}/``, every rank writes its own blocks, no gather; a
+    resume restores them after the placement, onto the live layout; rank 0
+    prunes them; a stage-2 run still writes its HF export through the
+    torch writer), as ``genhancer_tpu/train/trainer.py:189-193, 242-251,
+    336-348`` selects them.
+
 Random draws come from one ``torch.Generator`` on the device, seeded from
 ``seed + 777`` and the step (as JAX folds the step into its key), so a
 resumed run draws what an uninterrupted one would; every rank seeds it
 alike, draws the global batch's values and keeps its rows.  Float32 matmuls
-and convolutions run in full float32 (TF32 off).  Orbax is not ported
-(ROADMAP: checkpoint backend); its option raises.
+and convolutions run in full float32 (TF32 off).
 """
 
 from __future__ import annotations
@@ -95,6 +102,7 @@ from . import checkpoint as ckpt
 from . import optim
 from ..core.quant import refresh_static_quant_flat, static_quant_flat
 from . import lora
+from . import orbax_ckpt
 from .async_ckpt import AsyncCheckpointer
 from .state import with_quant_cache
 from .step_utils import make_accum_train_step, merge_extras, stack_microbatches
@@ -171,9 +179,9 @@ class Trainer:
     def __init__(self, cfg, profile: bool = False, device="cuda"):
         self.cfg = cfg
         self.profile = profile
-        if str(cfg.get("checkpoint_backend", "torch")) != "torch":
-            raise NotImplementedError("checkpoint_backend: orbax is not ported yet "
-                                      "(ROADMAP: checkpoint backend and planner)")
+        self.ckpt_backend = str(cfg.get("checkpoint_backend", "torch"))
+        if self.ckpt_backend not in ("torch", "orbax"):
+            raise ValueError(f"checkpoint_backend must be torch|orbax, got {self.ckpt_backend!r}")
         self.device = mesh.rank_device(resolve_device(device))
         mesh.maybe_initialize_distributed(self.device)
         self.is_main = mesh.rank() == 0
@@ -226,11 +234,17 @@ class Trainer:
                         self.spec.dit_cfg.hidden_size)
             log.info("placed %d leaves on the (data %d, model %d) mesh",
                      len(self.state.layout), mesh.data_size(), mesh.model_size())
-        if cfg.get("resume_from_checkpoint") == "latest":
+        if cfg.get("resume_from_checkpoint") == "latest" and self.ckpt_backend == "torch":
             before = self.state.step
             ckpt.resume_latest(self.state, self.output_dir, self.ckpt_kind)
             if self.state.step != before:
                 log.info("resumed from step %d", self.state.step)
+        if cfg.get("resume_from_checkpoint") == "latest" and self.ckpt_backend == "orbax":
+            # after the placement: each rank restores its own blocks
+            latest = orbax_ckpt.latest_step(self.output_dir)
+            if latest is not None and latest > self.state.step:
+                orbax_ckpt.restore_sharded(self.state, self.output_dir, latest)
+                log.info("resumed (orbax) from step %d", latest)
         # QLoRA's and the static DiT's int8 factors were derived at init:
         # re-derive them from the (possibly loaded) masters
         refreshed = refresh_static_quant_flat(static_quant_flat(self.state.modules),
@@ -308,17 +322,31 @@ class Trainer:
         depend on the writer), and hand the writing to ``ckpt_writer``.  The
         int8 weight caches are non-persistent buffers: never snapshotted.
         Every rank gathers the ZeRO-1 moments and the TP and FSDP blocks
-        (collectives); rank 0 alone snapshots and writes."""
-        optimizer = ckpt.optimizer_state_dict(self.state)
-        components = ckpt.stage1_state_dicts(self.state, self.ckpt_kind)
+        (collectives); rank 0 alone snapshots and writes.  The orbax
+        backend instead writes every rank's blocks now (a collective, no
+        gather) and rank 0 prunes; a stage-2 run then still hands its HF
+        export to the writer."""
         stage2 = self.spec.stage.startswith("stage2")
+        orbax = self.ckpt_backend == "orbax"
+        self._last_saved = step
+        self.saved_steps.append(step)
+        if orbax:
+            orbax_ckpt.save_sharded(self.state, self.output_dir, step)
+            limit = int(self.cfg.get("checkpoints_total_limit") or 0)
+            if self.is_main and limit:
+                pruned = orbax_ckpt.prune(self.output_dir, limit)
+                if pruned:
+                    log.info("pruned old orbax checkpoints: %s", pruned)
+            log.info("saved orbax checkpoint at step %d", step)
+            if not stage2:
+                return
+        optimizer = None if orbax else ckpt.optimizer_state_dict(self.state)
+        components = None if orbax else ckpt.stage1_state_dicts(self.state, self.ckpt_kind)
         tower = self.state.modules["clip"]["model"] if stage2 else None
         tower_sd = None
         if stage2 and any(k.startswith("clip.model.") for k in self.state.layout):
             from ..parallel.layout import full_state_dict
             tower_sd = full_state_dict(tower, self.state.layout, "clip.model.")
-        self._last_saved = step
-        self.saved_steps.append(step)
         if not self.is_main:
             return
         tree = {"components": components, "optimizer": optimizer}
@@ -328,14 +356,15 @@ class Trainer:
         base_config = self.spec.tower_cfg.to_hf() if stage2 else None
 
         def write(snap):
-            ckpt.write_stage1(snap["components"], snap["optimizer"], out_dir, step, kind)
+            if not orbax:
+                ckpt.write_stage1(snap["components"], snap["optimizer"], out_dir, step, kind)
             if stage2:
                 ckpt.write_hf_tower(snap["tower"],
                                     os.path.join(out_dir, hf_export_name(cfg, step)),
                                     base_config=base_config,
                                     base_model_dir=cfg.get_path("clip_config.model_dir"))
             limit = int(cfg.get("checkpoints_total_limit") or 0)
-            if limit:
+            if limit and not orbax:
                 pruned = ckpt.prune_checkpoints(out_dir, limit)
                 if pruned:
                     log.info("pruned old checkpoints: %s", pruned)

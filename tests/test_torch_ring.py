@@ -269,12 +269,15 @@ def test_sp_controls_miss(sp_refs, tmp_path, control, task):
 # ----------------------------------------------------------- validation
 
 def test_sp_needs_the_mesh_and_refuses_dit_quant(jax_init):  # noqa: F811
+    """SP needs the mesh; with ``dit_quant`` it builds, as JAX's
+    ``validate_parallelism`` lets it (the int8 step under SP is held by
+    tests/test_torch_sp_int8.py)."""
     _, ps = _specs("float32")
     opt = ptest._Recorder(None)
     with pytest.raises(ValueError, match="needs the mesh"):
         timage.make_train_step(dataclasses.replace(ps, sequence_parallel=2), opt)
-    with pytest.raises(NotImplementedError, match="parallelism, part 3b"):
-        factory.build_spec(_cfg(sequence_parallel=2, dit_quant="int8_dw"))
+    spec, _, _ = factory.build_spec(_cfg(sequence_parallel=2, dit_quant="int8_dw"))
+    assert (spec.sequence_parallel, spec.dit_quant) == (2, "int8_dw")
 
 
 # ----------------------------------------------------------- the Trainer

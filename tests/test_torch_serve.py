@@ -144,14 +144,16 @@ class TestEngine:
         assert out.dtype == np.uint8 and out.shape == (1, 32, 32, 3)
         assert eng.embed(np.zeros((2, 32, 32, 3), np.uint8)).dtype == np.float32
 
-    @pytest.mark.parametrize("kw, exc", [
-        ({"wire_dtype": "bf16"}, ValueError),
-        ({"quant": "fp8"}, ValueError),
-        ({"num_devices": 2}, NotImplementedError),
-        ({"model_parallel": 2}, NotImplementedError),
+    @pytest.mark.parametrize("kw, exc, match", [
+        ({"wire_dtype": "bf16"}, ValueError, "wire_dtype"),
+        ({"quant": "fp8"}, ValueError, "quant"),
+        # several devices outside a process group of that size: torchrun
+        # starts one process per card (tests/test_torch_serve_mesh.py)
+        ({"num_devices": 2}, ValueError, "torchrun"),
+        ({"model_parallel": 2}, ValueError, "torchrun"),
     ])
-    def test_unported_and_bad_options_raise(self, spec, params, kw, exc):
-        with pytest.raises(exc):
+    def test_unported_and_bad_options_raise(self, spec, params, kw, exc, match):
+        with pytest.raises(exc, match=match):
             make_engine(spec, params, **kw)
 
     def test_cuda_refused_without_a_gpu(self, monkeypatch):
