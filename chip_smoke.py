@@ -3839,15 +3839,17 @@ SERVE_MESH_MAX = 5e-2
 SERVE_MESH_MEAN = 5e-3
 
 
-def _sp_int8_payload(work, variant, dit_1_1=None):
+def _sp_int8_payload(work, variant, dit_1_1=None, shards=None):
     """SP=2 on configs/tpu_fast_stage1.yaml at the published B=32:
     ``int8_full`` (K4's cache) at full width and depth, or ``int8_dw`` +
     8-bit moments (K8, K6) with the DiT cut to 1 + 1 blocks; the last
     step's SwitchBack calls (kept in host memory) held in-rank against one
-    process on the joined inputs."""
+    process on the joined inputs (K8's operands as the step built them
+    against one process's rows built from each rank's real tokens).
+    ``shards``: the image shards (``work``'s by default)."""
     from genhancer_tpu_torch.train.config import load_config
     cfg = load_config(INT8_CONFIG)
-    cfg["data_config"]["img_dir"] = os.path.join(work, "shards")
+    cfg["data_config"]["img_dir"] = shards or os.path.join(work, "shards")
     cfg.update(sequence_parallel=2, log_interval=1, report_to="none",
                output_dir=os.path.join(work, f"out-sp-{variant}"))
     over = ({} if variant == "int8_full" else
@@ -3858,48 +3860,48 @@ def _sp_int8_payload(work, variant, dit_1_1=None):
             "variants": {variant: over}}
 
 
-def _sp_int8_report(outs, wall) -> dict:
-    """Per variant and rank: every SwitchBack call of the last step within
-    SWITCHBACK_REL of one process (y, dx, dW) with the codes and scales
-    that span tokens bit for bit, token and vector calls both; the ranks'
-    losses and parameters equal; per rank per step K7, and K4
+def _sp_int8_report(outs, name, wall, beside) -> dict:
+    """Per rank of variant ``name``: every SwitchBack call of the last
+    step within SWITCHBACK_REL of one process (y, dx, dW) with the codes
+    and scales that span tokens bit for bit, token and vector calls both;
+    the ranks' losses and parameters equal; per rank per step K7, and K4
     (``int8_full``) or K8 and K6 (``int8_dw``); the planner's bytes."""
     counts = {}
-    for name in ("int8_full", "int8_dw"):
-        runs = [o["runs"][name] for o in outs]
-        for r, run in enumerate(runs):
-            h = run["held"]
-            check(h["calls"] > 0 and h["codes_equal"] == h["calls"]
-                  and max(h["worst"].values()) <= SWITCHBACK_REL
-                  and h["splits"] == ["tokens", "vector"],
-                  f"sp_int8 {name} rank {r}: SwitchBack calls against one process {h}")
-            for step, c in enumerate(run["launches"]):
-                ok = c["rowquant"] > 0 and (
-                    c["fused_adamw_quant"] > 0 if name == "int8_full"
-                    else c["int8_dw"] > 0 and c["fused_adamw8"] + c["fused_adamw8_quant"] > 0)
-                check(ok, f"sp_int8 {name} rank {r} step {step + 1}: launches {c}")
-            _plan_report(f"sp_int8 {name} rank {r}", run["plan"], run["peak_bytes"])
-        check(runs[0]["loss"] == runs[1]["loss"]
-              and runs[0]["full_params"] == runs[1]["full_params"],
-              f"sp_int8 {name}: the ranks' losses or parameters differ")
-        c = runs[0]["launches"][-1]
-        h = runs[0]["held"]
-        counts[f"sp_{name}"] = {k: sum(x[k] for x in runs[0]["launches"]) for k in c}
-        print(f"[sp_int8] {name} ({'full depth' if name == 'int8_full' else '1 + 1 blocks'}, "
-              f"B=32, SP=2, 99 and 98 tokens per rank, rank 1 without the text token): losses "
-              f"{[round(x, 5) for x in runs[0]['loss']]}; the last step's {h['calls']} "
-              f"SwitchBack calls ({', '.join(h['kinds'])}; token and vector calls) against one "
-              f"process on the joined inputs: max rel y {h['worst']['y']:.2e}, dx "
-              f"{h['worst']['dx']:.2e}, dW {h['worst']['dW']:.2e} (bound {SWITCHBACK_REL}), "
-              f"codes and scales equal in {h['codes_equal']} of {h['calls']}; per rank per step "
-              f"K7 {c['rowquant']}, K8 {c['int8_dw']}, K4 {c['fused_adamw_quant']}, K6 "
-              f"{c['fused_adamw8'] + c['fused_adamw8_quant']}, K3 {c['fused_adamw']}, K1 "
-              f"{c['fused_rope_attention']} (0: the ring takes the DiT's attention), K2 "
-              f"{c['fused_attention']}; step {statistics.median(runs[0]['step_s']) * 1e3:.1f} ms "
-              f"({GLOO_NOTE}); peak {[round(x['peak_bytes'] / 2**30, 2) for x in runs]} GiB",
-              flush=True)
-    print(f"[sp_int8] the two pairs (one per variant) and the serving pair ran at once in "
-          f"{wall:.1f} s with their starts", flush=True)
+    runs = [o["runs"][name] for o in outs]
+    for r, run in enumerate(runs):
+        h = run["held"]
+        check(h["calls"] > 0 and h["codes_equal"] == h["calls"]
+              and max(h["worst"].values()) <= SWITCHBACK_REL
+              and h["splits"] == ["tokens", "vector"],
+              f"sp_int8 {name} rank {r}: SwitchBack calls against one process {h}")
+        for step, c in enumerate(run["launches"]):
+            ok = c["rowquant"] > 0 and (
+                c["fused_adamw_quant"] > 0 if name == "int8_full"
+                else c["int8_dw"] > 0 and c["fused_adamw8"] + c["fused_adamw8_quant"] > 0)
+            check(ok, f"sp_int8 {name} rank {r} step {step + 1}: launches {c}")
+        _plan_report(f"sp_int8 {name} rank {r}", run["plan"], run["peak_bytes"])
+    check(runs[0]["loss"] == runs[1]["loss"]
+          and runs[0]["full_params"] == runs[1]["full_params"],
+          f"sp_int8 {name}: the ranks' losses or parameters differ")
+    c = runs[0]["launches"][-1]
+    h = runs[0]["held"]
+    counts[f"sp_{name}"] = {k: sum(x[k] for x in runs[0]["launches"]) for k in c}
+    held = ("K8's operands equal to one process's rows" if name == "int8_dw"
+            else "codes and scales equal")
+    print(f"[sp_int8] {name} ({'full depth' if name == 'int8_full' else '1 + 1 blocks'}, "
+          f"B=32, SP=2, 99 and 98 tokens per rank, rank 1 without the text token): losses "
+          f"{[round(x, 5) for x in runs[0]['loss']]}; the last step's {h['calls']} "
+          f"SwitchBack calls ({', '.join(h['kinds'])}; token and vector calls) against one "
+          f"process on the joined inputs: max rel y {h['worst']['y']:.2e}, dx "
+          f"{h['worst']['dx']:.2e}, dW {h['worst']['dW']:.2e} (bound {SWITCHBACK_REL}), "
+          f"{held} in {h['codes_equal']} of {h['calls']}; per rank per step "
+          f"K7 {c['rowquant']}, K8 {c['int8_dw']}, K4 {c['fused_adamw_quant']}, K6 "
+          f"{c['fused_adamw8'] + c['fused_adamw8_quant']}, K3 {c['fused_adamw']}, K1 "
+          f"{c['fused_rope_attention']} (0: the ring takes the DiT's attention), K2 "
+          f"{c['fused_attention']}; step {statistics.median(runs[0]['step_s']) * 1e3:.1f} ms "
+          f"({GLOO_NOTE}); peak {[round(x['peak_bytes'] / 2**30, 2) for x in runs]} GiB",
+          flush=True)
+    print(f"[sp_int8] the {name} pair ran {beside} in {wall:.1f} s with its start", flush=True)
     return counts
 
 
@@ -3977,18 +3979,19 @@ def _nonzero(c) -> dict:
 
 
 def phase_sp_int8_serve(work):
-    """SP with the int8 DiT and multi-device serving, on gloo ranks sharing
-    the card, after the one-process engines in this process: three pairs
-    at once, the full-depth SP pair and the 1 + 1-block one
-    (``_sp_int8_payload``) and the serving pair (``_serve_mesh_payload``;
-    the SP pairs keep their records in host memory, so the card holds all
-    three).  Returns {path: launch counts}."""
+    """SP with the int8 DiT at 1 + 1 blocks and multi-device serving, on
+    gloo ranks sharing the card, after the one-process engines in this
+    process: two pairs at once, the ``int8_dw`` SP pair
+    (``_sp_int8_payload``; its records in host memory) and the serving
+    pair (``_serve_mesh_payload``).  The full-depth ``int8_full`` SP pair
+    runs beside the int8 training phases (``sp_int8_full_start``).
+    Returns {path: launch counts}."""
     import numpy as np
     from genhancer_tpu_torch.serve.engine import InferenceEngine
     check(os.path.isdir(os.path.join(work, "shards")), "sp_int8: no shards")
     _free()
-    check(_meminfo_gib("MemAvailable") >= HOST_ROOM_GIB * 1.5,
-          f"sp_int8: host MemAvailable below {HOST_ROOM_GIB * 1.5} GiB for three pairs: "
+    check(_meminfo_gib("MemAvailable") >= HOST_ROOM_GIB,
+          f"sp_int8: host MemAvailable below {HOST_ROOM_GIB} GiB for two pairs: "
           f"{_host_memory()}")
     print(f"[sp_int8] before the launches: {_host_memory()}", flush=True)
     rng = np.random.default_rng(21)
@@ -4012,21 +4015,43 @@ def phase_sp_int8_serve(work):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     with _Wave() as wave:
         t0 = time.perf_counter()
-        la = wave.start(work, "sp-int8-full", _sp_int8_payload(work, "int8_full"), 2,
-                        timeout=600)
         ld = wave.start(work, "sp-int8-dw", _sp_int8_payload(work, "int8_dw", dit_1_1), 2,
                         timeout=600)
         lb = wave.start(work, "serve-mesh", _serve_mesh_payload(img, rgb), 2, timeout=600)
         served = wave.join(lb)[0]
         print(f"[serve_mesh] four engines on one pair (dp=2, its control, tp=2, int8 tp=2) "
-              f"beside the SP pairs in {time.perf_counter() - t0:.1f} s", flush=True)
+              f"beside the int8_dw SP pair in {time.perf_counter() - t0:.1f} s", flush=True)
         counts.update(_serve_mesh_report("dp2", served[0], served[1], ref["none"]))
         counts.update(_serve_mesh_report("tp2", served[2], served[3], ref["none"],
                                          ref["int8"]["reconstruct"]))
-        full, dw = wave.join(la), wave.join(ld)
-        counts.update(_sp_int8_report([{"runs": {**a["runs"], **b["runs"]}}
-                                       for a, b in zip(full, dw)], time.perf_counter() - t0))
+        counts.update(_sp_int8_report(wave.join(ld), "int8_dw", time.perf_counter() - t0,
+                                      "beside the serving pair"))
     return counts
+
+
+def sp_int8_full_start(wave, work):
+    """Launch the full-depth ``int8_full`` SP pair (``_sp_int8_payload``,
+    its records in host memory) in ``wave``, on shards of its own, so that
+    it runs beside the int8 training phases (their peaks, 17 and 21 GiB,
+    leave the card room for its two ranks of 13.4 GiB); returns (the
+    launch, its start time)."""
+    check(_meminfo_gib("MemAvailable") >= HOST_ROOM_GIB,
+          f"sp_int8: host MemAvailable below {HOST_ROOM_GIB} GiB for a pair: {_host_memory()}")
+    shards = _write_shards(os.path.join(work, "sp-shards"), n_shards=1)
+    print(f"[sp_int8] the int8_full SP pair starts; it shares the card and the host with "
+          f"phase_train_int8 and phase_fast_stage2 until it joins ({_host_memory()})", flush=True)
+    t0 = time.perf_counter()
+    return wave.start(work, "sp-int8-full", _sp_int8_payload(work, "int8_full", shards=shards),
+                      2, timeout=600), t0
+
+
+def phase_sp_int8_full(wave, started):
+    """Join the ``int8_full`` SP pair that ``sp_int8_full_start`` launched
+    and hold it (``_sp_int8_report``).  Returns {path: launch counts}."""
+    check(started is not None, "sp_int8: the int8_full pair did not start")
+    launch, t0 = started
+    return _sp_int8_report(wave.join(launch), "int8_full", time.perf_counter() - t0,
+                           "beside phase_train_int8 and phase_fast_stage2")
 
 
 STAGE2_CONFIG = os.path.join(ROOT, "configs", "MetaCLIP_large_stage2_all.yaml")
@@ -6309,7 +6334,7 @@ def main():
             train_counts, n_leaves, stage1, k3_ref = (attempt(phase_train, work)
                                                       or (None, None, None, None))
             dp_counts = attempt(phase_dp, work, k3_ref)
-            sp_int8_counts = attempt(phase_sp_int8_serve, work)
+            sp_int8_counts = attempt(phase_sp_int8_serve, work) or {}
             # phase_sp_pp's (b) launches beside phase_tp_fsdp's (d)
             pp_run = {"k3_loss": (k3_ref or {}).get("loss")}
             tp_counts = attempt(phase_tp_fsdp, work, k3_ref, n_leaves, pp_run)
@@ -6319,8 +6344,11 @@ def main():
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
         try:
-            int8_counts, int8_stage1 = attempt(phase_train_int8, work) or (None, None)
-            fast_counts = attempt(phase_fast_stage2, work, int8_stage1)
+            with _Wave() as wave:
+                sp_full = attempt(sp_int8_full_start, wave, work)
+                int8_counts, int8_stage1 = attempt(phase_train_int8, work) or (None, None)
+                fast_counts = attempt(phase_fast_stage2, work, int8_stage1)
+                sp_int8_counts.update(attempt(phase_sp_int8_full, wave, sp_full) or {})
         finally:
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_video_")

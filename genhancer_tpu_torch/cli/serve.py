@@ -16,14 +16,18 @@ mesh (``serve.engine``)::
         --num_devices 4 --model_parallel 2
 
 Rank 0 runs the HTTP server and the batcher; the other ranks follow its
-batches until it stops.  ``--group_timeout_s`` bounds a collective, so a
-rank that dies fails rank 0's requests instead of blocking it.
+batches until it stops.  The group's timeout (``SERVE_GROUP_TIMEOUT_S``)
+bounds a collective, so a rank that dies fails rank 0's requests instead of
+blocking it.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+
+# Seconds one collective of the serving group may wait before it raises.
+SERVE_GROUP_TIMEOUT_S = 600.0
 
 
 def main(argv=None):
@@ -53,8 +57,6 @@ def main(argv=None):
                         help="cards (processes under torchrun) of the serving mesh")
     parser.add_argument("--model_parallel", type=int, default=1,
                         help="the DiT's TP degree on the mesh (implies num_devices >= it)")
-    parser.add_argument("--group_timeout_s", type=float, default=600.0,
-                        help="the process group's timeout for one collective")
     parser.add_argument("--wire_dtype", default="uint8",
                         choices=("uint8", "float32"),
                         help="pixel dtype crossing host<->device: uint8 "
@@ -72,7 +74,7 @@ def main(argv=None):
     from ..serve.http import ServeApp
 
     mesh.maybe_initialize_distributed(mesh.rank_device(resolve_device(args.device)),
-                                      args.group_timeout_s)
+                                      SERVE_GROUP_TIMEOUT_S)
 
     buckets = [int(b) for b in args.buckets.split(",") if b]
     endpoints = [e.strip() for e in args.endpoints.split(",") if e.strip()]

@@ -387,15 +387,13 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
-def gather_tokens(a: torch.Tensor, group: str = SEQ_AXIS, keep_pad: bool = False
-                  ) -> torch.Tensor:
+def gather_tokens(a: torch.Tensor, group: str = SEQ_AXIS) -> torch.Tensor:
     """Every rank's tokens of a [B, n_r, ...] tensor on ``group``'s axis,
     concatenated along dim 1 in axis order: the seq ranks' chunks of one
     stream back in one process's token order.  The ranks' ``n_r`` may
     differ (a chunk of [txt; img] holds a share of each stream, maybe
     none): each chunk is padded to the largest for the gather and its pad
-    rows are dropped (``keep_pad`` keeps them, a planted fault for the
-    tests).  ``a`` itself on one rank."""
+    rows are dropped.  ``a`` itself on one rank."""
     pg, size, _ = _axis(group)
     if size == 1:
         return a
@@ -408,7 +406,7 @@ def gather_tokens(a: torch.Tensor, group: str = SEQ_AXIS, keep_pad: bool = False
     a = a.contiguous()
     parts = [torch.empty_like(a) for _ in range(size)]
     dist.all_gather(parts, a, group=pg)
-    return torch.cat(parts if keep_pad else [p[:, :k] for p, k in zip(parts, counts)], dim=1)
+    return torch.cat([p[:, :k] for p, k in zip(parts, counts)], dim=1)
 
 
 def all_gather_dim(t: torch.Tensor, dim: int, group: str) -> torch.Tensor:

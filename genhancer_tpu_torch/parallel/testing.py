@@ -45,7 +45,8 @@ The scenarios:
     optimizer steps on this rank's rows of seeded global image batches
     (or of given global micro-batches, ``batches``), driven as the train
     loop drives them (with ``linears``, that scenario's payload, run
-    first; with ``ring``, that one's run after); per step the loss, digests of
+    first; with ``ring``, that one's run after; ``control`` a fault of the
+    ``step`` scenario planted first); per step the loss, digests of
     the parameters and the int8 cache, the kernels' launches;
     at the end the gathered optimizer state, the resident parameter and
     moment bytes, the ZeRO-1 row ranges and the mesh's groups;
@@ -307,13 +308,16 @@ def record_switchback(state, store=None) -> list:
     order: the weight's flat path, how its rows lie on the seq axis
     (``core.quant.row_split``), the dW kind, the inputs and the cache read,
     the output; the backward adds the output's gradient g as it reached
-    the call (the rank's share, for a "vector" call), and the dx and dW
-    the call returned.  ``store``: the device the copies are kept on (the
-    call's own by default); returns (the records, a function that stops
-    the recording)."""
+    the call (the rank's share, for a "vector" call), the dx and dW the
+    call returned, and K8's operands as the call's backward built them
+    (``k8``: ``core.quant.global_rows`` of g and of x).  ``store``: the
+    device the copies are kept on (the call's own by default); returns
+    (the records, a function that stops the recording)."""
     from ..core import quant
     names = {v.data_ptr(): k for k, v in state.trainable.items()}
     calls, orig = [], quant.switchback
+    fwd, bwd, rows = quant._SwitchBack.forward, quant._SwitchBack.backward, quant.global_rows
+    now = {"fwd": None, "bwd": None}
 
     def keep(t, to):
         return None if t is None else t.detach().to(to, copy=True)
@@ -323,15 +327,41 @@ def record_switchback(state, store=None) -> list:
         rec = dict(path=names.get(w.data_ptr()), split=quant.row_split(x), dw_kind=dw,
                    store=to, device=x.device, x=keep(x, to), w=keep(w, to),
                    wq=keep(wq, to), ws=keep(ws, to))
-        y = orig(_Tap.apply(x, rec, "dx"), _Tap.apply(w, rec, "dW"), wq, ws, dw, **kw)
+        now["fwd"] = rec
+        try:
+            y = orig(_Tap.apply(x, rec, "dx"), _Tap.apply(w, rec, "dW"), wq, ws, dw, **kw)
+        finally:
+            now["fwd"] = None
         rec["y"] = keep(y, to)
         calls.append(rec)
         return _Tap.apply(y, rec, "g")
 
-    quant.switchback = spy
+    def forward(ctx, *args):
+        ctx.record = now["fwd"]
+        return fwd(ctx, *args)
+
+    def backward(ctx, g):
+        now["bwd"] = getattr(ctx, "record", None)
+        try:
+            return bwd(ctx, g)
+        finally:
+            now["bwd"] = None
+
+    def global_rows(a, split=None):
+        out = rows(a, split)
+        rec = now["bwd"]
+        if rec is not None:
+            rec.setdefault("k8", []).append(keep(out, rec["store"]))
+        return out
+
+    quant.switchback, quant.global_rows = spy, global_rows
+    quant._SwitchBack.forward = staticmethod(forward)
+    quant._SwitchBack.backward = staticmethod(backward)
 
     def undo():
-        quant.switchback = orig
+        quant.switchback, quant.global_rows = orig, rows
+        quant._SwitchBack.forward = staticmethod(fwd)
+        quant._SwitchBack.backward = staticmethod(bwd)
     return calls, undo
 
 
@@ -358,8 +388,18 @@ def _control(name: Optional[str]) -> None:
         from ..core import quant
         quant.global_rows = lambda a, split=None: a.reshape(-1, a.shape[-1])
     elif name == "keep_pad":               # the chunks' pad rows left in K8's rows
-        import functools
-        mesh.gather_tokens = functools.partial(mesh.gather_tokens, keep_pad=True)
+        real_gather = mesh.gather_tokens
+
+        def keep_pad(a, group=mesh.SEQ_AXIS):
+            if mesh.axis_size(group) == 1:
+                return a
+            n = mesh.all_gather_dim(torch.tensor([a.shape[1]], device=a.device), 0, group)
+            pad = int(n.max()) - a.shape[1]
+            if pad:
+                a = torch.cat([a, a.new_zeros((a.shape[0], pad) + tuple(a.shape[2:]))], dim=1)
+            return mesh.all_gather_dim(a, 1, group)
+        keep_pad.real = real_gather
+        mesh.gather_tokens = keep_pad
     elif name == "per_rank_amax":          # the per-column amax of each seq rank's tokens
         real_max = mesh.all_reduce_max
 
@@ -498,7 +538,7 @@ def _linears(p: dict, dw: str, sp: int, controls, rec: dict) -> dict:
     from . import ring
     from .layout import Placement, gather, place, shard
     from .mesh import DATA_AXIS, MODEL_AXIS, all_gather_dim, gather_tokens
-    gather_tokens = getattr(gather_tokens, "func", gather_tokens)    # keep_pad spares the result
+    gather_tokens = getattr(gather_tokens, "real", gather_tokens)    # keep_pad spares the result
     for k in [k for k in rec if k != "path"]:
         del rec[k]
     root = tnn.ModuleDict()
@@ -721,17 +761,50 @@ def dcp_round_trip(trainer, out_dir: str) -> dict:
     return out
 
 
+def _one_process_rows(g: torch.Tensor, x: torch.Tensor, split: Optional[str]):
+    """The rows of a SwitchBack call's g and x that one process holds, in
+    its order, built apart from ``core.quant.global_rows`` on a data axis
+    of size 1: a token call's chunks come from every seq rank as objects,
+    each its rank's real tokens of every sample (``ring.Layout``: no pad
+    row), and are laid out sample by sample in seq order; a vector call's
+    gradient is the sum of the seq ranks' shares in seq order (exact on
+    two ranks), its x the rank's own (whole on every seq rank).  On the
+    host."""
+    import torch.distributed as dist
+    pg, size, _ = _mesh._axis(_mesh.SEQ_AXIS)
+
+    def every(a):
+        if size == 1:
+            return [a.detach().cpu()]
+        parts = [None] * size
+        dist.all_gather_object(parts, a.detach().cpu(), group=pg)
+        return parts
+
+    if split == "tokens":
+        out = []
+        for a in (g, x):
+            parts = every(a)
+            out.append(torch.cat([p[b] for b in range(a.shape[0]) for p in parts], 0))
+        return out
+    if split == "vector":
+        shares = every(g)
+        g = sum(shares[1:], shares[0])
+    return [a.detach().cpu().reshape(-1, a.shape[-1]) for a in (g, x)]
+
+
 def hold_switchback_calls(calls: list) -> dict:
     """Each SwitchBack call this rank recorded (``record_switchback``)
     against one process on the same whole inputs, on the same device: the
     call's x and g joined over the seq ranks (a token call's chunks in
     order, a vector call's gradient shares summed) and the data ranks, the
     one-process call run on them; y, dx and dW within 1e-5 of their largest
-    element, and the codes and scales that span tokens bit for bit (K8's
-    operands, the global rows in order; the per-column codes and scales).
-    A collective: every rank calls it with its records of the same calls;
-    the one-process calls run on every rank, so the data axis must be of
-    size 1 (the seq axis joins the tokens)."""
+    element, and the codes and scales that span tokens bit for bit: K8's
+    operands as the step built them against one process's rows, built
+    apart from ``core.quant.global_rows`` (``_one_process_rows``); the
+    per-column codes and scales against one process's quantization of the
+    joined rows.  A collective: every rank calls it with its records of
+    the same calls; the one-process calls run on every rank, so the data
+    axis must be of size 1 (the seq axis joins the tokens)."""
     from ..core import nn, quant
     from . import mesh
     from .mesh import DATA_AXIS, SEQ_AXIS
@@ -767,10 +840,11 @@ def hold_switchback_calls(calls: list) -> dict:
         for k, ref in (("y", y1), ("dx", x1.grad), ("dW", w1.grad)):
             worst[k] = max(worst[k], rel(got[k], ref.detach()))
         # the quantizers that span the call's rows, as the step ran them
-        g2, x2 = gj.reshape(-1, gj.shape[-1]), xj.reshape(-1, xj.shape[-1])
         if kind == "int8_dw":
-            ok = (torch.equal(quant.global_rows(g, split), g2)
-                  and torch.equal(quant.global_rows(c["x"], split), x2))
+            k8 = c.get("k8") or ()
+            ok = len(k8) == 2 and all(
+                torch.equal(got.to(ref.device), ref)
+                for got, ref in zip(k8, _one_process_rows(c["g"], c["x"], split)))
         else:
             axes = (DATA_AXIS, SEQ_AXIS) if split == "tokens" else (DATA_AXIS,)
             ok = True
@@ -791,6 +865,7 @@ def scenario_steps(p: dict) -> dict:
     from ..train.trainer import Trainer
     _patch_registry(p.get("registry"))
     _spy_heads()
+    _control(p.get("control"))
     runs = {}
     linears = scenario_linears(p["linears"]) if p.get("linears") else None
     for name, overrides in p["variants"].items():

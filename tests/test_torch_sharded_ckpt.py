@@ -144,14 +144,12 @@ def test_trainer_resumes_from_the_sharded_checkpoint(tmp_path, shards):  # noqa:
                 assert torch.equal(res[r][name][k], v), (name, k)
 
 
-def test_trainer_sp_int8_held_per_call_in_rank(tmp_path):
-    """``configs/tpu_fast_stage1.yaml`` (int8_full with K4's cache, and
-    int8_dw with 8-bit moments) through the ``Trainer`` on 2 seq ranks,
-    tiny: the last step's SwitchBack calls held in-rank against one process
-    on the joined inputs (``parallel.testing.hold_switchback_calls``, what
-    ``chip_smoke.py`` runs at full width), the planner's bytes equal to
-    each rank's, and the sharded checkpoint's round trip (restored bit for
-    bit, the next step equal to the uninterrupted run's)."""
+INT8_DW = {"dit_quant": "int8_dw", "optimizer_moment_bits": 8}
+
+
+def _sp_int8_held(tmp_path):
+    """The ``steps`` payload of ``configs/tpu_fast_stage1.yaml`` on 2 seq
+    ranks, tiny, with the last step's SwitchBack calls held in-rank."""
     import yaml
     from genhancer_tpu_torch.data import testing as dtesting
     from test_torch_int8_step import INT8_DIT, INT8_TOWER, ROOT
@@ -167,12 +165,21 @@ def test_trainer_sp_int8_held_per_call_in_rank(tmp_path):
     from genhancer_tpu_torch.train.config import Config, TRAIN_DEFAULTS
     cfg = dict(Config._wrap(TRAIN_DEFAULTS).merged_with(raw))
     reg = {"dit": port_cfg(INT8_DIT), "vae": port_cfg(TINY_VAE), "tower": port_cfg(INT8_TOWER)}
+    return {"scenario": "steps", "device": "cpu", "cfg": cfg, "registry": reg, "steps": 2,
+            "hold_calls": True}
+
+
+def test_trainer_sp_int8_held_per_call_in_rank(tmp_path):
+    """``configs/tpu_fast_stage1.yaml`` (int8_full with K4's cache, and
+    int8_dw with 8-bit moments) through the ``Trainer`` on 2 seq ranks,
+    tiny: the last step's SwitchBack calls held in-rank against one process
+    on the joined inputs (``parallel.testing.hold_switchback_calls``, what
+    ``chip_smoke.py`` runs at full width), the planner's bytes equal to
+    each rank's, and the sharded checkpoint's round trip (restored bit for
+    bit, the next step equal to the uninterrupted run's)."""
     outs = _launch(tmp_path, "held", {
-        "scenario": "steps", "device": "cpu", "cfg": cfg, "registry": reg, "steps": 2,
-        "hold_calls": True, "plan": True, "dcp": str(tmp_path / "dcp"),
-        "dcp_variants": ["int8_dw"],
-        "variants": {"int8_full": {}, "int8_dw": {"dit_quant": "int8_dw",
-                                                  "optimizer_moment_bits": 8}}}, 2)
+        **_sp_int8_held(tmp_path), "plan": True, "dcp": str(tmp_path / "dcp"),
+        "dcp_variants": ["int8_dw"], "variants": {"int8_full": {}, "int8_dw": INT8_DW}}, 2)
     for r, o in enumerate(outs):
         for name in ("int8_full", "int8_dw"):
             run = o["runs"][name]
@@ -185,3 +192,16 @@ def test_trainer_sp_int8_held_per_call_in_rank(tmp_path):
         d = o["runs"]["int8_dw"]["dcp"]
         assert d["restored_equal"] and d["next_equal"] and d["cache_equal"], (r, d)
         assert d["equal_before"] < d["keys"] and d["bytes"] >= 0
+
+
+def test_trainer_sp_int8_dw_held_k8_rows_catch_pad_rows(tmp_path):
+    """The held check of K8's operands is not the step's own gather: with
+    the chunks' pad rows left in K8's rows (the ``keep_pad`` fault, planted
+    in the step), the rows K8 received differ from one process's rows
+    (built from each rank's real tokens) on the calls whose chunks differ
+    in length, so fewer calls than all hold their codes."""
+    outs = _launch(tmp_path, "held-pad", {**_sp_int8_held(tmp_path), "control": "keep_pad",
+                                          "variants": {"int8_dw": INT8_DW}}, 2)
+    for r, o in enumerate(outs):
+        h = o["runs"]["int8_dw"]["held"]
+        assert 0 < h["codes_equal"] < h["calls"], (r, h)
