@@ -21,7 +21,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              B=50, L=257 and L=577 (the split-TF32 wgmma body: max error
              1e-4 and mean error 1e-5 against exact float32, with controls
              that drop a TF32 product and must miss it; timed against SDPA
-             float32 and its bound at 495 TFLOP/s TF32), K1/K2/K5 in
+             float32 and its bound at 495 TFLOP/s TF32; also MetaCLIP-H/14's
+             L=257, D=80 and so400m-224's L=256, D=72), K1/K2/K5 in
              float32 at D = 8, 72, 128 and L = 1, 65, 129, K5/K5b
              (flash attention forward and backward: in bf16 the wgmma/TMA
              kernels, at the video paths' shapes with their TFLOP/s and
@@ -220,6 +221,36 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``transformers``), seconds, images/s and texts/s, nine
              categories, 135 CSV rows, scores in [0, 100], the first pair's
              embeddings against the CPU's plain path at 1e-4.
+
+13. the last of the port — ``phase_decoder`` (right after the build):
+             which JPEG decoder this machine's loaders use
+             (``data.native_decode.which``; the native one where libjpeg
+             builds, held against PIL and timed, else PIL and why) and
+             its images/s; ``phase_remat_policies``: the image stage-1
+             loss at full width (K1, L=197, B=16) and the flux-dev DiT
+             alone at joint L=708 (K5, B=8) without remat and under each remat policy (full, save_attn,
+             dots): forward and backward launches, peak memory, ms, the
+             gradients equal to the run without remat bit for bit;
+             ``phase_siglip_int8`` (the DiT at 1 + 1 blocks):
+             ``tower_quant: int8`` on the so400m tower, two steps, its
+             165 int8 calls held against the CPU's plain path,
+             K7 at the tower's widths timed; ``phase_siglip_video``: a
+             SigLIP video step (next2 at 224 px, the DiT at 1 + 1 blocks
+             with vec_in_dim 1152); ``phase_eval_presets``: the
+             ``evaluate_mmvp_MetaCLIP_huge`` and
+             ``evaluate_mmvp_SigLIP_224`` entry points at full width on
+             random weights (K2 in float32 at L=257, D=80 and L=256, D=72,
+             which phase 3 also holds against their plain versions).
+
+To stay inside the time limit three groups of phases run in a second
+process on the card (``python3 chip_smoke.py --side <spec>``, its own
+launch counters, joined before the checks at the end): phase 11's
+``phase_siglip`` beside phase 5's serving phases and phase 6's
+``phase_train``; phase 12's eval of the image and SigLIP exports,
+``phase_eval_presets``, ``phase_remat_policies``, ``phase_siglip_int8`` and
+``phase_siglip_video`` beside phase 9's ``phase_video_train``; phase 12's
+eval of the middle@336 export beside phase 10b.  Times printed by
+overlapping phases share the card and the host.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -678,20 +709,28 @@ def phase_kernels():
     return rec
 
 
+# the MMVP-VLM eval's float32 towers through K2, at its batch of 50: (L, D,
+# the tower); every one has H = 16 (ViT-H/14's 1280 and so400m's 1152 wide)
+K2_EVAL_SHAPES = ((257, 64, "MetaCLIP-L/14 at 224 px"), (577, 64, "CLIP-L/14@336"),
+                  (257, 80, "MetaCLIP-H/14 at 224 px"), (256, 72, "SigLIP so400m at 224 px"))
+
+
 def _k2_float32_eval(gen):
     """K2 in float32 (the split-TF32 wgmma body) at the MMVP-VLM eval's
-    batch of 50: MetaCLIP-L/14 at 224 px (L=257) and CLIP-L/14@336 (L=577),
-    H=16, D=64; against the plain version in exact float32 (TF32 off): max
-    1e-4 and mean TF32_MEAN_BOUND, with the controls of TF32_CONTROLS that
-    must miss the latter; timed, call and device, with SDPA in float32 and
-    its bound: the three TF32 products of each of its two products at 495
-    TFLOP/s (the scalar cores' 67 TFLOP/s line printed beside it)."""
+    batch of 50 and each tower of K2_EVAL_SHAPES (D = 80 and 72 run the
+    128-wide instantiation); against the plain version in exact float32
+    (TF32 off): max 1e-4 and mean TF32_MEAN_BOUND, with the controls of
+    TF32_CONTROLS that must miss the latter; timed, call and device, with
+    SDPA in float32 and its bound: the three TF32 products of each of its
+    two products at 495 TFLOP/s (the scalar cores' 67 TFLOP/s line printed
+    beside it).  Returns {"L=..,D=..": record}."""
     import torch
     from genhancer_tpu_torch.core.kernels import short_attention as K
 
     out_rec = {}
-    for l in (257, 577):
-        q, k, v = (_rand(gen, (50, l, 16, 64), torch.float32) for _ in range(3))
+    for l, d, tower in K2_EVAL_SHAPES:
+        tag = f"fused_attention B=50 L={l} H=16 D={d}"
+        q, k, v = (_rand(gen, (50, l, 16, d), torch.float32) for _ in range(3))
         kfn = lambda: K.fused_attention(q, k, v)  # noqa: E731
         pfn = lambda: K.fused_attention_ref(q, k, v)  # noqa: E731
         out = kfn()
@@ -699,8 +738,8 @@ def _k2_float32_eval(gen):
         ref = pfn()
         err = (out - ref).abs().max().item()
         check(bool(torch.isfinite(out).all()) and err <= BOUND["float32"],
-              f"fused_attention float32 B=50 L={l}: error {err} > {BOUND['float32']}")
-        mean, ctl = _tf32_mean_check(f"fused_attention B=50 L={l} H=16 D=64", out, ref, q, k, v)
+              f"{tag} float32: error {err} > {BOUND['float32']}")
+        mean, ctl = _tf32_mean_check(tag, out, ref, q, k, v)
         del ref
         _free()
         ms, pms = kernel_vs_plain_ms(kfn, pfn, n=5, rounds=4)
@@ -708,11 +747,11 @@ def _k2_float32_eval(gen):
         times = {"ms": ms, "plain_ms": pms, "max_abs_err": err, "mean_rel": mean,
                  "controls_mean_rel": ctl, "device_ms": graph_ms(kfn, n=5),
                  "library_ms": _library_ms(lib_f, n=5), "library_device_ms": graph_ms(lib_f, n=5)}
-        flops = 4.0 * 50 * 16 * l * l * 64            # the function: two products
+        flops = 4.0 * 50 * 16 * l * l * d             # the function: two products
         _set_bound(times, _nbytes(q, k, v, out), 3 * flops, peak=TF32_PEAK)
         times["scalar_bound_ms"] = flops / FP32_PEAK * 1e3
-        out_rec[l] = times
-        print(f"[kernels] fused_attention B=50 L={l} H=16 D=64 float32 (the eval's tower): "
+        out_rec[f"L={l},D={d}"] = times
+        print(f"[kernels] {tag} float32 ({tower}, the eval's tower): "
               f"max|kernel-plain| {err:.3e} (bound 1e-04); kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms, device (CUDA graph) {_fmt(times['device_ms'])} ms; bound "
               f"{times['bound_ms']:.4f} ms ({times['bound_by']}: 3 TF32 products per product at "
@@ -6295,10 +6334,506 @@ def phase_extras():
     return counts
 
 
+# ------------------------------------------------- the last of the port
+
+REMAT_POLICIES = (None, "full", "save_attn", "dots")
+
+
+def _policy_run(fn, params, policy):
+    """One forward and backward of ``fn(policy)`` (a scalar loss): the
+    launches, the peak device memory above what was allocated before, the
+    synced wall time and the gradients of ``params``."""
+    import torch
+    for p in params.values():
+        p.grad = None
+    _free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    fn(policy).backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (_read_counts(), (torch.cuda.max_memory_allocated() - base) / 2 ** 30, wall,
+            {k: p.grad for k, p in params.items()})
+
+
+def _policy_table(tag, fn, params, kernels, blocks):
+    """Each remat policy of REMAT_POLICIES (None: no remat) on ``fn``, after
+    a warm-up run without remat and one with (the first recompute in a
+    backward took 8 s: the autograd thread's first products): per policy the forward and backward launches of
+    ``kernels`` (K1 or K5 and its backward), the peak memory and the synced
+    ms, and the gradients against the run without remat.  The forward
+    kernel runs once per block without remat and twice with any policy (no
+    policy keeps its residuals), its backward once."""
+    fwd, bwd = kernels
+    _policy_run(fn, params, None)
+    _policy_run(fn, params, "full")
+    rows, ref = {}, None
+    for policy in REMAT_POLICIES:
+        counts, peak, wall, grads = _policy_run(fn, params, policy)
+        if ref is None:
+            ref = {k: g.clone() for k, g in grads.items()}
+            diff = 0.0
+        else:
+            diff = max((g.float() - ref[k].float()).abs().max().item() for k, g in grads.items())
+        rows[policy or "none"] = dict(fwd=counts[fwd], bwd=counts[bwd], peak_gib=peak,
+                                      ms=wall * 1e3, grad_diff=diff)
+        want = blocks * (1 if policy is None else 2)
+        print(f"[remat] {tag} policy {policy or 'none'}: {fwd} {counts[fwd]} (expected "
+              f"{want}), {bwd} {counts[bwd]} (expected {blocks}); peak {peak:.2f} GiB above "
+              f"the state; {wall * 1e3:.1f} ms forward + backward (synced); max|grad - "
+              f"no-remat grad| {diff:.3e}", flush=True)
+        check(counts[fwd] == want and counts[bwd] == blocks,
+              f"{tag} {policy}: launches {counts[fwd]}, {counts[bwd]}")
+        check(diff == 0.0, f"{tag} {policy}: gradients differ from the run without remat "
+                           f"by {diff}")
+    del ref
+    return rows
+
+
+def phase_remat_policies():
+    """The DiT's remat policies at full width on the card, each against the
+    run without remat (gradients equal bit for bit, launches, peak memory):
+    (a) the image stage-1 loss of configs/MetaCLIP_large_stage1.yaml (the
+    flux-dev DiT, 2 + 4 blocks, at joint L=197: K1/K1b; the MetaCLIP-L
+    tower and the VAE frozen) on one micro-batch of 16, the draws the same
+    in every run; (b) the same DiT alone at joint L=708 (512 txt + 196 img
+    tokens, B=8: K5/K5b).  Returns {path: launch counts}."""
+    import torch
+    from genhancer_tpu_torch.models import dit as dit_m
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks import image as timage
+    from genhancer_tpu_torch.train.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = factory.build_spec(load_config(CONFIG))[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    modules = timage.init_modules(spec, gen, device="cuda")
+    pred = timage.trainable_predicate(spec, modules)
+    params = {k: p for k, p in modules.named_parameters() if pred(k)}
+    for k, p in modules.named_parameters():
+        p.requires_grad_(pred(k))
+    imgs = torch.rand((16, 224, 224, 3), generator=gen, device="cuda")
+    blocks = spec.dit_cfg.depth + spec.dit_cfg.depth_single_blocks
+
+    def image_loss(policy):
+        s = dataclasses.replace(spec, remat=policy is not None, remat_policy=policy)
+        gen.manual_seed(1)
+        return timage.make_loss_fn(s)(modules, {"image": imgs}, gen)
+
+    tables = {"image stage 1, joint L=197, B=16": _policy_table(
+        "image stage 1 (L=197, B=16)", image_loss, params,
+        ("fused_rope_attention", "fused_rope_attention_bwd"), blocks)}
+    image_counts = _read_counts()       # the last policy's image loss
+    dit, cfg = modules["dit"], spec.dit_cfg
+    dparams = {k: p for k, p in params.items() if k.startswith("dit.")}
+    b, l_txt, l_img = 8, 512, 196
+    bf16 = torch.bfloat16
+    inp = dict(img=torch.randn((b, l_img, 64), generator=gen, device="cuda").to(bf16),
+               img_ids=torch.zeros((b, l_img, 3), device="cuda"),
+               txt=torch.randn((b, l_txt, 4096), generator=gen, device="cuda").to(bf16),
+               txt_ids=torch.zeros((b, l_txt, 3), device="cuda"),
+               timesteps=torch.rand((b,), generator=gen, device="cuda").to(bf16),
+               y=torch.randn((b, 768), generator=gen, device="cuda").to(bf16),
+               guidance=torch.full((b,), 4.0, device="cuda", dtype=bf16))
+    inp["img_ids"][..., 1] = torch.arange(l_img, device="cuda").div(14, rounding_mode="floor")
+    inp["img_ids"][..., 2] = torch.arange(l_img, device="cuda") % 14
+
+    def dit_loss(policy):
+        out = dit_m.dit_forward(dit, cfg, **inp, remat=policy is not None,
+                                remat_policy=policy)
+        return out.float().square().mean()
+
+    tables["the DiT alone, joint L=708, B=8"] = _policy_table(
+        "DiT alone (L=708, B=8)", dit_loss, dparams, ("flash_attention", "flash_attention_bwd"),
+        blocks)
+    print("[remat] policies: " + json.dumps(tables), flush=True)
+    del modules, dit, params, dparams, inp, imgs
+    _free()
+    return {"remat_policies": image_counts}
+
+
+def _int8_calls_card_vs_cpu(tag, calls, rows=64):
+    """Each recorded int8 base call (x, codes, scales, y) on its first
+    ``rows`` rows (rows are independent: per-row activation scales) against
+    the CPU's plain path on the same input: K7's codes and scales bit for
+    bit, y within 1e-5 of its largest."""
+    import torch
+    from genhancer_tpu_torch.core import quant
+    worst = 0.0
+    for c in calls:
+        x = c["x"].reshape(-1, c["x"].shape[-1])[:rows]
+        q, s = quant.quantize_activation_rows(x)
+        qc, sc = quant.quantize_activation_rows(x.cpu())
+        check(torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc),
+              f"{tag}: K7's codes of an int8 call differ from the CPU's")
+        want = quant._int8_fwd_base(x.cpu(), c["wq"].cpu(), c["ws"].cpu()).float()
+        got = c["y"].reshape(-1, c["y"].shape[-1])[:rows].float().cpu()
+        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+    print(f"[siglip_int8] {tag}: {len(calls)} int8 calls card vs cpu on their first {rows} "
+          f"rows: codes and scales equal, y within {worst:.3e} of the largest (bound 1e-5)",
+          flush=True)
+    check(worst <= 1e-5, f"{tag}: an int8 call's y differs by {worst}")
+
+
+def phase_siglip_int8():
+    """``tower_quant: int8`` on the SigLIP so400m tower at full width
+    (configs/SigLIP_384_stage1.yaml: 27 layers, 729 tokens, widths 1152 and
+    4304; the DiT cut to 1 + 1 blocks by ``main``), B=16, two steps: every
+    linear with min(out, in) >= 64 swapped for int8 (the head's packed
+    q/k/v stays float), each int8 call of the first step held against the
+    CPU's plain path, K7's launches per step against the layer count; K7
+    at the tower's two widths (T = 16 x 729 rows) bit for bit and timed
+    against its plain version and bound.  Returns {path: launch counts}."""
+    import torch
+    from genhancer_tpu_torch.core import nn as tnn
+    from genhancer_tpu_torch.core import quant
+    from genhancer_tpu_torch.core.kernels import rowquant as K7
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks import image as timage
+    from genhancer_tpu_torch.train import optim
+    from genhancer_tpu_torch.train.config import load_config
+
+    cfg = load_config(SIGLIP_CONFIGS["stage1"]).merged_with({"tower_quant": "int8"})
+    spec = factory.build_spec(cfg)[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    opt = optim.make_optimizer(cfg, total_steps=10)
+    state = timage.create_task_state(gen, spec, opt, device="cuda")
+    tower = state.modules["clip"]["model"]
+    int8 = [n for n, m in tower.named_modules() if isinstance(m, tnn.Int8Layer)]
+    v = spec.tower_cfg.vision
+    check(len(int8) == 6 * v.num_layers + 3 and "vision_model.head.attention.out_proj" in int8
+          and tower.vision_model.head.attention.in_proj_weight.dtype == torch.float32,
+          f"SigLIP int8 layers: {len(int8)}")
+    calls, base = [], quant.linear_int8_base
+
+    def spy(p, x):
+        y = base(p, x)
+        if len(calls) < len(int8):
+            calls.append(dict(x=x.detach(), wq=p.weight_q, ws=p.w_scale, y=y.detach()))
+        return y
+
+    step = timage.make_train_step(spec, opt)
+    quant.linear_int8_base = spy
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    try:
+        for i in range(2):
+            imgs = torch.rand((16, 384, 384, 3), generator=gen, device="cuda")
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, {"image": imgs}, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = _read_counts()
+            check(bool(torch.isfinite(m["loss"])), f"SigLIP int8 step {i + 1}: loss {m['loss']}")
+    finally:
+        quant.linear_int8_base = base
+    print(f"[siglip_int8] {len(int8)} int8 linears of the so400m tower (6 x {v.num_layers} "
+          f"layers + the head's out_proj, fc1, fc2); step 1, 2 {walls[0] * 1e3:.1f}, "
+          f"{walls[1] * 1e3:.1f} ms (B=16, the DiT at 1 + 1 blocks); step 2 launches "
+          f"{_nonzero(counts)}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    check(counts["rowquant"] == len(int8) and counts["flash_attention"] == v.num_layers,
+          f"SigLIP int8 launches per step: {counts}")
+    _int8_calls_card_vs_cpu("so400m int8 tower, step 1", calls)
+    del state, tower, calls
+    _free()
+    recs = []
+    for c in (v.hidden_size, v.intermediate_size):
+        x = (torch.randn((16 * v.grid ** 2, c), generator=gen, device="cuda")).to(torch.bfloat16)
+        q, s = K7.rowquant(x)
+        qr, sr = K7.rowquant_ref(x)
+        check(torch.equal(q, qr) and torch.equal(s, sr), f"K7 at [{x.shape[0]}, {c}] differs")
+        kfn, pfn = (lambda: K7.rowquant(x)), (lambda: K7.rowquant_ref(x))  # noqa: E731
+        ms, pms = kernel_vs_plain_ms(kfn, pfn, n=20, rounds=4)
+        rec = {"shape": [x.shape[0], c], "ms": ms, "plain_ms": pms, "device_ms": graph_ms(kfn),
+               "launches_per_step": None}
+        _set_bound(rec, _nbytes(x, q, s))
+        recs.append(rec)
+        print(f"[siglip_int8] K7 at [{x.shape[0]}, {c}] bf16 (the so400m int8 tower): bit for "
+              f"bit; kernel {ms:.4f} ms, device (CUDA graph) {_fmt(rec['device_ms'])} ms, plain "
+              f"{pms:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+        del x, q, s, qr, sr
+    _free()
+    return {"siglip_int8_stage1": counts}
+
+
+SIGLIP_VIDEO_CONFIG = os.path.join(ROOT, "configs", "OpenAICLIP_use2frames_stage1.yaml")
+
+
+def phase_siglip_video():
+    """The SigLIP so400m tower in video mode, a config of the card's (no
+    published config uses it): configs/OpenAICLIP_use2frames_stage1.yaml's
+    next2 mode with ``tower: siglip`` at 224 px (256 tokens a frame, K2 at
+    D=72 in bf16), the flux-dev DiT with ``vec_in_dim`` 1152 (the pooled
+    vector's width; tasks/video.py) cut to 1 + 1 blocks at joint L=708 (K5),
+    B=8, two steps on random frames: finite losses, launches per step.
+    Returns {path: launch counts}."""
+    import torch
+    from genhancer_tpu_torch import registry
+    from genhancer_tpu_torch.tasks import factory
+    from genhancer_tpu_torch.tasks import video as tvideo
+    from genhancer_tpu_torch.train import optim
+    from genhancer_tpu_torch.train.config import load_config
+
+    real = registry.build_dit_config
+    cut = dataclasses.replace(real("flux-dev"), depth=1, depth_single_blocks=1,
+                              vec_in_dim=1152)
+    registry.build_dit_config = lambda name: cut
+    try:
+        cfg = load_config(SIGLIP_VIDEO_CONFIG).merged_with(
+            {"tower": "siglip", "clip_config": {"clip_image_size": 224}, "remat": False,
+             "data_config": {"train_batch_size": 8}})
+        spec = factory.build_spec(cfg)[0]
+    finally:
+        registry.build_dit_config = real
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    opt = optim.make_optimizer(cfg, total_steps=10)
+    state = tvideo.create_task_state(gen, spec, opt, device="cuda")
+    step = tvideo.make_train_step(spec, opt)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(2):
+        batch = {"cond": torch.rand((8, 2, 224, 224, 3), generator=gen, device="cuda"),
+                 "target": torch.rand((8, spec.img_size, spec.img_size, 3), generator=gen,
+                                      device="cuda")}
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = _read_counts()
+        check(bool(torch.isfinite(m["loss"])), f"SigLIP video step {i + 1}: loss {m['loss']}")
+    layers = spec.tower_cfg.vision.num_layers
+    joint = spec.n_cond * spec.patch_grid ** 2 + (spec.latent_hw[0] // 2) ** 2
+    print(f"[siglip_video] next2 at 224 px with SigLIP so400m ({spec.n_cond} frames x "
+          f"{spec.patch_grid ** 2} tokens into the adapter, vec {spec.tower_cfg.vision.hidden_size}"
+          f"-d), DiT 1 + 1 blocks at joint L={joint}, B=8: steps {walls[0] * 1e3:.1f}, "
+          f"{walls[1] * 1e3:.1f} ms; losses finite; step 2 launches {_nonzero(counts)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(counts["fused_attention"] == layers and counts["flash_attention"] == 2
+          and counts["flash_attention_bwd"] == 2 and counts["fused_rope_attention"] == 0,
+          f"SigLIP video launches per step: {counts}")
+    del state
+    _free()
+    return {"video_siglip_next2": counts}
+
+
+def phase_decoder():
+    """Which JPEG decoder the loaders of this machine use
+    (``data.native_decode.which``): where the native one builds (libjpeg),
+    it is held against PIL on smooth images (mean < 0.02, JAX's bound) and
+    both are timed; else the line says why and PIL alone is timed.  images/s
+    of 256 JPEGs of 256 px decoded and cropped to 224 on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from genhancer_tpu_torch.data import native_decode as nd
+    from genhancer_tpu_torch.data.transforms import train_image_transform
+
+    rng = np.random.default_rng(0)
+    blobs = [_jpeg(rng, 256, 256) for _ in range(256)]
+    which = nd.which()
+    print(f"[decoder] JPEG decoder of the loaders on this machine: {which}", flush=True)
+    with ThreadPoolExecutor(8) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda b: train_image_transform(b, 224, np.random.default_rng(1)), blobs))
+        pil = len(blobs) / (time.perf_counter() - t0)
+    line = f"[decoder] PIL: {pil:.1f} images/s"
+    if nd.available():
+        t0 = time.perf_counter()
+        nd.decode_batch_random_crop(blobs, 224, np.random.default_rng(1), num_threads=8)
+        line += f"; native: {len(blobs) / (time.perf_counter() - t0):.1f} images/s"
+        from genhancer_tpu_torch.data.transforms import eval_image_transform
+        g = np.linspace(0, 255, 320, dtype=np.uint8)[None, :, None]
+        buf = io.BytesIO()
+        from PIL import Image
+        Image.fromarray(np.broadcast_to(g, (240, 320, 3)).copy()).save(buf, format="JPEG",
+                                                                       quality=95)
+        imgs, ok = nd.decode_batch_center([buf.getvalue()], 64)
+        err = float(np.abs(imgs[0] - eval_image_transform(buf.getvalue(), 64)).mean())
+        line += f"; native against PIL on a smooth image: mean {err:.4f} (bound 0.02)"
+        check(bool(ok.all()) and err < 0.02, f"native decoder against PIL: {err}")
+    else:
+        line += "; native: not built on this machine (no libjpeg), so not measured"
+    print(line + " (256 JPEGs, 256 px -> 224, 8 threads, host clock)", flush=True)
+
+
+# the two MMVP-VLM eval presets that had never run on the card: (entry point,
+# tower family, its image side's K2 shape, its text side's K2 layers)
+EVAL_PRESETS = {"evaluate_mmvp_MetaCLIP_huge": ("clip", "L=257, D=80", 0),
+                "evaluate_mmvp_SigLIP_224": ("siglip", "L=256, D=72", 1)}
+
+
+def phase_eval_presets(work):
+    """The entry points ``genhancer_tpu_torch.entrypoints.evaluation.
+    evaluate_mmvp_MetaCLIP_huge`` (MetaCLIP ViT-H/14 at 224 px: 32 layers,
+    1280 wide, 16 heads, so D=80 at L=257) and ``evaluate_mmvp_SigLIP_224``
+    (so400m at 224 px: L=256, D=72) at full width on random weights (the
+    tower a seeded random init in place of the weights a ``--model_dir``
+    would hold), float32, on phase_eval's synthetic MMVP-VLM tree and its
+    toy tokenizer: seconds, images/s, the result's shape, the launches of
+    K2 (the image side, and SigLIP's text side), the first image's and
+    text's embeddings against the CPU's plain path at 1e-4.  Returns {path:
+    launch counts}."""
+    import importlib
+    import csv
+    import numpy as np
+    import torch
+    from genhancer_tpu_torch import registry
+    from genhancer_tpu_torch.core.nn import init_weights
+    from genhancer_tpu_torch.eval import mmvp
+    from genhancer_tpu_torch.models.towers import clip as cm
+    from genhancer_tpu_torch.models.towers import siglip as sm
+
+    bench = _write_mmvp(os.path.join(work, "mmvp-presets"), EVAL_PAIRS, 256)
+    empty = os.path.join(work, "random-weights")
+    os.makedirs(empty, exist_ok=True)
+    toks = {"clip": _toy_tokenize(77, 49407), "siglip": _toy_tokenize(64, 1)}
+    made, runs = {}, {}
+
+    def random_tower(kind, cfg, model_dir, device="cpu"):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        with torch.device(device):
+            model = registry.tower_class(kind, True)(cfg)
+        made["model"], made["cfg"] = init_weights(model, gen).eval(), cfg
+        return made["model"], cfg
+
+    load_tower, tokenizer = registry.load_tower, mmvp.default_tokenizer
+    registry.load_tower = random_tower
+    mmvp.default_tokenizer = lambda d, k: toks[k]
+    try:
+        for name, (kind, shape, text_k2) in EVAL_PRESETS.items():
+            entry = importlib.import_module(f"genhancer_tpu_torch.entrypoints.evaluation.{name}")
+            csv_path = os.path.join(work, f"{name}.csv")
+            _zero_counts()
+            t0 = time.perf_counter()
+            res = entry.main(["--benchmark_dir", bench, "--model_dir", empty,
+                              "--results_csv", csv_path])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _read_counts()
+            model, cfg = made["model"], made["cfg"]
+            with open(csv_path) as f:
+                rows = list(csv.reader(f))[1:]
+            batches = -(-2 * 9 * EVAL_PAIRS // 50)
+            want = {**_no_launches(), "fused_attention": (cfg.vision.num_layers
+                                                          + text_k2 * cfg.text.num_layers)
+                    * batches}
+            n_params = sum(p.numel() for p in model.parameters())
+            print(f"[eval_presets] {name}: {cfg.vision.num_layers} layers, "
+                  f"{cfg.vision.hidden_size} wide, {cfg.vision.num_heads} heads at "
+                  f"{cfg.vision.image_size} px ({shape}), {n_params / 1e6:.1f} M params, random "
+                  f"weights; {2 * 9 * EVAL_PAIRS} images and texts in {secs:.2f} s end to end "
+                  f"(= {2 * 9 * EVAL_PAIRS / secs:.1f} images/s, float32, with the tower's "
+                  f"init); average_score {res['average_score']:.2f}; launches {_nonzero(counts)}"
+                  f", expected {_nonzero(want)}", flush=True)
+            check(sorted(res) == sorted(mmvp.CATEGORIES + ["average_score"]) and len(rows) == 135
+                  and all(0.0 <= x <= 100.0 for x in res.values()), f"{name}: {res}")
+            check(counts == want, f"{name}: launches {counts} != {want}")
+            runs[f"eval_preset_{kind}"] = counts
+            # the first image and text on the CPU's plain path, same weights
+            pair = mmvp.load_pairs(bench)[0]
+            px = torch.from_numpy(mmvp.preprocess_image(pair.img1, kind,
+                                                        cfg.vision.image_size)[None])
+            ids = torch.from_numpy(toks[kind]([pair.text1])[0])
+            mod = sm if kind == "siglip" else cm
+            with torch.no_grad():
+                got = (mod.get_image_features(model, px.cuda(), cfg).cpu(),
+                       mod.get_text_features(model, ids.cuda(), cfg).cpu())
+                model.cpu()
+                want_e = (mod.get_image_features(model, px, cfg),
+                          mod.get_text_features(model, ids, cfg))
+            errs = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want_e)]
+            print(f"[eval_presets] {name}: the first image's and text's embeddings card vs "
+                  f"cpu: {errs[0]:.3e}, {errs[1]:.3e} of the largest (bound 1e-4)", flush=True)
+            check(max(errs) <= 1e-4, f"{name}: embeddings differ by {errs}")
+            made.clear()
+            del model
+            _free()
+    finally:
+        registry.load_tower, mmvp.default_tokenizer = load_tower, tokenizer
+    return runs
+
+
+# phases a second process runs beside host-bound phases of this one: each
+# with the DiT depth it runs at
+SIDE_DEPTH = {"phase_siglip": (1, 1), "phase_siglip_int8": (1, 1)}
+# side processes started and not yet joined (killed if this one stops early)
+SIDES = []
+
+
+def _side_start(work, name, calls):
+    """Start ``python3 chip_smoke.py --side <spec>``: a second process on
+    the same card that runs ``calls`` ([phase name, args...], JSON) in
+    order, with its own launch counters, while this process goes on; the
+    kernels are already built.  ``_side_join`` collects the results."""
+    spec = os.path.join(work, f"side-{name}.json")
+    out = os.path.join(work, f"side-{name}-out.json")
+    with open(spec, "w") as f:
+        json.dump({"calls": calls, "out": out}, f)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--side", spec])
+    print(f"[side] {name}: {', '.join(c[0] for c in calls)} started in process {proc.pid}",
+          flush=True)
+    side = {"name": name, "proc": proc, "out": out, "t0": time.perf_counter()}
+    SIDES.append(side)
+    return side
+
+
+def _side_join(side, timeout: float = 900.0) -> dict:
+    """Wait for a side process; its phases' failures join this process's
+    (a side that dies or outlives ``timeout`` is one).  Returns {phase name:
+    result}."""
+    proc = side["proc"]
+    SIDES.remove(side)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its timeout"
+    out = {}
+    if os.path.exists(side["out"]):
+        with open(side["out"]) as f:
+            out = json.load(f)
+    FAILURES.extend(f"side {side['name']}: {x}" for x in out.get("failures", []))
+    if rc != 0:
+        FAILURES.append(f"side {side['name']}: the process exited {rc}")
+    print(f"[side] {side['name']}: joined {time.perf_counter() - side['t0']:.1f} s after its "
+          f"start (exit {rc})", flush=True)
+    return out.get("results", {})
+
+
+def _side_main(spec_path):
+    """The side process: load the built kernels, run the spec's phases,
+    write their results and failures."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    sys.path.insert(0, ROOT)
+    from genhancer_tpu_torch.core.kernels import _build
+    _build.load_all(list(SOURCES))
+    results = {}
+    for name, *args in spec["calls"]:
+        depth = SIDE_DEPTH.get(name)
+        with _DitDepth(*depth) if depth else contextlib.nullcontext():
+            results[name] = attempt(globals()[name], *args)
+    with open(spec["out"], "w") as f:
+        json.dump({"results": results, "failures": FAILURES}, f)
+
+
 def main():
     t_start = time.perf_counter()
     name = phase_device()
     phase_build()
+    attempt(phase_decoder)
     records = {**(attempt(phase_kernels) or {}), **(attempt(phase_kernels_bwd) or {}),
                **(attempt(phase_kernels_flash) or {})}
     attempt(phase_kernels_siglip, records)
@@ -6323,16 +6858,23 @@ def main():
     attempt(phase_small_qlora)
     attempt(phase_small_serve_int8)
     attempt(phase_small_extras)
-    serve_counts = attempt(phase_server)
-    serve_int8_counts = attempt(phase_serve_int8)
-    extras_counts = attempt(phase_extras)
-    # the stage-2 exports the MMVP-VLM eval reads at the end
+    # the stage-2 exports the MMVP-VLM eval reads; the SigLIP phases and the
+    # eval run in a second process on the card beside phases of this one
+    # (``_side_start``), to stay inside the time limit
     eval_root, exports = tempfile.mkdtemp(prefix="chip_smoke_eval_"), {}
+    siglip_dir = tempfile.mkdtemp(prefix="chip_smoke_siglip_")
     try:
+        side = _side_start(siglip_dir, "siglip", [["phase_siglip", siglip_dir, eval_root]])
+        serve_counts = attempt(phase_server)
+        serve_int8_counts = attempt(phase_serve_int8)
+        extras_counts = attempt(phase_extras)
         work = tempfile.mkdtemp(prefix="chip_smoke_train_")
         try:
             train_counts, n_leaves, stage1, k3_ref = (attempt(phase_train, work)
                                                       or (None, None, None, None))
+            res = _side_join(side)
+            siglip_counts, exports["siglip"] = res.get("phase_siglip") or (None, None)
+            siglip_counts = dict(siglip_counts or {})
             dp_counts = attempt(phase_dp, work, k3_ref)
             sp_int8_counts = attempt(phase_sp_int8_serve, work) or {}
             # phase_sp_pp's (b) launches beside phase_tp_fsdp's (d)
@@ -6342,6 +6884,7 @@ def main():
                                                        eval_root) or (None, None))
         finally:
             shutil.rmtree(work, ignore_errors=True)
+            shutil.rmtree(siglip_dir, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_int8_")
         try:
             with _Wave() as wave:
@@ -6353,29 +6896,37 @@ def main():
             shutil.rmtree(work, ignore_errors=True)
         work = tempfile.mkdtemp(prefix="chip_smoke_video_")
         try:
+            side = _side_start(eval_root, "eval", [
+                ["phase_eval", eval_root, {
+                    "image stage 2 export (MetaCLIP-L/14, 224 px)": (exports["image"],
+                                                                     "metaclip", 224),
+                    "SigLIP stage2_all export (so400m, 384 px)": (exports["siglip"],
+                                                                  "siglip", 384)}],
+                ["phase_eval_presets", eval_root], ["phase_remat_policies"],
+                ["phase_siglip_int8"], ["phase_siglip_video"]])
             video_counts, video1, sliding_ref = (attempt(phase_video_train, work)
                                                  or (None, None, None))
+            res = _side_join(side)
+            eval_counts = {**(res.get("phase_eval") or {}),
+                           **(res.get("phase_eval_presets") or {})}
+            remat_counts = res.get("phase_remat_policies") or {}
+            siglip_counts.update({**(res.get("phase_siglip_int8") or {}),
+                                  **(res.get("phase_siglip_video") or {})})
             video2_counts, exports["middle"] = (attempt(phase_video_stage2, work, video1 or {},
                                                         eval_root) or (None, None))
             with _video_depth("middle"):        # it loads middle@336's files
                 fast_video_counts = attempt(phase_fast_video, work, video1 or {})
+            side = _side_start(eval_root, "eval_middle", [["phase_eval", eval_root, {
+                "middle@336 stage 2 export (CLIP-L/14@336)": (exports["middle"],
+                                                              "openai_clip", 336)}]])
             sp_pp_counts = attempt(phase_sp_pp, work, sliding_ref, pp_run)
+            eval_counts.update(_side_join(side).get("phase_eval") or {})
         finally:
             shutil.rmtree(work, ignore_errors=True)
-        work = tempfile.mkdtemp(prefix="chip_smoke_siglip_")
-        try:
-            # the DiT cut to 1 + 1 blocks, to stay inside 1100 s
-            with _DitDepth(1, 1):
-                siglip_counts, exports["siglip"] = (attempt(phase_siglip, work, eval_root)
-                                                    or (None, None))
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-        eval_counts = attempt(phase_eval, eval_root, {
-            "image stage 2 export (MetaCLIP-L/14, 224 px)": (exports["image"], "metaclip", 224),
-            "middle@336 stage 2 export (CLIP-L/14@336)": (exports["middle"], "openai_clip",
-                                                          336),
-            "SigLIP stage2_all export (so400m, 384 px)": (exports["siglip"], "siglip", 384)})
     finally:
+        for side in SIDES:          # a crash here left it running
+            side["proc"].kill()
+            side["proc"].wait()
         shutil.rmtree(eval_root, ignore_errors=True)
     if FAILURES:
         print("FAILED phases:\n  " + "\n  ".join(FAILURES), flush=True)
@@ -6384,7 +6935,7 @@ def main():
              **{f"train_{k}": v for k, v in train_counts.items()},
              **stage2_counts, **dp_counts, **tp_counts, **int8_counts, **video_counts,
              **video2_counts,
-             **siglip_counts,
+             **siglip_counts, **remat_counts,
              **eval_counts, **fast_counts, **fast_video_counts, **sp_pp_counts,
              **sp_int8_counts}
 
@@ -6455,4 +7006,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--side"]:
+        _side_main(sys.argv[2])
+    else:
+        main()

@@ -8,6 +8,10 @@ keyed by a hash of the source, the headers and the flags, so an edited
 source or header rebuilds and an unchanged one is reused within a checkout.
 ``load_all`` starts one ``nvcc`` per missing source, all at once.  Nothing
 outside the package's sources and the CUDA toolkit is used.
+
+``load_host`` builds a host C++ source of the package the same way, with
+the host compiler (the native JPEG decoder, ``data/native/ghdata.cc``,
+linked against the system's libjpeg).
 """
 
 from __future__ import annotations
@@ -21,12 +25,15 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the JAX package's data/native/Makefile flags, so both decoders compile alike
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-march=native", "-shared")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -95,3 +102,46 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     return load_all([name])[name]
+
+
+def _host_compiler() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise RuntimeError("no host C++ compiler ($CXX, g++, c++) on PATH")
+
+
+def load_host(source: Path, libs: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library for the host C++ file ``source``, built at first
+    use with ``HOST_FLAGS`` and ``-l<lib>`` for each of ``libs`` into
+    ``BUILD_DIR``, keyed by a hash of the source, the flags and the libs.
+    Raises ``RuntimeError`` with the compiler's report when the build fails
+    (a missing header or library, or no compiler)."""
+    source = Path(source)
+    link = tuple(f"-l{lib}" for lib in libs)
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(HOST_FLAGS + link).encode()).hexdigest()[:16]
+    path = BUILD_DIR / f"lib{source.stem}-{digest}.so"
+    key = str(path)
+    with _lock:
+        if key in _loaded:
+            return _loaded[key]
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run([_host_compiler(), *HOST_FLAGS, str(source), "-o", tmp,
+                                       *link], capture_output=True, text=True, timeout=300)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"the host build of {source.name} failed:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+            BUILD_LOG[source.stem] = (time.perf_counter() - t0,
+                                      (proc.stdout + proc.stderr).strip())
+        _loaded[key] = ctypes.CDLL(str(path))
+        return _loaded[key]

@@ -21,9 +21,10 @@ so one video task (``tasks.video``) serves all four trainers:
 
 The same seed and the same shards give the same windows as the JAX loaders
 (the same ``np.random.default_rng`` draws in the same order).  Frames are
-decoded with PIL in a thread pool; the native decoder is not ported yet
-(ROADMAP).  With ``precomputed`` the frames are ``.feat.npz`` members of
-the video features cache (``data.precompute``) and every loader emits
+decoded by the native library where it is available (``data.native_decode``,
+one call per example's frames, the center crop; ``video.py:60-65``), else
+with PIL in a thread pool.  With ``precomputed`` the frames are
+``.feat.npz`` members of the video features cache (``data.precompute``) and every loader emits
 ``{cond_patches, cond_vecs, moments, valid}`` (``_assemble_precomputed``).
 """
 
@@ -63,6 +64,11 @@ class VideoLoaderBase:
         self.pool = ThreadPoolExecutor(max_workers=self.num_workers)
 
     def _decode_frames(self, frames: List, indices: List[int]) -> Optional[np.ndarray]:
+        from . import native_decode as nd
+        if nd.available():
+            arrs, ok = nd.decode_batch_center([frames[i][1] for i in indices], self.img_size,
+                                              num_threads=self.num_workers)
+            return arrs if bool(ok.all()) else None
         try:
             return np.stack(list(self.pool.map(
                 lambda i: video_frame_transform(frames[i][1], self.img_size), indices)))

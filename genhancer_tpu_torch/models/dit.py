@@ -1,8 +1,8 @@
 """FLUX-style rectified-flow DiT (the lightweight GenHancer denoiser).
 
-Port of ``genhancer_tpu/models/dit.py`` (remat with the "full" policy
-only), with its two hooks: ControlNet residuals added to the img stream
-after each double block (``models.controlnet``) and the IP-Adapter's
+Port of ``genhancer_tpu/models/dit.py``, with its two hooks: ControlNet
+residuals added to the img stream after each double block
+(``models.controlnet``) and the IP-Adapter's
 cross-attention residual after each block's own attention
 (``models.ip_adapter``).  The module tree carries the reference
 torch names (``double_blocks.{i}.img_attn.qkv.weight``, ``img_mlp.0`` ...,
@@ -16,9 +16,27 @@ tokens, RoPE and the flash kernel K5 beyond).
 
 ``remat=True`` wraps each double and single block in
 ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the JAX package
-wraps them in ``jax.checkpoint`` (``dit.py:276-280``): only the blocks'
-inputs are kept for the backward, which runs each block's forward again,
-inside the SwitchBack context the forward ran in (``core.nn.int8_ctx_replay``).
+wraps them in ``jax.checkpoint`` (``dit.py:35-47, 276-280``); the backward
+runs each block's forward again, inside the SwitchBack context the forward
+ran in (``core.nn.int8_ctx_replay``).  ``remat_policy`` says what a block
+keeps besides its inputs, read off ``jax.ad_checkpoint.
+print_saved_residuals`` of the JAX block:
+
+  * ``full``: nothing;
+  * ``save_attn``: the attention output (JAX's ``checkpoint_name(...,
+    "attn_out")``, here the ``genhancer::checkpoint_name`` op the block
+    calls on it);
+  * ``dots``: every matrix product without batch dimensions (JAX's
+    ``dots_with_no_batch_dims_saveable``): the linears' ``aten.mm`` and,
+    under SwitchBack, the int32 ``aten._int_mm``; attention's batched
+    products are recomputed.
+
+The two selective policies run under ``torch.utils.checkpoint``'s
+selective-checkpoint contexts (``_policy_context``).  Under every policy
+the attention kernel's residuals (q, k, v, o and the row log-sum-exp) are
+not kept, so its forward (K1 or K5) runs again in the backward, as the
+Pallas forward does in JAX's; so does K7 on the SwitchBack activations
+(a Pallas call in JAX, no dot).
 
 Tensor parallel (``parallel.tp``, ``parallel.layout.place`` sets the DiT's
 ``tp``): each rank holds the q, k and v rows of ``num_heads / tp`` heads
@@ -40,16 +58,75 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
 from torch import nn as tnn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core import nn
 from ..core.attention import attention
 from ..core.rope import multi_axis_rope
 from ..parallel import ring
+
+
+REMAT_POLICIES = ("full", "save_attn", "dots")
+
+
+@torch.library.custom_op("genhancer::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that a remat policy can keep by ``name``."""
+    return x.clone()
+
+
+_checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+# the names a remat'd block tags while it runs (``_tagging``); none outside one
+_TAGS = threading.local()
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """JAX's ``checkpoint_name``: inside a block run under a policy that
+    keeps ``name``, ``x`` passes through the named op; elsewhere it is
+    ``x`` itself (no copy)."""
+    if name in getattr(_TAGS, "names", ()):
+        return _checkpoint_name(x, name)
+    return x
+
+
+def _tagging(fn, names):
+    """``fn`` run with ``names`` tagged: in the forward and in the recompute
+    alike, so both see the same ops."""
+    def run(*args):
+        prev = getattr(_TAGS, "names", ())
+        _TAGS.names = names
+        try:
+            return fn(*args)
+        finally:
+            _TAGS.names = prev
+    return run
+
+
+# ``dots``: the products with no batch dimensions (the linears; SwitchBack's
+# int8 GEMM); ``save_attn``: the tagged attention output
+_SAVED_OPS = {
+    "save_attn": {torch.ops.genhancer.checkpoint_name.default},
+    "dots": {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten._int_mm.default},
+}
+
+
+def _policy_context(policy: str):
+    """The ``context_fn`` of a selective policy: its ops' outputs are kept,
+    every other op recomputed."""
+    keep = _SAVED_OPS[policy]
+
+    def decide(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(decide)
 
 
 @dataclass(frozen=True)
@@ -215,7 +292,7 @@ def _double_block(p: DoubleStreamBlock, img, txt, vec, cos, sin, num_heads, ip=N
     q = torch.cat([tq, iq], dim=1)
     k = torch.cat([tk, ik], dim=1)
     v = torch.cat([tv, iv], dim=1)
-    attn_out = attention(q, k, v, cos, sin)
+    attn_out = checkpoint_name(attention(q, k, v, cos, sin), "attn_out")
     txt_len = txt.shape[1]
     txt_attn, img_attn = attn_out[:, :txt_len], attn_out[:, txt_len:]
 
@@ -242,7 +319,7 @@ def _single_block(p: SingleStreamBlock, x, vec, cos, sin, num_heads, hidden_size
     qkv, mlp = lin1[..., : 3 * hidden_size], lin1[..., 3 * hidden_size:]
     q, k, v = _split_qkv(qkv, num_heads)
     q, k = _qk_norm(p.norm, q, k, v)
-    attn_out = attention(q, k, v, cos, sin)
+    attn_out = checkpoint_name(attention(q, k, v, cos, sin), "attn_out")
     if ip is not None:
         attn_out = attn_out + _ip_residual(ip, q)
     out = nn.linear(p.linear2, torch.cat([attn_out, nn.gelu_tanh(mlp)], dim=-1))
@@ -293,10 +370,6 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
     scope the result holds the rank's img tokens only (``Layout.img``)."""
     if img.ndim != 3 or txt.ndim != 3:
         raise ValueError("img and txt must be 3-D [B, L, C]")
-    if remat and (remat_policy or "full") != "full":
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r} is not ported yet (ROADMAP: later items); "
-            "the port recomputes whole blocks (remat_policy: full)")
     tp = getattr(p, "tp", 1)
     heads, hidden = cfg.num_heads // tp, cfg.hidden_size // tp    # the rank's widths
     layout, scope = None, contextlib.nullcontext()
@@ -313,14 +386,16 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
                                            guidance)
     with scope:
         return _blocks_and_head(p, cfg, img, txt, vec, cos, sin, heads, hidden, remat,
-                                image_proj, ip_params, ip_scale, controlnet_residuals)
+                                remat_policy, image_proj, ip_params, ip_scale,
+                                controlnet_residuals)
 
 
 def _blocks_and_head(p: DiT, cfg: DiTConfig, img, txt, vec, cos, sin, heads, hidden,
-                     remat, image_proj, ip_params, ip_scale, controlnet_residuals):
+                     remat, remat_policy, image_proj, ip_params, ip_scale,
+                     controlnet_residuals):
     """The block stack and the final layer of ``dit_forward``."""
     compute_dtype = img.dtype
-    dblock, sblock = block_fns(remat)
+    dblock, sblock = block_fns(remat, remat_policy)
     use_ip = image_proj is not None and ip_params is not None
     if use_ip:
         if image_proj.ndim == 2:            # a raw image embedding: project it
@@ -352,22 +427,31 @@ def final_layer(p: DiT, img: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
     return nn.linear(fl.linear, img)
 
 
-def block_fns(remat: bool):
+def block_fns(remat: bool, remat_policy: Optional[str] = None):
     """(double block, single block) callables: the plain functions, or with
-    ``remat`` each under ``torch.utils.checkpoint`` (non-reentrant), whose
-    recompute in the backward runs again in the SwitchBack context and the
-    ring state of the forward (``core.nn.int8_ctx_replay``,
-    ``parallel.ring.replay``)."""
+    ``remat`` each under ``torch.utils.checkpoint`` (non-reentrant) with
+    ``remat_policy`` (None: ``full``), whose recompute in the backward runs
+    again in the SwitchBack context and the ring state of the forward
+    (``core.nn.int8_ctx_replay``, ``parallel.ring.replay``)."""
     if not remat:
         return _double_block, _single_block
-    d_fn = ring.replay(nn.int8_ctx_replay(_double_block))
-    s_fn = ring.replay(nn.int8_ctx_replay(_single_block))
+    policy = remat_policy or "full"
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {policy!r}")
+    kw = {}
+    d_fn, s_fn = _double_block, _single_block
+    if policy != "full":
+        kw["context_fn"] = _policy_context(policy)
+        if policy == "save_attn":
+            d_fn, s_fn = _tagging(d_fn, ("attn_out",)), _tagging(s_fn, ("attn_out",))
+    d_fn = ring.replay(nn.int8_ctx_replay(d_fn))
+    s_fn = ring.replay(nn.int8_ctx_replay(s_fn))
 
     def dblock(*a):
-        return checkpoint(d_fn, *a, use_reentrant=False)
+        return checkpoint(d_fn, *a, use_reentrant=False, **kw)
 
     def sblock(*a):
-        return checkpoint(s_fn, *a, use_reentrant=False)
+        return checkpoint(s_fn, *a, use_reentrant=False, **kw)
 
     return dblock, sblock
 

@@ -252,11 +252,12 @@ class _Proj:
 class _HeadProjections:
     """The MAP head's attention as ``mha`` reads it: q, k and v the row
     thirds of ``in_proj_weight``/``in_proj_bias`` (never LoRA-wrapped: their
-    key is not ``weight``), ``out_proj`` the module itself."""
+    key is not ``weight``, so ``tower_quant: int8`` leaves them float),
+    ``out_proj`` the module itself (an ``Int8Layer`` under int8)."""
 
     def __init__(self, p: HeadAttention):
-        h = p.out_proj.weight.shape[0]
         w, b = p.in_proj_weight, p.in_proj_bias
+        h = w.shape[0] // 3
         self.q_proj, self.k_proj, self.v_proj = (_Proj(w[i * h:(i + 1) * h], b[i * h:(i + 1) * h])
                                                  for i in range(3))
         self.out_proj = p.out_proj

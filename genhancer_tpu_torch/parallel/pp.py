@@ -19,7 +19,8 @@ the weights).
     blocks; each ends with the collect: the last stage's outputs on every
     stage (a broadcast; JAX's ``psum`` of the last stage's diagonal);
   * the prologue and the final layer run outside the pipeline, on every
-    pipe rank; ``remat`` checkpoints each block (``models.dit.block_fns``);
+    pipe rank; ``remat`` checkpoints each block under its ``remat_policy``
+    (``models.dit.block_fns``);
   * IP-Adapter conditioning raises ``NotImplementedError``
     (``pipeline_dit_forward:171-175``).
 
@@ -179,14 +180,10 @@ def pipeline_dit_forward(p, cfg, *, n_micro: int, img: torch.Tensor,
             f"mesh has no '{axis}' axis — build it with "
             "make_mesh(pipeline_parallel=N)")
     validate_pp(cfg, n_st, n_micro, img.shape[0])
-    if remat and (remat_policy or "full") != "full":
-        raise NotImplementedError(
-            f"remat_policy {remat_policy!r} is not ported yet (ROADMAP: later items); "
-            "the port recomputes whole blocks (remat_policy: full)")
     i = mesh._axis(axis)[2]
     img_h, txt_h, vec, cos, sin = dit_m.embed_inputs(p, cfg, img, img_ids, txt, txt_ids,
                                                      timesteps, y, guidance)
-    dblock, sblock = dit_m.block_fns(remat)
+    dblock, sblock = dit_m.block_fns(remat, remat_policy)
     kd, ks = cfg.depth // n_st, cfg.depth_single_blocks // n_st
     doubles = list(p.double_blocks)[i * kd:(i + 1) * kd]
     singles = list(p.single_blocks)[i * ks:(i + 1) * ks]

@@ -38,7 +38,7 @@ The scenarios:
     each way on the seq axis;
   * ``pp_forward``: ``parallel.pp.pipeline_dit_forward`` of loaded DiT
     weights on this rank's rows of given whole inputs (``n_micro``,
-    ``remat``), the loss the global mean of the output's squares; returns
+    ``remat``, ``remat_policy``), the loss the global mean of the output's squares; returns
     the rank's output and the gradients summed as the step sums them
     (``control`` ``sum_all_over_pipe``: every leaf summed over pipe);
   * ``steps``: for each variant of a config, a ``Trainer``, ``steps``
@@ -456,7 +456,8 @@ def scenario_pp_forward(p: dict) -> dict:
     dit.load_state_dict(p["state_dict"])
     inputs = {k: local_rows(v) for k, v in p["inputs"].items()}
     out = pipeline_dit_forward(dit, p["cfg"], n_micro=int(p["n_micro"]),
-                               remat=bool(p.get("remat")), **inputs)
+                               remat=bool(p.get("remat")),
+                               remat_policy=p.get("remat_policy"), **inputs)
     total = out.numel() * mesh.data_size()
     (out.float().square().sum() / total).backward()
     grads = {"dit." + k: v.grad if v.grad is not None else torch.zeros_like(v)

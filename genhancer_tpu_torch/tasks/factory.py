@@ -4,14 +4,15 @@ Port of ``genhancer_tpu/tasks/factory.py`` for the tasks ``image_stage1``,
 ``image_stage2_only``, ``image_stage2_all``,
 ``video_{middle,next,next2,sliding}_stage1`` and
 ``video_{middle,next,next2,sliding}_stage2_all`` with ``tower: openai_clip |
-siglip | metaclip`` (SigLIP in image mode only); ``clip_config.model_dir``
+siglip | metaclip``; ``clip_config.model_dir``
 names a local HF tower directory (``registry.load_tower``: its
 ``config.json`` overrides the variant's config).  The video tasks' DiT
 remat and ``tower_remat`` follow the JAX factory's gates on one device
 (``factory.py:225-258``) unless the config sets them.  ``data_config.
 precomputed`` takes the caches of ``data.precompute``: ``latents`` in every
 stage, a features cache (``true``) in stage 1 only (``_check_precomputed``).
-SigLIP in video mode raises.
+SigLIP in video mode needs a DiT whose ``vec_in_dim`` is the tower's width
+(``tasks.video.require_ported``).
 
 Parallelism: data parallel over the ranks of a ``torch.distributed`` group
 (``parallel.mesh``; one device per rank, ``num_devices`` the world size),
@@ -196,6 +197,7 @@ def build_spec(cfg):
                   scale_factor=float(cfg.get("scale_factor", 1.0)),
                   guidance=float(cfg.get("guidance", 4.0)),
                   remat=bool(cfg.get("remat") or False),
+                  remat_policy=cfg.get("remat_policy", "full"),
                   compute_dtype=compute_dtype,
                   dit_param_dtype=compute_dtype,
                   # bf16 by default for the frozen VAE encode, as the JAX
@@ -233,8 +235,7 @@ def build_spec(cfg):
     if cfg.get("tower_remat") is None and stage != "stage1":
         common["tower_remat"] = tower_remat_gate(n_cond, clip_image_size, patch, bs)
     spec = video_task.VideoTaskSpec(
-        mode=mode, adapter_in_dim=tower_cfg.vision.hidden_size,
-        remat_policy=cfg.get("remat_policy", "full"), **common)
+        mode=mode, adapter_in_dim=tower_cfg.vision.hidden_size, **common)
     video_task.require_ported(spec)
     return spec, kind, "video"
 

@@ -60,8 +60,13 @@ the DiT runs as ``parallel.pp.pipeline_dit_forward`` with
 blocks that span tokens are taken over every seq rank's (``core.quant``),
 so each SwitchBack call is one process's.
 
-An int8 SigLIP tower and remat raise ``NotImplementedError``, naming
-ROADMAP.
+``remat`` checkpoints each DiT block under ``remat_policy``
+(``models.dit``, ``image.py:269-270``).  ``tower_quant: int8`` on the SigLIP
+tower quantizes its linears as on CLIP's (``core/quant.py:468-480``): every
+linear with min(out, in) >= 64 whose path names no embedding — each layer's
+q, k, v, out_proj, fc1, fc2 and the MAP head's ``out_proj`` and MLP; the
+head's packed ``in_proj_weight`` has no ``weight`` and stays float, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -111,6 +116,8 @@ class TaskSpec:
     lora_bias: str = "lora_only"
     lora_dropout: float = 0.0
     remat: bool = False
+    # what each remat'd DiT block keeps (models.dit.REMAT_POLICIES)
+    remat_policy: str = "full"
     tower_remat: bool = False         # checkpoint each tower layer (stage 2)
     compute_dtype: torch.dtype = torch.bfloat16
     # the reference stores DiT params in bf16; tower, projectors and VAE
@@ -228,13 +235,9 @@ def quantize_modules(spec, modules: tnn.ModuleDict) -> tnn.ModuleDict:
 
 
 def require_ported(spec: TaskSpec) -> None:
-    """Raise for the options the port does not run yet."""
+    """Raise for a stage the image task does not have."""
     if spec.stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {spec.stage!r}")
-    if spec.tower_kind == "siglip" and spec.tower_quant != "none":
-        raise NotImplementedError(
-            f"tower_quant: {spec.tower_quant} with the SigLIP tower (siglip) is not ported "
-            "yet (ROADMAP: §1, the int8 extensions); no published config asks for it")
 
 
 def trainable_predicate(spec: TaskSpec, modules=None) -> Callable[[str], bool]:
@@ -273,10 +276,8 @@ def make_loss_fn(spec: TaskSpec, mesh=None):
     cache's ``moments`` and ``cls`` [B, P] float32."""
     require_ported(spec)
     ring_ctx = ring_ctx_factory(spec, mesh)
-    dit_apply = dit_apply_factory(spec, mesh)
-    if spec.remat:
-        raise NotImplementedError("remat (activation checkpointing) is not ported yet "
-                                  "(ROADMAP: later items)")
+    dit_apply = functools.partial(dit_apply_factory(spec, mesh), remat=spec.remat,
+                                  remat_policy=spec.remat_policy)
     f32, cd = torch.float32, spec.compute_dtype
     # stage2_only's DiT is frozen and carries a static int8 base: no SwitchBack
     dit_ctx = dit_quant_ctx("none" if spec.stage == "stage2_only" else spec.dit_quant)

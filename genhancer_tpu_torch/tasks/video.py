@@ -38,9 +38,15 @@ knobs are the image task's (``tasks.image.quantize_modules``, ``video.py:
 int8 ones and gives the stage-2 tower QLoRA's base, ``vae_quant`` the
 encoder's wide convs, and ``dit_quant`` runs the DiT through SwitchBack, its
 int8 copies kept in the state where the fused optimizer emits them
-(``dit_quant_cache``, K4).  The SigLIP tower (no published video config uses
-it) raises ``NotImplementedError``, naming its ROADMAP item.  Sequence
-and pipeline parallelism run as in the image task (``tasks.image.
+(``dit_quant_cache``, K4).
+
+The SigLIP so400m tower (``tower: siglip``; no published video config uses
+it) gives every post-LN token of each frame to the adapter and its
+MAP-pooled vector, averaged over the frames, to the DiT's ``vector_in``
+(``video.py:118, 210-228``), so its width must be the DiT's ``vec_in_dim``:
+JAX's loss fails on a mismatch inside its first product, the port's
+``require_ported`` raises ``ValueError`` naming the two widths (so400m's
+1152 against flux-dev's 768).  Sequence and pipeline parallelism run as in the image task (``tasks.image.
 ring_ctx_factory``, ``dit_apply_factory``, ``masked_loss``).
 """
 
@@ -56,7 +62,7 @@ from ..core import quant
 from ..core.nn import init_weights, lora_dropout_ctx
 from ..models import dit as dit_m
 from ..models import vae as vae_m
-from ..models.towers import clip as clip_m
+from .. import registry
 from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
 from ..parallel.mesh import data_size, local_rows, randn_rows
@@ -82,12 +88,12 @@ class VideoTaskSpec:
     """Static description of one video task."""
     mode: str                        # key into VIDEO_MODES
     stage: str                       # "stage1" | "stage2_all"
-    tower_kind: str                  # "clip"
+    tower_kind: str                  # "clip" | "siglip"
     img_size: int                    # VAE input resolution
     clip_image_size: int
     dit_cfg: dit_m.DiTConfig
     vae_cfg: vae_m.VAEConfig
-    tower_cfg: clip_m.CLIPConfig
+    tower_cfg: object                # CLIPConfig | SiglipConfig
     clip_dim: int = 768
     t5_dim: int = 4096
     adapter_in_dim: int = 1024       # the tower's patch-token width
@@ -148,8 +154,9 @@ def is_stage2(spec) -> bool:
 
 def build_modules(spec: VideoTaskSpec, device=None) -> tnn.ModuleDict:
     """Uninitialised modules in the reference layout, on ``device``: the
-    vision-only tower in stage 1, the whole ``CLIPModel`` in stage 2."""
-    tower_cls = clip_m.CLIPModel if is_stage2(spec) else clip_m.CLIPVisionTower
+    vision-only tower in stage 1, the whole ``CLIPModel`` or ``SiglipModel``
+    in stage 2."""
+    tower_cls = registry.tower_class(spec.tower_kind, is_stage2(spec))
     return tnn.ModuleDict({
         "dit": dit_m.DiT(spec.dit_cfg, device=device, dtype=spec.dit_param_dtype),
         "vae": vae_m.AutoEncoder(spec.vae_cfg, device=device),
@@ -182,11 +189,12 @@ def require_ported(spec: VideoTaskSpec) -> None:
     """Raise for the options of a video spec that the port does not run."""
     if spec.stage not in STAGES:
         raise ValueError(f"video stage must be one of {STAGES}, got {spec.stage!r}")
-    if spec.tower_kind != "clip":
-        raise NotImplementedError(
-            f"tower kind {spec.tower_kind!r} in video mode: the SigLIP tower runs in image "
-            "mode only; no published video config uses it (ROADMAP: §1, SigLIP in video "
-            "mode)")
+    if spec.tower_kind == "siglip" and spec.tower_cfg.vision.hidden_size != spec.dit_cfg.vec_in_dim:
+        raise ValueError(
+            f"the SigLIP tower in video mode feeds its {spec.tower_cfg.vision.hidden_size}-d "
+            f"pooled vector to the DiT's vector_in, which takes vec_in_dim="
+            f"{spec.dit_cfg.vec_in_dim}: give the DiT vec_in_dim="
+            f"{spec.tower_cfg.vision.hidden_size} (the JAX loss fails on the same product)")
 
 
 def trainable_predicate(spec: VideoTaskSpec, modules=None) -> Callable[[str], bool]:

@@ -1,7 +1,7 @@
 """Optimizer: global-norm clipping + AdamW + learning-rate schedules.
 
-Port of ``genhancer_tpu/train/optim.py``.  Two implementations, selected by
-the config's ``fused_optimizer`` as in JAX:
+Port of ``genhancer_tpu/train/optim.py``.  Three implementations, selected
+by the config's ``fused_optimizer`` as in JAX:
 
 * the default chain, ``optax.chain(clip_by_global_norm(c), adamw(...))``
   (optax 0.2.6), as plain torch, one function per optax stage:
@@ -11,6 +11,10 @@ the config's ``fused_optimizer`` as in JAX:
   gradients (float32 accumulated grads make them float32 from the first
   step on), and Python constants are rounded to the array's dtype first
   (``core.nn.as_dtype_scalar``), as JAX rounds weakly-typed scalars;
+* ``fused_optimizer: xla`` (or ``true``) — ``fused_adamw_clip``, clip +
+  AdamW as one float32 expression per leaf, in plain torch as JAX leaves it
+  to XLA (no Pallas kernel): moments in the parameter dtype, the update
+  rounded to the parameter's dtype and then added (two roundings);
 * ``fused_optimizer: pallas`` — the fused clip + AdamW kernel K3
   (``core/kernels/adamw.py``), moments kept in the parameter dtype; with
   ``emit_quant`` it writes the int8 copy of the DiT's SwitchBack weights in
@@ -229,6 +233,59 @@ class AdamWChain:
         return {**state, "count": count + 1, "mu": mu, "nu": nu}, g_norm
 
 
+class SinglePassAdamW:
+    """``fused_optimizer: xla`` (``fused_adamw_clip:62-110``): per leaf, in
+    float32, ``g * min(1, c / (||g|| + 1e-6))``, the moments, and the update
+    ``-lr * (m / bc1 / (sqrt(v / bc2) + eps) + wd * p)``; the moments are
+    stored in their own (the parameter's) dtype and the update is rounded to
+    the parameter's dtype before ``apply_updates`` adds it.  The learning
+    rate is the schedule at the count before the step, the bias
+    corrections at the count after it (optax's rules).  The divisions are by
+    0-dim tensors on the leaf's device, so none becomes a product with a
+    reciprocal.  ZeRO-1 rows and the TP/FSDP blocks as the chain."""
+
+    def __init__(self, schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.01, max_grad_norm: float = 1.0,
+                 shard: bool = False):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.shard = shard
+
+    def init(self, params: Tensors, layout: Optional[dict] = None) -> dict:
+        return zero_moments(params, self.shard, layout)
+
+    @torch.no_grad()
+    def apply(self, params: Tensors, grads: Tensors, state: dict) -> Tuple[dict, torch.Tensor]:
+        f32 = torch.float32
+        g_norm = global_norm(grads, _norm_axes(state))
+        nd = g_norm.dtype         # min(1, c / (||g|| + 1e-6)) in the norm's dtype
+        scale = torch.minimum(as_dtype_scalar(self.max_grad_norm, nd)
+                              / (g_norm + as_dtype_scalar(1e-6, nd)),
+                              torch.ones((), dtype=nd, device=g_norm.device)).to(f32)
+        count = state["count"]
+        neg_lr = -float(_F32(self.schedule(count)))
+        bc1 = _F32(1) - _F32(self.b1) ** _F32(count + 1)
+        bc2 = _F32(1) - _F32(self.b2) ** _F32(count + 1)
+        b1, b2 = as_dtype_scalar(self.b1, f32), as_dtype_scalar(self.b2, f32)
+        c1, c2 = as_dtype_scalar(1 - self.b1, f32), as_dtype_scalar(1 - self.b2, f32)
+        eps, wd = as_dtype_scalar(self.eps, f32), as_dtype_scalar(self.weight_decay, f32)
+        mu, nu = state["mu"], state["nu"]
+        rows = state.get("rows", {})
+        for k, p in params.items():
+            p = local_view(p, rows, k)
+            dev = p.device
+            g_ = local_view(grads[k], rows, k).to(f32) * scale.to(dev)
+            m_ = b1 * mu[k].to(f32) + c1 * g_
+            v_ = b2 * nu[k].to(f32) + c2 * torch.square(g_)
+            t1 = torch.full((), float(bc1), dtype=f32, device=dev)
+            t2 = torch.full((), float(bc2), dtype=f32, device=dev)
+            upd = neg_lr * (m_ / t1 / (torch.sqrt(v_ / t2) + eps) + wd * p.to(f32))
+            mu[k], nu[k] = m_.to(mu[k].dtype), v_.to(nu[k].dtype)
+            p.copy_(apply_updates(p, upd.to(p.dtype)))
+        return {**state, "count": count + 1, "mu": mu, "nu": nu}, g_norm
+
+
 class FusedAdamW:
     """``fused_optimizer: pallas`` (``pallas_adamw_clip:115``): clip + AdamW
     in one kernel pass per leaf, in place; moments in the parameter dtype,
@@ -277,7 +334,7 @@ def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
                    emit_quant: bool = False, moment_bits: Optional[int] = None):
     """The optimizer of a train config, with the JAX package's knob handling:
     ``fused_optimizer`` "pallas" -> K3 (K4 with ``emit_quant``), True/"xla"
-    -> not ported, anything else -> the chain (the default, which ignores
+    -> ``SinglePassAdamW``, anything else -> the chain (the default, which ignores
     ``emit_quant``: the state then rebuilds its cache);
     ``optimizer_moment_bits`` 16, or 8 with pallas only (K6);
     ``shard_optimizer_state`` keeps the moments of the rank's rows (ZeRO-1)."""
@@ -303,9 +360,7 @@ def make_optimizer(cfg, total_steps: Optional[int] = None, fused=None,
     if fused == "pallas":
         return FusedAdamW(schedule, emit_quant=emit_quant, moment_bits=moment_bits, **kw)
     if fused in (True, "xla"):
-        raise NotImplementedError(
-            "fused_optimizer: xla (the single-pass XLA tree_map) is not ported "
-            "(ROADMAP: later items); use the default chain or fused_optimizer: pallas")
+        return SinglePassAdamW(schedule, **kw)
     return AdamWChain(schedule, **kw)
 
 

@@ -12,9 +12,10 @@ genhancer_tpu/core/pallas/adamw.py in interpret mode), on the CPU.
   float32 summation order, and b1*m + (1-b1)*g cancels near zero), bf16
   moments within one ulp, params within one ulp of their dtype;
 * the four schedules against optax (float32 arithmetic, rtol 1e-6);
-* the options that are not ported raise ``NotImplementedError``; the
-  int8 ones (``emit_quant``, ``optimizer_moment_bits: 8``) build K4/K6's
-  optimizer (their parity: tests/test_torch_adamw_int8.py).
+* the knobs: ``fused_optimizer: xla``/``true`` builds ``SinglePassAdamW``
+  (its parity: tests/test_torch_xla_optim.py); the int8 ones
+  (``emit_quant``, ``optimizer_moment_bits: 8``) build K4/K6's optimizer
+  (their parity: tests/test_torch_adamw_int8.py).
 """
 
 import jax.numpy as jnp
@@ -138,8 +139,8 @@ def test_knob_handling():
     assert isinstance(optim.make_optimizer(dict(HYPER, fused_optimizer="chain")),
                       optim.AdamWChain)
     for fused in ("xla", True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            optim.make_optimizer(dict(HYPER, fused_optimizer=fused))
+        assert isinstance(optim.make_optimizer(dict(HYPER, fused_optimizer=fused)),
+                          optim.SinglePassAdamW)
     opt8 = optim.make_optimizer(dict(HYPER, fused_optimizer="pallas", optimizer_moment_bits=8),
                                 emit_quant=True)
     assert isinstance(opt8, optim.FusedAdamW) and opt8.moment_bits == 8 and opt8.emit_quant

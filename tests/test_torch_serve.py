@@ -184,16 +184,24 @@ class TestEngine:
         # refused, with JAX's message (tests/test_torch_precompute.py)
         pytest.param({"task": "video_middle_stage2_all", "data_config": {"precomputed": True}},
                      ValueError, "stage-1 only", id="override0-not ported"),
-        # SigLIP is ported (test_siglip_config_specs_match_jax); its int8
-        # tower is not
+        # SigLIP and its int8 tower are ported: the spec is JAX's
         pytest.param({"tower": "siglip", "clip_config": {"clip_image_size": 384},
-                      "tower_quant": "int8"}, NotImplementedError, "siglip",
+                      "tower_quant": "int8"}, None, "siglip",
                      id="override1-siglip"),
     ])
     def test_unported_config_paths_raise(self, override, error, match):
         from genhancer_tpu_torch.tasks.factory import build_spec
         from genhancer_tpu_torch.train.config import load_config
         cfg = load_config("configs/MetaCLIP_large_stage1.yaml").merged_with(override)
+        if error is None:
+            from genhancer_tpu.tasks.factory import build_spec as jax_build_spec
+            from genhancer_tpu.train.config import load_config as jax_load_config
+            ours = build_spec(cfg)[0]
+            ref = jax_build_spec(jax_load_config("configs/MetaCLIP_large_stage1.yaml")
+                                 .merged_with(override))[0]
+            assert (ours.tower_kind, ours.tower_quant) == (ref.tower_kind, ref.tower_quant) \
+                == (match, "int8")
+            return
         with pytest.raises(error, match=match):
             build_spec(cfg)
         if error is ValueError:     # the same path with the latent cache runs

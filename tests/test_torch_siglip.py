@@ -50,6 +50,7 @@ from genhancer_tpu.weights import hf_convert
 from genhancer_tpu.weights.torch_io import save_torch_state_dict
 from genhancer_tpu_torch import registry
 from genhancer_tpu_torch.cli import evaluate as cli_evaluate
+from genhancer_tpu_torch.core import nn as tnn_port
 from genhancer_tpu_torch.core.kernels import flash_attention as tflash
 from genhancer_tpu_torch.core.kernels import short_attention as tshort
 from genhancer_tpu_torch.eval import mmvp
@@ -420,9 +421,16 @@ def test_accumulation_step_matches_jax(jax_init, stage):
 
 
 def test_int8_siglip_tower_raises():
+    """No longer raises: the int8 SigLIP tower is ported (its parity:
+    tests/test_torch_siglip_int8.py); the head's packed q/k/v stays float."""
+    from genhancer_tpu_torch.core import quant as tquant
     _, ps = _specs("stage1")
-    with pytest.raises(NotImplementedError, match="int8 extensions"):
-        timage.init_modules(dataclasses.replace(ps, tower_quant="int8"), torch.Generator())
+    timage.init_modules(dataclasses.replace(ps, tower_quant="int8"), torch.Generator())
+    mods = timage.init_modules(ps, torch.Generator())
+    tquant.quantize_linear_tree(mods["clip"]["model"], min_features=1)
+    head = mods["clip"]["model"].vision_model.head
+    assert isinstance(head.attention.out_proj, tnn_port.Int8Layer)
+    assert head.attention.in_proj_weight.dtype == torch.float32
 
 
 # ---------------------------------------------------------------- HF files

@@ -182,8 +182,8 @@ def test_accumulation_step_matches_jax(jax_init, fused):
 
 def test_unported_options_raise():
     js, ps = _specs("float32")
-    with pytest.raises(NotImplementedError, match="remat"):
-        timage.make_loss_fn(dataclasses.replace(ps, remat=True))
+    # remat is ported (tests/test_torch_remat_policy.py)
+    timage.make_loss_fn(dataclasses.replace(ps, remat=True, remat_policy="dots"))
     # the int8 stack is ported (tests/test_torch_int8_step.py); only an
     # unknown dit_quant is refused
     with pytest.raises(ValueError, match="dit_quant"):

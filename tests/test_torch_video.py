@@ -44,6 +44,7 @@ from genhancer_tpu.train.state import TrainState as JaxTrainState
 from genhancer_tpu_torch import registry
 from genhancer_tpu_torch.core.kernels import flash_attention as F
 from genhancer_tpu_torch.data import testing
+from genhancer_tpu_torch.data import native_decode as tnative
 from genhancer_tpu_torch.data import video as video_data
 from genhancer_tpu_torch.models import dit as tdit
 from genhancer_tpu_torch.models.towers.projectors import VisualPromptAdapter, visual_adapter
@@ -264,13 +265,15 @@ def test_remat_recomputes_the_same_grads(jax_init):
 def test_unported_options_raise(jax_init):
     """The int8 knobs and the features-cache batches run (ported in the fast
     stage-2 slice: a ``{moments, cond_patches, cond_vecs}`` batch gives
-    JAX's loss within 1e-5); SigLIP in video mode and a remat policy the
-    port lacks still raise."""
+    JAX's loss within 1e-5); SigLIP in video mode runs where its pooled
+    width is the DiT's vec_in_dim (tests/test_torch_siglip_video.py) and
+    is refused where it is not; the remat policies run
+    (tests/test_torch_remat_policy.py)."""
     js = jax_spec("middle")
     ps = port_spec(js)
     for knob in ("tower_quant", "vae_quant", "dit_quant"):
         tvideo.make_loss_fn(dataclasses.replace(ps, **{knob: "int8"}))
-    with pytest.raises(NotImplementedError, match="SigLIP"):
+    with pytest.raises(ValueError, match="vec_in_dim"):
         tvideo.make_loss_fn(dataclasses.replace(ps, tower_kind="siglip"))
     rng = np.random.default_rng(6)
     h, w = js.latent_hw
@@ -290,17 +293,21 @@ def test_unported_options_raise(jax_init):
                                        _jax_draws(js, key, 2)).item()
     assert ours == pytest.approx(ref, rel=1e-5)
     dit = tdit.DiT(ps.dit_cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdit.dit_forward(dit, ps.dit_cfg, img=torch.zeros(1, 4, 16), img_ids=None,
-                         txt=torch.zeros(1, 1, 32), txt_ids=None, timesteps=None, y=None,
-                         remat=True, remat_policy="save_attn")
+    with pytest.raises(ValueError, match="remat_policy"):
+        tdit.dit_forward(dit, ps.dit_cfg, img=torch.zeros(1, 4, 16),
+                         img_ids=torch.zeros(1, 4, 3), txt=torch.zeros(1, 1, 32),
+                         txt_ids=torch.zeros(1, 1, 3), timesteps=torch.zeros(1),
+                         y=torch.zeros(1, ps.dit_cfg.vec_in_dim), guidance=torch.zeros(1),
+                         remat=True, remat_policy="save_everything")
 
 
 @pytest.mark.parametrize("override, refused", [
     # a features cache in stage 2 is refused as JAX refuses it
     pytest.param({"task": "video_sliding_stage2_all", "data_config": {"precomputed": True}},
                  ValueError, id="override0-slice 5"),
-    pytest.param({"tower": "siglip"}, NotImplementedError, id="override1-SigLIP"),
+    # SigLIP's 1152-d pooled vector against flux-dev's vec_in_dim 768: JAX's
+    # loss fails on that product, the port's spec refuses it
+    pytest.param({"tower": "siglip"}, ValueError, id="override1-SigLIP"),
     # the int8 knobs and the stage-1 features cache are ported
     pytest.param({"tower_quant": "int8"}, None, id="override2-slice 3"),
     pytest.param({"vae_quant": "int8"}, None, id="override3-slice 3"),
@@ -361,7 +368,10 @@ def test_trainer_compat_has_the_jax_video_rows():
     ("sliding", {"max_windows_per_video": 3, "max_frames_per_video": 7}),
 ])
 def test_loaders_match_jax(tmp_path, monkeypatch, mode, kw):
+    """Both packages on the PIL path (the native path's own test:
+    tests/test_torch_native_decode.py)."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "available", lambda: False)
     path = str(tmp_path / "v.tar")
     jax_make_video_shard(path, num_videos=5, frames_per_video=9, img_size=40, seed=4)
     ours_path = str(tmp_path / "ours.tar")

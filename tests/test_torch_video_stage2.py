@@ -186,7 +186,7 @@ def test_modules_and_trainable_set_match_jax(jax_init):
     ps = port_spec(js)
     jst = _jax_state(jax_init[32], js, joptim.make_optimizer(dict(HYPER)))
     state = _port_state(jax_init[32], ps, optim.make_optimizer(dict(HYPER)))
-    assert isinstance(state.modules["clip"]["model"], tvideo.clip_m.CLIPModel)
+    assert isinstance(state.modules["clip"]["model"], registry.tower_class("clip", True))
     assert {_port_name(k) for k in jst.trainable} == set(state.trainable)
     tower_train = {k for k in state.trainable if k.startswith("clip.model.")}
     assert len(tower_train) == 2 * 14 + 12      # 14 wrapped linears, 12 with a bias
