@@ -1,0 +1,10 @@
+"""Device ms per optimizer step of the kernels launched under the frozen VAE
+encode and tower forward spans (``bench.frozen_fwd``)."""
+
+UNIT = "ms"
+
+
+def read(ctx):
+    tr = ctx["trace"]
+    s = tr["span_s"].get("frozen_fwd", 0.0)
+    return 1000.0 * s / tr["steps"] if s > 0 and tr["steps"] else None
