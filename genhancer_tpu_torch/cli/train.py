@@ -23,7 +23,17 @@ tower at each checkpoint.
   * ``--trainer <reference script name>`` maps a reference trainer name onto
     a task (``tasks.factory.TRAINER_COMPAT``);
   * ``--profile`` writes a ``torch.profiler`` trace of steps 2-4 to
-    ``<output_dir>/profile.json``.
+    ``<output_dir>/profile.json`` (chrome trace format; open it in
+    Perfetto or ``chrome://tracing``).  It holds the host's aten ops and,
+    on a card, the device's kernels and copies; the port's spans
+    (``genhancer_tpu_torch.tracing``, on for those steps) as
+    ``user_annotation`` ranges: ``step``, ``input.wait``, ``input.h2d`` and
+    ``input.decode`` (the prefetch thread: the decode time of each batch),
+    ``frozen.vae_encode``, ``frozen.tower``, ``dit.forward``,
+    ``dit.double``/``dit.single`` per block, ``dit.attention``, ``loss``,
+    ``backward``, ``optim.apply``; and two counter tracks: the prefetch
+    queue's depth at each take (``input.queue_depth``) and each step's
+    launches of each hand-written kernel (``launches.<kernel>``).
 
 Data parallel on N cards: launch N ranks, one process per card, with
 torchrun's launcher (it sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,

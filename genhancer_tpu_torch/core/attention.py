@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from .rope import apply_rope
 
 # The JAX package sends L <= 600 to its short kernel and L >= 600 to the
@@ -86,7 +87,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v: [B, L, H, D]; cos/sin: [B, L, D/2].  Returns [B, L, H*D].
     Under an open ring scope L is the rank's tokens of the joint sequence.
+    While tracing is on it runs in the span ``dit.attention``, and under
+    autograd its backward lies between the marks
+    ``dit.attention.bwd_begin`` and ``dit.attention.bwd_end``.
     """
+    if not tracing.enabled():
+        return _attention(q, k, v, cos, sin)
+    grad = torch.is_grad_enabled()
+    if grad:
+        q, k, v = tracing.backward_mark(tracing.DIT_ATTENTION_BWD_END, q, k, v)
+    with tracing.span(tracing.DIT_ATTENTION):
+        out = _attention(q, k, v, cos, sin)
+    return tracing.backward_mark(tracing.DIT_ATTENTION_BWD_BEGIN, out) if grad else out
+
+
+def _attention(q, k, v, cos, sin):
     from ..parallel import ring
     if ring.active_scope() is not None:
         return _merge_heads(ring.attention_chunk(apply_rope(q, cos, sin),

@@ -28,6 +28,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from .. import tracing
 from .transforms import eval_image_transform, train_image_transform
 from .wds import ShardStream
 
@@ -159,6 +160,11 @@ class CC3MLoader:
             yield emit()
 
     def __iter__(self) -> Iterator[Dict]:
+        """The batches, each one's reading and decoding in the span
+        ``input.decode`` while tracing is on."""
+        return tracing.each(tracing.INPUT_DECODE, self._batches())
+
+    def _batches(self) -> Iterator[Dict]:
         if self.precomputed:
             yield from self._iter_precomputed()
             return

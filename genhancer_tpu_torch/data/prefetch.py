@@ -7,7 +7,9 @@ target) and copies it with ``non_blocking=True`` to the trainer's device
 queue of ``depth`` batches full so the train loop never blocks on JPEG
 decode.  The copies go on the thread's current stream — CUDA's default
 stream, where the train loop's kernels run too — so a batch is complete
-before any kernel reads it.
+before any kernel reads it.  With tracing on, each take records the
+queue's depth and the wait (``input.queue_depth``, ``input.wait``), and the
+thread's pin and copy of each batch the span ``input.h2d``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 _SENTINEL = object()
 
@@ -34,14 +38,15 @@ class DevicePrefetcher:
 
     def _place(self, batch):
         out = {}
-        for k, v in batch.items():
-            if not isinstance(v, np.ndarray):
-                out[k] = v
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
+        with tracing.span(tracing.INPUT_H2D):
+            for k, v in batch.items():
+                if not isinstance(v, np.ndarray):
+                    out[k] = v
+                    continue
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                out[k] = t
         return out
 
     def _put(self, item) -> bool:
@@ -67,7 +72,9 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        item = self.queue.get()
+        tracing.count(tracing.INPUT_QUEUE_DEPTH, self.queue.qsize())
+        with tracing.span(tracing.INPUT_WAIT):
+            item = self.queue.get()
         if item is _SENTINEL:
             if self._err is not None:
                 raise self._err

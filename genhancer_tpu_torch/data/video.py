@@ -35,6 +35,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from .. import tracing
 from .transforms import video_frame_transform
 from .wds import ShardStream
 
@@ -104,6 +105,11 @@ class VideoLoaderBase:
                 "(not pixel shards)?")
 
     def __iter__(self) -> Iterator[Dict]:
+        """The batches, each one's reading and decoding in the span
+        ``input.decode`` while tracing is on."""
+        return tracing.each(tracing.INPUT_DECODE, self._batches())
+
+    def _batches(self) -> Iterator[Dict]:
         pending: List[Dict] = []
         seen = produced = 0
         for video in self.stream:
@@ -207,7 +213,7 @@ class SlidingWindowLoader(VideoLoaderBase):
         return [{"cond": arr_all[[pos[s + o] for o in range(self.window_cond)]],
                  "target": arr_all[pos[s + self.window_cond]]} for s in starts]
 
-    def __iter__(self) -> Iterator[Dict]:
+    def _batches(self) -> Iterator[Dict]:
         static_bs = self.batch_size * self.max_windows
         windows: List[Dict] = []
         videos_in_batch = 0

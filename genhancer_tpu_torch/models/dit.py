@@ -66,6 +66,7 @@ from torch import nn as tnn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import tracing
 from ..core import nn
 from ..core.attention import attention
 from ..core.rope import multi_axis_rope
@@ -370,24 +371,25 @@ def dit_forward(p: DiT, cfg: DiTConfig, *,
     scope the result holds the rank's img tokens only (``Layout.img``)."""
     if img.ndim != 3 or txt.ndim != 3:
         raise ValueError("img and txt must be 3-D [B, L, C]")
-    tp = getattr(p, "tp", 1)
-    heads, hidden = cfg.num_heads // tp, cfg.hidden_size // tp    # the rank's widths
-    layout, scope = None, contextlib.nullcontext()
-    axis = ring.active_scope()
-    if axis is not None:
-        # the rank's chunk of [txt; img]: its tokens of each stream
-        layout = ring.token_layout(txt.shape[1], img.shape[1], axis)
-        img, img_ids = img[:, layout.img], img_ids[:, layout.img]
-        txt, txt_ids = txt[:, layout.txt], txt_ids[:, layout.txt]
-        if controlnet_residuals is not None:
-            controlnet_residuals = [r[:, layout.img] for r in controlnet_residuals]
-        scope = ring.layout_scope(layout)
-    img, txt, vec, cos, sin = embed_inputs(p, cfg, img, img_ids, txt, txt_ids, timesteps, y,
-                                           guidance)
-    with scope:
-        return _blocks_and_head(p, cfg, img, txt, vec, cos, sin, heads, hidden, remat,
-                                remat_policy, image_proj, ip_params, ip_scale,
-                                controlnet_residuals)
+    with tracing.span(tracing.DIT_FORWARD):
+        tp = getattr(p, "tp", 1)
+        heads, hidden = cfg.num_heads // tp, cfg.hidden_size // tp    # the rank's widths
+        layout, scope = None, contextlib.nullcontext()
+        axis = ring.active_scope()
+        if axis is not None:
+            # the rank's chunk of [txt; img]: its tokens of each stream
+            layout = ring.token_layout(txt.shape[1], img.shape[1], axis)
+            img, img_ids = img[:, layout.img], img_ids[:, layout.img]
+            txt, txt_ids = txt[:, layout.txt], txt_ids[:, layout.txt]
+            if controlnet_residuals is not None:
+                controlnet_residuals = [r[:, layout.img] for r in controlnet_residuals]
+            scope = ring.layout_scope(layout)
+        img, txt, vec, cos, sin = embed_inputs(p, cfg, img, img_ids, txt, txt_ids, timesteps, y,
+                                               guidance)
+        with scope:
+            return _blocks_and_head(p, cfg, img, txt, vec, cos, sin, heads, hidden, remat,
+                                    remat_policy, image_proj, ip_params, ip_scale,
+                                    controlnet_residuals)
 
 
 def _blocks_and_head(p: DiT, cfg: DiTConfig, img, txt, vec, cos, sin, heads, hidden,
@@ -405,14 +407,16 @@ def _blocks_and_head(p: DiT, cfg: DiTConfig, img, txt, vec, cos, sin, heads, hid
 
     for i, blk in enumerate(p.double_blocks):
         ip = (ip_params.ip_double[i], image_proj, ip_scale) if use_ip else None
-        img, txt = dblock(blk, img, txt, vec, cos, sin, heads, ip)
+        with tracing.span(tracing.DIT_DOUBLE, index=i):
+            img, txt = dblock(blk, img, txt, vec, cos, sin, heads, ip)
         if controlnet_residuals is not None:
             img = img + controlnet_residuals[i % len(controlnet_residuals)].to(img.dtype)
 
     x = torch.cat([txt, img], dim=1)
     for i, blk in enumerate(p.single_blocks):
         ip = (ip_params.ip_single[i], image_proj, ip_scale) if use_ip else None
-        x = sblock(blk, x, vec, cos, sin, heads, hidden, ip)
+        with tracing.span(tracing.DIT_SINGLE, index=i):
+            x = sblock(blk, x, vec, cos, sin, heads, hidden, ip)
     img = x[:, txt.shape[1]:]
 
     return final_layer(p, img, vec)

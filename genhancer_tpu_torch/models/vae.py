@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn as tnn
 
+from .. import tracing
 from ..core import nn
 from ..core.attention import sdpa_ref
 from ..parallel.mesh import randn_rows
@@ -245,9 +246,10 @@ def vae_encode(p: AutoEncoder, cfg: VAEConfig, x: torch.Tensor,
     default); the moments are float32."""
     if sample and generator is None and noise is None:
         raise ValueError("generator or noise required when sample=True")
-    moments = encoder_forward(p.encoder, cfg, x.to(dtype)).to(torch.float32)
-    z = diagonal_gaussian(moments, sample=sample, generator=generator, noise=noise)
-    return cfg.scale_factor * (z - cfg.shift_factor)
+    with tracing.span(tracing.FROZEN_VAE):
+        moments = encoder_forward(p.encoder, cfg, x.to(dtype)).to(torch.float32)
+        z = diagonal_gaussian(moments, sample=sample, generator=generator, noise=noise)
+        return cfg.scale_factor * (z - cfg.shift_factor)
 
 
 def vae_decode(p: AutoEncoder, cfg: VAEConfig, z: torch.Tensor) -> torch.Tensor:

@@ -91,6 +91,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..tracing import launch_counts
 from . import mesh as _mesh
 from .mesh import local_rows
 
@@ -156,13 +157,6 @@ def _spy_heads() -> None:
             return _real(q, *a, **kw)
         spy._spied = True
         setattr(mod, name, spy)
-
-
-def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch counter in this process, by its ``LAUNCHES`` key."""
-    from ..core.kernels import adamw, flash_attention, int8_dw, rowquant, short_attention
-    return {k: v for m in (short_attention, flash_attention, adamw, rowquant, int8_dw)
-            for k, v in m.LAUNCHES.items()}
 
 
 class RowsLoader:

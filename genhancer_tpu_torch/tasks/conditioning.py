@@ -20,6 +20,7 @@ from typing import Dict, Sequence
 
 import torch
 
+from .. import tracing
 from ..core.rope import spatial_ids
 from ..models.towers import clip as clip_m
 from ..models.towers import siglip as siglip_m
@@ -55,11 +56,12 @@ def tower_features(kind: str, clip, px: torch.Tensor, cfg):
     states before post-LN; SigLIP: class_token is the MAP-pooled output,
     patch_tokens all post-LN tokens (it has no CLS)."""
     tower = clip["model"]
-    if kind == "siglip":
-        last, pooled = siglip_m.vision_forward(tower.vision_model, px, cfg.vision)
-        return pooled, last
-    last, pooled = clip_m.vision_forward(tower.vision_model, px, cfg.vision)
-    return clip_m.visual_projection(tower, pooled), last[:, 1:]
+    with tracing.span(tracing.FROZEN_TOWER):
+        if kind == "siglip":
+            last, pooled = siglip_m.vision_forward(tower.vision_model, px, cfg.vision)
+            return pooled, last
+        last, pooled = clip_m.vision_forward(tower.vision_model, px, cfg.vision)
+        return clip_m.visual_projection(tower, pooled), last[:, 1:]
 
 
 def image_conditioning(tower_kind: str, clip, pixels01: torch.Tensor, tower_cfg,

@@ -79,7 +79,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
-from .. import registry
+from .. import registry, tracing
 from ..core import quant
 from ..core.nn import init_weights, int8_training_ctx, lora_dropout_ctx
 from ..models import dit as dit_m
@@ -88,9 +88,8 @@ from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector
 from ..parallel.mesh import data_size, local_rows, randn_rows
 from ..train import flow, lora
-from ..train.state import (TrainState, apply_gradients, create_state, mark_whole_grads,
-                           with_quant_cache)
-from ..train.step_utils import take_grad
+from ..train import step_utils
+from ..train.state import TrainState, create_state, mark_whole_grads, with_quant_cache
 from .conditioning import (VAE_MEAN, VAE_STD, image_conditioning,
                            image_conditioning_from_cls, normalize, tower_features,
                            tower_stats)
@@ -394,11 +393,12 @@ def masked_loss(spec, pred, target, valid, l_txt: int):
     ``sequence_parallel`` ``pred`` holds the rank's img tokens
     (``parallel.ring.Layout.img``), which the target is cut to, and the
     count takes every img token."""
-    if spec.sequence_parallel > 1:
-        from ..parallel import ring
-        lay = ring.token_layout(l_txt, target.shape[1])
-        return flow.mse_loss(pred, target[:, lay.img], mask=valid, tokens=target.shape[1])
-    return flow.mse_loss(pred, target, mask=valid)
+    with tracing.span(tracing.LOSS):
+        if spec.sequence_parallel > 1:
+            from ..parallel import ring
+            lay = ring.token_layout(l_txt, target.shape[1])
+            return flow.mse_loss(pred, target[:, lay.img], mask=valid, tokens=target.shape[1])
+        return flow.mse_loss(pred, target, mask=valid)
 
 
 def dit_quant_ctx(dit_quant: str):
@@ -416,17 +416,7 @@ def make_train_step(spec: TaskSpec, optimizer, mesh=None):
     """(state, batch, generator, draws=None) -> (state, metrics), one
     optimizer step without accumulation; ``mesh``: ``parallel.mesh.
     make_mesh``'s, needed under sequence or pipeline parallelism."""
-    loss_fn = make_loss_fn(spec, mesh)
-
-    def step(state: TrainState, batch, generator=None, draws=None):
-        loss = loss_fn(state.modules, batch, generator, draws)
-        loss.backward()
-        with torch.no_grad():
-            grads = {k: take_grad(p) for k, p in state.trainable.items()}
-        g_norm, loss = apply_gradients(state, grads, optimizer, loss.detach())
-        return state, {"loss": loss, "grad_norm": g_norm}
-
-    return step
+    return step_utils.make_train_step(make_loss_fn(spec, mesh), optimizer)
 
 
 def create_task_state(generator: torch.Generator, spec: TaskSpec, optimizer,

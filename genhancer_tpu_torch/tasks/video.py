@@ -67,9 +67,8 @@ from ..models.towers.encoder import tower_remat_scope
 from ..models.towers.projectors import Projector, VisualPromptAdapter
 from ..parallel.mesh import data_size, local_rows, randn_rows
 from ..train import flow, lora
-from ..train.state import (TrainState, apply_gradients, create_state, mark_whole_grads,
-                           with_quant_cache)
-from ..train.step_utils import take_grad
+from ..train import step_utils
+from ..train.state import TrainState, create_state, mark_whole_grads, with_quant_cache
 from .conditioning import (VAE_MEAN, VAE_STD, normalize, tower_features, tower_stats,
                            video_conditioning)
 from .image import (dit_apply_factory, dit_quant_ctx, load_pretrained, masked_loss,
@@ -296,17 +295,7 @@ def make_loss_fn(spec: VideoTaskSpec, mesh=None):
 def make_train_step(spec: VideoTaskSpec, optimizer, mesh=None):
     """(state, batch, generator, draws=None) -> (state, metrics), one
     optimizer step without accumulation."""
-    loss_fn = make_loss_fn(spec, mesh)
-
-    def step(state: TrainState, batch, generator=None, draws=None):
-        loss = loss_fn(state.modules, batch, generator, draws)
-        loss.backward()
-        with torch.no_grad():
-            grads = {k: take_grad(p) for k, p in state.trainable.items()}
-        g_norm, loss = apply_gradients(state, grads, optimizer, loss.detach())
-        return state, {"loss": loss, "grad_norm": g_norm}
-
-    return step
+    return step_utils.make_train_step(make_loss_fn(spec, mesh), optimizer)
 
 
 def create_task_state(generator: torch.Generator, spec: VideoTaskSpec, optimizer,

@@ -37,6 +37,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
+from .. import tracing
 from ..parallel import mesh
 
 
@@ -146,16 +147,20 @@ def apply_gradients(state: TrainState, grads: Dict[str, torch.Tensor], optimizer
     every rank already) take no data or seq sum.  The norm is then taken on
     the reduced gradients, each leaf whole and once."""
     if mesh.is_distributed():
-        reduce_gradients(state, grads, loss)
+        with tracing.span(tracing.OPTIM_REDUCE):
+            reduce_gradients(state, grads, loss)
     params = {k: v.detach() for k, v in state.trainable.items()}
     emits = state.quant is not None and getattr(optimizer, "emit_quant", False)
-    state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state,
-                                              **({"quant": state.quant} if emits else {}))
+    with tracing.span(tracing.OPTIM_APPLY):
+        state.opt_state, g_norm = optimizer.apply(params, grads, state.opt_state,
+                                                  **({"quant": state.quant} if emits else {}))
     rows = state.opt_state.get("rows")
     if rows:
         leaves = [(t, r) for k, r in rows.items()
                   for t in (params[k], *(state.quant.get(k, ()) if emits else ()))]
-        mesh.all_gather_rows([t[r0:r1] for t, (r0, r1) in leaves], [t for t, _ in leaves])
+        with tracing.span(tracing.OPTIM_GATHER):
+            mesh.all_gather_rows([t[r0:r1] for t, (r0, r1) in leaves],
+                                 [t for t, _ in leaves])
     state.step += 1
     if state.quant is not None and not emits:
         with_quant_cache(state)

@@ -18,7 +18,28 @@ from typing import Optional, Sequence
 
 import torch
 
+from .. import tracing
 from .state import TrainState, apply_gradients
+
+
+def make_train_step(loss_fn, optimizer):
+    """loss_fn(modules, batch, generator, draws) -> scalar float32.
+
+    Returns ``step(state, batch, generator, draws=None) -> (state,
+    metrics)``: one optimizer step on one batch, without accumulation (the
+    image and video tasks' step); ``metrics`` as ``make_accum_train_step``'s."""
+
+    def step(state: TrainState, batch, generator=None, draws=None):
+        with tracing.span(tracing.STEP, step=state.step):
+            loss = loss_fn(state.modules, batch, generator, draws)
+            with tracing.span(tracing.BACKWARD):
+                loss.backward()
+            with torch.no_grad():
+                grads = {k: take_grad(p) for k, p in state.trainable.items()}
+            g_norm, loss = apply_gradients(state, grads, optimizer, loss.detach())
+        return state, {"loss": loss, "grad_norm": g_norm}
+
+    return step
 
 
 def make_accum_train_step(loss_fn, optimizer, accum_steps: int,
@@ -36,23 +57,25 @@ def make_accum_train_step(loss_fn, optimizer, accum_steps: int,
 
     def step(state: TrainState, stacked_batch, generator=None,
              draws: Optional[Sequence[dict]] = None):
-        loss_sum, grads = None, None
-        for i in range(accum_steps):
-            micro = {k: v[i] for k, v in stacked_batch.items()}
-            loss = loss_fn(state.modules, micro, generator,
-                           draws[i] if draws is not None else None) * inv
-            loss.backward()
-            with torch.no_grad():
-                micro_grads = {k: take_grad(p) for k, p in state.trainable.items()}
-                if grads is None:   # the first micro-batch's grads are the accumulator
-                    grads = {k: g if accum_dtype is None else g.to(accum_dtype)
-                             for k, g in micro_grads.items()}
-                else:
-                    for k, g in micro_grads.items():
-                        grads[k] += g.to(grads[k].dtype)
-                del micro_grads
-            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        g_norm, loss_sum = apply_gradients(state, grads, optimizer, loss_sum)
+        with tracing.span(tracing.STEP, step=state.step):
+            loss_sum, grads = None, None
+            for i in range(accum_steps):
+                micro = {k: v[i] for k, v in stacked_batch.items()}
+                loss = loss_fn(state.modules, micro, generator,
+                               draws[i] if draws is not None else None) * inv
+                with tracing.span(tracing.BACKWARD):
+                    loss.backward()
+                with torch.no_grad():
+                    micro_grads = {k: take_grad(p) for k, p in state.trainable.items()}
+                    if grads is None:   # the first micro-batch's grads are the accumulator
+                        grads = {k: g if accum_dtype is None else g.to(accum_dtype)
+                                 for k, g in micro_grads.items()}
+                    else:
+                        for k, g in micro_grads.items():
+                            grads[k] += g.to(grads[k].dtype)
+                    del micro_grads
+                loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            g_norm, loss_sum = apply_gradients(state, grads, optimizer, loss_sum)
         return state, {"loss": loss_sum, "grad_norm": g_norm}
 
     return step

@@ -17,8 +17,18 @@ Port of ``genhancer_tpu/train/trainer.py``, one device per process:
     ``avg_windows_per_video``/``bs_eff``, averaged over an accumulation
     group); the host syncs on
     the loss only every ``log_interval`` steps, so the steps between run
-    back to back on the device;
-  * watchdog warnings for slow data loading and slow steps;
+    back to back on the device.  ``step_time`` is the wall seconds per step
+    over the interval between two syncs (the mean step time): from the end
+    of the previous sync's step to this sync, less the waits for data (each
+    step's ``data_load_time``), the profile's start and export and any
+    checkpoint in it, over the steps in it; at ``log_interval`` 1, one
+    step's time, its sync included;
+  * watchdog warnings for slow data loading and for a ``step_time`` above
+    ``STEP_TIMEOUT``;
+  * ``profile``: steps 2-4 under ``torch.profiler`` with the port's spans
+    on (``tracing``), written to ``<output_dir>/profile.json`` with the
+    counters (``input.queue_depth``, each step's ``launches.<kernel>``)
+    as counter tracks;
   * a SIGTERM flag that stops the loop at a step boundary, followed by a
     checkpoint;
   * the reference checkpoint cadence, ``checkpoints_total_limit`` and
@@ -92,6 +102,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.prefetch import DevicePrefetcher
 from ..parallel import mesh
 from ..serve.engine import resolve_device
@@ -420,7 +431,8 @@ class Trainer:
     def _train_loop(self, batches) -> dict:
         step = self.state.step
         metrics_out = {}
-        last_data_t = time.time()
+        last_data_t = interval_t0 = time.time()
+        interval_steps, paused = 0, 0.0     # since the last sync: steps, seconds off the step
         prof = None
         for batch in batches:
             if step >= self.max_steps:
@@ -430,18 +442,21 @@ class Trainer:
                             "relaunch with resume_from_checkpoint: latest)", step)
                 break
             data_load_time = time.time() - last_data_t
+            paused += data_load_time
             if data_load_time > DATA_LOAD_TIMEOUT:
                 log.warning("data loading slow: %.1fs > %.0fs", data_load_time,
                             DATA_LOAD_TIMEOUT)
             extras = batch.pop("__extras__", {})
             if self.profile and step == 2 and self.is_main:
+                t = time.time()
                 prof = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     *([torch.profiler.ProfilerActivity.CUDA]
                       if self.device.type == "cuda" else [])])
                 prof.start()
+                tracing.enable()
+                paused += time.time() - t
 
-            t0 = time.time()
             self._seed(step)
             sync = (step + 1) % self.log_interval == 0 or (step + 1) >= self.max_steps
             try:
@@ -455,13 +470,20 @@ class Trainer:
                 if mesh.world_size() > 1:
                     raise       # the other ranks wait in a collective: end the group
                 break
-            step_time = time.time() - t0
-            if step_time > STEP_TIMEOUT:
-                log.error("step timeout: %.1fs > %.0fs", step_time, STEP_TIMEOUT)
+            interval_steps += 1
+            if loss is not None:
+                step_time = (time.time() - interval_t0 - paused) / interval_steps
+                if step_time > STEP_TIMEOUT:
+                    log.error("step timeout: %.1fs > %.0fs", step_time, STEP_TIMEOUT)
             if prof is not None and step == 4:
+                t = time.time()
                 prof.stop()
-                prof.export_chrome_trace(os.path.join(self.output_dir, "profile.json"))
+                path = os.path.join(self.output_dir, "profile.json")
+                prof.export_chrome_trace(path)
+                tracing.add_to_trace(path, tracing.drain())
+                tracing.disable()
                 prof = None
+                paused += time.time() - t
 
             step += 1
             if loss is not None:
@@ -481,11 +503,17 @@ class Trainer:
             else:
                 metrics_out = {"step": step}
             if self._should_checkpoint(step):
+                t = time.time()
                 self._checkpoint(step)
+                paused += time.time() - t
             last_data_t = time.time()
+            if loss is not None:
+                interval_t0, interval_steps, paused = last_data_t, 0, 0.0
 
         if prof is not None:
             prof.stop()
+            tracing.disable()
+            tracing.drain()
         if step > 0 and self._last_saved != step:
             self._checkpoint(step)
         return metrics_out
